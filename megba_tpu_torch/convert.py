@@ -1,0 +1,83 @@
+"""Carry state between the JAX package's numpy arrays and the port.
+
+`to_torch` turns the arrays of a BA problem (cameras, points, obs,
+cam_idx, pt_idx and optional sqrt_info, edge-major or feature-major) into
+tensors on a given device and dtype; `result_to_numpy` turns an
+`LMResult` back into numpy.  Both packages then compute on the same
+inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from megba_tpu_torch.algo.lm import LMResult
+from megba_tpu_torch.observability.trace import TRACE_FIELDS
+
+# Leading (feature) width of each float array in feature-major layout.
+_WIDTHS = {"cameras": 9, "points": 3, "obs": 2, "sqrt_info": 4}
+
+
+def to_torch(
+    cameras: np.ndarray,
+    points: np.ndarray,
+    obs: np.ndarray,
+    cam_idx: np.ndarray,
+    pt_idx: np.ndarray,
+    sqrt_info: Optional[np.ndarray] = None,
+    *,
+    device: Union[str, torch.device],
+    dtype: torch.dtype = torch.float64,
+    feature_major: bool = False,
+) -> Dict[str, Optional[torch.Tensor]]:
+    """Numpy problem arrays -> contiguous feature-major tensors.
+
+    With `feature_major=False` the inputs are edge-major (cameras [Nc, 9],
+    obs [nE, 2], sqrt_info [nE, 2, 2]) and are transposed; with True they
+    are already [F, N] (sqrt_info [4, nE]).  Index arrays become int64.
+    """
+    out: Dict[str, Optional[torch.Tensor]] = {}
+    for name, a in (("cameras", cameras), ("points", points), ("obs", obs),
+                    ("sqrt_info", sqrt_info)):
+        if a is None:
+            out[name] = None
+            continue
+        a = np.asarray(a)
+        if not feature_major:
+            a = a.reshape(a.shape[0], -1).T
+        if a.shape[0] != _WIDTHS[name]:
+            raise ValueError(f"{name}: expected {_WIDTHS[name]} feature "
+                             f"rows, got shape {a.shape}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=device, dtype=dtype)
+    for name, a in (("cam_idx", cam_idx), ("pt_idx", pt_idx)):
+        out[name] = torch.from_numpy(
+            np.asarray(a).astype(np.int64).reshape(-1)).to(device)
+    return out
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def result_to_numpy(result: LMResult) -> Dict[str, object]:
+    """An LMResult as a dict of numpy arrays and Python scalars; the trace
+    becomes a dict of [iterations] arrays."""
+    out: Dict[str, object] = {}
+    for f in dataclasses.fields(result):
+        v = getattr(result, f.name)
+        if f.name == "trace":
+            out["trace"] = (None if v is None else {
+                t: _np(getattr(v, t))[: result.iterations]
+                for t in TRACE_FIELDS})
+        elif v is None or isinstance(v, (bool, int, float)):
+            out[f.name] = v
+        else:
+            out[f.name] = _np(v)
+    return out

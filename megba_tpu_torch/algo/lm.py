@@ -95,7 +95,10 @@ def lm_solve(
     sqrt_info [4, nE]; every edge array (obs, cam_idx, pt_idx, mask,
     sqrt_info) is in the cam plan's slot order (solve.flat_solve arranges
     this).  Jp is carried in pt-slot order, so both Hessian sides and
-    both coupling products reduce over sorted segments.
+    both coupling products reduce over sorted segments.  With
+    `option.compute_kind` EXPLICIT the Schur system also carries the
+    coupling rows W, and with `solver_option.fused_kernels` `plans` must
+    carry the fused directions (ops/fused.with_fused_plans).
     """
     num_cameras = cameras.shape[1]
     num_points = points.shape[1]
@@ -111,7 +114,8 @@ def lm_solve(
         cost = comp_sum_sq(r)
         Jp = plans.to_pt(Jp)
         system = build_schur_system(r, Jc, Jp, plans, num_cameras,
-                                    num_points, cam_fixed, pt_fixed)
+                                    num_points, cam_fixed, pt_fixed,
+                                    option.compute_kind)
         return r, Jc, Jp, system, cost
 
     def trial_cost(cams, pts):
@@ -133,7 +137,9 @@ def lm_solve(
         pcg = schur_pcg_solve(
             system, Jc, Jp, plans, region, max_iter=solver_opt.max_iter,
             tol=solver_opt.tol, refuse_ratio=solver_opt.refuse_ratio,
-            tol_relative=solver_opt.tol_relative)
+            tol_relative=solver_opt.tol_relative,
+            compute_kind=option.compute_kind,
+            fused_kernels=solver_opt.fused_kernels)
         dx_cam, dx_pt = pcg.dx_cam, pcg.dx_pt
 
         # ||dx|| <= eps2 (||x|| + eps1) -> converged, the step is not applied.

@@ -200,8 +200,9 @@ DTYPE_TO_TORCH = {
 def _unported(name: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"{name}={value!r} is not ported to megba_tpu_torch yet; the port "
-        "runs the LM + implicit-Schur PCG path with ANALYTICAL Jacobians, "
-        "block-Jacobi (HPP) preconditioning and no guards")
+        "runs the LM + Schur PCG path (IMPLICIT, or EXPLICIT with or "
+        "without fused kernels) with ANALYTICAL Jacobians, block-Jacobi "
+        "(HPP) preconditioning and no guards")
 
 
 def validate_options(option: ProblemOption) -> None:
@@ -218,10 +219,17 @@ def validate_options(option: ProblemOption) -> None:
         raise ValueError(f"unsupported dtype {option.dtype}")
     if not isinstance(option.device, Device):
         raise ValueError(f"device must be a Device, got {option.device!r}")
+    if not isinstance(option.compute_kind, ComputeKind):
+        raise ValueError(
+            f"compute_kind must be a ComputeKind, got {option.compute_kind!r}")
+    if so.fused_kernels and not option.use_schur:
+        raise ValueError(
+            "SolverOption.fused_kernels fuses the Schur coupling matvec and "
+            "M^-1 apply (use_schur=True); the plain full-system path has no "
+            "edge pipeline to fuse")
     unported = [
         ("use_schur", option.use_schur, True),
         ("world_size", option.world_size, 1),
-        ("compute_kind", option.compute_kind, ComputeKind.IMPLICIT),
         ("jacobian_mode", option.jacobian_mode, JacobianMode.ANALYTICAL),
         ("mixed_precision_pcg", option.mixed_precision_pcg, False),
         ("robust_kind", option.robust_kind, RobustKind.NONE),
@@ -235,13 +243,18 @@ def validate_options(option: ProblemOption) -> None:
         ("solver_option.edge_order", so.edge_order, EdgeOrder.NATURAL),
         ("solver_option.bf16", so.bf16, False),
         ("solver_option.bf16_collectives", so.bf16_collectives, False),
-        ("solver_option.fused_kernels", so.fused_kernels, False),
         ("telemetry", option.telemetry, None),
         ("metrics", option.metrics, False),
     ]
     for name, value, supported in unported:
         if value != supported:
             raise _unported(name, value)
+    if so.fused_kernels and option.compute_kind == ComputeKind.IMPLICIT:
+        raise NotImplementedError(
+            "solver_option.fused_kernels=True with compute_kind=IMPLICIT is "
+            "not ported to megba_tpu_torch yet: it needs the fused implicit "
+            "coupling kernel (_fused_j_kernel of megba_tpu/ops/fused.py); "
+            "use compute_kind=EXPLICIT or fused_kernels=False")
 
 
 def resolve_device(device: Union[None, str, torch.device],

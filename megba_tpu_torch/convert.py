@@ -2,9 +2,10 @@
 
 `to_torch` turns the arrays of a BA problem (cameras, points, obs,
 cam_idx, pt_idx and optional sqrt_info, edge-major or feature-major) into
-tensors on a given device and dtype; `result_to_numpy` turns an
-`LMResult` back into numpy.  Both packages then compute on the same
-inputs.
+tensors on a given device and dtype; `schur_system_to_torch` turns an
+assembled Schur system of the JAX package (its fields read as numpy)
+into the port's `SchurSystem`; `result_to_numpy` turns an `LMResult`
+back into numpy.  Both packages then compute on the same inputs.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from megba_tpu_torch.algo.lm import LMResult
+from megba_tpu_torch.linear_system.builder import SchurSystem
 from megba_tpu_torch.observability.trace import TRACE_FIELDS
 
 # Leading (feature) width of each float array in feature-major layout.
@@ -58,6 +60,33 @@ def to_torch(
         out[name] = torch.from_numpy(
             np.asarray(a).astype(np.int64).reshape(-1)).to(device)
     return out
+
+
+def schur_system_to_torch(
+    system,
+    *,
+    device: Union[str, torch.device],
+    dtype: Optional[torch.dtype] = None,
+    edge_perm: Optional[np.ndarray] = None,
+) -> SchurSystem:
+    """A Schur system with the JAX package's fields (Hpp [Nc, cd, cd],
+    Hll [pd*pd, Np], g_cam [cd, Nc], g_pt [pd, Np], optional W
+    [cd*pd, nE]; any array numpy can read) -> the port's SchurSystem.
+
+    `edge_perm` reorders W's edge columns into the port's slot order
+    (`W[:, edge_perm]`, e.g. the cam plan's `perm` for a system built in
+    the caller's edge order).  `dtype` defaults to the arrays' own.
+    """
+    def put(a):
+        t = torch.from_numpy(np.array(a, order="C"))  # a writable copy
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    W = None
+    if getattr(system, "W", None) is not None:
+        W = np.asarray(system.W)
+        W = put(W if edge_perm is None else W[:, edge_perm])
+    return SchurSystem(Hpp=put(system.Hpp), Hll=put(system.Hll),
+                       g_cam=put(system.g_cam), g_pt=put(system.g_pt), W=W)
 
 
 def _np(x):

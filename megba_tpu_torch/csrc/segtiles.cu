@@ -1,59 +1,51 @@
-// Segment kernels of the implicit-Schur solve path, hand-written for Hopper
-// (sm_90a).  Built by megba_tpu_torch/ops/kernels.py with nvcc into a shared
-// library with a plain C interface, loaded with ctypes; the Python wrappers
-// live in megba_tpu_torch/ops/segtiles.py.
+// Segment kernels of the Schur solve path, hand-written for Hopper (sm_90a).
+// Built by megba_tpu_torch/ops/kernels.py with nvcc into a shared library
+// with a plain C interface, loaded with ctypes; the Python wrappers live in
+// megba_tpu_torch/ops/segtiles.py.
 //
-// They replace the three Pallas kernels the JAX package runs on this path
+// They replace five Pallas kernels of the JAX package
 // (megba_tpu/ops/segtiles.py):
 //
 //   megba_jtj_grad_reduce  <- _jtj_kernel            (body :404, pallas_call :469)
 //   megba_coupling_expand  <- _expand_matvec_kernel  (body :577, pallas_call :624)
 //   megba_coupling_reduce  <- _matvec_reduce_kernel  (body :632, pallas_call :688)
+//   megba_seg_reduce       <- _reduce_kernel         (body :238, pallas_call :279)
+//   megba_seg_expand       <- _expand_kernel         (body :305, pallas_call :336)
+//
+// The first three carry the implicit-Schur path (and the LM gain ratio);
+// seg_expand and seg_reduce are the gather and the segment sum around the
+// per-edge W contraction of the unfused explicit-Schur S.p product
+// (megba_tpu/solver/pcg.py:336-349).
 //
 // What is ported is what the Pallas kernels compute, not how the TPU did it.
 // The TPU kernels turned every scatter into a one-hot matmul over padded,
 // block-aligned edge tiles.  Here the edge stream of one vertex kind is
 // sorted by segment (camera or point) and described by CSR offsets
-// seg_ptr[nS + 1]; a reduction walks each segment's contiguous edge range.
+// seg_ptr[nS + 1]; a reduction walks each segment's contiguous edge range
+// (segreduce.cuh: one 256-thread block per camera, one thread per point).
 //
 // Layout: feature-major, row f of a [F, n] array starts at f * n.
 //
-// Bound on the H100: every kernel reads the Jacobian rows once and does a
-// few multiply-adds per byte, far below the card's ~20 FLOP/byte float32
-// balance point, so all three are bound by HBM bytes.  The design keeps the
-// byte count at the minimum: one pass over J, no per-edge intermediate
-// (the outer-product or J^T u rows) ever written to device memory, and
-// coalesced loads (neighbouring threads read neighbouring edges of a row).
-//
-// Determinism: no atomics.  A segment's sum is formed by one thread, or by
-// one block with a fixed strided split, a fixed warp-shuffle tree and a
-// fixed sum over warps, so for a given launch shape the output is
-// bitwise-reproducible from run to run.
+// Bound on the H100: every kernel reads its per-edge rows once and does at
+// most a few multiply-adds per byte (seg_reduce and seg_expand none), far
+// below the card's ~20 FLOP/byte float32 balance point, so all five are
+// bound by HBM bytes.  The design keeps the byte count at the minimum: one
+// pass over the per-edge rows, no per-edge intermediate (the outer-product
+// or J^T u rows) ever written to device memory, and coalesced loads and
+// stores (neighbouring threads touch neighbouring edges of a row).  The
+// gathers read a vertex table that stays in the 50 MB L2 (cameras 64 KB,
+// points 12 MB at venice, f32).
 //
 // Every entry point first peeks at the CUDA error state: an error left
 // by an earlier launch (of any kernel) is returned negated, without
 // launching, so the wrapper does not report it as its own.  Otherwise it
 // returns cudaGetLastError() after its launch (0 on success), or
-// cudaErrorInvalidValue for an (od, d) pair it was not built for; the
+// cudaErrorInvalidValue for a block shape it was not built for; the
 // Python wrapper raises on any non-zero code.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "segreduce.cuh"
 
 namespace {
-
-constexpr int kBlock = 256;
-constexpr int kWarps = kBlock / 32;
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 // Per-edge rows of J^T J (D*D values, row a*D+b) and -J^T r (D values),
 // added into acc: the fused Hessian-block + gradient build.
@@ -113,58 +105,6 @@ struct JtuRows {
   }
 };
 
-// One block per segment, for long segments (cameras: thousands of edges
-// each).  Threads stride over the segment's edges, each keeping its F
-// partial sums in registers; a warp-shuffle tree and a fixed-order sum
-// over the warps' shared-memory partials finish the segment.
-template <typename T, class Rows>
-__global__ void __launch_bounds__(kBlock)
-reduce_block_per_segment(Rows rows, const int64_t* __restrict__ seg_ptr,
-                         T* __restrict__ out, int64_t num_segments) {
-  constexpr int F = Rows::F;
-  __shared__ T partial[kWarps][F];
-  const int64_t s = blockIdx.x;
-  const int64_t lo = seg_ptr[s];
-  const int64_t hi = seg_ptr[s + 1];
-  T acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = T(0);
-  for (int64_t e = lo + threadIdx.x; e < hi; e += kBlock) rows.add(e, acc);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const T v = warp_sum(acc[f]);
-    if (lane == 0) partial[warp][f] = v;
-  }
-  __syncthreads();
-  for (int f = threadIdx.x; f < F; f += kBlock) {
-    T v = partial[0][f];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += partial[w][f];
-    out[f * num_segments + s] = v;
-  }
-}
-
-// One thread per segment, for short segments (points: a handful of edges
-// each).  Neighbouring threads own neighbouring segments, whose edge
-// ranges are adjacent in the sorted stream, and write neighbouring outputs.
-template <typename T, class Rows>
-__global__ void __launch_bounds__(kBlock)
-reduce_thread_per_segment(Rows rows, const int64_t* __restrict__ seg_ptr,
-                          T* __restrict__ out, int64_t num_segments) {
-  constexpr int F = Rows::F;
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  if (s >= num_segments) return;
-  T acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = T(0);
-  const int64_t hi = seg_ptr[s + 1];
-  for (int64_t e = seg_ptr[s]; e < hi; ++e) rows.add(e, acc);
-#pragma unroll
-  for (int f = 0; f < F; ++f) out[f * num_segments + s] = acc[f];
-}
-
 // One thread per edge slot: gather the segment's D-row vertex vector and
 // take the OD x D per-edge matvec u = J_e x[seg(e)].
 template <typename T, int OD, int D>
@@ -185,29 +125,6 @@ expand_matvec(const T* __restrict__ table, const T* __restrict__ J,
     for (int a = 1; a < D; ++a) t += J[(o * D + a) * n + e] * x[a];
     u[o * n + e] = t;
   }
-}
-
-constexpr int64_t kMaxGrid = 2147483647;
-
-template <typename T, class Rows>
-int launch_reduce(Rows rows, const int64_t* seg_ptr, T* out,
-                  int64_t num_segments, int per_thread, cudaStream_t stream) {
-  if (num_segments == 0) return static_cast<int>(cudaSuccess);
-  if (per_thread) {
-    const int64_t grid = (num_segments + kBlock - 1) / kBlock;
-    if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
-    reduce_thread_per_segment<T, Rows>
-        <<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-            rows, seg_ptr, out, num_segments);
-  } else {
-    if (num_segments > kMaxGrid) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    reduce_block_per_segment<T, Rows>
-        <<<static_cast<unsigned>(num_segments), kBlock, 0, stream>>>(
-            rows, seg_ptr, out, num_segments);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -272,9 +189,71 @@ int expand_typed(int od, int d, const void* table, const void* J,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Negated code of an error already pending before a launch, or 0.
-int pending_error() {
-  return -static_cast<int>(cudaPeekAtLastError());
+// Per-edge rows of the data itself (F values): the plain segment sum.
+template <typename T, int F_>
+struct SumRows {
+  static constexpr int F = F_;
+  const T* __restrict__ data;  // [F, n]
+  int64_t n;
+
+  __device__ __forceinline__ void add(int64_t e, T* acc) const {
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] += data[f * n + e];
+  }
+};
+
+template <typename T>
+int seg_reduce_typed(int F, const void* data, const int64_t* seg_ptr,
+                     void* out, int64_t n, int64_t num_segments,
+                     int per_thread, cudaStream_t stream) {
+  const T* dt = static_cast<const T*>(data);
+  T* o = static_cast<T*>(out);
+  if (F == 9) {
+    return launch_reduce<T>(SumRows<T, 9>{dt, n}, seg_ptr, o, num_segments,
+                            per_thread, stream);
+  }
+  if (F == 3) {
+    return launch_reduce<T>(SumRows<T, 3>{dt, n}, seg_ptr, o, num_segments,
+                            per_thread, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One thread per edge slot: copy the F values of the slot's segment row.
+// Each store instruction of a warp writes 32 neighbouring slots of a row.
+template <typename T, int F>
+__global__ void __launch_bounds__(kBlock)
+seg_expand_kernel(const T* __restrict__ table, const int32_t* __restrict__ seg,
+                  T* __restrict__ out, int64_t n, int64_t num_segments) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+  if (e >= n) return;
+  const int64_t s = seg[e];
+#pragma unroll
+  for (int f = 0; f < F; ++f) out[f * n + e] = table[f * num_segments + s];
+}
+
+template <typename T, int F>
+int launch_seg_expand(const void* table, const int32_t* seg, void* out,
+                      int64_t n, int64_t num_segments, cudaStream_t stream) {
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const int64_t grid = (n + kBlock - 1) / kBlock;
+  if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
+  seg_expand_kernel<T, F><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
+      static_cast<const T*>(table), seg, static_cast<T*>(out), n,
+      num_segments);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int seg_expand_typed(int F, const void* table, const int32_t* seg, void* out,
+                     int64_t n, int64_t num_segments, cudaStream_t stream) {
+  if (F == 9) {
+    return launch_seg_expand<T, 9>(table, seg, out, n, num_segments, stream);
+  }
+  if (F == 3) {
+    return launch_seg_expand<T, 3>(table, seg, out, n, num_segments, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -317,6 +296,30 @@ int megba_coupling_reduce(int is_double, int od, int d, const void* J,
                                           num_segments, per_thread, st)
                    : reduce_typed<float>(od, d, J, u, seg_ptr, out, n,
                                          num_segments, per_thread, st);
+}
+
+// out [F, nS] = per segment: the sum of its slots' F-value rows.
+int megba_seg_reduce(int is_double, int F, const void* data,
+                     const int64_t* seg_ptr, void* out, int64_t n,
+                     int64_t num_segments, int per_thread, void* stream) {
+  if (const int prior = pending_error()) return prior;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_double ? seg_reduce_typed<double>(F, data, seg_ptr, out, n,
+                                              num_segments, per_thread, st)
+                   : seg_reduce_typed<float>(F, data, seg_ptr, out, n,
+                                             num_segments, per_thread, st);
+}
+
+// out [F, n] = per slot: table[:, seg(e)].
+int megba_seg_expand(int is_double, int F, const void* table,
+                     const int32_t* seg, void* out, int64_t n,
+                     int64_t num_segments, void* stream) {
+  if (const int prior = pending_error()) return prior;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_double ? seg_expand_typed<double>(F, table, seg, out, n,
+                                              num_segments, st)
+                   : seg_expand_typed<float>(F, table, seg, out, n,
+                                             num_segments, st);
 }
 
 const char* megba_error_string(int code) {

@@ -7,9 +7,13 @@ both block diagonals and the gradient come from the fused
   Hpp [num_cameras, cd, cd]   block-diagonal camera Hessian
   Hll [pd*pd, num_points]     block-diagonal point Hessian, row form
   g_cam [cd, num_cameras], g_pt [pd, num_points]   gradient -J^T r
+  W [cd*pd, nE]               EXPLICIT only: per-edge coupling blocks
 
-The camera-point coupling is IMPLICIT: it is recomputed from the stored
-Jacobians at every matvec (solver/pcg.py), never stored.
+The camera-point coupling is IMPLICIT by default: it is recomputed from
+the stored Jacobians at every matvec (solver/pcg.py).  EXPLICIT stores
+the per-edge blocks W_e = Jc_e^T Jp_e once per linearisation, in
+camera-slot order (row a*pd+b, `core.fm.coupling_rows`), and every
+matvec contracts them.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from megba_tpu_torch.common import ComputeKind
+from megba_tpu_torch.core.fm import coupling_rows
 from megba_tpu_torch.ops.residuals import apply_sqrt_info
 from megba_tpu_torch.ops import segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
@@ -32,6 +38,7 @@ class SchurSystem:
     Hll: torch.Tensor  # [pd*pd, Np] rows
     g_cam: torch.Tensor  # [cd, Nc]
     g_pt: torch.Tensor  # [pd, Np]
+    W: Optional[torch.Tensor] = None  # [cd*pd, nE] cam-slot order, EXPLICIT
 
 
 def weight_system_inputs(
@@ -72,6 +79,7 @@ def build_schur_system(
     num_points: int,
     cam_fixed: Optional[torch.Tensor] = None,
     pt_fixed: Optional[torch.Tensor] = None,
+    compute_kind: ComputeKind = ComputeKind.IMPLICIT,
 ) -> SchurSystem:
     """Assemble the Schur-form normal equations from per-edge Jacobians.
 
@@ -79,7 +87,9 @@ def build_schur_system(
     cam-slot order, `Jp` in pt-slot order.  Fixed vertices get an
     identity Hessian block and zero gradient; vertices with no edge get an
     identity block (their gradient is already zero), so both updates are
-    exactly zero and the damped blocks stay invertible.
+    exactly zero and the damped blocks stay invertible.  EXPLICIT also
+    stores the coupling rows W (from the same weighted, masked rows, Jp
+    brought to cam-slot order first).
     """
     od = r.shape[0]
     cd = Jc.shape[0] // od
@@ -109,8 +119,11 @@ def build_schur_system(
     tr_rows = [i for i in range(pd * pd) if i % (pd + 1) == 0]
     empty_p = sum(Hll[i] for i in tr_rows) == 0.0
     Hll = torch.where(empty_p[None, :], eye_p_rows[:, None], Hll)
+    W = None
+    if compute_kind == ComputeKind.EXPLICIT:
+        W = coupling_rows(Jc, plans.to_cam(Jp), od)
     return SchurSystem(Hpp=Hpp.contiguous(), Hll=Hll.contiguous(),
-                       g_cam=g_cam.contiguous(), g_pt=g_pt.contiguous())
+                       g_cam=g_cam.contiguous(), g_pt=g_pt.contiguous(), W=W)
 
 
 def damp_blocks(H: torch.Tensor, region: torch.Tensor) -> torch.Tensor:

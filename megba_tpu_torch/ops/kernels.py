@@ -6,8 +6,9 @@ ctypes.  The build happens at first use, from the sources in the
 checkout, into `build/megba_tpu_torch/` beside the package (listed in
 `.gitignore`).  That directory is meant for a checkout of the repository
 only: an installed package would build into its install prefix.  The
-library name carries a digest of the source and the flags, so an edited
-source never loads a stale build.
+library name carries a digest of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source never loads a stale
+build.
 
 A source that includes no PyTorch header compiles in seconds, where one
 built through `torch.utils.cpp_extension.load` takes minutes; each
@@ -57,8 +58,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    h = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(), digest_size=8)
+    h = hashlib.blake2b(digest_size=8)
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 
 
@@ -115,3 +118,22 @@ def load_library(name: str, signatures: dict) -> ctypes.CDLL:
             f.argtypes = argtypes
         _LIBS[name] = lib
         return lib
+
+
+def raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
+    """Raise on a launcher's return code (0 = launched)."""
+    if code < 0:  # left by an earlier launch; this kernel did not run
+        msg = lib.megba_error_string(-code).decode()
+        raise RuntimeError(f"{name}: not launched, a CUDA error from an "
+                           f"earlier launch is pending ({-code}: {msg})")
+    if code != 0:
+        msg = lib.megba_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
+
+
+def current_stream(dev) -> int:
+    """The handle of PyTorch's current stream on CUDA device `dev`, the
+    stream every launcher enqueues on."""
+    import torch
+
+    return torch.cuda.current_stream(dev).cuda_stream

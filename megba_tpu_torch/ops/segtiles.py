@@ -1,8 +1,9 @@
 """Sorted segment reductions and expansions over the edge stream.
 
 Counterpart of the single-device dual-plan lowering of
-`megba_tpu/ops/segtiles.py`, and of its three kernels on the
-implicit-Schur path.
+`megba_tpu/ops/segtiles.py`, and of its five kernels: three on the
+implicit-Schur path and the plain segment reduce / expand of the
+explicit-Schur path.
 
 Host side (numpy, `build_seg_plan` / `make_dual_plans`): the canonical
 edge order is the stable camera sort of the edges; a second, point-sorted
@@ -19,29 +20,35 @@ exactly the real edges and no mask is needed.  The segment-sum contract
 is unchanged: `out[:, s]` is the sum over the edges whose segment is s,
 and an empty segment sums to zero.
 
-Kernels (`jtj_grad_reduce`, `coupling_expand`, `coupling_reduce`): each
-has a plain PyTorch version (`*_plain`, gathers and `index_add_`) and a
-hand-written CUDA kernel (`csrc/segtiles.cu`).  The wrapper takes the
-plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises, and adds one to its `launches` count per launch.
-All three kernels read the Jacobian rows once and are bound by HBM bytes
-on the H100; see the source note in `csrc/segtiles.cu`.
+Kernels (`jtj_grad_reduce`, `coupling_expand`, `coupling_reduce`,
+`seg_reduce`, `seg_expand`): each has a plain PyTorch version (`*_plain`,
+gathers and `index_add_`) and a hand-written CUDA kernel
+(`csrc/segtiles.cu`).  The wrapper takes the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises,
+and adds one to its `launches` count per launch.  All five read their
+per-edge rows once and are bound by HBM bytes on the H100; see the
+source note in `csrc/segtiles.cu`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import numpy as np
 import torch
 
 from megba_tpu_torch.ops import kernels as _kernels
 
+if TYPE_CHECKING:
+    from megba_tpu_torch.ops.fused import FusedPlan
+
 # (od, d) pairs the CUDA kernels are instantiated for: the BAL camera
 # (9) and point (3) blocks with 2-row residuals.
 SUPPORTED_BLOCKS = ((2, 9), (2, 3))
+# Row counts F the plain segment reduce / expand kernels are built for.
+SUPPORTED_WIDTHS = (9, 3)
 
 # A side whose mean segment length is below this many edges reduces with
 # one thread per segment (points: ~5 edges each); longer segments get one
@@ -105,6 +112,10 @@ class DualPlans:
 
     cam: SegPlan
     pt: SegPlan
+    # The fused explicit-Schur directions (ops/fused.with_fused_plans),
+    # planned only for SolverOption(fused_kernels=True).
+    fused_to_pt: Optional[FusedPlan] = None
+    fused_to_cam: Optional[FusedPlan] = None
 
     def to_pt(self, rows_cam: torch.Tensor) -> torch.Tensor:
         return rows_cam.index_select(1, self.pt.inv)
@@ -185,6 +196,16 @@ def coupling_reduce_plain(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
     return _segment_sum(te, plan)
 
 
+def seg_reduce_plain(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
+    """[F, nS]: out[:, s] = the sum of data's slots in segment s."""
+    return _segment_sum(data, plan)
+
+
+def seg_expand_plain(table: torch.Tensor, plan: SegPlan) -> torch.Tensor:
+    """[F, n]: out[:, e] = table[:, seg[e]]."""
+    return table.index_select(1, plan.seg)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -197,6 +218,8 @@ _SIGNATURES = {
         ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P]),
     "megba_coupling_reduce": (
         ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _L, _L, _I, _P]),
+    "megba_seg_reduce": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _L, _I, _P]),
+    "megba_seg_expand": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _L, _P]),
     "megba_error_string": (ctypes.c_char_p, [_I]),
 }
 KERNEL_SOURCES = ("segtiles",)
@@ -206,16 +229,11 @@ def _lib() -> ctypes.CDLL:
     return _kernels.load_library("segtiles", _SIGNATURES)
 
 
-def _check(name: str, od: int, d: int, plan: SegPlan,
-           **tensors: torch.Tensor) -> torch.device:
-    """Validate the operands on either device, and what the CUDA kernel
-    does not check itself; raise on anything it does not take."""
+def check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
+    """Validate float operands on either device: one device, one float32
+    or float64 dtype, contiguous.  Returns the device."""
     first = next(iter(tensors.values()))
     dev = first.device
-    if dev.type == "cuda" and (od, d) not in SUPPORTED_BLOCKS:
-        raise NotImplementedError(
-            f"{name}: no CUDA kernel for od={od}, d={d} "
-            f"(built for {SUPPORTED_BLOCKS})")
     for k, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name}: {k} is on {t.device}, expected {dev}")
@@ -226,6 +244,12 @@ def _check(name: str, od: int, d: int, plan: SegPlan,
                 "float32 or float64")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+    return dev
+
+
+def check_plan(name: str, plan: SegPlan, dev: torch.device) -> None:
+    """The plan's CSR arrays must be contiguous and on the operands'
+    device, with nS + 1 offsets."""
     for k, t, dt in (("plan.seg", plan.seg, torch.int32),
                      ("plan.seg_ptr", plan.seg_ptr, torch.int64)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
@@ -235,21 +259,25 @@ def _check(name: str, od: int, d: int, plan: SegPlan,
         raise ValueError(f"{name}: plan.seg_ptr has shape "
                          f"{tuple(plan.seg_ptr.shape)}, expected "
                          f"({plan.num_segments + 1},)")
+
+
+def _check(name: str, shape, supported: tuple, plan: SegPlan,
+           **tensors: torch.Tensor) -> torch.device:
+    """Validate the operands on either device, and what the CUDA kernel
+    does not check itself; raise on anything it does not take.  `shape`
+    is the block shape the call needs (an (od, d) pair or a row count F),
+    `supported` those built."""
+    dev = check_operands(name, **tensors)
+    if dev.type == "cuda" and shape not in supported:
+        raise NotImplementedError(
+            f"{name}: no CUDA kernel for shape {shape} (built for "
+            f"{supported})")
+    check_plan(name, plan, dev)
     return dev
 
 
 def _raise_on(code: int, name: str) -> None:
-    if code < 0:  # left by an earlier launch; this kernel did not run
-        msg = _lib().megba_error_string(-code).decode()
-        raise RuntimeError(f"{name}: not launched, a CUDA error from an "
-                           f"earlier launch is pending ({-code}: {msg})")
-    if code != 0:
-        msg = _lib().megba_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    _kernels.raise_on(_lib(), code, name)
 
 
 def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
@@ -267,7 +295,8 @@ def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
         raise ValueError(
             f"jtj_grad_reduce: J {tuple(J.shape)}, r {tuple(r.shape)} and "
             f"{plan.n_slots} plan slots disagree")
-    dev = _check("jtj_grad_reduce", od, d, plan, J=J, r=r)
+    dev = _check("jtj_grad_reduce", (od, d), SUPPORTED_BLOCKS, plan,
+                 J=J, r=r)
     if dev.type == "cpu":
         return jtj_grad_reduce_plain(J, r, plan)
     out = torch.empty((d * d + d, plan.num_segments), dtype=J.dtype,
@@ -276,7 +305,8 @@ def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
         code = _lib().megba_jtj_grad_reduce(
             int(J.dtype == torch.float64), od, d, J.data_ptr(),
             r.data_ptr(), plan.seg_ptr.data_ptr(), out.data_ptr(), n,
-            plan.num_segments, int(plan.per_thread), _stream(dev))
+            plan.num_segments, int(plan.per_thread),
+            _kernels.current_stream(dev))
     _raise_on(code, "jtj_grad_reduce")
     jtj_grad_reduce.launches += 1
     return out[: d * d], out[d * d:]
@@ -297,7 +327,8 @@ def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: SegPlan,
             f"coupling_expand: table {tuple(table.shape)}, J "
             f"{tuple(J.shape)}, d={d} and {plan.n_slots} plan slots "
             "disagree")
-    dev = _check("coupling_expand", od, d, plan, table=table, J=J)
+    dev = _check("coupling_expand", (od, d), SUPPORTED_BLOCKS, plan,
+                 table=table, J=J)
     if dev.type == "cpu":
         return coupling_expand_plain(table, J, plan, d)
     u = torch.empty((od, n), dtype=J.dtype, device=dev)
@@ -305,7 +336,7 @@ def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: SegPlan,
         code = _lib().megba_coupling_expand(
             int(J.dtype == torch.float64), od, d, table.data_ptr(),
             J.data_ptr(), plan.seg.data_ptr(), u.data_ptr(), n,
-            plan.num_segments, _stream(dev))
+            plan.num_segments, _kernels.current_stream(dev))
     _raise_on(code, "coupling_expand")
     coupling_expand.launches += 1
     return u
@@ -323,7 +354,8 @@ def coupling_reduce(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
         raise ValueError(
             f"coupling_reduce: J {tuple(J.shape)}, u {tuple(u.shape)}, "
             f"d={d} and {plan.n_slots} plan slots disagree")
-    dev = _check("coupling_reduce", od, d, plan, J=J, u=u)
+    dev = _check("coupling_reduce", (od, d), SUPPORTED_BLOCKS, plan,
+                 J=J, u=u)
     if dev.type == "cpu":
         return coupling_reduce_plain(J, u, plan, d)
     out = torch.empty((d, plan.num_segments), dtype=J.dtype, device=dev)
@@ -331,13 +363,57 @@ def coupling_reduce(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
         code = _lib().megba_coupling_reduce(
             int(J.dtype == torch.float64), od, d, J.data_ptr(), u.data_ptr(),
             plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
-            int(plan.per_thread), _stream(dev))
+            int(plan.per_thread), _kernels.current_stream(dev))
     _raise_on(code, "coupling_reduce")
     coupling_reduce.launches += 1
     return out
 
 
-KERNELS = (jtj_grad_reduce, coupling_expand, coupling_reduce)
+def seg_reduce(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
+    """Segment sums of plan-ordered rows: data [F, n] -> [F, nS], where
+    out[:, s] sums the slots of segment s (an empty segment sums to 0)."""
+    F, n = data.shape
+    if plan.n_slots != n:
+        raise ValueError(f"seg_reduce: data {tuple(data.shape)} and "
+                         f"{plan.n_slots} plan slots disagree")
+    dev = _check("seg_reduce", F, SUPPORTED_WIDTHS, plan, data=data)
+    if dev.type == "cpu":
+        return seg_reduce_plain(data, plan)
+    out = torch.empty((F, plan.num_segments), dtype=data.dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = _lib().megba_seg_reduce(
+            int(data.dtype == torch.float64), F, data.data_ptr(),
+            plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
+            int(plan.per_thread), _kernels.current_stream(dev))
+    _raise_on(code, "seg_reduce")
+    seg_reduce.launches += 1
+    return out
+
+
+def seg_expand(table: torch.Tensor, plan: SegPlan) -> torch.Tensor:
+    """Gather of segment rows to plan-ordered slots: table [F, nS] ->
+    [F, n], out[:, e] = table[:, seg[e]]."""
+    F = table.shape[0]
+    if table.shape != (F, plan.num_segments):
+        raise ValueError(f"seg_expand: table {tuple(table.shape)} and "
+                         f"{plan.num_segments} plan segments disagree")
+    dev = _check("seg_expand", F, SUPPORTED_WIDTHS, plan, table=table)
+    if dev.type == "cpu":
+        return seg_expand_plain(table, plan)
+    n = plan.n_slots
+    out = torch.empty((F, n), dtype=table.dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = _lib().megba_seg_expand(
+            int(table.dtype == torch.float64), F, table.data_ptr(),
+            plan.seg.data_ptr(), out.data_ptr(), n, plan.num_segments,
+            _kernels.current_stream(dev))
+    _raise_on(code, "seg_expand")
+    seg_expand.launches += 1
+    return out
+
+
+KERNELS = (jtj_grad_reduce, coupling_expand, coupling_reduce, seg_reduce,
+           seg_expand)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -3,9 +3,11 @@
 Counterpart of `megba_tpu/solve.py` on the single-device plan path:
 `flat_solve` takes the conventional edge-major numpy arrays, plans both
 segment orders on the host (ops/segtiles.make_dual_plans: the stable
-camera sort is the canonical edge order), moves feature-major tensors to
-the device once, runs the LM loop, and returns the solved cameras and
-points edge-major ([N, d]) again.
+camera sort is the canonical edge order), with `fused_kernels` derives
+from them the input index of each fused direction once
+(ops/fused.with_fused_plans), moves feature-major tensors to the device
+once, runs the LM loop, and returns the solved cameras and points
+edge-major ([N, d]) again.
 
 Entry points run on CUDA unless the caller passes `device="cpu"` (or an
 option with `device=Device.CPU`); with no card and no such request they
@@ -29,6 +31,7 @@ from megba_tpu_torch.common import (
     validate_options,
 )
 from megba_tpu_torch.io.bal import BALFile, load_bal
+from megba_tpu_torch.ops.fused import with_fused_plans
 from megba_tpu_torch.ops.segtiles import make_dual_plans
 
 
@@ -80,6 +83,8 @@ def flat_solve(
     # Canonical edge order = the stable camera sort (cam plan slots).
     plan_c, plans = make_dual_plans(cam_idx, pt_idx, cameras.shape[0],
                                     points.shape[0], dev)
+    if option.solver_option.fused_kernels:
+        plans = with_fused_plans(plans)
     perm = plan_c.perm
 
     def edge_rows(a: np.ndarray) -> torch.Tensor:

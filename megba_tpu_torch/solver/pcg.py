@@ -1,17 +1,21 @@
 """Schur-complement preconditioned conjugate gradients (feature-major).
 
-Counterpart of `megba_tpu/solver/pcg.py` for the single-device implicit
-path:
+Counterpart of `megba_tpu/solver/pcg.py` for the single-device path:
 
   1. invert the damped Hll blocks (row-form closed-form adjugates);
   2. reduced RHS v = g_cam - Hpl Hll^-1 g_pt;
   3. PCG on S x = v, S = Hpp - Hpl Hll^-1 Hlp, block-Jacobi M^-1 = Hpp^-1;
   4. back-substitute dx_pt = Hll^-1 (g_pt - Hlp x).
 
-Hpl/Hlp are never formed: each product is recomputed from the stored
-Jacobian rows (IMPLICIT), as a `coupling_expand` kernel (u = J x per
+Hpl/Hlp are never formed as matrices.  IMPLICIT recomputes each product
+from the stored Jacobian rows, as a `coupling_expand` kernel (u = J x per
 edge), a cross permute of the [od] rows to the other order, and a
-`coupling_reduce` kernel (J^T u summed per vertex).
+`coupling_reduce` kernel (J^T u summed per vertex).  EXPLICIT contracts
+the stored per-edge blocks W (SchurSystem.W): unfused, as a `seg_expand`
+kernel, the per-edge W contraction in plain PyTorch, a cross permute and
+a `seg_reduce` kernel; fused (`fused_kernels`), as one
+`fused_coupling_apply` kernel per direction, with W brought into point
+order once per solve.
 
 The PCG body is the unguarded Chronopoulos-Gear single-recurrence CG of
 the JAX package's `_pcg_core`, as a Python loop; its exit test reads
@@ -21,14 +25,15 @@ the JAX package's `_pcg_core`, as a Python loop; its exit test reads
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from megba_tpu_torch.common import ComputeKind
 from megba_tpu_torch.core.fm import block_inv_fm, block_matvec_fm, damp_rows_fm
 from megba_tpu_torch.linear_system.builder import SchurSystem, damp_blocks
 from megba_tpu_torch.ops.accum import comp_dot
-from megba_tpu_torch.ops import segtiles
+from megba_tpu_torch.ops import fused, segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
 from megba_tpu_torch.solver.precond import (
     cam_block_matvec,
@@ -49,16 +54,50 @@ class PCGResult:
     rho: torch.Tensor  # final residual energy <r, M^-1 r>
 
 
+def _edge_cam_to_pt_explicit(W, pe, cd, pd):
+    """W^T applied per edge: [cd, n] camera rows -> [pd, n]."""
+    return torch.stack([sum(W[a * pd + b] * pe[a] for a in range(cd))
+                        for b in range(pd)])
+
+
+def _edge_pt_to_cam_explicit(W, qe, cd, pd):
+    """W applied per edge: [pd, n] point rows -> [cd, n]."""
+    return torch.stack([sum(W[a * pd + b] * qe[b] for b in range(pd))
+                        for a in range(cd)])
+
+
+MatvecPair = Tuple[Callable[[torch.Tensor], torch.Tensor],
+                   Callable[[torch.Tensor], torch.Tensor]]
+
+
 def make_coupling_matvecs(
-    Jc: torch.Tensor, Jp: torch.Tensor, plans: DualPlans
-) -> Tuple[Callable[[torch.Tensor], torch.Tensor],
-           Callable[[torch.Tensor], torch.Tensor]]:
+    Jc: Optional[torch.Tensor],
+    Jp: Optional[torch.Tensor],
+    plans: DualPlans,
+    compute_kind: ComputeKind = ComputeKind.IMPLICIT,
+    W: Optional[torch.Tensor] = None,
+    fused_kernels: bool = False,
+) -> MatvecPair:
     """Build hpl(q_pt [pd,Np]) -> [cd,Nc] and hlp(p_cam [cd,Nc]) -> [pd,Np].
 
-    `Jc` is in cam-slot order and `Jp` in pt-slot order (algo/lm.py
-    carries it there), so each direction is expand -> cross permute ->
-    reduce, and the expanded [cd]/[pd] per-edge rows never exist.
+    IMPLICIT reads only `Jc` (cam-slot order) and `Jp` (pt-slot order,
+    algo/lm.py carries it there): each direction is expand -> cross
+    permute -> reduce, and the expanded [cd]/[pd] per-edge rows never
+    exist.  EXPLICIT reads only `W` (cam-slot order); with
+    `fused_kernels` each direction is one fused kernel and `plans` must
+    carry the fused directions (ops/fused.with_fused_plans).
     """
+    if compute_kind == ComputeKind.EXPLICIT:
+        if W is None:
+            raise ValueError("EXPLICIT coupling products need the stored "
+                             "W rows (SchurSystem.W)")
+        if fused_kernels:
+            return _fused_explicit_matvecs(W, plans)
+        return _explicit_matvecs(W, plans)
+    if fused_kernels:
+        raise NotImplementedError(
+            "fused_kernels with IMPLICIT needs the fused implicit coupling "
+            "kernel (_fused_j_kernel), not ported yet")
     ocd, opd = Jc.shape[0], Jp.shape[0]
 
     def hlp(p_cam: torch.Tensor) -> torch.Tensor:
@@ -74,6 +113,47 @@ def make_coupling_matvecs(
         cd = ocd // od
         u = segtiles.coupling_expand(q_pt, Jp, plans.pt, pd)
         return segtiles.coupling_reduce(Jc, plans.to_cam(u), plans.cam, cd)
+
+    return hpl, hlp
+
+
+def _explicit_matvecs(W: torch.Tensor, plans: DualPlans) -> MatvecPair:
+    """EXPLICIT, unfused (JAX pcg.py:333-349): gather the vector to the
+    edges, contract with W per edge, permute, segment-sum."""
+    cdpd = W.shape[0]
+
+    def hlp(p_cam: torch.Tensor) -> torch.Tensor:
+        cd = p_cam.shape[0]
+        pd = cdpd // cd
+        pe = segtiles.seg_expand(p_cam, plans.cam)  # [cd, n] cam slots
+        te = _edge_cam_to_pt_explicit(W, pe, cd, pd)
+        return segtiles.seg_reduce(plans.to_pt(te), plans.pt)
+
+    def hpl(q_pt: torch.Tensor) -> torch.Tensor:
+        pd = q_pt.shape[0]
+        cd = cdpd // pd
+        qe = plans.to_cam(segtiles.seg_expand(q_pt, plans.pt))  # cam slots
+        te = _edge_pt_to_cam_explicit(W, qe, cd, pd)
+        return segtiles.seg_reduce(te, plans.cam)
+
+    return hpl, hlp
+
+
+def _fused_explicit_matvecs(W: torch.Tensor, plans: DualPlans) -> MatvecPair:
+    """EXPLICIT, fused (JAX pcg.py:291-303): one kernel per direction.
+    W is brought into point-slot order here, once per PCG solve."""
+    fp_tp, fp_tc = plans.fused_to_pt, plans.fused_to_cam
+    if fp_tp is None or fp_tc is None:
+        raise ValueError("fused_kernels needs the fused plans on the dual "
+                         "plans (ops/fused.with_fused_plans; flat_solve "
+                         "plans them)")
+    W_tp = plans.to_pt(W)
+
+    def hlp(p_cam: torch.Tensor) -> torch.Tensor:
+        return fused.fused_coupling_apply(W_tp, p_cam, fp_tp, w_in_major=True)
+
+    def hpl(q_pt: torch.Tensor) -> torch.Tensor:
+        return fused.fused_coupling_apply(W, q_pt, fp_tc, w_in_major=False)
 
     return hpl, hlp
 
@@ -125,30 +205,36 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative):
 
 def schur_pcg_solve(
     system: SchurSystem,
-    Jc: torch.Tensor,
-    Jp: torch.Tensor,
+    Jc: Optional[torch.Tensor],
+    Jp: Optional[torch.Tensor],
     plans: DualPlans,
     region: torch.Tensor,
     max_iter: int = 100,
     tol: float = 1e-1,
     refuse_ratio: float = 1.0,
     tol_relative: bool = False,
+    compute_kind: ComputeKind = ComputeKind.IMPLICIT,
+    fused_kernels: bool = False,
 ) -> PCGResult:
     """Solve the damped Schur system for (dx_cam, dx_pt), feature-major.
 
     `region` is the LM trust region: damping multiplies the block
-    diagonals' diagonals by (1 + 1/region).
+    diagonals' diagonals by (1 + 1/region).  EXPLICIT reads the coupling
+    from `system.W` and not `Jc`/`Jp` (which may be None then);
+    `fused_kernels` (EXPLICIT only) runs each coupling direction and the
+    block-Jacobi apply as one fused kernel.
     """
     Hpp_d = damp_blocks(system.Hpp, region)
     Hll_inv = block_inv_fm(damp_rows_fm(system.Hll, region))
-    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans)
+    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans, compute_kind, system.W,
+                                     fused_kernels)
 
     def s_matvec(p: torch.Tensor) -> torch.Tensor:
         # S p = Hpp_d p - Hpl Hll_d^-1 Hlp p
         t = block_matvec_fm(Hll_inv, hlp(p))
         return cam_block_matvec(Hpp_d, p) - hpl(t)
 
-    precond = make_schur_preconditioner(Hpp_d)
+    precond = make_schur_preconditioner(Hpp_d, fused_kernels)
     v = system.g_cam - hpl(block_matvec_fm(Hll_inv, system.g_pt))
     x, k, rho = _pcg_core(s_matvec, precond, v, max_iter, tol, refuse_ratio,
                           tol_relative)

@@ -81,7 +81,7 @@ def test_robust_kind_and_status_names():
 @pytest.mark.parametrize("field,value", [
     ("use_schur", False),
     ("world_size", 2),
-    ("compute_kind", tc.ComputeKind.EXPLICIT),
+    ("solver_option", tc.SolverOption(fused_kernels=True, bf16=True)),
     ("jacobian_mode", tc.JacobianMode.AUTODIFF),
     ("jacobian_mode", tc.JacobianMode.AUTODIFF_FORWARD),
     ("mixed_precision_pcg", True),

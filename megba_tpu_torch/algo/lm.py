@@ -98,7 +98,9 @@ def lm_solve(
     both coupling products reduce over sorted segments.  With
     `option.compute_kind` EXPLICIT the Schur system also carries the
     coupling rows W, and with `solver_option.fused_kernels` `plans` must
-    carry the fused directions (ops/fused.with_fused_plans).
+    carry the fused directions (ops/fused.with_fused_plans); the
+    precision rungs (`mixed_precision_pcg`, `solver_option.bf16`) reach
+    the PCG only.
     """
     num_cameras = cameras.shape[1]
     num_points = points.shape[1]
@@ -139,7 +141,8 @@ def lm_solve(
             tol=solver_opt.tol, refuse_ratio=solver_opt.refuse_ratio,
             tol_relative=solver_opt.tol_relative,
             compute_kind=option.compute_kind,
-            fused_kernels=solver_opt.fused_kernels)
+            fused_kernels=solver_opt.fused_kernels,
+            mixed_precision=option.mixed_precision_pcg, bf16=solver_opt.bf16)
         dx_cam, dx_pt = pcg.dx_cam, pcg.dx_pt
 
         # ||dx|| <= eps2 (||x|| + eps1) -> converged, the step is not applied.
@@ -150,7 +153,9 @@ def lm_solve(
         pts_new = points + dx_pt
 
         # Gain-ratio denominator: the linearised cost at dx minus the old
-        # cost.  Jp is pt-ordered, so its [od] rows hop to cam order.
+        # cost, from the unscaled full-precision Jc/Jp whatever the PCG's
+        # precision rung.  Jp is pt-ordered, so its [od] rows hop to cam
+        # order.
         jc_dx = segtiles.coupling_expand(dx_cam, Jc, plans.cam,
                                          dx_cam.shape[0])
         jp_dx = plans.to_cam(

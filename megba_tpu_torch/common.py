@@ -12,7 +12,9 @@ Two things differ on purpose:
   `device=` argument, when given, wins over it.
 - `validate_options` refuses every option value the port does not
   implement yet with a `NotImplementedError` that names the option, so a
-  configuration is never silently run as something else.
+  configuration is never silently run as something else.  The option
+  combinations the JAX package itself refuses raise its `ValueError`s
+  first.
 """
 
 from __future__ import annotations
@@ -200,9 +202,10 @@ DTYPE_TO_TORCH = {
 def _unported(name: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"{name}={value!r} is not ported to megba_tpu_torch yet; the port "
-        "runs the LM + Schur PCG path (IMPLICIT, or EXPLICIT with or "
-        "without fused kernels) with ANALYTICAL Jacobians, block-Jacobi "
-        "(HPP) preconditioning and no guards")
+        "runs the LM + Schur PCG path (IMPLICIT or EXPLICIT, with or "
+        "without fused kernels; the bf16 and mixed-precision rungs on the "
+        "fused kernels) with ANALYTICAL Jacobians, block-Jacobi (HPP) "
+        "preconditioning and no guards")
 
 
 def validate_options(option: ProblemOption) -> None:
@@ -227,11 +230,11 @@ def validate_options(option: ProblemOption) -> None:
             "SolverOption.fused_kernels fuses the Schur coupling matvec and "
             "M^-1 apply (use_schur=True); the plain full-system path has no "
             "edge pipeline to fuse")
+    _validate_precision(option)
     unported = [
         ("use_schur", option.use_schur, True),
         ("world_size", option.world_size, 1),
         ("jacobian_mode", option.jacobian_mode, JacobianMode.ANALYTICAL),
-        ("mixed_precision_pcg", option.mixed_precision_pcg, False),
         ("robust_kind", option.robust_kind, RobustKind.NONE),
         ("robust_option.guards", option.robust_option.guards, False),
         ("solver_option.precond", so.precond, PrecondKind.JACOBI),
@@ -241,7 +244,6 @@ def validate_options(option: ProblemOption) -> None:
         ("solver_option.warm_start", so.warm_start, False),
         ("solver_option.mesh_2d", so.mesh_2d, False),
         ("solver_option.edge_order", so.edge_order, EdgeOrder.NATURAL),
-        ("solver_option.bf16", so.bf16, False),
         ("solver_option.bf16_collectives", so.bf16_collectives, False),
         ("telemetry", option.telemetry, None),
         ("metrics", option.metrics, False),
@@ -249,12 +251,53 @@ def validate_options(option: ProblemOption) -> None:
     for name, value, supported in unported:
         if value != supported:
             raise _unported(name, value)
-    if so.fused_kernels and option.compute_kind == ComputeKind.IMPLICIT:
+    for name, on in (("solver_option.bf16", so.bf16),
+                     ("mixed_precision_pcg", option.mixed_precision_pcg)):
+        if on and not so.fused_kernels:
+            raise NotImplementedError(
+                f"{name}=True without solver_option.fused_kernels is not "
+                "ported to megba_tpu_torch yet: the unfused precision rungs "
+                "need the bf16-row arms of coupling_expand / coupling_reduce "
+                "and the unfused bf16 lowering; set fused_kernels=True")
+    if option.mixed_precision_pcg and np.dtype(option.dtype) != np.float32:
         raise NotImplementedError(
-            "solver_option.fused_kernels=True with compute_kind=IMPLICIT is "
-            "not ported to megba_tpu_torch yet: it needs the fused implicit "
-            "coupling kernel (_fused_j_kernel of megba_tpu/ops/fused.py); "
-            "use compute_kind=EXPLICIT or fused_kernels=False")
+            "mixed_precision_pcg=True with dtype="
+            f"{np.dtype(option.dtype).name} is not ported to "
+            "megba_tpu_torch yet: the fused kernels take bfloat16 rows "
+            "beside a float32 table only; solve float32")
+
+
+def _validate_precision(option: ProblemOption) -> None:
+    """The precision-ladder ValueErrors of the JAX package's
+    validate_options, in its order."""
+    so = option.solver_option
+    if not option.use_schur and option.mixed_precision_pcg:
+        raise ValueError(
+            "mixed_precision_pcg is only implemented for the Schur solver "
+            "(use_schur=True)")
+    if so.bf16:
+        if not option.use_schur:
+            raise ValueError(
+                "SolverOption.bf16 is only implemented for the Schur solver "
+                "(use_schur=True); the plain full-system path has no "
+                "equilibrated coupling operands to halve")
+        if np.dtype(option.dtype) != np.float32:
+            raise ValueError(
+                "SolverOption.bf16 runs the float32 pipeline with bf16 "
+                "coupling storage; a float64 problem asking for bf16 "
+                "operands would discard the precision it asked for — got "
+                f"dtype={np.dtype(option.dtype).name} (solve f64 without "
+                "bf16, or cast the problem to f32)")
+        if option.mixed_precision_pcg:
+            raise ValueError(
+                "SolverOption.bf16 and ProblemOption.mixed_precision_pcg are "
+                "different rungs of the same precision ladder (bf16 "
+                "multiplies in bf16 with f32 accumulation; mixed upcasts the "
+                "stored rows before multiplying) — pick one")
+    if so.bf16_collectives and not so.bf16:
+        raise ValueError(
+            "bf16_collectives compresses the in-body collective payloads of "
+            "the bf16 matvec pipeline; it requires SolverOption.bf16=True")
 
 
 def resolve_device(device: Union[None, str, torch.device],

@@ -1,27 +1,33 @@
-// Fused kernels of the explicit-Schur solve path, hand-written for Hopper
+// Fused kernels of the Schur PCG solve path, hand-written for Hopper
 // (sm_90a).  Built by megba_tpu_torch/ops/kernels.py with nvcc into a shared
 // library with a plain C interface, loaded with ctypes; the Python wrappers
 // live in megba_tpu_torch/ops/fused.py.
 //
-// They replace two Pallas kernels of the JAX package
+// They replace three Pallas kernels of the JAX package
 // (megba_tpu/ops/fused.py):
 //
 //   megba_fused_coupling_apply  <- _fused_w_kernel     (body :387, pallas_call :500)
+//   megba_fused_implicit_apply  <- _fused_j_kernel     (body :412, pallas_call :526)
 //   megba_block_diag_apply      <- _block_diag_kernel  (body :443, pallas_call :647)
 //
 // megba_fused_coupling_apply: one direction of the explicit-Schur coupling
 // product, out[:, o] = sum over the edges e with output vertex o of
 // W_e . table[:, in(e)], with W_e the stored per-edge coupling block
 // (rows a*pd+b of W = Jc^T Jp; input-major when the input is the camera).
-// The TPU kernel one-hot-gathered and one-hot-scattered bucket-padded edge
-// tiles so that the per-edge rows never left VMEM.  Here the W rows of a
+// megba_fused_implicit_apply: one direction of the implicit-Schur coupling
+// product from the stored Jacobian rows, out[:, o] = sum over the edges e
+// with output vertex o of Jout_e^T (Jin_e . table[:, in(e)]), with
+// Jin rows o*DIN+a and Jout rows o*DOUT+b (od = 2 residual rows).
+// The TPU kernels one-hot-gathered and one-hot-scattered bucket-padded edge
+// tiles so that the per-edge rows never left VMEM.  Here the rows of a
 // direction are in the OUTPUT side's segment-sorted slot order (the point
 // order for cam->pt, permuted once per PCG solve; the canonical camera
 // order for pt->cam), with the input vertex of each slot in `in_idx`, and
 // the product is a segment reduction (segreduce.cuh) whose per-slot term
-// gathers DIN table values and contracts them with the slot's W block in
-// registers.  No per-edge [cd, n] or [pd, n] row and no cross permute
-// touches device memory.
+// gathers DIN table values and contracts them with the slot's rows in
+// registers (for the implicit product: the od = 2 values u = Jin_e x, then
+// Jout_e^T u).  No per-edge [cd, n], [pd, n] or [od, n] row and no cross
+// permute touches device memory.
 //   - cam->pt (output = points, ~5 edges each): one thread per point.  The
 //     9-value camera gathers read a table of 64 KB (f32, venice) that stays
 //     in L1 and L2.  Staging it in shared memory instead (64 KB a block)
@@ -30,12 +36,12 @@
 //   - pt->cam (output = cameras, thousands of edges each): one 256-thread
 //     block per camera over the camera-sorted stream; the 3-value point
 //     gather reads a table that stays in L2 (12 MB at venice).
-// Bound on the H100: bytes.  Each slot reads its 27 W values, its input
-// index and DIN table values (from L1 or L2) for 2*27 flops:
-// < 0.5 flop per HBM byte, against the card's ~20 f32 flop/byte balance.
-// The design reads W once, coalesced along each row (neighbouring threads
-// own neighbouring slots or neighbouring short segments), and writes only
-// the [DOUT, nS] result.
+// Bound on the H100: bytes.  Each slot reads its 27 W values (or 18 + 6
+// Jacobian values), its input index and DIN table values (from L1 or L2)
+// for 2*27 (2*24) flops: < 0.5 flop per HBM byte, against the card's
+// ~20 f32 flop/byte balance.  The design reads the rows once, coalesced
+// along each row (neighbouring threads own neighbouring slots or
+// neighbouring short segments), and writes only the [DOUT, nS] result.
 //
 // megba_block_diag_apply: out[:, c] = M^-1_c x[:, c] with the inverted
 // block diagonal laid out feature-major ([d*d, Nc], row i*d+j).  One thread
@@ -46,6 +52,24 @@
 // than per camera (1778 threads, 7 blocks on 7 of 132 SMs) keeps the
 // loads' latency from adding to that.
 //
+// Precision arms (the JAX kernels' `_contract_rows` / `_acc_dtype`
+// contract, fused.py:321-384).  The accumulator and output type T is
+// float or double; the stored rows have type R:
+//   kFull  R = T: float x float or double x double products;
+//   kMixed R = __nv_bfloat16, T = float: each row value is upcast and the
+//          product taken in float (ProblemOption.mixed_precision_pcg);
+//   kBf16  R = __nv_bfloat16, T = float: the gathered table value (and,
+//          in the implicit product, each u) is rounded to bf16 and every
+//          product row * x is rounded to bf16 once, then upcast
+//          (SolverOption.bf16).  The float product of two bf16 values is
+//          exact, so __fmul_rn followed by __float2bfloat16_rn rounds
+//          exactly once, as a bf16 multiply does.
+// Within a slot, sums are taken in ascending index order starting from the
+// first term; in the bf16 arm no product can be contracted into an FMA, so
+// every per-slot term is bitwise the plain PyTorch version's and only the
+// segment-sum order differs.  The bf16 rows halve the bytes each slot
+// reads, the bound's dominant term.
+//
 // Determinism: no atomics; every output is formed by one thread, or by one
 // block in a fixed order (segreduce.cuh), so results are bitwise repeatable
 // for a given launch shape.
@@ -53,18 +77,54 @@
 // Every entry point first peeks at the CUDA error state and returns an
 // error pending from an earlier launch negated, without launching; then it
 // returns cudaGetLastError() after its launch (0 on success), or
-// cudaErrorInvalidValue for a block shape it was not built for.
+// cudaErrorInvalidValue for a block shape or arm it was not built for.
+
+#include <cuda_bf16.h>
 
 #include "segreduce.cuh"
 
 namespace {
 
-// Per-slot term of one fused direction: gather the input vertex's DIN
-// values, contract with the slot's W block, add the DOUT results.
-template <typename T, int DIN, int DOUT, bool IN_MAJOR>
+// Arm codes, shared with ops/fused.py (`_ARMS`).
+enum Arm : int { kF32 = 0, kF64 = 1, kMixed = 2, kBf16 = 3 };
+
+__device__ __forceinline__ float upcast(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float upcast(float v) { return v; }
+__device__ __forceinline__ double upcast(double v) { return v; }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The vector operand of a product: rounded to bf16 in the bf16 arm.
+template <bool BF16, typename T>
+__device__ __forceinline__ T operand(T v) {
+  if constexpr (BF16) {
+    return round_bf16(v);
+  } else {
+    return v;
+  }
+}
+
+// One product row * x in the arm's arithmetic.
+template <bool BF16, typename T, typename R>
+__device__ __forceinline__ T product(R row, T x) {
+  if constexpr (BF16) {
+    return round_bf16(__fmul_rn(upcast(row), x));
+  } else {
+    return static_cast<T>(upcast(row)) * x;
+  }
+}
+
+// Per-slot term of one explicit fused direction: gather the input
+// vertex's DIN values, contract with the slot's W block, add the DOUT
+// results.
+template <typename T, typename R, bool BF16, int DIN, int DOUT, bool IN_MAJOR>
 struct WRows {
   static constexpr int F = DOUT;
-  const T* __restrict__ W;             // [DIN*DOUT, n]
+  const R* __restrict__ W;             // [DIN*DOUT, n]
   const T* __restrict__ table;         // [DIN, num_in]
   const int32_t* __restrict__ in_idx;  // [n]
   int64_t n;
@@ -74,74 +134,141 @@ struct WRows {
     const int64_t i = in_idx[e];
     T x[DIN];
 #pragma unroll
-    for (int a = 0; a < DIN; ++a) x[a] = table[a * num_in + i];
+    for (int a = 0; a < DIN; ++a) x[a] = operand<BF16>(table[a * num_in + i]);
 #pragma unroll
     for (int b = 0; b < DOUT; ++b) {
-      T t = T(0);
+      T t = product<BF16>(W[(IN_MAJOR ? b : b * DIN) * n + e], x[0]);
 #pragma unroll
-      for (int a = 0; a < DIN; ++a) {
+      for (int a = 1; a < DIN; ++a) {
         const int row = IN_MAJOR ? a * DOUT + b : b * DIN + a;
-        t += W[row * n + e] * x[a];
+        t += product<BF16>(W[row * n + e], x[a]);
       }
       acc[b] += t;
     }
   }
 };
 
-template <typename T, int DIN, int DOUT, bool IN_MAJOR>
-int fused_shape(const void* W, const void* table, const int32_t* in_idx,
-                const int64_t* seg_ptr, void* out, int64_t n, int64_t num_in,
-                int64_t num_out, int per_thread, cudaStream_t stream) {
-  WRows<T, DIN, DOUT, IN_MAJOR> rows{static_cast<const T*>(W),
-                                     static_cast<const T*>(table), in_idx, n,
-                                     num_in};
-  return launch_reduce<T>(rows, seg_ptr, static_cast<T*>(out), num_out,
-                         per_thread, stream);
+// Per-slot term of one implicit fused direction: gather the input
+// vertex's DIN values, u = Jin_e x (od = 2 values, in registers), add
+// Jout_e^T u.
+template <typename T, typename R, bool BF16, int DIN, int DOUT>
+struct JRows {
+  static constexpr int F = DOUT;
+  static constexpr int OD = 2;
+  const R* __restrict__ Jin;           // [OD*DIN, n], row o*DIN+a
+  const R* __restrict__ Jout;          // [OD*DOUT, n], row o*DOUT+b
+  const T* __restrict__ table;         // [DIN, num_in]
+  const int32_t* __restrict__ in_idx;  // [n]
+  int64_t n;
+  int64_t num_in;
+
+  __device__ __forceinline__ void add(int64_t e, T* acc) const {
+    const int64_t i = in_idx[e];
+    T x[DIN];
+#pragma unroll
+    for (int a = 0; a < DIN; ++a) x[a] = operand<BF16>(table[a * num_in + i]);
+    T u[OD];
+#pragma unroll
+    for (int o = 0; o < OD; ++o) {
+      T s = product<BF16>(Jin[(o * DIN) * n + e], x[0]);
+#pragma unroll
+      for (int a = 1; a < DIN; ++a) {
+        s += product<BF16>(Jin[(o * DIN + a) * n + e], x[a]);
+      }
+      u[o] = operand<BF16>(s);
+    }
+#pragma unroll
+    for (int b = 0; b < DOUT; ++b) {
+      T t = product<BF16>(Jout[b * n + e], u[0]);
+#pragma unroll
+      for (int o = 1; o < OD; ++o) {
+        t += product<BF16>(Jout[(o * DOUT + b) * n + e], u[o]);
+      }
+      acc[b] += t;
+    }
+  }
+};
+
+struct Launch {
+  const void* table;
+  const int32_t* in_idx;
+  const int64_t* seg_ptr;
+  void* out;
+  int64_t n;
+  int64_t num_in;
+  int64_t num_out;
+  int per_thread;
+  cudaStream_t stream;
+};
+
+template <typename T, typename R, bool BF16, int DIN, int DOUT, bool IN_MAJOR>
+int w_shape(const void* W, const Launch& l) {
+  WRows<T, R, BF16, DIN, DOUT, IN_MAJOR> rows{
+      static_cast<const R*>(W), static_cast<const T*>(l.table), l.in_idx,
+      l.n, l.num_in};
+  return launch_reduce<T>(rows, l.seg_ptr, static_cast<T*>(l.out), l.num_out,
+                          l.per_thread, l.stream);
 }
 
-template <typename T>
-int fused_typed(int d_in, int d_out, int w_in_major, const void* W,
-                const void* table, const int32_t* in_idx,
-                const int64_t* seg_ptr, void* out, int64_t n, int64_t num_in,
-                int64_t num_out, int per_thread, cudaStream_t stream) {
+template <typename T, typename R, bool BF16>
+int w_directions(int d_in, int d_out, int w_in_major, const void* W,
+                 const Launch& l) {
   if (d_in == 9 && d_out == 3 && w_in_major) {
-    return fused_shape<T, 9, 3, true>(W, table, in_idx, seg_ptr, out, n,
-                                      num_in, num_out, per_thread, stream);
+    return w_shape<T, R, BF16, 9, 3, true>(W, l);
   }
   if (d_in == 3 && d_out == 9 && !w_in_major) {
-    return fused_shape<T, 3, 9, false>(W, table, in_idx, seg_ptr, out, n,
-                                       num_in, num_out, per_thread, stream);
+    return w_shape<T, R, BF16, 3, 9, false>(W, l);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, typename R, bool BF16, int DIN, int DOUT>
+int j_shape(const void* Jin, const void* Jout, const Launch& l) {
+  JRows<T, R, BF16, DIN, DOUT> rows{
+      static_cast<const R*>(Jin), static_cast<const R*>(Jout),
+      static_cast<const T*>(l.table), l.in_idx, l.n, l.num_in};
+  return launch_reduce<T>(rows, l.seg_ptr, static_cast<T*>(l.out), l.num_out,
+                          l.per_thread, l.stream);
+}
+
+template <typename T, typename R, bool BF16>
+int j_directions(int d_in, int d_out, const void* Jin, const void* Jout,
+                 const Launch& l) {
+  if (d_in == 9 && d_out == 3) return j_shape<T, R, BF16, 9, 3>(Jin, Jout, l);
+  if (d_in == 3 && d_out == 9) return j_shape<T, R, BF16, 3, 9>(Jin, Jout, l);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // One thread per (output row i, camera c): out[i, c] = sum_j H[i*D+j, c]
 // * x[j, c].  Threads of a warp own neighbouring cameras of one row, so
 // each of the D + D loads and the store is coalesced.
-template <typename T, int D>
+template <typename T, typename R, bool BF16, int D>
 __global__ void __launch_bounds__(kBlock)
-block_diag_kernel(const T* __restrict__ H, const T* __restrict__ x,
+block_diag_kernel(const R* __restrict__ H, const T* __restrict__ x,
                   T* __restrict__ out, int64_t nc) {
   const int64_t k = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
   if (k >= D * nc) return;
   const int64_t i = k / nc;
   const int64_t c = k - i * nc;
-  T t = H[(i * D) * nc + c] * x[c];
+  T t = product<BF16>(H[(i * D) * nc + c], operand<BF16>(x[c]));
 #pragma unroll
-  for (int j = 1; j < D; ++j) t += H[(i * D + j) * nc + c] * x[j * nc + c];
+  for (int j = 1; j < D; ++j) {
+    t += product<BF16>(H[(i * D + j) * nc + c], operand<BF16>(x[j * nc + c]));
+  }
   out[k] = t;
 }
 
-template <typename T>
+template <typename T, typename R, bool BF16>
 int block_diag_typed(int d, const void* H, const void* x, void* out,
                      int64_t nc, cudaStream_t stream) {
   if (d != 9) return static_cast<int>(cudaErrorInvalidValue);
   if (nc == 0) return static_cast<int>(cudaSuccess);
   const int64_t grid = (9 * nc + kBlock - 1) / kBlock;
   if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
-  block_diag_kernel<T, 9><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-      static_cast<const T*>(H), static_cast<const T*>(x),
-      static_cast<T*>(out), nc);
+  block_diag_kernel<T, R, BF16, 9>
+      <<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
+          static_cast<const R*>(H), static_cast<const T*>(x),
+          static_cast<T*>(out), nc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -151,31 +278,80 @@ extern "C" {
 
 // out [d_out, num_out] = per output segment: sum over its slots e of
 // W_e . table[:, in_idx[e]].
-int megba_fused_coupling_apply(int is_double, int d_in, int d_out,
-                               int w_in_major, const void* W,
-                               const void* table, const int32_t* in_idx,
-                               const int64_t* seg_ptr, void* out, int64_t n,
-                               int64_t num_in, int64_t num_out,
-                               int per_thread, void* stream) {
+int megba_fused_coupling_apply(int arm, int d_in, int d_out, int w_in_major,
+                               const void* W, const void* table,
+                               const int32_t* in_idx, const int64_t* seg_ptr,
+                               void* out, int64_t n, int64_t num_in,
+                               int64_t num_out, int per_thread,
+                               void* stream) {
   if (const int prior = pending_error()) return prior;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double
-             ? fused_typed<double>(d_in, d_out, w_in_major, W, table, in_idx,
-                                   seg_ptr, out, n, num_in, num_out,
-                                   per_thread, st)
-             : fused_typed<float>(d_in, d_out, w_in_major, W, table, in_idx,
-                                  seg_ptr, out, n, num_in, num_out,
-                                  per_thread, st);
+  const Launch l{table,   in_idx,  seg_ptr,    out,
+                 n,       num_in,  num_out,    per_thread,
+                 static_cast<cudaStream_t>(stream)};
+  switch (arm) {
+    case kF32:
+      return w_directions<float, float, false>(d_in, d_out, w_in_major, W, l);
+    case kF64:
+      return w_directions<double, double, false>(d_in, d_out, w_in_major, W,
+                                                 l);
+    case kMixed:
+      return w_directions<float, __nv_bfloat16, false>(d_in, d_out,
+                                                       w_in_major, W, l);
+    case kBf16:
+      return w_directions<float, __nv_bfloat16, true>(d_in, d_out,
+                                                      w_in_major, W, l);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// out [d_out, num_out] = per output segment: sum over its slots e of
+// Jout_e^T (Jin_e . table[:, in_idx[e]]).
+int megba_fused_implicit_apply(int arm, int d_in, int d_out, const void* Jin,
+                               const void* Jout, const void* table,
+                               const int32_t* in_idx, const int64_t* seg_ptr,
+                               void* out, int64_t n, int64_t num_in,
+                               int64_t num_out, int per_thread,
+                               void* stream) {
+  if (const int prior = pending_error()) return prior;
+  const Launch l{table,   in_idx,  seg_ptr,    out,
+                 n,       num_in,  num_out,    per_thread,
+                 static_cast<cudaStream_t>(stream)};
+  switch (arm) {
+    case kF32:
+      return j_directions<float, float, false>(d_in, d_out, Jin, Jout, l);
+    case kF64:
+      return j_directions<double, double, false>(d_in, d_out, Jin, Jout, l);
+    case kMixed:
+      return j_directions<float, __nv_bfloat16, false>(d_in, d_out, Jin, Jout,
+                                                       l);
+    case kBf16:
+      return j_directions<float, __nv_bfloat16, true>(d_in, d_out, Jin, Jout,
+                                                      l);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // out [d, Nc] = per camera: H_c x[:, c], H in [d*d, Nc] rows.
-int megba_block_diag_apply(int is_double, int d, const void* H,
-                           const void* x, void* out, int64_t nc,
-                           void* stream) {
+int megba_block_diag_apply(int arm, int d, const void* H, const void* x,
+                           void* out, int64_t nc, void* stream) {
   if (const int prior = pending_error()) return prior;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? block_diag_typed<double>(d, H, x, out, nc, st)
-                   : block_diag_typed<float>(d, H, x, out, nc, st);
+  switch (arm) {
+    case kF32:
+      return block_diag_typed<float, float, false>(d, H, x, out, nc, st);
+    case kF64:
+      return block_diag_typed<double, double, false>(d, H, x, out, nc, st);
+    case kMixed:
+      return block_diag_typed<float, __nv_bfloat16, false>(d, H, x, out, nc,
+                                                            st);
+    case kBf16:
+      return block_diag_typed<float, __nv_bfloat16, true>(d, H, x, out, nc,
+                                                          st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* megba_error_string(int code) {

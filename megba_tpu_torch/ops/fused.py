@@ -1,10 +1,13 @@
-"""Fused explicit-Schur coupling product and block-diagonal M^-1 apply.
+"""Fused Schur coupling products and block-diagonal M^-1 apply.
 
-Counterpart of `megba_tpu/ops/fused.py` on the explicit-Schur path with
+Counterpart of `megba_tpu/ops/fused.py` on the Schur path with
 `SolverOption(fused_kernels=True)`: one gather -> contract -> scatter
-kernel per coupling direction (`fused_coupling_apply`, the TPU's
-`_fused_w_kernel`), and the block-Jacobi apply as one kernel pass
-(`fused_block_diag_apply`, the TPU's `_block_diag_kernel`).
+kernel per coupling direction, from the stored coupling rows W on the
+explicit path (`fused_coupling_apply`, the TPU's `_fused_w_kernel`) or
+from the stored Jacobian rows on the implicit path
+(`fused_coupling_apply_implicit`, the TPU's `_fused_j_kernel`), and the
+block-Jacobi apply as one kernel pass (`fused_block_diag_apply`, the
+TPU's `_block_diag_kernel`).
 
 The TPU kernels needed a bucket plan (`build_fused_plan`): both one-hots
 had to be block-sized, so every edge tile lived inside one (input block,
@@ -14,16 +17,27 @@ one-hot: it walks the output side's CSR segments of the dual plans
 direction's plan (`FusedPlan`) is the output side's `SegPlan` plus one
 int32 array, the input vertex of each slot in that order.  The contract
 is the TPU kernel's: `out[:, o]` is the sum over the edges with output
-vertex o of the contracted W_e . table[:, in(e)].
+vertex o of the per-edge product applied to table[:, in(e)].
 
-  cam -> pt: W rows in POINT-slot order (permuted once per PCG solve,
-             solver/pcg.py), input = the camera of each point slot,
-             W read input-major (`w_in_major=True`);
-  pt -> cam: W rows in the canonical camera-slot order, input = the
-             point of each camera slot, W read output-major.
+  cam -> pt: rows in POINT-slot order (Jc or W permuted once per PCG
+             solve, solver/pcg.py; Jp is carried there), input = the
+             camera of each point slot, W read input-major
+             (`w_in_major=True`);
+  pt -> cam: rows in the canonical camera-slot order (Jp permuted once
+             per PCG solve), input = the point of each camera slot, W
+             read output-major.
 
 W keeps the JAX layout: row a*pd + b holds (Jc^T Jp)[a, b] of each
-edge, a the camera dimension and b the point dimension.
+edge, a the camera dimension and b the point dimension.  The implicit
+product reads Jin rows o*d_in + a and Jout rows o*d_out + b (od = 2).
+
+Precision (the JAX kernels' `_contract_rows` / `_acc_dtype`): the table
+is float32 or float64 and the output has the table's type.  The rows
+have the table's type, or are bfloat16 beside a float32 table.  With
+bfloat16 rows, `bf16_operands=False` upcasts each row value before the
+multiply (`mixed_precision_pcg`); `bf16_operands=True` rounds the
+gathered vector to bfloat16 and each product to bfloat16, then sums in
+float32 (`SolverOption.bf16`; the implicit product also rounds u).
 
 Each kernel has a plain PyTorch version (`*_plain`) in this module.  The
 wrapper takes it only for tensors on the CPU; for CUDA tensors it
@@ -45,6 +59,8 @@ from megba_tpu_torch.ops.segtiles import DualPlans, SegPlan
 # (d_in, d_out, w_in_major) the CUDA coupling kernel is built for: the
 # BAL camera (9) and point (3) blocks, one entry per direction.
 SUPPORTED_DIRECTIONS = ((9, 3, True), (3, 9, False))
+# (d_in, d_out, od) the CUDA implicit coupling kernel is built for.
+SUPPORTED_IMPLICIT = ((9, 3, 2), (3, 9, 2))
 # Block size the CUDA block-diagonal apply is built for (the camera).
 SUPPORTED_BLOCK_DIAG = (9,)
 
@@ -80,17 +96,55 @@ def _w_row(a: int, b: int, d_in: int, d_out: int, w_in_major: bool) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _contract(rows, vec, acc_dtype: torch.dtype, bf16_operands: bool):
+    """sum_k rows[k] * vec[k] in the accumulator dtype, in ascending k
+    from the first term.  The bf16 arm rounds each product to bfloat16
+    (its operands already are); otherwise each row is upcast first."""
+    out = None
+    for row, v in zip(rows, vec):
+        t = row.to(acc_dtype) * v
+        if bf16_operands:
+            t = t.to(torch.bfloat16).to(acc_dtype)
+        out = t if out is None else out + t
+    return out
+
+
+def _operand(x: torch.Tensor, bf16_operands: bool) -> torch.Tensor:
+    """The vector operand: rounded to bfloat16 in the bf16 arm."""
+    return x.to(torch.bfloat16).to(x.dtype) if bf16_operands else x
+
+
 def fused_coupling_apply_plain(W: torch.Tensor, table: torch.Tensor,
-                               fplan: FusedPlan,
-                               w_in_major: bool) -> torch.Tensor:
+                               fplan: FusedPlan, w_in_major: bool,
+                               bf16_operands: bool = False) -> torch.Tensor:
     """[d_out, num_out]: gather table[:, in(e)], contract with W_e,
     segment-sum onto the output vertices."""
     d_in = table.shape[0]
     d_out = W.shape[0] // d_in
-    pe = table.index_select(1, fplan.in_idx)
+    pe = _operand(table.index_select(1, fplan.in_idx), bf16_operands)
     te = torch.stack([
-        sum(W[_w_row(a, b, d_in, d_out, w_in_major)] * pe[a]
-            for a in range(d_in))
+        _contract([W[_w_row(a, b, d_in, d_out, w_in_major)]
+                   for a in range(d_in)], pe, table.dtype, bf16_operands)
+        for b in range(d_out)])
+    return segtiles.seg_reduce_plain(te, fplan.out)
+
+
+def fused_coupling_apply_implicit_plain(
+        Jin: torch.Tensor, Jout: torch.Tensor, table: torch.Tensor,
+        fplan: FusedPlan, bf16_operands: bool = False) -> torch.Tensor:
+    """[d_out, num_out]: gather table[:, in(e)], u = Jin_e x, Jout_e^T u,
+    segment-sum onto the output vertices."""
+    d_in = table.shape[0]
+    od = Jin.shape[0] // d_in
+    d_out = Jout.shape[0] // od
+    acc = table.dtype
+    pe = _operand(table.index_select(1, fplan.in_idx), bf16_operands)
+    u = [_operand(_contract(Jin[o * d_in:(o + 1) * d_in], pe, acc,
+                            bf16_operands), bf16_operands)
+         for o in range(od)]
+    te = torch.stack([
+        _contract([Jout[o * d_out + b] for o in range(od)], u, acc,
+                  bf16_operands)
         for b in range(d_out)])
     return segtiles.seg_reduce_plain(te, fplan.out)
 
@@ -102,11 +156,13 @@ def block_diag_rows(Minv: torch.Tensor) -> torch.Tensor:
     return Minv.permute(1, 2, 0).reshape(d * d, Minv.shape[0]).contiguous()
 
 
-def fused_block_diag_apply_plain(Hrows: torch.Tensor,
-                                 x: torch.Tensor) -> torch.Tensor:
+def fused_block_diag_apply_plain(Hrows: torch.Tensor, x: torch.Tensor,
+                                 bf16_operands: bool = False) -> torch.Tensor:
     """[d, Nc]: out[i, c] = sum_j Hrows[i*d+j, c] * x[j, c]."""
     d = x.shape[0]
-    return torch.stack([sum(Hrows[i * d + j] * x[j] for j in range(d))
+    xs = _operand(x, bf16_operands)
+    return torch.stack([_contract(Hrows[i * d:(i + 1) * d], xs, x.dtype,
+                                  bf16_operands)
                         for i in range(d)])
 
 
@@ -119,18 +175,67 @@ _SIGNATURES = {
     "megba_fused_coupling_apply": (
         ctypes.c_int, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I,
                        _P]),
+    "megba_fused_implicit_apply": (
+        ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
+                       _P]),
     "megba_block_diag_apply": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _P]),
     "megba_error_string": (ctypes.c_char_p, [_I]),
 }
 KERNEL_SOURCES = ("fused",)
+# Arm codes of csrc/fused.cu: (row dtype, table dtype, bf16_operands).
+_ARMS = {
+    (torch.float32, torch.float32, False): 0,
+    (torch.float64, torch.float64, False): 1,
+    (torch.bfloat16, torch.float32, False): 2,
+    (torch.bfloat16, torch.float32, True): 3,
+}
 
 
 def _lib() -> ctypes.CDLL:
     return _kernels.load_library("fused", _SIGNATURES)
 
 
+def _check_operands(name: str, table: torch.Tensor, bf16_operands: bool,
+                    **rows: torch.Tensor) -> int:
+    """Validate a fused kernel's operands on either device: one device,
+    contiguous, a float32 or float64 table (or vector) and rows of its
+    dtype, or bfloat16 rows beside a float32 table; `bf16_operands`
+    needs the bfloat16 rows.  Returns the arm code of csrc/fused.cu."""
+    dev = table.device
+    for k, t in (("table", table), *rows.items()):
+        if t.device != dev:
+            raise ValueError(f"{name}: {k} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+    dtypes = {t.dtype for t in rows.values()}
+    arm = _ARMS.get((dtypes.pop(), table.dtype, bool(bf16_operands))
+                    if len(dtypes) == 1 else None)
+    if arm is None:
+        got = ", ".join(f"{k} {t.dtype}" for k, t in
+                        (("table", table), *rows.items()))
+        raise TypeError(
+            f"{name}: dtype {got} with bf16_operands={bool(bf16_operands)}; "
+            "the rows must share the table's float32 or float64 dtype, or be "
+            "bfloat16 beside a float32 table (bf16_operands needs bfloat16 "
+            "rows)")
+    return arm
+
+
+def _check_plan(name: str, fplan: FusedPlan, n: int,
+                dev: torch.device) -> None:
+    segtiles.check_plan(name, fplan.out, dev)
+    t = fplan.in_idx
+    if t.shape != (n,):
+        raise ValueError(f"{name}: {tuple(t.shape)} input ids and {n} plan "
+                         "slots disagree")
+    if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+        raise ValueError(f"{name}: fplan.in_idx must be a contiguous "
+                         f"torch.int32 tensor on {dev}")
+
+
 def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
-                         fplan: FusedPlan, w_in_major: bool) -> torch.Tensor:
+                         fplan: FusedPlan, w_in_major: bool,
+                         bf16_operands: bool = False) -> torch.Tensor:
     """One explicit-Schur coupling direction: table [d_in, num_in] ->
     [d_out, num_out], out[:, o] = sum over the slots e of output vertex o
     of W_e . table[:, in(e)].  `W` [d_in*d_out, n] must be in the output
@@ -138,31 +243,27 @@ def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
     d_in = table.shape[0]
     d_out = W.shape[0] // d_in
     n = fplan.out.n_slots
-    if (W.shape != (d_in * d_out, n) or table.shape != (d_in, fplan.num_in)
-            or fplan.in_idx.shape != (n,)):
+    if W.shape != (d_in * d_out, n) or table.shape != (d_in, fplan.num_in):
         raise ValueError(
             f"fused_coupling_apply: W {tuple(W.shape)}, table "
-            f"{tuple(table.shape)}, {tuple(fplan.in_idx.shape)} input ids "
-            f"and {n} plan slots disagree")
-    dev = segtiles.check_operands("fused_coupling_apply", W=W, table=table)
+            f"{tuple(table.shape)} and {n} plan slots disagree")
+    arm = _check_operands("fused_coupling_apply", table, bf16_operands, W=W)
+    dev = table.device
     shape = (d_in, d_out, bool(w_in_major))
     if dev.type == "cuda" and shape not in SUPPORTED_DIRECTIONS:
         raise NotImplementedError(
             f"fused_coupling_apply: no CUDA kernel for (d_in, d_out, "
             f"w_in_major) = {shape} (built for {SUPPORTED_DIRECTIONS})")
-    segtiles.check_plan("fused_coupling_apply", fplan.out, dev)
-    t = fplan.in_idx
-    if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-        raise ValueError("fused_coupling_apply: fplan.in_idx must be a "
-                         f"contiguous torch.int32 tensor on {dev}")
+    _check_plan("fused_coupling_apply", fplan, n, dev)
     if dev.type == "cpu":
-        return fused_coupling_apply_plain(W, table, fplan, w_in_major)
-    out = torch.empty((d_out, fplan.out.num_segments), dtype=W.dtype,
+        return fused_coupling_apply_plain(W, table, fplan, w_in_major,
+                                          bf16_operands)
+    out = torch.empty((d_out, fplan.out.num_segments), dtype=table.dtype,
                       device=dev)
     with torch.cuda.device(dev):
         code = _lib().megba_fused_coupling_apply(
-            int(W.dtype == torch.float64), d_in, d_out, int(w_in_major),
-            W.data_ptr(), table.data_ptr(), t.data_ptr(),
+            arm, d_in, d_out, int(w_in_major), W.data_ptr(),
+            table.data_ptr(), fplan.in_idx.data_ptr(),
             fplan.out.seg_ptr.data_ptr(), out.data_ptr(), n, fplan.num_in,
             fplan.out.num_segments, int(fplan.out.per_thread),
             _kernels.current_stream(dev))
@@ -171,8 +272,54 @@ def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
     return out
 
 
-def fused_block_diag_apply(Hrows: torch.Tensor,
-                           x: torch.Tensor) -> torch.Tensor:
+def fused_coupling_apply_implicit(Jin: torch.Tensor, Jout: torch.Tensor,
+                                  table: torch.Tensor, fplan: FusedPlan,
+                                  bf16_operands: bool = False
+                                  ) -> torch.Tensor:
+    """One implicit-Schur coupling direction: table [d_in, num_in] ->
+    [d_out, num_out], out[:, o] = sum over the slots e of output vertex o
+    of Jout_e^T (Jin_e . table[:, in(e)]).  `Jin` [od*d_in, n] and
+    `Jout` [od*d_out, n] must be in the output side's slot order
+    (`fplan.out`)."""
+    d_in = table.shape[0]
+    od = Jin.shape[0] // d_in
+    d_out = Jout.shape[0] // max(od, 1)
+    n = fplan.out.n_slots
+    if (od < 1 or Jin.shape != (od * d_in, n)
+            or Jout.shape != (od * d_out, n)
+            or table.shape != (d_in, fplan.num_in)):
+        raise ValueError(
+            f"fused_coupling_apply_implicit: Jin {tuple(Jin.shape)}, Jout "
+            f"{tuple(Jout.shape)}, table {tuple(table.shape)} and {n} plan "
+            "slots disagree")
+    arm = _check_operands("fused_coupling_apply_implicit", table,
+                          bf16_operands, Jin=Jin, Jout=Jout)
+    dev = table.device
+    shape = (d_in, d_out, od)
+    if dev.type == "cuda" and shape not in SUPPORTED_IMPLICIT:
+        raise NotImplementedError(
+            f"fused_coupling_apply_implicit: no CUDA kernel for (d_in, "
+            f"d_out, od) = {shape} (built for {SUPPORTED_IMPLICIT})")
+    _check_plan("fused_coupling_apply_implicit", fplan, n, dev)
+    if dev.type == "cpu":
+        return fused_coupling_apply_implicit_plain(Jin, Jout, table, fplan,
+                                                   bf16_operands)
+    out = torch.empty((d_out, fplan.out.num_segments), dtype=table.dtype,
+                      device=dev)
+    with torch.cuda.device(dev):
+        code = _lib().megba_fused_implicit_apply(
+            arm, d_in, d_out, Jin.data_ptr(), Jout.data_ptr(),
+            table.data_ptr(), fplan.in_idx.data_ptr(),
+            fplan.out.seg_ptr.data_ptr(), out.data_ptr(), n, fplan.num_in,
+            fplan.out.num_segments, int(fplan.out.per_thread),
+            _kernels.current_stream(dev))
+    _kernels.raise_on(_lib(), code, "fused_coupling_apply_implicit")
+    fused_coupling_apply_implicit.launches += 1
+    return out
+
+
+def fused_block_diag_apply(Hrows: torch.Tensor, x: torch.Tensor,
+                           bf16_operands: bool = False) -> torch.Tensor:
     """Block-diagonal apply: Hrows [d*d, Nc] (`block_diag_rows`), x [d, Nc]
     -> [d, Nc], out[:, c] = M_c x[:, c]."""
     d, nc = x.shape
@@ -180,24 +327,27 @@ def fused_block_diag_apply(Hrows: torch.Tensor,
         raise ValueError(f"fused_block_diag_apply: Hrows "
                          f"{tuple(Hrows.shape)} and x {tuple(x.shape)} "
                          "disagree")
-    dev = segtiles.check_operands("fused_block_diag_apply", Hrows=Hrows, x=x)
+    arm = _check_operands("fused_block_diag_apply", x, bf16_operands,
+                          Hrows=Hrows)
+    dev = x.device
     if dev.type == "cuda" and d not in SUPPORTED_BLOCK_DIAG:
         raise NotImplementedError(
             f"fused_block_diag_apply: no CUDA kernel for d={d} (built for "
             f"{SUPPORTED_BLOCK_DIAG})")
     if dev.type == "cpu":
-        return fused_block_diag_apply_plain(Hrows, x)
+        return fused_block_diag_apply_plain(Hrows, x, bf16_operands)
     out = torch.empty((d, nc), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         code = _lib().megba_block_diag_apply(
-            int(x.dtype == torch.float64), d, Hrows.data_ptr(), x.data_ptr(),
-            out.data_ptr(), nc, _kernels.current_stream(dev))
+            arm, d, Hrows.data_ptr(), x.data_ptr(), out.data_ptr(), nc,
+            _kernels.current_stream(dev))
     _kernels.raise_on(_lib(), code, "fused_block_diag_apply")
     fused_block_diag_apply.launches += 1
     return out
 
 
-KERNELS = (fused_coupling_apply, fused_block_diag_apply)
+KERNELS = (fused_coupling_apply, fused_coupling_apply_implicit,
+           fused_block_diag_apply)
 for _k in KERNELS:
     _k.launches = 0
 

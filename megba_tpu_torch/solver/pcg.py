@@ -8,18 +8,28 @@ Counterpart of `megba_tpu/solver/pcg.py` for the single-device path:
   4. back-substitute dx_pt = Hll^-1 (g_pt - Hlp x).
 
 Hpl/Hlp are never formed as matrices.  IMPLICIT recomputes each product
-from the stored Jacobian rows, as a `coupling_expand` kernel (u = J x per
-edge), a cross permute of the [od] rows to the other order, and a
-`coupling_reduce` kernel (J^T u summed per vertex).  EXPLICIT contracts
-the stored per-edge blocks W (SchurSystem.W): unfused, as a `seg_expand`
-kernel, the per-edge W contraction in plain PyTorch, a cross permute and
-a `seg_reduce` kernel; fused (`fused_kernels`), as one
-`fused_coupling_apply` kernel per direction, with W brought into point
-order once per solve.
+from the stored Jacobian rows: unfused, as a `coupling_expand` kernel
+(u = J x per edge), a cross permute of the [od] rows to the other order,
+and a `coupling_reduce` kernel (J^T u summed per vertex); fused
+(`fused_kernels`), as one `fused_coupling_apply_implicit` kernel per
+direction, with Jc brought into point order and Jp into camera order
+once per solve.  EXPLICIT contracts the stored per-edge blocks W
+(SchurSystem.W): unfused, as a `seg_expand` kernel, the per-edge W
+contraction in plain PyTorch, a cross permute and a `seg_reduce` kernel;
+fused, as one `fused_coupling_apply` kernel per direction, with W
+brought into point order once per solve.
 
-The PCG body is the unguarded Chronopoulos-Gear single-recurrence CG of
-the JAX package's `_pcg_core`, as a Python loop; its exit test reads
-|rho| and the refuse flag on the host once per iteration.
+The precision ladder runs on the fused kernels only.  Both rungs
+(`mixed_precision`, `bf16`) first equilibrate the system with
+D = diag(damped H)^-1/2 and cast the scaled coupling rows (Jc/Jp or W)
+to bfloat16; `mixed_precision` upcasts each row value before the
+multiply, `bf16` multiplies in bfloat16 with float32 sums, applies a
+bfloat16 copy of M^-1 and runs the textbook CG body.
+
+The PCG bodies are the JAX package's unguarded `_pcg_core`: the
+Chronopoulos-Gear single recurrence, or the textbook recurrence with the
+stagnation exit (`_pcg_core_classic`), as Python loops; each exit test
+reads |rho| and the refuse flag on the host once per iteration.
 """
 
 from __future__ import annotations
@@ -42,6 +52,10 @@ from megba_tpu_torch.solver.precond import (
 
 # Absolute floor for the relative PCG threshold (guards rho0 == 0).
 _TINY_RHO = 1e-30
+# Floor of the relative threshold under the bf16 rung (JAX pcg.py:66-75):
+# a bf16-operand operator does not resolve relative residual energies
+# much below eps_bf16^2.
+_BF16_TOL_FLOOR = 1e-3
 
 
 @dataclasses.dataclass
@@ -77,27 +91,29 @@ def make_coupling_matvecs(
     compute_kind: ComputeKind = ComputeKind.IMPLICIT,
     W: Optional[torch.Tensor] = None,
     fused_kernels: bool = False,
+    bf16_ops: bool = False,
 ) -> MatvecPair:
     """Build hpl(q_pt [pd,Np]) -> [cd,Nc] and hlp(p_cam [cd,Nc]) -> [pd,Np].
 
     IMPLICIT reads only `Jc` (cam-slot order) and `Jp` (pt-slot order,
-    algo/lm.py carries it there): each direction is expand -> cross
-    permute -> reduce, and the expanded [cd]/[pd] per-edge rows never
-    exist.  EXPLICIT reads only `W` (cam-slot order); with
+    algo/lm.py carries it there): unfused, each direction is expand ->
+    cross permute -> reduce, and the expanded [cd]/[pd] per-edge rows
+    never exist.  EXPLICIT reads only `W` (cam-slot order).  With
     `fused_kernels` each direction is one fused kernel and `plans` must
-    carry the fused directions (ops/fused.with_fused_plans).
+    carry the fused directions (ops/fused.with_fused_plans); the rows may
+    then be bfloat16, and `bf16_ops` multiplies them in bfloat16 (the
+    unfused products take float32 / float64 rows only).
     """
-    if compute_kind == ComputeKind.EXPLICIT:
-        if W is None:
-            raise ValueError("EXPLICIT coupling products need the stored "
-                             "W rows (SchurSystem.W)")
-        if fused_kernels:
-            return _fused_explicit_matvecs(W, plans)
-        return _explicit_matvecs(W, plans)
     if fused_kernels:
-        raise NotImplementedError(
-            "fused_kernels with IMPLICIT needs the fused implicit coupling "
-            "kernel (_fused_j_kernel), not ported yet")
+        if plans.fused_to_pt is None or plans.fused_to_cam is None:
+            raise ValueError("fused_kernels needs the fused plans on the "
+                             "dual plans (ops/fused.with_fused_plans; "
+                             "flat_solve plans them)")
+        if compute_kind == ComputeKind.EXPLICIT:
+            return _fused_explicit_matvecs(_need_w(W), plans, bf16_ops)
+        return _fused_implicit_matvecs(Jc, Jp, plans, bf16_ops)
+    if compute_kind == ComputeKind.EXPLICIT:
+        return _explicit_matvecs(_need_w(W), plans)
     ocd, opd = Jc.shape[0], Jp.shape[0]
 
     def hlp(p_cam: torch.Tensor) -> torch.Tensor:
@@ -115,6 +131,13 @@ def make_coupling_matvecs(
         return segtiles.coupling_reduce(Jc, plans.to_cam(u), plans.cam, cd)
 
     return hpl, hlp
+
+
+def _need_w(W: Optional[torch.Tensor]) -> torch.Tensor:
+    if W is None:
+        raise ValueError("EXPLICIT coupling products need the stored "
+                         "W rows (SchurSystem.W)")
+    return W
 
 
 def _explicit_matvecs(W: torch.Tensor, plans: DualPlans) -> MatvecPair:
@@ -139,32 +162,55 @@ def _explicit_matvecs(W: torch.Tensor, plans: DualPlans) -> MatvecPair:
     return hpl, hlp
 
 
-def _fused_explicit_matvecs(W: torch.Tensor, plans: DualPlans) -> MatvecPair:
+def _fused_explicit_matvecs(W: torch.Tensor, plans: DualPlans,
+                            bf16_ops: bool) -> MatvecPair:
     """EXPLICIT, fused (JAX pcg.py:291-303): one kernel per direction.
     W is brought into point-slot order here, once per PCG solve."""
     fp_tp, fp_tc = plans.fused_to_pt, plans.fused_to_cam
-    if fp_tp is None or fp_tc is None:
-        raise ValueError("fused_kernels needs the fused plans on the dual "
-                         "plans (ops/fused.with_fused_plans; flat_solve "
-                         "plans them)")
     W_tp = plans.to_pt(W)
 
     def hlp(p_cam: torch.Tensor) -> torch.Tensor:
-        return fused.fused_coupling_apply(W_tp, p_cam, fp_tp, w_in_major=True)
+        return fused.fused_coupling_apply(W_tp, p_cam, fp_tp, w_in_major=True,
+                                          bf16_operands=bf16_ops)
 
     def hpl(q_pt: torch.Tensor) -> torch.Tensor:
-        return fused.fused_coupling_apply(W, q_pt, fp_tc, w_in_major=False)
+        return fused.fused_coupling_apply(W, q_pt, fp_tc, w_in_major=False,
+                                          bf16_operands=bf16_ops)
 
     return hpl, hlp
 
 
-def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative):
-    """Preconditioned CG (Chronopoulos-Gear single recurrence), unguarded.
+def _fused_implicit_matvecs(Jc: torch.Tensor, Jp: torch.Tensor,
+                            plans: DualPlans, bf16_ops: bool) -> MatvecPair:
+    """IMPLICIT, fused (JAX pcg.py:305-326): one kernel per direction.
+    Each direction reads its input side's rows in the output side's slot
+    order, so Jc goes to point order and Jp to camera order here, once
+    per PCG solve (the permute keeps the rows' dtype)."""
+    fp_tp, fp_tc = plans.fused_to_pt, plans.fused_to_cam
+    Jc_tp = plans.to_pt(Jc)
+    Jp_tc = plans.to_cam(Jp)
+
+    def hlp(p_cam: torch.Tensor) -> torch.Tensor:
+        return fused.fused_coupling_apply_implicit(
+            Jc_tp, Jp, p_cam, fp_tp, bf16_operands=bf16_ops)
+
+    def hpl(q_pt: torch.Tensor) -> torch.Tensor:
+        return fused.fused_coupling_apply_implicit(
+            Jp_tc, Jc, q_pt, fp_tc, bf16_operands=bf16_ops)
+
+    return hpl, hlp
+
+
+def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
+              fused=True):
+    """Preconditioned CG, unguarded (JAX `_pcg_core`).
 
     Exits when |rho| < threshold (absolute `tol`, or `tol` times the RHS
     energy under `tol_relative`), after `max_iter` iterations, or when
     rho exceeds refuse_ratio * min(rho) — then the best iterate is
-    restored.  Returns (x, iterations, rho).
+    restored.  `fused` runs the Chronopoulos-Gear single recurrence
+    (one priming matvec, then one matvec a step); otherwise the textbook
+    body `_pcg_core_classic`.  Returns (x, iterations, rho).
     """
     x = torch.zeros_like(b)
     r = b
@@ -174,6 +220,9 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative):
     threshold = (torch.clamp(tol * rhs_energy.abs(), min=_TINY_RHO)
                  if tol_relative else torch.as_tensor(tol, dtype=b.dtype,
                                                       device=b.device))
+    if not fused:
+        return _pcg_core_classic(matvec, precond, max_iter, threshold,
+                                 refuse_ratio, x, r, u0, rho)
     # Prime the recurrence: p0 = u0, s0 = A p0, alpha0 = rho0 / <p0, A p0>.
     w0 = matvec(u0)
     delta0 = comp_dot(u0, w0)
@@ -203,6 +252,78 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative):
     return torch.where(refused, x_best, x), k, rho
 
 
+def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    return num / torch.where(den == 0, torch.ones_like(den), den)
+
+
+def _pcg_core_classic(matvec, precond, max_iter, threshold, refuse_ratio,
+                      x, r, u0, rho):
+    """The textbook PCG body, unguarded (JAX pcg.py:877-943): s = A p
+    fresh each step, alpha = rho / <p, s>, no priming matvec.  A sign flip
+    of rho = <r, M^-1 r> or delta = <p, A p> (a bf16-operand operator at
+    its resolution) restores the best iterate and stops, as a refused
+    step does."""
+    p = u0
+    rho_min = rho.abs()
+    x_best = x
+    refused = torch.zeros((), dtype=torch.bool, device=x.device)
+    k = 0
+    while k < max_iter and bool((rho.abs() >= threshold) & ~refused):
+        s = matvec(p)
+        delta = comp_dot(p, s)
+        alpha = _safe_div(rho, delta)
+        x = x + alpha * p
+        r = r + (-alpha) * s
+        u = precond(r)
+        rho_new = comp_dot(r, u)
+        beta = _safe_div(rho_new, rho)
+        p = u + beta * p
+        stall = (rho_new < 0) | (delta < 0)
+        refused = stall | (rho_new.abs() > refuse_ratio * rho_min)
+        improved = ~stall & (rho_new.abs() < rho_min)
+        rho_min = torch.where(improved, rho_new.abs(), rho_min)
+        x_best = torch.where(improved, x, x_best)
+        rho = rho_new
+        k += 1
+    return torch.where(refused, x_best, x), k, rho
+
+
+def _equilibrate(system: SchurSystem, Jc, Jp, W, plans: DualPlans,
+                 Hpp_d: torch.Tensor, Hll_d: torch.Tensor,
+                 compute_kind: ComputeKind):
+    """Jacobi (scale-then-cast) equilibration of both precision rungs
+    (JAX pcg.py:1196-1243): with d = diag(damped H)^-1/2, scale Hpp_d and
+    Hll_d symmetrically, g by d, the coupling rows per edge, and cast the
+    scaled rows to bfloat16.  The per-edge scales are `seg_expand`s of d
+    (kernel 5 on the card).  Returns the scaled system's pieces and the
+    scales (d_cam [cd, Nc], d_pt [pd, Np]) that unscale the solution."""
+    cd = Hpp_d.shape[-1]
+    pd = int(round(Hll_d.shape[0] ** 0.5))
+    dc = torch.rsqrt(torch.diagonal(Hpp_d, dim1=-2, dim2=-1))  # [Nc, cd]
+    Hpp_d = Hpp_d * dc[:, :, None] * dc[:, None, :]
+    d_cam = dc.T.contiguous()
+    d_pt = torch.rsqrt(torch.stack([Hll_d[i * (pd + 1)]
+                                    for i in range(pd)]))  # [pd, Np]
+    Hll_d = Hll_d * torch.stack([d_pt[i] * d_pt[j]
+                                 for i in range(pd) for j in range(pd)])
+    g_cam = system.g_cam * d_cam
+    g_pt = system.g_pt * d_pt
+    bf = torch.bfloat16
+    dc_e = segtiles.seg_expand(d_cam, plans.cam)
+    dp_e = segtiles.seg_expand(d_pt, plans.pt)  # pt slots, like Jp
+    if compute_kind == ComputeKind.EXPLICIT:
+        dp_e = plans.to_cam(dp_e)
+        W = torch.stack([W[a * pd + b] * dc_e[a] * dp_e[b]
+                         for a in range(cd) for b in range(pd)]).to(bf)
+    else:
+        od = Jc.shape[0] // cd
+        Jc = torch.stack([Jc[o * cd + a] * dc_e[a]
+                          for o in range(od) for a in range(cd)]).to(bf)
+        Jp = torch.stack([Jp[o * pd + b] * dp_e[b]
+                          for o in range(od) for b in range(pd)]).to(bf)
+    return Hpp_d, Hll_d, g_cam, g_pt, Jc, Jp, W, d_cam, d_pt
+
+
 def schur_pcg_solve(
     system: SchurSystem,
     Jc: Optional[torch.Tensor],
@@ -215,28 +336,50 @@ def schur_pcg_solve(
     tol_relative: bool = False,
     compute_kind: ComputeKind = ComputeKind.IMPLICIT,
     fused_kernels: bool = False,
+    mixed_precision: bool = False,
+    bf16: bool = False,
 ) -> PCGResult:
     """Solve the damped Schur system for (dx_cam, dx_pt), feature-major.
 
     `region` is the LM trust region: damping multiplies the block
     diagonals' diagonals by (1 + 1/region).  EXPLICIT reads the coupling
     from `system.W` and not `Jc`/`Jp` (which may be None then);
-    `fused_kernels` (EXPLICIT only) runs each coupling direction and the
-    block-Jacobi apply as one fused kernel.
+    `fused_kernels` runs each coupling direction and the block-Jacobi
+    apply as one fused kernel.  `mixed_precision` / `bf16` (fused only)
+    solve the equilibrated system with bfloat16 coupling rows, and
+    unscale the solution; `bf16` runs the textbook CG body and floors a
+    relative `tol` at `_BF16_TOL_FLOOR`.
     """
+    if (mixed_precision or bf16) and not fused_kernels:
+        raise NotImplementedError(
+            "mixed_precision / bf16 without fused_kernels are not ported to "
+            "megba_tpu_torch yet (they need the bf16-row arms of "
+            "coupling_expand / coupling_reduce, or the unfused bf16 lowering)")
     Hpp_d = damp_blocks(system.Hpp, region)
-    Hll_inv = block_inv_fm(damp_rows_fm(system.Hll, region))
-    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans, compute_kind, system.W,
-                                     fused_kernels)
+    Hll_d = damp_rows_fm(system.Hll, region)
+    g_cam, g_pt, W = system.g_cam, system.g_pt, system.W
+    equil = mixed_precision or bf16
+    if equil:
+        (Hpp_d, Hll_d, g_cam, g_pt, Jc, Jp, W, d_cam,
+         d_pt) = _equilibrate(system, Jc, Jp, W, plans, Hpp_d, Hll_d,
+                              compute_kind)
+    Hll_inv = block_inv_fm(Hll_d)
+    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans, compute_kind, W,
+                                     fused_kernels, bf16_ops=bf16)
 
     def s_matvec(p: torch.Tensor) -> torch.Tensor:
         # S p = Hpp_d p - Hpl Hll_d^-1 Hlp p
         t = block_matvec_fm(Hll_inv, hlp(p))
         return cam_block_matvec(Hpp_d, p) - hpl(t)
 
-    precond = make_schur_preconditioner(Hpp_d, fused_kernels)
-    v = system.g_cam - hpl(block_matvec_fm(Hll_inv, system.g_pt))
+    precond = make_schur_preconditioner(Hpp_d, fused_kernels, bf16)
+    v = g_cam - hpl(block_matvec_fm(Hll_inv, g_pt))
+    if bf16 and tol_relative:
+        tol = max(tol, _BF16_TOL_FLOOR)
     x, k, rho = _pcg_core(s_matvec, precond, v, max_iter, tol, refuse_ratio,
-                          tol_relative)
-    dx_pt = block_matvec_fm(Hll_inv, system.g_pt - hlp(x))
+                          tol_relative, fused=not bf16)
+    dx_pt = block_matvec_fm(Hll_inv, g_pt - hlp(x))
+    if equil:
+        x = x * d_cam  # back to the original variables
+        dx_pt = dx_pt * d_pt
     return PCGResult(dx_cam=x, dx_pt=dx_pt, iterations=k, rho=rho)

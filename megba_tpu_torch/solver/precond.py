@@ -7,7 +7,11 @@ damped camera blocks Hpp.  The batched 9x9 inverse runs through
 `torch.linalg`, as the JAX package leaves it to XLA.  With
 `fused_kernels` the apply is the block-diagonal kernel
 (`ops.fused.fused_block_diag_apply`) on M^-1 laid out once per solve as
-feature-major rows.
+feature-major rows; under `SolverOption.bf16` those rows are a bfloat16
+copy and the kernel runs its bf16 arm (JAX precond.py:938-947): each
+product rounded to bfloat16, the sums in float32.  That is the Pallas
+kernel's rounding, not `cam_block_matvec_bf16`'s, whose einsum keeps
+exact float32 products.
 """
 
 from __future__ import annotations
@@ -35,15 +39,17 @@ def block_inv(H: torch.Tensor) -> torch.Tensor:
 
 
 def make_schur_preconditioner(
-        Hpp_d: torch.Tensor,
-        fused_kernels: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The JACOBI/HPP apply r [cd, Nc] -> M^-1 r for one PCG solve."""
+        Hpp_d: torch.Tensor, fused_kernels: bool = False,
+        bf16: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The JACOBI/HPP apply r [cd, Nc] -> M^-1 r for one PCG solve;
+    `bf16` (fused only) applies a bfloat16 copy of M^-1."""
     Minv = block_inv(Hpp_d)
     if fused_kernels:
-        Hrows = fused.block_diag_rows(Minv)
+        Hrows = fused.block_diag_rows(Minv.to(torch.bfloat16) if bf16
+                                      else Minv)
 
         def fused_apply(r: torch.Tensor) -> torch.Tensor:
-            return fused.fused_block_diag_apply(Hrows, r)
+            return fused.fused_block_diag_apply(Hrows, r, bf16_operands=bf16)
 
         return fused_apply
 

@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports neither jax nor the JAX package, so it also runs on a GPU machine
-without them: `python -m pytest -m cuda tests/test_torch_cuda.py`.  It
+without them: `python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py` (the repository's conftest imports jax).  It
 skips without a CUDA device (the kernels have no CPU mode); on the CPU
 the plain versions are held to the JAX package by test_torch_segtiles.py,
-test_torch_explicit.py and test_torch_fused.py.
+test_torch_explicit.py, test_torch_fused.py, test_torch_fused_implicit.py
+and test_torch_precision.py.
 """
 
 import numpy as np
@@ -216,3 +218,171 @@ def test_f64_explicit_solve_kernels_match_plain_on_small_scene(
     np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
                                plain.trace.cost[:k].numpy(), rtol=1e-9)
     assert float(kern.cost) < float(kern.initial_cost)
+
+
+def _check_arm(kernel, plain, args, **kw):
+    """A bf16-row arm: two launches bitwise equal, counted, float32 out,
+    and within 1e-5 of the sum of the terms' magnitudes of the plain
+    version (the same per-slot terms, summed per segment in another
+    order)."""
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    ref = plain(*args, **kw)
+    scale = plain(*[a.abs() if isinstance(a, torch.Tensor)
+                    and a.is_floating_point() else a for a in args], **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert bool(((got - ref).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,npt,n", [
+    (12, 2000, 9000),    # cameras block/segment, points thread/segment
+    (4000, 3000, 12000),  # both sides thread/segment
+])
+def test_cuda_fused_implicit_and_precision_arms_match_plain(nc, npt, n):
+    """On the card: the fused implicit coupling apply in both directions
+    at float64, and the bf16-row arms (mixed: upcast before the multiply;
+    bf16: bf16 products) of the implicit and explicit coupling applies
+    and of the block-diagonal apply, each against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    cam_idx, pt_idx = _graph(9, nc, npt, n)
+    _, plans = tseg.make_dual_plans(cam_idx, pt_idx, nc, npt, dev)
+    plans = tfused.with_fused_plans(plans)
+    rng = np.random.default_rng(10)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev)
+
+    Jc, Jp = 0.1 * rand(18, n), 0.1 * rand(6, n)  # cam slot order
+    x_cam, x_pt = rand(9, nc), rand(3, npt)
+    to_pt = (plans.to_pt(Jc), plans.to_pt(Jp), x_cam, plans.fused_to_pt)
+    to_cam = (Jp, Jc, x_pt, plans.fused_to_cam)
+    k7 = (tfused.fused_coupling_apply_implicit,
+          tfused.fused_coupling_apply_implicit_plain)
+    for args in (to_pt, to_cam):
+        _check_kernel(*k7, args)
+
+    def bf16(args):
+        return tuple(a.to(torch.bfloat16) if i < len(args) - 2 else
+                     a.float() if isinstance(a, torch.Tensor) else a
+                     for i, a in enumerate(args))
+
+    W = 0.1 * rand(27, n)
+    A = rand(nc, 9, 9)
+    Hrows = tfused.block_diag_rows(A @ A.transpose(1, 2))
+    for ops in (False, True):
+        for args in (to_pt, to_cam):
+            _check_arm(*k7, bf16(args), bf16_operands=ops)
+        _check_arm(tfused.fused_coupling_apply,
+                   tfused.fused_coupling_apply_plain,
+                   (plans.to_pt(W).to(torch.bfloat16), x_cam.float(),
+                    plans.fused_to_pt, True), bf16_operands=ops)
+        _check_arm(tfused.fused_coupling_apply,
+                   tfused.fused_coupling_apply_plain,
+                   (W.to(torch.bfloat16), x_pt.float(), plans.fused_to_cam,
+                    False), bf16_operands=ops)
+        _check_arm(tfused.fused_block_diag_apply,
+                   tfused.fused_block_diag_apply_plain,
+                   (Hrows.to(torch.bfloat16), x_cam.float()),
+                   bf16_operands=ops)
+
+
+def _small_scene(dtype):
+    from megba_tpu_torch.io.synthetic import make_synthetic_bal
+
+    return make_synthetic_bal(num_cameras=8, num_points=1303,
+                              obs_per_point=225_911 / 65_132, seed=0,
+                              param_noise=1e-2, pixel_noise=0.5, dtype=dtype)
+
+
+def _small_option(dtype, kind, rung=None):
+    """The chip_smoke.py options; a precision rung stops its PCG at 1e-6
+    of the RHS energy (chip_smoke.precision_phase says why)."""
+    from megba_tpu_torch import (AlgoOption, ComputeKind, JacobianMode,
+                                 ProblemOption, SolverOption)
+
+    return ProblemOption(
+        dtype=dtype, compute_kind=ComputeKind[kind],
+        jacobian_mode=JacobianMode.ANALYTICAL,
+        mixed_precision_pcg=rung == "mixed",
+        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15),
+        solver_option=SolverOption(
+            max_iter=30, tol=1e-10 if rung is None else 1e-6,
+            tol_relative=rung is not None, refuse_ratio=1e30,
+            fused_kernels=True, bf16=rung == "bf16"))
+
+
+@pytest.mark.cuda
+def test_f64_implicit_fused_solve_kernels_match_plain_on_small_scene(
+        monkeypatch):
+    """On the card: the 8-camera f64 scene solved IMPLICIT with fused
+    kernels through the kernels and through their plain versions: the
+    same cost trajectory (rtol 1e-9), accept pattern and iteration
+    counts, and two kernel solves bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import flat_solve
+
+    s = _small_scene(np.float64)
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+            _small_option(np.float64, "IMPLICIT"))
+    kernels = [(tseg, "jtj_grad_reduce"), (tseg, "coupling_expand"),
+               (tfused, "fused_coupling_apply_implicit"),
+               (tfused, "fused_block_diag_apply")]
+    before = [getattr(m, n).launches for m, n in kernels]
+    kern = flat_solve(*args, device="cuda")
+    again = flat_solve(*args, device="cuda")
+    after = [getattr(m, n).launches for m, n in kernels]
+    assert all(a > b for a, b in zip(after, before)), (kernels, after)
+    for m, n in kernels:
+        monkeypatch.setattr(m, n, getattr(m, n + "_plain"))
+    plain = flat_solve(*args, device="cuda")
+    k = kern.iterations
+    assert k > 0
+    assert (k, kern.accepted, kern.pcg_iterations) == (
+        plain.iterations, plain.accepted, plain.pcg_iterations)
+    assert torch.equal(kern.trace.accept[:k], plain.trace.accept[:k])
+    assert torch.equal(kern.trace.pcg_iters[:k], plain.trace.pcg_iters[:k])
+    assert torch.equal(kern.trace.cost[:k], again.trace.cost[:k])
+    np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
+                               plain.trace.cost[:k].numpy(), rtol=1e-9)
+    assert float(kern.cost) < float(kern.initial_cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["mixed", "bf16"])
+@pytest.mark.parametrize("kind", ["IMPLICIT", "EXPLICIT"])
+def test_f32_precision_solve_kernels_match_plain_on_small_scene(
+        monkeypatch, kind, rung):
+    """On the card: the 8-camera f32 scene on a precision rung through
+    the kernels and through their plain versions: the first trial cost
+    at rtol 1e-4 (mixed) or 2e-2 (bf16: its recurrence is not linear, so
+    another f32 summation order moves it by ~1e-3; chip_smoke.py
+    FIRST_COST_RTOL), the final cost at rtol 1e-3, both below the
+    initial."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import flat_solve
+
+    s = _small_scene(np.float32)
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+            _small_option(np.float32, kind, rung))
+    kern = flat_solve(*args, device="cuda")
+    for m in (tseg, tfused):
+        for k in m.KERNELS:
+            monkeypatch.setattr(m, k.__name__,
+                                getattr(m, k.__name__ + "_plain"))
+    plain = flat_solve(*args, device="cuda")
+    for res in (kern, plain):
+        assert np.isfinite(float(res.cost))
+        assert float(res.cost) < float(res.initial_cost)
+    np.testing.assert_allclose(float(kern.trace.cost[0]),
+                               float(plain.trace.cost[0]),
+                               rtol=1e-4 if rung == "mixed" else 2e-2)
+    np.testing.assert_allclose(float(kern.cost), float(plain.cost),
+                               rtol=1e-3)

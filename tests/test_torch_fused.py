@@ -161,6 +161,6 @@ def test_fused_matvecs_need_fused_plans():
     with pytest.raises(ValueError, match="with_fused_plans"):
         make_coupling_matvecs(None, None, plans, ComputeKind.EXPLICIT, W,
                               fused_kernels=True)
-    with pytest.raises(NotImplementedError, match="_fused_j_kernel"):
+    with pytest.raises(ValueError, match="with_fused_plans"):
         make_coupling_matvecs(W, W, plans, ComputeKind.IMPLICIT,
                               fused_kernels=True)

@@ -13,30 +13,33 @@ exception ends the run with a non-zero exit code:
 2. the card's name and power limit, as nvidia-smi gives them;
 3. kernels: at the venice shapes, each of the eight kernels on each side
    or direction it runs on (camera d=9, point d=3) at f32, and the
-   bf16-row arms of the fused kernels (mixed: rows upcast before the
-   multiply; bf16: bf16 products, f32 sums) as rows of their own, each
+   bf16-row arms (mixed: rows upcast before the multiply, beside an f32
+   table; mixed64: the same beside an f64 table; bf16: bf16 products, f32
+   sums) of the coupling and fused kernels as rows of their own, each
    against its plain PyTorch version on the same inputs, a bitwise
    repeat, and CUDA-event medians of the kernel, the plain version and,
    where one exists, one PyTorch library call that computes the same
    function (a cuSPARSE CSR product, `torch.segment_reduce`,
    `index_select`, an einsum);
-4. f64: a trafalgar-sized scene solved end to end IMPLICIT, EXPLICIT,
-   EXPLICIT with fused kernels and IMPLICIT with fused kernels, each
-   through the kernels and through the plain versions, both on the card;
-   the two cost trajectories agree at rtol 1e-9 with the same accept
-   pattern and iteration counts;
-5. f32 precision: the same scene at f32 on the four precision-rung paths
-   (IMPLICIT / EXPLICIT fused, mixed / bf16), kernels against plain
-   versions on the card: the first LM iteration's trial cost at rtol
-   1e-4 (mixed) or 2e-2 (bf16, whose recurrence is not linear), the
-   final cost at rtol 1e-3, both finite and below the initial;
+4. f64: a trafalgar-sized scene solved end to end on eight paths
+   (IMPLICIT, EXPLICIT, each unfused and fused, each in full f64 and
+   with mixed_precision_pcg), each through the kernels and through the
+   plain versions, both on the card; the two cost trajectories agree at
+   rtol 1e-9 with the same accept pattern and iteration counts, and the
+   kernel run's launches are exactly what the code implies;
+5. f32 precision: the same scene at f32 on the eight precision-rung
+   paths (IMPLICIT / EXPLICIT, unfused / fused, mixed / bf16), kernels
+   against plain versions on the card: the first LM iteration's trial
+   cost at rtol 1e-4 (mixed) or 2e-2 (bf16, whose recurrence is not
+   linear), the final cost at rtol 1e-3, both finite and below the
+   initial;
 6. venice: the venice configuration (1778 cameras, 993,923 points,
    ~5.0M observations, f32, ANALYTICAL) through `flat_solve`, the port's
    main path, once per path: IMPLICIT, EXPLICIT, EXPLICIT + fused
-   kernels, IMPLICIT + fused kernels, and the four precision-rung paths.
-   Every kernel's launch count is read from its path's run alone and
-   checked against the count the code implies; the final cost must be
-   finite and below the initial.
+   kernels, IMPLICIT + fused kernels, and the eight precision-rung
+   paths.  Every kernel's launch count is read from its path's run alone
+   and checked against the count the code implies; the final cost must
+   be finite and below the initial.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -74,6 +77,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # so |kernel - plain| is held to 1e-5 (~170 f32 ulps) of the sum of the
 # terms' magnitudes, per output.
 F32_REL_TO_ABS_SUM = 1e-5
+# f64 kernel-vs-plain tolerance, the same rule: 1e-12 of the sum of the
+# terms' magnitudes.
+F64_REL_TO_ABS_SUM = 1e-12
 F64_COST_RTOL = 1e-9
 # Precision-rung solves, kernels against plain versions at f32: the first
 # trial cost, per rung, and the final cost (an accept decision may flip
@@ -124,14 +130,35 @@ for _kind in ("IMPLICIT", "EXPLICIT"):
                 "seg_expand", "fused_block_diag_apply",
                 "fused_coupling_apply_implicit" if _kind == "IMPLICIT"
                 else "fused_coupling_apply"))
+for _kind in ("IMPLICIT", "EXPLICIT"):
+    for _rung in ("mixed", "bf16"):
+        PATHS[f"{_kind.lower()}_{_rung}"] = (
+            _kind, False, _rung, _BUILD + (
+                ("seg_expand", "coupling_reduce") if _kind == "IMPLICIT"
+                else ("seg_expand", "seg_reduce")))
+# The f64 phase's paths: the f32/f64 ones and mixed_precision_pcg (bf16
+# is an f32 rung).
+F64_PATHS = [p for p, (_, _, rung, _) in PATHS.items() if rung != "bf16"]
 # The kernel rows of the bf16-row arms, and the venice path whose run
-# gives each its launch count.
+# gives each its launch count (of that arm).
 ARM_PATHS = {
     "fused_coupling_apply_implicit[mixed]": "implicit_fused_mixed",
     "fused_coupling_apply_implicit[bf16]": "implicit_fused_bf16",
     "fused_coupling_apply[mixed]": "explicit_fused_mixed",
     "fused_coupling_apply[bf16]": "explicit_fused_bf16",
     "fused_block_diag_apply[bf16]": "explicit_fused_bf16",
+    "coupling_expand[mixed]": "implicit_mixed",
+    "coupling_reduce[mixed]": "implicit_mixed",
+    "coupling_expand[bf16]": "implicit_bf16",
+    "coupling_reduce[bf16]": "implicit_bf16",
+}
+# The mixed64 rows take theirs from the f64 phase's (trafalgar) run of
+# the path: the venice phase runs f32 only.
+F64_ARM_PATHS = {
+    "coupling_expand[mixed64]": "implicit_mixed",
+    "coupling_reduce[mixed64]": "implicit_mixed",
+    "fused_coupling_apply_implicit[mixed64]": "implicit_fused_mixed",
+    "fused_coupling_apply[mixed64]": "explicit_fused_mixed",
 }
 
 
@@ -163,16 +190,27 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
     """The solve options of a path: an absolute PCG tolerance of 1e-10
     (every solve runs to its iteration cap or stagnation), or with
     `tol_relative` 1e-6 of the RHS energy (floored at 1e-3 on the bf16
-    rung)."""
+    rung).
+
+    Mixed at f64 starts from trust region 1, not 1e3: from 1e3 that
+    rung's trajectory comes, within a few accepted steps, to depend on
+    the last bits of its inputs (a 1e-15 relative change of the
+    observations moves the last trial cost of an 8-camera solve by
+    2.7e-7 through the plain versions alone;
+    scripts/torch_mixed_f64_sensitivity.py), and no two summation orders
+    then agree at `F64_COST_RTOL`.  From region 1 the same change moves
+    no trial cost by more than ~1e-14."""
     from megba_tpu_torch import (AlgoOption, ComputeKind, JacobianMode,
                                  ProblemOption, SolverOption)
 
     kind, fused, rung, _ = PATHS[path]
+    region = 1.0 if rung == "mixed" and dtype == np.float64 else 1e3
     return ProblemOption(
         dtype=dtype, compute_kind=ComputeKind[kind],
         jacobian_mode=JacobianMode.ANALYTICAL,
         mixed_precision_pcg=rung == "mixed",
-        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15),
+        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15,
+                               initial_region=region),
         solver_option=SolverOption(
             max_iter=30, tol=1e-6 if tol_relative else 1e-10,
             tol_relative=tol_relative, refuse_ratio=1e30,
@@ -206,6 +244,14 @@ def launch_counts() -> dict:
     out = {}
     for m in kernel_modules():
         out.update(m.launch_counts())
+    return out
+
+
+def arm_launch_counts() -> dict:
+    """Launches per kernel and arm, {"name[arm]": count}."""
+    out = {}
+    for m in kernel_modules():
+        out.update(m.arm_launch_counts())
     return out
 
 
@@ -385,7 +431,8 @@ def kernel_phase(scene) -> dict:
     # W = Jc^T Jp per edge in camera-slot order and, for the cam -> pt
     # direction, in point-slot order; Jc in point-slot order and Jp in
     # camera-slot order for the fused implicit directions; the damped,
-    # inverted Hpp blocks; bf16 copies of the rows for the precision arms.
+    # inverted Hpp blocks; bf16 copies of the rows for the precision arms,
+    # and f64 copies of the vectors for the mixed64 arms.
     r, Jc, Jp_cam = bal_residual_jacobian_analytical_fm(
         fm(scene.cameras0[scene.cam_idx[perm]]),
         fm(scene.points0[scene.pt_idx[perm]]), fm(scene.obs[perm]))
@@ -407,6 +454,9 @@ def kernel_phase(scene) -> dict:
     b_Jc, b_Jp, b_Jc_tp, b_Jp_cam = (t.to(bf) for t in (Jc, Jp, Jc_tp,
                                                         Jp_cam))
     b_W, b_W_tp, b_Hrows = W.to(bf), W_tp.to(bf), Hrows.to(bf)
+    # W of the bf16 Jacobian rows in f64: what the mixed64 arm of the
+    # implicit kernel applies.
+    w64_j = coupling_rows(b_Jc.double(), b_Jp_cam.double(), 2).contiguous()
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
@@ -416,8 +466,11 @@ def kernel_phase(scene) -> dict:
     x_cam, x_pt = randn(9, nc), randn(3, npt)
     u_cam, u_pt = randn(2, n), randn(2, n)
     d_cam, d_pt = randn(9, n), randn(3, n)
+    f64 = torch.float64
+    x64_cam, x64_pt = x_cam.to(f64), x_pt.to(f64)
+    u64_cam, u64_pt = u_cam.to(f64), u_pt.to(f64)
     to_pt, to_cam = plans.fused_to_pt, plans.fused_to_cam
-    es, bs = 4, 2  # f32 and bf16 bytes
+    es, bs, ds = 4, 2, 8  # f32, bf16 and f64 bytes
     i32, i64 = 4, 8
 
     def lengths(plan, F):
@@ -427,33 +480,39 @@ def kernel_phase(scene) -> dict:
     len_cam, len_pt = lengths(plans.cam, 9), lengths(plans.pt, 3)
 
     def coupling_cases(rows_tp, rows, row_bytes, flops_per_slot, kwargs,
-                       library):
+                       library, lib_w=None):
         """Both directions of a fused coupling kernel: its rows in point
         order (cam -> pt) and in camera order (pt -> cam), each slot
         reading its rows, its input id and the CSR offsets of the output
-        side, the table read once and the output written once."""
-        f32 = library == "f32"
-        spmv = _spmv if f32 else _bf16_spmv
-        w_tp, w = (W_tp, W) if f32 else (b_W_tp, b_W)
-        tol = F32_REL_TO_ABS_SUM if f32 else BF16_LIBRARY_REL_TO_ABS_SUM
+        side, the table read once and the output written once.  The
+        library yardstick's CSR values (`lib_w`, W in point and camera
+        order) and vector are f32, bf16 or (for the mixed64 arm, the
+        same function as the kernel: W from the bf16 rows, in f64)
+        f64."""
+        spmv = _bf16_spmv if library == "bf16" else _spmv
+        w_tp, w = lib_w or {"f32": (W_tp, W), "bf16": (b_W_tp, b_W)}[library]
+        xc, xp, vs = (x64_cam, x64_pt, ds) if library == "f64" else (
+            x_cam, x_pt, es)
+        tol = (BF16_LIBRARY_REL_TO_ABS_SUM if library == "bf16"
+               else F32_REL_TO_ABS_SUM)
         return [
-            _case("cam_to_pt", (*rows_tp, x_cam, to_pt),
-                  row_bytes * n + (9 * nc + 3 * npt) * es + n * i32
+            _case("cam_to_pt", (*rows_tp, xc, to_pt),
+                  row_bytes * n + (9 * nc + 3 * npt) * vs + n * i32
                   + (npt + 1) * i64, n * flops_per_slot,
                   lambda: spmv(_csr_coupling, w_tp, to_pt, 9, True,
-                               vec=x_cam, shape=(3, npt)),
+                               vec=xc, shape=(3, npt)),
                   kwargs, tol),
-            _case("pt_to_cam", (*rows, x_pt, to_cam),
-                  row_bytes * n + (3 * npt + 9 * nc) * es + n * i32
+            _case("pt_to_cam", (*rows, xp, to_cam),
+                  row_bytes * n + (3 * npt + 9 * nc) * vs + n * i32
                   + (nc + 1) * i64, n * flops_per_slot,
                   lambda: spmv(_csr_coupling, w, to_cam, 3, False,
-                               vec=x_pt, shape=(9, nc)),
+                               vec=xp, shape=(9, nc)),
                   kwargs, tol),
         ]
 
-    def w_cases(w_tp, w, elt, kwargs, library):
+    def w_cases(w_tp, w, elt, kwargs, library, lib_w=None):
         out = coupling_cases((w_tp,), (w,), 27 * elt, 2 * 27, kwargs,
-                             library)
+                             library, lib_w)
         out[0]["args"] += (True,)
         out[1]["args"] += (False,)
         for c in out:
@@ -466,6 +525,46 @@ def kernel_phase(scene) -> dict:
                       F32_REL_TO_ABS_SUM if elt == es
                       else BF16_LIBRARY_REL_TO_ABS_SUM)]
 
+    def expand_cases(jc, jp, je, ve, kwargs, library):
+        """coupling_expand on both sides: J rows of `je` bytes, table and
+        u of `ve` bytes; the library yardstick is the expand as one CSR
+        product with values and vector in `library`'s dtype."""
+        spmv = _bf16_spmv if library == "bf16" else _spmv
+        lt = {"f32": torch.float32, "bf16": bf, "f64": f64}[library]
+        xc, xp = (x64_cam, x64_pt) if ve == ds else (x_cam, x_pt)
+        tol = (BF16_LIBRARY_REL_TO_ABS_SUM if library == "bf16"
+               else F32_REL_TO_ABS_SUM)
+        return [
+            _case("cam", (xc, jc, plans.cam, 9),
+                  18 * n * je + (9 * nc + 2 * n) * ve + n * i32, n * 2 * 18,
+                  lambda: spmv(_csr_expand, jc.to(lt), plans.cam.seg, 9, nc,
+                               vec=xc, shape=(2, n)), kwargs, tol),
+            _case("pt", (xp, jp, plans.pt, 3),
+                  6 * n * je + (3 * npt + 2 * n) * ve + n * i32, n * 2 * 6,
+                  lambda: spmv(_csr_expand, jp.to(lt), plans.pt.seg, 3, npt,
+                               vec=xp, shape=(2, n)), kwargs, tol),
+        ]
+
+    def reduce_cases(jc, jp, je, ve, kwargs, library):
+        """coupling_reduce on both sides, as `expand_cases`."""
+        spmv = _bf16_spmv if library == "bf16" else _spmv
+        lt = {"f32": torch.float32, "bf16": bf, "f64": f64}[library]
+        uc, up = (u64_cam, u64_pt) if ve == ds else (u_cam, u_pt)
+        tol = (BF16_LIBRARY_REL_TO_ABS_SUM if library == "bf16"
+               else F32_REL_TO_ABS_SUM)
+        return [
+            _case("cam", (jc, uc, plans.cam, 9),
+                  18 * n * je + (2 * n + 9 * nc) * ve + (nc + 1) * i64,
+                  n * 2 * 18,
+                  lambda: spmv(_csr_reduce, jc.to(lt), plans.cam.seg, 9, nc,
+                               vec=uc, shape=(9, nc)), kwargs, tol),
+            _case("pt", (jp, up, plans.pt, 3),
+                  6 * n * je + (2 * n + 3 * npt) * ve + (npt + 1) * i64,
+                  n * 2 * 6,
+                  lambda: spmv(_csr_reduce, jp.to(lt), plans.pt.seg, 3, npt,
+                               vec=up, shape=(3, npt)), kwargs, tol),
+        ]
+
     implicit_bytes = {es: 24 * es, bs: 24 * bs}
     mixed, bf16 = dict(bf16_operands=False), dict(bf16_operands=True)
     cases = {
@@ -477,28 +576,8 @@ def kernel_phase(scene) -> dict:
                   (8 * n + 12 * npt) * es + (npt + 1) * i64,
                   n * (2 * 2 * 9 + 2 * 2 * 3)),
         ],
-        "coupling_expand": [
-            _case("cam", (x_cam, Jc, plans.cam, 9),
-                  (9 * nc + 18 * n + 2 * n) * es + n * i32, n * 2 * 18,
-                  lambda: _spmv(_csr_expand, Jc, plans.cam.seg, 9, nc,
-                                vec=x_cam, shape=(2, n))),
-            _case("pt", (x_pt, Jp, plans.pt, 3),
-                  (3 * npt + 6 * n + 2 * n) * es + n * i32, n * 2 * 6,
-                  lambda: _spmv(_csr_expand, Jp, plans.pt.seg, 3, npt,
-                                vec=x_pt, shape=(2, n))),
-        ],
-        "coupling_reduce": [
-            _case("cam", (Jc, u_cam, plans.cam, 9),
-                  (18 * n + 2 * n + 9 * nc) * es + (nc + 1) * i64,
-                  n * 2 * 18,
-                  lambda: _spmv(_csr_reduce, Jc, plans.cam.seg, 9, nc,
-                                vec=u_cam, shape=(9, nc))),
-            _case("pt", (Jp, u_pt, plans.pt, 3),
-                  (6 * n + 2 * n + 3 * npt) * es + (npt + 1) * i64,
-                  n * 2 * 6,
-                  lambda: _spmv(_csr_reduce, Jp, plans.pt.seg, 3, npt,
-                                vec=u_pt, shape=(3, npt))),
-        ],
+        "coupling_expand": expand_cases(Jc, Jp, es, es, {}, "f32"),
+        "coupling_reduce": reduce_cases(Jc, Jp, es, es, {}, "f32"),
         "seg_reduce": [
             _case("cam", (d_cam, plans.cam),
                   (9 * n + 9 * nc) * es + (nc + 1) * i64, 9 * n,
@@ -536,6 +615,23 @@ def kernel_phase(scene) -> dict:
         "fused_block_diag_apply[bf16]": block_diag_case(
             b_Hrows, bs, bf16, lambda: lambda: torch.einsum(
                 "nij,jn->in", Minv.to(bf), x_cam.to(bf))),
+        "coupling_expand[mixed]": expand_cases(b_Jc, b_Jp, bs, es, mixed,
+                                               "bf16"),
+        "coupling_expand[mixed64]": expand_cases(b_Jc, b_Jp, bs, ds, mixed,
+                                                 "f64"),
+        "coupling_expand[bf16]": expand_cases(b_Jc, b_Jp, bs, es, bf16,
+                                              "bf16"),
+        "coupling_reduce[mixed]": reduce_cases(b_Jc, b_Jp, bs, es, mixed,
+                                               "bf16"),
+        "coupling_reduce[mixed64]": reduce_cases(b_Jc, b_Jp, bs, ds, mixed,
+                                                 "f64"),
+        "coupling_reduce[bf16]": reduce_cases(b_Jc, b_Jp, bs, es, bf16,
+                                              "bf16"),
+        "fused_coupling_apply_implicit[mixed64]": coupling_cases(
+            (b_Jc_tp, b_Jp), (b_Jp_cam, b_Jc), implicit_bytes[bs], 2 * 24,
+            mixed, "f64", (plans.to_pt(w64_j), w64_j)),
+        "fused_coupling_apply[mixed64]": w_cases(
+            b_W_tp, b_W, bs, mixed, "f64", (b_W_tp.to(f64), b_W.to(f64))),
     }
     rows = {}
     for name, sides in cases.items():
@@ -558,7 +654,9 @@ def kernel_phase(scene) -> dict:
             ref = _flat(plain(*args, **kw))
             scale = _flat(plain(*c["abs_args"], **kw)).abs()
             err = (got - ref).abs()
-            if not bool((err <= F32_REL_TO_ABS_SUM * scale).all()):
+            rel = (F64_REL_TO_ABS_SUM if got.dtype == torch.float64
+                   else F32_REL_TO_ABS_SUM)
+            if not bool((err <= rel * scale).all()):
                 raise AssertionError(
                     f"{name}[{side}]: kernel disagrees with plain version "
                     f"(max |err| {float(err.max()):.3e})")
@@ -568,7 +666,7 @@ def kernel_phase(scene) -> dict:
                 if isinstance(run, str):
                     lib_note = run
                 else:
-                    lib_err = (run().float() - ref).abs()
+                    lib_err = (run().to(ref.dtype) - ref).abs()
                     lib_ok = bool((lib_err <= c["library_tol"] * scale).all())
                     if not lib_ok and c["library_tol"] == F32_REL_TO_ABS_SUM:
                         raise AssertionError(
@@ -584,7 +682,7 @@ def kernel_phase(scene) -> dict:
             p_ms = cuda_ms(lambda: plain(*args, **kw), reps=5)
             nbytes, flops = c["bytes"], c["flops"]
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+            t_ops = flops / PEAK_FLOPS[got.dtype] * 1e3
             bound = max(t_bytes, t_ops)
             by = "bytes" if t_bytes >= t_ops else "operations"
             e_max = float(err.max())
@@ -619,14 +717,15 @@ def kernel_phase(scene) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def f64_phase(scene) -> None:
-    """Each path on the trafalgar-sized f64 scene, kernels against plain
-    versions; the counts are read from each path's kernel run alone."""
+def f64_phase(scene) -> dict:
+    """Each path of `F64_PATHS` on the trafalgar-sized f64 scene, kernels
+    against plain versions; the counts are read from each path's kernel
+    run alone.  Returns each path's launches per kernel arm."""
     from megba_tpu_torch import flat_solve
 
-    for path, (_, _, rung, kernels) in PATHS.items():
-        if rung is not None:  # the precision rungs are f32 (phase 5)
-            continue
+    arm_counts = {}
+    for path in F64_PATHS:
+        kernels = PATHS[path][3]
         opt = solve_option(np.float64, path)
         args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
                 scene.pt_idx, opt)
@@ -636,10 +735,15 @@ def f64_phase(scene) -> None:
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t
         counts = launch_counts()
+        arm_counts[path] = arm_launch_counts()
         skipped = [k for k in kernels if counts[k] == 0]
         if skipped:
             raise AssertionError(
                 f"f64 {path}: the kernel path skipped {skipped}: {counts}")
+        want = expected_launches(path, res_k)
+        if counts != want:
+            raise AssertionError(f"f64 {path}: launches {counts}, the code "
+                                 f"implies {want}")
         with plain_path():
             t = time.perf_counter()
             res_p = flat_solve(*args, device=DEVICE)
@@ -670,7 +774,8 @@ def f64_phase(scene) -> None:
             f"cost {c0:.10e} -> {c1:.10e}, max rel cost gap kernels/plain "
             f"{rel:.3e} (limit {F64_COST_RTOL:g}), accept pattern equal; "
             f"solve {t_k:.2f} s with kernels, {t_p:.2f} s plain; "
-            f"launches {counts}")
+            f"launches {arm_counts[path]} (as the code implies)")
+    return arm_counts
 
 
 # ---------------------------------------------------------------------------
@@ -759,8 +864,8 @@ def expected_launches(path: str, res) -> dict:
         want["fused_coupling_apply_implicit" if kind == "IMPLICIT"
              else "fused_coupling_apply"] = products
         want["fused_block_diag_apply"] = P + L
-        if rung is not None:
-            want["seg_expand"] = 2 * L
+    if rung is not None:
+        want["seg_expand"] += 2 * L
     return want
 
 
@@ -778,6 +883,7 @@ def venice_phase(scene, path: str, profile: bool, ref_cost=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = launch_counts()
+    arms = arm_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     c0, c1 = float(res.initial_cost), float(res.cost)
     skipped = [k for k in PATHS[path][3] if counts[k] == 0]
@@ -803,10 +909,10 @@ def venice_phase(scene, path: str, profile: bool, ref_cost=None):
         f"iterations, flat_solve {wall:.3f} s = {wall / res.iterations:.3f} "
         f"s per LM iteration (planning and transfer included), peak "
         f"memory {peak / 2**30:.3f} GiB, status {res.status}{gap}")
-    log(f"venice {path} launches: {counts} (as the code implies)")
+    log(f"venice {path} launches: {arms} (as the code implies)")
     if profile:
         profile_solve(args, path)
-    return counts, c1
+    return counts, arms, c1
 
 
 def profile_solve(args, path: str) -> None:
@@ -872,18 +978,25 @@ def main() -> int:
 
     venice = make_scene(VENICE, np.float32)
     rows = kernel_phase(venice)
-    f64_phase(make_scene(TRAFALGAR, np.float64))
+    f64_counts = f64_phase(make_scene(TRAFALGAR, np.float64))
+    for row, arm_path in F64_ARM_PATHS.items():
+        rows[row]["launches"] = f64_counts[arm_path].get(row, 0)
     precision_phase(make_scene(TRAFALGAR, np.float32))
     ref_cost = None
     for path, (_, _, rung, kernels_of_path) in PATHS.items():
-        counts, cost = venice_phase(venice, path, opts.profile, ref_cost)
+        counts, arms, cost = venice_phase(venice, path, opts.profile,
+                                          ref_cost)
         ref_cost = cost if ref_cost is None else ref_cost
         for name in kernels_of_path:  # the first f32 path that runs it
             if rung is None and rows[name]["launches"] is None:
                 rows[name]["launches"] = counts[name]
         for row, arm_path in ARM_PATHS.items():
             if arm_path == path:
-                rows[row]["launches"] = counts[base_name(row)]
+                rows[row]["launches"] = arms.get(row, 0)
+    missing = [r["name"] for r in rows.values() if not r["launches"]]
+    if missing:
+        raise AssertionError(f"kernel rows never launched on their "
+                             f"path: {missing}")
 
     log(smi)
     log(json.dumps({"kernels": list(rows.values())}))

@@ -202,10 +202,11 @@ DTYPE_TO_TORCH = {
 def _unported(name: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"{name}={value!r} is not ported to megba_tpu_torch yet; the port "
-        "runs the LM + Schur PCG path (IMPLICIT or EXPLICIT, with or "
-        "without fused kernels; the bf16 and mixed-precision rungs on the "
-        "fused kernels) with ANALYTICAL Jacobians, block-Jacobi (HPP) "
-        "preconditioning and no guards")
+        "runs the single-device LM + Schur PCG path (IMPLICIT or EXPLICIT, "
+        "with or without fused kernels, at float32 or float64, on every "
+        "rung of the precision ladder but bf16_collectives) with "
+        "ANALYTICAL Jacobians, block-Jacobi (HPP) preconditioning and no "
+        "guards")
 
 
 def validate_options(option: ProblemOption) -> None:
@@ -251,20 +252,6 @@ def validate_options(option: ProblemOption) -> None:
     for name, value, supported in unported:
         if value != supported:
             raise _unported(name, value)
-    for name, on in (("solver_option.bf16", so.bf16),
-                     ("mixed_precision_pcg", option.mixed_precision_pcg)):
-        if on and not so.fused_kernels:
-            raise NotImplementedError(
-                f"{name}=True without solver_option.fused_kernels is not "
-                "ported to megba_tpu_torch yet: the unfused precision rungs "
-                "need the bf16-row arms of coupling_expand / coupling_reduce "
-                "and the unfused bf16 lowering; set fused_kernels=True")
-    if option.mixed_precision_pcg and np.dtype(option.dtype) != np.float32:
-        raise NotImplementedError(
-            "mixed_precision_pcg=True with dtype="
-            f"{np.dtype(option.dtype).name} is not ported to "
-            "megba_tpu_torch yet: the fused kernels take bfloat16 rows "
-            "beside a float32 table only; solve float32")
 
 
 def _validate_precision(option: ProblemOption) -> None:

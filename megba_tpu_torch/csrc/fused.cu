@@ -52,23 +52,11 @@
 // than per camera (1778 threads, 7 blocks on 7 of 132 SMs) keeps the
 // loads' latency from adding to that.
 //
-// Precision arms (the JAX kernels' `_contract_rows` / `_acc_dtype`
-// contract, fused.py:321-384).  The accumulator and output type T is
-// float or double; the stored rows have type R:
-//   kFull  R = T: float x float or double x double products;
-//   kMixed R = __nv_bfloat16, T = float: each row value is upcast and the
-//          product taken in float (ProblemOption.mixed_precision_pcg);
-//   kBf16  R = __nv_bfloat16, T = float: the gathered table value (and,
-//          in the implicit product, each u) is rounded to bf16 and every
-//          product row * x is rounded to bf16 once, then upcast
-//          (SolverOption.bf16).  The float product of two bf16 values is
-//          exact, so __fmul_rn followed by __float2bfloat16_rn rounds
-//          exactly once, as a bf16 multiply does.
-// Within a slot, sums are taken in ascending index order starting from the
-// first term; in the bf16 arm no product can be contracted into an FMA, so
-// every per-slot term is bitwise the plain PyTorch version's and only the
-// segment-sum order differs.  The bf16 rows halve the bytes each slot
-// reads, the bound's dominant term.
+// Precision arms (precision.cuh): the coupling applies take f32, f64,
+// mixed (bf16 rows, f32 table), mixed64 (bf16 rows, f64 table) and bf16
+// (bf16 products) arms; the block-diagonal apply all but mixed64 (the
+// mixed rungs apply M^-1 in the table's dtype).  The bf16 rows halve the
+// bytes each slot reads, the bound's dominant term.
 //
 // Determinism: no atomics; every output is formed by one thread, or by one
 // block in a fixed order (segreduce.cuh), so results are bitwise repeatable
@@ -79,44 +67,10 @@
 // returns cudaGetLastError() after its launch (0 on success), or
 // cudaErrorInvalidValue for a block shape or arm it was not built for.
 
-#include <cuda_bf16.h>
-
+#include "precision.cuh"
 #include "segreduce.cuh"
 
 namespace {
-
-// Arm codes, shared with ops/fused.py (`_ARMS`).
-enum Arm : int { kF32 = 0, kF64 = 1, kMixed = 2, kBf16 = 3 };
-
-__device__ __forceinline__ float upcast(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float upcast(float v) { return v; }
-__device__ __forceinline__ double upcast(double v) { return v; }
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// The vector operand of a product: rounded to bf16 in the bf16 arm.
-template <bool BF16, typename T>
-__device__ __forceinline__ T operand(T v) {
-  if constexpr (BF16) {
-    return round_bf16(v);
-  } else {
-    return v;
-  }
-}
-
-// One product row * x in the arm's arithmetic.
-template <bool BF16, typename T, typename R>
-__device__ __forceinline__ T product(R row, T x) {
-  if constexpr (BF16) {
-    return round_bf16(__fmul_rn(upcast(row), x));
-  } else {
-    return static_cast<T>(upcast(row)) * x;
-  }
-}
 
 // Per-slot term of one explicit fused direction: gather the input
 // vertex's DIN values, contract with the slot's W block, add the DOUT
@@ -300,6 +254,9 @@ int megba_fused_coupling_apply(int arm, int d_in, int d_out, int w_in_major,
     case kBf16:
       return w_directions<float, __nv_bfloat16, true>(d_in, d_out,
                                                       w_in_major, W, l);
+    case kMixed64:
+      return w_directions<double, __nv_bfloat16, false>(d_in, d_out,
+                                                        w_in_major, W, l);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -328,6 +285,9 @@ int megba_fused_implicit_apply(int arm, int d_in, int d_out, const void* Jin,
     case kBf16:
       return j_directions<float, __nv_bfloat16, true>(d_in, d_out, Jin, Jout,
                                                       l);
+    case kMixed64:
+      return j_directions<double, __nv_bfloat16, false>(d_in, d_out, Jin,
+                                                        Jout, l);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -36,6 +36,20 @@
 // gathers read a vertex table that stays in the 50 MB L2 (cameras 64 KB,
 // points 12 MB at venice, f32).
 //
+// Precision arms of the two coupling kernels (precision.cuh), after the
+// JAX package's unfused lowering of each rung: f32 and f64; mixed (bf16 J
+// rows beside an f32 table or u, upcast before each multiply, as the
+// Pallas kernels' `.astype(jnp.float32)` at segtiles.py:599 and :646);
+// mixed64 (the same beside an f64 table, sums in double: the XLA `up`
+// lowering of mixed_precision_pcg at float64); bf16 (bf16 products with
+// f32 sums, `_edge_precision`'s `vec` / `acc` casts).  In the bf16 arm
+// coupling_expand rounds the gathered table values to bf16, sums the two
+// residual rows' bf16 products in f32 and stores u rounded to bf16 in an
+// f32 array (the output keeps the accumulator's dtype, so the cross
+// permute between the kernels is unchanged); coupling_reduce rounds u on
+// read, which leaves such a u as it is.  The bf16 rows halve the J bytes,
+// the dominant term of both kernels' bound.
+//
 // Every entry point first peeks at the CUDA error state: an error left
 // by an earlier launch (of any kernel) is returned negated, without
 // launching, so the wrapper does not report it as its own.  Otherwise it
@@ -43,6 +57,7 @@
 // cudaErrorInvalidValue for a block shape it was not built for; the
 // Python wrapper raises on any non-zero code.
 
+#include "precision.cuh"
 #include "segreduce.cuh"
 
 namespace {
@@ -84,22 +99,24 @@ struct JtjRows {
 };
 
 // Per-edge rows of J^T u (D values): the reduce half of a coupling product.
-template <typename T, int OD, int D>
+template <typename T, typename R, bool BF16, int OD, int D>
 struct JtuRows {
   static constexpr int F = D;
-  const T* __restrict__ J;  // [OD*D, n]
+  const R* __restrict__ J;  // [OD*D, n]
   const T* __restrict__ u;  // [OD, n]
   int64_t n;
 
   __device__ __forceinline__ void add(int64_t e, T* acc) const {
     T uu[OD];
 #pragma unroll
-    for (int o = 0; o < OD; ++o) uu[o] = u[o * n + e];
+    for (int o = 0; o < OD; ++o) uu[o] = operand<BF16>(u[o * n + e]);
 #pragma unroll
     for (int b = 0; b < D; ++b) {
-      T t = J[b * n + e] * uu[0];
+      T t = product<BF16>(J[b * n + e], uu[0]);
 #pragma unroll
-      for (int o = 1; o < OD; ++o) t += J[(o * D + b) * n + e] * uu[o];
+      for (int o = 1; o < OD; ++o) {
+        t += product<BF16>(J[(o * D + b) * n + e], uu[o]);
+      }
       acc[b] += t;
     }
   }
@@ -107,9 +124,9 @@ struct JtuRows {
 
 // One thread per edge slot: gather the segment's D-row vertex vector and
 // take the OD x D per-edge matvec u = J_e x[seg(e)].
-template <typename T, int OD, int D>
+template <typename T, typename R, bool BF16, int OD, int D>
 __global__ void __launch_bounds__(kBlock)
-expand_matvec(const T* __restrict__ table, const T* __restrict__ J,
+expand_matvec(const T* __restrict__ table, const R* __restrict__ J,
               const int32_t* __restrict__ seg, T* __restrict__ u, int64_t n,
               int64_t num_segments) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
@@ -117,13 +134,17 @@ expand_matvec(const T* __restrict__ table, const T* __restrict__ J,
   const int64_t s = seg[e];
   T x[D];
 #pragma unroll
-  for (int a = 0; a < D; ++a) x[a] = table[a * num_segments + s];
+  for (int a = 0; a < D; ++a) {
+    x[a] = operand<BF16>(table[a * num_segments + s]);
+  }
 #pragma unroll
   for (int o = 0; o < OD; ++o) {
-    T t = J[(o * D) * n + e] * x[0];
+    T t = product<BF16>(J[(o * D) * n + e], x[0]);
 #pragma unroll
-    for (int a = 1; a < D; ++a) t += J[(o * D + a) * n + e] * x[a];
-    u[o * n + e] = t;
+    for (int a = 1; a < D; ++a) {
+      t += product<BF16>(J[(o * D + a) * n + e], x[a]);
+    }
+    u[o * n + e] = operand<BF16>(t);
   }
 }
 
@@ -145,46 +166,49 @@ int jtj_typed(int od, int d, const void* J, const void* r,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, typename R, bool BF16>
 int reduce_typed(int od, int d, const void* J, const void* u,
                  const int64_t* seg_ptr, void* out, int64_t n,
                  int64_t num_segments, int per_thread, cudaStream_t stream) {
-  const T* Jt = static_cast<const T*>(J);
+  const R* Jt = static_cast<const R*>(J);
   const T* ut = static_cast<const T*>(u);
   T* o = static_cast<T*>(out);
   if (od == 2 && d == 9) {
-    return launch_reduce<T>(JtuRows<T, 2, 9>{Jt, ut, n}, seg_ptr, o,
+    return launch_reduce<T>(JtuRows<T, R, BF16, 2, 9>{Jt, ut, n}, seg_ptr, o,
                             num_segments, per_thread, stream);
   }
   if (od == 2 && d == 3) {
-    return launch_reduce<T>(JtuRows<T, 2, 3>{Jt, ut, n}, seg_ptr, o,
+    return launch_reduce<T>(JtuRows<T, R, BF16, 2, 3>{Jt, ut, n}, seg_ptr, o,
                             num_segments, per_thread, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int OD, int D>
+template <typename T, typename R, bool BF16, int OD, int D>
 int launch_expand(const void* table, const void* J, const int32_t* seg,
                   void* u, int64_t n, int64_t num_segments,
                   cudaStream_t stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int64_t grid = (n + kBlock - 1) / kBlock;
   if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
-  expand_matvec<T, OD, D><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-      static_cast<const T*>(table), static_cast<const T*>(J), seg,
-      static_cast<T*>(u), n, num_segments);
+  expand_matvec<T, R, BF16, OD, D>
+      <<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
+          static_cast<const T*>(table), static_cast<const R*>(J), seg,
+          static_cast<T*>(u), n, num_segments);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename R, bool BF16>
 int expand_typed(int od, int d, const void* table, const void* J,
                  const int32_t* seg, void* u, int64_t n, int64_t num_segments,
                  cudaStream_t stream) {
   if (od == 2 && d == 9) {
-    return launch_expand<T, 2, 9>(table, J, seg, u, n, num_segments, stream);
+    return launch_expand<T, R, BF16, 2, 9>(table, J, seg, u, n, num_segments,
+                                           stream);
   }
   if (od == 2 && d == 3) {
-    return launch_expand<T, 2, 3>(table, J, seg, u, n, num_segments, stream);
+    return launch_expand<T, R, BF16, 2, 3>(table, J, seg, u, n, num_segments,
+                                           stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -273,29 +297,59 @@ int megba_jtj_grad_reduce(int is_double, int od, int d, const void* J,
                                       num_segments, per_thread, st);
 }
 
-// u [od, n] = per edge: J_e table[:, seg(e)].
-int megba_coupling_expand(int is_double, int od, int d, const void* table,
+// u [od, n] = per edge: J_e table[:, seg(e)], in the arm's arithmetic.
+int megba_coupling_expand(int arm, int od, int d, const void* table,
                           const void* J, const int32_t* seg, void* u,
                           int64_t n, int64_t num_segments, void* stream) {
   if (const int prior = pending_error()) return prior;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? expand_typed<double>(od, d, table, J, seg, u, n,
-                                          num_segments, st)
-                   : expand_typed<float>(od, d, table, J, seg, u, n,
-                                         num_segments, st);
+  switch (arm) {
+    case kF32:
+      return expand_typed<float, float, false>(od, d, table, J, seg, u, n,
+                                               num_segments, st);
+    case kF64:
+      return expand_typed<double, double, false>(od, d, table, J, seg, u, n,
+                                                 num_segments, st);
+    case kMixed:
+      return expand_typed<float, __nv_bfloat16, false>(od, d, table, J, seg,
+                                                       u, n, num_segments, st);
+    case kBf16:
+      return expand_typed<float, __nv_bfloat16, true>(od, d, table, J, seg, u,
+                                                      n, num_segments, st);
+    case kMixed64:
+      return expand_typed<double, __nv_bfloat16, false>(
+          od, d, table, J, seg, u, n, num_segments, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// out [d, nS] = per segment: sum_e J_e^T u_e.
-int megba_coupling_reduce(int is_double, int od, int d, const void* J,
+// out [d, nS] = per segment: sum_e J_e^T u_e, in the arm's arithmetic.
+int megba_coupling_reduce(int arm, int od, int d, const void* J,
                           const void* u, const int64_t* seg_ptr, void* out,
                           int64_t n, int64_t num_segments, int per_thread,
                           void* stream) {
   if (const int prior = pending_error()) return prior;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? reduce_typed<double>(od, d, J, u, seg_ptr, out, n,
-                                          num_segments, per_thread, st)
-                   : reduce_typed<float>(od, d, J, u, seg_ptr, out, n,
-                                         num_segments, per_thread, st);
+  switch (arm) {
+    case kF32:
+      return reduce_typed<float, float, false>(od, d, J, u, seg_ptr, out, n,
+                                               num_segments, per_thread, st);
+    case kF64:
+      return reduce_typed<double, double, false>(
+          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+    case kMixed:
+      return reduce_typed<float, __nv_bfloat16, false>(
+          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+    case kBf16:
+      return reduce_typed<float, __nv_bfloat16, true>(
+          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+    case kMixed64:
+      return reduce_typed<double, __nv_bfloat16, false>(
+          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // out [F, nS] = per segment: the sum of its slots' F-value rows.

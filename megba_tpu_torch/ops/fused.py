@@ -31,18 +31,20 @@ W keeps the JAX layout: row a*pd + b holds (Jc^T Jp)[a, b] of each
 edge, a the camera dimension and b the point dimension.  The implicit
 product reads Jin rows o*d_in + a and Jout rows o*d_out + b (od = 2).
 
-Precision (the JAX kernels' `_contract_rows` / `_acc_dtype`): the table
-is float32 or float64 and the output has the table's type.  The rows
-have the table's type, or are bfloat16 beside a float32 table.  With
+Precision (the JAX kernels' `_contract_rows` / `_acc_dtype`; the arms
+of ops/kernels.ARMS): the table is float32 or float64 and the output has
+the table's type.  The rows have the table's type, or are bfloat16
+beside a float32 or (coupling applies only) float64 table.  With
 bfloat16 rows, `bf16_operands=False` upcasts each row value before the
-multiply (`mixed_precision_pcg`); `bf16_operands=True` rounds the
-gathered vector to bfloat16 and each product to bfloat16, then sums in
-float32 (`SolverOption.bf16`; the implicit product also rounds u).
+multiply (`mixed_precision_pcg`, at float32 or float64);
+`bf16_operands=True` (float32 only) rounds the gathered vector to
+bfloat16 and each product to bfloat16, then sums in float32
+(`SolverOption.bf16`; the implicit product also rounds u).
 
 Each kernel has a plain PyTorch version (`*_plain`) in this module.  The
 wrapper takes it only for tensors on the CPU; for CUDA tensors it
 launches the kernel (`csrc/fused.cu`) or raises, and adds one to its
-`launches` count per launch.
+`launches` count (and to its arm's, `arm_launches`) per launch.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ import torch
 
 from megba_tpu_torch.ops import kernels as _kernels
 from megba_tpu_torch.ops import segtiles
-from megba_tpu_torch.ops.segtiles import DualPlans, SegPlan
+from megba_tpu_torch.ops.segtiles import (DualPlans, SegPlan, contract,
+                                          operand)
 
 # (d_in, d_out, w_in_major) the CUDA coupling kernel is built for: the
 # BAL camera (9) and point (3) blocks, one entry per direction.
@@ -96,24 +99,6 @@ def _w_row(a: int, b: int, d_in: int, d_out: int, w_in_major: bool) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _contract(rows, vec, acc_dtype: torch.dtype, bf16_operands: bool):
-    """sum_k rows[k] * vec[k] in the accumulator dtype, in ascending k
-    from the first term.  The bf16 arm rounds each product to bfloat16
-    (its operands already are); otherwise each row is upcast first."""
-    out = None
-    for row, v in zip(rows, vec):
-        t = row.to(acc_dtype) * v
-        if bf16_operands:
-            t = t.to(torch.bfloat16).to(acc_dtype)
-        out = t if out is None else out + t
-    return out
-
-
-def _operand(x: torch.Tensor, bf16_operands: bool) -> torch.Tensor:
-    """The vector operand: rounded to bfloat16 in the bf16 arm."""
-    return x.to(torch.bfloat16).to(x.dtype) if bf16_operands else x
-
-
 def fused_coupling_apply_plain(W: torch.Tensor, table: torch.Tensor,
                                fplan: FusedPlan, w_in_major: bool,
                                bf16_operands: bool = False) -> torch.Tensor:
@@ -121,10 +106,10 @@ def fused_coupling_apply_plain(W: torch.Tensor, table: torch.Tensor,
     segment-sum onto the output vertices."""
     d_in = table.shape[0]
     d_out = W.shape[0] // d_in
-    pe = _operand(table.index_select(1, fplan.in_idx), bf16_operands)
+    pe = operand(table.index_select(1, fplan.in_idx), bf16_operands)
     te = torch.stack([
-        _contract([W[_w_row(a, b, d_in, d_out, w_in_major)]
-                   for a in range(d_in)], pe, table.dtype, bf16_operands)
+        contract([W[_w_row(a, b, d_in, d_out, w_in_major)]
+                  for a in range(d_in)], pe, table.dtype, bf16_operands)
         for b in range(d_out)])
     return segtiles.seg_reduce_plain(te, fplan.out)
 
@@ -138,13 +123,13 @@ def fused_coupling_apply_implicit_plain(
     od = Jin.shape[0] // d_in
     d_out = Jout.shape[0] // od
     acc = table.dtype
-    pe = _operand(table.index_select(1, fplan.in_idx), bf16_operands)
-    u = [_operand(_contract(Jin[o * d_in:(o + 1) * d_in], pe, acc,
-                            bf16_operands), bf16_operands)
+    pe = operand(table.index_select(1, fplan.in_idx), bf16_operands)
+    u = [operand(contract(Jin[o * d_in:(o + 1) * d_in], pe, acc,
+                          bf16_operands), bf16_operands)
          for o in range(od)]
     te = torch.stack([
-        _contract([Jout[o * d_out + b] for o in range(od)], u, acc,
-                  bf16_operands)
+        contract([Jout[o * d_out + b] for o in range(od)], u, acc,
+                 bf16_operands)
         for b in range(d_out)])
     return segtiles.seg_reduce_plain(te, fplan.out)
 
@@ -160,9 +145,9 @@ def fused_block_diag_apply_plain(Hrows: torch.Tensor, x: torch.Tensor,
                                  bf16_operands: bool = False) -> torch.Tensor:
     """[d, Nc]: out[i, c] = sum_j Hrows[i*d+j, c] * x[j, c]."""
     d = x.shape[0]
-    xs = _operand(x, bf16_operands)
-    return torch.stack([_contract(Hrows[i * d:(i + 1) * d], xs, x.dtype,
-                                  bf16_operands)
+    xs = operand(x, bf16_operands)
+    return torch.stack([contract(Hrows[i * d:(i + 1) * d], xs, x.dtype,
+                                 bf16_operands)
                         for i in range(d)])
 
 
@@ -182,43 +167,13 @@ _SIGNATURES = {
     "megba_error_string": (ctypes.c_char_p, [_I]),
 }
 KERNEL_SOURCES = ("fused",)
-# Arm codes of csrc/fused.cu: (row dtype, table dtype, bf16_operands).
-_ARMS = {
-    (torch.float32, torch.float32, False): 0,
-    (torch.float64, torch.float64, False): 1,
-    (torch.bfloat16, torch.float32, False): 2,
-    (torch.bfloat16, torch.float32, True): 3,
-}
+# The block-diagonal apply has no mixed64 arm: the mixed rungs apply M^-1
+# in the table's dtype.
+_BLOCK_DIAG_ARMS = _kernels.ALL_ARMS - {"mixed64"}
 
 
 def _lib() -> ctypes.CDLL:
     return _kernels.load_library("fused", _SIGNATURES)
-
-
-def _check_operands(name: str, table: torch.Tensor, bf16_operands: bool,
-                    **rows: torch.Tensor) -> int:
-    """Validate a fused kernel's operands on either device: one device,
-    contiguous, a float32 or float64 table (or vector) and rows of its
-    dtype, or bfloat16 rows beside a float32 table; `bf16_operands`
-    needs the bfloat16 rows.  Returns the arm code of csrc/fused.cu."""
-    dev = table.device
-    for k, t in (("table", table), *rows.items()):
-        if t.device != dev:
-            raise ValueError(f"{name}: {k} is on {t.device}, expected {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {k} must be contiguous")
-    dtypes = {t.dtype for t in rows.values()}
-    arm = _ARMS.get((dtypes.pop(), table.dtype, bool(bf16_operands))
-                    if len(dtypes) == 1 else None)
-    if arm is None:
-        got = ", ".join(f"{k} {t.dtype}" for k, t in
-                        (("table", table), *rows.items()))
-        raise TypeError(
-            f"{name}: dtype {got} with bf16_operands={bool(bf16_operands)}; "
-            "the rows must share the table's float32 or float64 dtype, or be "
-            "bfloat16 beside a float32 table (bf16_operands needs bfloat16 "
-            "rows)")
-    return arm
 
 
 def _check_plan(name: str, fplan: FusedPlan, n: int,
@@ -247,7 +202,8 @@ def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
         raise ValueError(
             f"fused_coupling_apply: W {tuple(W.shape)}, table "
             f"{tuple(table.shape)} and {n} plan slots disagree")
-    arm = _check_operands("fused_coupling_apply", table, bf16_operands, W=W)
+    arm_code, arm = _kernels.check_arm("fused_coupling_apply", table,
+                                       bf16_operands, W=W)
     dev = table.device
     shape = (d_in, d_out, bool(w_in_major))
     if dev.type == "cuda" and shape not in SUPPORTED_DIRECTIONS:
@@ -262,13 +218,13 @@ def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
                       device=dev)
     with torch.cuda.device(dev):
         code = _lib().megba_fused_coupling_apply(
-            arm, d_in, d_out, int(w_in_major), W.data_ptr(),
+            arm_code, d_in, d_out, int(w_in_major), W.data_ptr(),
             table.data_ptr(), fplan.in_idx.data_ptr(),
             fplan.out.seg_ptr.data_ptr(), out.data_ptr(), n, fplan.num_in,
             fplan.out.num_segments, int(fplan.out.per_thread),
             _kernels.current_stream(dev))
     _kernels.raise_on(_lib(), code, "fused_coupling_apply")
-    fused_coupling_apply.launches += 1
+    _kernels.count_launch(fused_coupling_apply, arm)
     return out
 
 
@@ -292,8 +248,9 @@ def fused_coupling_apply_implicit(Jin: torch.Tensor, Jout: torch.Tensor,
             f"fused_coupling_apply_implicit: Jin {tuple(Jin.shape)}, Jout "
             f"{tuple(Jout.shape)}, table {tuple(table.shape)} and {n} plan "
             "slots disagree")
-    arm = _check_operands("fused_coupling_apply_implicit", table,
-                          bf16_operands, Jin=Jin, Jout=Jout)
+    arm_code, arm = _kernels.check_arm("fused_coupling_apply_implicit",
+                                       table, bf16_operands, Jin=Jin,
+                                       Jout=Jout)
     dev = table.device
     shape = (d_in, d_out, od)
     if dev.type == "cuda" and shape not in SUPPORTED_IMPLICIT:
@@ -308,13 +265,13 @@ def fused_coupling_apply_implicit(Jin: torch.Tensor, Jout: torch.Tensor,
                       device=dev)
     with torch.cuda.device(dev):
         code = _lib().megba_fused_implicit_apply(
-            arm, d_in, d_out, Jin.data_ptr(), Jout.data_ptr(),
+            arm_code, d_in, d_out, Jin.data_ptr(), Jout.data_ptr(),
             table.data_ptr(), fplan.in_idx.data_ptr(),
             fplan.out.seg_ptr.data_ptr(), out.data_ptr(), n, fplan.num_in,
             fplan.out.num_segments, int(fplan.out.per_thread),
             _kernels.current_stream(dev))
     _kernels.raise_on(_lib(), code, "fused_coupling_apply_implicit")
-    fused_coupling_apply_implicit.launches += 1
+    _kernels.count_launch(fused_coupling_apply_implicit, arm)
     return out
 
 
@@ -327,8 +284,9 @@ def fused_block_diag_apply(Hrows: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"fused_block_diag_apply: Hrows "
                          f"{tuple(Hrows.shape)} and x {tuple(x.shape)} "
                          "disagree")
-    arm = _check_operands("fused_block_diag_apply", x, bf16_operands,
-                          Hrows=Hrows)
+    arm_code, arm = _kernels.check_arm("fused_block_diag_apply", x,
+                                       bf16_operands, _BLOCK_DIAG_ARMS,
+                                       Hrows=Hrows)
     dev = x.device
     if dev.type == "cuda" and d not in SUPPORTED_BLOCK_DIAG:
         raise NotImplementedError(
@@ -339,23 +297,29 @@ def fused_block_diag_apply(Hrows: torch.Tensor, x: torch.Tensor,
     out = torch.empty((d, nc), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         code = _lib().megba_block_diag_apply(
-            arm, d, Hrows.data_ptr(), x.data_ptr(), out.data_ptr(), nc,
+            arm_code, d, Hrows.data_ptr(), x.data_ptr(), out.data_ptr(), nc,
             _kernels.current_stream(dev))
     _kernels.raise_on(_lib(), code, "fused_block_diag_apply")
-    fused_block_diag_apply.launches += 1
+    _kernels.count_launch(fused_block_diag_apply, arm)
     return out
 
 
 KERNELS = (fused_coupling_apply, fused_coupling_apply_implicit,
            fused_block_diag_apply)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    _kernels.reset_counts(KERNELS)
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def arm_launch_counts() -> dict:
+    """Launches per kernel and precision arm, as {"name[arm]": count}."""
+    return {f"{k.__name__}[{arm}]": n for k in KERNELS
+            for arm, n in k.arm_launches.items()}

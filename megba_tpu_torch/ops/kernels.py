@@ -18,6 +18,11 @@ launcher first peeks at the error state and returns an error pending
 from an earlier launch negated, without launching, so the wrapper names
 it as not its own.
 
+The precision arms of the coupling kernels (`csrc/precision.cuh`) are
+named here once: `ARMS` maps (row dtype, vector dtype, bf16_operands)
+to the arm code the C entry points take, and `check_arm` validates a
+call's operands against it.
+
 Nothing here runs at import time: this module is imported on machines
 without `nvcc` or a card, where only the plain PyTorch versions run.
 A failed build raises; nothing falls back.
@@ -32,6 +37,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -131,9 +138,67 @@ def raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
 
 
+def count_launch(kernel, arm: str) -> None:
+    """Count one launch of a kernel wrapper: its total (`launches`) and
+    that of the arm it launched (`arm_launches`)."""
+    kernel.launches += 1
+    kernel.arm_launches[arm] = kernel.arm_launches.get(arm, 0) + 1
+
+
+def reset_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+        k.arm_launches = {}
+
+
+def dtype_arm(dtype: torch.dtype) -> str:
+    """The arm name of a kernel that takes one float dtype."""
+    return "f64" if dtype == torch.float64 else "f32"
+
+
 def current_stream(dev) -> int:
     """The handle of PyTorch's current stream on CUDA device `dev`, the
     stream every launcher enqueues on."""
-    import torch
-
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# Arm codes of csrc/precision.cuh: (row dtype, vector dtype, bf16_operands)
+# -> (code, name).  The vector (a gathered table, or u) sets the
+# accumulator and output dtype.
+ARMS = {
+    (torch.float32, torch.float32, False): (0, "f32"),
+    (torch.float64, torch.float64, False): (1, "f64"),
+    (torch.bfloat16, torch.float32, False): (2, "mixed"),
+    (torch.bfloat16, torch.float32, True): (3, "bf16"),
+    (torch.bfloat16, torch.float64, False): (4, "mixed64"),
+}
+ALL_ARMS = frozenset(name for _, name in ARMS.values())
+
+
+def check_arm(name: str, vector: torch.Tensor, bf16_operands: bool,
+              arms=ALL_ARMS, **rows: torch.Tensor) -> tuple:
+    """Validate a kernel's operands on either device: one device,
+    contiguous, and a (row dtype, vector dtype, bf16_operands) triple of
+    `ARMS` whose arm is in `arms`: rows of the vector's float32 or
+    float64 dtype, or bfloat16 rows beside a float32 or float64 vector
+    (`bf16_operands` needs bfloat16 rows and a float32 vector).  Returns
+    (arm code, arm name)."""
+    dev = vector.device
+    for k, t in (("vector", vector), *rows.items()):
+        if t.device != dev:
+            raise ValueError(f"{name}: {k} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+    dtypes = {t.dtype for t in rows.values()}
+    arm = (ARMS.get((dtypes.pop(), vector.dtype, bool(bf16_operands)))
+           if len(dtypes) == 1 else None)
+    if arm is None or arm[1] not in arms:
+        got = ", ".join(f"{k} {t.dtype}" for k, t in
+                        (("vector", vector), *rows.items()))
+        raise TypeError(
+            f"{name}: dtype {got} with bf16_operands={bool(bf16_operands)}; "
+            "the rows must share the vector's float32 or float64 dtype, or "
+            "be bfloat16 beside a float32 or float64 vector (bf16_operands "
+            f"needs bfloat16 rows and a float32 vector; arms built: "
+            f"{', '.join(sorted(arms))})")
+    return arm

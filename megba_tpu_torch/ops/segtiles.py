@@ -25,7 +25,13 @@ Kernels (`jtj_grad_reduce`, `coupling_expand`, `coupling_reduce`,
 gathers and `index_add_`) and a hand-written CUDA kernel
 (`csrc/segtiles.cu`).  The wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises,
-and adds one to its `launches` count per launch.  All five read their
+and adds one to its `launches` count (and to that of the arm it ran,
+`arm_launches`) per launch.  The two coupling kernels take the
+precision arms of `csrc/precision.cuh` (ops/kernels.ARMS): bfloat16 J
+rows beside a float32 or float64 vector, upcast before each multiply
+(the mixed rungs), or with `bf16_operands` multiplied in bfloat16 with
+float32 sums (the bf16 rung); `contract` / `operand` are their plain
+arithmetic, shared with ops/fused.py.  All five read their
 per-edge rows once and are bound by HBM bytes on the H100; see the
 source note in `csrc/segtiles.cu`.
 """
@@ -178,21 +184,50 @@ def jtj_grad_reduce_plain(J: torch.Tensor, r: torch.Tensor,
     return _segment_sum(h, plan), _segment_sum(g, plan)
 
 
+def operand(x: torch.Tensor, bf16_operands: bool) -> torch.Tensor:
+    """The vector operand of a product: rounded to bfloat16 in the bf16
+    arm, kept in its dtype otherwise."""
+    return x.to(torch.bfloat16).to(x.dtype) if bf16_operands else x
+
+
+def contract(rows, vec, acc_dtype: torch.dtype, bf16_operands: bool):
+    """sum_k rows[k] * vec[k] in the accumulator dtype, in ascending k
+    from the first term (csrc/precision.cuh).  The bf16 arm rounds each
+    product to bfloat16 (its operands already are); otherwise each row is
+    upcast first."""
+    out = None
+    for row, v in zip(rows, vec):
+        t = row.to(acc_dtype) * v
+        if bf16_operands:
+            t = t.to(torch.bfloat16).to(acc_dtype)
+        out = t if out is None else out + t
+    return out
+
+
 def coupling_expand_plain(table: torch.Tensor, J: torch.Tensor,
-                          plan: SegPlan, d: int) -> torch.Tensor:
-    """[od, n]: u[o] = sum_a J[o*d+a] * table[a, seg]."""
+                          plan: SegPlan, d: int,
+                          bf16_operands: bool = False) -> torch.Tensor:
+    """[od, n]: u[o] = sum_a J[o*d+a] * table[a, seg], in the table's
+    dtype; the bf16 arm rounds the gathered values, each product and u
+    to bfloat16."""
     od = J.shape[0] // d
-    pe = table.index_select(1, plan.seg)
+    pe = operand(table.index_select(1, plan.seg), bf16_operands)
     return torch.stack([
-        sum(J[o * d + a] * pe[a] for a in range(d)) for o in range(od)])
+        operand(contract(J[o * d:(o + 1) * d], pe, table.dtype,
+                          bf16_operands), bf16_operands)
+        for o in range(od)])
 
 
 def coupling_reduce_plain(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
-                          d: int) -> torch.Tensor:
-    """[d, nS]: out[b, s] = sum_{e in s} sum_o J[o*d+b, e] * u[o, e]."""
+                          d: int, bf16_operands: bool = False) -> torch.Tensor:
+    """[d, nS]: out[b, s] = sum_{e in s} sum_o J[o*d+b, e] * u[o, e], in
+    u's dtype; the bf16 arm rounds u and each product to bfloat16."""
     od = u.shape[0]
+    uu = operand(u, bf16_operands)
     te = torch.stack([
-        sum(J[o * d + b] * u[o] for o in range(od)) for b in range(d)])
+        contract([J[o * d + b] for o in range(od)], uu, u.dtype,
+                 bf16_operands)
+        for b in range(d)])
     return _segment_sum(te, plan)
 
 
@@ -276,6 +311,19 @@ def _check(name: str, shape, supported: tuple, plan: SegPlan,
     return dev
 
 
+def _check_coupling(name: str, shape, plan: SegPlan, vector: torch.Tensor,
+                    bf16_operands: bool, J: torch.Tensor) -> tuple:
+    """`_check` for the coupling kernels, whose J rows may be bfloat16:
+    returns the (code, name) of the precision arm (ops/kernels.ARMS)."""
+    arm = _kernels.check_arm(name, vector, bf16_operands, J=J)
+    if vector.device.type == "cuda" and shape not in SUPPORTED_BLOCKS:
+        raise NotImplementedError(
+            f"{name}: no CUDA kernel for shape {shape} (built for "
+            f"{SUPPORTED_BLOCKS})")
+    check_plan(name, plan, vector.device)
+    return arm
+
+
 def _raise_on(code: int, name: str) -> None:
     _kernels.raise_on(_lib(), code, name)
 
@@ -308,16 +356,19 @@ def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
             plan.num_segments, int(plan.per_thread),
             _kernels.current_stream(dev))
     _raise_on(code, "jtj_grad_reduce")
-    jtj_grad_reduce.launches += 1
+    _kernels.count_launch(jtj_grad_reduce, _kernels.dtype_arm(J.dtype))
     return out[: d * d], out[d * d:]
 
 
 def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: SegPlan,
-                    d: int) -> torch.Tensor:
+                    d: int, bf16_operands: bool = False) -> torch.Tensor:
     """u[o] = sum_a J[o*d+a] * table[a, seg] -> [od, n] rows.
 
     The fused (gather + J.x) half of a coupling product: J [od*d, n] in
-    plan slot order, table [d, nS].
+    plan slot order, table [d, nS].  J has the table's float32 or float64
+    dtype, or is bfloat16 (upcast before each multiply; with
+    `bf16_operands` and a float32 table, bfloat16 products and u rounded
+    to bfloat16).  u has the table's dtype.
     """
     od = J.shape[0] // d
     n = J.shape[1]
@@ -327,26 +378,30 @@ def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: SegPlan,
             f"coupling_expand: table {tuple(table.shape)}, J "
             f"{tuple(J.shape)}, d={d} and {plan.n_slots} plan slots "
             "disagree")
-    dev = _check("coupling_expand", (od, d), SUPPORTED_BLOCKS, plan,
-                 table=table, J=J)
+    arm_code, arm = _check_coupling("coupling_expand", (od, d), plan,
+                                    table, bf16_operands, J)
+    dev = table.device
     if dev.type == "cpu":
-        return coupling_expand_plain(table, J, plan, d)
-    u = torch.empty((od, n), dtype=J.dtype, device=dev)
+        return coupling_expand_plain(table, J, plan, d, bf16_operands)
+    u = torch.empty((od, n), dtype=table.dtype, device=dev)
     with torch.cuda.device(dev):
         code = _lib().megba_coupling_expand(
-            int(J.dtype == torch.float64), od, d, table.data_ptr(),
-            J.data_ptr(), plan.seg.data_ptr(), u.data_ptr(), n,
-            plan.num_segments, _kernels.current_stream(dev))
+            arm_code, od, d, table.data_ptr(), J.data_ptr(),
+            plan.seg.data_ptr(), u.data_ptr(), n, plan.num_segments,
+            _kernels.current_stream(dev))
     _raise_on(code, "coupling_expand")
-    coupling_expand.launches += 1
+    _kernels.count_launch(coupling_expand, arm)
     return u
 
 
 def coupling_reduce(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
-                    d: int) -> torch.Tensor:
+                    d: int, bf16_operands: bool = False) -> torch.Tensor:
     """out[b, s] = sum_{e in s} sum_o J[o*d+b, e] * u[o, e] -> [d, nS].
 
-    The fused (J^T.u + segment reduce) half of a coupling product.
+    The fused (J^T.u + segment reduce) half of a coupling product.  J
+    has u's float32 or float64 dtype, or is bfloat16 (as in
+    `coupling_expand`; `bf16_operands` rounds u on read).  The output
+    has u's dtype.
     """
     od = u.shape[0]
     n = u.shape[1]
@@ -354,18 +409,19 @@ def coupling_reduce(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
         raise ValueError(
             f"coupling_reduce: J {tuple(J.shape)}, u {tuple(u.shape)}, "
             f"d={d} and {plan.n_slots} plan slots disagree")
-    dev = _check("coupling_reduce", (od, d), SUPPORTED_BLOCKS, plan,
-                 J=J, u=u)
+    arm_code, arm = _check_coupling("coupling_reduce", (od, d), plan, u,
+                                    bf16_operands, J)
+    dev = u.device
     if dev.type == "cpu":
-        return coupling_reduce_plain(J, u, plan, d)
-    out = torch.empty((d, plan.num_segments), dtype=J.dtype, device=dev)
+        return coupling_reduce_plain(J, u, plan, d, bf16_operands)
+    out = torch.empty((d, plan.num_segments), dtype=u.dtype, device=dev)
     with torch.cuda.device(dev):
         code = _lib().megba_coupling_reduce(
-            int(J.dtype == torch.float64), od, d, J.data_ptr(), u.data_ptr(),
+            arm_code, od, d, J.data_ptr(), u.data_ptr(),
             plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
             int(plan.per_thread), _kernels.current_stream(dev))
     _raise_on(code, "coupling_reduce")
-    coupling_reduce.launches += 1
+    _kernels.count_launch(coupling_reduce, arm)
     return out
 
 
@@ -386,7 +442,7 @@ def seg_reduce(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
             plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
             int(plan.per_thread), _kernels.current_stream(dev))
     _raise_on(code, "seg_reduce")
-    seg_reduce.launches += 1
+    _kernels.count_launch(seg_reduce, _kernels.dtype_arm(data.dtype))
     return out
 
 
@@ -408,20 +464,26 @@ def seg_expand(table: torch.Tensor, plan: SegPlan) -> torch.Tensor:
             plan.seg.data_ptr(), out.data_ptr(), n, plan.num_segments,
             _kernels.current_stream(dev))
     _raise_on(code, "seg_expand")
-    seg_expand.launches += 1
+    _kernels.count_launch(seg_expand, _kernels.dtype_arm(table.dtype))
     return out
 
 
 KERNELS = (jtj_grad_reduce, coupling_expand, coupling_reduce, seg_reduce,
            seg_expand)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    _kernels.reset_counts(KERNELS)
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def arm_launch_counts() -> dict:
+    """Launches per kernel and precision arm, as {"name[arm]": count}."""
+    return {f"{k.__name__}[{arm}]": n for k in KERNELS
+            for arm, n in k.arm_launches.items()}

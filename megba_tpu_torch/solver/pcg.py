@@ -19,12 +19,16 @@ contraction in plain PyTorch, a cross permute and a `seg_reduce` kernel;
 fused, as one `fused_coupling_apply` kernel per direction, with W
 brought into point order once per solve.
 
-The precision ladder runs on the fused kernels only.  Both rungs
-(`mixed_precision`, `bf16`) first equilibrate the system with
-D = diag(damped H)^-1/2 and cast the scaled coupling rows (Jc/Jp or W)
-to bfloat16; `mixed_precision` upcasts each row value before the
-multiply, `bf16` multiplies in bfloat16 with float32 sums, applies a
-bfloat16 copy of M^-1 and runs the textbook CG body.
+The precision ladder: both rungs (`mixed_precision`, `bf16`) first
+equilibrate the system with D = diag(damped H)^-1/2 and cast the scaled
+coupling rows (Jc/Jp or W) to bfloat16.  `mixed_precision` upcasts each
+row value before the multiply, at float32 or float64; `bf16` (float32)
+rounds the gathered vector to bfloat16, multiplies in bfloat16 with
+float32 sums (`_edge_precision`, JAX pcg.py:133-163), applies a bfloat16
+copy of M^-1 and runs the textbook CG body.  The rows' precision arm
+rides every kernel of the product: unfused IMPLICIT in both coupling
+kernels, unfused EXPLICIT in the plain per-edge W contraction between
+`seg_expand` and `seg_reduce`, fused in the fused kernel.
 
 The PCG bodies are the JAX package's unguarded `_pcg_core`: the
 Chronopoulos-Gear single recurrence, or the textbook recurrence with the
@@ -68,16 +72,36 @@ class PCGResult:
     rho: torch.Tensor  # final residual energy <r, M^-1 r>
 
 
-def _edge_cam_to_pt_explicit(W, pe, cd, pd):
+def _ident(x):
+    return x
+
+
+def _edge_precision(bf16_ops: bool):
+    """(vec, acc) casts of the unfused per-edge W contraction (JAX
+    pcg.py:133-163): `vec` applies to the gathered vector rows (the bf16
+    rung's rounding to bfloat16) and `acc` to every product before it
+    enters a sum (the bf16 rung's float32 accumulation).  The bf16 rung
+    multiplies bfloat16 by bfloat16, which PyTorch rounds to bfloat16
+    once, as the JAX package's strict lowering does.  The mixed rung's
+    `up` needs no cast here: PyTorch's type promotion takes a bfloat16
+    row times a float32 or float64 vector in the vector's dtype."""
+    if bf16_ops:
+        return lambda x: x.to(torch.bfloat16), lambda x: x.to(torch.float32)
+    return _ident, _ident
+
+
+def _edge_cam_to_pt_explicit(W, pe, cd, pd, acc=_ident):
     """W^T applied per edge: [cd, n] camera rows -> [pd, n]."""
-    return torch.stack([sum(W[a * pd + b] * pe[a] for a in range(cd))
-                        for b in range(pd)])
+    return torch.stack([
+        sum(acc(W[a * pd + b] * pe[a]) for a in range(cd))
+        for b in range(pd)])
 
 
-def _edge_pt_to_cam_explicit(W, qe, cd, pd):
+def _edge_pt_to_cam_explicit(W, qe, cd, pd, acc=_ident):
     """W applied per edge: [pd, n] point rows -> [cd, n]."""
-    return torch.stack([sum(W[a * pd + b] * qe[b] for b in range(pd))
-                        for a in range(cd)])
+    return torch.stack([
+        sum(acc(W[a * pd + b] * qe[b]) for b in range(pd))
+        for a in range(cd)])
 
 
 MatvecPair = Tuple[Callable[[torch.Tensor], torch.Tensor],
@@ -100,9 +124,10 @@ def make_coupling_matvecs(
     cross permute -> reduce, and the expanded [cd]/[pd] per-edge rows
     never exist.  EXPLICIT reads only `W` (cam-slot order).  With
     `fused_kernels` each direction is one fused kernel and `plans` must
-    carry the fused directions (ops/fused.with_fused_plans); the rows may
-    then be bfloat16, and `bf16_ops` multiplies them in bfloat16 (the
-    unfused products take float32 / float64 rows only).
+    carry the fused directions (ops/fused.with_fused_plans).  The rows
+    may be bfloat16 (a precision rung): each kernel, and the unfused
+    EXPLICIT contraction, takes them upcast before each multiply, or
+    multiplied in bfloat16 under `bf16_ops`.
     """
     if fused_kernels:
         if plans.fused_to_pt is None or plans.fused_to_cam is None:
@@ -113,22 +138,25 @@ def make_coupling_matvecs(
             return _fused_explicit_matvecs(_need_w(W), plans, bf16_ops)
         return _fused_implicit_matvecs(Jc, Jp, plans, bf16_ops)
     if compute_kind == ComputeKind.EXPLICIT:
-        return _explicit_matvecs(_need_w(W), plans)
+        return _explicit_matvecs(_need_w(W), plans,
+                                 *_edge_precision(bf16_ops))
     ocd, opd = Jc.shape[0], Jp.shape[0]
 
     def hlp(p_cam: torch.Tensor) -> torch.Tensor:
         cd = p_cam.shape[0]
         od = ocd // cd
         pd = opd // od
-        u = segtiles.coupling_expand(p_cam, Jc, plans.cam, cd)
-        return segtiles.coupling_reduce(Jp, plans.to_pt(u), plans.pt, pd)
+        u = segtiles.coupling_expand(p_cam, Jc, plans.cam, cd, bf16_ops)
+        return segtiles.coupling_reduce(Jp, plans.to_pt(u), plans.pt, pd,
+                                        bf16_ops)
 
     def hpl(q_pt: torch.Tensor) -> torch.Tensor:
         pd = q_pt.shape[0]
         od = opd // pd
         cd = ocd // od
-        u = segtiles.coupling_expand(q_pt, Jp, plans.pt, pd)
-        return segtiles.coupling_reduce(Jc, plans.to_cam(u), plans.cam, cd)
+        u = segtiles.coupling_expand(q_pt, Jp, plans.pt, pd, bf16_ops)
+        return segtiles.coupling_reduce(Jc, plans.to_cam(u), plans.cam, cd,
+                                        bf16_ops)
 
     return hpl, hlp
 
@@ -140,23 +168,25 @@ def _need_w(W: Optional[torch.Tensor]) -> torch.Tensor:
     return W
 
 
-def _explicit_matvecs(W: torch.Tensor, plans: DualPlans) -> MatvecPair:
+def _explicit_matvecs(W: torch.Tensor, plans: DualPlans, vec=_ident,
+                      acc=_ident) -> MatvecPair:
     """EXPLICIT, unfused (JAX pcg.py:333-349): gather the vector to the
-    edges, contract with W per edge, permute, segment-sum."""
+    edges, contract with W per edge (with the rung's casts), permute,
+    segment-sum."""
     cdpd = W.shape[0]
 
     def hlp(p_cam: torch.Tensor) -> torch.Tensor:
         cd = p_cam.shape[0]
         pd = cdpd // cd
-        pe = segtiles.seg_expand(p_cam, plans.cam)  # [cd, n] cam slots
-        te = _edge_cam_to_pt_explicit(W, pe, cd, pd)
+        pe = vec(segtiles.seg_expand(p_cam, plans.cam))  # [cd, n] cam slots
+        te = _edge_cam_to_pt_explicit(W, pe, cd, pd, acc)
         return segtiles.seg_reduce(plans.to_pt(te), plans.pt)
 
     def hpl(q_pt: torch.Tensor) -> torch.Tensor:
         pd = q_pt.shape[0]
         cd = cdpd // pd
-        qe = plans.to_cam(segtiles.seg_expand(q_pt, plans.pt))  # cam slots
-        te = _edge_pt_to_cam_explicit(W, qe, cd, pd)
+        qe = vec(plans.to_cam(segtiles.seg_expand(q_pt, plans.pt)))
+        te = _edge_pt_to_cam_explicit(W, qe, cd, pd, acc)
         return segtiles.seg_reduce(te, plans.cam)
 
     return hpl, hlp
@@ -345,16 +375,11 @@ def schur_pcg_solve(
     diagonals' diagonals by (1 + 1/region).  EXPLICIT reads the coupling
     from `system.W` and not `Jc`/`Jp` (which may be None then);
     `fused_kernels` runs each coupling direction and the block-Jacobi
-    apply as one fused kernel.  `mixed_precision` / `bf16` (fused only)
-    solve the equilibrated system with bfloat16 coupling rows, and
-    unscale the solution; `bf16` runs the textbook CG body and floors a
-    relative `tol` at `_BF16_TOL_FLOOR`.
+    apply as one fused kernel.  `mixed_precision` (float32 or float64)
+    and `bf16` (float32) solve the equilibrated system with bfloat16
+    coupling rows, and unscale the solution; `bf16` runs the textbook CG
+    body and floors a relative `tol` at `_BF16_TOL_FLOOR`.
     """
-    if (mixed_precision or bf16) and not fused_kernels:
-        raise NotImplementedError(
-            "mixed_precision / bf16 without fused_kernels are not ported to "
-            "megba_tpu_torch yet (they need the bf16-row arms of "
-            "coupling_expand / coupling_reduce, or the unfused bf16 lowering)")
     Hpp_d = damp_blocks(system.Hpp, region)
     Hll_d = damp_rows_fm(system.Hll, region)
     g_cam, g_pt, W = system.g_cam, system.g_pt, system.W

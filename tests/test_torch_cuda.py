@@ -5,8 +5,8 @@ without them: `python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py` (the repository's conftest imports jax).  It
 skips without a CUDA device (the kernels have no CPU mode); on the CPU
 the plain versions are held to the JAX package by test_torch_segtiles.py,
-test_torch_explicit.py, test_torch_fused.py, test_torch_fused_implicit.py
-and test_torch_precision.py.
+test_torch_explicit.py, test_torch_fused.py, test_torch_fused_implicit.py,
+test_torch_precision.py and test_torch_unfused_precision.py.
 """
 
 import numpy as np
@@ -220,12 +220,14 @@ def test_f64_explicit_solve_kernels_match_plain_on_small_scene(
     assert float(kern.cost) < float(kern.initial_cost)
 
 
-def _check_arm(kernel, plain, args, **kw):
-    """A bf16-row arm: two launches bitwise equal, counted, float32 out,
-    and within 1e-5 of the sum of the terms' magnitudes of the plain
-    version (the same per-slot terms, summed per segment in another
-    order)."""
+def _check_arm(kernel, plain, args, arm=None, dtype=torch.float32, **kw):
+    """A bf16-row arm: two launches bitwise equal, counted (in all and,
+    when `arm` is named, in that arm), out in `dtype`, and within 1e-5
+    (float32) or 1e-12 (float64) of the sum of the terms' magnitudes of
+    the plain version (the same per-slot terms, summed per segment in
+    another order)."""
     before = kernel.launches
+    before_arm = kernel.arm_launches.get(arm, 0)
     got = kernel(*args, **kw)
     again = kernel(*args, **kw)
     ref = plain(*args, **kw)
@@ -233,8 +235,11 @@ def _check_arm(kernel, plain, args, **kw):
                     and a.is_floating_point() else a for a in args], **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 2
-    assert got.dtype == torch.float32 and torch.equal(got, again)
-    assert bool(((got - ref).abs() <= 1e-5 * scale).all())
+    if arm is not None:
+        assert kernel.arm_launches[arm] == before_arm + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    assert bool(((got - ref).abs() <= rel * scale).all())
 
 
 @pytest.mark.cuda
@@ -300,21 +305,27 @@ def _small_scene(dtype):
                               param_noise=1e-2, pixel_noise=0.5, dtype=dtype)
 
 
-def _small_option(dtype, kind, rung=None):
-    """The chip_smoke.py options; a precision rung stops its PCG at 1e-6
-    of the RHS energy (chip_smoke.precision_phase says why)."""
+def _small_option(dtype, kind, rung=None, fused=True):
+    """The chip_smoke.py options; a precision rung at float32 stops its
+    PCG at 1e-6 of the RHS energy (chip_smoke.precision_phase says why),
+    mixed at float64 starts from trust region 1
+    (chip_smoke.solve_option says why)."""
     from megba_tpu_torch import (AlgoOption, ComputeKind, JacobianMode,
                                  ProblemOption, SolverOption)
 
+    relative = rung is not None and dtype == np.float32
     return ProblemOption(
         dtype=dtype, compute_kind=ComputeKind[kind],
         jacobian_mode=JacobianMode.ANALYTICAL,
         mixed_precision_pcg=rung == "mixed",
-        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15),
+        algo_option=AlgoOption(
+            max_iter=8, epsilon1=1e-12, epsilon2=1e-15,
+            initial_region=1.0 if rung == "mixed" and dtype == np.float64
+            else 1e3),
         solver_option=SolverOption(
-            max_iter=30, tol=1e-10 if rung is None else 1e-6,
-            tol_relative=rung is not None, refuse_ratio=1e30,
-            fused_kernels=True, bf16=rung == "bf16"))
+            max_iter=30, tol=1e-6 if relative else 1e-10,
+            tol_relative=relative, refuse_ratio=1e30,
+            fused_kernels=fused, bf16=rung == "bf16"))
 
 
 @pytest.mark.cuda
@@ -373,6 +384,154 @@ def test_f32_precision_solve_kernels_match_plain_on_small_scene(
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
             _small_option(np.float32, kind, rung))
     kern = flat_solve(*args, device="cuda")
+    for m in (tseg, tfused):
+        for k in m.KERNELS:
+            monkeypatch.setattr(m, k.__name__,
+                                getattr(m, k.__name__ + "_plain"))
+    plain = flat_solve(*args, device="cuda")
+    for res in (kern, plain):
+        assert np.isfinite(float(res.cost))
+        assert float(res.cost) < float(res.initial_cost)
+    np.testing.assert_allclose(float(kern.trace.cost[0]),
+                               float(plain.trace.cost[0]),
+                               rtol=1e-4 if rung == "mixed" else 2e-2)
+    np.testing.assert_allclose(float(kern.cost), float(plain.cost),
+                               rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The precision ladder without fused kernels, and at float64
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,npt,n", [
+    (12, 2000, 9000),    # cameras block/segment, points thread/segment
+    (4000, 3000, 12000),  # both sides thread/segment
+])
+def test_cuda_coupling_and_mixed64_arms_match_plain(nc, npt, n):
+    """On the card: the mixed, mixed64 and bf16 arms of coupling_expand
+    and coupling_reduce on both sides, and the mixed64 arms of the fused
+    coupling applies in both directions, each against its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    cam_idx, pt_idx = _graph(12, nc, npt, n)
+    _, plans = tseg.make_dual_plans(cam_idx, pt_idx, nc, npt, dev)
+    plans = tfused.with_fused_plans(plans)
+    rng = np.random.default_rng(13)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev)
+
+    bf, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    Jc, Jp = (0.1 * rand(18, n)).to(bf), (0.1 * rand(6, n)).to(bf)
+    Jp_pt = plans.to_pt(Jp)
+    for J, side, d in ((Jc, plans.cam, 9), (Jp_pt, plans.pt, 3)):
+        x, u = rand(d, side.num_segments), rand(2, n)
+        for arm, dt, ops in (("mixed", f32, False), ("bf16", f32, True),
+                             ("mixed64", f64, False)):
+            _check_arm(tseg.coupling_expand, tseg.coupling_expand_plain,
+                       (x.to(dt), J, side, d), arm, dt, bf16_operands=ops)
+            _check_arm(tseg.coupling_reduce, tseg.coupling_reduce_plain,
+                       (J, u.to(dt), side, d), arm, dt, bf16_operands=ops)
+    x_cam, x_pt = rand(9, nc), rand(3, npt)
+    _check_arm(tfused.fused_coupling_apply_implicit,
+               tfused.fused_coupling_apply_implicit_plain,
+               (plans.to_pt(Jc), Jp_pt, x_cam, plans.fused_to_pt),
+               "mixed64", f64)
+    _check_arm(tfused.fused_coupling_apply_implicit,
+               tfused.fused_coupling_apply_implicit_plain,
+               (Jp, Jc, x_pt, plans.fused_to_cam), "mixed64", f64)
+    W = (0.1 * rand(27, n)).to(bf)
+    _check_arm(tfused.fused_coupling_apply,
+               tfused.fused_coupling_apply_plain,
+               (plans.to_pt(W), x_cam, plans.fused_to_pt, True), "mixed64",
+               f64)
+    _check_arm(tfused.fused_coupling_apply,
+               tfused.fused_coupling_apply_plain,
+               (W, x_pt, plans.fused_to_cam, False), "mixed64", f64)
+
+
+# The kernel arms each mixed f64 path must launch.
+_MIXED64_ARMS = {
+    ("IMPLICIT", False): ("coupling_expand[mixed64]",
+                          "coupling_reduce[mixed64]"),
+    ("EXPLICIT", False): ("seg_expand[f64]", "seg_reduce[f64]"),
+    ("IMPLICIT", True): ("fused_coupling_apply_implicit[mixed64]",
+                         "fused_block_diag_apply[f64]"),
+    ("EXPLICIT", True): ("fused_coupling_apply[mixed64]",
+                         "fused_block_diag_apply[f64]"),
+}
+
+
+def _arm_counts():
+    return {**tseg.arm_launch_counts(), **tfused.arm_launch_counts()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("kind", ["IMPLICIT", "EXPLICIT"])
+def test_f64_mixed_solve_kernels_match_plain_on_small_scene(
+        monkeypatch, kind, fused):
+    """On the card: the 8-camera f64 scene solved with
+    mixed_precision_pcg (bf16 rows beside f64 vectors) through the
+    kernels and through their plain versions: the same cost trajectory
+    (rtol 1e-9), accept pattern and iteration counts, two kernel solves
+    bitwise equal, and the mixed64 arms launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import flat_solve
+
+    s = _small_scene(np.float64)
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+            _small_option(np.float64, kind, "mixed", fused))
+    before = _arm_counts()
+    kern = flat_solve(*args, device="cuda")
+    again = flat_solve(*args, device="cuda")
+    after = _arm_counts()
+    for arm in _MIXED64_ARMS[kind, fused]:
+        assert after.get(arm, 0) > before.get(arm, 0), (arm, after)
+    for m in (tseg, tfused):
+        for k in m.KERNELS:
+            monkeypatch.setattr(m, k.__name__,
+                                getattr(m, k.__name__ + "_plain"))
+    plain = flat_solve(*args, device="cuda")
+    k = kern.iterations
+    assert k > 0
+    assert (k, kern.accepted, kern.pcg_iterations) == (
+        plain.iterations, plain.accepted, plain.pcg_iterations)
+    assert torch.equal(kern.trace.accept[:k], plain.trace.accept[:k])
+    assert torch.equal(kern.trace.pcg_iters[:k], plain.trace.pcg_iters[:k])
+    assert torch.equal(kern.trace.cost[:k], again.trace.cost[:k])
+    np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
+                               plain.trace.cost[:k].numpy(), rtol=1e-9)
+    assert float(kern.cost) < float(kern.initial_cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["mixed", "bf16"])
+@pytest.mark.parametrize("kind", ["IMPLICIT", "EXPLICIT"])
+def test_f32_unfused_precision_solve_kernels_match_plain_on_small_scene(
+        monkeypatch, kind, rung):
+    """On the card: the 8-camera f32 scene on a precision rung without
+    fused kernels, through the kernels and through their plain versions,
+    held as the fused rungs are (first trial cost at rtol 1e-4 or 2e-2,
+    final cost at rtol 1e-3, both below the initial)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import flat_solve
+
+    s = _small_scene(np.float32)
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+            _small_option(np.float32, kind, rung, fused=False))
+    before = _arm_counts()
+    kern = flat_solve(*args, device="cuda")
+    if kind == "IMPLICIT":
+        for name in ("coupling_expand", "coupling_reduce"):
+            arm = f"{name}[{rung}]"
+            assert _arm_counts().get(arm, 0) > before.get(arm, 0), arm
     for m in (tseg, tfused):
         for k in m.KERNELS:
             monkeypatch.setattr(m, k.__name__,

@@ -399,17 +399,16 @@ def test_validate_options_accepts_explicit(fused):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    # Accepted since the fused implicit kernel and the fused precision
-    # rungs were ported (err None); tests/test_torch_precision.py holds
-    # the refusals that remain.
+    # Accepted since the fused implicit kernel and the whole
+    # single-device precision ladder (fused or not, mixed at f32 or f64)
+    # were ported (err None); tests/test_torch_precision.py holds the
+    # refusals that remain.
     (dict(solver_option=dict(fused_kernels=True)), None, None),
     (dict(compute_kind=EXPLICIT, dtype=np.float32,
-          solver_option=dict(bf16=True)),
-     NotImplementedError, "solver_option.bf16"),
+          solver_option=dict(bf16=True)), None, None),
     (dict(compute_kind=EXPLICIT, dtype=np.float32,
           solver_option=dict(fused_kernels=True, bf16=True)), None, None),
-    (dict(compute_kind=EXPLICIT, mixed_precision_pcg=True),
-     NotImplementedError, "mixed_precision_pcg"),
+    (dict(compute_kind=EXPLICIT, mixed_precision_pcg=True), None, None),
     (dict(use_schur=False, solver_option=dict(fused_kernels=True)),
      ValueError, "fused_kernels"),
     (dict(compute_kind=1), ValueError, "ComputeKind"),

@@ -95,16 +95,21 @@ def test_robust_kind_and_status_names():
     ("solver_option", tc.SolverOption(warm_start=True)),
     ("solver_option", tc.SolverOption(mesh_2d=True)),
     ("solver_option", tc.SolverOption(edge_order=tc.EdgeOrder.COOBS)),
-    ("solver_option", tc.SolverOption(bf16=True)),
+    ("solver_option", tc.SolverOption(bf16=True, bf16_collectives=True)),
     ("solver_option", tc.SolverOption(fused_kernels=True, mesh_2d=True)),
     ("telemetry", "t.jsonl"),
 ])
 def test_unported_options_raise_typed(field, value):
     # float32: the bf16 rung exists at f32 only (f64 is a ValueError);
-    # the fused kernels and the fused precision rungs are ported, their
-    # multi-device pieces are not.
+    # the fused kernels and the whole single-device precision ladder are
+    # ported, their multi-device pieces (bf16_collectives, mesh_2d) are
+    # not.  mixed_precision_pcg is ported with and without fused kernels:
+    # it validates.
     base = dict(jacobian_mode=tc.JacobianMode.ANALYTICAL, dtype=np.float32)
     base[field] = value
+    if (field, value) == ("mixed_precision_pcg", True):
+        tc.validate_options(tc.ProblemOption(**base))
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         tc.validate_options(tc.ProblemOption(**base))
 

@@ -17,7 +17,9 @@
 - `flat_solve` on both rungs and both compute kinds: the cost falls and
   lands within the JAX package's bf16 band (2e-2) of the port's own
   float32 fused solve; the fused kernels really get bfloat16 rows.
-- `validate_options` on the precision combinations.
+- `validate_options` on the precision combinations (the unfused rungs
+  and mixed at float64 are held to the JAX package by
+  tests/test_torch_unfused_precision.py).
 
 CPU only; the CUDA arms are held to the same plain versions by
 tests/test_torch_cuda.py and chip_smoke.py on the card.
@@ -145,8 +147,11 @@ def test_precision_arm_operand_checks():
     _, (Jin, Jout, table, fplan), _ = implicit_case(5, np.float64, True,
                                                     row_dtype=BF16)
     f = tfused.fused_coupling_apply_implicit
-    with pytest.raises(TypeError, match="bfloat16"):  # bf16 rows, f64 table
-        f(Jin, Jout, table, fplan)
+    # bf16 rows beside an f64 table are the mixed64 arm; bf16 products
+    # beside it are refused.
+    assert f(Jin, Jout, table, fplan).dtype == torch.float64
+    with pytest.raises(TypeError, match="bfloat16"):
+        f(Jin, Jout, table, fplan, bf16_operands=True)
     with pytest.raises(TypeError, match="share"):  # one bf16, one f32 row
         f(Jin, Jout.float(), table.float(), fplan)
     with pytest.raises(TypeError, match="bf16_operands"):
@@ -210,11 +215,14 @@ def test_precision_schur_pcg_matches_jax(kind, rung, limit):
 
 
 def test_precision_rungs_need_fused_kernels():
+    """No longer: both rungs run without fused kernels too (held to the
+    JAX package by tests/test_torch_unfused_precision.py)."""
     _, (tsys, tJc, tJp, plans) = _f32_systems("IMPLICIT", 1)
     for kw in (dict(bf16=True), dict(mixed_precision=True)):
-        with pytest.raises(NotImplementedError, match="fused_kernels"):
-            tpcg.schur_pcg_solve(tsys, tJc, tJp, plans, torch.tensor(1e3),
-                                 **kw)
+        got = tpcg.schur_pcg_solve(tsys, tJc, tJp, plans, torch.tensor(1e3),
+                                   **kw)
+        assert got.dx_cam.dtype == torch.float32 and got.iterations > 0
+        assert bool(torch.isfinite(got.dx_cam).all())
 
 
 # ---------------------------------------------------------------------------
@@ -311,10 +319,10 @@ def test_validate_options_accepts_fused_precision(kw):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(dtype=F32, solver_option=dict(bf16=True)), NotImplementedError,
-     "solver_option.bf16=True without solver_option.fused_kernels"),
-    (dict(dtype=F32, mixed_precision_pcg=True), NotImplementedError,
-     "mixed_precision_pcg=True without solver_option.fused_kernels"),
+    # Accepted since the unfused rungs and mixed at f64 were ported (err
+    # None).
+    (dict(dtype=F32, solver_option=dict(bf16=True)), None, None),
+    (dict(dtype=F32, mixed_precision_pcg=True), None, None),
     (dict(solver_option=dict(bf16=True, **FUSED)), ValueError, "float64"),
     (dict(dtype=F32, mixed_precision_pcg=True,
           solver_option=dict(bf16=True, **FUSED)), ValueError, "pick one"),
@@ -327,18 +335,21 @@ def test_validate_options_accepts_fused_precision(kw):
      ValueError, "Schur solver"),
     (dict(use_schur=False, mixed_precision_pcg=True), ValueError,
      "Schur solver"),
-    (dict(mixed_precision_pcg=True, solver_option=FUSED),
-     NotImplementedError, "float64"),
+    (dict(mixed_precision_pcg=True, solver_option=FUSED), None, None),
 ], ids=["bf16_unfused", "mixed_unfused", "bf16_f64", "bf16_and_mixed",
         "collectives_without_bf16", "bf16_collectives", "bf16_plain_solver",
         "mixed_plain_solver", "mixed_f64"])
 def test_validate_options_refuses_precision(kw, err, match):
+    if err is None:
+        tc.validate_options(_opt(**kw))
+        return
     with pytest.raises(err, match=match):
         tc.validate_options(_opt(**kw))
 
 
 def test_precision_refusal_fires_before_planning():
     """flat_solve refuses the option before it reads the arrays."""
-    opt = _opt(dtype=F32, solver_option=dict(bf16=True))
-    with pytest.raises(NotImplementedError, match="fused_kernels"):
+    opt = _opt(dtype=F32, solver_option=dict(bf16=True,
+                                             bf16_collectives=True))
+    with pytest.raises(NotImplementedError, match="bf16_collectives"):
         mt.flat_solve(None, None, None, None, None, opt, device="cpu")

@@ -20,7 +20,12 @@ exception ends the run with a non-zero exit code:
    repeat, and CUDA-event medians of the kernel, the plain version and,
    where one exists, one PyTorch library call that computes the same
    function (a cuSPARSE CSR product, `torch.segment_reduce`,
-   `index_select`, an einsum);
+   `index_select`, an einsum); kernels 7 and 8 (the fused coupling
+   applies) print each direction with its share of its bound, and run
+   at f32 on a heavy-tailed graph too (~1e6 slots, Zipf track lengths,
+   `io.synthetic.heavy_tailed_graph`; pt->cam also over 40,000 cameras,
+   short enough for slot tiles), checked and timed as sides of their
+   own, outside the row's totals;
 4. f64: a trafalgar-sized scene solved end to end on eight paths
    (IMPLICIT, EXPLICIT, each unfused and fused, each in full f64 and
    with mixed_precision_pcg), each through the kernels and through the
@@ -97,6 +102,15 @@ BF16_LIBRARY_REL_TO_ABS_SUM = 2.0 ** -6
 
 VENICE = dict(num_cameras=1778, num_points=993_923,
               obs_per_point=5_001_946 / 993_923)
+# The heavy-tailed graph of the kernel phase, a correctness graph for the
+# slot tiles' edge cases: venice's cameras, and points whose Zipf track
+# lengths (mean ~5.9) give ~1.0e6 slots.  The same points over
+# HEAVY_SHORT_CAMERAS cameras (~25 slots a camera) put the pt->cam
+# direction on slot tiles too.
+HEAVY = dict(num_cameras=1778, num_points=170_000)
+HEAVY_SHORT_CAMERAS = 40_000
+# The fused coupling kernels, whose rows print per direction.
+FUSED_COUPLING = ("fused_coupling_apply", "fused_coupling_apply_implicit")
 TRAFALGAR = dict(num_cameras=257, num_points=65_132,
                  obs_per_point=225_911 / 65_132)
 REPLACES = {
@@ -385,16 +399,18 @@ def _abs(args):
 
 
 def _case(side, args, nbytes, flops, library=None, kwargs=None,
-          library_tol=F32_REL_TO_ABS_SUM):
+          library_tol=F32_REL_TO_ABS_SUM, in_total=True):
     """One side of a kernel: its arguments (the same arguments with every
     float operand made |.| give the scale of the f32 check), the bytes
     the kernel must move and the operations it must do, a zero-argument
     function that builds the library yardstick's call (or None; it may
     return a string, the reason there is none), the kernel's keyword
-    arguments, and the library's tolerance."""
+    arguments, the library's tolerance, and whether the side counts in
+    the row's totals (the main path's shapes) or only stands beside
+    them."""
     return dict(side=side, args=args, abs_args=_abs(args), bytes=nbytes,
                 flops=flops, library=library, kwargs=kwargs or {},
-                library_tol=library_tol)
+                library_tol=library_tol, in_total=in_total)
 
 
 def _plan_of(args):
@@ -410,6 +426,7 @@ def _plan_of(args):
 
 def kernel_phase(scene) -> dict:
     from megba_tpu_torch.core.fm import coupling_rows
+    from megba_tpu_torch.io.synthetic import heavy_tailed_graph
     from megba_tpu_torch.linear_system.builder import damp_blocks
     from megba_tpu_torch.ops import fused, segtiles
     from megba_tpu_torch.ops.residuals import (
@@ -633,6 +650,57 @@ def kernel_phase(scene) -> dict:
         "fused_coupling_apply[mixed64]": w_cases(
             b_W_tp, b_W, bs, mixed, "f64", (b_W_tp.to(f64), b_W.to(f64))),
     }
+    # Kernels 7 and 8 at f32 on the heavy-tailed graph: random rows, the
+    # bytes and operations counted as for venice.
+    hnc, hnp = HEAVY["num_cameras"], HEAVY["num_points"]
+    h_cam, h_pt = heavy_tailed_graph(hnc, hnp, seed=0)
+    _, hplans = segtiles.make_dual_plans(h_cam, h_pt, hnc, hnp, dev)
+    hplans = fused.with_fused_plans(hplans)
+    hn = h_cam.shape[0]
+    hW, hJc, hJp = 0.1 * randn(27, hn), 0.1 * randn(18, hn), 0.1 * randn(
+        6, hn)
+    hx_cam, hx_pt = randn(9, hnc), randn(3, hnp)
+
+    s_cam, s_pt = heavy_tailed_graph(HEAVY_SHORT_CAMERAS, hnp, seed=0)
+    _, splans = segtiles.make_dual_plans(s_cam, s_pt, HEAVY_SHORT_CAMERAS,
+                                         hnp, dev)
+    splans = fused.with_fused_plans(splans)
+    if s_cam.shape[0] != hn or not splans.cam.per_thread:
+        raise AssertionError("the short-camera graph must have the heavy "
+                             "graph's slots and short camera segments")
+
+    def heavy_cases(rows_tp, rows, row_bytes, flops_per_slot, tails):
+        def nbytes(n_out, tables):
+            return (row_bytes * hn + tables * es + hn * i32
+                    + (n_out + 1) * i64)
+
+        return [
+            _case("cam_to_pt_zipf", (*rows_tp, hx_cam, hplans.fused_to_pt,
+                                     *tails[0]),
+                  nbytes(hnp, 9 * hnc + 3 * hnp), hn * flops_per_slot,
+                  in_total=False),
+            _case("pt_to_cam_zipf", (*rows, hx_pt, hplans.fused_to_cam,
+                                     *tails[1]),
+                  nbytes(hnc, 3 * hnp + 9 * hnc), hn * flops_per_slot,
+                  in_total=False),
+            _case("pt_to_cam_zipf_short_cams",
+                  (*rows, hx_pt, splans.fused_to_cam, *tails[1]),
+                  nbytes(HEAVY_SHORT_CAMERAS,
+                         3 * hnp + 9 * HEAVY_SHORT_CAMERAS),
+                  hn * flops_per_slot, in_total=False),
+        ]
+
+    cases["fused_coupling_apply"] += heavy_cases(
+        (hplans.to_pt(hW),), (hW,), 27 * es, 2 * 27, ((True,), (False,)))
+    cases["fused_coupling_apply_implicit"] += heavy_cases(
+        (hplans.to_pt(hJc), hplans.to_pt(hJp)), (hJp, hJc), 24 * es, 2 * 24,
+        ((), ()))
+    track = hplans.pt.seg_ptr[1:] - hplans.pt.seg_ptr[:-1]
+    log(f"heavy-tailed graph: {hnc} cameras, {hnp} points, {hn} slots, "
+        f"longest track {int(track.max())}, {int((track == 0).sum())} "
+        f"points without one; with {HEAVY_SHORT_CAMERAS} cameras for the "
+        "short-camera pt->cam")
+
     rows = {}
     for name, sides in cases.items():
         module = kernel_module(name)
@@ -689,9 +757,18 @@ def kernel_phase(scene) -> dict:
             plan = _plan_of(args)
             entry["sides"][side] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by=by, bytes=nbytes, flops=flops, max_abs_err=e_max,
+                bound_by=by, share=bound / k_ms, bytes=nbytes, flops=flops,
+                max_abs_err=e_max, in_total=c["in_total"],
                 per_thread=None if plan is None else plan.per_thread,
                 library_note=lib_note)
+            lib = ("-" if lib_ms is None else f"{lib_ms:.4f} ms") + (
+                "" if lib_note is None else f" (none: {lib_note})")
+            log(f"kernel {name}[{side}]: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"library {lib}, bound {bound:.4f} ms ({by}, "
+                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), {bound / k_ms:.1%} of "
+                f"bound, max |err| {e_max:.3e}, bitwise repeat ok")
+            if not c["in_total"]:
+                continue
             entry["ms"] += k_ms
             entry["plain_ms"] += p_ms
             entry["bound_ms"] += bound
@@ -701,13 +778,15 @@ def kernel_phase(scene) -> dict:
             entry["max_abs_err"] = max(entry["max_abs_err"], e_max)
             if bound > worst[0]:
                 worst = (bound, by)
-            lib = ("-" if lib_ms is None else f"{lib_ms:.4f} ms") + (
-                "" if lib_note is None else f" (none: {lib_note})")
-            log(f"kernel {name}[{side}]: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"library {lib}, bound {bound:.4f} ms ({by}, "
-                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), {bound / k_ms:.1%} of "
-                f"bound, max |err| {e_max:.3e}, bitwise repeat ok")
         entry["bound_by"] = worst[1]
+        if base_name(name) in FUSED_COUPLING:
+            log(f"kernel {name} per direction: " + "; ".join(
+                f"{side} {d['ms']:.4f} ms, bound {d['bound_ms']:.4f} ms, "
+                f"{d['share']:.1%} of bound"
+                for side, d in entry["sides"].items()) +
+                f"; row total {entry['ms']:.4f} ms, bound "
+                f"{entry['bound_ms']:.4f} ms, "
+                f"{entry['bound_ms'] / entry['ms']:.1%} of bound")
         rows[name] = entry
     return rows
 
@@ -932,7 +1011,7 @@ def profile_solve(args, path: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     events = prof.key_averages()
-    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    table = events.table(sort_by="self_cuda_time_total", row_limit=-1)
     (out_dir / f"profile_venice_{path}.txt").write_text(table)
     dev_us = sum(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))

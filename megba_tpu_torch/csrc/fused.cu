@@ -24,24 +24,45 @@
 // order for cam->pt, permuted once per PCG solve; the canonical camera
 // order for pt->cam), with the input vertex of each slot in `in_idx`, and
 // the product is a segment reduction (segreduce.cuh) whose per-slot term
-// gathers DIN table values and contracts them with the slot's rows in
-// registers (for the implicit product: the od = 2 values u = Jin_e x, then
-// Jout_e^T u).  No per-edge [cd, n], [pd, n] or [od, n] row and no cross
-// permute touches device memory.
-//   - cam->pt (output = points, ~5 edges each): one thread per point.  The
-//     9-value camera gathers read a table of 64 KB (f32, venice) that stays
-//     in L1 and L2.  Staging it in shared memory instead (64 KB a block)
-//     caps occupancy at three blocks an SM and measured slower on the
-//     H100 (PERF.md).
-//   - pt->cam (output = cameras, thousands of edges each): one 256-thread
-//     block per camera over the camera-sorted stream; the 3-value point
-//     gather reads a table that stays in L2 (12 MB at venice).
+// (`term`) gathers DIN table values and contracts them with the slot's
+// rows in registers (for the implicit product: the od = 2 values
+// u = Jin_e x, then Jout_e^T u).  No per-edge [cd, n], [pd, n] or [od, n]
+// row and no cross permute touches device memory.
+//
 // Bound on the H100: bytes.  Each slot reads its 27 W values (or 18 + 6
 // Jacobian values), its input index and DIN table values (from L1 or L2)
 // for 2*27 (2*24) flops: < 0.5 flop per HBM byte, against the card's
-// ~20 f32 flop/byte balance.  The design reads the rows once, coalesced
-// along each row (neighbouring threads own neighbouring slots or
-// neighbouring short segments), and writes only the [DOUT, nS] result.
+// ~20 f32 flop/byte balance.  So the design reads each row once, with
+// every byte of a warp's load used, and writes only the [DOUT, nS]
+// result.  Launch shapes (segreduce.cuh):
+//   - cam->pt (output = points, ~5 slots each): slot tiles.  Block b
+//     owns the points whose first slot lies in [b*256, (b+1)*256) (the
+//     plan's tile_ptr, ops/fused.slot_tiles); lane i computes slot
+//     base+i's DOUT terms, so each of a warp's 27 (24) row loads is 32
+//     consecutive values, 128 bytes at f32 and 64 at bf16, coalesced;
+//     the terms go through shared memory (term[3][256]: 3 KB at f32, 6 KB
+//     at f64) to the thread that owns their point, which sums them from 0
+//     in slot order, the order of the earlier thread-per-point shape, so
+//     the two give bitwise the same sums.  A track of 256 slots or more
+//     is summed by its whole block, strided, as a camera is: walked by
+//     one thread, such tracks held this launch to 23-24 % of its bound on
+//     chip_smoke.py's ~1e6-slot Zipf test graph, summed so 31-33 % (H100,
+//     PERF.md).
+//     The 9-value camera gathers read a table of 64 KB (f32, venice) that
+//     stays in L1 and L2; staging it in shared memory measured only
+//     8-12 % faster on the thread-per-point shape (PERF.md).
+//   - pt->cam (output = cameras, thousands of edges each): one 256-thread
+//     block per camera over the camera-sorted stream, whose strided loop
+//     already reads consecutive slots per warp; the 3-value point gather
+//     reads a table that stays in L2 (12 MB at venice).  A short-camera
+//     graph (mean under 64 slots a camera) takes slot tiles here too
+//     (term[9][256]: 9 KB at f32, 18 KB at f64).
+// Resources of the slot-tile launch (nvcc -Xptxas -v, sm_90a, 256
+// threads a block): cam->pt 40-42 registers and 3.1 KB of shared memory
+// a block at f32, 32-44 and 3.1 KB in the bf16-row arms beside an f32
+// table, 48-62 and 6.2 KB at f64 and mixed64 (8 bytes of spill in the
+// f64 and mixed W instantiations); a short-camera pt->cam 44 and 9.3 KB
+// at f32 and bf16 rows, 64-66 and 18.6 KB at f64 and mixed64.
 //
 // megba_block_diag_apply: out[:, c] = M^-1_c x[:, c] with the inverted
 // block diagonal laid out feature-major ([d*d, Nc], row i*d+j).  One thread
@@ -84,21 +105,28 @@ struct WRows {
   int64_t n;
   int64_t num_in;
 
-  __device__ __forceinline__ void add(int64_t e, T* acc) const {
+  // The DOUT values slot e adds to its output vertex.
+  __device__ __forceinline__ void term(int64_t e, T* t) const {
     const int64_t i = in_idx[e];
     T x[DIN];
 #pragma unroll
     for (int a = 0; a < DIN; ++a) x[a] = operand<BF16>(table[a * num_in + i]);
 #pragma unroll
     for (int b = 0; b < DOUT; ++b) {
-      T t = product<BF16>(W[(IN_MAJOR ? b : b * DIN) * n + e], x[0]);
+      t[b] = product<BF16>(W[(IN_MAJOR ? b : b * DIN) * n + e], x[0]);
 #pragma unroll
       for (int a = 1; a < DIN; ++a) {
         const int row = IN_MAJOR ? a * DOUT + b : b * DIN + a;
-        t += product<BF16>(W[row * n + e], x[a]);
+        t[b] += product<BF16>(W[row * n + e], x[a]);
       }
-      acc[b] += t;
     }
+  }
+
+  __device__ __forceinline__ void add(int64_t e, T* acc) const {
+    T t[DOUT];
+    term(e, t);
+#pragma unroll
+    for (int b = 0; b < DOUT; ++b) acc[b] += t[b];
   }
 };
 
@@ -116,7 +144,8 @@ struct JRows {
   int64_t n;
   int64_t num_in;
 
-  __device__ __forceinline__ void add(int64_t e, T* acc) const {
+  // The DOUT values slot e adds to its output vertex.
+  __device__ __forceinline__ void term(int64_t e, T* t) const {
     const int64_t i = in_idx[e];
     T x[DIN];
 #pragma unroll
@@ -133,13 +162,19 @@ struct JRows {
     }
 #pragma unroll
     for (int b = 0; b < DOUT; ++b) {
-      T t = product<BF16>(Jout[b * n + e], u[0]);
+      t[b] = product<BF16>(Jout[b * n + e], u[0]);
 #pragma unroll
       for (int o = 1; o < OD; ++o) {
-        t += product<BF16>(Jout[(o * DOUT + b) * n + e], u[o]);
+        t[b] += product<BF16>(Jout[(o * DOUT + b) * n + e], u[o]);
       }
-      acc[b] += t;
     }
+  }
+
+  __device__ __forceinline__ void add(int64_t e, T* acc) const {
+    T t[DOUT];
+    term(e, t);
+#pragma unroll
+    for (int b = 0; b < DOUT; ++b) acc[b] += t[b];
   }
 };
 
@@ -147,21 +182,29 @@ struct Launch {
   const void* table;
   const int32_t* in_idx;
   const int64_t* seg_ptr;
+  const int64_t* tile_ptr;
   void* out;
   int64_t n;
   int64_t num_in;
   int64_t num_out;
+  int64_t num_tiles;
   int per_thread;
   cudaStream_t stream;
 };
+
+template <typename T, class Rows>
+int launch(const Rows& rows, const Launch& l) {
+  return launch_tiled_reduce<T>(rows, l.seg_ptr, static_cast<T*>(l.out),
+                                l.num_out, l.per_thread, l.tile_ptr,
+                                l.num_tiles, l.stream);
+}
 
 template <typename T, typename R, bool BF16, int DIN, int DOUT, bool IN_MAJOR>
 int w_shape(const void* W, const Launch& l) {
   WRows<T, R, BF16, DIN, DOUT, IN_MAJOR> rows{
       static_cast<const R*>(W), static_cast<const T*>(l.table), l.in_idx,
       l.n, l.num_in};
-  return launch_reduce<T>(rows, l.seg_ptr, static_cast<T*>(l.out), l.num_out,
-                          l.per_thread, l.stream);
+  return launch<T>(rows, l);
 }
 
 template <typename T, typename R, bool BF16>
@@ -181,8 +224,7 @@ int j_shape(const void* Jin, const void* Jout, const Launch& l) {
   JRows<T, R, BF16, DIN, DOUT> rows{
       static_cast<const R*>(Jin), static_cast<const R*>(Jout),
       static_cast<const T*>(l.table), l.in_idx, l.n, l.num_in};
-  return launch_reduce<T>(rows, l.seg_ptr, static_cast<T*>(l.out), l.num_out,
-                          l.per_thread, l.stream);
+  return launch<T>(rows, l);
 }
 
 template <typename T, typename R, bool BF16>
@@ -231,17 +273,20 @@ int block_diag_typed(int d, const void* H, const void* x, void* out,
 extern "C" {
 
 // out [d_out, num_out] = per output segment: sum over its slots e of
-// W_e . table[:, in_idx[e]].
+// W_e . table[:, in_idx[e]].  With per_thread (short output segments) the
+// launch is the plan's num_tiles slot tiles of at most kBlock slots
+// (tile_ptr [num_tiles + 1]); otherwise a block per output segment.
 int megba_fused_coupling_apply(int arm, int d_in, int d_out, int w_in_major,
                                const void* W, const void* table,
                                const int32_t* in_idx, const int64_t* seg_ptr,
-                               void* out, int64_t n, int64_t num_in,
-                               int64_t num_out, int per_thread,
+                               const int64_t* tile_ptr, void* out, int64_t n,
+                               int64_t num_in, int64_t num_out,
+                               int64_t num_tiles, int per_thread,
                                void* stream) {
   if (const int prior = pending_error()) return prior;
-  const Launch l{table,   in_idx,  seg_ptr,    out,
-                 n,       num_in,  num_out,    per_thread,
-                 static_cast<cudaStream_t>(stream)};
+  const Launch l{table,     in_idx, seg_ptr, tile_ptr,
+                 out,       n,      num_in,  num_out,
+                 num_tiles, per_thread, static_cast<cudaStream_t>(stream)};
   switch (arm) {
     case kF32:
       return w_directions<float, float, false>(d_in, d_out, w_in_major, W, l);
@@ -263,17 +308,18 @@ int megba_fused_coupling_apply(int arm, int d_in, int d_out, int w_in_major,
 }
 
 // out [d_out, num_out] = per output segment: sum over its slots e of
-// Jout_e^T (Jin_e . table[:, in_idx[e]]).
+// Jout_e^T (Jin_e . table[:, in_idx[e]]); the launch as above.
 int megba_fused_implicit_apply(int arm, int d_in, int d_out, const void* Jin,
                                const void* Jout, const void* table,
                                const int32_t* in_idx, const int64_t* seg_ptr,
-                               void* out, int64_t n, int64_t num_in,
-                               int64_t num_out, int per_thread,
+                               const int64_t* tile_ptr, void* out, int64_t n,
+                               int64_t num_in, int64_t num_out,
+                               int64_t num_tiles, int per_thread,
                                void* stream) {
   if (const int prior = pending_error()) return prior;
-  const Launch l{table,   in_idx,  seg_ptr,    out,
-                 n,       num_in,  num_out,    per_thread,
-                 static_cast<cudaStream_t>(stream)};
+  const Launch l{table,     in_idx, seg_ptr, tile_ptr,
+                 out,       n,      num_in,  num_out,
+                 num_tiles, per_thread, static_cast<cudaStream_t>(stream)};
   switch (arm) {
     case kF32:
       return j_directions<float, float, false>(d_in, d_out, Jin, Jout, l);

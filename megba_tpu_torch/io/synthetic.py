@@ -4,6 +4,10 @@ A copy of `megba_tpu/io/synthetic.py:make_synthetic_bal` that the port
 owns, so it imports nothing of the JAX package: for the same arguments it
 gives byte-identical arrays.  Problems of any size are generated from a
 seed with known ground truth, so no dataset has to be downloaded.
+
+`heavy_tailed_graph` is the port's own: an observation graph alone (no
+parameters) whose track lengths have a Zipf tail, with the edge cases
+of the fused kernels' slot tiles placed in it.
 """
 
 from __future__ import annotations
@@ -387,3 +391,32 @@ def make_synthetic_bal(
         cam_idx=cam_idx,
         pt_idx=pt_idx,
     )
+
+
+def heavy_tailed_graph(num_cameras: int, num_points: int, seed: int = 0,
+                       tile: int = 256, zipf_a: float = 2.0,
+                       max_track: int = 4096) -> Tuple[np.ndarray, np.ndarray]:
+    """(cam_idx, pt_idx) int32 edge lists, shuffled, of a correctness
+    graph for the slot tiles' edge cases: track lengths (observations per
+    point) follow a Zipf law of exponent `zipf_a` capped at `max_track`
+    (mean ~5.9 at the defaults), cameras are drawn uniformly with
+    replacement (so with few cameras a long track sees a camera more than
+    once).  The exponent and the cap are chosen to reach long tracks, not
+    taken from measured SfM data.
+
+    Points 0, the middle three and the last two have no observation;
+    point 1 has one, point 2 exactly `tile` and point 3 3 * `tile` + 17,
+    so a slot tile of `tile` slots meets empty segments at the start,
+    middle and end of the order, a segment that fills a tile and one
+    that spans four.  Needs num_points >= 10."""
+    if num_points < 10:
+        raise ValueError("heavy_tailed_graph needs num_points >= 10")
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(rng.zipf(zipf_a, num_points), max_track)
+    mid = num_points // 2
+    lengths[[0, mid - 1, mid, mid + 1, -2, -1]] = 0
+    lengths[1:4] = (1, tile, 3 * tile + 17)
+    pt_idx = np.repeat(np.arange(num_points), lengths)
+    cam_idx = rng.integers(0, num_cameras, pt_idx.shape[0])
+    order = rng.permutation(pt_idx.shape[0])
+    return cam_idx[order].astype(np.int32), pt_idx[order].astype(np.int32)

@@ -27,6 +27,12 @@ vertex o of the per-edge product applied to table[:, in(e)].
              per PCG solve), input = the point of each camera slot, W
              read output-major.
 
+Where the output side's segments are short (`SegPlan.per_thread`: the
+points, ~5 slots each), the kernel runs one block per tile of
+`SLOT_TILE` consecutive slots, its lanes over the slots, and the plan
+carries which output segments each tile owns (`slot_tiles`, computed
+once per plan); a side of long segments runs a block per segment.
+
 W keeps the JAX layout: row a*pd + b holds (Jc^T Jp)[a, b] of each
 edge, a the camera dimension and b the point dimension.  The implicit
 product reads Jin rows o*d_in + a and Jout rows o*d_out + b (od = 2).
@@ -66,6 +72,10 @@ SUPPORTED_DIRECTIONS = ((9, 3, True), (3, 9, False))
 SUPPORTED_IMPLICIT = ((9, 3, 2), (3, 9, 2))
 # Block size the CUDA block-diagonal apply is built for (the camera).
 SUPPORTED_BLOCK_DIAG = (9,)
+# Slots per tile of the slot-tile launch (csrc/segreduce.cuh
+# `reduce_slot_tiles`): the kernel's block size, kBlock, and the most a
+# tile may hold.
+SLOT_TILE = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,17 +85,53 @@ class FusedPlan:
     in_idx: torch.Tensor  # [n] int32 input vertex of each output-order slot
     out: SegPlan  # the output side's CSR plan
     num_in: int  # input vertices (columns of the gathered table)
+    # [num_tiles + 1] int64: tile b owns the output segments
+    # [tile_ptr[b], tile_ptr[b + 1]) (`slot_tiles`), read by the slot-tile
+    # launch where `out.per_thread`.
+    tile_ptr: torch.Tensor
+
+
+def slot_tiles(seg_ptr: torch.Tensor,
+               slot_tile: int = SLOT_TILE) -> torch.Tensor:
+    """Which segments each tile of `slot_tile` consecutive slots owns:
+    [num_tiles + 1] int64 offsets into the segments, num_tiles =
+    max(1, ceil(n / slot_tile)) for n = seg_ptr[-1] slots.
+
+    Tile b owns the segments whose first slot lies in [b * slot_tile,
+    (b + 1) * slot_tile).  An empty segment counts by its offset
+    (seg_ptr[s] = seg_ptr[s + 1]), and the last tile also owns the
+    trailing empty segments whose offset is n; so every segment has one
+    owner, tiles own consecutive runs in order, and a tile in which no
+    segment starts owns none.  The kernel takes tiles of at most
+    SLOT_TILE slots; smaller ones give the same sums."""
+    if not 1 <= slot_tile <= SLOT_TILE:
+        raise ValueError(f"slot_tile {slot_tile} outside [1, {SLOT_TILE}]")
+    n = int(seg_ptr[-1])
+    num_tiles = max(1, -(-n // slot_tile))
+    starts = torch.arange(num_tiles, dtype=torch.int64,
+                          device=seg_ptr.device) * slot_tile
+    owned = torch.searchsorted(seg_ptr[:-1].contiguous(), starts)
+    last = torch.full((1,), seg_ptr.shape[0] - 1, dtype=torch.int64,
+                      device=seg_ptr.device)
+    return torch.cat([owned, last])
+
+
+def _fused_plan(in_idx: torch.Tensor, out: SegPlan,
+                num_in: int) -> FusedPlan:
+    return FusedPlan(in_idx=in_idx.contiguous(), out=out, num_in=num_in,
+                     tile_ptr=slot_tiles(out.seg_ptr))
 
 
 def with_fused_plans(plans: DualPlans) -> DualPlans:
     """Attach both fused directions to the dual plans (once per solve
     problem): the camera of each point slot and the point of each camera
-    slot, gathered from the plans' own segment ids."""
+    slot, gathered from the plans' own segment ids, and each direction's
+    slot tiles."""
     cam, pt = plans.cam, plans.pt
-    to_pt = FusedPlan(in_idx=cam.seg.index_select(0, pt.inv).contiguous(),
-                      out=pt, num_in=cam.num_segments)
-    to_cam = FusedPlan(in_idx=pt.seg.index_select(0, cam.inv).contiguous(),
-                       out=cam, num_in=pt.num_segments)
+    to_pt = _fused_plan(cam.seg.index_select(0, pt.inv), pt,
+                        cam.num_segments)
+    to_cam = _fused_plan(pt.seg.index_select(0, cam.inv), cam,
+                         pt.num_segments)
     return dataclasses.replace(plans, fused_to_pt=to_pt, fused_to_cam=to_cam)
 
 
@@ -158,11 +204,11 @@ def fused_block_diag_apply_plain(Hrows: torch.Tensor, x: torch.Tensor,
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "megba_fused_coupling_apply": (
-        ctypes.c_int, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I,
-                       _P]),
+        ctypes.c_int, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L,
+                       _L, _I, _P]),
     "megba_fused_implicit_apply": (
-        ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
-                       _P]),
+        ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
+                       _L, _I, _P]),
     "megba_block_diag_apply": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _P]),
     "megba_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -186,6 +232,26 @@ def _check_plan(name: str, fplan: FusedPlan, n: int,
     if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
         raise ValueError(f"{name}: fplan.in_idx must be a contiguous "
                          f"torch.int32 tensor on {dev}")
+    # Like seg_ptr's, tile_ptr's values are not read here: that would wait
+    # for the device on every launch.  Its length must fit a tiling of n
+    # slots by tiles of at most SLOT_TILE.
+    tiles = fplan.tile_ptr
+    if (tiles.dim() != 1 or not
+            max(1, -(-n // SLOT_TILE)) <= tiles.shape[0] - 1 <= max(1, n)):
+        raise ValueError(f"{name}: fplan.tile_ptr {tuple(tiles.shape)} does "
+                         f"not tile {n} slots by at most {SLOT_TILE}")
+    if (tiles.device != dev or tiles.dtype != torch.int64
+            or not tiles.is_contiguous()):
+        raise ValueError(f"{name}: fplan.tile_ptr must be a contiguous "
+                         f"torch.int64 tensor on {dev}")
+
+
+def _plan_args(fplan: FusedPlan, out: torch.Tensor, n: int) -> tuple:
+    """The C launchers' arguments from `in_idx` to `per_thread`."""
+    return (fplan.in_idx.data_ptr(), fplan.out.seg_ptr.data_ptr(),
+            fplan.tile_ptr.data_ptr(), out.data_ptr(), n, fplan.num_in,
+            fplan.out.num_segments, fplan.tile_ptr.shape[0] - 1,
+            int(fplan.out.per_thread))
 
 
 def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
@@ -219,9 +285,7 @@ def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
     with torch.cuda.device(dev):
         code = _lib().megba_fused_coupling_apply(
             arm_code, d_in, d_out, int(w_in_major), W.data_ptr(),
-            table.data_ptr(), fplan.in_idx.data_ptr(),
-            fplan.out.seg_ptr.data_ptr(), out.data_ptr(), n, fplan.num_in,
-            fplan.out.num_segments, int(fplan.out.per_thread),
+            table.data_ptr(), *_plan_args(fplan, out, n),
             _kernels.current_stream(dev))
     _kernels.raise_on(_lib(), code, "fused_coupling_apply")
     _kernels.count_launch(fused_coupling_apply, arm)
@@ -266,9 +330,7 @@ def fused_coupling_apply_implicit(Jin: torch.Tensor, Jout: torch.Tensor,
     with torch.cuda.device(dev):
         code = _lib().megba_fused_implicit_apply(
             arm_code, d_in, d_out, Jin.data_ptr(), Jout.data_ptr(),
-            table.data_ptr(), fplan.in_idx.data_ptr(),
-            fplan.out.seg_ptr.data_ptr(), out.data_ptr(), n, fplan.num_in,
-            fplan.out.num_segments, int(fplan.out.per_thread),
+            table.data_ptr(), *_plan_args(fplan, out, n),
             _kernels.current_stream(dev))
     _kernels.raise_on(_lib(), code, "fused_coupling_apply_implicit")
     _kernels.count_launch(fused_coupling_apply_implicit, arm)

@@ -9,6 +9,8 @@ test_torch_explicit.py, test_torch_fused.py, test_torch_fused_implicit.py,
 test_torch_precision.py and test_torch_unfused_precision.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -545,3 +547,81 @@ def test_f32_unfused_precision_solve_kernels_match_plain_on_small_scene(
                                rtol=1e-4 if rung == "mixed" else 2e-2)
     np.testing.assert_allclose(float(kern.cost), float(plain.cost),
                                rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The fused kernels' slot tiles on heavy-tailed graphs
+# ---------------------------------------------------------------------------
+
+
+# (row dtype, table dtype, bf16_operands) of each arm of kernels 7 and 8.
+_FUSED_ARMS = {
+    "f32": (torch.float32, torch.float32, False),
+    "f64": (torch.float64, torch.float64, False),
+    "mixed": (torch.bfloat16, torch.float32, False),
+    "mixed64": (torch.bfloat16, torch.float64, False),
+    "bf16": (torch.bfloat16, torch.float32, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,npt", [(12, 3000), (2000, 3000)],
+                         ids=["few_cameras", "many_cameras"])
+def test_cuda_fused_kernels_on_heavy_tailed_graphs(nc, npt):
+    """On the card: kernels 7 and 8 in both directions and every arm on a
+    graph with Zipf track lengths, empty points at the start, middle and
+    end, a point of exactly one tile and one spanning four
+    (io.synthetic.heavy_tailed_graph), each against its plain version
+    (1e-5 / 1e-12 of the sum of the terms' magnitudes), bitwise
+    repeatable and counted per arm; with few cameras pt->cam runs a block
+    per camera, with many it runs slot tiles too.  On every slot-tile
+    side, plans of 1 and 37 slots a tile give bitwise the 256-slot
+    plan's output: a segment's summation order (slot order under 256
+    slots, the block-per-segment order from 256) does not depend on the
+    tile that owns it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch.io.synthetic import heavy_tailed_graph
+
+    dev = torch.device("cuda")
+    cam_idx, pt_idx = heavy_tailed_graph(nc, npt, seed=5)
+    n = cam_idx.shape[0]
+    _, base = tseg.make_dual_plans(cam_idx, pt_idx, nc, npt, dev)
+    plans = tfused.with_fused_plans(base)
+    assert plans.pt.per_thread and plans.cam.per_thread == (nc > 12)
+    rng = np.random.default_rng(14)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev)
+
+    Jc, Jp, W = 0.1 * rand(18, n), 0.1 * rand(6, n), 0.1 * rand(27, n)
+    x_cam, x_pt = rand(9, nc), rand(3, npt)
+    # (kernel, rows of cam->pt, rows of pt->cam, w_in_major of each)
+    kernels = (
+        (tfused.fused_coupling_apply, tfused.fused_coupling_apply_plain,
+         (plans.to_pt(W),), (W,), ((True,), (False,))),
+        (tfused.fused_coupling_apply_implicit,
+         tfused.fused_coupling_apply_implicit_plain,
+         (plans.to_pt(Jc), plans.to_pt(Jp)), (Jp, Jc), ((), ())),
+    )
+    def retiled(fplan, tile):
+        return dataclasses.replace(
+            fplan, tile_ptr=tfused.slot_tiles(fplan.out.seg_ptr, tile))
+
+    for kernel, plain, rows_tp, rows_tc, extra in kernels:
+        for arm, (rt, tt, ops) in _FUSED_ARMS.items():
+            directions = (
+                (rows_tp, x_cam, "fused_to_pt", extra[0]),
+                (rows_tc, x_pt, "fused_to_cam", extra[1]))
+            for rows, x, side, tail in directions:
+                fplan = getattr(plans, side)
+                args = (*(r.to(rt) for r in rows), x.to(tt), fplan, *tail)
+                _check_arm(kernel, plain, args, arm, tt, bf16_operands=ops)
+                if not fplan.out.per_thread:
+                    continue
+                want = kernel(*args, bf16_operands=ops)
+                for tile in (1, 37):
+                    got = kernel(*args[:-1 - len(tail)],
+                                 retiled(fplan, tile), *tail,
+                                 bf16_operands=ops)
+                    assert torch.equal(got, want)

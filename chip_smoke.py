@@ -26,25 +26,39 @@ exception ends the run with a non-zero exit code:
    `io.synthetic.heavy_tailed_graph`; pt->cam also over 40,000 cameras,
    short enough for slot tiles), checked and timed as sides of their
    own, outside the row's totals;
-4. f64: a trafalgar-sized scene solved end to end on eight paths
+4. engines: at the venice shapes, f64, the AUTODIFF (reverse mode) and
+   AUTODIFF_FORWARD (forward mode) Jacobian engines against the
+   ANALYTICAL one per edge (r, Jc, Jp each within 1e-9 of the row's
+   largest magnitude), with cameras under the small-angle threshold
+   among the edges; then at f32 the CUDA-event time of one
+   linearisation (gathers, engine and weighting) per mode and its peak
+   memory.  No kernel of the port runs here;
+5. f64: a trafalgar-sized scene solved end to end on thirteen paths
    (IMPLICIT, EXPLICIT, each unfused and fused, each in full f64 and
-   with mixed_precision_pcg), each through the kernels and through the
-   plain versions, both on the card; the two cost trajectories agree at
-   rtol 1e-9 with the same accept pattern and iteration counts, and the
-   kernel run's launches are exactly what the code implies;
-5. f32 precision: the same scene at f32 on the eight precision-rung
+   with mixed_precision_pcg; the reference's default solve,
+   `implicit_autodiff`; `explicit_fused_autodiff_forward`;
+   `implicit_fused_huber` and `explicit_cauchy`; `implicit_forcing_warm`,
+   Eisenstat-Walker forcing with warm starts), each through the kernels
+   and through the plain versions, both on the card; the two cost
+   trajectories agree at rtol 1e-9 with the same accept pattern and
+   iteration counts, and the kernel run's launches are exactly what the
+   code implies;
+6. f32 precision: the same scene at f32 on the eight precision-rung
    paths (IMPLICIT / EXPLICIT, unfused / fused, mixed / bf16), kernels
    against plain versions on the card: the first LM iteration's trial
    cost at rtol 1e-4 (mixed) or 2e-2 (bf16, whose recurrence is not
    linear), the final cost at rtol 1e-3, both finite and below the
    initial;
-6. venice: the venice configuration (1778 cameras, 993,923 points,
+7. venice: the venice configuration (1778 cameras, 993,923 points,
    ~5.0M observations, f32, ANALYTICAL) through `flat_solve`, the port's
    main path, once per path: IMPLICIT, EXPLICIT, EXPLICIT + fused
-   kernels, IMPLICIT + fused kernels, and the eight precision-rung
-   paths.  Every kernel's launch count is read from its path's run alone
-   and checked against the count the code implies; the final cost must
-   be finite and below the initial.
+   kernels, IMPLICIT + fused kernels, the eight precision-rung paths,
+   then IMPLICIT with AUTODIFF, with AUTODIFF_FORWARD, with a Huber loss
+   and with forcing and warm starts.  Every kernel's launch count is
+   read from its path's run alone and checked against the count the
+   code implies; the final cost must be finite and below the initial,
+   and on the autodiff paths within rtol 1e-3 of the ANALYTICAL IMPLICIT
+   run's.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -86,6 +100,9 @@ F32_REL_TO_ABS_SUM = 1e-5
 # terms' magnitudes.
 F64_REL_TO_ABS_SUM = 1e-12
 F64_COST_RTOL = 1e-9
+# The engine phase: an autodiff Jacobian against the closed form at f64,
+# per edge, within this share of the row's largest magnitude.
+ENGINE_REL_TO_ROW_MAX = 1e-9
 # Precision-rung solves, kernels against plain versions at f32: the first
 # trial cost, per rung, and the final cost (an accept decision may flip
 # near the optimum at f32, so the trajectories are not compared step by
@@ -96,6 +113,9 @@ F64_COST_RTOL = 1e-9
 # (tests/test_bf16.py).
 FIRST_COST_RTOL = {"mixed": 1e-4, "bf16": 2e-2}
 FINAL_COST_RTOL = 1e-3
+# The venice autodiff paths' final cost against the ANALYTICAL IMPLICIT
+# run's: the same solve in f32, whose Jacobians differ in rounding.
+AUTODIFF_COST_RTOL = 1e-3
 # A library yardstick in bf16 (cuSPARSE with bf16 values) rounds its
 # output to bf16: it is held to 2^-6 of the sum of the terms' magnitudes.
 BF16_LIBRARY_REL_TO_ABS_SUM = 2.0 ** -6
@@ -153,6 +173,42 @@ for _kind in ("IMPLICIT", "EXPLICIT"):
 # The f64 phase's paths: the f32/f64 ones and mixed_precision_pcg (bf16
 # is an f32 rung).
 F64_PATHS = [p for p, (_, _, rung, _) in PATHS.items() if rung != "bf16"]
+# The venice phase's paths of the kernel slices, in order.
+VENICE_PATHS = list(PATHS)
+# The paths of the Jacobian modes, robust losses and forcing: a path of
+# the kernel slices (its kernels and launches) with option fields of its
+# own.  Ceres's `bundle_adjuster --robustify` uses a Huber loss of scale
+# 1; forcing runs the JAX package's INEXACT solver options
+# (tests/test_forcing.py) under the phase's PCG cap.
+VARIANTS = {
+    "implicit_autodiff": ("implicit", dict(jacobian_mode="AUTODIFF")),
+    "implicit_autodiff_forward": (
+        "implicit", dict(jacobian_mode="AUTODIFF_FORWARD")),
+    "explicit_fused_autodiff_forward": (
+        "explicit_fused", dict(jacobian_mode="AUTODIFF_FORWARD")),
+    "implicit_huber": ("implicit", dict(robust_kind="HUBER")),
+    "implicit_fused_huber": ("implicit_fused", dict(robust_kind="HUBER")),
+    "explicit_cauchy": ("explicit", dict(robust_kind="CAUCHY")),
+    "implicit_forcing_warm": ("implicit", dict(forcing=True)),
+}
+for _name, (_base, _) in VARIANTS.items():
+    PATHS[_name] = PATHS[_base]
+F64_PATHS += ["implicit_autodiff", "explicit_fused_autodiff_forward",
+              "implicit_fused_huber", "explicit_cauchy",
+              "implicit_forcing_warm"]
+VENICE_PATHS += ["implicit_autodiff", "implicit_autodiff_forward",
+                 "implicit_huber", "implicit_forcing_warm"]
+# The reference's default solve: at f64 it runs ProblemOption()'s own
+# tolerances under the phase's PCG cap and an LM cap of 5; at venice the
+# phase's options, so that its final cost compares with the ANALYTICAL
+# run's.  With the default PCG (absolute tol 1e-1, refuse ratio 1) the
+# trafalgar-sized scene reaches its cost floor at the 8th LM iteration
+# (a step of ~1e-16 relative), where an accept decision is rounding: a
+# 1e-15 relative change of the observations flips it through the plain
+# versions alone (ROADMAP Queue 3, "past the cost floor").  Its 5th step
+# still moves the cost by ~3e-8.
+DEFAULT_PATH = "implicit_autodiff"
+DEFAULT_LM_CAP = 5
 # The kernel rows of the bf16-row arms, and the venice path whose run
 # gives each its launch count (of that arm).
 ARM_PATHS = {
@@ -204,7 +260,10 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
     """The solve options of a path: an absolute PCG tolerance of 1e-10
     (every solve runs to its iteration cap or stagnation), or with
     `tol_relative` 1e-6 of the RHS energy (floored at 1e-3 on the bf16
-    rung).
+    rung); a variant's Jacobian mode, robust loss (scale 1) or forcing
+    with warm starts (INEXACT: tol 1e-1 as eta's cap); at f64
+    `DEFAULT_PATH` keeps ProblemOption()'s tolerances, refuse ratio and
+    stopping thresholds, under `DEFAULT_LM_CAP`.
 
     Mixed at f64 starts from trust region 1, not 1e3: from 1e3 that
     rung's trajectory comes, within a few accepted steps, to depend on
@@ -215,20 +274,30 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
     then agree at `F64_COST_RTOL`.  From region 1 the same change moves
     no trial cost by more than ~1e-14."""
     from megba_tpu_torch import (AlgoOption, ComputeKind, JacobianMode,
-                                 ProblemOption, SolverOption)
+                                 ProblemOption, RobustKind, SolverOption)
 
     kind, fused, rung, _ = PATHS[path]
+    extra = VARIANTS.get(path, (path, {}))[1]
     region = 1.0 if rung == "mixed" and dtype == np.float64 else 1e3
+    mode = JacobianMode[extra.get("jacobian_mode", "ANALYTICAL")]
+    if path == DEFAULT_PATH and dtype == np.float64:
+        return ProblemOption(
+            compute_kind=ComputeKind[kind], jacobian_mode=mode,
+            algo_option=AlgoOption(max_iter=DEFAULT_LM_CAP),
+            solver_option=SolverOption(max_iter=30))
+    solver = dict(tol=1e-6 if tol_relative else 1e-10,
+                  tol_relative=tol_relative)
+    if extra.get("forcing"):
+        solver = dict(tol=1e-1, forcing=True, warm_start=True)
     return ProblemOption(
-        dtype=dtype, compute_kind=ComputeKind[kind],
-        jacobian_mode=JacobianMode.ANALYTICAL,
-        mixed_precision_pcg=rung == "mixed",
+        dtype=dtype, compute_kind=ComputeKind[kind], jacobian_mode=mode,
+        robust_kind=RobustKind[extra.get("robust_kind", "NONE")],
+        robust_delta=1.0, mixed_precision_pcg=rung == "mixed",
         algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15,
                                initial_region=region),
         solver_option=SolverOption(
-            max_iter=30, tol=1e-6 if tol_relative else 1e-10,
-            tol_relative=tol_relative, refuse_ratio=1e30,
-            fused_kernels=fused, bf16=rung == "bf16"))
+            max_iter=30, refuse_ratio=1e30, fused_kernels=fused,
+            bf16=rung == "bf16", **solver))
 
 
 def kernel_modules():
@@ -792,7 +861,94 @@ def kernel_phase(scene) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: small f64 end to end, kernels against plain versions
+# Phase 4: the Jacobian engines at full width
+# ---------------------------------------------------------------------------
+
+
+def engine_phase(scene) -> None:
+    """The autodiff engines against the closed form at f64 per edge, then
+    one linearisation per mode at f32, timed and with its peak memory."""
+    from megba_tpu_torch import JacobianMode, make_residual_jacobian_fn
+    from megba_tpu_torch.linear_system.builder import weight_system_inputs
+
+    dev = DEVICE
+    cam_idx = torch.from_numpy(scene.cam_idx.astype(np.int64)).to(dev)
+    pt_idx = torch.from_numpy(scene.pt_idx.astype(np.int64)).to(dev)
+    cams = scene.cameras0.astype(np.float64)
+    # Cameras under the small-angle threshold (theta^2 < 1e-12): one at
+    # zero, seven scaled down; their edges join the f64 comparison.
+    cams[0, 0:3] = 0.0
+    cams[1:8, 0:3] *= 1e-7
+    small = int(np.isin(scene.cam_idx, np.arange(8)).sum())
+
+    def rows(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a.T)).to(dev, dtype)
+
+    modes = ("ANALYTICAL", "AUTODIFF", "AUTODIFF_FORWARD")
+    engines = {m: make_residual_jacobian_fn(mode=JacobianMode[m])
+               for m in modes}
+    f64 = torch.float64
+    cam64 = rows(cams, f64).index_select(1, cam_idx)
+    pt64 = rows(scene.points0, f64).index_select(1, pt_idx)
+    obs64 = rows(scene.obs, f64)
+    ref = engines["ANALYTICAL"](cam64, pt64, obs64)
+    for m in modes[1:]:
+        torch.cuda.reset_peak_memory_stats()
+        got = engines[m](cam64, pt64, obs64)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        worst = 0.0
+        for name, g, w in zip(("r", "Jc", "Jp"), got, ref):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"engine {m}: non-finite {name}")
+            share = float(((g - w).abs().amax(1)
+                           / w.abs().amax(1)).max())
+            if not share <= ENGINE_REL_TO_ROW_MAX:
+                raise AssertionError(
+                    f"engine {m}: {name} differs from ANALYTICAL by "
+                    f"{share:.3e} of its row's largest magnitude")
+            worst = max(worst, share)
+        log(f"engine {m} f64: r, Jc, Jp within {worst:.3e} of the row's "
+            f"largest magnitude of ANALYTICAL (limit "
+            f"{ENGINE_REL_TO_ROW_MAX:g}), {cam64.shape[1]} edges, {small} "
+            f"of them on small-angle cameras; peak {peak / 2**30:.3f} GiB")
+        del got
+    del cam64, pt64, obs64, ref
+
+    f32 = torch.float32
+    cams32, pts32 = rows(cams, f32), rows(scene.points0, f32)
+    obs32 = rows(scene.obs, f32)
+    mask = torch.ones(obs32.shape[1], dtype=f32, device=dev)
+    table = []
+    for m in modes:
+        engine = engines[m]
+
+        def linearise():
+            r, Jc, Jp = engine(cams32.index_select(1, cam_idx),
+                               pts32.index_select(1, pt_idx), obs32)
+            return weight_system_inputs(r, Jc, Jp, cam_idx, pt_idx, mask)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        linearise()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_ms(linearise, reps=5, batch=2, warmup=1)
+        table.append(dict(mode=m, ms=ms, peak_gib=peak / 2**30,
+                          above_inputs_gib=(peak - base) / 2**30))
+        log(f"engine {m} f32: one linearisation (gathers, engine, "
+            f"weighting) {ms:.3f} ms, peak {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} GiB above the inputs)")
+    for row in table[1:]:
+        log(f"engine {row['mode']} f32 against ANALYTICAL: "
+            f"{row['ms'] / table[0]['ms']:.2f}x the time, "
+            f"{row['above_inputs_gib'] / table[0]['above_inputs_gib']:.2f}x "
+            "the memory above the inputs")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: small f64 end to end, kernels against plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -858,7 +1014,7 @@ def f64_phase(scene) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: small f32 precision rungs, kernels against plain versions
+# Phase 6: small f32 precision rungs, kernels against plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -915,7 +1071,7 @@ def precision_phase(scene) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the main path at full width
+# Phase 7: the main path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -927,10 +1083,16 @@ def expected_launches(path: str, res) -> dict:
     rung (no priming product), the preconditioner k+1 times, two
     `coupling_expand` for the gain ratio and, on a precision rung, two
     `seg_expand` for the equilibration scales; each linearisation runs
-    `jtj_grad_reduce` twice."""
+    `jtj_grad_reduce` twice.  A warm start (every PCG of a warm-started
+    solve, the first one's zero x0 included) adds the S.p product of
+    r0 = b - S x0, one hlp and one hpl, and one preconditioner apply: it
+    applies M^-1 to r0 and to b, where a cold start applies it to b
+    alone.  The Jacobian mode and the robust loss launch nothing."""
     kind, fused, rung, _ = PATHS[path]
+    warm = VARIANTS.get(path, (path, {}))[1].get("forcing", False)
     L, P, A = res.iterations, res.pcg_iterations, res.accepted
-    products = 2 * P + (2 if rung == "bf16" else 4) * L
+    products = 2 * P + (2 if rung == "bf16" else 4) * L + (2 * L if warm
+                                                           else 0)
     want = dict.fromkeys(launch_counts(), 0)
     want["jtj_grad_reduce"] = 2 + 2 * A
     want["coupling_expand"] = 2 * L
@@ -942,7 +1104,7 @@ def expected_launches(path: str, res) -> dict:
     else:
         want["fused_coupling_apply_implicit" if kind == "IMPLICIT"
              else "fused_coupling_apply"] = products
-        want["fused_block_diag_apply"] = P + L
+        want["fused_block_diag_apply"] = P + (2 * L if warm else L)
     if rung is not None:
         want["seg_expand"] += 2 * L
     return want
@@ -983,6 +1145,12 @@ def venice_phase(scene, path: str, profile: bool, ref_cost=None):
     gap = ("" if ref_cost is None else
            f", final cost {abs(c1 - ref_cost) / ref_cost:.3e} relative to "
            "the implicit run's")
+    mode = VARIANTS.get(path, (path, {}))[1].get("jacobian_mode")
+    if mode is not None and not (
+            abs(c1 - ref_cost) <= AUTODIFF_COST_RTOL * ref_cost):
+        raise AssertionError(
+            f"venice {path}: final cost {c1} is not within "
+            f"{AUTODIFF_COST_RTOL:g} of the ANALYTICAL run's {ref_cost}")
     log(f"venice f32 {path}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM "
         f"iterations ({res.accepted} accepted), {res.pcg_iterations} PCG "
         f"iterations, flat_solve {wall:.3f} s = {wall / res.iterations:.3f} "
@@ -1057,12 +1225,14 @@ def main() -> int:
 
     venice = make_scene(VENICE, np.float32)
     rows = kernel_phase(venice)
+    engine_phase(venice)
     f64_counts = f64_phase(make_scene(TRAFALGAR, np.float64))
     for row, arm_path in F64_ARM_PATHS.items():
         rows[row]["launches"] = f64_counts[arm_path].get(row, 0)
     precision_phase(make_scene(TRAFALGAR, np.float32))
     ref_cost = None
-    for path, (_, _, rung, kernels_of_path) in PATHS.items():
+    for path in VENICE_PATHS:
+        _, _, rung, kernels_of_path = PATHS[path]
         counts, arms, cost = venice_phase(venice, path, opts.profile,
                                           ref_cost)
         ref_cost = cost if ref_cost is None else ref_cost

@@ -7,7 +7,10 @@ imports torch and numpy, never jax, and nothing of `megba_tpu`, whose
 solver it reproduces (the tests hold the two against each other).
 
 Entry points (`flat_solve`, `solve_bal`) run on CUDA unless asked for the
-CPU with `device="cpu"`.
+CPU with `device="cpu"`.  Jacobians come from reverse- or forward-mode
+`torch.func` or the closed form (`make_residual_jacobian_fn`), with
+optional Huber / Cauchy losses (`rho_and_weight`, `robustify`);
+`Jet` / `seed_jets` are JetVector-style forward-mode dual numbers.
 """
 
 from megba_tpu_torch.common import (
@@ -29,4 +32,12 @@ from megba_tpu_torch.common import (
 )
 from megba_tpu_torch.io.bal import BALFile, load_bal, loads_bal, save_bal
 from megba_tpu_torch.io.synthetic import make_synthetic_bal
+from megba_tpu_torch.ops.jet import Jet, seed_jets
+from megba_tpu_torch.ops.residuals import (
+    bal_residual,
+    build_residual_jacobian_fn,
+    make_residual_fn,
+    make_residual_jacobian_fn,
+)
+from megba_tpu_torch.ops.robust import rho_and_weight, robustify
 from megba_tpu_torch.solve import flat_solve, solve_bal

@@ -1,45 +1,79 @@
 """Levenberg-Marquardt trust-region outer loop (PyTorch).
 
-Counterpart of `megba_tpu/algo/lm.py:lm_solve` for the unguarded case
-without forcing or warm starts: damp, solve the Schur system, test
-||dx|| <= eps2 (||x|| + eps1), measure the gain ratio rho against the
-linearised cost Sum (J dx + r)^2, then accept (relinearise, region /=
-max(1/3, 1 - (2 rho - 1)^3), stop when ||g||_inf <= eps1) or reject
-(region /= v, v *= 2).
+Counterpart of `megba_tpu/algo/lm.py:lm_solve`, unguarded: damp, solve
+the Schur system, test ||dx|| <= eps2 (||x|| + eps1), measure the gain
+ratio rho against the linearised cost Sum (J dx + r)^2, then accept
+(relinearise, region /= max(1/3, 1 - (2 rho - 1)^3), stop when
+||g||_inf <= eps1) or reject (region /= v, v *= 2).  With a robust loss
+the system is built from the IRLS-reweighted rows, the accept test uses
+Sum rho and the model decrease is measured from the weighted cost.
+`SolverOption.forcing` drives the PCG tolerance by the Eisenstat-Walker
+schedule, and `warm_start` seeds each PCG with the last accepted step.
 
 The JAX `lax.while_loop` becomes a Python loop and its `lax.cond`
 relinearisation a Python `if`; the host reads the accept and stop flags
-once per iteration.  Trial points are costed by the residual alone
-(`bal_residual_analytical_fm` + `comp_sum_sq`): eager PyTorch has no
-dead-code elimination to drop an unused Jacobian and Schur build, so the
-full linearisation runs only on an accepted step.
+once per iteration, and the forcing term and the warm-start carry stay
+on the device.  Trial points are costed by the engine's value-only
+residual (`ops.residuals.residual_only`): eager PyTorch has no dead-code
+elimination to drop an unused Jacobian and Schur build, so the full
+linearisation runs only on an accepted step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
-from megba_tpu_torch.common import ProblemOption, SolveStatus
+from megba_tpu_torch.common import ProblemOption, RobustKind, SolveStatus
 from megba_tpu_torch.linear_system.builder import (
     build_schur_system,
     weight_system_inputs,
 )
 from megba_tpu_torch.observability.trace import SolveTrace
-from megba_tpu_torch.ops.accum import comp_sum_sq
+from megba_tpu_torch.ops.accum import comp_sum, comp_sum_sq
 from megba_tpu_torch.ops.residuals import (
     apply_sqrt_info_residual,
-    bal_residual_analytical_fm,
-    bal_residual_jacobian_analytical_fm,
+    make_residual_jacobian_fn,
+    residual_only,
 )
+from megba_tpu_torch.ops.robust import rho_and_weight, robustify
 from megba_tpu_torch.ops import segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
 from megba_tpu_torch.solver.pcg import schur_pcg_solve
 
 _TINY = 1e-30
+
+
+def initial_forcing_eta(eta_min: torch.Tensor,
+                        eta_max: torch.Tensor) -> torch.Tensor:
+    """Eisenstat-Walker start: half the RHS energy removed is plenty for
+    the first linearisation, never looser than the cap."""
+    return torch.clamp(torch.clamp(eta_max, max=0.5), min=eta_min)
+
+
+def eisenstat_walker_eta(eta_prev, cost_new, cost_prev, rho, accept,
+                         eta_min, eta_max):
+    """One Eisenstat-Walker choice-2 forcing update (gamma 0.9, alpha 2),
+    on device scalars.
+
+    Costs are squared norms, so their ratio is the norm ratio squared.
+    Safeguarded against over-tightening while the previous eta was still
+    loose, loosened when the gain ratio trusts the linear model,
+    tightened on a reject; clamped to [eta_min, eta_max].
+    """
+    ratio2 = cost_new / torch.clamp(cost_prev, min=_TINY)
+    eta_ew = 0.9 * ratio2
+    safeguard = 0.9 * eta_prev * eta_prev
+    eta_ew = torch.where(safeguard > 0.1, torch.maximum(eta_ew, safeguard),
+                         eta_ew)
+    eta_ew = torch.where(rho > 0.75, 2.0 * eta_ew, eta_ew)
+    return torch.where(accept,
+                       torch.clamp(torch.maximum(eta_ew, eta_min),
+                                   max=eta_max),
+                       torch.maximum(0.25 * eta_prev, eta_min))
 
 
 def derive_status(*, stopped: bool, accepted: int, recoveries: int = 0,
@@ -62,7 +96,7 @@ class LMResult:
 
     cameras: torch.Tensor
     points: torch.Tensor
-    cost: torch.Tensor  # final accepted cost Sum e^2
+    cost: torch.Tensor  # final accepted cost (Sum rho with a robust loss)
     initial_cost: torch.Tensor
     iterations: int  # LM iterations executed
     accepted: int  # number of accepted steps
@@ -73,6 +107,9 @@ class LMResult:
     trace: Optional[SolveTrace] = None
     status: Optional[int] = None
     recoveries: int = 0
+    # Under SolverOption.warm_start: the last accepted camera step, laid
+    # out like `cameras` (the resume hook `initial_dx`); None otherwise.
+    dx_cam: Optional[torch.Tensor] = None
 
 
 def lm_solve(
@@ -88,6 +125,10 @@ def lm_solve(
     cam_fixed: Optional[torch.Tensor] = None,
     pt_fixed: Optional[torch.Tensor] = None,
     verbose: bool = False,
+    residual_jac_fn: Optional[Callable] = None,
+    initial_region=None,
+    initial_v=None,
+    initial_dx: Optional[torch.Tensor] = None,
 ) -> LMResult:
     """Run the LM loop to convergence.
 
@@ -101,36 +142,69 @@ def lm_solve(
     carry the fused directions (ops/fused.with_fused_plans); the
     precision rungs (`mixed_precision_pcg`, `solver_option.bf16`) reach
     the PCG only.
+
+    `residual_jac_fn` is the engine (ops.residuals; None: the BAL engine
+    of `option.jacobian_mode`); its value-only residual
+    (`residual_only`) costs the trial points.
+    `initial_region` / `initial_v` replace the trust-region start state,
+    and `initial_dx` ([cd, Nc]) seeds the warm-start carry under
+    `SolverOption.warm_start`: the resume hooks of a split solve.
     """
+    if residual_jac_fn is None:
+        residual_jac_fn = make_residual_jacobian_fn(mode=option.jacobian_mode)
+    residual_fn = residual_only(residual_jac_fn)
     num_cameras = cameras.shape[1]
     num_points = points.shape[1]
     algo_opt = option.algo_option
     solver_opt = option.solver_option
+    robust, delta = option.robust_kind, option.robust_delta
+    forcing, warm_start = solver_opt.forcing, solver_opt.warm_start
     dtype, device = cameras.dtype, cameras.device
 
+    def scalar(x):
+        return torch.tensor(x, dtype=dtype, device=device)
+
     def linearize(cams, pts):
-        r, Jc, Jp = bal_residual_jacobian_analytical_fm(
+        r, Jc, Jp = residual_jac_fn(
             cams.index_select(1, cam_idx), pts.index_select(1, pt_idx), obs)
         r, Jc, Jp = weight_system_inputs(
             r, Jc, Jp, cam_idx, pt_idx, mask, sqrt_info, cam_fixed, pt_fixed)
-        cost = comp_sum_sq(r)
+        if robust == RobustKind.NONE:
+            cost = wcost = comp_sum_sq(r)
+        else:
+            # The system is built from the reweighted rows; the accept
+            # test uses Sum rho, the model decrease the weighted cost.
+            r, Jc, Jp, rho_e = robustify(r, Jc, Jp, robust, delta)
+            cost, wcost = comp_sum(rho_e), comp_sum_sq(r)
         Jp = plans.to_pt(Jp)
         system = build_schur_system(r, Jc, Jp, plans, num_cameras,
                                     num_points, cam_fixed, pt_fixed,
                                     option.compute_kind)
-        return r, Jc, Jp, system, cost
+        return r, Jc, Jp, system, cost, wcost
 
     def trial_cost(cams, pts):
-        r = bal_residual_analytical_fm(
+        r = residual_fn(
             cams.index_select(1, cam_idx), pts.index_select(1, pt_idx), obs)
         r = apply_sqrt_info_residual(r, sqrt_info) * mask[None, :]
-        return comp_sum_sq(r)
+        if robust == RobustKind.NONE:
+            return comp_sum_sq(r)
+        return comp_sum(rho_and_weight((r * r).sum(0), robust, delta)[0])
 
-    r, Jc, Jp, system, cost = linearize(cameras, points)
+    r, Jc, Jp, system, cost, wcost = linearize(cameras, points)
     cost0 = cost
-    region = torch.tensor(algo_opt.initial_region, dtype=dtype, device=device)
-    v = torch.tensor(2.0, dtype=dtype, device=device)
-    third = torch.tensor(1.0 / 3.0, dtype=dtype, device=device)
+    region = scalar(algo_opt.initial_region if initial_region is None
+                    else initial_region)
+    v = scalar(2.0 if initial_v is None else initial_v)
+    third = scalar(1.0 / 3.0)
+    # eta_k is a norm-relative forcing term and the PCG threshold is on
+    # the residual energy, so eta rides squared into the PCG with
+    # tol_relative on; with forcing, `tol` is eta's cap.
+    eta_min, eta_max = scalar(solver_opt.eta_min), scalar(solver_opt.tol)
+    eta = initial_forcing_eta(eta_min, eta_max) if forcing else eta_max
+    dx0 = None
+    if warm_start:
+        dx0 = (torch.zeros_like(cameras) if initial_dx is None
+               else initial_dx.to(dtype))
     trace = SolveTrace.empty(algo_opt.max_iter, dtype)
     k = accepted = pcg_total = 0
     stop = False
@@ -138,11 +212,13 @@ def lm_solve(
     while k < algo_opt.max_iter and not stop:
         pcg = schur_pcg_solve(
             system, Jc, Jp, plans, region, max_iter=solver_opt.max_iter,
-            tol=solver_opt.tol, refuse_ratio=solver_opt.refuse_ratio,
-            tol_relative=solver_opt.tol_relative,
+            tol=eta * eta if forcing else solver_opt.tol,
+            refuse_ratio=solver_opt.refuse_ratio,
+            tol_relative=forcing or solver_opt.tol_relative,
             compute_kind=option.compute_kind,
             fused_kernels=solver_opt.fused_kernels,
-            mixed_precision=option.mixed_precision_pcg, bf16=solver_opt.bf16)
+            mixed_precision=option.mixed_precision_pcg, bf16=solver_opt.bf16,
+            x0=dx0)
         dx_cam, dx_pt = pcg.dx_cam, pcg.dx_pt
 
         # ||dx|| <= eps2 (||x|| + eps1) -> converged, the step is not applied.
@@ -152,29 +228,40 @@ def lm_solve(
         cams_new = cameras + dx_cam
         pts_new = points + dx_pt
 
-        # Gain-ratio denominator: the linearised cost at dx minus the old
-        # cost, from the unscaled full-precision Jc/Jp whatever the PCG's
-        # precision rung.  Jp is pt-ordered, so its [od] rows hop to cam
-        # order.
+        # Gain-ratio denominator: the linearised (weighted) cost at dx
+        # minus the weighted cost, from the unscaled full-precision Jc/Jp
+        # whatever the PCG's precision rung.  Jp is pt-ordered, so its
+        # [od] rows hop to cam order.
         jc_dx = segtiles.coupling_expand(dx_cam, Jc, plans.cam,
                                          dx_cam.shape[0])
         jp_dx = plans.to_cam(
             segtiles.coupling_expand(dx_pt, Jp, plans.pt, dx_pt.shape[0]))
         predicted = comp_sum_sq(jc_dx + jp_dx + r)
-        denominator = torch.clamp(predicted - cost, max=-_TINY)
+        denominator = torch.clamp(predicted - wcost, max=-_TINY)
 
         cost_new = trial_cost(cams_new, pts_new)
         rho = (cost_new - cost) / denominator
         accept_t = (cost_new < cost) & ~converged
         accept = bool(accept_t)
+        eta_k = eta
+        if forcing:
+            eta = eisenstat_walker_eta(eta, cost_new, cost, rho, accept_t,
+                                       eta_min, eta_max)
+            # A non-finite update restarts the schedule at the cap.
+            eta = torch.where(torch.isfinite(eta), eta, eta_max)
+        if warm_start:
+            # A reject changes the damped system sharply: start the next
+            # PCG cold, bitwise as without warm starts.
+            dx0 = dx_cam if accept else torch.zeros_like(dx_cam)
 
         if accept:
             cameras, points = cams_new, pts_new
-            r, Jc, Jp, system, _ = linearize(cameras, points)
+            r, Jc, Jp, system, _, wcost = linearize(cameras, points)
         g_inf = torch.maximum(system.g_cam.abs().max(),
                               system.g_pt.abs().max())
         stop_t = converged | (accept_t & (g_inf <= algo_opt.epsilon1))
-        trace_k = torch.stack([cost_new, g_inf, region, rho]).cpu()
+        trace_k = torch.stack([cost_new, g_inf, region, rho, eta_k,
+                               pcg.r0_ratio.to(dtype)]).cpu()
         if accept:
             region = region / torch.maximum(
                 third, 1.0 - (2.0 * rho - 1.0) ** 3)
@@ -187,8 +274,8 @@ def lm_solve(
         trace.record(
             k, cost=trace_k[0], grad_inf_norm=trace_k[1],
             trust_region=trace_k[2], rho=trace_k[3], accept=accept,
-            pcg_iters=pcg.iterations, pcg_eta=solver_opt.tol,
-            pcg_r0_ratio=1.0)  # every PCG starts cold: no warm start
+            pcg_iters=pcg.iterations, pcg_eta=trace_k[4],
+            pcg_r0_ratio=trace_k[5])
         pcg_total += pcg.iterations
         stop = bool(stop_t)
         if verbose:
@@ -203,4 +290,5 @@ def lm_solve(
     return LMResult(
         cameras=cameras, points=points, cost=cost, initial_cost=cost0,
         iterations=k, accepted=accepted, pcg_iterations=pcg_total,
-        region=region, v=v, stopped=stop, trace=trace, status=status)
+        region=region, v=v, stopped=stop, trace=trace, status=status,
+        dx_cam=dx0)

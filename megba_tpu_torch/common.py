@@ -58,7 +58,8 @@ class SolverKind(enum.Enum):
 
 
 class JacobianMode(enum.Enum):
-    """How per-edge Jacobians are produced (only ANALYTICAL is ported)."""
+    """How per-edge Jacobians are produced (ops/residuals.py): reverse-mode
+    autodiff, the closed form, or forward-mode autodiff."""
 
     AUTODIFF = 0
     ANALYTICAL = 1
@@ -88,7 +89,7 @@ class PreconditionerKind(enum.Enum):
 
 
 class RobustKind(enum.Enum):
-    """Robust loss kind (only NONE is ported)."""
+    """Robust loss kind (ops/robust.py)."""
 
     NONE = 0
     HUBER = 1
@@ -204,9 +205,11 @@ def _unported(name: str, value) -> NotImplementedError:
         f"{name}={value!r} is not ported to megba_tpu_torch yet; the port "
         "runs the single-device LM + Schur PCG path (IMPLICIT or EXPLICIT, "
         "with or without fused kernels, at float32 or float64, on every "
-        "rung of the precision ladder but bf16_collectives) with "
-        "ANALYTICAL Jacobians, block-Jacobi (HPP) preconditioning and no "
-        "guards")
+        "rung of the precision ladder) with any Jacobian mode and robust "
+        "loss, forcing and warm starts, and block-Jacobi (HPP) "
+        "preconditioning; still refused: guards, use_schur=False, the "
+        "COOBS edge order, the other preconditioners, the multi-device "
+        "options (world_size, mesh_2d, bf16_collectives) and telemetry")
 
 
 def validate_options(option: ProblemOption) -> None:
@@ -219,13 +222,22 @@ def validate_options(option: ProblemOption) -> None:
         raise ValueError("use_schur=True requires LinearSystemKind.SCHUR")
     if so.solver_kind != SolverKind.PCG:
         raise ValueError("only SolverKind.PCG is supported")
+    if not so.eta_min > 0:
+        raise ValueError(f"eta_min must be > 0, got {so.eta_min}")
+    if so.forcing and so.eta_min > so.tol:
+        raise ValueError(
+            "forcing=True clamps eta_k to [eta_min, tol]; need "
+            f"eta_min <= tol, got eta_min={so.eta_min} > tol={so.tol}")
     if np.dtype(option.dtype) not in DTYPE_TO_TORCH:
         raise ValueError(f"unsupported dtype {option.dtype}")
     if not isinstance(option.device, Device):
         raise ValueError(f"device must be a Device, got {option.device!r}")
-    if not isinstance(option.compute_kind, ComputeKind):
-        raise ValueError(
-            f"compute_kind must be a ComputeKind, got {option.compute_kind!r}")
+    for name, kind in (("compute_kind", ComputeKind),
+                       ("jacobian_mode", JacobianMode),
+                       ("robust_kind", RobustKind)):
+        if not isinstance(getattr(option, name), kind):
+            raise ValueError(f"{name} must be a {kind.__name__}, got "
+                             f"{getattr(option, name)!r}")
     if so.fused_kernels and not option.use_schur:
         raise ValueError(
             "SolverOption.fused_kernels fuses the Schur coupling matvec and "
@@ -235,14 +247,10 @@ def validate_options(option: ProblemOption) -> None:
     unported = [
         ("use_schur", option.use_schur, True),
         ("world_size", option.world_size, 1),
-        ("jacobian_mode", option.jacobian_mode, JacobianMode.ANALYTICAL),
-        ("robust_kind", option.robust_kind, RobustKind.NONE),
         ("robust_option.guards", option.robust_option.guards, False),
         ("solver_option.precond", so.precond, PrecondKind.JACOBI),
         ("solver_option.preconditioner", so.preconditioner,
          PreconditionerKind.HPP),
-        ("solver_option.forcing", so.forcing, False),
-        ("solver_option.warm_start", so.warm_start, False),
         ("solver_option.mesh_2d", so.mesh_2d, False),
         ("solver_option.edge_order", so.edge_order, EdgeOrder.NATURAL),
         ("solver_option.bf16_collectives", so.bf16_collectives, False),

@@ -1,25 +1,47 @@
-"""BAL residual + analytical Jacobian engine (feature-major, PyTorch).
+"""Residual + Jacobian engines (feature-major, PyTorch).
 
 Counterpart of `megba_tpu/ops/residuals.py`.  Engine contract:
-fn(cam [9, nE], pt [3, nE], obs [2, nE]) ->
-  (r [2, nE], Jc [18, nE], Jp [6, nE]) with row o*d+a = dr_o/dx_a.
+fn(cam [cd, nE], pt [pd, nE], obs [od, nE]) ->
+  (r [od, nE], Jc [od*cd, nE], Jp [od*pd, nE]) with row o*d+a = dr_o/dx_a.
 
-Each scalar of the closed-form derivation is one [nE] row, so the whole
-engine is a straight line of elementwise torch ops over the edge axis.
+A residual function here acts on the leading (feature) axis of its
+arguments, camera [cd, ...], point [pd, ...], obs [od, ...] -> r [od, ...],
+so the same function takes one edge or a whole feature-major batch
+(`bal_residual`).  Edges are independent, so the per-edge Jacobians of
+the three `JacobianMode`s come straight from the batched function:
 
-`bal_residual_analytical_fm` is the cost-only half of the engine: the
-same expressions up to the residual, without the Jacobian.  The LM loop
-evaluates every trial point with it (the JAX package relies on dead-code
-elimination inside `jit` for the same saving; PyTorch runs eagerly).
+- AUTODIFF: one `torch.func.vjp` of the batched residual, its pullback
+  `torch.func.vmap`-ed over the od one-hot cotangent rows (each row
+  broadcast over all edges): od reverse passes.
+- AUTODIFF_FORWARD: `torch.func.jvp` `vmap`-ed over the cd+pd one-hot
+  tangent rows (the JetVector direction): one primal pass and cd+pd
+  pushforwards.
+- ANALYTICAL: the closed form below, each scalar of the derivation one
+  [nE] row.
+
+`build_residual_jacobian_fn` returns a `ResidualJacobianFn`, which also
+carries the engine's value-only residual: the LM loop costs every trial
+point with it (the JAX package relies on dead-code elimination inside
+`jit` for the same saving; PyTorch runs eagerly).
+`bal_residual_analytical_fm` is that value-only half of the analytical
+engine: the same expressions up to the residual.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from megba_tpu_torch.common import JacobianMode
 from megba_tpu_torch.ops import geo
+
+# (camera [cd, ...], point [pd, ...], obs [od, ...]) -> r [od, ...]
+ResidualFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                      torch.Tensor]
+Rows = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 _SMALL_ANGLE = 1e-12
 
@@ -195,6 +217,127 @@ def bal_residual_jacobian_analytical_fm(
     ])
     Jp = torch.stack([Jp00, Jp01, Jp02, Jp10, Jp11, Jp12])
     return fw["r"], Jc, Jp
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualJacobianFn:
+    """A residual + Jacobian engine: calling it gives (r, Jc, Jp) by the
+    engine contract; `residual(cam, pt, obs)` gives the same r alone."""
+
+    jacobian: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Rows]
+    residual: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                       torch.Tensor]
+
+    def __call__(self, cam: torch.Tensor, pt: torch.Tensor,
+                 obs: torch.Tensor) -> Rows:
+        return self.jacobian(cam, pt, obs)
+
+
+def residual_only(engine: Callable[..., Rows]) -> Callable[..., torch.Tensor]:
+    """The value-only residual of an engine: its own when it carries one,
+    else the engine's r (a plain callable pays for its Jacobian too)."""
+    if isinstance(engine, ResidualJacobianFn):
+        return engine.residual
+    return lambda cam, pt, obs: engine(cam, pt, obs)[0]
+
+
+def make_residual_fn(residual_fn: ResidualFn = bal_residual) -> ResidualFn:
+    """Vectorised residual evaluation over feature-major per-edge params:
+    fn(cam [cd, nE], pt [pd, nE], obs [od, nE]) -> r [od, nE].  The
+    JAX package vmaps a one-edge function; a residual function of this
+    package acts on the leading axis already, so it is its own batched
+    form."""
+    return residual_fn
+
+
+def _autodiff(residual_fn: ResidualFn):
+    """Reverse mode: od pullbacks of the batched residual, one per
+    one-hot cotangent row.  The basis is exactly one-hot whatever r
+    holds: an inf or NaN residual poisons only its own edge's rows."""
+
+    def value_and_jac(cam, pt, obs):
+        r, pull = torch.func.vjp(lambda c, p: residual_fn(c, p, obs),
+                                 cam, pt)
+        od = r.shape[0]
+        eye = torch.eye(od, dtype=r.dtype, device=r.device)
+        basis = eye.reshape((od, od) + (1,) * (r.dim() - 1)).expand(
+            (od,) + tuple(r.shape))
+        Jc, Jp = torch.func.vmap(pull)(basis)  # [od, cd, nE], [od, pd, nE]
+        return (r, Jc.reshape((-1,) + tuple(cam.shape[1:])),
+                Jp.reshape((-1,) + tuple(pt.shape[1:])))
+
+    return value_and_jac
+
+
+def _autodiff_forward(residual_fn: ResidualFn):
+    """Forward mode: cd+pd pushforwards along the one-hot tangent rows
+    (each broadcast over all edges); under vmap the primal runs once."""
+
+    def value_and_jac(cam, pt, obs):
+        cd, pd = cam.shape[0], pt.shape[0]
+        eye = torch.eye(cd + pd, dtype=cam.dtype, device=cam.device)
+        basis = eye.reshape((cd + pd, cd + pd) + (1,) * (cam.dim() - 1))
+        basis = basis.expand((cd + pd, cd + pd) + tuple(cam.shape[1:]))
+
+        def push(t):
+            return torch.func.jvp(lambda c, p: residual_fn(c, p, obs),
+                                  (cam, pt), (t[:cd], t[cd:]))
+
+        r, J = torch.func.vmap(push, out_dims=(None, 0))(basis)
+        od = r.shape[0]
+        # J[a, o] = dr_o/dx_a -> rows o*cd+a and o*pd+b.
+        Jc = J[:cd].transpose(0, 1).reshape((od * cd,) + tuple(r.shape[1:]))
+        Jp = J[cd:].transpose(0, 1).reshape((od * pd,) + tuple(r.shape[1:]))
+        return r, Jc, Jp
+
+    return value_and_jac
+
+
+def build_residual_jacobian_fn(
+    residual_fn: ResidualFn = bal_residual,
+    mode: JacobianMode = JacobianMode.AUTODIFF,
+    analytical_fn: Optional[Callable[..., Rows]] = None,
+) -> ResidualJacobianFn:
+    """Build the vectorised residual + Jacobian engine (uncached).
+
+    AUTODIFF (reverse mode) and AUTODIFF_FORWARD (forward mode) compute
+    the same Jacobian of `residual_fn`; ANALYTICAL uses a closed-form
+    row-form function, by default the BAL one above, and needs
+    `analytical_fn` for any other residual.  Per-problem closures go
+    through this function; `make_residual_jacobian_fn` is the memoised
+    front for long-lived residual functions.
+    """
+    if mode == JacobianMode.ANALYTICAL:
+        fn = analytical_fn
+        if fn is None:
+            if residual_fn is not bal_residual:
+                raise ValueError(
+                    "ANALYTICAL mode needs analytical_fn for custom residuals")
+            return ResidualJacobianFn(bal_residual_jacobian_analytical_fm,
+                                      bal_residual_analytical_fm)
+        return ResidualJacobianFn(fn, residual_only(fn))
+    if mode == JacobianMode.AUTODIFF_FORWARD:
+        return ResidualJacobianFn(_autodiff_forward(residual_fn), residual_fn)
+    if mode == JacobianMode.AUTODIFF:
+        return ResidualJacobianFn(_autodiff(residual_fn), residual_fn)
+    raise ValueError(f"unknown jacobian mode {mode!r}")
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_engine(residual_fn, mode, analytical_fn) -> ResidualJacobianFn:
+    return build_residual_jacobian_fn(residual_fn, mode, analytical_fn)
+
+
+def make_residual_jacobian_fn(
+    residual_fn: ResidualFn = bal_residual,
+    mode: JacobianMode = JacobianMode.AUTODIFF,
+    analytical_fn: Optional[Callable[..., Rows]] = None,
+) -> ResidualJacobianFn:
+    """Memoised `build_residual_jacobian_fn`: one engine configuration,
+    however it is spelled (positional or keyword), returns the identical
+    engine.  Only pass long-lived residual functions (module level);
+    a per-problem closure would stay pinned in the cache."""
+    return _cached_engine(residual_fn, mode, analytical_fn)
 
 
 def apply_sqrt_info_residual(r: torch.Tensor,

@@ -17,7 +17,7 @@ raise.
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,7 +25,6 @@ import torch
 from megba_tpu_torch.algo.lm import LMResult, lm_solve
 from megba_tpu_torch.common import (
     DTYPE_TO_TORCH,
-    JacobianMode,
     ProblemOption,
     resolve_device,
     validate_options,
@@ -48,6 +47,10 @@ def flat_solve(
     pt_fixed: Optional[np.ndarray] = None,
     verbose: bool = False,
     device: Union[None, str, torch.device] = None,
+    residual_jac_fn: Optional[Callable] = None,
+    initial_region: Optional[float] = None,
+    initial_v: Optional[float] = None,
+    initial_dx: Optional[np.ndarray] = None,
 ) -> LMResult:
     """Lower flat arrays and run the solve on one device.
 
@@ -55,8 +58,17 @@ def flat_solve(
     obs [nE, 2], cam_idx/pt_idx [nE], sqrt_info [nE, 2, 2].  `edge_mask`
     ([nE] 0/1, caller's edge order) soft-deletes edges: a 0 edge adds
     nothing to the cost or the system.  `cam_fixed` / `pt_fixed` ([Nc] /
-    [Np] bool) freeze vertices.  The result's cameras/points are [N, d]
-    tensors on the solve device.
+    [Np] bool) freeze vertices.  The result's cameras/points (and, under
+    `SolverOption.warm_start`, `dx_cam`) are [N, d] tensors on the solve
+    device.
+
+    `residual_jac_fn` is the residual + Jacobian engine
+    (ops.residuals.make_residual_jacobian_fn); None is the BAL engine of
+    `option.jacobian_mode`.  `initial_region` / `initial_v` replace the
+    trust-region start state, and `initial_dx` ([Nc, 9], edge-major like
+    `cameras`) seeds the warm-start carry under `SolverOption.warm_start`
+    (ignored otherwise): with a previous result's `region`, `v` and
+    `dx_cam` they resume a solve split in two.
     """
     validate_options(option)
     dev = resolve_device(device, option)
@@ -107,15 +119,26 @@ def flat_solve(
     si = None
     if sqrt_info is not None:
         si = edge_rows(np.asarray(sqrt_info).astype(dtype, copy=False))
+    dx0 = None
+    if initial_dx is not None and option.solver_option.warm_start:
+        initial_dx = np.asarray(initial_dx).astype(dtype, copy=False)
+        if initial_dx.shape != cameras.shape:
+            raise ValueError(f"initial_dx has shape {initial_dx.shape}, "
+                             f"cameras {cameras.shape}")
+        dx0 = vertex_rows(initial_dx)
     result = lm_solve(
         vertex_rows(cameras), vertex_rows(points), edge_rows(obs),
         plans.cam.seg.long(),
         torch.from_numpy(pt_idx[perm].astype(np.int64)).to(dev),
         torch.from_numpy(mask[perm]).to(dev, tdtype), option, plans,
         sqrt_info=si, cam_fixed=flags(cam_fixed, cameras.shape[0]),
-        pt_fixed=flags(pt_fixed, points.shape[0]), verbose=verbose)
+        pt_fixed=flags(pt_fixed, points.shape[0]), verbose=verbose,
+        residual_jac_fn=residual_jac_fn, initial_region=initial_region,
+        initial_v=initial_v, initial_dx=dx0)
     result.cameras = result.cameras.T.contiguous()
     result.points = result.points.T.contiguous()
+    if result.dx_cam is not None:
+        result.dx_cam = result.dx_cam.T.contiguous()
     return result
 
 
@@ -128,11 +151,11 @@ def solve_bal(
     """Solve a BAL problem end to end.
 
     Accepts a parsed `BALFile` or a path (.txt/.bz2).  The default option
-    is the JAX package's with ANALYTICAL Jacobians (the one Jacobian mode
-    ported).  Returns (solved BALFile in the ORIGINAL edge order,
-    LMResult).
+    is `ProblemOption()`, the JAX package's: float64, IMPLICIT Schur with
+    block-Jacobi (HPP) PCG and AUTODIFF Jacobians.  Returns (solved
+    BALFile in the ORIGINAL edge order, LMResult).
     """
-    option = option or ProblemOption(jacobian_mode=JacobianMode.ANALYTICAL)
+    option = option or ProblemOption()
     validate_options(option)
     if not isinstance(bal, BALFile):
         bal = load_bal(bal, dtype=option.dtype)

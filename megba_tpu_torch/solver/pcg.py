@@ -33,7 +33,9 @@ kernels, unfused EXPLICIT in the plain per-edge W contraction between
 The PCG bodies are the JAX package's unguarded `_pcg_core`: the
 Chronopoulos-Gear single recurrence, or the textbook recurrence with the
 stagnation exit (`_pcg_core_classic`), as Python loops; each exit test
-reads |rho| and the refuse flag on the host once per iteration.
+reads |rho| and the refuse flag on the host once per iteration.  Either
+body takes a warm start `x0` (SolverOption.warm_start): one more S·p
+product and one more M^-1 apply per solve.
 """
 
 from __future__ import annotations
@@ -70,6 +72,8 @@ class PCGResult:
     dx_pt: torch.Tensor  # [pd, Np]
     iterations: int
     rho: torch.Tensor  # final residual energy <r, M^-1 r>
+    # |<r0, M^-1 r0>| / |<b, M^-1 b>| of a warm start (1 for a cold one).
+    r0_ratio: torch.Tensor
 
 
 def _ident(x):
@@ -232,27 +236,50 @@ def _fused_implicit_matvecs(Jc: torch.Tensor, Jp: torch.Tensor,
 
 
 def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
-              fused=True):
+              fused=True, x0=None):
     """Preconditioned CG, unguarded (JAX `_pcg_core`).
 
     Exits when |rho| < threshold (absolute `tol`, or `tol` times the RHS
-    energy under `tol_relative`), after `max_iter` iterations, or when
-    rho exceeds refuse_ratio * min(rho) — then the best iterate is
-    restored.  `fused` runs the Chronopoulos-Gear single recurrence
-    (one priming matvec, then one matvec a step); otherwise the textbook
-    body `_pcg_core_classic`.  Returns (x, iterations, rho).
+    energy <b, M^-1 b> under `tol_relative`; `tol` may be a device
+    scalar), after `max_iter` iterations, or when rho exceeds
+    refuse_ratio * min(rho) — then the best iterate is restored.
+    `fused` runs the Chronopoulos-Gear single recurrence (one priming
+    matvec, then one matvec a step); otherwise the textbook body
+    `_pcg_core_classic`.
+
+    `x0` warm-starts the iteration: r0 = b - A x0 (one more matvec) and
+    one more preconditioner apply for the RHS energy, which stays the
+    anchor of the relative threshold.  A warm start whose residual
+    energy exceeds the RHS energy falls back to the cold start.  Returns
+    (x, iterations, rho, r0_ratio), r0_ratio = |rho0| / |<b, M^-1 b>|
+    before that fallback (1 for a cold start).
     """
-    x = torch.zeros_like(b)
-    r = b
-    u0 = precond(r)
-    rho = comp_dot(r, u0)
-    rhs_energy = rho
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+        u0 = precond(r)
+        rho = comp_dot(r, u0)
+        rhs_energy = rho
+        r0_ratio = torch.ones_like(rho)
+    else:
+        r = b + (-1.0) * matvec(x0)
+        u0 = precond(r)
+        rho = comp_dot(r, u0)
+        ub = precond(b)
+        rhs_energy = comp_dot(b, ub)
+        r0_ratio = rho.abs() / torch.clamp(rhs_energy.abs(), min=_TINY_RHO)
+        use_ws = rho.abs() <= rhs_energy.abs()
+        x = torch.where(use_ws, x0, torch.zeros_like(b))
+        r = torch.where(use_ws, r, b)
+        u0 = torch.where(use_ws, u0, ub)
+        rho = torch.where(use_ws, rho, rhs_energy)
     threshold = (torch.clamp(tol * rhs_energy.abs(), min=_TINY_RHO)
                  if tol_relative else torch.as_tensor(tol, dtype=b.dtype,
                                                       device=b.device))
     if not fused:
-        return _pcg_core_classic(matvec, precond, max_iter, threshold,
-                                 refuse_ratio, x, r, u0, rho)
+        x, k, rho = _pcg_core_classic(matvec, precond, max_iter, threshold,
+                                      refuse_ratio, x, r, u0, rho)
+        return x, k, rho, r0_ratio
     # Prime the recurrence: p0 = u0, s0 = A p0, alpha0 = rho0 / <p0, A p0>.
     w0 = matvec(u0)
     delta0 = comp_dot(u0, w0)
@@ -279,7 +306,7 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
         x_best = torch.where(improved, x, x_best)
         rho = rho_new
         k += 1
-    return torch.where(refused, x_best, x), k, rho
+    return torch.where(refused, x_best, x), k, rho, r0_ratio
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -368,6 +395,7 @@ def schur_pcg_solve(
     fused_kernels: bool = False,
     mixed_precision: bool = False,
     bf16: bool = False,
+    x0: Optional[torch.Tensor] = None,
 ) -> PCGResult:
     """Solve the damped Schur system for (dx_cam, dx_pt), feature-major.
 
@@ -378,7 +406,10 @@ def schur_pcg_solve(
     apply as one fused kernel.  `mixed_precision` (float32 or float64)
     and `bf16` (float32) solve the equilibrated system with bfloat16
     coupling rows, and unscale the solution; `bf16` runs the textbook CG
-    body and floors a relative `tol` at `_BF16_TOL_FLOOR`.
+    body and floors a relative `tol` at `_BF16_TOL_FLOOR`.  `tol` may be
+    a device scalar (the LM loop's forcing term).  `x0` ([cd, Nc], the
+    original variables) warm-starts the reduced CG; on a precision rung
+    it is brought into the equilibrated variables.
     """
     Hpp_d = damp_blocks(system.Hpp, region)
     Hll_d = damp_rows_fm(system.Hll, region)
@@ -399,12 +430,18 @@ def schur_pcg_solve(
 
     precond = make_schur_preconditioner(Hpp_d, fused_kernels, bf16)
     v = g_cam - hpl(block_matvec_fm(Hll_inv, g_pt))
+    if x0 is not None and equil:
+        x0 = x0 / d_cam
     if bf16 and tol_relative:
-        tol = max(tol, _BF16_TOL_FLOOR)
-    x, k, rho = _pcg_core(s_matvec, precond, v, max_iter, tol, refuse_ratio,
-                          tol_relative, fused=not bf16)
+        # torch.clamp, not max(): a device tolerance stays on the device.
+        tol = (torch.clamp(tol, min=_BF16_TOL_FLOOR)
+               if isinstance(tol, torch.Tensor) else max(tol, _BF16_TOL_FLOOR))
+    x, k, rho, r0_ratio = _pcg_core(s_matvec, precond, v, max_iter, tol,
+                                    refuse_ratio, tol_relative,
+                                    fused=not bf16, x0=x0)
     dx_pt = block_matvec_fm(Hll_inv, g_pt - hlp(x))
     if equil:
         x = x * d_cam  # back to the original variables
         dx_pt = dx_pt * d_pt
-    return PCGResult(dx_cam=x, dx_pt=dx_pt, iterations=k, rho=rho)
+    return PCGResult(dx_cam=x, dx_pt=dx_pt, iterations=k, rho=rho,
+                     r0_ratio=r0_ratio)

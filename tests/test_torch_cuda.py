@@ -625,3 +625,119 @@ def test_cuda_fused_kernels_on_heavy_tailed_graphs(nc, npt):
                                  retiled(fplan, tile), *tail,
                                  bf16_operands=ops)
                     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Jacobian modes, robust losses, forcing and warm starts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["AUTODIFF", "AUTODIFF_FORWARD"])
+def test_cuda_autodiff_engines_match_analytical(mode):
+    """On the card, f64: the autodiff engine against the closed form per
+    edge (1e-12 of the row's largest magnitude) and against itself on the
+    CPU, with a zero-angle and six small-angle cameras among the edges,
+    every row finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.func runs there eagerly)")
+    from megba_tpu_torch import JacobianMode, make_residual_jacobian_fn
+
+    s = _small_scene(np.float64)
+    cams = s.cameras0.copy()
+    cams[0, 0:3] = 0.0
+    cams[1:7, 0:3] *= 1e-7
+    rows = [np.ascontiguousarray(a.T) for a in (
+        cams[s.cam_idx], s.points0[s.pt_idx], s.obs)]
+    dev = torch.device("cuda")
+    engine = make_residual_jacobian_fn(mode=JacobianMode[mode])
+    got = engine(*(torch.from_numpy(a).to(dev) for a in rows))
+    ref = make_residual_jacobian_fn(mode=JacobianMode.ANALYTICAL)(
+        *(torch.from_numpy(a).to(dev) for a in rows))
+    cpu = engine(*(torch.from_numpy(a) for a in rows))
+    for g, w, c in zip(got, ref, cpu):
+        assert g.is_cuda and bool(torch.isfinite(g).all())
+        scale = w.abs().amax(1, keepdim=True)
+        assert bool(((g - w).abs() <= 1e-12 * scale).all())
+        assert bool(((g.cpu() - c).abs() <= 1e-12 * scale.cpu()).all())
+
+
+def _variant_option(path):
+    """The 8-camera f64 options of chip_smoke.py's variant paths."""
+    from megba_tpu_torch import (AlgoOption, ComputeKind, JacobianMode,
+                                 ProblemOption, RobustKind, SolverOption)
+
+    kind, fused, extra = {
+        "implicit_autodiff": ("IMPLICIT", False, {}),
+        "explicit_fused_autodiff_forward": ("EXPLICIT", True, dict(
+            jacobian_mode=JacobianMode.AUTODIFF_FORWARD)),
+        "implicit_fused_huber": ("IMPLICIT", True, dict(
+            robust_kind=RobustKind.HUBER)),
+        "explicit_cauchy": ("EXPLICIT", False, dict(
+            robust_kind=RobustKind.CAUCHY)),
+        "implicit_forcing_warm": ("IMPLICIT", False, dict(
+            jacobian_mode=JacobianMode.ANALYTICAL)),
+        "implicit_fused_forcing_warm": ("IMPLICIT", True, dict(
+            jacobian_mode=JacobianMode.ANALYTICAL)),
+    }[path]
+    if path == "implicit_autodiff":
+        # ProblemOption()'s own tolerances, stopped before the scene's
+        # cost floor: its 6th step moves the cost by ~1e-15 relative, where
+        # an accept decision is rounding (chip_smoke.DEFAULT_LM_CAP).
+        return ProblemOption(algo_option=AlgoOption(max_iter=5),
+                             solver_option=SolverOption(max_iter=30))
+    solver = (dict(tol=1e-1, forcing=True, warm_start=True)
+              if "forcing" in path else dict(tol=1e-10))
+    return ProblemOption(
+        compute_kind=ComputeKind[kind], robust_delta=1.0,
+        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15),
+        solver_option=SolverOption(max_iter=30, refuse_ratio=1e30,
+                                   fused_kernels=fused, **solver),
+        **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [
+    "implicit_autodiff", "explicit_fused_autodiff_forward",
+    "implicit_fused_huber", "explicit_cauchy", "implicit_forcing_warm",
+    "implicit_fused_forcing_warm"])
+def test_f64_variant_solve_kernels_match_plain_on_small_scene(
+        monkeypatch, path):
+    """On the card: the 8-camera f64 scene with AUTODIFF (the reference's
+    default options), AUTODIFF_FORWARD, a Huber or Cauchy loss, or
+    forcing with warm starts, through the kernels and through their
+    plain versions: the same cost trajectory (rtol 1e-9), accept pattern,
+    iteration counts and forcing trace, and two kernel solves bitwise
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import flat_solve
+
+    s = _small_scene(np.float64)
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+            _variant_option(path))
+    before = {**tseg.launch_counts(), **tfused.launch_counts()}
+    kern = flat_solve(*args, device="cuda")
+    again = flat_solve(*args, device="cuda")
+    after = {**tseg.launch_counts(), **tfused.launch_counts()}
+    assert after["jtj_grad_reduce"] > before["jtj_grad_reduce"]
+    for m in (tseg, tfused):
+        for k in m.KERNELS:
+            monkeypatch.setattr(m, k.__name__,
+                                getattr(m, k.__name__ + "_plain"))
+    plain = flat_solve(*args, device="cuda")
+    k = kern.iterations
+    assert k > 0
+    assert (k, kern.accepted, kern.pcg_iterations) == (
+        plain.iterations, plain.accepted, plain.pcg_iterations)
+    for f in ("accept", "pcg_iters"):
+        assert torch.equal(getattr(kern.trace, f)[:k],
+                           getattr(plain.trace, f)[:k])
+    assert torch.equal(kern.trace.cost[:k], again.trace.cost[:k])
+    for f in ("cost", "pcg_eta", "pcg_r0_ratio"):
+        np.testing.assert_allclose(getattr(kern.trace, f)[:k].numpy(),
+                                   getattr(plain.trace, f)[:k].numpy(),
+                                   rtol=1e-9)
+    assert float(kern.cost) < float(kern.initial_cost)
+    if "forcing" in path:
+        assert kern.dx_cam.shape == s.cameras0.shape and kern.dx_cam.is_cuda

@@ -98,20 +98,65 @@ def test_robust_kind_and_status_names():
     ("solver_option", tc.SolverOption(bf16=True, bf16_collectives=True)),
     ("solver_option", tc.SolverOption(fused_kernels=True, mesh_2d=True)),
     ("telemetry", "t.jsonl"),
+    ("metrics", True),
+    ("solver_option", tc.SolverOption(precond=tc.PrecondKind.TWO_LEVEL)),
+    ("solver_option", tc.SolverOption(precond=tc.PrecondKind.MULTILEVEL)),
+    ("solver_option", tc.SolverOption(forcing=True, mesh_2d=True)),
 ])
 def test_unported_options_raise_typed(field, value):
     # float32: the bf16 rung exists at f32 only (f64 is a ValueError);
     # the fused kernels and the whole single-device precision ladder are
     # ported, their multi-device pieces (bf16_collectives, mesh_2d) are
-    # not.  mixed_precision_pcg is ported with and without fused kernels:
-    # it validates.
+    # not.  mixed_precision_pcg, both autodiff Jacobian modes, the
+    # robust losses, forcing and warm starts are ported: they validate.
     base = dict(jacobian_mode=tc.JacobianMode.ANALYTICAL, dtype=np.float32)
     base[field] = value
-    if (field, value) == ("mixed_precision_pcg", True):
+    if (field, value) in _PORTED:
         tc.validate_options(tc.ProblemOption(**base))
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         tc.validate_options(tc.ProblemOption(**base))
+
+
+_PORTED = [
+    ("mixed_precision_pcg", True),
+    ("jacobian_mode", tc.JacobianMode.AUTODIFF),
+    ("jacobian_mode", tc.JacobianMode.AUTODIFF_FORWARD),
+    ("robust_kind", tc.RobustKind.HUBER),
+    ("solver_option", tc.SolverOption(forcing=True)),
+    ("solver_option", tc.SolverOption(warm_start=True)),
+]
+
+
+@pytest.mark.parametrize("kw,refused", [
+    (dict(robust_kind=tc.RobustKind.HUBER,
+          robust_option=tc.RobustOption(guards=True)), "guards"),
+    (dict(robust_kind=tc.RobustKind.CAUCHY, use_schur=False), "use_schur"),
+    (dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2),
+     "world_size"),
+    (dict(solver_option=tc.SolverOption(
+        warm_start=True, precond=tc.PrecondKind.NEUMANN)), "precond"),
+])
+def test_still_refused_beside_ported_options(kw, refused):
+    with pytest.raises(NotImplementedError, match=refused):
+        tc.validate_options(tc.ProblemOption(**kw))
+
+
+def test_option_value_errors():
+    """The JAX package's ValueErrors on the newly ported options."""
+    with pytest.raises(ValueError, match="eta_min must be > 0"):
+        tc.validate_options(tc.ProblemOption(
+            solver_option=tc.SolverOption(eta_min=0.0)))
+    with pytest.raises(ValueError, match="eta_min <= tol"):
+        tc.validate_options(tc.ProblemOption(
+            solver_option=tc.SolverOption(forcing=True, tol=1e-8)))
+    with pytest.raises(ValueError, match="jacobian_mode must be"):
+        tc.validate_options(tc.ProblemOption(
+            jacobian_mode=jc.JacobianMode.AUTODIFF))
+    for kw in (dict(), dict(robust_kind=tc.RobustKind.CAUCHY),
+               dict(solver_option=tc.SolverOption(forcing=True,
+                                                  warm_start=True))):
+        tc.validate_options(tc.ProblemOption(**kw))
 
 
 def test_supported_option_validates():

@@ -33,16 +33,26 @@ exception ends the run with a non-zero exit code:
    among the edges; then at f32 the CUDA-event time of one
    linearisation (gathers, engine and weighting) per mode and its peak
    memory.  No kernel of the port runs here;
-5. f64: a trafalgar-sized scene solved end to end on thirteen paths
+5. f64: a trafalgar-sized scene solved end to end on twenty-two paths
    (IMPLICIT, EXPLICIT, each unfused and fused, each in full f64 and
    with mixed_precision_pcg; the reference's default solve,
    `implicit_autodiff`; `explicit_fused_autodiff_forward`;
    `implicit_fused_huber` and `explicit_cauchy`; `implicit_forcing_warm`,
-   Eisenstat-Walker forcing with warm starts), each through the kernels
-   and through the plain versions, both on the card; the two cost
-   trajectories agree at rtol 1e-9 with the same accept pattern and
-   iteration counts, and the kernel run's launches are exactly what the
-   code implies;
+   Eisenstat-Walker forcing with warm starts; guards on a clean run
+   (`implicit_guarded`, bitwise the `implicit` run), with a NaN burst
+   (`implicit_nan_burst`, RECOVERED), with a persistent burst
+   (`implicit_fatal`, FATAL_NONFINITE), with an Hll crush
+   (`explicit_fused_indefinite`, PCG breakdowns;
+   `implicit_fused_schur_diag_indefinite`, counted SCHUR_DIAG
+   fallbacks); the plain full-system solver (`implicit_plain`,
+   `explicit_plain_forcing_warm`); COOBS on shuffled edges
+   (`implicit_coobs`); NEUMANN of order 2 (`implicit_neumann`)), each
+   through the kernels and through the plain versions, both on the card;
+   the two cost trajectories agree at rtol 1e-9 where finite (except a
+   step the guards rolled back, whose gap is printed) and are NaN at the
+   same iterations, with the same accept, recovery, breakdown and
+   fallback traces, counts, status and recoveries, and the kernel run's
+   launches are exactly what the code implies;
 6. f32 precision: the same scene at f32 on the eight precision-rung
    paths (IMPLICIT / EXPLICIT, unfused / fused, mixed / bf16), kernels
    against plain versions on the card: the first LM iteration's trial
@@ -53,12 +63,15 @@ exception ends the run with a non-zero exit code:
    ~5.0M observations, f32, ANALYTICAL) through `flat_solve`, the port's
    main path, once per path: IMPLICIT, EXPLICIT, EXPLICIT + fused
    kernels, IMPLICIT + fused kernels, the eight precision-rung paths,
-   then IMPLICIT with AUTODIFF, with AUTODIFF_FORWARD, with a Huber loss
-   and with forcing and warm starts.  Every kernel's launch count is
-   read from its path's run alone and checked against the count the
-   code implies; the final cost must be finite and below the initial,
-   and on the autodiff paths within rtol 1e-3 of the ANALYTICAL IMPLICIT
-   run's.
+   then IMPLICIT with AUTODIFF, with AUTODIFF_FORWARD, with a Huber loss,
+   with forcing and warm starts, with guards (bitwise the IMPLICIT run),
+   with guards and a NaN burst on 64 edges (RECOVERED), with the plain
+   full-system solver, with SCHUR_DIAG (no fallback on a clean run) and
+   with COOBS on shuffled edges.  Every kernel's launch count is read
+   from its path's run alone and checked against the count the code
+   implies; the final cost must be finite and below the (clean) initial,
+   and on the autodiff and COOBS paths within rtol 1e-3 of the
+   ANALYTICAL IMPLICIT run's.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -73,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -198,6 +212,57 @@ F64_PATHS += ["implicit_autodiff", "explicit_fused_autodiff_forward",
               "implicit_forcing_warm"]
 VENICE_PATHS += ["implicit_autodiff", "implicit_autodiff_forward",
                  "implicit_huber", "implicit_forcing_warm"]
+# Fault containment, the plain full-system solver, the co-observation
+# edge order and the SCHUR_DIAG / NEUMANN preconditioners: a path of the
+# kernel slices with option fields of its own.  `fault` names a seeded
+# fault plan (`fault_plan`); `shuffle` puts the caller's edges in a
+# seeded random order first, so that COOBS and NATURAL lay out different
+# slot orders (the synthetic scenes come camera-sorted, where COOBS is
+# almost the identity).
+FAULT_VARIANTS = {
+    "implicit_guarded": ("implicit", dict(guards=True)),
+    "implicit_nan_burst": ("implicit", dict(guards=True, fault="nan_burst")),
+    "implicit_fatal": ("implicit", dict(guards=True, fault="persistent")),
+    "explicit_fused_indefinite": ("explicit_fused", dict(
+        guards=True, fault="crush")),
+    "implicit_fused_schur_diag_indefinite": ("implicit_fused", dict(
+        guards=True, fault="crush", preconditioner="SCHUR_DIAG")),
+    "implicit_plain": ("implicit", dict(use_schur=False)),
+    "explicit_plain_forcing_warm": ("explicit", dict(use_schur=False,
+                                                     forcing=True)),
+    "implicit_coobs": ("implicit", dict(edge_order="COOBS", shuffle=True)),
+    "implicit_neumann": ("implicit", dict(precond="NEUMANN")),
+    "implicit_schur_diag": ("implicit", dict(preconditioner="SCHUR_DIAG")),
+}
+VARIANTS.update(FAULT_VARIANTS)
+for _name, (_base, _extra) in FAULT_VARIANTS.items():
+    _k = PATHS[_base]
+    # SCHUR_DIAG sums its correction rows per camera with kernel 4.
+    PATHS[_name] = _k[:3] + (_k[3] + (
+        ("seg_reduce",) if _extra.get("preconditioner") == "SCHUR_DIAG"
+        and "seg_reduce" not in _k[3] else ()),)
+F64_PATHS += ["implicit_guarded", "implicit_nan_burst", "implicit_fatal",
+              "explicit_fused_indefinite",
+              "implicit_fused_schur_diag_indefinite", "implicit_plain",
+              "explicit_plain_forcing_warm", "implicit_coobs",
+              "implicit_neumann"]
+VENICE_PATHS += ["implicit_guarded", "implicit_nan_burst", "implicit_plain",
+                 "implicit_schur_diag", "implicit_coobs"]
+NEUMANN_ORDER = 2
+# The NaN burst: two edges at f64 (tests/test_robustness.py:84-90), 64
+# seeded edges at venice; both cover iteration 0, so the initial
+# linearisation is poisoned too.  The crush: the Hll blocks of the 256
+# points with the most observations, in the systems built at carry 2
+# (the window of tests/test_robustness.py:176), which on the
+# trafalgar-sized scene is an accepted step.
+NAN_EDGES_F64 = (2, 9)
+NAN_EDGES_VENICE = 64
+CRUSH_POINTS = 256
+CRUSH_WINDOW = (2, 3)
+SHUFFLE_SEED = 7
+# The venice COOBS run's final cost against the NATURAL IMPLICIT run's:
+# the same solve in f32 with its sums in another order (phase 6's rule).
+COOBS_COST_RTOL = 1e-3
 # The reference's default solve: at f64 it runs ProblemOption()'s own
 # tolerances under the phase's PCG cap and an LM cap of 5; at venice the
 # phase's options, so that its final cost compares with the ANALYTICAL
@@ -273,8 +338,10 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
     scripts/torch_mixed_f64_sensitivity.py), and no two summation orders
     then agree at `F64_COST_RTOL`.  From region 1 the same change moves
     no trial cost by more than ~1e-14."""
-    from megba_tpu_torch import (AlgoOption, ComputeKind, JacobianMode,
-                                 ProblemOption, RobustKind, SolverOption)
+    from megba_tpu_torch import (AlgoOption, ComputeKind, EdgeOrder,
+                                 JacobianMode, PrecondKind,
+                                 PreconditionerKind, ProblemOption,
+                                 RobustKind, RobustOption, SolverOption)
 
     kind, fused, rung, _ = PATHS[path]
     extra = VARIANTS.get(path, (path, {}))[1]
@@ -293,11 +360,50 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
         dtype=dtype, compute_kind=ComputeKind[kind], jacobian_mode=mode,
         robust_kind=RobustKind[extra.get("robust_kind", "NONE")],
         robust_delta=1.0, mixed_precision_pcg=rung == "mixed",
+        use_schur=extra.get("use_schur", True),
+        robust_option=RobustOption(guards=extra.get("guards", False)),
         algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15,
                                initial_region=region),
         solver_option=SolverOption(
             max_iter=30, refuse_ratio=1e30, fused_kernels=fused,
-            bf16=rung == "bf16", **solver))
+            bf16=rung == "bf16",
+            precond=PrecondKind[extra.get("precond", "JACOBI")],
+            neumann_order=NEUMANN_ORDER,
+            preconditioner=PreconditionerKind[
+                extra.get("preconditioner", "HPP")],
+            edge_order=EdgeOrder[extra.get("edge_order", "NATURAL")],
+            **solver))
+
+
+def solve_inputs(scene, path: str, venice: bool = False):
+    """The positional arrays of a path's `flat_solve` (the caller's edges
+    in a seeded random order on a shuffled path) and its keyword
+    arguments (a seeded fault plan, in that same edge order)."""
+    from megba_tpu_torch import make_nan_burst, make_point_indefinite_burst
+
+    extra = VARIANTS.get(path, (path, {}))[1]
+    arrays = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
+              scene.pt_idx)
+    if extra.get("shuffle"):
+        perm = np.random.default_rng(SHUFFLE_SEED).permutation(
+            scene.obs.shape[0])
+        arrays = arrays[:2] + tuple(a[perm] for a in arrays[2:])
+    n_edges, n_points = arrays[2].shape[0], arrays[1].shape[0]
+    fault = extra.get("fault")
+    if fault is None:
+        return arrays, {}
+    if fault == "crush":
+        busiest = np.argsort(-np.bincount(arrays[4], minlength=n_points),
+                             kind="stable")[:CRUSH_POINTS]
+        plan = make_point_indefinite_burst(n_points, busiest, *CRUSH_WINDOW,
+                                           n_edges=n_edges)
+    else:
+        edges = (np.random.default_rng(SHUFFLE_SEED).choice(
+            n_edges, NAN_EDGES_VENICE, replace=False) if venice
+            else NAN_EDGES_F64)
+        plan = make_nan_burst(n_edges, edges, 0,
+                              1 if fault == "nan_burst" else 10_000)
+    return arrays, dict(fault_plan=plan)
 
 
 def kernel_modules():
@@ -952,25 +1058,106 @@ def engine_phase(scene) -> None:
 # ---------------------------------------------------------------------------
 
 
+def cost_gap(ck: np.ndarray, cp: np.ndarray, what: str,
+             rolled_back: np.ndarray) -> tuple:
+    """The largest relative gap of two trial-cost trajectories over their
+    finite entries, on the steps kept and on the rolled-back ones; a NaN
+    (or inf) must stand at the same iterations in both.
+
+    A step the guards rolled back under an Hll crush comes from a broken
+    PCG on an operator whose crushed blocks scale rounding by ~1/_CRUSH
+    (1e8): its trial cost carries the summation order's rounding so
+    amplified (PERF.md section 6), and no later value depends on
+    it.  It is reported beside the gate, not held to it."""
+    bad_k, bad_p = ~np.isfinite(ck), ~np.isfinite(cp)
+    if not np.array_equal(bad_k, bad_p):
+        raise AssertionError(
+            f"{what}: non-finite trial costs at different iterations: "
+            f"kernels {np.flatnonzero(bad_k)}, plain {np.flatnonzero(bad_p)}")
+
+    def gap(sel):
+        sel = sel & ~bad_k
+        if not sel.any():
+            return 0.0
+        return float(np.max(np.abs(ck[sel] - cp[sel]) / np.abs(cp[sel])))
+
+    return gap(~rolled_back), gap(rolled_back)
+
+
+ROBUST_TRACE = ("recovery", "pcg_breakdown", "precond_fallback")
+
+
+def check_path_outcome(what: str, path: str, res, clean_c0: float) -> str:
+    """The outcome a path's option fields and fault imply, and its log
+    words: a clean path lowers its cost, a NaN burst ends RECOVERED below
+    the clean initial cost, a persistent burst FATAL_NONFINITE after
+    max_recoveries + 1 iterations, a crush with PCG breakdowns (HPP) or
+    counted SCHUR_DIAG fallbacks."""
+    from megba_tpu_torch import RobustOption, SolveStatus, status_name
+
+    extra = VARIANTS.get(path, (path, {}))[1]
+    fault = extra.get("fault")
+    k = res.iterations
+    c0, c1 = float(res.initial_cost), float(res.cost)
+    tr = res.trace
+    flags = "".join("R" if f else "." for f in tr.recovery[:k].tolist())
+    status = SolveStatus(res.status)
+    if fault == "persistent":
+        want = RobustOption().max_recoveries + 1
+        if status != SolveStatus.FATAL_NONFINITE or k != want:
+            raise AssertionError(f"{what}: {status.name} after {k} LM "
+                                 f"iterations, not FATAL_NONFINITE after "
+                                 f"{want}")
+        return f"FATAL_NONFINITE after {k} LM iterations, recoveries {flags}"
+    if not (np.isfinite(c1) and c1 < clean_c0):
+        raise AssertionError(f"{what}: final cost {c1} is not finite and "
+                             f"below the clean initial cost {clean_c0}")
+    if fault is None:
+        if not c1 < c0 or res.recoveries:
+            raise AssertionError(f"{what}: cost {c0} -> {c1}, "
+                                 f"{res.recoveries} recoveries")
+        return f"status {status_name(res.status)}"
+    if status != SolveStatus.RECOVERED:
+        raise AssertionError(f"{what}: {status.name}, not RECOVERED")
+    words = f"RECOVERED ({res.recoveries} recoveries: {flags})"
+    if fault == "crush":
+        breakdowns = tr.pcg_breakdown[:k].tolist()
+        fallback = tr.precond_fallback[:k].tolist()
+        if extra.get("preconditioner") == "SCHUR_DIAG":
+            if not any(fallback):
+                raise AssertionError(f"{what}: no SCHUR_DIAG fallback under "
+                                     f"the crush: {fallback}")
+        elif not sum(breakdowns):
+            raise AssertionError(f"{what}: no PCG breakdown under the crush")
+        words += (f", PCG breakdowns {breakdowns}, precond_fallback "
+                  f"{fallback}")
+    return words
+
+
 def f64_phase(scene) -> dict:
     """Each path of `F64_PATHS` on the trafalgar-sized f64 scene, kernels
     against plain versions; the counts are read from each path's kernel
-    run alone.  Returns each path's launches per kernel arm."""
+    run alone.  The trial costs agree at `F64_COST_RTOL` where finite and
+    are NaN at the same iterations; the accept, recovery, PCG-breakdown
+    and fallback traces, the counts, the status and the recoveries are
+    equal.  Returns each path's launches per kernel arm."""
     from megba_tpu_torch import flat_solve
 
     arm_counts = {}
+    kernel_runs = {}
     for path in F64_PATHS:
         kernels = PATHS[path][3]
         opt = solve_option(np.float64, path)
-        args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
-                scene.pt_idx, opt)
+        arrays, kw = solve_inputs(scene, path)
+        args = arrays + (opt,)
         reset_launch_counts()
         t = time.perf_counter()
-        res_k = flat_solve(*args, device=DEVICE)
+        res_k = flat_solve(*args, device=DEVICE, **kw)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t
         counts = launch_counts()
         arm_counts[path] = arm_launch_counts()
+        kernel_runs[path] = res_k
         skipped = [k for k in kernels if counts[k] == 0]
         if skipped:
             raise AssertionError(
@@ -981,35 +1168,60 @@ def f64_phase(scene) -> dict:
                                  f"implies {want}")
         with plain_path():
             t = time.perf_counter()
-            res_p = flat_solve(*args, device=DEVICE)
+            res_p = flat_solve(*args, device=DEVICE, **kw)
             torch.cuda.synchronize()
             t_p = time.perf_counter() - t
         k = res_k.iterations
-        if (k, res_k.accepted, res_k.pcg_iterations) != (
-                res_p.iterations, res_p.accepted, res_p.pcg_iterations):
+
+        def tally(res):
+            return (res.iterations, res.accepted, res.pcg_iterations,
+                    res.status, res.recoveries)
+
+        if tally(res_k) != tally(res_p):
             raise AssertionError(
-                f"f64 {path}: iteration counts differ: kernels "
-                f"{(k, res_k.accepted, res_k.pcg_iterations)}, plain "
-                f"{(res_p.iterations, res_p.accepted, res_p.pcg_iterations)}")
+                f"f64 {path}: counts, status or recoveries differ: kernels "
+                f"{tally(res_k)}, plain {tally(res_p)}")
         tk, tp = res_k.trace, res_p.trace
-        if not torch.equal(tk.accept[:k], tp.accept[:k]) or not torch.equal(
-                tk.pcg_iters[:k], tp.pcg_iters[:k]):
-            raise AssertionError(
-                f"f64 {path}: accept pattern or PCG counts differ")
-        ck, cp = tk.cost[:k].numpy(), tp.cost[:k].numpy()
-        rel = float(np.max(np.abs(ck - cp) / np.abs(cp))) if k else 0.0
+        for f in ("accept", "pcg_iters") + ROBUST_TRACE:
+            if not torch.equal(getattr(tk, f)[:k], getattr(tp, f)[:k]):
+                raise AssertionError(f"f64 {path}: the {f} traces differ")
+        rel, rel_rolled = cost_gap(tk.cost[:k].numpy(), tp.cost[:k].numpy(),
+                                   f"f64 {path}", tk.recovery[:k].numpy())
         if not rel <= F64_COST_RTOL:
             raise AssertionError(
                 f"f64 {path}: cost trajectories differ (rel {rel:.3e})")
+        clean = kernel_runs["implicit"]
+        outcome = check_path_outcome(f"f64 {path}", path, res_k,
+                                     float(clean.initial_cost))
+        if path == "implicit_guarded":
+            # Guards on a clean run select the unguarded values bitwise.
+            for f in dataclasses.fields(clean.trace):
+                if not torch.equal(getattr(clean.trace, f.name),
+                                   getattr(tk, f.name)):
+                    raise AssertionError(f"f64 {path}: the {f.name} trace "
+                                         "differs from the implicit run's")
+            if not (torch.equal(clean.cameras, res_k.cameras)
+                    and torch.equal(clean.points, res_k.points)):
+                raise AssertionError(f"f64 {path}: solved parameters differ "
+                                     "from the implicit run's")
+            outcome += ", bitwise the implicit run"
+        if path == "implicit_coobs":
+            natural = flat_solve(*arrays, solve_option(np.float64,
+                                                       "implicit"),
+                                 device=DEVICE)
+            gap = abs(float(res_k.cost) - float(natural.cost)) / float(
+                natural.cost)
+            outcome += (f", final cost {gap:.3e} relative to NATURAL on the "
+                        "same shuffled edges")
         c0, c1 = float(res_k.initial_cost), float(res_k.cost)
-        if not (np.isfinite(c1) and c1 < c0):
-            raise AssertionError(f"f64 {path}: cost did not fall "
-                                 f"({c0} -> {c1})")
+        if res_k.recoveries:
+            outcome += (f", rolled-back trial costs kernels/plain "
+                        f"{rel_rolled:.3e} apart")
         log(f"f64 {path}: {k} LM iterations, {res_k.pcg_iterations} PCG, "
             f"cost {c0:.10e} -> {c1:.10e}, max rel cost gap kernels/plain "
             f"{rel:.3e} (limit {F64_COST_RTOL:g}), accept pattern equal; "
-            f"solve {t_k:.2f} s with kernels, {t_p:.2f} s plain; "
-            f"launches {arm_counts[path]} (as the code implies)")
+            f"{outcome}; solve {t_k:.2f} s with kernels, {t_p:.2f} s "
+            f"plain; launches {arm_counts[path]} (as the code implies)")
     return arm_counts
 
 
@@ -1080,21 +1292,35 @@ def expected_launches(path: str, res) -> dict:
     iterations an LM iteration runs hpl and hlp k+2 times each under the
     Chronopoulos-Gear body (reduced RHS, k+1 S.p products, back-
     substitution) and k+1 times each under the textbook body of the bf16
-    rung (no priming product), the preconditioner k+1 times, two
+    rung (no priming product); the plain full-system solver runs them
+    k+1 times each (one of each a product, no reduced RHS and no
+    back-substitution).  The preconditioner runs k+1 times, two
     `coupling_expand` for the gain ratio and, on a precision rung, two
-    `seg_expand` for the equilibration scales; each linearisation runs
-    `jtj_grad_reduce` twice.  A warm start (every PCG of a warm-started
-    solve, the first one's zero x0 included) adds the S.p product of
-    r0 = b - S x0, one hlp and one hpl, and one preconditioner apply: it
-    applies M^-1 to r0 and to b, where a cold start applies it to b
-    alone.  The Jacobian mode and the robust loss launch nothing."""
+    `seg_expand` for the equilibration scales; each linearisation, at an
+    accepted step or at a guarded recovery, runs `jtj_grad_reduce`
+    twice.  A warm start (every PCG of a warm-started solve, the first
+    one's zero x0 included) adds the product of r0 = b - A x0, one hlp
+    and one hpl, and one preconditioner apply: it applies M^-1 to r0 and
+    to b, where a cold start applies it to b alone.  NEUMANN of order m
+    runs m S.p products and m + 1 base applies per preconditioner apply;
+    SCHUR_DIAG sums its correction per camera with nine `seg_reduce`
+    launches per PCG solve.  The guards keep one product and one apply
+    per PCG iteration, restarts included.  The Jacobian mode, the robust
+    loss, the edge order and a fault plan launch nothing."""
     kind, fused, rung, _ = PATHS[path]
-    warm = VARIANTS.get(path, (path, {}))[1].get("forcing", False)
+    extra = VARIANTS.get(path, (path, {}))[1]
+    warm = extra.get("forcing", False)
+    plain = not extra.get("use_schur", True)
+    order = NEUMANN_ORDER if extra.get("precond") == "NEUMANN" else 0
     L, P, A = res.iterations, res.pcg_iterations, res.accepted
-    products = 2 * P + (2 if rung == "bf16" else 4) * L + (2 * L if warm
-                                                           else 0)
+    applies = P + (2 * L if warm else L)  # M^-1 applies of the CG
+    if plain:
+        products = 2 * P + 2 * L
+    else:
+        products = 2 * P + (2 if rung == "bf16" else 4) * L
+    products += (2 * L if warm else 0) + 2 * order * applies
     want = dict.fromkeys(launch_counts(), 0)
-    want["jtj_grad_reduce"] = 2 + 2 * A
+    want["jtj_grad_reduce"] = 2 + 2 * (A + res.recoveries)
     want["coupling_expand"] = 2 * L
     if not fused and kind == "IMPLICIT":
         want["coupling_expand"] += products  # one expand per product
@@ -1104,23 +1330,28 @@ def expected_launches(path: str, res) -> dict:
     else:
         want["fused_coupling_apply_implicit" if kind == "IMPLICIT"
              else "fused_coupling_apply"] = products
-        want["fused_block_diag_apply"] = P + (2 * L if warm else L)
+        want["fused_block_diag_apply"] = (order + 1) * applies
     if rung is not None:
         want["seg_expand"] += 2 * L
+    if extra.get("preconditioner") == "SCHUR_DIAG":
+        want["seg_reduce"] += 9 * L
     return want
 
 
-def venice_phase(scene, path: str, profile: bool, ref_cost=None):
+def venice_phase(scene, path: str, profile: bool, ref=None):
+    """One venice solve of a path; `ref` is the IMPLICIT run's result,
+    which later paths are compared with.  Returns the launch counts, the
+    per-arm counts and the result."""
     from megba_tpu_torch import flat_solve
 
     opt = solve_option(np.float32, path)
-    args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
-            scene.pt_idx, opt)
+    arrays, kw = solve_inputs(scene, path, venice=True)
+    args = arrays + (opt,)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t = time.perf_counter()
-    res = flat_solve(*args, verbose=True, device=DEVICE)
+    res = flat_solve(*args, verbose=True, device=DEVICE, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = launch_counts()
@@ -1135,34 +1366,50 @@ def venice_phase(scene, path: str, profile: bool, ref_cost=None):
     if counts != want:
         raise AssertionError(f"venice {path}: launches {counts}, the code "
                              f"implies {want}")
-    if not (np.isfinite(c1) and c1 < c0):
-        raise AssertionError(f"venice {path}: cost did not fall "
-                             f"({c0} -> {c1})")
+    clean_c0 = c0 if ref is None else float(ref.initial_cost)
+    outcome = check_path_outcome(f"venice {path}", path, res, clean_c0)
     if res.cameras.shape != scene.cameras0.shape or not bool(
             torch.isfinite(res.cameras).all() & torch.isfinite(
                 res.points).all()):
         raise AssertionError(f"venice {path}: solved parameters malformed")
-    gap = ("" if ref_cost is None else
+    ref_cost = None if ref is None else float(ref.cost)
+    gap = ("" if ref is None else
            f", final cost {abs(c1 - ref_cost) / ref_cost:.3e} relative to "
            "the implicit run's")
-    mode = VARIANTS.get(path, (path, {}))[1].get("jacobian_mode")
-    if mode is not None and not (
-            abs(c1 - ref_cost) <= AUTODIFF_COST_RTOL * ref_cost):
+    extra = VARIANTS.get(path, (path, {}))[1]
+    limit = (AUTODIFF_COST_RTOL if "jacobian_mode" in extra
+             else COOBS_COST_RTOL if "edge_order" in extra else None)
+    if limit is not None and not abs(c1 - ref_cost) <= limit * ref_cost:
         raise AssertionError(
-            f"venice {path}: final cost {c1} is not within "
-            f"{AUTODIFF_COST_RTOL:g} of the ANALYTICAL run's {ref_cost}")
+            f"venice {path}: final cost {c1} is not within {limit:g} of "
+            f"the IMPLICIT run's {ref_cost}")
+    if path == "implicit_guarded" and not (
+            torch.equal(res.trace.cost, ref.trace.cost)
+            and torch.equal(res.cost, ref.cost)
+            and (res.iterations, res.accepted, res.pcg_iterations) == (
+                ref.iterations, ref.accepted, ref.pcg_iterations)):
+        raise AssertionError(f"venice {path}: not bitwise the implicit run")
+    if ref is not None:
+        outcome += (f"; PCG {res.pcg_iterations} against the implicit "
+                    f"run's {ref.pcg_iterations}")
+    if extra.get("preconditioner") == "SCHUR_DIAG":
+        fallback = res.trace.precond_fallback[:res.iterations].tolist()
+        if any(fallback):
+            raise AssertionError(f"venice {path}: SCHUR_DIAG fell back on a "
+                                 f"clean run: {fallback}")
+        outcome += f", precond_fallback {fallback}"
     log(f"venice f32 {path}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM "
         f"iterations ({res.accepted} accepted), {res.pcg_iterations} PCG "
         f"iterations, flat_solve {wall:.3f} s = {wall / res.iterations:.3f} "
         f"s per LM iteration (planning and transfer included), peak "
-        f"memory {peak / 2**30:.3f} GiB, status {res.status}{gap}")
+        f"memory {peak / 2**30:.3f} GiB{gap}; {outcome}")
     log(f"venice {path} launches: {arms} (as the code implies)")
     if profile:
-        profile_solve(args, path)
-    return counts, arms, c1
+        profile_solve(args, path, kw)
+    return counts, arms, res
 
 
-def profile_solve(args, path: str) -> None:
+def profile_solve(args, path: str, kw: dict) -> None:
     """One more venice solve under torch.profiler: device time by kernel
     and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1175,7 +1422,7 @@ def profile_solve(args, path: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        flat_solve(*args, device=DEVICE)
+        flat_solve(*args, device=DEVICE, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     events = prof.key_averages()
@@ -1230,12 +1477,11 @@ def main() -> int:
     for row, arm_path in F64_ARM_PATHS.items():
         rows[row]["launches"] = f64_counts[arm_path].get(row, 0)
     precision_phase(make_scene(TRAFALGAR, np.float32))
-    ref_cost = None
+    ref = None
     for path in VENICE_PATHS:
         _, _, rung, kernels_of_path = PATHS[path]
-        counts, arms, cost = venice_phase(venice, path, opts.profile,
-                                          ref_cost)
-        ref_cost = cost if ref_cost is None else ref_cost
+        counts, arms, res = venice_phase(venice, path, opts.profile, ref)
+        ref = res if ref is None else ref
         for name in kernels_of_path:  # the first f32 path that runs it
             if rung is None and rows[name]["launches"] is None:
                 rows[name]["launches"] = counts[name]

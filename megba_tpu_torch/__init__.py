@@ -11,6 +11,9 @@ CPU with `device="cpu"`.  Jacobians come from reverse- or forward-mode
 `torch.func` or the closed form (`make_residual_jacobian_fn`), with
 optional Huber / Cauchy losses (`rho_and_weight`, `robustify`);
 `Jet` / `seed_jets` are JetVector-style forward-mode dual numbers.
+`RobustOption(guards=True)` contains faults, and `flat_solve(...,
+fault_plan=...)` seeds them (`FaultPlan`, `make_nan_burst`,
+`make_point_indefinite_burst`).
 """
 
 from megba_tpu_torch.common import (
@@ -18,6 +21,7 @@ from megba_tpu_torch.common import (
     AlgoOption,
     ComputeKind,
     Device,
+    EdgeOrder,
     JacobianMode,
     LinearSystemKind,
     PrecondKind,
@@ -40,4 +44,9 @@ from megba_tpu_torch.ops.residuals import (
     make_residual_jacobian_fn,
 )
 from megba_tpu_torch.ops.robust import rho_and_weight, robustify
+from megba_tpu_torch.robustness.faults import (
+    FaultPlan,
+    make_nan_burst,
+    make_point_indefinite_burst,
+)
 from megba_tpu_torch.solve import flat_solve, solve_bal

@@ -1,7 +1,8 @@
 """Levenberg-Marquardt trust-region outer loop (PyTorch).
 
-Counterpart of `megba_tpu/algo/lm.py:lm_solve`, unguarded: damp, solve
-the Schur system, test ||dx|| <= eps2 (||x|| + eps1), measure the gain
+Counterpart of `megba_tpu/algo/lm.py:lm_solve`: damp, solve the Schur
+system (or, with `use_schur=False`, the full system through
+`plain_pcg_solve`), test ||dx|| <= eps2 (||x|| + eps1), measure the gain
 ratio rho against the linearised cost Sum (J dx + r)^2, then accept
 (relinearise, region /= max(1/3, 1 - (2 rho - 1)^3), stop when
 ||g||_inf <= eps1) or reject (region /= v, v *= 2).  With a robust loss
@@ -10,10 +11,22 @@ Sum rho and the model decrease is measured from the weighted cost.
 `SolverOption.forcing` drives the PCG tolerance by the Eisenstat-Walker
 schedule, and `warm_start` seeds each PCG with the last accepted step.
 
+`RobustOption(guards=True)` contains faults (JAX lm.py:465-611): a step
+whose trial cost, step norm or PCG residual energy is not finite, or
+whose PCG exited broken, is rolled back (the carried state already is
+the last accepted one), the system is relinearised there, the trust
+region is divided by `damping_inflation`, and after more than
+`max_recoveries` consecutive failures the solve stops FATAL_NONFINITE;
+a finite step taken from a non-finite carried cost is adopted.  A
+`FaultPlan` (robustness/faults.py) poisons residuals and crushes Hll
+blocks at stamped iterations: the pre-loop linearisation is stamped 0,
+the trial point and the relinearisation at carry k both k.
+
 The JAX `lax.while_loop` becomes a Python loop and its `lax.cond`
-relinearisation a Python `if`; the host reads the accept and stop flags
-once per iteration, and the forcing term and the warm-start carry stay
-on the device.  Trial points are costed by the engine's value-only
+relinearisation a Python `if`; the host reads the accept (and recover)
+flags and the stop flag once each per iteration, the trace values in one
+transfer, and the forcing term and the warm-start carry stay on the
+device.  Trial points are costed by the engine's value-only
 residual (`ops.residuals.residual_only`): eager PyTorch has no dead-code
 elimination to drop an unused Jacobian and Schur build, so the full
 linearisation runs only on an accepted step.
@@ -27,7 +40,13 @@ from typing import Callable, Optional
 
 import torch
 
-from megba_tpu_torch.common import ProblemOption, RobustKind, SolveStatus
+from megba_tpu_torch.common import (
+    PrecondKind,
+    PreconditionerKind,
+    ProblemOption,
+    RobustKind,
+    SolveStatus,
+)
 from megba_tpu_torch.linear_system.builder import (
     build_schur_system,
     weight_system_inputs,
@@ -42,7 +61,12 @@ from megba_tpu_torch.ops.residuals import (
 from megba_tpu_torch.ops.robust import rho_and_weight, robustify
 from megba_tpu_torch.ops import segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
-from megba_tpu_torch.solver.pcg import schur_pcg_solve
+from megba_tpu_torch.robustness.faults import (
+    FaultPlan,
+    poison_residuals,
+    poison_system,
+)
+from megba_tpu_torch.solver.pcg import plain_pcg_solve, schur_pcg_solve
 
 _TINY = 1e-30
 
@@ -129,19 +153,20 @@ def lm_solve(
     initial_region=None,
     initial_v=None,
     initial_dx: Optional[torch.Tensor] = None,
+    fault_plan: Optional[FaultPlan] = None,
 ) -> LMResult:
     """Run the LM loop to convergence.
 
     FEATURE-MAJOR contract: cameras [9, Nc], points [3, Np], obs [2, nE],
     sqrt_info [4, nE]; every edge array (obs, cam_idx, pt_idx, mask,
-    sqrt_info) is in the cam plan's slot order (solve.flat_solve arranges
-    this).  Jp is carried in pt-slot order, so both Hessian sides and
-    both coupling products reduce over sorted segments.  With
-    `option.compute_kind` EXPLICIT the Schur system also carries the
-    coupling rows W, and with `solver_option.fused_kernels` `plans` must
-    carry the fused directions (ops/fused.with_fused_plans); the
-    precision rungs (`mixed_precision_pcg`, `solver_option.bf16`) reach
-    the PCG only.
+    sqrt_info, the fault plan's edge_nan) is in the cam plan's slot order
+    (solve.flat_solve arranges this).  Jp is carried in pt-slot order,
+    so both Hessian sides and both coupling products reduce over sorted
+    segments.  With `option.compute_kind` EXPLICIT the Schur system also
+    carries the coupling rows W, and with `solver_option.fused_kernels`
+    `plans` must carry the fused directions (ops/fused.with_fused_plans);
+    the precision rungs (`mixed_precision_pcg`, `solver_option.bf16`)
+    reach the PCG only.
 
     `residual_jac_fn` is the engine (ops.residuals; None: the BAL engine
     of `option.jacobian_mode`); its value-only residual
@@ -149,6 +174,8 @@ def lm_solve(
     `initial_region` / `initial_v` replace the trust-region start state,
     and `initial_dx` ([cd, Nc]) seeds the warm-start carry under
     `SolverOption.warm_start`: the resume hooks of a split solve.
+    `fault_plan` (tensors on the solve device) injects seeded faults;
+    `option.robust_option.guards` contains them.
     """
     if residual_jac_fn is None:
         residual_jac_fn = make_residual_jacobian_fn(mode=option.jacobian_mode)
@@ -157,18 +184,27 @@ def lm_solve(
     num_points = points.shape[1]
     algo_opt = option.algo_option
     solver_opt = option.solver_option
+    robust_opt = option.robust_option
+    guards = robust_opt.guards
     robust, delta = option.robust_kind, option.robust_delta
     forcing, warm_start = solver_opt.forcing, solver_opt.warm_start
+    use_schur = option.use_schur
     dtype, device = cameras.dtype, cameras.device
+    # The trace records the preconditioner fallback whenever a block
+    # diagonal or operator with a fallback is live (JAX lm.py:561-570).
+    fallback_live = (solver_opt.preconditioner == PreconditionerKind.SCHUR_DIAG
+                     or solver_opt.precond != PrecondKind.JACOBI)
 
     def scalar(x):
         return torch.tensor(x, dtype=dtype, device=device)
 
-    def linearize(cams, pts):
+    def linearize(cams, pts, k):
         r, Jc, Jp = residual_jac_fn(
             cams.index_select(1, cam_idx), pts.index_select(1, pt_idx), obs)
         r, Jc, Jp = weight_system_inputs(
             r, Jc, Jp, cam_idx, pt_idx, mask, sqrt_info, cam_fixed, pt_fixed)
+        if fault_plan is not None:
+            r = poison_residuals(r, fault_plan, k)
         if robust == RobustKind.NONE:
             cost = wcost = comp_sum_sq(r)
         else:
@@ -180,22 +216,27 @@ def lm_solve(
         system = build_schur_system(r, Jc, Jp, plans, num_cameras,
                                     num_points, cam_fixed, pt_fixed,
                                     option.compute_kind)
+        if fault_plan is not None:
+            system = poison_system(system, fault_plan, k)
         return r, Jc, Jp, system, cost, wcost
 
-    def trial_cost(cams, pts):
+    def trial_cost(cams, pts, k):
         r = residual_fn(
             cams.index_select(1, cam_idx), pts.index_select(1, pt_idx), obs)
         r = apply_sqrt_info_residual(r, sqrt_info) * mask[None, :]
+        if fault_plan is not None:
+            r = poison_residuals(r, fault_plan, k)
         if robust == RobustKind.NONE:
             return comp_sum_sq(r)
         return comp_sum(rho_and_weight((r * r).sum(0), robust, delta)[0])
 
-    r, Jc, Jp, system, cost, wcost = linearize(cameras, points)
+    r, Jc, Jp, system, cost, wcost = linearize(cameras, points, 0)
     cost0 = cost
     region = scalar(algo_opt.initial_region if initial_region is None
                     else initial_region)
     v = scalar(2.0 if initial_v is None else initial_v)
     third = scalar(1.0 / 3.0)
+    inflation = scalar(robust_opt.damping_inflation)
     # eta_k is a norm-relative forcing term and the PCG threshold is on
     # the residual energy, so eta rides squared into the PCG with
     # tol_relative on; with forcing, `tol` is eta's cap.
@@ -205,20 +246,32 @@ def lm_solve(
     if warm_start:
         dx0 = (torch.zeros_like(cameras) if initial_dx is None
                else initial_dx.to(dtype))
+        if not use_schur:  # the plain solver warm-starts the pair
+            dx0 = (dx0, torch.zeros_like(points))
+    pcg_kw = dict(
+        max_iter=solver_opt.max_iter, refuse_ratio=solver_opt.refuse_ratio,
+        compute_kind=option.compute_kind,
+        mixed_precision=option.mixed_precision_pcg, bf16=solver_opt.bf16,
+        guard=guards,
+        max_restarts=robust_opt.pcg_max_restarts if guards else 0)
+    if use_schur:
+        pcg_solve = schur_pcg_solve
+        pcg_kw.update(fused_kernels=solver_opt.fused_kernels,
+                      precond=solver_opt.precond,
+                      preconditioner=solver_opt.preconditioner,
+                      neumann_order=solver_opt.neumann_order)
+    else:
+        pcg_solve = plain_pcg_solve
     trace = SolveTrace.empty(algo_opt.max_iter, dtype)
-    k = accepted = pcg_total = 0
-    stop = False
+    k = accepted = pcg_total = recoveries = fail_streak = 0
+    stop = fatal = False
     t0 = time.perf_counter()
     while k < algo_opt.max_iter and not stop:
-        pcg = schur_pcg_solve(
-            system, Jc, Jp, plans, region, max_iter=solver_opt.max_iter,
+        pcg = pcg_solve(
+            system, Jc, Jp, plans, region,
             tol=eta * eta if forcing else solver_opt.tol,
-            refuse_ratio=solver_opt.refuse_ratio,
-            tol_relative=forcing or solver_opt.tol_relative,
-            compute_kind=option.compute_kind,
-            fused_kernels=solver_opt.fused_kernels,
-            mixed_precision=option.mixed_precision_pcg, bf16=solver_opt.bf16,
-            x0=dx0)
+            tol_relative=forcing or solver_opt.tol_relative, x0=dx0,
+            **pcg_kw)
         dx_cam, dx_pt = pcg.dx_cam, pcg.dx_pt
 
         # ||dx|| <= eps2 (||x|| + eps1) -> converged, the step is not applied.
@@ -239,10 +292,22 @@ def lm_solve(
         predicted = comp_sum_sq(jc_dx + jp_dx + r)
         denominator = torch.clamp(predicted - wcost, max=-_TINY)
 
-        cost_new = trial_cost(cams_new, pts_new)
+        cost_new = trial_cost(cams_new, pts_new, k)
         rho = (cost_new - cost) / denominator
         accept_t = (cost_new < cost) & ~converged
-        accept = bool(accept_t)
+        if guards:
+            # A non-finite trial cost, step or PCG residual energy (a
+            # poisoned carried system exits its PCG at once), or a PCG
+            # that exited broken, is a failed step: roll it back.  A
+            # finite step from a non-finite carried cost is adopted.
+            step_bad = ~(torch.isfinite(cost_new) & torch.isfinite(dx_norm)
+                         & torch.isfinite(pcg.rho)) | pcg.broken
+            converged = converged & ~step_bad
+            adopt = ~torch.isfinite(cost) & ~step_bad & ~converged
+            accept_t = (accept_t & ~step_bad) | adopt
+            accept, recover = torch.stack([accept_t, step_bad]).tolist()
+        else:
+            accept, recover = bool(accept_t), False
         eta_k = eta
         if forcing:
             eta = eisenstat_walker_eta(eta, cost_new, cost, rho, accept_t,
@@ -252,32 +317,65 @@ def lm_solve(
         if warm_start:
             # A reject changes the damped system sharply: start the next
             # PCG cold, bitwise as without warm starts.
-            dx0 = dx_cam if accept else torch.zeros_like(dx_cam)
+            step = (dx_cam,) if use_schur else (dx_cam, dx_pt)
+            if not accept:
+                step = tuple(torch.zeros_like(d) for d in step)
+            dx0 = step[0] if use_schur else step
 
         if accept:
             cameras, points = cams_new, pts_new
-            r, Jc, Jp, system, _, wcost = linearize(cameras, points)
+            r, Jc, Jp, system, _, wcost = linearize(cameras, points, k)
+        elif recover:
+            # Relinearise at the rolled-back point, healing a poisoned
+            # carried system; the carried costs stay.
+            r, Jc, Jp, system, _, _ = linearize(cameras, points, k)
         g_inf = torch.maximum(system.g_cam.abs().max(),
                               system.g_pt.abs().max())
         stop_t = converged | (accept_t & (g_inf <= algo_opt.epsilon1))
-        trace_k = torch.stack([cost_new, g_inf, region, rho, eta_k,
-                               pcg.r0_ratio.to(dtype)]).cpu()
+        # One transfer of the iteration's trace values; the integer
+        # counters are exact in either float dtype.
+        values = [cost_new, g_inf, region, rho, eta_k,
+                  pcg.r0_ratio.to(dtype)]
+        if guards:
+            values.append(pcg.breakdowns.to(dtype))
+        if fallback_live:
+            values.append(torch.as_tensor(pcg.precond_fallback,
+                                          device=device).to(dtype))
+        trace_k = torch.stack(values).cpu()
         if accept:
-            region = region / torch.maximum(
+            region_accept = region / torch.maximum(
                 third, 1.0 - (2.0 * rho - 1.0) ** 3)
+            if guards:
+                # An adopted accept has rho = NaN (its denominator ran
+                # through the non-finite carried cost): keep the region.
+                region_accept = torch.where(torch.isfinite(rho),
+                                            region_accept, region)
+            region = region_accept
             cost = cost_new
             v = torch.full_like(v, 2.0)
             accepted += 1
+        elif recover:
+            # Damping inflation in place of the reject back-off.
+            region = region / inflation
         else:
             region = region / v
             v = v * 2.0
+        robust_trace = {}
+        if guards:
+            fail_streak = fail_streak + 1 if recover else 0
+            recoveries += int(recover)
+            fatal = fatal or fail_streak > robust_opt.max_recoveries
+            robust_trace = dict(recovery=recover,
+                                pcg_breakdown=int(trace_k[6]))
+        if fallback_live:
+            robust_trace["precond_fallback"] = int(trace_k[-1])
         trace.record(
             k, cost=trace_k[0], grad_inf_norm=trace_k[1],
             trust_region=trace_k[2], rho=trace_k[3], accept=accept,
             pcg_iters=pcg.iterations, pcg_eta=trace_k[4],
-            pcg_r0_ratio=trace_k[5])
+            pcg_r0_ratio=trace_k[5], **robust_trace)
         pcg_total += pcg.iterations
-        stop = bool(stop_t)
+        stop = bool(stop_t) or fatal
         if verbose:
             c = float(trace_k[0])
             print(f"iter {k}: cost {c:.6e} accept {accept} "
@@ -286,9 +384,12 @@ def lm_solve(
                   flush=True)
         k += 1
 
-    status = derive_status(stopped=stop, accepted=accepted)
+    status = derive_status(stopped=stop, accepted=accepted,
+                           recoveries=recoveries, fatal=fatal)
+    if warm_start and not use_schur:
+        dx0 = dx0[0]
     return LMResult(
         cameras=cameras, points=points, cost=cost, initial_cost=cost0,
         iterations=k, accepted=accepted, pcg_iterations=pcg_total,
         region=region, v=v, stopped=stop, trace=trace, status=status,
-        dx_cam=dx0)
+        recoveries=recoveries, dx_cam=dx0)

@@ -67,8 +67,8 @@ class JacobianMode(enum.Enum):
 
 
 class PrecondKind(enum.Enum):
-    """Preconditioner operator family for the Schur PCG (only JACOBI is
-    ported)."""
+    """Preconditioner operator family for the Schur PCG (JACOBI and
+    NEUMANN are ported)."""
 
     JACOBI = 0
     NEUMANN = 1
@@ -82,7 +82,8 @@ class EdgeOrder(enum.Enum):
 
 
 class PreconditionerKind(enum.Enum):
-    """Block diagonal the preconditioner inverts (only HPP is ported)."""
+    """Block diagonal the preconditioner inverts: the damped camera
+    blocks (HPP) or the true Schur block diagonal (SCHUR_DIAG)."""
 
     HPP = 0
     SCHUR_DIAG = 1
@@ -203,19 +204,22 @@ DTYPE_TO_TORCH = {
 def _unported(name: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"{name}={value!r} is not ported to megba_tpu_torch yet; the port "
-        "runs the single-device LM + Schur PCG path (IMPLICIT or EXPLICIT, "
-        "with or without fused kernels, at float32 or float64, on every "
-        "rung of the precision ladder) with any Jacobian mode and robust "
-        "loss, forcing and warm starts, and block-Jacobi (HPP) "
-        "preconditioning; still refused: guards, use_schur=False, the "
-        "COOBS edge order, the other preconditioners, the multi-device "
-        "options (world_size, mesh_2d, bf16_collectives) and telemetry")
+        "runs the single-device LM path (Schur PCG, IMPLICIT or EXPLICIT, "
+        "with or without fused kernels, on every rung of the precision "
+        "ladder, or the plain full-system PCG) with any Jacobian mode and "
+        "robust loss, forcing and warm starts, guards and fault "
+        "injection, either edge order, and the JACOBI or NEUMANN "
+        "preconditioner on the HPP or SCHUR_DIAG block diagonal; still "
+        "refused: precond=TWO_LEVEL and MULTILEVEL, the multi-device "
+        "options (world_size, mesh_2d, bf16_collectives), telemetry and "
+        "metrics")
 
 
 def validate_options(option: ProblemOption) -> None:
     """Check the option kinds, then refuse every value this port does
     not implement (typed NotImplementedError naming the option)."""
     so = option.solver_option
+    ro = option.robust_option
     if option.algo_kind != AlgoKind.LM or option.algo_option.algo_kind != AlgoKind.LM:
         raise ValueError("only AlgoKind.LM is supported")
     if option.use_schur and option.linear_system_kind != LinearSystemKind.SCHUR:
@@ -228,6 +232,9 @@ def validate_options(option: ProblemOption) -> None:
         raise ValueError(
             "forcing=True clamps eta_k to [eta_min, tol]; need "
             f"eta_min <= tol, got eta_min={so.eta_min} > tol={so.tol}")
+    if so.precond == PrecondKind.NEUMANN and so.neumann_order < 1:
+        raise ValueError(
+            f"neumann_order must be >= 1, got {so.neumann_order}")
     if np.dtype(option.dtype) not in DTYPE_TO_TORCH:
         raise ValueError(f"unsupported dtype {option.dtype}")
     if not isinstance(option.device, Device):
@@ -238,6 +245,20 @@ def validate_options(option: ProblemOption) -> None:
         if not isinstance(getattr(option, name), kind):
             raise ValueError(f"{name} must be a {kind.__name__}, got "
                              f"{getattr(option, name)!r}")
+    if not option.use_schur and so.precond != PrecondKind.JACOBI:
+        raise ValueError(
+            "precond=NEUMANN/TWO_LEVEL/MULTILEVEL is only implemented for "
+            "the Schur solver (use_schur=True); the plain full-system "
+            "solver's exact block diagonal IS its preconditioner")
+    if ro.max_recoveries < 1:
+        raise ValueError(
+            f"max_recoveries must be >= 1, got {ro.max_recoveries}")
+    if not ro.damping_inflation > 1.0:
+        raise ValueError(
+            f"damping_inflation must be > 1, got {ro.damping_inflation}")
+    if ro.pcg_max_restarts < 0:
+        raise ValueError(
+            f"pcg_max_restarts must be >= 0, got {ro.pcg_max_restarts}")
     if so.fused_kernels and not option.use_schur:
         raise ValueError(
             "SolverOption.fused_kernels fuses the Schur coupling matvec and "
@@ -245,20 +266,17 @@ def validate_options(option: ProblemOption) -> None:
             "edge pipeline to fuse")
     _validate_precision(option)
     unported = [
-        ("use_schur", option.use_schur, True),
-        ("world_size", option.world_size, 1),
-        ("robust_option.guards", option.robust_option.guards, False),
-        ("solver_option.precond", so.precond, PrecondKind.JACOBI),
-        ("solver_option.preconditioner", so.preconditioner,
-         PreconditionerKind.HPP),
-        ("solver_option.mesh_2d", so.mesh_2d, False),
-        ("solver_option.edge_order", so.edge_order, EdgeOrder.NATURAL),
-        ("solver_option.bf16_collectives", so.bf16_collectives, False),
-        ("telemetry", option.telemetry, None),
-        ("metrics", option.metrics, False),
+        ("world_size", option.world_size, option.world_size != 1),
+        ("solver_option.precond", so.precond,
+         so.precond in (PrecondKind.TWO_LEVEL, PrecondKind.MULTILEVEL)),
+        ("solver_option.mesh_2d", so.mesh_2d, so.mesh_2d),
+        ("solver_option.bf16_collectives", so.bf16_collectives,
+         so.bf16_collectives),
+        ("telemetry", option.telemetry, option.telemetry is not None),
+        ("metrics", option.metrics, bool(option.metrics)),
     ]
-    for name, value, supported in unported:
-        if value != supported:
+    for name, value, refused in unported:
+        if refused:
             raise _unported(name, value)
 
 

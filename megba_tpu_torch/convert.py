@@ -4,8 +4,10 @@
 cam_idx, pt_idx and optional sqrt_info, edge-major or feature-major) into
 tensors on a given device and dtype; `schur_system_to_torch` turns an
 assembled Schur system of the JAX package (its fields read as numpy)
-into the port's `SchurSystem`; `result_to_numpy` turns an `LMResult`
-back into numpy.  Both packages then compute on the same inputs.
+into the port's `SchurSystem`; `fault_plan_to_torch` turns a fault plan
+of the JAX package into the port's `FaultPlan`; `result_to_numpy` turns
+an `LMResult` back into numpy.  Both packages then compute on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from megba_tpu_torch.algo.lm import LMResult
 from megba_tpu_torch.linear_system.builder import SchurSystem
 from megba_tpu_torch.observability.trace import TRACE_FIELDS
+from megba_tpu_torch.robustness.faults import FaultPlan
 
 # Leading (feature) width of each float array in feature-major layout.
 _WIDTHS = {"cameras": 9, "points": 3, "obs": 2, "sqrt_info": 4}
@@ -87,6 +90,21 @@ def schur_system_to_torch(
         W = put(W if edge_perm is None else W[:, edge_perm])
     return SchurSystem(Hpp=put(system.Hpp), Hll=put(system.Hll),
                        g_cam=put(system.g_cam), g_pt=put(system.g_pt), W=W)
+
+
+def fault_plan_to_torch(plan, *, device: Union[str, torch.device] = "cpu"
+                        ) -> FaultPlan:
+    """A fault plan with the JAX package's fields (edge_nan [nE],
+    point_crush [Np], window [2], offset; any arrays numpy can read) ->
+    the port's FaultPlan, its tensors on `device` in the arrays' dtype."""
+    def put(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    window = np.asarray(plan.window).reshape(-1)
+    return FaultPlan(edge_nan=put(plan.edge_nan),
+                     point_crush=put(plan.point_crush),
+                     window=(int(window[0]), int(window[1])),
+                     offset=int(np.asarray(plan.offset)))
 
 
 def _np(x):

@@ -126,6 +126,39 @@ def build_schur_system(
                        g_cam=g_cam.contiguous(), g_pt=g_pt.contiguous(), W=W)
 
 
+def coupling_row_provider(
+    W: Optional[torch.Tensor],
+    Jc: Optional[torch.Tensor],
+    Jp: Optional[torch.Tensor],
+    od: int,
+    compute_kind: ComputeKind,
+    dtype: torch.dtype,
+    plans: DualPlans,
+):
+    """Chunk accessor for the per-edge coupling block rows W_e = Jc_e^T Jp_e
+    (JAX builder.py:270-305).
+
+    Returns `rows(start, size) -> [cd*pd, size]` in camera-slot order and
+    `dtype`: the stored `W` rows in EXPLICIT mode, rebuilt from the
+    Jacobian rows in IMPLICIT mode (`Jp` is carried in point-slot order
+    and is brought to camera order once here).  bfloat16 rows (a
+    precision rung) are upcast.
+    """
+    if compute_kind == ComputeKind.EXPLICIT:
+        def rows(start: int, size: int) -> torch.Tensor:
+            return W[:, start:start + size].to(dtype)
+
+        return rows
+    Jp_cam = plans.to_cam(Jp)
+
+    def rows(start: int, size: int) -> torch.Tensor:
+        jc = Jc[:, start:start + size].to(dtype)
+        jp = Jp_cam[:, start:start + size].to(dtype)
+        return coupling_rows(jc, jp, od)
+
+    return rows
+
+
 def damp_blocks(H: torch.Tensor, region: torch.Tensor) -> torch.Tensor:
     """LM damping on batched [N, d, d] blocks: the diagonal scales by
     (1 + 1/region)."""

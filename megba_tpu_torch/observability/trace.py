@@ -36,8 +36,12 @@ class SolveTrace:
     `cost` is the TRIAL cost of each iteration; `grad_inf_norm` is
     ||g||_inf of the system the iteration ends with; `trust_region` the
     region the step was computed with; `rho` the gain ratio; `accept` the
-    decision; `pcg_iters` the inner-solver iterations.  The robustness
-    fields stay zero: the port has no guards yet.
+    decision; `pcg_iters` the inner-solver iterations.  Under
+    `RobustOption.guards`, `recovery` marks a rolled-back step and
+    `pcg_breakdown` counts the PCG's breakdown restarts (zero without
+    guards); `precond_fallback` is the enum-coded fallback count
+    (solver/precond.encode_precond_fallback) whenever SCHUR_DIAG or a
+    non-JACOBI family is live, zero otherwise.
     """
 
     cost: torch.Tensor

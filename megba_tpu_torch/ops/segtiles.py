@@ -160,6 +160,15 @@ def make_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
                              pt=device_plan(plan_p, inv_pt, device))
 
 
+def coobservation_edge_order(cam_idx: np.ndarray,
+                             pt_idx: np.ndarray) -> np.ndarray:
+    """Co-observation-first edge permutation (camera-major, point-minor,
+    stable; JAX segtiles.py:1623): edges of one camera become contiguous
+    and, within a camera, sorted by point.  A host argsort; applying it
+    reorders only sums (results agree at solver tolerance)."""
+    return np.lexsort((np.asarray(pt_idx), np.asarray(cam_idx)))
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU path; the reference the kernels are held to)
 # ---------------------------------------------------------------------------

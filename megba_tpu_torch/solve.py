@@ -25,13 +25,25 @@ import torch
 from megba_tpu_torch.algo.lm import LMResult, lm_solve
 from megba_tpu_torch.common import (
     DTYPE_TO_TORCH,
+    EdgeOrder,
     ProblemOption,
     resolve_device,
     validate_options,
 )
 from megba_tpu_torch.io.bal import BALFile, load_bal
 from megba_tpu_torch.ops.fused import with_fused_plans
-from megba_tpu_torch.ops.segtiles import make_dual_plans
+from megba_tpu_torch.ops.segtiles import (
+    coobservation_edge_order,
+    make_dual_plans,
+)
+from megba_tpu_torch.robustness.faults import FaultPlan, lower_edge_vector
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (any device) or array as a writable host numpy copy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().copy()
+    return np.array(a)
 
 
 def flat_solve(
@@ -51,6 +63,7 @@ def flat_solve(
     initial_region: Optional[float] = None,
     initial_v: Optional[float] = None,
     initial_dx: Optional[np.ndarray] = None,
+    fault_plan: Optional[FaultPlan] = None,
 ) -> LMResult:
     """Lower flat arrays and run the solve on one device.
 
@@ -69,6 +82,13 @@ def flat_solve(
     `cameras`) seeds the warm-start carry under `SolverOption.warm_start`
     (ignored otherwise): with a previous result's `region`, `v` and
     `dx_cam` they resume a solve split in two.
+
+    `fault_plan` (robustness.faults.FaultPlan, `edge_nan` in the caller's
+    edge order) seeds a deterministic fault into the solve, for the
+    guards of `RobustOption(guards=True)` to contain.  Under
+    `SolverOption.edge_order=EdgeOrder.COOBS` the edges are first put in
+    co-observation order (camera-major, point-minor); NATURAL keeps the
+    caller's order into the stable camera sort.
     """
     validate_options(option)
     dev = resolve_device(device, option)
@@ -91,6 +111,23 @@ def flat_solve(
             raise ValueError(
                 f"edge_mask has {mask.shape[0]} entries for a problem "
                 f"with {n_edges} edges")
+    fault_edge = None
+    if fault_plan is not None:
+        fault_edge = _host(fault_plan.edge_nan)
+        if fault_edge.shape[0] != n_edges:
+            raise ValueError(
+                f"fault_plan.edge_nan has {fault_edge.shape[0]} entries "
+                f"for a problem with {n_edges} edges")
+    if option.solver_option.edge_order == EdgeOrder.COOBS:
+        # A host pre-permutation of the caller's edges; the stable camera
+        # sort below keeps its point-minor order (JAX solve.py:368-389).
+        operm = coobservation_edge_order(cam_idx, pt_idx)
+        cam_idx, pt_idx, obs = cam_idx[operm], pt_idx[operm], obs[operm]
+        mask = mask[operm]
+        if sqrt_info is not None:
+            sqrt_info = np.asarray(sqrt_info)[operm]
+        if fault_edge is not None:
+            fault_edge = fault_edge[operm]
 
     # Canonical edge order = the stable camera sort (cam plan slots).
     plan_c, plans = make_dual_plans(cam_idx, pt_idx, cameras.shape[0],
@@ -126,6 +163,15 @@ def flat_solve(
             raise ValueError(f"initial_dx has shape {initial_dx.shape}, "
                              f"cameras {cameras.shape}")
         dx0 = vertex_rows(initial_dx)
+    fault = None
+    if fault_plan is not None:
+        fault = FaultPlan(
+            edge_nan=torch.from_numpy(lower_edge_vector(fault_edge, perm)).to(
+                dev, tdtype),
+            point_crush=torch.from_numpy(
+                _host(fault_plan.point_crush)).to(dev, tdtype),
+            window=(int(fault_plan.window[0]), int(fault_plan.window[1])),
+            offset=int(fault_plan.offset))
     result = lm_solve(
         vertex_rows(cameras), vertex_rows(points), edge_rows(obs),
         plans.cam.seg.long(),
@@ -134,7 +180,7 @@ def flat_solve(
         sqrt_info=si, cam_fixed=flags(cam_fixed, cameras.shape[0]),
         pt_fixed=flags(pt_fixed, points.shape[0]), verbose=verbose,
         residual_jac_fn=residual_jac_fn, initial_region=initial_region,
-        initial_v=initial_v, initial_dx=dx0)
+        initial_v=initial_v, initial_dx=dx0, fault_plan=fault)
     result.cameras = result.cameras.T.contiguous()
     result.points = result.points.T.contiguous()
     if result.dx_cam is not None:

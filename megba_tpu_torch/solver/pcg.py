@@ -30,28 +30,32 @@ rides every kernel of the product: unfused IMPLICIT in both coupling
 kernels, unfused EXPLICIT in the plain per-edge W contraction between
 `seg_expand` and `seg_reduce`, fused in the fused kernel.
 
-The PCG bodies are the JAX package's unguarded `_pcg_core`: the
+The PCG bodies are the JAX package's `_pcg_core`: the
 Chronopoulos-Gear single recurrence, or the textbook recurrence with the
-stagnation exit (`_pcg_core_classic`), as Python loops; each exit test
-reads |rho| and the refuse flag on the host once per iteration.  Either
-body takes a warm start `x0` (SolverOption.warm_start): one more S·p
-product and one more M^-1 apply per solve.
+stagnation exit (`_pcg_core_classic`), as Python loops, each unguarded
+or with the breakdown guard and its in-loop restarts (`guard`); each
+exit test reads |rho|, the refuse flag and (guarded) the broken flag on
+the host once per iteration.  Either body takes a warm start `x0`
+(SolverOption.warm_start): one more S·p product and one more M^-1 apply
+per solve.  The same core runs the plain full-system solve
+(`plain_pcg_solve`, `use_schur=False`) over a (camera, point) pair.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from megba_tpu_torch.common import ComputeKind
+from megba_tpu_torch.common import ComputeKind, PrecondKind, PreconditionerKind
 from megba_tpu_torch.core.fm import block_inv_fm, block_matvec_fm, damp_rows_fm
 from megba_tpu_torch.linear_system.builder import SchurSystem, damp_blocks
 from megba_tpu_torch.ops.accum import comp_dot
 from megba_tpu_torch.ops import fused, segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
 from megba_tpu_torch.solver.precond import (
+    block_inv,
     cam_block_matvec,
     make_schur_preconditioner,
 )
@@ -74,6 +78,13 @@ class PCGResult:
     rho: torch.Tensor  # final residual energy <r, M^-1 r>
     # |<r0, M^-1 r0>| / |<b, M^-1 b>| of a warm start (1 for a cold one).
     r0_ratio: torch.Tensor
+    # Under guards: the in-loop cold restarts the breakdown guard made and
+    # whether the solve exited broken (device tensors; 0 and False
+    # without guards).  The enum-coded preconditioner fallback count
+    # (solver/precond.encode_precond_fallback; 0 on the HPP diagonal).
+    breakdowns: Union[int, torch.Tensor] = 0
+    broken: Union[bool, torch.Tensor] = False
+    precond_fallback: Union[int, torch.Tensor] = 0
 
 
 def _ident(x):
@@ -235,9 +246,45 @@ def _fused_implicit_matvecs(Jc: torch.Tensor, Jp: torch.Tensor,
     return hpl, hlp
 
 
+# The PCG vector is one tensor (the Schur solve) or a (camera, point)
+# pair (the plain full-system solve): leafwise helpers, as the JAX
+# package's tree_map / tree_reduce.
+
+
+def _tmap(fn, *trees):
+    if isinstance(trees[0], tuple):
+        return tuple(fn(*leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def _tdot(a, c) -> torch.Tensor:
+    """Compensated dot summed over the leaves, camera leaf first."""
+    if isinstance(a, tuple):
+        out = None
+        for ai, ci in zip(a, c):
+            d = comp_dot(ai, ci)
+            out = d if out is None else out + d
+        return out
+    return comp_dot(a, c)
+
+
+def _axpy(a, x, y):
+    """y + a * x, leafwise (the unguarded bodies' expression forms)."""
+    return _tmap(lambda xi, yi: yi + a * xi, x, y)
+
+
+def _select(pred, a, c):
+    return _tmap(lambda ai, ci: torch.where(pred, ai, ci), a, c)
+
+
+def _zeros_like(b):
+    return _tmap(torch.zeros_like, b)
+
+
 def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
-              fused=True, x0=None):
-    """Preconditioned CG, unguarded (JAX `_pcg_core`).
+              fused=True, x0=None, guard=False, max_restarts=0):
+    """Preconditioned CG (JAX `_pcg_core`) over a tensor or a (camera,
+    point) pair.
 
     Exits when |rho| < threshold (absolute `tol`, or `tol` times the RHS
     energy <b, M^-1 b> under `tol_relative`; `tol` may be a device
@@ -250,99 +297,213 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
     `x0` warm-starts the iteration: r0 = b - A x0 (one more matvec) and
     one more preconditioner apply for the RHS energy, which stays the
     anchor of the relative threshold.  A warm start whose residual
-    energy exceeds the RHS energy falls back to the cold start.  Returns
-    (x, iterations, rho, r0_ratio), r0_ratio = |rho0| / |<b, M^-1 b>|
-    before that fallback (1 for a cold start).
+    energy exceeds the RHS energy falls back to the cold start.
+
+    `guard` (RobustOption.guards) arms breakdown detection: a non-finite
+    or sign-flipped gamma = <r, M^-1 r> or delta = <u, A u> starts an
+    in-loop cold restart from the current iterate: the next body
+    iteration's one matvec computes A x for the true residual r = b - A x,
+    the one after re-primes the recurrence.  At most `max_restarts`
+    restarts; one more breakdown exits `broken` with the best iterate.
+    The phase, restart count and `broken` are device tensors selected by
+    `torch.where`, every body iteration keeps one matvec and one
+    preconditioner apply, `broken` folds into the loop's one host read,
+    and a run with no breakdown selects the unguarded values bitwise.
+
+    Returns (x, iterations, rho, r0_ratio, restarts, broken): r0_ratio =
+    |rho0| / |<b, M^-1 b>| before the warm-start fallback (1 for a cold
+    start); restarts and broken are device tensors under `guard`, 0 and
+    False otherwise.
     """
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = _zeros_like(b)
         r = b
         u0 = precond(r)
-        rho = comp_dot(r, u0)
+        rho = _tdot(r, u0)
         rhs_energy = rho
         r0_ratio = torch.ones_like(rho)
     else:
-        r = b + (-1.0) * matvec(x0)
+        r = _tmap(lambda bi, ai: bi + (-1.0) * ai, b, matvec(x0))
         u0 = precond(r)
-        rho = comp_dot(r, u0)
+        rho = _tdot(r, u0)
         ub = precond(b)
-        rhs_energy = comp_dot(b, ub)
+        rhs_energy = _tdot(b, ub)
         r0_ratio = rho.abs() / torch.clamp(rhs_energy.abs(), min=_TINY_RHO)
         use_ws = rho.abs() <= rhs_energy.abs()
-        x = torch.where(use_ws, x0, torch.zeros_like(b))
-        r = torch.where(use_ws, r, b)
-        u0 = torch.where(use_ws, u0, ub)
+        x = _select(use_ws, x0, _zeros_like(b))
+        r = _select(use_ws, r, b)
+        u0 = _select(use_ws, u0, ub)
         rho = torch.where(use_ws, rho, rhs_energy)
     threshold = (torch.clamp(tol * rhs_energy.abs(), min=_TINY_RHO)
-                 if tol_relative else torch.as_tensor(tol, dtype=b.dtype,
-                                                      device=b.device))
+                 if tol_relative else torch.as_tensor(tol, dtype=rho.dtype,
+                                                      device=rho.device))
     if not fused:
-        x, k, rho = _pcg_core_classic(matvec, precond, max_iter, threshold,
-                                      refuse_ratio, x, r, u0, rho)
-        return x, k, rho, r0_ratio
+        return _pcg_core_classic(matvec, precond, b, max_iter, threshold,
+                                 refuse_ratio, x, r, u0, rho, rhs_energy,
+                                 r0_ratio, guard, max_restarts)
     # Prime the recurrence: p0 = u0, s0 = A p0, alpha0 = rho0 / <p0, A p0>.
     w0 = matvec(u0)
-    delta0 = comp_dot(u0, w0)
+    delta0 = _tdot(u0, w0)
     alpha = rho / torch.where(delta0 == 0, torch.ones_like(delta0), delta0)
     p, s = u0, w0
     rho_min = rho.abs()
     x_best = x
-    refused = torch.zeros((), dtype=torch.bool, device=b.device)
+    refused = torch.zeros((), dtype=torch.bool, device=rho.device)
     k = 0
-    while k < max_iter and bool((rho.abs() >= threshold) & ~refused):
-        x = x + alpha * p
-        r = r + (-alpha) * s
+    if not guard:
+        while k < max_iter and bool((rho.abs() >= threshold) & ~refused):
+            x = _axpy(alpha, p, x)
+            r = _axpy(-alpha, s, r)
+            u = precond(r)
+            w = matvec(u)
+            rho_new = _tdot(r, u)
+            delta = _tdot(u, w)
+            beta = rho_new / rho
+            alpha = rho_new / (delta - beta * rho_new / alpha)
+            p = _axpy(beta, p, u)  # u + beta p
+            s = _axpy(beta, s, w)  # w + beta s == A p, by linearity
+            refused = rho_new.abs() > refuse_ratio * rho_min
+            improved = rho_new.abs() < rho_min
+            rho_min = torch.where(improved, rho_new.abs(), rho_min)
+            x_best = _select(improved, x, x_best)
+            rho = rho_new
+            k += 1
+        return _select(refused, x_best, x), k, rho, r0_ratio, 0, False
+
+    # Guarded body (JAX pcg.py:801-874): phase 0 advances, 1 refreshes
+    # the residual r = b - A x, 2 re-primes (p = M^-1 r, s = A p,
+    # alpha = rho / delta).  Each phase runs the same one precond and
+    # one matvec.
+    dev = rho.device
+    keepalive = torch.maximum(rhs_energy.abs(), threshold) * 2.0 + 1.0
+    phase = torch.zeros((), dtype=torch.int32, device=dev)
+    restarts = torch.zeros((), dtype=torch.int32, device=dev)
+    broken = torch.zeros((), dtype=torch.bool, device=dev)
+    one, two = (torch.ones((), dtype=torch.int32, device=dev),
+                torch.full((), 2, dtype=torch.int32, device=dev))
+    while k < max_iter and bool((rho.abs() >= threshold) & ~refused
+                                & ~broken):
+        advancing = phase == 0
+        refresh = phase == 1
+        reprime = phase == 2
+        step = torch.where(advancing, alpha, torch.zeros_like(alpha))
+        x = _axpy(step, p, x)
+        r = _axpy(-step, s, r)
         u = precond(r)
-        w = matvec(u)
-        rho_new = comp_dot(r, u)
-        delta = comp_dot(u, w)
+        # The one matvec: A u normally, A x during the residual refresh.
+        w = matvec(_select(refresh, x, u))
+        r = _select(refresh, _tmap(lambda bi, wi: bi + (-1.0) * wi, b, w), r)
+        rho_new = _tdot(r, u)  # stale u during a refresh: masked below
+        delta = _tdot(u, w)
         beta = rho_new / rho
-        alpha = rho_new / (delta - beta * rho_new / alpha)
-        p = u + beta * p
-        s = w + beta * s  # == A p, by linearity
-        refused = rho_new.abs() > refuse_ratio * rho_min
-        improved = rho_new.abs() < rho_min
+        alpha_cg = rho_new / (delta - beta * rho_new / alpha)
+        alpha_fresh = rho_new / torch.where(delta == 0,
+                                            torch.ones_like(delta), delta)
+        breakdown = ~refresh & (
+            ~(torch.isfinite(rho_new) & torch.isfinite(delta))
+            | (rho_new < 0) | (delta < 0))
+        enter = breakdown & (restarts < max_restarts)
+        broken = broken | (breakdown & (restarts >= max_restarts))
+        phase = torch.where(enter, one, torch.where(refresh, two,
+                                                    torch.zeros_like(phase)))
+        restarts = restarts + enter.to(torch.int32)
+        ok_adv = advancing & ~breakdown
+        ok_rep = reprime & ~breakdown
+        alpha = torch.where(ok_rep, alpha_fresh,
+                            torch.where(ok_adv, alpha_cg, alpha))
+        rho_next = torch.where(enter | refresh, keepalive, rho_new)
+        p = _select(ok_rep, u, _select(ok_adv, _axpy(beta, p, u), p))
+        s = _select(ok_rep, w, _select(ok_adv, _axpy(beta, s, w), s))
+        refused = ok_adv & (rho_new.abs() > refuse_ratio * rho_min)
+        improved = ok_adv & (rho_new.abs() < rho_min)
         rho_min = torch.where(improved, rho_new.abs(), rho_min)
-        x_best = torch.where(improved, x, x_best)
-        rho = rho_new
+        x_best = _select(improved, x, x_best)
+        rho = rho_next
         k += 1
-    return torch.where(refused, x_best, x), k, rho, r0_ratio
+    return (_select(~refused & ~broken, x, x_best), k, rho, r0_ratio,
+            restarts, broken)
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return num / torch.where(den == 0, torch.ones_like(den), den)
 
 
-def _pcg_core_classic(matvec, precond, max_iter, threshold, refuse_ratio,
-                      x, r, u0, rho):
-    """The textbook PCG body, unguarded (JAX pcg.py:877-943): s = A p
-    fresh each step, alpha = rho / <p, s>, no priming matvec.  A sign flip
-    of rho = <r, M^-1 r> or delta = <p, A p> (a bf16-operand operator at
-    its resolution) restores the best iterate and stops, as a refused
-    step does."""
+def _pcg_core_classic(matvec, precond, b, max_iter, threshold, refuse_ratio,
+                      x, r, u0, rho, rhs_energy, r0_ratio, guard=False,
+                      max_restarts=0):
+    """The textbook PCG body (JAX pcg.py:877-1010): s = A p fresh each
+    step, alpha = rho / <p, s>, no priming matvec.  A finite sign flip of
+    rho = <r, M^-1 r> or delta = <p, A p> (a bf16-operand operator at its
+    resolution) is a stall: the best iterate is restored and the solve
+    stops, as a refused step does.  Under `guard` only a non-finite
+    scalar is a breakdown; its restart is one iteration whose matvec
+    computes A x for r = b - A x, p = M^-1 r."""
     p = u0
     rho_min = rho.abs()
     x_best = x
-    refused = torch.zeros((), dtype=torch.bool, device=x.device)
+    refused = torch.zeros((), dtype=torch.bool, device=rho.device)
     k = 0
-    while k < max_iter and bool((rho.abs() >= threshold) & ~refused):
-        s = matvec(p)
-        delta = comp_dot(p, s)
+    if not guard:
+        while k < max_iter and bool((rho.abs() >= threshold) & ~refused):
+            s = matvec(p)
+            delta = _tdot(p, s)
+            alpha = _safe_div(rho, delta)
+            x = _axpy(alpha, p, x)
+            r = _axpy(-alpha, s, r)
+            u = precond(r)
+            rho_new = _tdot(r, u)
+            beta = _safe_div(rho_new, rho)
+            p = _axpy(beta, p, u)
+            stall = (rho_new < 0) | (delta < 0)
+            refused = stall | (rho_new.abs() > refuse_ratio * rho_min)
+            improved = ~stall & (rho_new.abs() < rho_min)
+            rho_min = torch.where(improved, rho_new.abs(), rho_min)
+            x_best = _select(improved, x, x_best)
+            rho = rho_new
+            k += 1
+        return _select(refused, x_best, x), k, rho, r0_ratio, 0, False
+
+    dev = rho.device
+    keepalive = torch.maximum(rhs_energy.abs(), threshold) * 2.0 + 1.0
+    phase = torch.zeros((), dtype=torch.int32, device=dev)
+    restarts = torch.zeros((), dtype=torch.int32, device=dev)
+    broken = torch.zeros((), dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    while k < max_iter and bool((rho.abs() >= threshold) & ~refused
+                                & ~broken):
+        advancing = phase == 0
+        refresh = phase == 1
+        # The one matvec: A p normally, A x during the refresh.
+        w = matvec(_select(refresh, x, p))
+        delta = _tdot(p, w)  # stale during a refresh: masked below
         alpha = _safe_div(rho, delta)
-        x = x + alpha * p
-        r = r + (-alpha) * s
-        u = precond(r)
-        rho_new = comp_dot(r, u)
+        step = torch.where(advancing, alpha, torch.zeros_like(alpha))
+        x_new = _axpy(step, p, x)
+        r_new = _select(refresh, _tmap(lambda bi, wi: bi + (-1.0) * wi, b, w),
+                        _axpy(-step, w, r))
+        u = precond(r_new)
+        rho_new = _tdot(r_new, u)
+        finite = torch.isfinite(rho_new) & torch.isfinite(delta)
+        stall = advancing & finite & ((rho_new < 0) | (delta < 0))
+        breakdown = advancing & ~finite
+        enter = breakdown & (restarts < max_restarts)
+        broken = broken | (breakdown & (restarts >= max_restarts))
+        restarts = restarts + enter.to(torch.int32)
+        phase = torch.where(enter, one, torch.zeros_like(phase))
+        ok_adv = advancing & ~breakdown & ~stall
+        x = _select(ok_adv, x_new, x)
+        r = _select(ok_adv | refresh, r_new, r)
         beta = _safe_div(rho_new, rho)
-        p = u + beta * p
-        stall = (rho_new < 0) | (delta < 0)
-        refused = stall | (rho_new.abs() > refuse_ratio * rho_min)
-        improved = ~stall & (rho_new.abs() < rho_min)
+        p = _select(refresh, u, _select(ok_adv, _axpy(beta, p, u), p))
+        rho_next = torch.where(enter, keepalive, rho_new)
+        refused = stall | (ok_adv & (rho_new.abs() > refuse_ratio * rho_min))
+        improved = ok_adv & (rho_new.abs() < rho_min)
         rho_min = torch.where(improved, rho_new.abs(), rho_min)
-        x_best = torch.where(improved, x, x_best)
-        rho = rho_new
+        x_best = _select(improved, x, x_best)
+        rho = rho_next
         k += 1
-    return torch.where(refused, x_best, x), k, rho
+    return (_select(~refused & ~broken, x, x_best), k, rho, r0_ratio,
+            restarts, broken)
 
 
 def _equilibrate(system: SchurSystem, Jc, Jp, W, plans: DualPlans,
@@ -381,6 +542,64 @@ def _equilibrate(system: SchurSystem, Jc, Jp, W, plans: DualPlans,
     return Hpp_d, Hll_d, g_cam, g_pt, Jc, Jp, W, d_cam, d_pt
 
 
+def plain_pcg_solve(
+    system: SchurSystem,
+    Jc: Optional[torch.Tensor],
+    Jp: Optional[torch.Tensor],
+    plans: DualPlans,
+    region: torch.Tensor,
+    max_iter: int = 100,
+    tol: float = 1e-1,
+    refuse_ratio: float = 1.0,
+    tol_relative: bool = False,
+    compute_kind: ComputeKind = ComputeKind.IMPLICIT,
+    mixed_precision: bool = False,
+    bf16: bool = False,
+    x0: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    guard: bool = False,
+    max_restarts: int = 0,
+) -> PCGResult:
+    """Solve the damped FULL system H dx = g without Schur reduction
+    (JAX pcg.py:1013-1109): CG over the (camera, point) pair, the damped
+    block diagonal (Hpp, Hll) inverted as the preconditioner, and each
+    product (Hpp_d xc + hpl(xp), hlp(xc) + Hll_d xp) through the same
+    coupling products as the Schur path (IMPLICIT: kernels 2 and 3;
+    EXPLICIT: kernels 5 and 4).  The pair is never concatenated: the
+    dots sum per leaf, camera first, as the JAX package's tree dots do.
+
+    `x0` (a (dx_cam, dx_pt) pair) warm-starts the CG; `tol` may be a
+    device scalar.  The precision rungs are Schur-only.
+    """
+    if mixed_precision:
+        raise NotImplementedError(
+            "mixed_precision is only implemented for the Schur solver")
+    if bf16:
+        raise NotImplementedError(
+            "SolverOption.bf16 is only implemented for the Schur solver "
+            "(validate_options refuses it with use_schur=False)")
+    Hpp_d = damp_blocks(system.Hpp, region)
+    Hll_d = damp_rows_fm(system.Hll, region)
+    Minv_c = block_inv(Hpp_d)
+    Minv_p = block_inv_fm(Hll_d)
+    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans, compute_kind, system.W)
+
+    def h_matvec(x):
+        xc, xp = x
+        return (cam_block_matvec(Hpp_d, xc) + hpl(xp),
+                hlp(xc) + block_matvec_fm(Hll_d, xp))
+
+    def precond(r):
+        rc, rp = r
+        return cam_block_matvec(Minv_c, rc), block_matvec_fm(Minv_p, rp)
+
+    (xc, xp), k, rho, r0_ratio, restarts, broken = _pcg_core(
+        h_matvec, precond, (system.g_cam, system.g_pt), max_iter, tol,
+        refuse_ratio, tol_relative, x0=x0, guard=guard,
+        max_restarts=max_restarts)
+    return PCGResult(dx_cam=xc, dx_pt=xp, iterations=k, rho=rho,
+                     r0_ratio=r0_ratio, breakdowns=restarts, broken=broken)
+
+
 def schur_pcg_solve(
     system: SchurSystem,
     Jc: Optional[torch.Tensor],
@@ -396,6 +615,11 @@ def schur_pcg_solve(
     mixed_precision: bool = False,
     bf16: bool = False,
     x0: Optional[torch.Tensor] = None,
+    guard: bool = False,
+    max_restarts: int = 0,
+    precond: PrecondKind = PrecondKind.JACOBI,
+    preconditioner: PreconditionerKind = PreconditionerKind.HPP,
+    neumann_order: int = 2,
 ) -> PCGResult:
     """Solve the damped Schur system for (dx_cam, dx_pt), feature-major.
 
@@ -409,7 +633,11 @@ def schur_pcg_solve(
     body and floors a relative `tol` at `_BF16_TOL_FLOOR`.  `tol` may be
     a device scalar (the LM loop's forcing term).  `x0` ([cd, Nc], the
     original variables) warm-starts the reduced CG; on a precision rung
-    it is brought into the equilibrated variables.
+    it is brought into the equilibrated variables.  `guard` and
+    `max_restarts` arm the PCG breakdown guard (`_pcg_core`); `precond`
+    (JACOBI or NEUMANN) and `preconditioner` (HPP or SCHUR_DIAG) pick
+    the preconditioner (solver/precond.py), whose fallback count rides
+    `PCGResult.precond_fallback`.
     """
     Hpp_d = damp_blocks(system.Hpp, region)
     Hll_d = damp_rows_fm(system.Hll, region)
@@ -428,7 +656,10 @@ def schur_pcg_solve(
         t = block_matvec_fm(Hll_inv, hlp(p))
         return cam_block_matvec(Hpp_d, p) - hpl(t)
 
-    precond = make_schur_preconditioner(Hpp_d, fused_kernels, bf16)
+    precond_apply, fallback = make_schur_preconditioner(
+        precond, preconditioner, Hpp_d, Hll_inv, W, Jc, Jp, plans,
+        compute_kind, neumann_order=neumann_order, s_matvec=s_matvec,
+        bf16=bf16, fused_kernels=fused_kernels)
     v = g_cam - hpl(block_matvec_fm(Hll_inv, g_pt))
     if x0 is not None and equil:
         x0 = x0 / d_cam
@@ -436,12 +667,14 @@ def schur_pcg_solve(
         # torch.clamp, not max(): a device tolerance stays on the device.
         tol = (torch.clamp(tol, min=_BF16_TOL_FLOOR)
                if isinstance(tol, torch.Tensor) else max(tol, _BF16_TOL_FLOOR))
-    x, k, rho, r0_ratio = _pcg_core(s_matvec, precond, v, max_iter, tol,
-                                    refuse_ratio, tol_relative,
-                                    fused=not bf16, x0=x0)
+    x, k, rho, r0_ratio, restarts, broken = _pcg_core(
+        s_matvec, precond_apply, v, max_iter, tol, refuse_ratio,
+        tol_relative, fused=not bf16, x0=x0, guard=guard,
+        max_restarts=max_restarts)
     dx_pt = block_matvec_fm(Hll_inv, g_pt - hlp(x))
     if equil:
         x = x * d_cam  # back to the original variables
         dx_pt = dx_pt * d_pt
     return PCGResult(dx_cam=x, dx_pt=dx_pt, iterations=k, rho=rho,
-                     r0_ratio=r0_ratio)
+                     r0_ratio=r0_ratio, breakdowns=restarts, broken=broken,
+                     precond_fallback=fallback)

@@ -741,3 +741,124 @@ def test_f64_variant_solve_kernels_match_plain_on_small_scene(
     assert float(kern.cost) < float(kern.initial_cost)
     if "forcing" in path:
         assert kern.dx_cam.shape == s.cameras0.shape and kern.dx_cam.is_cuda
+
+
+# The fault-containment, plain-solver, edge-order and preconditioner
+# paths of chip_smoke.py: (compute kind, fused kernels, option fields,
+# fault).  The crush takes the 64 busiest points in the systems built at
+# carry 2, an accepted step on the 8-camera scene.
+_FAULT_PATHS = {
+    "implicit_guarded": ("IMPLICIT", False, dict(guards=True), None),
+    "implicit_nan_burst": ("IMPLICIT", False, dict(guards=True), "nan"),
+    "implicit_fatal": ("IMPLICIT", False, dict(guards=True), "persistent"),
+    "explicit_fused_indefinite": ("EXPLICIT", True, dict(guards=True),
+                                  "crush"),
+    "implicit_fused_schur_diag_indefinite": (
+        "IMPLICIT", True, dict(guards=True, preconditioner="SCHUR_DIAG"),
+        "crush"),
+    "explicit_schur_diag": ("EXPLICIT", False,
+                            dict(preconditioner="SCHUR_DIAG"), None),
+    "implicit_plain": ("IMPLICIT", False, dict(use_schur=False), None),
+    "explicit_plain_forcing_warm": ("EXPLICIT", False, dict(
+        use_schur=False, forcing=True), None),
+    "implicit_coobs": ("IMPLICIT", False, dict(edge_order="COOBS"), None),
+    "implicit_fused_neumann": ("IMPLICIT", True, dict(precond="NEUMANN"),
+                               None),
+    "explicit_neumann": ("EXPLICIT", False, dict(precond="NEUMANN"), None),
+}
+
+
+def _fault_inputs(path, s):
+    """The options, arrays and keyword arguments of a `_FAULT_PATHS`
+    solve on the 8-camera f64 scene; COOBS solves the edges in a seeded
+    random order (the scene comes camera-sorted)."""
+    from megba_tpu_torch import (AlgoOption, ComputeKind, EdgeOrder,
+                                 PrecondKind, PreconditionerKind,
+                                 ProblemOption, RobustOption, SolverOption,
+                                 make_nan_burst, make_point_indefinite_burst)
+
+    kind, fused, extra, fault = _FAULT_PATHS[path]
+    solver = (dict(tol=1e-1, forcing=True, warm_start=True)
+              if extra.get("forcing") else dict(tol=1e-10))
+    opt = ProblemOption(
+        compute_kind=ComputeKind[kind], use_schur=extra.get("use_schur",
+                                                            True),
+        robust_option=RobustOption(guards=extra.get("guards", False)),
+        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15),
+        solver_option=SolverOption(
+            max_iter=30, refuse_ratio=1e30, fused_kernels=fused,
+            precond=PrecondKind[extra.get("precond", "JACOBI")],
+            preconditioner=PreconditionerKind[
+                extra.get("preconditioner", "HPP")],
+            edge_order=EdgeOrder[extra.get("edge_order", "NATURAL")],
+            **solver))
+    arrays = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
+    if "edge_order" in extra:
+        perm = np.random.default_rng(7).permutation(s.obs.shape[0])
+        arrays = arrays[:2] + tuple(a[perm] for a in arrays[2:])
+    n, npt = s.obs.shape[0], s.points0.shape[0]
+    kw = {}
+    if fault == "crush":
+        busiest = np.argsort(-np.bincount(s.pt_idx, minlength=npt),
+                             kind="stable")[:64]
+        kw["fault_plan"] = make_point_indefinite_burst(npt, busiest, 2, 3,
+                                                       n_edges=n)
+    elif fault is not None:
+        kw["fault_plan"] = make_nan_burst(
+            n, [2, 9], 0, 1 if fault == "nan" else 10_000)
+    return arrays + (opt,), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(_FAULT_PATHS))
+def test_f64_fault_and_solver_paths_kernels_match_plain_on_small_scene(
+        monkeypatch, path):
+    """On the card: guards, seeded faults, the plain full-system solver,
+    the COOBS edge order and the SCHUR_DIAG / NEUMANN preconditioners on
+    the 8-camera f64 scene, through the kernels and through their plain
+    versions: finite trial costs at rtol 1e-9 and NaN at the same
+    iterations, equal accept / recovery / breakdown / fallback traces,
+    counts, status and recoveries, and two kernel solves bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import SolveStatus, flat_solve
+
+    s = _small_scene(np.float64)
+    args, kw = _fault_inputs(path, s)
+    kern = flat_solve(*args, device="cuda", **kw)
+    again = flat_solve(*args, device="cuda", **kw)
+    for m in (tseg, tfused):
+        for k in m.KERNELS:
+            monkeypatch.setattr(m, k.__name__,
+                                getattr(m, k.__name__ + "_plain"))
+    plain = flat_solve(*args, device="cuda", **kw)
+    k = kern.iterations
+    assert k > 0
+    assert (k, kern.accepted, kern.pcg_iterations, kern.status,
+            kern.recoveries) == (plain.iterations, plain.accepted,
+                                 plain.pcg_iterations, plain.status,
+                                 plain.recoveries)
+    for f in ("accept", "pcg_iters", "recovery", "pcg_breakdown",
+              "precond_fallback"):
+        assert torch.equal(getattr(kern.trace, f)[:k],
+                           getattr(plain.trace, f)[:k]), f
+    ck, cp = kern.trace.cost[:k].numpy(), plain.trace.cost[:k].numpy()
+    np.testing.assert_array_equal(np.isnan(ck), np.isnan(cp))
+    # A step rolled back under the Hll crush comes from a broken PCG on an
+    # operator that scales rounding by ~1e8 (chip_smoke.cost_gap): its
+    # finite trial cost is not held to the kept steps' tolerance.
+    kept = ~kern.trace.recovery[:k].numpy()
+    np.testing.assert_allclose(ck[kept], cp[kept], rtol=1e-9)
+    assert np.array_equal(ck, again.trace.cost[:k].numpy(), equal_nan=True)
+    fault = _FAULT_PATHS[path][3]
+    want = {None: None, "nan": SolveStatus.RECOVERED,
+            "crush": SolveStatus.RECOVERED,
+            "persistent": SolveStatus.FATAL_NONFINITE}[fault]
+    if want is not None:
+        assert kern.status == want
+    if fault != "persistent":
+        assert np.isfinite(float(kern.cost))
+        assert float(kern.cost) < float(np.nanmax(ck))
+    if fault == "crush":
+        assert (kern.trace.pcg_breakdown[:k].any()
+                or kern.trace.precond_fallback[:k].any())

@@ -98,9 +98,9 @@ def test_warm_started_pcg_core_matches_jax(fused, start):
     x, k, rho, r0, *_ = jpcg._pcg_core(jm, jp, jnp.asarray(b), 40, 1e-10,
                                        1e30, True, x0=jnp.asarray(x0),
                                        fused=fused)
-    tx, tk, trho, tr0 = tpcg._pcg_core(tm, tp, torch.from_numpy(b), 40,
-                                       1e-10, 1e30, True, fused=fused,
-                                       x0=torch.from_numpy(x0))
+    tx, tk, trho, tr0, *_ = tpcg._pcg_core(
+        tm, tp, torch.from_numpy(b), 40, 1e-10, 1e30, True, fused=fused,
+        x0=torch.from_numpy(x0))
     assert tk == int(k)
     assert (float(tr0) < 1e-3) if start == "near" else (float(tr0) > 1.0)
     np.testing.assert_allclose(float(tr0), float(r0), rtol=1e-12)
@@ -109,8 +109,8 @@ def test_warm_started_pcg_core_matches_jax(fused, start):
     np.testing.assert_allclose(float(trho), float(rho), rtol=1e-6,
                                atol=1e-300)
     if start == "far":  # fell back: bitwise the cold solve
-        cx, ck, crho, cr0 = tpcg._pcg_core(tm, tp, torch.from_numpy(b), 40,
-                                           1e-10, 1e30, True, fused=fused)
+        cx, ck, crho, cr0, *_ = tpcg._pcg_core(
+            tm, tp, torch.from_numpy(b), 40, 1e-10, 1e30, True, fused=fused)
         assert ck == tk and float(cr0) == 1.0
         assert torch.equal(cx, tx) and torch.equal(crho, trho)
 
@@ -132,9 +132,9 @@ def test_warm_start_counts_one_product_and_one_apply_more():
         for x0, extra in ((None, 0), (torch.zeros(b.shape,
                                                   dtype=torch.float64), 1)):
             counts.update(A=0, M=0)
-            _, k, _, _ = tpcg._pcg_core(matvec, precond, torch.from_numpy(b),
-                                        5, 1e-30, 1e30, False, fused=fused,
-                                        x0=x0)
+            _, k, *_ = tpcg._pcg_core(matvec, precond, torch.from_numpy(b),
+                                      5, 1e-30, 1e30, False, fused=fused,
+                                      x0=x0)
             assert k == 5
             assert counts == {"A": k + prime + extra, "M": k + 1 + extra}
 

@@ -3,6 +3,7 @@ layout helpers and compensated sums.  Inputs come from numpy seeds and
 go through both packages; CPU only."""
 
 import dataclasses
+import enum
 import subprocess
 import sys
 from pathlib import Path
@@ -108,7 +109,8 @@ def test_unported_options_raise_typed(field, value):
     # the fused kernels and the whole single-device precision ladder are
     # ported, their multi-device pieces (bf16_collectives, mesh_2d) are
     # not.  mixed_precision_pcg, both autodiff Jacobian modes, the
-    # robust losses, forcing and warm starts are ported: they validate.
+    # robust losses, forcing and warm starts, guards, the plain solver,
+    # COOBS, SCHUR_DIAG and NEUMANN are ported: they validate.
     base = dict(jacobian_mode=tc.JacobianMode.ANALYTICAL, dtype=np.float32)
     base[field] = value
     if (field, value) in _PORTED:
@@ -125,17 +127,33 @@ _PORTED = [
     ("robust_kind", tc.RobustKind.HUBER),
     ("solver_option", tc.SolverOption(forcing=True)),
     ("solver_option", tc.SolverOption(warm_start=True)),
+    ("use_schur", False),
+    ("robust_option", tc.RobustOption(guards=True)),
+    ("solver_option", tc.SolverOption(precond=tc.PrecondKind.NEUMANN)),
+    ("solver_option", tc.SolverOption(
+        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)),
+    ("solver_option", tc.SolverOption(edge_order=tc.EdgeOrder.COOBS)),
 ]
 
 
 @pytest.mark.parametrize("kw,refused", [
-    (dict(robust_kind=tc.RobustKind.HUBER,
-          robust_option=tc.RobustOption(guards=True)), "guards"),
-    (dict(robust_kind=tc.RobustKind.CAUCHY, use_schur=False), "use_schur"),
+    # Guards, use_schur=False and NEUMANN are ported: each case keeps a
+    # still-refused option beside them (its id is the case's old one).
+    pytest.param(dict(robust_kind=tc.RobustKind.HUBER,
+                      robust_option=tc.RobustOption(guards=True),
+                      solver_option=tc.SolverOption(
+                          precond=tc.PrecondKind.TWO_LEVEL)),
+                 "TWO_LEVEL", id="kw0-guards"),
+    pytest.param(dict(robust_kind=tc.RobustKind.CAUCHY,
+                      solver_option=tc.SolverOption(
+                          mesh_2d=True, edge_order=tc.EdgeOrder.COOBS)),
+                 "mesh_2d", id="kw1-use_schur"),
     (dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2),
      "world_size"),
-    (dict(solver_option=tc.SolverOption(
-        warm_start=True, precond=tc.PrecondKind.NEUMANN)), "precond"),
+    pytest.param(dict(solver_option=tc.SolverOption(
+        warm_start=True, precond=tc.PrecondKind.MULTILEVEL,
+        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), "precond",
+        id="kw3-precond"),
 ])
 def test_still_refused_beside_ported_options(kw, refused):
     with pytest.raises(NotImplementedError, match=refused):
@@ -157,6 +175,30 @@ def test_option_value_errors():
                dict(solver_option=tc.SolverOption(forcing=True,
                                                   warm_start=True))):
         tc.validate_options(tc.ProblemOption(**kw))
+    # The ValueErrors of guards, the plain solver and NEUMANN, each equal
+    # to the JAX package's.
+    for kw, msg in (
+            (dict(solver_option=tc.SolverOption(
+                precond=tc.PrecondKind.NEUMANN, neumann_order=0)),
+             "neumann_order must be >= 1"),
+            (dict(use_schur=False, solver_option=tc.SolverOption(
+                precond=tc.PrecondKind.NEUMANN)), "precond=NEUMANN"),
+            (dict(robust_option=tc.RobustOption(max_recoveries=0)),
+             "max_recoveries must be >= 1"),
+            (dict(robust_option=tc.RobustOption(damping_inflation=1.0)),
+             "damping_inflation must be > 1"),
+            (dict(robust_option=tc.RobustOption(pcg_max_restarts=-1)),
+             "pcg_max_restarts must be >= 0")):
+        with pytest.raises(ValueError, match=msg):
+            tc.validate_options(tc.ProblemOption(**kw))
+        jkw = {k: (getattr(jc, type(v).__name__)(**{
+            f.name: (getattr(jc, type(getattr(v, f.name)).__name__)[
+                getattr(v, f.name).name]
+                if isinstance(getattr(v, f.name), enum.Enum)
+                else getattr(v, f.name)) for f in dataclasses.fields(v)})
+            if dataclasses.is_dataclass(v) else v) for k, v in kw.items()}
+        with pytest.raises(ValueError, match=msg):
+            jc.validate_options(jc.ProblemOption(**jkw))
 
 
 def test_supported_option_validates():

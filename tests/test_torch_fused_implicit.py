@@ -200,8 +200,8 @@ def test_classic_pcg_core_matches_jax(case, tol, refuse, rel):
     x, k, rho, *_ = jpcg._pcg_core(jm, jp, jnp.asarray(b), 40, tol, refuse,
                                    rel, fused=False)
     tm, tp = t_ops()
-    tx, tk, trho, _ = tpcg._pcg_core(tm, tp, torch.from_numpy(b), 40, tol,
-                                     refuse, rel, fused=False)
+    tx, tk, trho, *_ = tpcg._pcg_core(tm, tp, torch.from_numpy(b), 40, tol,
+                                      refuse, rel, fused=False)
     assert tk == int(k) and tk < 40
     np.testing.assert_allclose(tx.numpy(), np.asarray(x), rtol=1e-10,
                                atol=1e-12)
@@ -229,8 +229,8 @@ def test_classic_body_runs_one_matvec_per_iteration():
 
     for fused, extra in ((False, 0), (True, 1)):
         counts.update(A=0, M=0)
-        _, k, _, _ = tpcg._pcg_core(matvec, precond, torch.from_numpy(b),
-                                    5, 1e-30, 1e30, False, fused=fused)
+        _, k, *_ = tpcg._pcg_core(matvec, precond, torch.from_numpy(b),
+                                  5, 1e-30, 1e30, False, fused=fused)
         assert k == 5 and counts == {"A": k + extra, "M": k + 1}
 
 

@@ -296,7 +296,8 @@ def test_cam_block_matvec_bf16_matches_jax():
     _within_abs_sum(got, want, scale, 1e-6)
     # The unfused bf16 rung's preconditioner applies exactly this.
     Hpp = torch.from_numpy(H)
-    apply = tprecond.make_schur_preconditioner(Hpp, bf16=True)
+    apply, _ = tprecond.make_schur_preconditioner(
+        mt.PrecondKind.JACOBI, mt.PreconditionerKind.HPP, Hpp, bf16=True)
     Minv_b = tprecond.block_inv(Hpp).to(BF16)
     xt = torch.from_numpy(x)
     assert torch.equal(apply(xt), tprecond.cam_block_matvec_bf16(Minv_b, xt))

@@ -52,7 +52,13 @@ exception ends the run with a non-zero exit code:
    step the guards rolled back, whose gap is printed) and are NaN at the
    same iterations, with the same accept, recovery, breakdown and
    fallback traces, counts, status and recoveries, and the kernel run's
-   launches are exactly what the code implies;
+   launches are exactly what the code implies; then the camera-graph
+   coarse spaces on the scene's grid twin (`locality="grid"`), seven
+   paths: TWO_LEVEL on IMPLICIT and on EXPLICIT fused, MULTILEVEL on
+   IMPLICIT fused and smoothed on EXPLICIT, TWO_LEVEL with fixed
+   cameras, under a NaN burst (RECOVERED) and with a NaN camera (every
+   coarse level flagged, FATAL_NONFINITE), held to the same gates and,
+   run twice through the kernels, bitwise equal;
 6. f32 precision: the same scene at f32 on the eight precision-rung
    paths (IMPLICIT / EXPLICIT, unfused / fused, mixed / bf16), kernels
    against plain versions on the card: the first LM iteration's trial
@@ -67,16 +73,25 @@ exception ends the run with a non-zero exit code:
    with forcing and warm starts, with guards (bitwise the IMPLICIT run),
    with guards and a NaN burst on 64 edges (RECOVERED), with the plain
    full-system solver, with SCHUR_DIAG (no fallback on a clean run) and
-   with COOBS on shuffled edges.  Every kernel's launch count is read
-   from its path's run alone and checked against the count the code
-   implies; the final cost must be finite and below the (clean) initial,
-   and on the autodiff and COOBS paths within rtol 1e-3 of the
-   ANALYTICAL IMPLICIT run's.
+   with COOBS on shuffled edges, then TWO_LEVEL, MULTILEVEL and smoothed
+   TWO_LEVEL (with the host seconds of their cluster plan and the
+   CUDA-event time of each preconditioner build).  Every kernel's launch
+   count is read from its path's run alone and checked against the count
+   the code implies; the final cost must be finite and below the (clean)
+   initial, and on the autodiff and COOBS paths within rtol 1e-3 of the
+   ANALYTICAL IMPLICIT run's; no coarse level may fall back;
+8. locality: venice's cameras and observations a point on a grid of
+   camera stations, cut to 200,000 points (`LOCALITY`), through JACOBI
+   and the three coarse paths, with the venice options and again with a
+   relative PCG tolerance: the coarse paths' final costs within rtol 1e-3
+   of JACOBI's, their PCG counts, walls and final costs side by side.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
-pass over a second venice solve of each path and writes its kernel
-table to chiprun_out/.  The scenes are fixed: a quick check of a new
+pass over a second solve of each full-width path and writes its kernel
+table to chiprun_out/.  Kernel 6's rows also carry torch.profiler's
+device time per launch beside their einsum yardstick's (`device_ms`,
+`library_device_ms`).  The scenes are fixed: a quick check of a new
 kernel build is the `cuda`-marked test, `pytest -m cuda
 tests/test_torch_cuda.py`.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -87,6 +102,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -249,6 +265,59 @@ F64_PATHS += ["implicit_guarded", "implicit_nan_burst", "implicit_fatal",
 VENICE_PATHS += ["implicit_guarded", "implicit_nan_burst", "implicit_plain",
                  "implicit_schur_diag", "implicit_coobs"]
 NEUMANN_ORDER = 2
+# The camera-graph coarse spaces, TWO_LEVEL and MULTILEVEL (default
+# knobs: sqrt(Nc) clusters, coarsen factor 4, at most 3 levels), plain
+# or smoothed (`smooth_omega`): a path of the kernel slices whose build
+# sums its edge rows with kernel 4.  At f64 they run on the
+# trafalgar-sized grid scene (`scene="grid"`), where the coarse space has
+# structure to capture; `fixed` fixes the first cameras, `nan_camera`
+# puts a NaN in one camera parameter (every system's coarse operator is
+# poisoned: each level's bit is set and the guarded solve ends
+# FATAL_NONFINITE).
+COARSE_VARIANTS = {
+    "implicit_two_level": ("implicit", dict(precond="TWO_LEVEL")),
+    "explicit_fused_two_level": ("explicit_fused", dict(
+        precond="TWO_LEVEL")),
+    "implicit_fused_multilevel": ("implicit_fused", dict(
+        precond="MULTILEVEL", max_levels=3)),
+    "explicit_multilevel_smoothed": ("explicit", dict(
+        precond="MULTILEVEL", smooth_omega=2 / 3)),
+    "implicit_two_level_fixed": ("implicit", dict(precond="TWO_LEVEL",
+                                                  fixed=4)),
+    "implicit_two_level_nan_burst": ("implicit", dict(
+        precond="TWO_LEVEL", guards=True, fault="nan_burst")),
+    "implicit_two_level_nan_camera": ("implicit", dict(
+        precond="TWO_LEVEL", guards=True, fault="nan_camera")),
+    "implicit_multilevel": ("implicit", dict(precond="MULTILEVEL")),
+    "implicit_two_level_smoothed": ("implicit", dict(
+        precond="TWO_LEVEL", smooth_omega=2 / 3)),
+}
+VARIANTS.update(COARSE_VARIANTS)
+for _name, (_base, _extra) in COARSE_VARIANTS.items():
+    _k = PATHS[_base]
+    PATHS[_name] = _k[:3] + (_k[3] + (
+        () if "seg_reduce" in _k[3] else ("seg_reduce",)),)
+COARSE_F64_PATHS = ["implicit_two_level", "explicit_fused_two_level",
+                    "implicit_fused_multilevel",
+                    "explicit_multilevel_smoothed",
+                    "implicit_two_level_fixed",
+                    "implicit_two_level_nan_burst",
+                    "implicit_two_level_nan_camera"]
+F64_PATHS += COARSE_F64_PATHS
+COARSE_VENICE_PATHS = ["implicit_two_level", "implicit_multilevel",
+                       "implicit_two_level_smoothed"]
+VENICE_PATHS += COARSE_VENICE_PATHS
+# The locality scene: venice's cameras and observations a point on a grid
+# of camera stations (`locality="grid"`), where neighbouring cameras share
+# points and the coarse space is live.  Cut from venice's 993,923 points
+# to 200,000: the host's k-nearest-camera generator takes ~150 s at full
+# size, ~32 s here.  JACOBI first, the reference of the coarse paths'
+# final costs (phase 6's f32 rule).
+LOCALITY = dict(VENICE, num_points=200_000, locality="grid")
+LOCALITY_PATHS = ["implicit"] + COARSE_VENICE_PATHS
+LOCALITY_COST_RTOL = 1e-3
+# The f64 grid scene of the coarse paths.
+TRAFALGAR_GRID = dict(TRAFALGAR, locality="grid")
 # The NaN burst: two edges at f64 (tests/test_robustness.py:84-90), 64
 # seeded edges at venice; both cover iteration 0, so the initial
 # linearisation is poisoned too.  The crush: the Hll blocks of the 256
@@ -369,6 +438,8 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
             bf16=rung == "bf16",
             precond=PrecondKind[extra.get("precond", "JACOBI")],
             neumann_order=NEUMANN_ORDER,
+            smooth_omega=extra.get("smooth_omega", 0.0),
+            max_levels=extra.get("max_levels", 3),
             preconditioner=PreconditionerKind[
                 extra.get("preconditioner", "HPP")],
             edge_order=EdgeOrder[extra.get("edge_order", "NATURAL")],
@@ -389,9 +460,16 @@ def solve_inputs(scene, path: str, venice: bool = False):
             scene.obs.shape[0])
         arrays = arrays[:2] + tuple(a[perm] for a in arrays[2:])
     n_edges, n_points = arrays[2].shape[0], arrays[1].shape[0]
+    kw = {}
+    if extra.get("fixed"):
+        kw["cam_fixed"] = np.arange(arrays[0].shape[0]) < extra["fixed"]
     fault = extra.get("fault")
+    if fault == "nan_camera":
+        cams = arrays[0].copy()
+        cams[2, 4] = np.nan
+        return (cams,) + arrays[1:], kw
     if fault is None:
-        return arrays, {}
+        return arrays, kw
     if fault == "crush":
         busiest = np.argsort(-np.bincount(arrays[4], minlength=n_points),
                              kind="stable")[:CRUSH_POINTS]
@@ -403,7 +481,7 @@ def solve_inputs(scene, path: str, venice: bool = False):
             else NAN_EDGES_F64)
         plan = make_nan_burst(n_edges, edges, 0,
                               1 if fault == "nan_burst" else 10_000)
-    return arrays, dict(fault_plan=plan)
+    return arrays, dict(kw, fault_plan=plan)
 
 
 def kernel_modules():
@@ -485,6 +563,56 @@ def plain_path():
     finally:
         for m, n, k in saved:
             setattr(m, n, k)
+
+
+@contextlib.contextmanager
+def watch_builds():
+    """Record each preconditioner build of the solves run inside: the
+    CUDA events around `make_schur_preconditioner` (read them after a
+    synchronise) and the cluster plan it was given.  Yields the list of
+    (start, end, cluster_plan)."""
+    from megba_tpu_torch.solver import pcg
+
+    inner = pcg.make_schur_preconditioner
+    builds = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kw)
+        end.record()
+        builds.append((start, end, kw.get("cluster_plan")))
+        return out
+
+    pcg.make_schur_preconditioner = timed
+    try:
+        yield builds
+    finally:
+        pcg.make_schur_preconditioner = inner
+
+
+def build_ms(builds) -> list:
+    return [start.elapsed_time(end) for start, end, _ in builds]
+
+
+def coarse_words(builds) -> str:
+    """The coarse plan of the watched builds: level 1's clusters and pair
+    chunks, a multilevel plan's level sizes."""
+    plan = builds[0][2]
+    base = getattr(plan, "base", plan)
+    sizes = getattr(plan, "level_sizes", (base.num_clusters,))
+    return (f"C = {base.num_clusters}, levels {tuple(sizes)}, "
+            f"{len(base.ec_chunks)} pair chunk(s)")
+
+
+def bitwise_equal(a, b) -> bool:
+    """Equal bits, NaN payloads included (torch.equal fails on NaN)."""
+    if a.is_floating_point():
+        it = {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+            a.element_size()]
+        return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+    return torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -963,7 +1091,47 @@ def kernel_phase(scene) -> dict:
                 f"{entry['bound_ms']:.4f} ms, "
                 f"{entry['bound_ms'] / entry['ms']:.1%} of bound")
         rows[name] = entry
+    # Kernel 6 runs at its launch floor, where a CUDA-event time of back
+    # to back launches is the wrapper's host time: both arms and their
+    # einsum yardsticks also get torch.profiler's device time per call.
+    for name, kernel, library in (
+            ("fused_block_diag_apply",
+             lambda: fused.fused_block_diag_apply(Hrows, x_cam),
+             lambda: torch.einsum("nij,jn->in", Minv, x_cam)),
+            ("fused_block_diag_apply[bf16]",
+             lambda: fused.fused_block_diag_apply(b_Hrows, x_cam,
+                                                  bf16_operands=True),
+             functools.partial(torch.einsum, "nij,jn->in", Minv.to(bf),
+                               x_cam.to(bf)))):
+        entry = rows[name]
+        k_ms = entry["device_ms"] = device_ms_per_call(kernel)
+        lib_ms = entry["library_device_ms"] = device_ms_per_call(library)
+        verdict = "slower" if k_ms > lib_ms else "not slower"
+        log(f"kernel {name}: device time {k_ms * 1e3:.3f} us a launch "
+            f"(torch.profiler), torch.einsum {lib_ms * 1e3:.3f} us a call "
+            f"(its operands made beforehand): the kernel is {verdict} than "
+            "its library call on the device")
     return rows
+
+
+def device_ms_per_call(fn, calls: int = 200) -> float:
+    """torch.profiler's device time of `calls` calls of `fn`, summed over
+    every kernel they launch, per call, in milliseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if e.device_type.name == "CUDA")
+    if not us > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / calls / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1102,13 +1270,24 @@ def check_path_outcome(what: str, path: str, res, clean_c0: float) -> str:
     tr = res.trace
     flags = "".join("R" if f else "." for f in tr.recovery[:k].tolist())
     status = SolveStatus(res.status)
-    if fault == "persistent":
+    if fault in ("persistent", "nan_camera"):
         want = RobustOption().max_recoveries + 1
         if status != SolveStatus.FATAL_NONFINITE or k != want:
             raise AssertionError(f"{what}: {status.name} after {k} LM "
                                  f"iterations, not FATAL_NONFINITE after "
                                  f"{want}")
-        return f"FATAL_NONFINITE after {k} LM iterations, recoveries {flags}"
+        words = f"FATAL_NONFINITE after {k} LM iterations, recoveries {flags}"
+        if fault == "nan_camera":
+            from megba_tpu_torch.solver.precond import (
+                decode_precond_fallback_levels)
+
+            levels = [decode_precond_fallback_levels(c)
+                      for c in tr.precond_fallback[:k].tolist()]
+            if not all(lv and all(lv) for lv in levels):
+                raise AssertionError(f"{what}: a poisoned coarse operator "
+                                     f"left a level unflagged: {levels}")
+            words += f", coarse levels degraded {levels}"
+        return words
     if not (np.isfinite(c1) and c1 < clean_c0):
         raise AssertionError(f"{what}: final cost {c1} is not finite and "
                              f"below the clean initial cost {clean_c0}")
@@ -1134,25 +1313,30 @@ def check_path_outcome(what: str, path: str, res, clean_c0: float) -> str:
     return words
 
 
-def f64_phase(scene) -> dict:
-    """Each path of `F64_PATHS` on the trafalgar-sized f64 scene, kernels
-    against plain versions; the counts are read from each path's kernel
-    run alone.  The trial costs agree at `F64_COST_RTOL` where finite and
-    are NaN at the same iterations; the accept, recovery, PCG-breakdown
-    and fallback traces, the counts, the status and the recoveries are
-    equal.  Returns each path's launches per kernel arm."""
+def f64_phase(scene, grid) -> dict:
+    """Each path of `F64_PATHS` on the trafalgar-sized f64 scene (the
+    coarse paths on its grid twin `grid`), kernels against plain versions;
+    the counts are read from each path's kernel run alone.  The trial
+    costs agree at `F64_COST_RTOL` where finite and are NaN at the same
+    iterations; the accept, recovery, PCG-breakdown and fallback traces,
+    the counts, the status and the recoveries are equal.  A coarse path's
+    kernel run is repeated and must be bitwise equal (trace, cameras,
+    points): its build's sums are deterministic.  Returns each path's
+    launches per kernel arm."""
     from megba_tpu_torch import flat_solve
 
     arm_counts = {}
     kernel_runs = {}
     for path in F64_PATHS:
         kernels = PATHS[path][3]
+        coarse = path in COARSE_F64_PATHS
         opt = solve_option(np.float64, path)
-        arrays, kw = solve_inputs(scene, path)
+        arrays, kw = solve_inputs(grid if coarse else scene, path)
         args = arrays + (opt,)
         reset_launch_counts()
         t = time.perf_counter()
-        res_k = flat_solve(*args, device=DEVICE, **kw)
+        with watch_builds() as builds:
+            res_k = flat_solve(*args, device=DEVICE, **kw)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t
         counts = launch_counts()
@@ -1162,7 +1346,7 @@ def f64_phase(scene) -> dict:
         if skipped:
             raise AssertionError(
                 f"f64 {path}: the kernel path skipped {skipped}: {counts}")
-        want = expected_launches(path, res_k)
+        want = expected_launches(path, res_k, builds)
         if counts != want:
             raise AssertionError(f"f64 {path}: launches {counts}, the code "
                                  f"implies {want}")
@@ -1190,9 +1374,23 @@ def f64_phase(scene) -> dict:
         if not rel <= F64_COST_RTOL:
             raise AssertionError(
                 f"f64 {path}: cost trajectories differ (rel {rel:.3e})")
-        clean = kernel_runs["implicit"]
+        clean = kernel_runs["implicit_two_level" if coarse else "implicit"]
         outcome = check_path_outcome(f"f64 {path}", path, res_k,
                                      float(clean.initial_cost))
+        if coarse:
+            res_r = flat_solve(*args, device=DEVICE, **kw)
+            same = [f.name for f in dataclasses.fields(tk)
+                    if not bitwise_equal(getattr(tk, f.name),
+                                         getattr(res_r.trace, f.name))]
+            if same or not (bitwise_equal(res_k.cameras, res_r.cameras)
+                            and bitwise_equal(res_k.points, res_r.points)):
+                raise AssertionError(
+                    f"f64 {path}: two kernel runs differ (trace fields "
+                    f"{same}, or the solved parameters)")
+            fallback = tk.precond_fallback[:k].tolist()
+            outcome += (f", bitwise equal across two kernel runs; "
+                        f"{coarse_words(builds)}, precond_fallback "
+                        f"{fallback}")
         if path == "implicit_guarded":
             # Guards on a clean run select the unguarded values bitwise.
             for f in dataclasses.fields(clean.trace):
@@ -1287,7 +1485,7 @@ def precision_phase(scene) -> None:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(path: str, res) -> dict:
+def expected_launches(path: str, res, builds=()) -> dict:
     """Launch counts the code implies for one solve.  With k PCG
     iterations an LM iteration runs hpl and hlp k+2 times each under the
     Chronopoulos-Gear body (reduced RHS, k+1 S.p products, back-
@@ -1306,7 +1504,13 @@ def expected_launches(path: str, res) -> dict:
     SCHUR_DIAG sums its correction per camera with nine `seg_reduce`
     launches per PCG solve.  The guards keep one product and one apply
     per PCG iteration, restarts included.  The Jacobian mode, the robust
-    loss, the edge order and a fault plan launch nothing."""
+    loss, the edge order and a fault plan launch nothing.  A TWO_LEVEL or
+    MULTILEVEL build (one per PCG solve; `builds` from `watch_builds`)
+    sums with `seg_reduce`: three launches for the incidence rows V, nine
+    per pair chunk of its plan for the contraction and, when smoothed,
+    12 C for the two passes over the C * 9 coarse columns (3 C by point,
+    9 C by camera, whatever the column block); the cycle applies the base
+    once per preconditioner apply."""
     kind, fused, rung, _ = PATHS[path]
     extra = VARIANTS.get(path, (path, {}))[1]
     warm = extra.get("forcing", False)
@@ -1335,23 +1539,36 @@ def expected_launches(path: str, res) -> dict:
         want["seg_expand"] += 2 * L
     if extra.get("preconditioner") == "SCHUR_DIAG":
         want["seg_reduce"] += 9 * L
+    if extra.get("precond") in ("TWO_LEVEL", "MULTILEVEL"):
+        if len(builds) != L:
+            raise AssertionError(f"{path}: {len(builds)} preconditioner "
+                                 f"builds in {L} LM iterations")
+        plan = builds[0][2]
+        base = getattr(plan, "base", plan)  # a multilevel plan's level 1
+        per_build = 3 + 9 * len(base.ec_chunks) + (
+            12 * base.num_clusters if extra.get("smooth_omega") else 0)
+        want["seg_reduce"] += per_build * L
     return want
 
 
-def venice_phase(scene, path: str, profile: bool, ref=None):
-    """One venice solve of a path; `ref` is the IMPLICIT run's result,
-    which later paths are compared with.  Returns the launch counts, the
-    per-arm counts and the result."""
+def venice_phase(scene, path: str, profile: bool, ref=None,
+                 label: str = "venice", tol_relative: bool = False):
+    """One full-width f32 solve of a path (on venice, or on the locality
+    scene with `label="locality"`); `ref` is the scene's IMPLICIT run,
+    which later paths are compared with; `tol_relative` stops each PCG at
+    1e-6 of its right-hand side's energy (`solve_option`).  Returns the
+    launch counts, the per-arm counts, the result and the wall time."""
     from megba_tpu_torch import flat_solve
 
-    opt = solve_option(np.float32, path)
+    opt = solve_option(np.float32, path, tol_relative)
     arrays, kw = solve_inputs(scene, path, venice=True)
     args = arrays + (opt,)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t = time.perf_counter()
-    res = flat_solve(*args, verbose=True, device=DEVICE, **kw)
+    with watch_builds() as builds:
+        res = flat_solve(*args, verbose=True, device=DEVICE, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = launch_counts()
@@ -1361,57 +1578,71 @@ def venice_phase(scene, path: str, profile: bool, ref=None):
     skipped = [k for k in PATHS[path][3] if counts[k] == 0]
     if skipped:
         raise AssertionError(
-            f"venice {path}: never launched {skipped}: {counts}")
-    want = expected_launches(path, res)
+            f"{label} {path}: never launched {skipped}: {counts}")
+    want = expected_launches(path, res, builds)
     if counts != want:
-        raise AssertionError(f"venice {path}: launches {counts}, the code "
+        raise AssertionError(f"{label} {path}: launches {counts}, the code "
                              f"implies {want}")
     clean_c0 = c0 if ref is None else float(ref.initial_cost)
-    outcome = check_path_outcome(f"venice {path}", path, res, clean_c0)
+    outcome = check_path_outcome(f"{label} {path}", path, res, clean_c0)
     if res.cameras.shape != scene.cameras0.shape or not bool(
             torch.isfinite(res.cameras).all() & torch.isfinite(
                 res.points).all()):
-        raise AssertionError(f"venice {path}: solved parameters malformed")
+        raise AssertionError(f"{label} {path}: solved parameters malformed")
     ref_cost = None if ref is None else float(ref.cost)
     gap = ("" if ref is None else
            f", final cost {abs(c1 - ref_cost) / ref_cost:.3e} relative to "
            "the implicit run's")
     extra = VARIANTS.get(path, (path, {}))[1]
+    coarse = extra.get("precond") in ("TWO_LEVEL", "MULTILEVEL")
     limit = (AUTODIFF_COST_RTOL if "jacobian_mode" in extra
-             else COOBS_COST_RTOL if "edge_order" in extra else None)
+             else COOBS_COST_RTOL if "edge_order" in extra
+             else LOCALITY_COST_RTOL if coarse and label != "venice"
+             else None)
     if limit is not None and not abs(c1 - ref_cost) <= limit * ref_cost:
         raise AssertionError(
-            f"venice {path}: final cost {c1} is not within {limit:g} of "
+            f"{label} {path}: final cost {c1} is not within {limit:g} of "
             f"the IMPLICIT run's {ref_cost}")
     if path == "implicit_guarded" and not (
             torch.equal(res.trace.cost, ref.trace.cost)
             and torch.equal(res.cost, ref.cost)
             and (res.iterations, res.accepted, res.pcg_iterations) == (
                 ref.iterations, ref.accepted, ref.pcg_iterations)):
-        raise AssertionError(f"venice {path}: not bitwise the implicit run")
+        raise AssertionError(f"{label} {path}: not bitwise the implicit run")
     if ref is not None:
         outcome += (f"; PCG {res.pcg_iterations} against the implicit "
                     f"run's {ref.pcg_iterations}")
     if extra.get("preconditioner") == "SCHUR_DIAG":
         fallback = res.trace.precond_fallback[:res.iterations].tolist()
         if any(fallback):
-            raise AssertionError(f"venice {path}: SCHUR_DIAG fell back on a "
+            raise AssertionError(f"{label} {path}: SCHUR_DIAG fell back on a "
                                  f"clean run: {fallback}")
         outcome += f", precond_fallback {fallback}"
-    log(f"venice f32 {path}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM "
+    if coarse:
+        fallback = res.trace.precond_fallback[:res.iterations].tolist()
+        if any(fallback):
+            raise AssertionError(f"{label} {path}: the coarse space fell "
+                                 f"back on a clean run: {fallback}")
+        ms = build_ms(builds)
+        outcome += (f"; {coarse_words(builds)}, planned in "
+                    f"{res.coarse_plan_seconds:.3f} s on the host, "
+                    f"preconditioner build {statistics.median(ms):.3f} ms "
+                    f"median of {len(ms)} ({sum(ms):.3f} ms in all), "
+                    f"precond_fallback {fallback}")
+    log(f"{label} f32 {path}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM "
         f"iterations ({res.accepted} accepted), {res.pcg_iterations} PCG "
         f"iterations, flat_solve {wall:.3f} s = {wall / res.iterations:.3f} "
         f"s per LM iteration (planning and transfer included), peak "
         f"memory {peak / 2**30:.3f} GiB{gap}; {outcome}")
-    log(f"venice {path} launches: {arms} (as the code implies)")
+    log(f"{label} {path} launches: {arms} (as the code implies)")
     if profile:
-        profile_solve(args, path, kw)
-    return counts, arms, res
+        profile_solve(args, path, kw, label)
+    return counts, arms, res, wall
 
 
-def profile_solve(args, path: str, kw: dict) -> None:
-    """One more venice solve under torch.profiler: device time by kernel
-    and the device's busy share of the wall time."""
+def profile_solve(args, path: str, kw: dict, label: str) -> None:
+    """One more solve under torch.profiler: device time by kernel and the
+    device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from megba_tpu_torch import flat_solve
@@ -1427,14 +1658,34 @@ def profile_solve(args, path: str, kw: dict) -> None:
         wall = time.perf_counter() - t
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=-1)
-    (out_dir / f"profile_venice_{path}.txt").write_text(table)
+    (out_dir / f"profile_{label}_{path}.txt").write_text(table)
     dev_us = sum(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
                  for e in events if e.device_type.name == "CUDA")
-    log(f"profile {path}: wall {wall:.3f} s under the profiler, device "
+    log(f"profile {label} {path}: wall {wall:.3f} s under the profiler, device "
         f"busy {dev_us / 1e6:.3f} s ({dev_us / 1e6 / wall:.1%}); kernel "
-        f"table in chiprun_out/profile_venice_{path}.txt")
+        f"table in chiprun_out/profile_{label}_{path}.txt")
     log("\n".join(table.splitlines()[:18]))
+
+
+def locality_phase(scene, profile: bool) -> None:
+    """`LOCALITY_PATHS` on the locality scene, JACOBI first: the coarse
+    paths' final costs within `LOCALITY_COST_RTOL` of its, then their PCG
+    counts, walls and final costs side by side; with the venice phase's
+    options (an absolute PCG tolerance, under which every path runs to
+    its PCG cap), then again with a relative one (1e-6 of the RHS energy),
+    under which a live coarse space shows in the PCG counts."""
+    for tol_relative in (False, True):
+        label = "locality_rel" if tol_relative else "locality"
+        ref = None
+        table = []
+        for path in LOCALITY_PATHS:
+            _, _, res, wall = venice_phase(scene, path, profile, ref,
+                                           label, tol_relative)
+            ref = res if ref is None else ref
+            table.append(f"{path}: PCG {res.pcg_iterations}, flat_solve "
+                         f"{wall:.3f} s, final cost {float(res.cost):.8e}")
+        log(f"{label} side by side: " + "; ".join(table))
 
 
 def main() -> int:
@@ -1473,14 +1724,16 @@ def main() -> int:
     venice = make_scene(VENICE, np.float32)
     rows = kernel_phase(venice)
     engine_phase(venice)
-    f64_counts = f64_phase(make_scene(TRAFALGAR, np.float64))
+    f64_counts = f64_phase(make_scene(TRAFALGAR, np.float64),
+                           make_scene(TRAFALGAR_GRID, np.float64))
     for row, arm_path in F64_ARM_PATHS.items():
         rows[row]["launches"] = f64_counts[arm_path].get(row, 0)
     precision_phase(make_scene(TRAFALGAR, np.float32))
     ref = None
     for path in VENICE_PATHS:
         _, _, rung, kernels_of_path = PATHS[path]
-        counts, arms, res = venice_phase(venice, path, opts.profile, ref)
+        counts, arms, res, _ = venice_phase(venice, path, opts.profile,
+                                            ref)
         ref = res if ref is None else ref
         for name in kernels_of_path:  # the first f32 path that runs it
             if rung is None and rows[name]["launches"] is None:
@@ -1488,6 +1741,7 @@ def main() -> int:
         for row, arm_path in ARM_PATHS.items():
             if arm_path == path:
                 rows[row]["launches"] = arms.get(row, 0)
+    locality_phase(make_scene(LOCALITY, np.float32), opts.profile)
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernel rows never launched on their "

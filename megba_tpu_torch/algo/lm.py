@@ -67,6 +67,7 @@ from megba_tpu_torch.robustness.faults import (
     poison_system,
 )
 from megba_tpu_torch.solver.pcg import plain_pcg_solve, schur_pcg_solve
+from megba_tpu_torch.solver.precond import FALLBACK_BLOCK_RADIX
 
 _TINY = 1e-30
 
@@ -134,6 +135,10 @@ class LMResult:
     # Under SolverOption.warm_start: the last accepted camera step, laid
     # out like `cameras` (the resume hook `initial_dx`); None otherwise.
     dx_cam: Optional[torch.Tensor] = None
+    # flat_solve under TWO_LEVEL / MULTILEVEL: seconds spent planning the
+    # camera clusters on the host and moving the plan to the device; None
+    # otherwise.
+    coarse_plan_seconds: Optional[float] = None
 
 
 def lm_solve(
@@ -154,6 +159,7 @@ def lm_solve(
     initial_v=None,
     initial_dx: Optional[torch.Tensor] = None,
     fault_plan: Optional[FaultPlan] = None,
+    cluster_plan=None,
 ) -> LMResult:
     """Run the LM loop to convergence.
 
@@ -175,7 +181,10 @@ def lm_solve(
     and `initial_dx` ([cd, Nc]) seeds the warm-start carry under
     `SolverOption.warm_start`: the resume hooks of a split solve.
     `fault_plan` (tensors on the solve device) injects seeded faults;
-    `option.robust_option.guards` contains them.
+    `option.robust_option.guards` contains them.  `cluster_plan` is the
+    coarse space of `SolverOption.precond` TWO_LEVEL
+    (ops/segtiles.device_cluster_plan) or MULTILEVEL
+    (device_multilevel_plan), planned over the camera-slot stream.
     """
     if residual_jac_fn is None:
         residual_jac_fn = make_residual_jacobian_fn(mode=option.jacobian_mode)
@@ -194,6 +203,15 @@ def lm_solve(
     # diagonal or operator with a fallback is live (JAX lm.py:561-570).
     fallback_live = (solver_opt.preconditioner == PreconditionerKind.SCHUR_DIAG
                      or solver_opt.precond != PrecondKind.JACOBI)
+    if (use_schur and cluster_plan is None
+            and solver_opt.precond in (PrecondKind.TWO_LEVEL,
+                                       PrecondKind.MULTILEVEL)):
+        raise ValueError(
+            f"SolverOption.precond={solver_opt.precond.name} needs a "
+            "camera-cluster plan operand: solve through flat_solve (which "
+            "plans it) or pass cluster_plan="
+            "ops.segtiles.device_cluster_plan(...) / "
+            "device_multilevel_plan(...)")
 
     def scalar(x):
         return torch.tensor(x, dtype=dtype, device=device)
@@ -259,7 +277,9 @@ def lm_solve(
         pcg_kw.update(fused_kernels=solver_opt.fused_kernels,
                       precond=solver_opt.precond,
                       preconditioner=solver_opt.preconditioner,
-                      neumann_order=solver_opt.neumann_order)
+                      neumann_order=solver_opt.neumann_order,
+                      cluster_plan=cluster_plan, cam_fixed=cam_fixed,
+                      smooth_omega=solver_opt.smooth_omega)
     else:
         pcg_solve = plain_pcg_solve
     trace = SolveTrace.empty(algo_opt.max_iter, dtype)
@@ -339,8 +359,11 @@ def lm_solve(
         if guards:
             values.append(pcg.breakdowns.to(dtype))
         if fallback_live:
-            values.append(torch.as_tensor(pcg.precond_fallback,
-                                          device=device).to(dtype))
+            # The code as its two 16-bit halves: each is exact in either
+            # float dtype, where the whole code is not in float32.
+            code = torch.as_tensor(pcg.precond_fallback, device=device)
+            values += [(code // FALLBACK_BLOCK_RADIX).to(dtype),
+                       (code % FALLBACK_BLOCK_RADIX).to(dtype)]
         trace_k = torch.stack(values).cpu()
         if accept:
             region_accept = region / torch.maximum(
@@ -368,7 +391,8 @@ def lm_solve(
             robust_trace = dict(recovery=recover,
                                 pcg_breakdown=int(trace_k[6]))
         if fallback_live:
-            robust_trace["precond_fallback"] = int(trace_k[-1])
+            robust_trace["precond_fallback"] = (
+                int(trace_k[-2]) * FALLBACK_BLOCK_RADIX + int(trace_k[-1]))
         trace.record(
             k, cost=trace_k[0], grad_inf_norm=trace_k[1],
             trust_region=trace_k[2], rho=trace_k[3], accept=accept,

@@ -208,9 +208,9 @@ def _unported(name: str, value) -> NotImplementedError:
         "with or without fused kernels, on every rung of the precision "
         "ladder, or the plain full-system PCG) with any Jacobian mode and "
         "robust loss, forcing and warm starts, guards and fault "
-        "injection, either edge order, and the JACOBI or NEUMANN "
-        "preconditioner on the HPP or SCHUR_DIAG block diagonal; still "
-        "refused: precond=TWO_LEVEL and MULTILEVEL, the multi-device "
+        "injection, either edge order, and every preconditioner family "
+        "(JACOBI, NEUMANN, TWO_LEVEL, MULTILEVEL) on the HPP or "
+        "SCHUR_DIAG block diagonal; still refused: the multi-device "
         "options (world_size, mesh_2d, bf16_collectives), telemetry and "
         "metrics")
 
@@ -235,6 +235,31 @@ def validate_options(option: ProblemOption) -> None:
     if so.precond == PrecondKind.NEUMANN and so.neumann_order < 1:
         raise ValueError(
             f"neumann_order must be >= 1, got {so.neumann_order}")
+    if so.coarse_clusters < 0:
+        raise ValueError(
+            f"coarse_clusters must be >= 0 (0 = auto sqrt(Nc)), got "
+            f"{so.coarse_clusters}")
+    if not so.coarsen_factor > 1.0:
+        raise ValueError(
+            f"coarsen_factor must be > 1 (each level must shrink), got "
+            f"{so.coarsen_factor}")
+    # The per-level fallback bit-field shares one int32 with the 16-bit
+    # block count (solver/precond.py): coarse levels ride bits 16..30.
+    if not 2 <= so.max_levels <= 15:
+        raise ValueError(
+            f"max_levels must be in [2, 15] (fine level included; the "
+            f"per-level fallback bit-field carries at most 15 coarse "
+            f"levels), got {so.max_levels}")
+    if not 0.0 <= so.smooth_omega < 2.0:
+        raise ValueError(
+            f"smooth_omega must be in [0, 2) (0 = plain aggregation), "
+            f"got {so.smooth_omega}")
+    if so.smooth_omega and so.precond not in (PrecondKind.TWO_LEVEL,
+                                              PrecondKind.MULTILEVEL):
+        raise ValueError(
+            "smooth_omega smooths the camera-graph coarse space; it "
+            "requires precond=TWO_LEVEL or MULTILEVEL, got "
+            f"{so.precond.name}")
     if np.dtype(option.dtype) not in DTYPE_TO_TORCH:
         raise ValueError(f"unsupported dtype {option.dtype}")
     if not isinstance(option.device, Device):
@@ -267,8 +292,6 @@ def validate_options(option: ProblemOption) -> None:
     _validate_precision(option)
     unported = [
         ("world_size", option.world_size, option.world_size != 1),
-        ("solver_option.precond", so.precond,
-         so.precond in (PrecondKind.TWO_LEVEL, PrecondKind.MULTILEVEL)),
         ("solver_option.mesh_2d", so.mesh_2d, so.mesh_2d),
         ("solver_option.bf16_collectives", so.bf16_collectives,
          so.bf16_collectives),

@@ -10,7 +10,10 @@ edge order is the stable camera sort of the edges; a second, point-sorted
 order is planned over that camera-slot stream; `DualPlans.to_pt` /
 `to_cam` move per-edge rows between the two orders.  Each side is
 described by its sorted segment id per slot and CSR offsets
-`seg_ptr[nS + 1]`.
+`seg_ptr[nS + 1]`.  The camera-cluster coarse spaces of TWO_LEVEL and
+MULTILEVEL are planned here too (`build_camera_clusters`,
+`build_cluster_plan`, `build_multilevel_plan`), over the camera-slot
+stream, with the segment plans of their device sums.
 
 The TPU plans also padded each block of segments to whole tiles: that
 padding existed for the one-hot MXU matmuls (a tile had to touch one
@@ -167,6 +170,296 @@ def coobservation_edge_order(cam_idx: np.ndarray,
     and, within a camera, sorted by point.  A host argsort; applying it
     reorders only sums (results agree at solver tolerance)."""
     return np.lexsort((np.asarray(pt_idx), np.asarray(cam_idx)))
+
+
+# ---------------------------------------------------------------------------
+# Camera-cluster plans (the TWO_LEVEL / MULTILEVEL coarse spaces)
+# ---------------------------------------------------------------------------
+#
+# Host NumPy, as the JAX package plans them (its segtiles.py:1164-1560),
+# on one device: no shard grouping of the pairs.  Beside the JAX plan's
+# index streams, each plan carries the segment plans that make its device
+# sums deterministic on the card: the real edges sorted by their
+# (point, cluster) incidence, and the edge-incidence pairs sorted by their
+# (camera, cluster) segment.  The coarse build sums both with kernel 4
+# (`seg_reduce`), as it sums every other edge-scale reduction.
+
+# Edge-incidence pairs per launch of the coarse build's contraction: a
+# chunk of this many pairs holds ~70 rows of transients per pair (the
+# gathered coupling rows, their incidence partners and nine product rows),
+# ~9.4 GB at float32 and ~19 GB at float64 (venice at float32 has 23.6M
+# pairs: one chunk).  Chunks end on segment boundaries, so chunking never
+# changes which terms a segment sums, only when the launch runs.
+EC_CHUNK_PAIRS = 1 << 25
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """Host half of the camera-cluster coarse-space plan over one edge
+    stream (JAX segtiles.py:1164-1185, one device).
+
+    `pc_slot[e]` is edge e's (point, cluster) incidence (`n_pc` on a
+    masked edge, which no sum reads); `pc_pt` the point of each incidence.
+    The edge-incidence pairs (`ec_edge`, `ec_slot`, `ec_seg`; one per
+    real edge e and incidence of its point, segment cam(e) * C + the
+    incidence's cluster) are stably sorted by `ec_seg`, and `pc_order`
+    lists the real edges stably sorted by incidence.
+    """
+
+    num_cameras: int
+    num_clusters: int  # actual cluster count C (>= the target)
+    n_pc: int  # distinct (point, cluster) incidences
+    n_ec: int  # edge-incidence pairs
+    cluster: np.ndarray  # [Nc] int32 cluster id per camera
+    pc_slot: np.ndarray  # [nE] int32 incidence per edge (n_pc = inert)
+    pc_pt: np.ndarray  # [n_pc] int32 point of each incidence
+    pc_order: np.ndarray  # [n_real] int64 real edges sorted by incidence
+    ec_edge: np.ndarray  # [n_ec] int64 edge of each pair
+    ec_slot: np.ndarray  # [n_ec] int32 incidence of each pair
+    ec_seg: np.ndarray  # [n_ec] int32 cam * C + cluster, non-decreasing
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceClusterPlan:
+    """Device half of a `ClusterPlan`, on the solve device.
+
+    `pc` sums edge rows (camera-slot order) per incidence: its `inv` is
+    the edge of each of its slots.  `ec_chunks` sums pair rows per
+    (camera, cluster) segment: each chunk is (first pair, end pair, first
+    segment, its plan over those pairs, whose `inv` is the edge of each
+    pair); `ec_slot` is the incidence of each pair.
+    """
+
+    num_clusters: int
+    n_pc: int
+    cluster: torch.Tensor  # [Nc] int64
+    pc: SegPlan
+    pc_pt: torch.Tensor  # [n_pc] int64
+    ec_slot: torch.Tensor  # [n_ec] int64
+    ec_chunks: Tuple[Tuple[int, int, int, SegPlan], ...]
+
+
+def build_camera_clusters(
+    cam_idx: np.ndarray,
+    pt_idx: np.ndarray,
+    num_cameras: int,
+    target: int = 0,
+    mask: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Greedy co-observation-weighted aggregation of the cameras into
+    ~target clusters (JAX segtiles.py:1247-1303, the same result).
+
+    target = 0 selects ceil(sqrt(Nc)).  Camera pairs are weighted by the
+    points they co-observe (consecutive cameras in each point's list in
+    stream order) and merged heaviest first under a size cap of
+    ceil(Nc / target) by union-find.  Returns [Nc] int32 cluster ids in
+    [0, C); every camera, edge-less ones included, gets one.
+    """
+    cam_idx = np.asarray(cam_idx, np.int64)
+    pt_idx = np.asarray(pt_idx, np.int64)
+    if mask is not None:
+        keep = np.asarray(mask) > 0
+        cam_idx, pt_idx = cam_idx[keep], pt_idx[keep]
+    if target <= 0:
+        target = max(1, int(np.ceil(np.sqrt(num_cameras))))
+    target = min(target, num_cameras)
+    cap = max(1, -(-num_cameras // target))
+
+    parent = np.arange(num_cameras, dtype=np.int64)
+    size = np.ones(num_cameras, np.int64)
+
+    def find(i):
+        root = i
+        while parent[root] != root:
+            root = parent[root]
+        while parent[i] != root:  # path compression
+            parent[i], i = root, parent[i]
+        return root
+
+    if cam_idx.size and cap > 1:
+        order = np.argsort(pt_idx, kind="stable")
+        ps, cs = pt_idx[order], cam_idx[order]
+        adj = ps[1:] == ps[:-1]
+        a, b = cs[:-1][adj], cs[1:][adj]
+        neq = a != b
+        a, b = a[neq], b[neq]
+        lo, hi = np.minimum(a, b), np.maximum(a, b)
+        pairs, counts = np.unique(lo * num_cameras + hi, return_counts=True)
+        for key in pairs[np.argsort(-counts, kind="stable")]:
+            ra, rb = find(key // num_cameras), find(key % num_cameras)
+            if ra != rb and size[ra] + size[rb] <= cap:
+                parent[rb] = ra
+                size[ra] += size[rb]
+
+    roots = np.asarray([find(i) for i in range(num_cameras)])
+    _, cluster = np.unique(roots, return_inverse=True)
+    return cluster.astype(np.int32)
+
+
+def build_cluster_plan(
+    cam_idx: np.ndarray,
+    pt_idx: np.ndarray,
+    num_cameras: int,
+    num_points: int,
+    target: int = 0,
+    mask: Optional[np.ndarray] = None,
+) -> ClusterPlan:
+    """Plan the two-level coarse space over the SOLVER's edge stream (JAX
+    segtiles.py:1306-1400 at world_size 1): `cam_idx` / `pt_idx` in the
+    order of every edge array the solve reads (flat_solve: the camera
+    slots), `mask` marking the real edges."""
+    cam_idx = np.asarray(cam_idx, np.int64)
+    pt_idx = np.asarray(pt_idx, np.int64)
+    n_edges = int(cam_idx.shape[0])
+    cluster = build_camera_clusters(cam_idx, pt_idx, num_cameras, target,
+                                    mask)
+    C = int(cluster.max()) + 1 if num_cameras else 1
+
+    real = (np.ones(n_edges, bool) if mask is None
+            else np.asarray(mask) > 0)
+    key = pt_idx * C + cluster[cam_idx]  # (point, cluster) incidence id
+    uniq, inv = np.unique(key[real], return_inverse=True)
+    n_pc = int(uniq.shape[0])
+    pc_slot = np.full(n_edges, n_pc, np.int32)
+    pc_slot[real] = inv.astype(np.int32)
+    pc_pt = (uniq // C).astype(np.int32)
+    pc_cluster = (uniq % C).astype(np.int32)
+
+    # One pair per real edge e and incidence of pt(e) (the incidences of
+    # one point are contiguous in the sorted keys).
+    pts, pstarts, pcounts = np.unique(pc_pt, return_index=True,
+                                      return_counts=True)
+    start_of_pt = np.zeros(max(num_points, 1), np.int64)
+    count_of_pt = np.zeros(max(num_points, 1), np.int64)
+    start_of_pt[pts] = pstarts
+    count_of_pt[pts] = pcounts
+    edge_ids = np.nonzero(real)[0]
+    k_of_edge = count_of_pt[pt_idx[edge_ids]]
+    n_ec = int(k_of_edge.sum())
+    ec_edge = np.repeat(edge_ids, k_of_edge)
+    off = np.arange(n_ec, dtype=np.int64) - np.repeat(
+        np.cumsum(k_of_edge) - k_of_edge, k_of_edge)
+    ec_slot = (start_of_pt[pt_idx[ec_edge]] + off).astype(np.int32)
+    ec_seg = (cam_idx[ec_edge] * C + pc_cluster[ec_slot]).astype(np.int32)
+    by_seg = np.argsort(ec_seg, kind="stable")
+    pc_order = edge_ids[np.argsort(pc_slot[edge_ids], kind="stable")]
+    return ClusterPlan(
+        num_cameras=num_cameras, num_clusters=C, n_pc=max(n_pc, 1),
+        n_ec=n_ec, cluster=cluster, pc_slot=pc_slot,
+        pc_pt=pc_pt if n_pc else np.zeros(1, np.int32),
+        pc_order=pc_order.astype(np.int64), ec_edge=ec_edge[by_seg],
+        ec_slot=ec_slot[by_seg], ec_seg=ec_seg[by_seg])
+
+
+def _csr(seg: np.ndarray, num_segments: int) -> np.ndarray:
+    """CSR offsets [nS + 1] of a non-decreasing segment id stream."""
+    ptr = np.zeros(num_segments + 1, np.int64)
+    np.cumsum(np.bincount(seg, minlength=num_segments), out=ptr[1:])
+    return ptr
+
+
+def device_cluster_plan(plan: ClusterPlan,
+                        device: torch.device) -> DeviceClusterPlan:
+    """Move a cluster plan to `device`, with the pairs cut into chunks of
+    at most `EC_CHUNK_PAIRS` pairs at segment boundaries (a segment longer
+    than that is a chunk of its own)."""
+    def t(a, dtype=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    pc_seg = plan.pc_slot[plan.pc_order]
+    pc = SegPlan(seg=t(pc_seg, torch.int32),
+                 seg_ptr=t(_csr(pc_seg, plan.n_pc)),
+                 num_segments=plan.n_pc, inv=t(plan.pc_order))
+    n_seg = plan.num_cameras * plan.num_clusters
+    ptr = _csr(plan.ec_seg, n_seg)
+    chunks = []
+    s0 = 0
+    while s0 < n_seg:
+        s1 = int(np.searchsorted(ptr, ptr[s0] + EC_CHUNK_PAIRS,
+                                 side="right")) - 1
+        s1 = min(max(s1, s0 + 1), n_seg)
+        p0, p1 = int(ptr[s0]), int(ptr[s1])
+        chunks.append((p0, p1, s0, SegPlan(
+            seg=t(plan.ec_seg[p0:p1] - s0, torch.int32),
+            seg_ptr=t(ptr[s0:s1 + 1] - p0), num_segments=s1 - s0,
+            inv=t(plan.ec_edge[p0:p1]))))
+        s0 = s1
+    return DeviceClusterPlan(
+        num_clusters=plan.num_clusters, n_pc=plan.n_pc,
+        cluster=t(plan.cluster), pc=pc, pc_pt=t(plan.pc_pt),
+        ec_slot=t(plan.ec_slot), ec_chunks=tuple(chunks))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiLevelPlan:
+    """Host half of the recursive camera-cluster hierarchy (JAX
+    segtiles.py:1441-1456): `base` is level 1, `level_sizes[i]` the
+    cluster count of coarse level i+1, `assign[i]` maps level i+1's
+    blocks onto level i+2's clusters."""
+
+    base: ClusterPlan
+    level_sizes: Tuple[int, ...]
+    assign: Tuple[np.ndarray, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMultiLevelPlan:
+    """Device half of a `MultiLevelPlan`."""
+
+    base: DeviceClusterPlan
+    level_sizes: Tuple[int, ...]
+    assign: Tuple[torch.Tensor, ...]  # int64
+
+
+def build_multilevel_plan(
+    cam_idx: np.ndarray,
+    pt_idx: np.ndarray,
+    num_cameras: int,
+    num_points: int,
+    target: int = 0,
+    mask: Optional[np.ndarray] = None,
+    coarsen_factor: float = 4.0,
+    max_levels: int = 3,
+) -> MultiLevelPlan:
+    """Plan the recursive hierarchy over one edge stream (JAX
+    segtiles.py:1516-1560 at world_size 1): level 1 is
+    `build_cluster_plan`; each further level aggregates the previous
+    level's cluster graph toward ceil(C / coarsen_factor) clusters, up to
+    `max_levels` levels (fine included), until the graph stops shrinking
+    or has at most 2 blocks."""
+    if not coarsen_factor > 1.0:
+        raise ValueError(
+            f"coarsen_factor must be > 1, got {coarsen_factor}")
+    if max_levels < 2:
+        raise ValueError(f"max_levels must be >= 2, got {max_levels}")
+    base = build_cluster_plan(cam_idx, pt_idx, num_cameras, num_points,
+                              target, mask)
+    sizes = [base.num_clusters]
+    assign: list = []
+    edge_cl = base.cluster[np.asarray(cam_idx, np.int64)]
+    while len(sizes) + 1 < max_levels and sizes[-1] > 2:
+        cur = sizes[-1]
+        tgt = max(1, int(np.ceil(cur / coarsen_factor)))
+        if tgt >= cur:
+            break
+        nxt = build_camera_clusters(edge_cl, pt_idx, cur, tgt, mask)
+        C = int(nxt.max()) + 1
+        if C >= cur:
+            break  # aggregation found nothing to merge
+        assign.append(nxt.astype(np.int32))
+        sizes.append(C)
+        edge_cl = nxt[edge_cl]
+    return MultiLevelPlan(base=base, level_sizes=tuple(sizes),
+                          assign=tuple(assign))
+
+
+def device_multilevel_plan(plan: MultiLevelPlan,
+                           device: torch.device) -> DeviceMultiLevelPlan:
+    return DeviceMultiLevelPlan(
+        base=device_cluster_plan(plan.base, device),
+        level_sizes=plan.level_sizes,
+        assign=tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                     for a in plan.assign))
 
 
 # ---------------------------------------------------------------------------

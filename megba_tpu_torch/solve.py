@@ -17,6 +17,7 @@ raise.
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -26,6 +27,7 @@ from megba_tpu_torch.algo.lm import LMResult, lm_solve
 from megba_tpu_torch.common import (
     DTYPE_TO_TORCH,
     EdgeOrder,
+    PrecondKind,
     ProblemOption,
     resolve_device,
     validate_options,
@@ -33,7 +35,11 @@ from megba_tpu_torch.common import (
 from megba_tpu_torch.io.bal import BALFile, load_bal
 from megba_tpu_torch.ops.fused import with_fused_plans
 from megba_tpu_torch.ops.segtiles import (
+    build_cluster_plan,
+    build_multilevel_plan,
     coobservation_edge_order,
+    device_cluster_plan,
+    device_multilevel_plan,
     make_dual_plans,
 )
 from megba_tpu_torch.robustness.faults import FaultPlan, lower_edge_vector
@@ -88,7 +94,10 @@ def flat_solve(
     guards of `RobustOption(guards=True)` to contain.  Under
     `SolverOption.edge_order=EdgeOrder.COOBS` the edges are first put in
     co-observation order (camera-major, point-minor); NATURAL keeps the
-    caller's order into the stable camera sort.
+    caller's order into the stable camera sort.  Under
+    `SolverOption.precond` TWO_LEVEL or MULTILEVEL the camera clusters are
+    planned on the host over the final edge stream; the result's
+    `coarse_plan_seconds` says how long that took.
     """
     validate_options(option)
     dev = resolve_device(device, option)
@@ -135,6 +144,12 @@ def flat_solve(
     if option.solver_option.fused_kernels:
         plans = with_fused_plans(plans)
     perm = plan_c.perm
+    cluster_plan, plan_seconds = _coarse_plan(option, plan_c.seg,
+                                              pt_idx[perm], mask[perm],
+                                              cameras.shape[0],
+                                              points.shape[0], dev)
+    if verbose and plan_seconds is not None:
+        print(f"coarse plan: {plan_seconds:.3f} s on the host", flush=True)
 
     def edge_rows(a: np.ndarray) -> torch.Tensor:
         """[nE, ...] caller order -> feature-major [F, nE] slot order."""
@@ -180,12 +195,37 @@ def flat_solve(
         sqrt_info=si, cam_fixed=flags(cam_fixed, cameras.shape[0]),
         pt_fixed=flags(pt_fixed, points.shape[0]), verbose=verbose,
         residual_jac_fn=residual_jac_fn, initial_region=initial_region,
-        initial_v=initial_v, initial_dx=dx0, fault_plan=fault)
+        initial_v=initial_v, initial_dx=dx0, fault_plan=fault,
+        cluster_plan=cluster_plan)
+    result.coarse_plan_seconds = plan_seconds
     result.cameras = result.cameras.T.contiguous()
     result.points = result.points.T.contiguous()
     if result.dx_cam is not None:
         result.dx_cam = result.dx_cam.T.contiguous()
     return result
+
+
+def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
+                 pt_idx: np.ndarray, mask: np.ndarray, num_cameras: int,
+                 num_points: int, dev: torch.device):
+    """The camera-cluster plan of a TWO_LEVEL or MULTILEVEL Schur solve
+    (JAX solve.py:587-628), over the solver's edge stream (camera slots),
+    with its host seconds; (None, None) for every other option."""
+    so = option.solver_option
+    if not option.use_schur or so.precond not in (PrecondKind.TWO_LEVEL,
+                                                  PrecondKind.MULTILEVEL):
+        return None, None
+    t = time.perf_counter()
+    if so.precond == PrecondKind.TWO_LEVEL:
+        plan = device_cluster_plan(build_cluster_plan(
+            cam_idx, pt_idx, num_cameras, num_points, so.coarse_clusters,
+            mask=mask), dev)
+    else:
+        plan = device_multilevel_plan(build_multilevel_plan(
+            cam_idx, pt_idx, num_cameras, num_points, so.coarse_clusters,
+            mask=mask, coarsen_factor=so.coarsen_factor,
+            max_levels=so.max_levels), dev)
+    return plan, time.perf_counter() - t
 
 
 def solve_bal(

@@ -620,6 +620,9 @@ def schur_pcg_solve(
     precond: PrecondKind = PrecondKind.JACOBI,
     preconditioner: PreconditionerKind = PreconditionerKind.HPP,
     neumann_order: int = 2,
+    cluster_plan=None,
+    cam_fixed: Optional[torch.Tensor] = None,
+    smooth_omega: float = 0.0,
 ) -> PCGResult:
     """Solve the damped Schur system for (dx_cam, dx_pt), feature-major.
 
@@ -635,9 +638,13 @@ def schur_pcg_solve(
     original variables) warm-starts the reduced CG; on a precision rung
     it is brought into the equilibrated variables.  `guard` and
     `max_restarts` arm the PCG breakdown guard (`_pcg_core`); `precond`
-    (JACOBI or NEUMANN) and `preconditioner` (HPP or SCHUR_DIAG) pick
-    the preconditioner (solver/precond.py), whose fallback count rides
-    `PCGResult.precond_fallback`.
+    (JACOBI, NEUMANN, TWO_LEVEL or MULTILEVEL) and `preconditioner` (HPP
+    or SCHUR_DIAG) pick the preconditioner (solver/precond.py), whose
+    fallback code rides `PCGResult.precond_fallback`.  The coarse families
+    need `cluster_plan` (ops/segtiles.device_cluster_plan for TWO_LEVEL,
+    device_multilevel_plan for MULTILEVEL, over the camera-slot stream);
+    `cam_fixed` keeps their correction off fixed cameras and
+    `smooth_omega` > 0 smooths the prolongator.
     """
     Hpp_d = damp_blocks(system.Hpp, region)
     Hll_d = damp_rows_fm(system.Hll, region)
@@ -658,8 +665,9 @@ def schur_pcg_solve(
 
     precond_apply, fallback = make_schur_preconditioner(
         precond, preconditioner, Hpp_d, Hll_inv, W, Jc, Jp, plans,
-        compute_kind, neumann_order=neumann_order, s_matvec=s_matvec,
-        bf16=bf16, fused_kernels=fused_kernels)
+        compute_kind, neumann_order=neumann_order,
+        cluster_plan=cluster_plan, cam_fixed=cam_fixed, s_matvec=s_matvec,
+        smooth_omega=smooth_omega, bf16=bf16, fused_kernels=fused_kernels)
     v = g_cam - hpl(block_matvec_fm(Hll_inv, g_pt))
     if x0 is not None and equil:
         x0 = x0 / d_cam

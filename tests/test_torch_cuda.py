@@ -862,3 +862,120 @@ def test_f64_fault_and_solver_paths_kernels_match_plain_on_small_scene(
     if fault == "crush":
         assert (kern.trace.pcg_breakdown[:k].any()
                 or kern.trace.precond_fallback[:k].any())
+
+
+# The coarse-space paths of chip_smoke.py's f64 phase on a 16-camera grid
+# scene (where the camera graph has clusters): (compute kind, fused
+# kernels, option fields, fault); "fixed" fixes the first four cameras,
+# "nan_camera" puts a NaN in one camera parameter.
+_COARSE_PATHS = {
+    "implicit_two_level": ("IMPLICIT", False, dict(precond="TWO_LEVEL"),
+                           None),
+    "explicit_fused_two_level": ("EXPLICIT", True, dict(
+        precond="TWO_LEVEL"), None),
+    "implicit_fused_multilevel": ("IMPLICIT", True, dict(
+        precond="MULTILEVEL", coarsen_factor=2.0, max_levels=4), None),
+    "explicit_multilevel_smoothed": ("EXPLICIT", False, dict(
+        precond="MULTILEVEL", smooth_omega=2 / 3), None),
+    "implicit_fused_two_level_smoothed_schur_diag": ("IMPLICIT", True, dict(
+        precond="TWO_LEVEL", smooth_omega=2 / 3,
+        preconditioner="SCHUR_DIAG"), None),
+    "implicit_two_level_fixed": ("IMPLICIT", False, dict(
+        precond="TWO_LEVEL"), "fixed"),
+    "implicit_two_level_nan_burst": ("IMPLICIT", False, dict(
+        precond="TWO_LEVEL", guards=True), "nan"),
+    "implicit_two_level_nan_camera": ("IMPLICIT", False, dict(
+        precond="TWO_LEVEL", guards=True), "nan_camera"),
+}
+
+
+def _bitwise_equal(a, b):
+    """Equal bits, NaN payloads included (torch.equal fails on NaN)."""
+    if a.is_floating_point():
+        it = {8: torch.int64, 4: torch.int32}[a.element_size()]
+        return torch.equal(a.view(it), b.view(it))
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(_COARSE_PATHS))
+def test_f64_coarse_paths_kernels_match_plain_and_are_deterministic(
+        monkeypatch, path):
+    """On the card: TWO_LEVEL and MULTILEVEL (plain and smoothed, on both
+    block diagonals, with fixed cameras, a NaN burst and a NaN camera) on
+    a 16-camera f64 grid scene, through the kernels and through their
+    plain versions: finite trial costs at rtol 1e-9, NaN at the same
+    iterations, equal traces (the coarse bits included), counts and
+    status; two kernel solves bitwise equal in every trace field and in
+    the solved parameters (the coarse build's sums are deterministic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import (AlgoOption, ComputeKind, PrecondKind,
+                                 PreconditionerKind, ProblemOption,
+                                 RobustOption, SolverOption, SolveStatus,
+                                 flat_solve, make_nan_burst)
+    from megba_tpu_torch.io.synthetic import make_synthetic_bal
+    from megba_tpu_torch.solver.precond import decode_precond_fallback_levels
+
+    kind, fused, extra, fault = _COARSE_PATHS[path]
+    s = make_synthetic_bal(num_cameras=16, num_points=1303,
+                           obs_per_point=225_911 / 65_132, seed=0,
+                           param_noise=1e-2, pixel_noise=0.5,
+                           locality="grid")
+    opt = ProblemOption(
+        compute_kind=ComputeKind[kind],
+        robust_option=RobustOption(guards=extra.get("guards", False)),
+        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15),
+        solver_option=SolverOption(
+            max_iter=30, tol=1e-10, refuse_ratio=1e30, fused_kernels=fused,
+            precond=PrecondKind[extra["precond"]],
+            preconditioner=PreconditionerKind[
+                extra.get("preconditioner", "HPP")],
+            smooth_omega=extra.get("smooth_omega", 0.0),
+            coarsen_factor=extra.get("coarsen_factor", 4.0),
+            max_levels=extra.get("max_levels", 3)))
+    cams = s.cameras0.copy()
+    kw = {}
+    if fault == "fixed":
+        kw["cam_fixed"] = np.arange(16) < 4
+    elif fault == "nan":
+        kw["fault_plan"] = make_nan_burst(s.obs.shape[0], [2, 9], 0, 1)
+    elif fault == "nan_camera":
+        cams[2, 4] = np.nan
+    args = (cams, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
+    before = tseg.seg_reduce.launches
+    kern = flat_solve(*args, device="cuda", **kw)
+    again = flat_solve(*args, device="cuda", **kw)
+    assert tseg.seg_reduce.launches > before
+    for m in (tseg, tfused):
+        for k in m.KERNELS:
+            monkeypatch.setattr(m, k.__name__,
+                                getattr(m, k.__name__ + "_plain"))
+    plain = flat_solve(*args, device="cuda", **kw)
+    k = kern.iterations
+    assert (k, kern.accepted, kern.pcg_iterations, kern.status,
+            kern.recoveries) == (plain.iterations, plain.accepted,
+                                 plain.pcg_iterations, plain.status,
+                                 plain.recoveries)
+    for f in ("accept", "pcg_iters", "recovery", "precond_fallback"):
+        assert torch.equal(getattr(kern.trace, f)[:k],
+                           getattr(plain.trace, f)[:k]), f
+    ck, cp = kern.trace.cost[:k].numpy(), plain.trace.cost[:k].numpy()
+    np.testing.assert_array_equal(np.isnan(ck), np.isnan(cp))
+    fin = ~np.isnan(ck)
+    np.testing.assert_allclose(ck[fin], cp[fin], rtol=1e-9)
+    for f in dataclasses.fields(kern.trace):
+        assert _bitwise_equal(getattr(kern.trace, f.name),
+                              getattr(again.trace, f.name)), f.name
+    assert _bitwise_equal(kern.cameras, again.cameras)
+    assert _bitwise_equal(kern.points, again.points)
+    levels = [decode_precond_fallback_levels(c)
+              for c in kern.trace.precond_fallback[:k].tolist()]
+    if fault == "nan_camera":
+        assert kern.status == SolveStatus.FATAL_NONFINITE
+        assert all(lv and all(lv) for lv in levels)
+    else:
+        assert not any(any(lv) for lv in levels)
+        assert float(kern.cost) < float(np.nanmax(ck))
+        if fault == "nan":
+            assert kern.status == SolveStatus.RECOVERED

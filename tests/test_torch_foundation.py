@@ -110,7 +110,8 @@ def test_unported_options_raise_typed(field, value):
     # ported, their multi-device pieces (bf16_collectives, mesh_2d) are
     # not.  mixed_precision_pcg, both autodiff Jacobian modes, the
     # robust losses, forcing and warm starts, guards, the plain solver,
-    # COOBS, SCHUR_DIAG and NEUMANN are ported: they validate.
+    # COOBS, SCHUR_DIAG, NEUMANN, TWO_LEVEL and MULTILEVEL are ported:
+    # they validate.
     base = dict(jacobian_mode=tc.JacobianMode.ANALYTICAL, dtype=np.float32)
     base[field] = value
     if (field, value) in _PORTED:
@@ -133,17 +134,21 @@ _PORTED = [
     ("solver_option", tc.SolverOption(
         preconditioner=tc.PreconditionerKind.SCHUR_DIAG)),
     ("solver_option", tc.SolverOption(edge_order=tc.EdgeOrder.COOBS)),
+    ("solver_option", tc.SolverOption(precond=tc.PrecondKind.TWO_LEVEL)),
+    ("solver_option", tc.SolverOption(precond=tc.PrecondKind.MULTILEVEL)),
 ]
 
 
 @pytest.mark.parametrize("kw,refused", [
-    # Guards, use_schur=False and NEUMANN are ported: each case keeps a
-    # still-refused option beside them (its id is the case's old one).
+    # Guards, use_schur=False, NEUMANN, TWO_LEVEL and MULTILEVEL are
+    # ported: each case keeps a still-refused option beside them (its id
+    # is the case's old one).
     pytest.param(dict(robust_kind=tc.RobustKind.HUBER,
                       robust_option=tc.RobustOption(guards=True),
+                      world_size=2,
                       solver_option=tc.SolverOption(
                           precond=tc.PrecondKind.TWO_LEVEL)),
-                 "TWO_LEVEL", id="kw0-guards"),
+                 "world_size", id="kw0-guards"),
     pytest.param(dict(robust_kind=tc.RobustKind.CAUCHY,
                       solver_option=tc.SolverOption(
                           mesh_2d=True, edge_order=tc.EdgeOrder.COOBS)),
@@ -151,8 +156,8 @@ _PORTED = [
     (dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2),
      "world_size"),
     pytest.param(dict(solver_option=tc.SolverOption(
-        warm_start=True, precond=tc.PrecondKind.MULTILEVEL,
-        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), "precond",
+        warm_start=True, precond=tc.PrecondKind.MULTILEVEL, mesh_2d=True,
+        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), "mesh_2d",
         id="kw3-precond"),
 ])
 def test_still_refused_beside_ported_options(kw, refused):
@@ -188,7 +193,22 @@ def test_option_value_errors():
             (dict(robust_option=tc.RobustOption(damping_inflation=1.0)),
              "damping_inflation must be > 1"),
             (dict(robust_option=tc.RobustOption(pcg_max_restarts=-1)),
-             "pcg_max_restarts must be >= 0")):
+             "pcg_max_restarts must be >= 0"),
+            # The coarse families' knobs.
+            (dict(solver_option=tc.SolverOption(
+                precond=tc.PrecondKind.TWO_LEVEL, coarse_clusters=-1)),
+             "coarse_clusters must be >= 0"),
+            (dict(solver_option=tc.SolverOption(
+                precond=tc.PrecondKind.MULTILEVEL, coarsen_factor=1.0)),
+             "coarsen_factor must be > 1"),
+            (dict(solver_option=tc.SolverOption(
+                precond=tc.PrecondKind.MULTILEVEL, max_levels=16)),
+             r"max_levels must be in \[2, 15\]"),
+            (dict(solver_option=tc.SolverOption(
+                precond=tc.PrecondKind.TWO_LEVEL, smooth_omega=2.0)),
+             r"smooth_omega must be in \[0, 2\)"),
+            (dict(solver_option=tc.SolverOption(smooth_omega=0.5)),
+             "requires precond=TWO_LEVEL or MULTILEVEL")):
         with pytest.raises(ValueError, match=msg):
             tc.validate_options(tc.ProblemOption(**kw))
         jkw = {k: (getattr(jc, type(v).__name__)(**{

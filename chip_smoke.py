@@ -25,7 +25,9 @@ exception ends the run with a non-zero exit code:
    at f32 on a heavy-tailed graph too (~1e6 slots, Zipf track lengths,
    `io.synthetic.heavy_tailed_graph`; pt->cam also over 40,000 cameras,
    short enough for slot tiles), checked and timed as sides of their
-   own, outside the row's totals;
+   own, outside the row's totals; kernels 8 and 7 in the 2-D mesh's
+   ring-step form (`fused_ring_step_apply`, `_implicit`) on the first
+   bucket of device (0, 0) of the venice 2 x 2 camera-tile plan;
 4. engines: at the venice shapes, f64, the AUTODIFF (reverse mode) and
    AUTODIFF_FORWARD (forward mode) Jacobian engines against the
    ANALYTICAL one per edge (r, Jc, Jp each within 1e-9 of the row's
@@ -58,7 +60,14 @@ exception ends the run with a non-zero exit code:
    IMPLICIT fused and smoothed on EXPLICIT, TWO_LEVEL with fixed
    cameras, under a NaN burst (RECOVERED) and with a NaN camera (every
    coarse level flagged, FATAL_NONFINITE), held to the same gates and,
-   run twice through the kernels, bitwise equal;
+   run twice through the kernels, bitwise equal; two plain runs of
+   `implicit_neumann` and `explicit_fused` must be bitwise equal (the
+   plain versions sum in a fixed order); then the multi-device paths,
+   every shard on the one card: the 1-D mesh at world 2 (IMPLICIT,
+   EXPLICIT, a guarded NaN burst, TWO_LEVEL on the grid twin) and the
+   2 x 2 camera x edge mesh (IMPLICIT unfused, IMPLICIT and EXPLICIT
+   fused), each under the same gates and also against its world-1 path
+   at rtol 1e-9 with equal counts, with its launches per shard;
 6. f32 precision: the same scene at f32 on the eight precision-rung
    paths (IMPLICIT / EXPLICIT, unfused / fused, mixed / bf16), kernels
    against plain versions on the card: the first LM iteration's trial
@@ -75,7 +84,13 @@ exception ends the run with a non-zero exit code:
    full-system solver, with SCHUR_DIAG (no fallback on a clean run) and
    with COOBS on shuffled edges, then TWO_LEVEL, MULTILEVEL and smoothed
    TWO_LEVEL (with the host seconds of their cluster plan and the
-   CUDA-event time of each preconditioner build).  Every kernel's launch
+   CUDA-event time of each preconditioner build), then the multi-device
+   paths on the one card (world-2 IMPLICIT; 2 x 2 IMPLICIT fused,
+   EXPLICIT fused, and IMPLICIT fused with bf16 and bf16 collectives),
+   each also profiled (device busy share) with its launches per shard,
+   its final cost within rtol 1e-3 of the IMPLICIT run's (the bf16 path
+   within 2e-2).  A world-N wall here is N shards' launches queued on
+   one card, not a scaling number.  Every kernel's launch
    count is read from its path's run alone and checked against the count
    the code implies; the final cost must be finite and below the (clean)
    initial, and on the autodiff and COOBS paths within rtol 1e-3 of the
@@ -172,6 +187,10 @@ REPLACES = {
     "fused_coupling_apply": "megba_tpu/ops/fused.py:500",
     "fused_coupling_apply_implicit": "megba_tpu/ops/fused.py:526",
     "fused_block_diag_apply": "megba_tpu/ops/fused.py:647",
+    # Kernels 8 and 7 in the 2-D mesh's ring-step call form
+    # (`fused_single_block_apply`).
+    "fused_ring_step_apply": "megba_tpu/ops/fused.py:617",
+    "fused_ring_step_apply_implicit": "megba_tpu/ops/fused.py:622",
 }
 # The solve paths of phases 4-6: (compute kind, fused_kernels, precision
 # rung, the kernels the path must launch).
@@ -307,6 +326,56 @@ F64_PATHS += COARSE_F64_PATHS
 COARSE_VENICE_PATHS = ["implicit_two_level", "implicit_multilevel",
                        "implicit_two_level_smoothed"]
 VENICE_PATHS += COARSE_VENICE_PATHS
+# The multi-device solve: every shard on the one card (`device=[DEVICE] *
+# world`), the 1-D edge-sharded mesh at world 2 and the 2 x 2 camera x
+# edge mesh (`mesh_2d`, cam_blocks 2), whose S.p product rings the point
+# shards around the camera columns: through kernels 7 or 8 in their
+# ring-step form on the fused paths, through kernels 2 and 3 per bucket
+# on the unfused one.  Each f64 path is also held to its world-1 path
+# (`MESH_BASE`) at `F64_COST_RTOL` with equal counts; each venice path's
+# final cost to the venice IMPLICIT run's at rtol 1e-3, or the bf16
+# path's within the JAX package's bf16 band, 2e-2 (tests/test_bf16.py).
+MESH_VARIANTS = {
+    "w2_implicit": ("implicit", dict(world=2)),
+    "w2_explicit": ("explicit", dict(world=2)),
+    "w2_implicit_nan_burst": ("implicit", dict(world=2, guards=True,
+                                               fault="nan_burst")),
+    "w2_implicit_two_level": ("implicit", dict(world=2, precond="TWO_LEVEL")),
+    "2x2_implicit": ("implicit", dict(world=4, mesh_2d=True)),
+    "2x2_implicit_fused": ("implicit_fused", dict(world=4, mesh_2d=True)),
+    "2x2_explicit_fused": ("explicit_fused", dict(world=4, mesh_2d=True)),
+    "2x2_implicit_fused_bf16": ("implicit_fused_bf16", dict(
+        world=4, mesh_2d=True, bf16_collectives=True)),
+}
+MESH_BASE = {"w2_implicit": "implicit", "w2_explicit": "explicit",
+             "w2_implicit_nan_burst": "implicit_nan_burst",
+             "w2_implicit_two_level": "implicit_two_level",
+             "2x2_implicit": "implicit",
+             "2x2_implicit_fused": "implicit_fused",
+             "2x2_explicit_fused": "explicit_fused",
+             "2x2_implicit_fused_bf16": "implicit"}
+VARIANTS.update(MESH_VARIANTS)
+for _name, (_base, _extra) in MESH_VARIANTS.items():
+    _k = PATHS[_base]
+    _more = ()
+    if _extra.get("precond"):
+        _more = ("seg_reduce",)
+    if _extra.get("mesh_2d") and _k[1]:
+        _more = ("fused_ring_step_apply_implicit" if _k[0] == "IMPLICIT"
+                 else "fused_ring_step_apply",)
+    PATHS[_name] = _k[:3] + (_k[3] + _more,)
+MESH_F64_PATHS = ["w2_implicit", "w2_explicit", "w2_implicit_nan_burst",
+                  "w2_implicit_two_level", "2x2_implicit",
+                  "2x2_implicit_fused", "2x2_explicit_fused"]
+F64_PATHS += MESH_F64_PATHS
+MESH_VENICE_PATHS = ["w2_implicit", "2x2_implicit_fused",
+                     "2x2_explicit_fused", "2x2_implicit_fused_bf16"]
+VENICE_PATHS += MESH_VENICE_PATHS
+BF16_COST_RTOL = 2e-2
+# The plain versions' sums run in a fixed order: two plain runs of these
+# f64 paths must be bitwise equal.
+PLAIN_REPEAT_PATHS = ("implicit_neumann", "explicit_fused")
+
 # The locality scene: venice's cameras and observations a point on a grid
 # of camera stations (`locality="grid"`), where neighbouring cameras share
 # points and the coarse space is live.  Cut from venice's 993,923 points
@@ -427,6 +496,7 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
         solver = dict(tol=1e-1, forcing=True, warm_start=True)
     return ProblemOption(
         dtype=dtype, compute_kind=ComputeKind[kind], jacobian_mode=mode,
+        world_size=extra.get("world", 1),
         robust_kind=RobustKind[extra.get("robust_kind", "NONE")],
         robust_delta=1.0, mixed_precision_pcg=rung == "mixed",
         use_schur=extra.get("use_schur", True),
@@ -443,6 +513,9 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
             preconditioner=PreconditionerKind[
                 extra.get("preconditioner", "HPP")],
             edge_order=EdgeOrder[extra.get("edge_order", "NATURAL")],
+            mesh_2d=extra.get("mesh_2d", False),
+            cam_blocks=2 if extra.get("mesh_2d") else 0,
+            bf16_collectives=extra.get("bf16_collectives", False),
             **solver))
 
 
@@ -482,6 +555,28 @@ def solve_inputs(scene, path: str, venice: bool = False):
         plan = make_nan_burst(n_edges, edges, 0,
                               1 if fault == "nan_burst" else 10_000)
     return arrays, dict(kw, fault_plan=plan)
+
+
+def devices_of(path: str):
+    """The `device` argument of a path's flat_solve: every shard of a
+    multi-device path on the one card."""
+    world = VARIANTS.get(path, (path, {}))[1].get("world", 1)
+    return DEVICE if world == 1 else [DEVICE] * world
+
+
+@contextlib.contextmanager
+def count_shard_launches():
+    """Launches per kernel and shard of the solves run inside (the mesh's
+    own tally, parallel/collectives.ShardLaunches): yields a dict, filled
+    on exit as {"name": {k: n}} for the kernels that launched."""
+    from megba_tpu_torch.parallel.collectives import ShardLaunches
+
+    out = {}
+    with ShardLaunches([k for m in kernel_modules()
+                        for k in m.KERNELS]) as tally:
+        yield out
+    out.update({name: dict(sorted(per.items()))
+                for name, per in tally.counts.items() if per})
 
 
 def kernel_modules():
@@ -998,6 +1093,34 @@ def kernel_phase(scene) -> dict:
     cases["fused_coupling_apply_implicit"] += heavy_cases(
         (hplans.to_pt(hJc), hplans.to_pt(hJp)), (hJp, hJc), 24 * es, 2 * 24,
         ((), ()))
+    # Kernels 8 and 7 in their ring-step form at the venice 2 x 2 mesh's
+    # shapes: the bucket of device (0, 0) over its own point shard (the
+    # first step of its ring), random rows, the point shard as the table
+    # and the camera tile as the output.
+    tplan = segtiles.build_camera_tile_plan(
+        scene.cam_idx, scene.pt_idx, nc, npt, 2, 2, quantum=1)
+    tdev = segtiles.device_camera_tile_plan(tplan, [dev] * 4)
+    ring = tdev.rings[0][0]
+    rn, Sp, Tc = ring.out.n_slots, tplan.shard_points, tplan.tile_cams
+    rW, rJin, rJout = (0.1 * randn(rows, rn) for rows in (27, 6, 18))
+    r_table = randn(3, Sp)
+
+    def ring_case(rows, row_bytes, flops_per_slot, lib_w, tail):
+        return [_case(
+            "bucket_0_0", (*rows, r_table, ring, *tail),
+            row_bytes * rn + (3 * Sp + 9 * Tc) * es + rn * i32
+            + (Tc + 1) * i64, rn * flops_per_slot,
+            lambda: _spmv(_csr_coupling, lib_w, ring, 3, False,
+                          vec=r_table, shape=(9, Tc)))]
+
+    cases["fused_ring_step_apply"] = ring_case((rW,), 27 * es, 2 * 27, rW,
+                                               (False,))
+    cases["fused_ring_step_apply_implicit"] = ring_case(
+        (rJin, rJout), 24 * es, 2 * 24, coupling_rows(rJout, rJin, 2)
+        .contiguous(), ())
+    log(f"ring-step bucket (venice 2 x 2, device (0, 0), step 0): {rn} "
+        f"slots, {Sp} points a shard, {Tc} cameras a tile, "
+        f"{'slot tiles' if ring.out.per_thread else 'a block per camera'}")
     track = hplans.pt.seg_ptr[1:] - hplans.pt.seg_ptr[:-1]
     log(f"heavy-tailed graph: {hnc} cameras, {hnp} points, {hn} slots, "
         f"longest track {int(track.max())}, {int((track == 0).sum())} "
@@ -1329,14 +1452,17 @@ def f64_phase(scene, grid) -> dict:
     kernel_runs = {}
     for path in F64_PATHS:
         kernels = PATHS[path][3]
-        coarse = path in COARSE_F64_PATHS
+        coarse = path in COARSE_F64_PATHS or VARIANTS.get(
+            path, (path, {}))[1].get("precond") in ("TWO_LEVEL",
+                                                     "MULTILEVEL")
         opt = solve_option(np.float64, path)
         arrays, kw = solve_inputs(grid if coarse else scene, path)
         args = arrays + (opt,)
+        devs = devices_of(path)
         reset_launch_counts()
         t = time.perf_counter()
-        with watch_builds() as builds:
-            res_k = flat_solve(*args, device=DEVICE, **kw)
+        with watch_builds() as builds, count_shard_launches() as shards:
+            res_k = flat_solve(*args, device=devs, **kw)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t
         counts = launch_counts()
@@ -1352,9 +1478,21 @@ def f64_phase(scene, grid) -> dict:
                                  f"implies {want}")
         with plain_path():
             t = time.perf_counter()
-            res_p = flat_solve(*args, device=DEVICE, **kw)
+            res_p = flat_solve(*args, device=devs, **kw)
             torch.cuda.synchronize()
             t_p = time.perf_counter() - t
+            if path in PLAIN_REPEAT_PATHS:
+                res_p2 = flat_solve(*args, device=devs, **kw)
+                differ = [f.name for f in dataclasses.fields(res_p.trace)
+                          if not bitwise_equal(getattr(res_p.trace, f.name),
+                                               getattr(res_p2.trace,
+                                                       f.name))]
+                if differ or not (
+                        bitwise_equal(res_p.cameras, res_p2.cameras)
+                        and bitwise_equal(res_p.points, res_p2.points)):
+                    raise AssertionError(
+                        f"f64 {path}: two plain runs differ (trace fields "
+                        f"{differ}, or the solved parameters)")
         k = res_k.iterations
 
         def tally(res):
@@ -1377,8 +1515,27 @@ def f64_phase(scene, grid) -> dict:
         clean = kernel_runs["implicit_two_level" if coarse else "implicit"]
         outcome = check_path_outcome(f"f64 {path}", path, res_k,
                                      float(clean.initial_cost))
+        if path in PLAIN_REPEAT_PATHS:
+            outcome += ", two plain runs bitwise equal"
+        if path in MESH_BASE:
+            one = kernel_runs[MESH_BASE[path]]
+            if tally(one) != tally(res_k) or not torch.equal(
+                    one.trace.accept[:k], tk.accept[:k]):
+                raise AssertionError(
+                    f"f64 {path}: counts or accept pattern differ from the "
+                    f"world-1 {MESH_BASE[path]} run: {tally(res_k)}, "
+                    f"{tally(one)}")
+            rel1, _ = cost_gap(tk.cost[:k].numpy(), one.trace.cost[:k].numpy(),
+                               f"f64 {path} vs world 1",
+                               tk.recovery[:k].numpy())
+            if not rel1 <= F64_COST_RTOL:
+                raise AssertionError(
+                    f"f64 {path}: cost trajectory differs from the world-1 "
+                    f"{MESH_BASE[path]} run's (rel {rel1:.3e})")
+            outcome += (f", {rel1:.3e} from the world-1 {MESH_BASE[path]} "
+                        f"run, counts equal; launches per shard {shards}")
         if coarse:
-            res_r = flat_solve(*args, device=DEVICE, **kw)
+            res_r = flat_solve(*args, device=devs, **kw)
             same = [f.name for f in dataclasses.fields(tk)
                     if not bitwise_equal(getattr(tk, f.name),
                                          getattr(res_r.trace, f.name))]
@@ -1442,7 +1599,7 @@ def precision_phase(scene) -> None:
     from megba_tpu_torch import flat_solve
 
     for path, (_, _, rung, kernels) in PATHS.items():
-        if rung is None:
+        if rung is None or path in MESH_BASE:
             continue
         args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
                 scene.pt_idx, solve_option(np.float32, path,
@@ -1516,37 +1673,51 @@ def expected_launches(path: str, res, builds=()) -> dict:
     warm = extra.get("forcing", False)
     plain = not extra.get("use_schur", True)
     order = NEUMANN_ORDER if extra.get("precond") == "NEUMANN" else 0
+    # On a mesh of N shards each per-edge launch runs once per shard; on
+    # the 2-D mesh of C camera columns an S.p product runs one hlp per
+    # shard and C ring steps per shard instead of a world hpl and hlp.
+    N = extra.get("world", 1)
+    C = 2 if extra.get("mesh_2d") else 0
     L, P, A = res.iterations, res.pcg_iterations, res.accepted
     applies = P + (2 * L if warm else L)  # M^-1 applies of the CG
+    s_products = P + (0 if rung == "bf16" else L) + (L if warm else 0) \
+        + order * applies  # S.p products
     if plain:
         products = 2 * P + 2 * L
     else:
-        products = 2 * P + (2 if rung == "bf16" else 4) * L
-    products += (2 * L if warm else 0) + 2 * order * applies
+        products = 2 * s_products + 2 * L
+    products += 2 * L if warm and plain else 0
+    ring = 0
+    if C:  # the 2-D mesh: a world hpl + hlp for the RHS and back-sub
+        products = 2 * L + s_products
+        ring = C * s_products
     want = dict.fromkeys(launch_counts(), 0)
-    want["jtj_grad_reduce"] = 2 + 2 * (A + res.recoveries)
-    want["coupling_expand"] = 2 * L
+    want["jtj_grad_reduce"] = N * (2 + 2 * (A + res.recoveries))
+    want["coupling_expand"] = N * 2 * L
     if not fused and kind == "IMPLICIT":
-        want["coupling_expand"] += products  # one expand per product
-        want["coupling_reduce"] = products
+        want["coupling_expand"] += N * (products + ring)
+        want["coupling_reduce"] = N * (products + ring)
     elif not fused:
-        want["seg_expand"] = want["seg_reduce"] = products
+        want["seg_expand"] = want["seg_reduce"] = N * (products + ring)
     else:
-        want["fused_coupling_apply_implicit" if kind == "IMPLICIT"
-             else "fused_coupling_apply"] = products
+        implicit = kind == "IMPLICIT"
+        want["fused_coupling_apply_implicit" if implicit
+             else "fused_coupling_apply"] = N * products
+        want["fused_ring_step_apply_implicit" if implicit
+             else "fused_ring_step_apply"] = N * ring
         want["fused_block_diag_apply"] = (order + 1) * applies
     if rung is not None:
-        want["seg_expand"] += 2 * L
+        want["seg_expand"] += N * 2 * L
     if extra.get("preconditioner") == "SCHUR_DIAG":
-        want["seg_reduce"] += 9 * L
+        want["seg_reduce"] += N * 9 * L
     if extra.get("precond") in ("TWO_LEVEL", "MULTILEVEL"):
         if len(builds) != L:
             raise AssertionError(f"{path}: {len(builds)} preconditioner "
                                  f"builds in {L} LM iterations")
         plan = builds[0][2]
         base = getattr(plan, "base", plan)  # a multilevel plan's level 1
-        per_build = 3 + 9 * len(base.ec_chunks) + (
-            12 * base.num_clusters if extra.get("smooth_omega") else 0)
+        per_build = 3 * N + 9 * len(base.ec_chunks) + (
+            12 * N * base.num_clusters if extra.get("smooth_omega") else 0)
         want["seg_reduce"] += per_build * L
     return want
 
@@ -1567,8 +1738,8 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t = time.perf_counter()
-    with watch_builds() as builds:
-        res = flat_solve(*args, verbose=True, device=DEVICE, **kw)
+    with watch_builds() as builds, count_shard_launches() as shards:
+        res = flat_solve(*args, verbose=True, device=devices_of(path), **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = launch_counts()
@@ -1595,9 +1766,12 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
            "the implicit run's")
     extra = VARIANTS.get(path, (path, {}))[1]
     coarse = extra.get("precond") in ("TWO_LEVEL", "MULTILEVEL")
+    mesh = path in MESH_BASE
     limit = (AUTODIFF_COST_RTOL if "jacobian_mode" in extra
              else COOBS_COST_RTOL if "edge_order" in extra
              else LOCALITY_COST_RTOL if coarse and label != "venice"
+             else BF16_COST_RTOL if mesh and PATHS[path][2] == "bf16"
+             else FINAL_COST_RTOL if mesh
              else None)
     if limit is not None and not abs(c1 - ref_cost) <= limit * ref_cost:
         raise AssertionError(
@@ -1635,7 +1809,9 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
         f"s per LM iteration (planning and transfer included), peak "
         f"memory {peak / 2**30:.3f} GiB{gap}; {outcome}")
     log(f"{label} {path} launches: {arms} (as the code implies)")
-    if profile:
+    if mesh:
+        log(f"{label} {path} launches per shard: {shards}")
+    if profile or mesh:
         profile_solve(args, path, kw, label)
     return counts, arms, res, wall
 
@@ -1653,7 +1829,7 @@ def profile_solve(args, path: str, kw: dict, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        flat_solve(*args, device=DEVICE, **kw)
+        flat_solve(*args, device=devices_of(path), **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     events = prof.key_averages()

@@ -13,7 +13,10 @@ optional Huber / Cauchy losses (`rho_and_weight`, `robustify`);
 `Jet` / `seed_jets` are JetVector-style forward-mode dual numbers.
 `RobustOption(guards=True)` contains faults, and `flat_solve(...,
 fault_plan=...)` seeds them (`FaultPlan`, `make_nan_burst`,
-`make_point_indefinite_burst`).
+`make_point_indefinite_burst`).  `ProblemOption(world_size=N)` solves
+over N shards (`parallel/mesh.py`), the 1-D edge-sharded mesh or the 2-D
+camera x edge mesh (`SolverOption(mesh_2d=True)`), given N devices that
+may repeat one (`flat_solve(..., device=["cuda:0"] * N)`).
 """
 
 from megba_tpu_torch.common import (

@@ -30,13 +30,21 @@ device.  Trial points are costed by the engine's value-only
 residual (`ops.residuals.residual_only`): eager PyTorch has no dead-code
 elimination to drop an unused Jacobian and Schur build, so the full
 linearisation runs only on an accepted step.
+
+The loop runs over a mesh (`plans` a `parallel.mesh.ShardedPlans`; one
+device is a mesh of one shard): every edge array is a tuple of
+per-shard tensors, the residuals, Jacobians, costs and the predicted
+J.dx run per shard on its device, and the cost sums (compensated per
+shard, JAX lm.py:289-297 and 441) are summed across the shards; the
+parameters, the system and every LM scalar are replicated state, held
+once on the first shard's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -60,7 +68,8 @@ from megba_tpu_torch.ops.residuals import (
 )
 from megba_tpu_torch.ops.robust import rho_and_weight, robustify
 from megba_tpu_torch.ops import segtiles
-from megba_tpu_torch.ops.segtiles import DualPlans
+from megba_tpu_torch.parallel.collectives import for_shards, psum
+from megba_tpu_torch.parallel.mesh import ShardedPlans
 from megba_tpu_torch.robustness.faults import (
     FaultPlan,
     poison_residuals,
@@ -144,13 +153,13 @@ class LMResult:
 def lm_solve(
     cameras: torch.Tensor,
     points: torch.Tensor,
-    obs: torch.Tensor,
-    cam_idx: torch.Tensor,
-    pt_idx: torch.Tensor,
-    mask: torch.Tensor,
+    obs: Tuple[torch.Tensor, ...],
+    cam_idx: Tuple[torch.Tensor, ...],
+    pt_idx: Tuple[torch.Tensor, ...],
+    mask: Tuple[torch.Tensor, ...],
     option: ProblemOption,
-    plans: DualPlans,
-    sqrt_info: Optional[torch.Tensor] = None,
+    plans: ShardedPlans,
+    sqrt_info: Optional[Tuple[torch.Tensor, ...]] = None,
     cam_fixed: Optional[torch.Tensor] = None,
     pt_fixed: Optional[torch.Tensor] = None,
     verbose: bool = False,
@@ -158,19 +167,23 @@ def lm_solve(
     initial_region=None,
     initial_v=None,
     initial_dx: Optional[torch.Tensor] = None,
-    fault_plan: Optional[FaultPlan] = None,
+    fault_plan: Optional[Tuple[FaultPlan, ...]] = None,
     cluster_plan=None,
 ) -> LMResult:
-    """Run the LM loop to convergence.
+    """Run the LM loop to convergence over the mesh of `plans`
+    (parallel/mesh.py; parallel.mesh.distributed_lm_solve builds it).
 
-    FEATURE-MAJOR contract: cameras [9, Nc], points [3, Np], obs [2, nE],
-    sqrt_info [4, nE]; every edge array (obs, cam_idx, pt_idx, mask,
-    sqrt_info, the fault plan's edge_nan) is in the cam plan's slot order
-    (solve.flat_solve arranges this).  Jp is carried in pt-slot order,
+    FEATURE-MAJOR contract: cameras [9, Nc], points [3, Np] on the first
+    shard's device; obs [2, n_k], cam_idx, pt_idx, mask, sqrt_info
+    [4, n_k] and `fault_plan` are tuples, one entry per shard on its
+    device (a shard's fault plan carries its own edge poison), each edge
+    array in its shard's cam plan slot order (solve.flat_solve arranges
+    this).  Jp is carried in pt-slot order,
     so both Hessian sides and both coupling products reduce over sorted
     segments.  With `option.compute_kind` EXPLICIT the Schur system also
     carries the coupling rows W, and with `solver_option.fused_kernels`
-    `plans` must carry the fused directions (ops/fused.with_fused_plans);
+    each shard's plans must carry the fused directions
+    (ops/fused.with_fused_plans);
     the precision rungs (`mixed_precision_pcg`, `solver_option.bf16`)
     reach the PCG only.
 
@@ -180,11 +193,10 @@ def lm_solve(
     `initial_region` / `initial_v` replace the trust-region start state,
     and `initial_dx` ([cd, Nc]) seeds the warm-start carry under
     `SolverOption.warm_start`: the resume hooks of a split solve.
-    `fault_plan` (tensors on the solve device) injects seeded faults;
-    `option.robust_option.guards` contains them.  `cluster_plan` is the
-    coarse space of `SolverOption.precond` TWO_LEVEL
-    (ops/segtiles.device_cluster_plan) or MULTILEVEL
-    (device_multilevel_plan), planned over the camera-slot stream.
+    `fault_plan` injects seeded faults; `option.robust_option.guards`
+    contains them.  `cluster_plan` is the coarse space of
+    `SolverOption.precond` TWO_LEVEL or MULTILEVEL, split over the
+    shards (ops/segtiles.device_sharded_coarse_plan).
     """
     if residual_jac_fn is None:
         residual_jac_fn = make_residual_jacobian_fn(mode=option.jacobian_mode)
@@ -213,16 +225,29 @@ def lm_solve(
             "ops.segtiles.device_cluster_plan(...) / "
             "device_multilevel_plan(...)")
 
+    # The edge side, one record per shard.
+    n_sh = len(plans.shards)
+    faults = fault_plan if fault_plan is not None else (None,) * n_sh
+    shards = list(zip(obs, cam_idx, pt_idx, mask,
+                      sqrt_info if sqrt_info is not None else (None,) * n_sh,
+                      plans.shards, faults, plans.devices))
+
+    def reduce(parts):
+        return psum(parts, device)
+
     def scalar(x):
         return torch.tensor(x, dtype=dtype, device=device)
 
-    def linearize(cams, pts, k):
+    def edge_linearize(sh, cams, pts, k):
+        ob, ci, pi, m, si, pl, fp, dev = sh
+        cf = None if cam_fixed is None else cam_fixed.to(dev)
+        pf = None if pt_fixed is None else pt_fixed.to(dev)
         r, Jc, Jp = residual_jac_fn(
-            cams.index_select(1, cam_idx), pts.index_select(1, pt_idx), obs)
-        r, Jc, Jp = weight_system_inputs(
-            r, Jc, Jp, cam_idx, pt_idx, mask, sqrt_info, cam_fixed, pt_fixed)
-        if fault_plan is not None:
-            r = poison_residuals(r, fault_plan, k)
+            cams.to(dev).index_select(1, ci), pts.to(dev).index_select(1, pi),
+            ob)
+        r, Jc, Jp = weight_system_inputs(r, Jc, Jp, ci, pi, m, si, cf, pf)
+        if fp is not None:
+            r = poison_residuals(r, fp, k)
         if robust == RobustKind.NONE:
             cost = wcost = comp_sum_sq(r)
         else:
@@ -230,23 +255,44 @@ def lm_solve(
             # test uses Sum rho, the model decrease the weighted cost.
             r, Jc, Jp, rho_e = robustify(r, Jc, Jp, robust, delta)
             cost, wcost = comp_sum(rho_e), comp_sum_sq(r)
-        Jp = plans.to_pt(Jp)
+        return r, Jc, pl.to_pt(Jp), cost, wcost
+
+    def linearize(cams, pts, k):
+        out = for_shards(lambda sh: edge_linearize(sh, cams, pts, k), shards)
+        r, Jc, Jp = (tuple(o[i] for o in out) for i in range(3))
+        cost, wcost = (reduce([o[i] for o in out]) for i in (3, 4))
         system = build_schur_system(r, Jc, Jp, plans, num_cameras,
                                     num_points, cam_fixed, pt_fixed,
                                     option.compute_kind)
-        if fault_plan is not None:
-            system = poison_system(system, fault_plan, k)
+        if faults[0] is not None:
+            system = poison_system(system, faults[0], k)
         return r, Jc, Jp, system, cost, wcost
 
-    def trial_cost(cams, pts, k):
-        r = residual_fn(
-            cams.index_select(1, cam_idx), pts.index_select(1, pt_idx), obs)
-        r = apply_sqrt_info_residual(r, sqrt_info) * mask[None, :]
-        if fault_plan is not None:
-            r = poison_residuals(r, fault_plan, k)
+    def edge_trial_cost(sh, cams, pts, k):
+        ob, ci, pi, m, si, _, fp, dev = sh
+        r = residual_fn(cams.to(dev).index_select(1, ci),
+                        pts.to(dev).index_select(1, pi), ob)
+        r = apply_sqrt_info_residual(r, si) * m[None, :]
+        if fp is not None:
+            r = poison_residuals(r, fp, k)
         if robust == RobustKind.NONE:
             return comp_sum_sq(r)
         return comp_sum(rho_and_weight((r * r).sum(0), robust, delta)[0])
+
+    def trial_cost(cams, pts, k):
+        return reduce(for_shards(
+            lambda sh: edge_trial_cost(sh, cams, pts, k), shards))
+
+    def edge_predicted(sh, dx_cam, dx_pt, r_k, Jc_k, Jp_k):
+        # The linearised (weighted) residual J dx + r, from the unscaled
+        # full-precision Jc/Jp whatever the PCG's precision rung.  Jp is
+        # pt-ordered, so its [od] rows hop to cam order.
+        pl, dev = sh[5], sh[7]
+        dc, dp = dx_cam.to(dev), dx_pt.to(dev)
+        jc_dx = segtiles.coupling_expand(dc, Jc_k, pl.cam, dc.shape[0])
+        jp_dx = pl.to_cam(
+            segtiles.coupling_expand(dp, Jp_k, pl.pt, dp.shape[0]))
+        return comp_sum_sq(jc_dx + jp_dx + r_k)
 
     r, Jc, Jp, system, cost, wcost = linearize(cameras, points, 0)
     cost0 = cost
@@ -275,6 +321,7 @@ def lm_solve(
     if use_schur:
         pcg_solve = schur_pcg_solve
         pcg_kw.update(fused_kernels=solver_opt.fused_kernels,
+                      bf16_collectives=solver_opt.bf16_collectives,
                       precond=solver_opt.precond,
                       preconditioner=solver_opt.preconditioner,
                       neumann_order=solver_opt.neumann_order,
@@ -302,14 +349,11 @@ def lm_solve(
         pts_new = points + dx_pt
 
         # Gain-ratio denominator: the linearised (weighted) cost at dx
-        # minus the weighted cost, from the unscaled full-precision Jc/Jp
-        # whatever the PCG's precision rung.  Jp is pt-ordered, so its
-        # [od] rows hop to cam order.
-        jc_dx = segtiles.coupling_expand(dx_cam, Jc, plans.cam,
-                                         dx_cam.shape[0])
-        jp_dx = plans.to_cam(
-            segtiles.coupling_expand(dx_pt, Jp, plans.pt, dx_pt.shape[0]))
-        predicted = comp_sum_sq(jc_dx + jp_dx + r)
+        # minus the weighted cost.
+        predicted = reduce(for_shards(
+            lambda sh, r_k, jc, jp: edge_predicted(sh, dx_cam, dx_pt, r_k,
+                                                   jc, jp),
+            shards, r, Jc, Jp))
         denominator = torch.clamp(predicted - wcost, max=-_TINY)
 
         cost_new = trial_cost(cams_new, pts_new, k)

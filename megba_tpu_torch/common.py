@@ -11,8 +11,9 @@ Two things differ on purpose:
   `ProblemOption.device` defaults to `Device.CUDA`.  An entry point's own
   `device=` argument, when given, wins over it.
 - `validate_options` refuses every option value the port does not
-  implement yet with a `NotImplementedError` that names the option, so a
-  configuration is never silently run as something else.  The option
+  implement yet (telemetry, metrics) with a `NotImplementedError` that
+  names the option, so a configuration is never silently run as
+  something else.  The option
   combinations the JAX package itself refuses raise its `ValueError`s
   first.
 """
@@ -166,7 +167,9 @@ class AlgoOption:
 @dataclasses.dataclass(frozen=True)
 class ProblemOption:
     """Problem-level options.  `dtype` is a numpy float dtype (float32 or
-    float64); `device` is the default device of the entry points."""
+    float64); `device` is the default device of the entry points (with
+    `world_size` N > 1, CUDA takes the first N visible cards and CPU
+    puts N shards on the CPU)."""
 
     use_schur: bool = True
     device: Device = Device.CUDA
@@ -208,11 +211,11 @@ def _unported(name: str, value) -> NotImplementedError:
         "with or without fused kernels, on every rung of the precision "
         "ladder, or the plain full-system PCG) with any Jacobian mode and "
         "robust loss, forcing and warm starts, guards and fault "
-        "injection, either edge order, and every preconditioner family "
+        "injection, either edge order, every preconditioner family "
         "(JACOBI, NEUMANN, TWO_LEVEL, MULTILEVEL) on the HPP or "
-        "SCHUR_DIAG block diagonal; still refused: the multi-device "
-        "options (world_size, mesh_2d, bf16_collectives), telemetry and "
-        "metrics")
+        "SCHUR_DIAG block diagonal, and the multi-device solve (world_size, "
+        "mesh_2d, cam_blocks, bf16_collectives); still refused: telemetry "
+        "and metrics")
 
 
 def validate_options(option: ProblemOption) -> None:
@@ -260,6 +263,24 @@ def validate_options(option: ProblemOption) -> None:
             "smooth_omega smooths the camera-graph coarse space; it "
             "requires precond=TWO_LEVEL or MULTILEVEL, got "
             f"{so.precond.name}")
+    if so.cam_blocks < 0:
+        raise ValueError(
+            f"cam_blocks must be >= 0 (0 = auto factorisation), got "
+            f"{so.cam_blocks}")
+    if so.mesh_2d:
+        if not option.use_schur:
+            raise ValueError(
+                "mesh_2d is only implemented for the Schur solver "
+                "(use_schur=True); the plain full-system path has no "
+                "camera-tiled matvec")
+        cb = so.cam_blocks
+        if cb > 0 and (cb > option.world_size
+                       or option.world_size % cb != 0):
+            raise ValueError(
+                f"mesh_2d needs world_size = edge_shards x cam_blocks: "
+                f"cam_blocks={cb} does not divide "
+                f"world_size={option.world_size} (pick a divisor, or 0 "
+                "for the automatic square-ish factorisation)")
     if np.dtype(option.dtype) not in DTYPE_TO_TORCH:
         raise ValueError(f"unsupported dtype {option.dtype}")
     if not isinstance(option.device, Device):
@@ -291,10 +312,6 @@ def validate_options(option: ProblemOption) -> None:
             "edge pipeline to fuse")
     _validate_precision(option)
     unported = [
-        ("world_size", option.world_size, option.world_size != 1),
-        ("solver_option.mesh_2d", so.mesh_2d, so.mesh_2d),
-        ("solver_option.bf16_collectives", so.bf16_collectives,
-         so.bf16_collectives),
         ("telemetry", option.telemetry, option.telemetry is not None),
         ("metrics", option.metrics, bool(option.metrics)),
     ]
@@ -332,8 +349,10 @@ def _validate_precision(option: ProblemOption) -> None:
                 "stored rows before multiplying) — pick one")
     if so.bf16_collectives and not so.bf16:
         raise ValueError(
-            "bf16_collectives compresses the in-body collective payloads of "
-            "the bf16 matvec pipeline; it requires SolverOption.bf16=True")
+            "bf16_collectives compresses the in-body collective payloads "
+            "of the bf16 matvec pipeline; it requires SolverOption."
+            "bf16=True (the storage rung) — enabling it alone would halve "
+            "wire traffic of products that never went bf16")
 
 
 def resolve_device(device: Union[None, str, torch.device],

@@ -78,7 +78,9 @@ def schur_system_to_torch(
 
     `edge_perm` reorders W's edge columns into the port's slot order
     (`W[:, edge_perm]`, e.g. the cam plan's `perm` for a system built in
-    the caller's edge order).  `dtype` defaults to the arrays' own.
+    the caller's edge order).  `dtype` defaults to the arrays' own.  W
+    becomes the rows of a one-shard mesh (a 1-tuple,
+    parallel.mesh.one_shard).
     """
     def put(a):
         t = torch.from_numpy(np.array(a, order="C"))  # a writable copy
@@ -87,7 +89,7 @@ def schur_system_to_torch(
     W = None
     if getattr(system, "W", None) is not None:
         W = np.asarray(system.W)
-        W = put(W if edge_perm is None else W[:, edge_perm])
+        W = (put(W if edge_perm is None else W[:, edge_perm]),)
     return SchurSystem(Hpp=put(system.Hpp), Hll=put(system.Hll),
                        g_cam=put(system.g_cam), g_pt=put(system.g_pt), W=W)
 

@@ -24,10 +24,23 @@ def gather_fm(params: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def segsum_fm(data: torch.Tensor, idx: torch.Tensor,
               num_segments: int) -> torch.Tensor:
-    """Scatter-add of [F, nE] rows into [F, num_segments]."""
-    out = torch.zeros((data.shape[0], num_segments), dtype=data.dtype,
-                      device=data.device)
-    return out.index_add_(1, idx, data)
+    """Scatter-add of [F, nE] rows into [F, num_segments], in a fixed
+    order: the edges are stably sorted by index and each segment summed
+    in edge order (`torch.segment_reduce`), so two runs on the card are
+    bitwise equal, where `index_add_`'s CUDA atomics are not."""
+    idx = idx.long()
+    order = torch.sort(idx, stable=True).indices
+    counts = torch.bincount(idx, minlength=num_segments)
+    seg_ptr = torch.zeros(num_segments + 1, dtype=torch.int64,
+                          device=data.device)
+    torch.cumsum(counts, 0, out=seg_ptr[1:])
+    rows = data.index_select(1, order)
+    if rows.shape[1] == 0:
+        return torch.zeros((data.shape[0], num_segments), dtype=data.dtype,
+                           device=data.device)
+    offsets = seg_ptr.expand(data.shape[0], num_segments + 1).contiguous()
+    return torch.segment_reduce(rows, "sum", offsets=offsets, axis=1,
+                                unsafe=True)
 
 
 def coupling_rows(Jc: torch.Tensor, Jp: torch.Tensor, od: int) -> torch.Tensor:

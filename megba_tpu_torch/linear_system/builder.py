@@ -14,6 +14,13 @@ the stored Jacobians at every matvec (solver/pcg.py).  EXPLICIT stores
 the per-edge blocks W_e = Jc_e^T Jp_e once per linearisation, in
 camera-slot order (row a*pd+b, `core.fm.coupling_rows`), and every
 matvec contracts them.
+
+The system is built over a mesh (`plans` a `parallel.mesh.ShardedPlans`;
+one device is a mesh of one shard, `parallel.mesh.one_shard`): the edge
+arrays are tuples of per-shard tensors, each shard reduces its own edges
+over all vertices, and the four row blocks are summed across the shards
+(the psum at JAX builder.py:226) on the first shard's device before the
+fixed and edge-less vertices are patched; W stays per shard.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from megba_tpu_torch.core.fm import coupling_rows
 from megba_tpu_torch.ops.residuals import apply_sqrt_info
 from megba_tpu_torch.ops import segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
+from megba_tpu_torch.parallel.collectives import for_shards, psum
+from megba_tpu_torch.parallel.mesh import ShardedPlans
 
 
 @dataclasses.dataclass
@@ -38,7 +47,8 @@ class SchurSystem:
     Hll: torch.Tensor  # [pd*pd, Np] rows
     g_cam: torch.Tensor  # [cd, Nc]
     g_pt: torch.Tensor  # [pd, Np]
-    W: Optional[torch.Tensor] = None  # [cd*pd, nE] cam-slot order, EXPLICIT
+    # EXPLICIT: per shard, the [cd*pd, n_k] rows in cam-slot order.
+    W: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def weight_system_inputs(
@@ -70,11 +80,21 @@ def weight_system_inputs(
     return r, Jc, Jp
 
 
+def build_schur_partials(r: torch.Tensor, Jc: torch.Tensor,
+                         Jp: torch.Tensor, plans: DualPlans):
+    """One shard's sums before any patching: the
+    Hpp rows [cd*cd, Nc], g_cam [cd, Nc], the Hll rows [pd*pd, Np] and
+    g_pt [pd, Np], through `jtj_grad_reduce` on each side."""
+    hpp_rows, g_cam = segtiles.jtj_grad_reduce(Jc, r, plans.cam)
+    Hll, g_pt = segtiles.jtj_grad_reduce(Jp, plans.to_pt(r), plans.pt)
+    return hpp_rows, g_cam, Hll, g_pt
+
+
 def build_schur_system(
-    r: torch.Tensor,
-    Jc: torch.Tensor,
-    Jp: torch.Tensor,
-    plans: DualPlans,
+    r: Tuple[torch.Tensor, ...],
+    Jc: Tuple[torch.Tensor, ...],
+    Jp: Tuple[torch.Tensor, ...],
+    plans: ShardedPlans,
     num_cameras: int,
     num_points: int,
     cam_fixed: Optional[torch.Tensor] = None,
@@ -83,21 +103,23 @@ def build_schur_system(
 ) -> SchurSystem:
     """Assemble the Schur-form normal equations from per-edge Jacobians.
 
-    Inputs are already weighted by `weight_system_inputs`: `r`/`Jc` in
-    cam-slot order, `Jp` in pt-slot order.  Fixed vertices get an
-    identity Hessian block and zero gradient; vertices with no edge get an
-    identity block (their gradient is already zero), so both updates are
-    exactly zero and the damped blocks stay invertible.  EXPLICIT also
-    stores the coupling rows W (from the same weighted, masked rows, Jp
-    brought to cam-slot order first).
+    Inputs are per-shard tuples, already weighted by
+    `weight_system_inputs`: `r`/`Jc` in cam-slot order, `Jp` in pt-slot
+    order.  Fixed vertices get an identity Hessian block and
+    zero gradient; vertices with no edge get an identity block (their
+    gradient is already zero), so both updates are exactly zero and the
+    damped blocks stay invertible.  EXPLICIT also stores the coupling
+    rows W (from the same weighted, masked rows, Jp brought to cam-slot
+    order first).
     """
-    od = r.shape[0]
-    cd = Jc.shape[0] // od
-    pd = Jp.shape[0] // od
-    dtype, device = r.dtype, r.device
+    od = r[0].shape[0]
+    cd = Jc[0].shape[0] // od
+    pd = Jp[0].shape[0] // od
+    dtype, device = r[0].dtype, r[0].device
 
-    hpp_rows, g_cam = segtiles.jtj_grad_reduce(Jc, r, plans.cam)
-    Hll, g_pt = segtiles.jtj_grad_reduce(Jp, plans.to_pt(r), plans.pt)
+    parts = for_shards(build_schur_partials, r, Jc, Jp, plans.shards)
+    hpp_rows, g_cam, Hll, g_pt = (psum([p[i] for p in parts], device)
+                                  for i in range(4))
 
     # Camera blocks to batched [Nc, cd, cd].
     Hpp = torch.movedim(hpp_rows.reshape(cd, cd, num_cameras), -1, 0)
@@ -121,7 +143,9 @@ def build_schur_system(
     Hll = torch.where(empty_p[None, :], eye_p_rows[:, None], Hll)
     W = None
     if compute_kind == ComputeKind.EXPLICIT:
-        W = coupling_rows(Jc, plans.to_cam(Jp), od)
+        W = tuple(for_shards(
+            lambda jc, jp, pl: coupling_rows(jc, pl.to_cam(jp), od),
+            Jc, Jp, plans.shards))
     return SchurSystem(Hpp=Hpp.contiguous(), Hll=Hll.contiguous(),
                        g_cam=g_cam.contiguous(), g_pt=g_pt.contiguous(), W=W)
 

@@ -47,6 +47,13 @@ multiply (`mixed_precision_pcg`, at float32 or float64);
 bfloat16 and each product to bfloat16, then sums in float32
 (`SolverOption.bf16`; the implicit product also rounds u).
 
+The 2-D mesh's ring step (`fused_single_block_apply`, JAX
+fused.py:592-626) runs kernels 8 and 7 with one input block, a rotating
+point shard, and one output block, a camera tile: a `ring_step_plan` is
+a `FusedPlan` over one bucket's entries (pt -> cam, `w_in_major=False`),
+and the wrappers `fused_ring_step_apply` / `_implicit` launch the same
+kernels under launch counts of their own.
+
 Each kernel has a plain PyTorch version (`*_plain`) in this module.  The
 wrapper takes it only for tensors on the CPU; for CUDA tensors it
 launches the kernel (`csrc/fused.cu`) or raises, and adds one to its
@@ -58,6 +65,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from megba_tpu_torch.ops import kernels as _kernels
@@ -133,6 +141,26 @@ def with_fused_plans(plans: DualPlans) -> DualPlans:
     to_cam = _fused_plan(pt.seg.index_select(0, cam.inv), cam,
                          pt.num_segments)
     return dataclasses.replace(plans, fused_to_pt=to_pt, fused_to_cam=to_cam)
+
+
+def ring_step_plan(in_local, out_local, slots, num_in: int, num_out: int,
+                   device) -> FusedPlan:
+    """The fused plan of one 2-D ring step (JAX `fused_single_block_apply`,
+    one input block and one output block): entry i reads input
+    `in_local[i]` (a point of the rotating shard) and adds onto output
+    `out_local[i]` (a camera of the tile, non-decreasing over the
+    entries), from the rows of device-local slot `slots[i]` (the output
+    plan's `inv`).  Host numpy in, tensors on `device` out."""
+    out_local = np.asarray(out_local, np.int64)
+    seg_ptr = np.zeros(num_out + 1, np.int64)
+    np.cumsum(np.bincount(out_local, minlength=num_out), out=seg_ptr[1:])
+    out = SegPlan(
+        seg=torch.from_numpy(out_local.astype(np.int32)).to(device),
+        seg_ptr=torch.from_numpy(seg_ptr).to(device), num_segments=num_out,
+        inv=torch.from_numpy(np.asarray(slots, np.int64)).to(device))
+    return _fused_plan(
+        torch.from_numpy(np.asarray(in_local, np.int32)).to(device), out,
+        num_in)
 
 
 def _w_row(a: int, b: int, d_in: int, d_out: int, w_in_major: bool) -> int:
@@ -254,29 +282,26 @@ def _plan_args(fplan: FusedPlan, out: torch.Tensor, n: int) -> tuple:
             int(fplan.out.per_thread))
 
 
-def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
-                         fplan: FusedPlan, w_in_major: bool,
-                         bf16_operands: bool = False) -> torch.Tensor:
-    """One explicit-Schur coupling direction: table [d_in, num_in] ->
-    [d_out, num_out], out[:, o] = sum over the slots e of output vertex o
-    of W_e . table[:, in(e)].  `W` [d_in*d_out, n] must be in the output
-    side's slot order (`fplan.out`)."""
+def _coupling_apply(counter, name: str, W: torch.Tensor,
+                    table: torch.Tensor, fplan: FusedPlan, w_in_major: bool,
+                    bf16_operands: bool) -> torch.Tensor:
+    """Check and launch kernel 8 (`megba_fused_coupling_apply`) for the
+    wrapper `counter`, or run its plain version on the CPU."""
     d_in = table.shape[0]
     d_out = W.shape[0] // d_in
     n = fplan.out.n_slots
     if W.shape != (d_in * d_out, n) or table.shape != (d_in, fplan.num_in):
         raise ValueError(
-            f"fused_coupling_apply: W {tuple(W.shape)}, table "
+            f"{name}: W {tuple(W.shape)}, table "
             f"{tuple(table.shape)} and {n} plan slots disagree")
-    arm_code, arm = _kernels.check_arm("fused_coupling_apply", table,
-                                       bf16_operands, W=W)
+    arm_code, arm = _kernels.check_arm(name, table, bf16_operands, W=W)
     dev = table.device
     shape = (d_in, d_out, bool(w_in_major))
     if dev.type == "cuda" and shape not in SUPPORTED_DIRECTIONS:
         raise NotImplementedError(
-            f"fused_coupling_apply: no CUDA kernel for (d_in, d_out, "
+            f"{name}: no CUDA kernel for (d_in, d_out, "
             f"w_in_major) = {shape} (built for {SUPPORTED_DIRECTIONS})")
-    _check_plan("fused_coupling_apply", fplan, n, dev)
+    _check_plan(name, fplan, n, dev)
     if dev.type == "cpu":
         return fused_coupling_apply_plain(W, table, fplan, w_in_major,
                                           bf16_operands)
@@ -287,8 +312,59 @@ def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
             arm_code, d_in, d_out, int(w_in_major), W.data_ptr(),
             table.data_ptr(), *_plan_args(fplan, out, n),
             _kernels.current_stream(dev))
-    _kernels.raise_on(_lib(), code, "fused_coupling_apply")
-    _kernels.count_launch(fused_coupling_apply, arm)
+    _kernels.raise_on(_lib(), code, name)
+    _kernels.count_launch(counter, arm)
+    return out
+
+
+def fused_coupling_apply(W: torch.Tensor, table: torch.Tensor,
+                         fplan: FusedPlan, w_in_major: bool,
+                         bf16_operands: bool = False) -> torch.Tensor:
+    """One explicit-Schur coupling direction: table [d_in, num_in] ->
+    [d_out, num_out], out[:, o] = sum over the slots e of output vertex o
+    of W_e . table[:, in(e)].  `W` [d_in*d_out, n] must be in the output
+    side's slot order (`fplan.out`)."""
+    return _coupling_apply(fused_coupling_apply, "fused_coupling_apply", W,
+                           table, fplan, w_in_major, bf16_operands)
+
+
+def _implicit_apply(counter, name: str, Jin: torch.Tensor,
+                    Jout: torch.Tensor, table: torch.Tensor,
+                    fplan: FusedPlan, bf16_operands: bool) -> torch.Tensor:
+    """Check and launch kernel 7 (`megba_fused_implicit_apply`) for the
+    wrapper `counter`, or run its plain version on the CPU."""
+    d_in = table.shape[0]
+    od = Jin.shape[0] // d_in
+    d_out = Jout.shape[0] // max(od, 1)
+    n = fplan.out.n_slots
+    if (od < 1 or Jin.shape != (od * d_in, n)
+            or Jout.shape != (od * d_out, n)
+            or table.shape != (d_in, fplan.num_in)):
+        raise ValueError(
+            f"{name}: Jin {tuple(Jin.shape)}, Jout "
+            f"{tuple(Jout.shape)}, table {tuple(table.shape)} and {n} plan "
+            "slots disagree")
+    arm_code, arm = _kernels.check_arm(name, table, bf16_operands, Jin=Jin,
+                                       Jout=Jout)
+    dev = table.device
+    shape = (d_in, d_out, od)
+    if dev.type == "cuda" and shape not in SUPPORTED_IMPLICIT:
+        raise NotImplementedError(
+            f"{name}: no CUDA kernel for (d_in, "
+            f"d_out, od) = {shape} (built for {SUPPORTED_IMPLICIT})")
+    _check_plan(name, fplan, n, dev)
+    if dev.type == "cpu":
+        return fused_coupling_apply_implicit_plain(Jin, Jout, table, fplan,
+                                                   bf16_operands)
+    out = torch.empty((d_out, fplan.out.num_segments), dtype=table.dtype,
+                      device=dev)
+    with torch.cuda.device(dev):
+        code = _lib().megba_fused_implicit_apply(
+            arm_code, d_in, d_out, Jin.data_ptr(), Jout.data_ptr(),
+            table.data_ptr(), *_plan_args(fplan, out, n),
+            _kernels.current_stream(dev))
+    _kernels.raise_on(_lib(), code, name)
+    _kernels.count_launch(counter, arm)
     return out
 
 
@@ -301,40 +377,62 @@ def fused_coupling_apply_implicit(Jin: torch.Tensor, Jout: torch.Tensor,
     of Jout_e^T (Jin_e . table[:, in(e)]).  `Jin` [od*d_in, n] and
     `Jout` [od*d_out, n] must be in the output side's slot order
     (`fplan.out`)."""
-    d_in = table.shape[0]
-    od = Jin.shape[0] // d_in
-    d_out = Jout.shape[0] // max(od, 1)
-    n = fplan.out.n_slots
-    if (od < 1 or Jin.shape != (od * d_in, n)
-            or Jout.shape != (od * d_out, n)
-            or table.shape != (d_in, fplan.num_in)):
-        raise ValueError(
-            f"fused_coupling_apply_implicit: Jin {tuple(Jin.shape)}, Jout "
-            f"{tuple(Jout.shape)}, table {tuple(table.shape)} and {n} plan "
-            "slots disagree")
-    arm_code, arm = _kernels.check_arm("fused_coupling_apply_implicit",
-                                       table, bf16_operands, Jin=Jin,
-                                       Jout=Jout)
-    dev = table.device
-    shape = (d_in, d_out, od)
-    if dev.type == "cuda" and shape not in SUPPORTED_IMPLICIT:
-        raise NotImplementedError(
-            f"fused_coupling_apply_implicit: no CUDA kernel for (d_in, "
-            f"d_out, od) = {shape} (built for {SUPPORTED_IMPLICIT})")
-    _check_plan("fused_coupling_apply_implicit", fplan, n, dev)
-    if dev.type == "cpu":
-        return fused_coupling_apply_implicit_plain(Jin, Jout, table, fplan,
-                                                   bf16_operands)
-    out = torch.empty((d_out, fplan.out.num_segments), dtype=table.dtype,
-                      device=dev)
-    with torch.cuda.device(dev):
-        code = _lib().megba_fused_implicit_apply(
-            arm_code, d_in, d_out, Jin.data_ptr(), Jout.data_ptr(),
-            table.data_ptr(), *_plan_args(fplan, out, n),
-            _kernels.current_stream(dev))
-    _kernels.raise_on(_lib(), code, "fused_coupling_apply_implicit")
-    _kernels.count_launch(fused_coupling_apply_implicit, arm)
-    return out
+    return _implicit_apply(fused_coupling_apply_implicit,
+                           "fused_coupling_apply_implicit", Jin, Jout, table,
+                           fplan, bf16_operands)
+
+
+def fused_ring_step_apply(W: torch.Tensor, table: torch.Tensor,
+                          fplan: FusedPlan, w_in_major: bool = False,
+                          bf16_operands: bool = False) -> torch.Tensor:
+    """Kernel 8 in its ring-step call form (`fused_single_block_apply`
+    with W rows): the same kernel as `fused_coupling_apply` over a
+    `ring_step_plan`, its launches counted apart."""
+    return _coupling_apply(fused_ring_step_apply, "fused_ring_step_apply",
+                           W, table, fplan, w_in_major, bf16_operands)
+
+
+def fused_ring_step_apply_implicit(Jin: torch.Tensor, Jout: torch.Tensor,
+                                   table: torch.Tensor, fplan: FusedPlan,
+                                   bf16_operands: bool = False
+                                   ) -> torch.Tensor:
+    """Kernel 7 in its ring-step call form (`fused_single_block_apply`
+    with Jacobian rows), its launches counted apart."""
+    return _implicit_apply(fused_ring_step_apply_implicit,
+                           "fused_ring_step_apply_implicit", Jin, Jout,
+                           table, fplan, bf16_operands)
+
+
+def fused_ring_step_apply_plain(W: torch.Tensor, table: torch.Tensor,
+                                fplan: FusedPlan, w_in_major: bool = False,
+                                bf16_operands: bool = False) -> torch.Tensor:
+    """The plain version of `fused_ring_step_apply`."""
+    return fused_coupling_apply_plain(W, table, fplan, w_in_major,
+                                      bf16_operands)
+
+
+def fused_ring_step_apply_implicit_plain(
+        Jin: torch.Tensor, Jout: torch.Tensor, table: torch.Tensor,
+        fplan: FusedPlan, bf16_operands: bool = False) -> torch.Tensor:
+    """The plain version of `fused_ring_step_apply_implicit`."""
+    return fused_coupling_apply_implicit_plain(Jin, Jout, table, fplan,
+                                               bf16_operands)
+
+
+def fused_single_block_apply(rows: torch.Tensor, table: torch.Tensor,
+                             fplan: FusedPlan, w_in_major: bool = False,
+                             rows_out=None,
+                             bf16_operands: bool = False) -> torch.Tensor:
+    """The 2-D mesh's ring-step contraction (JAX fused.py:592-626): one
+    input block (the rotating point shard `table` [d_in, Sp]) and one
+    output block (the camera tile, `fplan.out.num_segments` cameras).
+    `rows` are in the plan's entry order; with `rows_out` it is the
+    implicit two-stage product Jout^T (Jin x), rows = Jin."""
+    if rows_out is None:
+        return fused_ring_step_apply(rows, table, fplan, w_in_major,
+                                     bf16_operands)
+    return fused_ring_step_apply_implicit(rows, rows_out, table, fplan,
+                                          bf16_operands)
 
 
 def fused_block_diag_apply(Hrows: torch.Tensor, x: torch.Tensor,
@@ -367,7 +465,8 @@ def fused_block_diag_apply(Hrows: torch.Tensor, x: torch.Tensor,
 
 
 KERNELS = (fused_coupling_apply, fused_coupling_apply_implicit,
-           fused_block_diag_apply)
+           fused_block_diag_apply, fused_ring_step_apply,
+           fused_ring_step_apply_implicit)
 
 
 def reset_launch_counts() -> None:

@@ -13,7 +13,12 @@ described by its sorted segment id per slot and CSR offsets
 `seg_ptr[nS + 1]`.  The camera-cluster coarse spaces of TWO_LEVEL and
 MULTILEVEL are planned here too (`build_camera_clusters`,
 `build_cluster_plan`, `build_multilevel_plan`), over the camera-slot
-stream, with the segment plans of their device sums.
+stream, with the segment plans of their device sums.  The multi-device
+solve plans here too: the 1-D mesh's per-shard dual plans
+(`make_sharded_dual_plans`), the coarse plans' split
+over the shards (`shard_cluster_plan`, `device_sharded_coarse_plan`)
+and the 2-D mesh's camera-tile plan (`build_camera_tile_plan`,
+`device_camera_tile_plan`).
 
 The TPU plans also padded each block of segments to whole tiles: that
 padding existed for the one-hot MXU matmuls (a tile had to touch one
@@ -25,7 +30,8 @@ and an empty segment sums to zero.
 
 Kernels (`jtj_grad_reduce`, `coupling_expand`, `coupling_reduce`,
 `seg_reduce`, `seg_expand`): each has a plain PyTorch version (`*_plain`,
-gathers and `index_add_`) and a hand-written CUDA kernel
+gathers and fixed-order segment sums, `segment_sum_sorted`) and a
+hand-written CUDA kernel
 (`csrc/segtiles.cu`).  The wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises,
 and adds one to its `launches` count (and to that of the arm it ran,
@@ -43,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import TYPE_CHECKING, Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -112,6 +118,24 @@ class SegPlan:
     @property
     def per_thread(self) -> bool:
         return self.n_slots < PER_THREAD_MAX_MEAN * max(self.num_segments, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """An expand-only plan: the segment id of each slot, in any order.
+    It has no offsets, so no segment sum can be asked of it: only the
+    expands (`seg_expand`, `coupling_expand`) take it."""
+
+    seg: torch.Tensor  # [n] int32 segment id per slot
+    num_segments: int
+
+    @property
+    def n_slots(self) -> int:
+        return self.seg.shape[0]
+
+
+# What an expand takes: a reduce plan, or a gather plan alone.
+ExpandPlan = Union[SegPlan, GatherPlan]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,6 +261,12 @@ class DeviceClusterPlan:
     pc_pt: torch.Tensor  # [n_pc] int64
     ec_slot: torch.Tensor  # [n_ec] int64
     ec_chunks: Tuple[Tuple[int, int, int, SegPlan], ...]
+
+    @property
+    def shards(self) -> Tuple["DeviceClusterPlan", ...]:
+        """One device's plan is the one shard of its split (the builds
+        read every coarse plan shard by shard, `ShardedClusterPlan`)."""
+        return (self,)
 
 
 def build_camera_clusters(
@@ -463,14 +493,389 @@ def device_multilevel_plan(plan: MultiLevelPlan,
 
 
 # ---------------------------------------------------------------------------
+# Sharded plans (the multi-device solve, parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                            num_cameras: int, num_points: int,
+                            devices) -> Tuple[list, Tuple[DualPlans, ...]]:
+    """Per-shard dual plans for the edge-sharded mesh (JAX
+    segtiles.py:896-983).
+
+    The edges are camera-sorted (stable) and cut into len(devices)
+    contiguous chunks with bounds (k n) // N, the JAX package's tiled
+    partition, which spreads the real edges evenly (its untiled lowering
+    pads to N * EDGE_QUANTUM and splits the padded stream instead).  Each
+    shard's plans cover all global segments.  Returns (perms, plans):
+    shard k's edge arrays are `arr[perms[k]]`, in its camera-slot order,
+    and `plans[k]` lives on devices[k].  No padding: the CSR plans need
+    none.
+    """
+    cam_idx = np.asarray(cam_idx)
+    pt_idx = np.asarray(pt_idx)
+    n = int(cam_idx.shape[0])
+    ws = len(devices)
+    order = np.argsort(cam_idx, kind="stable")
+    bounds = [(k * n) // ws for k in range(ws + 1)]
+    perms, plans = [], []
+    for k in range(ws):
+        sel = order[bounds[k]:bounds[k + 1]]
+        plan_c, dp = make_dual_plans(cam_idx[sel], pt_idx[sel], num_cameras,
+                                     num_points, devices[k])
+        perms.append(sel[plan_c.perm].astype(np.int64))
+        plans.append(dp)
+    return perms, tuple(plans)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedClusterPlan:
+    """A device coarse-space plan split over the edge shards: `shards[k]`
+    (a `DeviceClusterPlan` on shard k's device) holds the incidence plan
+    and the pairs of shard k's edges, with shard-local edge ids; the
+    cluster and incidence tables are replicated, read from shard 0."""
+
+    shards: Tuple[DeviceClusterPlan, ...]
+
+    @property
+    def num_clusters(self) -> int:
+        return self.shards[0].num_clusters
+
+    @property
+    def n_pc(self) -> int:
+        return self.shards[0].n_pc
+
+    @property
+    def cluster(self) -> torch.Tensor:
+        return self.shards[0].cluster
+
+    @property
+    def pc_pt(self) -> torch.Tensor:
+        return self.shards[0].pc_pt
+
+    @property
+    def ec_chunks(self) -> tuple:
+        """Every shard's pair chunks, shard by shard."""
+        return tuple(c for s in self.shards for c in s.ec_chunks)
+
+
+def shard_cluster_plan(plan: ClusterPlan,
+                       shards) -> Tuple[ClusterPlan, ...]:
+    """Split a cluster plan over edge shards (the JAX package's
+    `world_size > 1` pair grouping, segtiles.py:1359-1396, and its
+    `cluster_partition_specs`): `shards[k]` lists the positions, in the
+    stream the plan was built over, of shard k's edges in shard k's
+    order.  Shard k takes their incidence slots, its real edges sorted
+    by incidence, and the pairs of its edges in the plan's segment
+    order, with shard-local edge ids.  Shards may differ in length
+    (nothing is padded) and need not be contiguous pieces of the stream
+    (the 2-D mesh's device blocks are not).  The cluster and incidence
+    tables are every shard's."""
+    n = plan.pc_slot.shape[0]
+    owner = np.full(n, -1, np.int64)
+    local = np.zeros(n, np.int64)
+    for k, pos in enumerate(shards):
+        pos = np.asarray(pos, np.int64)
+        owner[pos] = k
+        local[pos] = np.arange(pos.shape[0])
+    out = []
+    for k, pos in enumerate(shards):
+        pos = np.asarray(pos, np.int64)
+        pc_slot = plan.pc_slot[pos]
+        real = np.nonzero(pc_slot < plan.n_pc)[0]
+        keep = owner[plan.ec_edge] == k
+        out.append(dataclasses.replace(
+            plan, n_ec=int(keep.sum()), pc_slot=pc_slot,
+            pc_order=real[np.argsort(pc_slot[real], kind="stable")],
+            ec_edge=local[plan.ec_edge[keep]],
+            ec_slot=plan.ec_slot[keep], ec_seg=plan.ec_seg[keep]))
+    return tuple(out)
+
+
+def device_sharded_coarse_plan(plan, shards, devices):
+    """A host `ClusterPlan` or `MultiLevelPlan` split over the edge shards
+    (`shard_cluster_plan`) and moved shard by shard (JAX
+    `coarse_plan_partition_specs`): a `ShardedClusterPlan`, or a
+    `DeviceMultiLevelPlan` whose level 1 is one (the coarser levels'
+    assignments are every shard's, JAX `multilevel_partition_specs`); the
+    replicated tables live on devices[0]."""
+    if isinstance(plan, MultiLevelPlan):
+        base = device_sharded_coarse_plan(plan.base, shards, devices)
+        return DeviceMultiLevelPlan(
+            base=base, level_sizes=plan.level_sizes,
+            assign=tuple(torch.from_numpy(a.astype(np.int64)).to(devices[0])
+                         for a in plan.assign))
+    return ShardedClusterPlan(shards=tuple(
+        device_cluster_plan(p, d)
+        for p, d in zip(shard_cluster_plan(plan, shards), devices)))
+
+
+# ---------------------------------------------------------------------------
+# The 2-D camera x edge plan (JAX segtiles.py:1637-1871)
+# ---------------------------------------------------------------------------
+
+
+def edge_stream_reuse(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                      cam_tile: int, pt_tile: int,
+                      mask: Optional[np.ndarray] = None) -> dict:
+    """Streaming tile-reuse statistics of one edge order (JAX
+    segtiles.py:1637): `switches` counts the consecutive edges that need
+    another (camera tile, point tile) pair, the first fetch included;
+    `reuse_factor` is edges per fetched pair."""
+    cam_idx = np.asarray(cam_idx, np.int64)
+    pt_idx = np.asarray(pt_idx, np.int64)
+    if mask is not None:
+        keep = np.asarray(mask) > 0
+        cam_idx, pt_idx = cam_idx[keep], pt_idx[keep]
+    n = int(cam_idx.shape[0])
+    if n == 0:
+        return {"edges": 0, "switches": 0, "reuse_factor": 0.0}
+    key = (cam_idx // max(1, int(cam_tile)),
+           pt_idx // max(1, int(pt_tile)))
+    changed = (key[0][1:] != key[0][:-1]) | (key[1][1:] != key[1][:-1])
+    switches = int(changed.sum()) + 1
+    return {"edges": n, "switches": switches,
+            "reuse_factor": float(n) / float(switches)}
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraTilePlan:
+    """Host half of the 2-D camera x edge plan (JAX segtiles.py:1670).
+
+    The padded stream (length `n_edges_padded` = cam_blocks *
+    column_len) carries caller edge `perm[i]` at position i where
+    `mask[i] > 0`; device block b = e * cam_blocks + c is the slice
+    [b * chunk, (b + 1) * chunk) and holds edge shard e of camera column
+    c, its real edges first.  Bucket e*C*C + c*C + s lists device
+    (e, c)'s real edges whose point lies in point shard s: their
+    device-local slot, shard-local point and a 1."""
+
+    num_cameras: int
+    num_points: int
+    edge_shards: int  # E
+    cam_blocks: int  # C
+    tile_cams: int  # Tc: cameras per tile (C * Tc >= Nc)
+    shard_points: int  # Sp: points per shard (C * Sp >= Np)
+    n_edges_real: int
+    n_edges_padded: int
+    bucket_width: int  # Lb
+    perm: np.ndarray  # [nE_pad] int64 caller edge per stream slot
+    mask: np.ndarray  # [nE_pad] float64 1 = real, 0 = padding
+    cam_idx: np.ndarray  # [nE_pad] int32 global camera per slot
+    pt_idx: np.ndarray  # [nE_pad] int32 global point per slot
+    cam_local: np.ndarray  # [nE_pad] int32 tile-local camera per slot
+    bucket_slot: np.ndarray  # [E*C*C, Lb] int32 device-local edge slot
+    bucket_ptl: np.ndarray  # [E*C*C, Lb] int32 shard-local point
+    bucket_mask: np.ndarray  # [E*C*C, Lb] int32 1 = real pair
+    reuse: dict
+
+
+def build_camera_tile_plan(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                           num_cameras: int, num_points: int,
+                           edge_shards: int, cam_blocks: int,
+                           quantum: int = 0) -> CameraTilePlan:
+    """Plan the 2-D camera x edge distribution over a caller edge set
+    (JAX segtiles.py:1750-1871, the same arrays).
+
+    Edges go to the camera column owning their camera's tile
+    (contiguous tiles of ceil(Nc / cam_blocks) cameras), in
+    co-observation order within the column; every column is padded to
+    one length, a multiple of edge_shards * quantum (default
+    core.fm.EDGE_QUANTUM), so the E * C device chunks are equal.
+    Padding slots repeat the column's last real camera and point 0,
+    under mask 0.
+    """
+    from megba_tpu_torch.core.fm import EDGE_QUANTUM
+
+    if quantum <= 0:
+        quantum = EDGE_QUANTUM
+    E, C = int(edge_shards), int(cam_blocks)
+    if E < 1 or C < 1:
+        raise ValueError(
+            f"edge_shards and cam_blocks must be >= 1, got {E} x {C}")
+    cam_idx = np.asarray(cam_idx, np.int64)
+    pt_idx = np.asarray(pt_idx, np.int64)
+    n_real = int(cam_idx.shape[0])
+    Tc = max(1, -(-int(num_cameras) // C))
+    Sp = max(1, -(-int(num_points) // C))
+    col = np.minimum(cam_idx // Tc, C - 1)
+
+    col_ids = []
+    for c in range(C):
+        ids = np.nonzero(col == c)[0]
+        ids = ids[coobservation_edge_order(cam_idx[ids], pt_idx[ids])]
+        col_ids.append(ids)
+    Lc = max(1, max(ids.shape[0] for ids in col_ids))
+    Lc = -(-Lc // (E * quantum)) * (E * quantum)
+    chunk = Lc // E
+
+    perm = np.zeros(C * Lc, np.int64)
+    mask = np.zeros(C * Lc, np.float64)
+    cam_s = np.zeros(C * Lc, np.int32)
+    pt_s = np.zeros(C * Lc, np.int32)
+    cam_l = np.zeros(C * Lc, np.int32)
+    pos = 0
+    for e in range(E):
+        for c in range(C):
+            ids = col_ids[c]
+            seg = ids[e * chunk:(e + 1) * chunk]
+            n = seg.shape[0]
+            sl = slice(pos, pos + chunk)
+            perm[sl][:n] = seg
+            mask[pos:pos + n] = 1.0
+            if ids.shape[0]:
+                pad_cam = int(cam_idx[ids[-1]])
+            else:
+                pad_cam = min(c * Tc, max(0, int(num_cameras) - 1))
+            cams = np.full(chunk, pad_cam, np.int32)
+            cams[:n] = cam_idx[seg]
+            pts = np.zeros(chunk, np.int32)
+            pts[:n] = pt_idx[seg]
+            cam_s[sl] = cams
+            pt_s[sl] = pts
+            cam_l[sl] = np.clip(cams - c * Tc, 0, Tc - 1)
+            pos += chunk
+
+    n_dev = E * C
+    rows = []
+    for d in range(n_dev):
+        sl = slice(d * chunk, (d + 1) * chunk)
+        ptd, md = pt_s[sl], mask[sl]
+        rows.append([np.nonzero((ptd // Sp == s) & (md > 0))[0]
+                     for s in range(C)])
+    Lb = max(1, max(max((r.shape[0] for r in dev), default=0)
+                    for dev in rows))
+    b_slot = np.zeros((n_dev * C, Lb), np.int32)
+    b_ptl = np.zeros((n_dev * C, Lb), np.int32)
+    b_mask = np.zeros((n_dev * C, Lb), np.int32)
+    for d, dev in enumerate(rows):
+        for s, sel in enumerate(dev):
+            n = sel.shape[0]
+            b_slot[d * C + s, :n] = sel
+            b_ptl[d * C + s, :n] = pt_s[d * chunk + sel] - s * Sp
+            b_mask[d * C + s, :n] = 1
+
+    edges_t = switches_t = 0
+    for d in range(n_dev):
+        sl = slice(d * chunk, (d + 1) * chunk)
+        r = edge_stream_reuse(cam_s[sl], pt_s[sl], Tc, Sp, mask=mask[sl])
+        edges_t += r["edges"]
+        switches_t += r["switches"]
+    reuse = {"edges": edges_t, "switches": switches_t,
+             "reuse_factor": float(edges_t) / float(max(switches_t, 1))}
+    return CameraTilePlan(
+        num_cameras=int(num_cameras), num_points=int(num_points),
+        edge_shards=E, cam_blocks=C, tile_cams=Tc, shard_points=Sp,
+        n_edges_real=n_real, n_edges_padded=C * Lc, bucket_width=Lb,
+        perm=perm, mask=mask, cam_idx=cam_s, pt_idx=pt_s,
+        cam_local=cam_l, bucket_slot=b_slot, bucket_ptl=b_ptl,
+        bucket_mask=b_mask, reuse=reuse)
+
+
+def tile_plan_shards(plan: CameraTilePlan) -> Tuple[np.ndarray, ...]:
+    """The caller edges of each device block, real edges only, in device
+    order (JAX `tile_plan_partition_specs`: the stream splits over both
+    mesh axes, edge-shard-major).  Each block's real edges are the first
+    slots of its chunk, so a slot index means the same in the block and
+    in its real edges."""
+    n_dev = plan.edge_shards * plan.cam_blocks
+    chunk = plan.n_edges_padded // n_dev
+    out = []
+    for d in range(n_dev):
+        m = plan.mask[d * chunk:(d + 1) * chunk] > 0
+        n = int(m.sum())
+        if not m[:n].all():
+            raise AssertionError("a device block's real edges must lead "
+                                 "its chunk")
+        out.append(plan.perm[d * chunk:d * chunk + n])
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCameraTilePlan:
+    """Device half of a `CameraTilePlan` (JAX segtiles.py:1705-1735).
+
+    `rings[d][s]` is the ring-step plan of device d's bucket over point
+    shard s, on device d: a `FusedPlan` whose input ids are the
+    shard-local points, whose output side is a CSR plan over the Tc
+    cameras of the tile (segment = tile-local camera, `inv` = the
+    device-local slot of each entry, whose rows the step reads) and
+    whose slot tiles cover its entries.  The padding entries of the JAX
+    buckets (mask 0, rows zeroed there) are left out: they add nothing.
+    `in_plans[d][s]` is the same bucket's input side for the unfused
+    step's expand, a `GatherPlan` (segment = shard-local point, in entry
+    order, not sorted)."""
+
+    edge_shards: int
+    cam_blocks: int
+    tile_cams: int
+    shard_points: int
+    rings: Tuple[tuple, ...]
+    in_plans: Tuple[tuple, ...]
+
+
+def device_camera_tile_plan(plan: CameraTilePlan,
+                            devices) -> DeviceCameraTilePlan:
+    """Move the ring-step buckets of a tile plan to the mesh's devices
+    (device-block order).  Over each bucket's real entries the output
+    camera must not decrease (each block's stream is camera-major): that
+    is what makes its CSR plan valid, and it is checked here."""
+    from megba_tpu_torch.ops.fused import ring_step_plan
+
+    E, C = plan.edge_shards, plan.cam_blocks
+    Tc, Sp = plan.tile_cams, plan.shard_points
+    chunk = plan.n_edges_padded // (E * C)
+    rings, in_plans = [], []
+    for d in range(E * C):
+        dev = devices[d]
+        cl = plan.cam_local[d * chunk:(d + 1) * chunk]
+        r_d, i_d = [], []
+        for s in range(C):
+            b = d * C + s
+            n = int(plan.bucket_mask[b].sum())
+            slot = plan.bucket_slot[b, :n].astype(np.int64)
+            ptl = plan.bucket_ptl[b, :n]
+            out_cam = cl[slot]
+            if n and np.any(np.diff(out_cam) < 0):
+                raise AssertionError(
+                    f"ring bucket {b}: output cameras decrease")
+            r_d.append(ring_step_plan(ptl, out_cam, slot, Sp, Tc, dev))
+            i_d.append(GatherPlan(
+                seg=torch.from_numpy(ptl.astype(np.int32)).to(dev),
+                num_segments=Sp))
+        rings.append(tuple(r_d))
+        in_plans.append(tuple(i_d))
+    return DeviceCameraTilePlan(edge_shards=E, cam_blocks=C, tile_cams=Tc,
+                                shard_points=Sp, rings=tuple(rings),
+                                in_plans=tuple(in_plans))
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU path; the reference the kernels are held to)
 # ---------------------------------------------------------------------------
 
 
+def segment_sum_sorted(rows: torch.Tensor,
+                       seg_ptr: torch.Tensor) -> torch.Tensor:
+    """[F, nS] sums of [F, n] rows over the CSR segments `seg_ptr`
+    ([nS + 1] int64) of a segment-sorted stream, each segment summed in
+    slot order from its first slot (an empty segment sums to 0).
+
+    `torch.segment_reduce` over the offsets: one fixed order on either
+    device, so two runs on the card are bitwise equal, where the CUDA
+    atomics of `index_add_` change their order from run to run.
+    """
+    F = rows.shape[0]
+    if rows.shape[1] == 0:
+        return torch.zeros((F, seg_ptr.shape[0] - 1), dtype=rows.dtype,
+                           device=rows.device)
+    offsets = seg_ptr.expand(F, seg_ptr.shape[0]).contiguous()
+    return torch.segment_reduce(rows, "sum", offsets=offsets, axis=1,
+                                unsafe=True)
+
+
 def _segment_sum(rows: torch.Tensor, plan: SegPlan) -> torch.Tensor:
-    out = torch.zeros((rows.shape[0], plan.num_segments), dtype=rows.dtype,
-                      device=rows.device)
-    return out.index_add_(1, plan.seg, rows)
+    return segment_sum_sorted(rows, plan.seg_ptr)
 
 
 def jtj_grad_reduce_plain(J: torch.Tensor, r: torch.Tensor,
@@ -507,7 +912,7 @@ def contract(rows, vec, acc_dtype: torch.dtype, bf16_operands: bool):
 
 
 def coupling_expand_plain(table: torch.Tensor, J: torch.Tensor,
-                          plan: SegPlan, d: int,
+                          plan: ExpandPlan, d: int,
                           bf16_operands: bool = False) -> torch.Tensor:
     """[od, n]: u[o] = sum_a J[o*d+a] * table[a, seg], in the table's
     dtype; the bf16 arm rounds the gathered values, each product and u
@@ -538,7 +943,7 @@ def seg_reduce_plain(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
     return _segment_sum(data, plan)
 
 
-def seg_expand_plain(table: torch.Tensor, plan: SegPlan) -> torch.Tensor:
+def seg_expand_plain(table: torch.Tensor, plan: ExpandPlan) -> torch.Tensor:
     """[F, n]: out[:, e] = table[:, seg[e]]."""
     return table.index_select(1, plan.seg)
 
@@ -584,21 +989,31 @@ def check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def check_plan(name: str, plan: SegPlan, dev: torch.device) -> None:
+def check_plan(name: str, plan, dev: torch.device,
+               expand: bool = False) -> None:
     """The plan's CSR arrays must be contiguous and on the operands'
-    device, with nS + 1 offsets."""
-    for k, t, dt in (("plan.seg", plan.seg, torch.int32),
-                     ("plan.seg_ptr", plan.seg_ptr, torch.int64)):
+    device, with nS + 1 offsets.  Only an `expand` may take a
+    `GatherPlan` (segment ids in any order, no offsets)."""
+    if isinstance(plan, GatherPlan) and expand:
+        arrays = (("plan.seg", plan.seg, torch.int32),)
+    elif isinstance(plan, SegPlan):
+        arrays = (("plan.seg", plan.seg, torch.int32),
+                  ("plan.seg_ptr", plan.seg_ptr, torch.int64))
+    else:
+        raise TypeError(f"{name} needs a SegPlan (sorted segments and "
+                        f"their offsets), got {type(plan).__name__}")
+    for k, t, dt in arrays:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
                 f"{name}: {k} must be a contiguous {dt} tensor on {dev}")
-    if plan.seg_ptr.shape != (plan.num_segments + 1,):
+    if isinstance(plan, SegPlan) and \
+            plan.seg_ptr.shape != (plan.num_segments + 1,):
         raise ValueError(f"{name}: plan.seg_ptr has shape "
                          f"{tuple(plan.seg_ptr.shape)}, expected "
                          f"({plan.num_segments + 1},)")
 
 
-def _check(name: str, shape, supported: tuple, plan: SegPlan,
+def _check(name: str, shape, supported: tuple, plan, expand: bool = False,
            **tensors: torch.Tensor) -> torch.device:
     """Validate the operands on either device, and what the CUDA kernel
     does not check itself; raise on anything it does not take.  `shape`
@@ -609,12 +1024,13 @@ def _check(name: str, shape, supported: tuple, plan: SegPlan,
         raise NotImplementedError(
             f"{name}: no CUDA kernel for shape {shape} (built for "
             f"{supported})")
-    check_plan(name, plan, dev)
+    check_plan(name, plan, dev, expand)
     return dev
 
 
-def _check_coupling(name: str, shape, plan: SegPlan, vector: torch.Tensor,
-                    bf16_operands: bool, J: torch.Tensor) -> tuple:
+def _check_coupling(name: str, shape, plan, vector: torch.Tensor,
+                    bf16_operands: bool, J: torch.Tensor,
+                    expand: bool = False) -> tuple:
     """`_check` for the coupling kernels, whose J rows may be bfloat16:
     returns the (code, name) of the precision arm (ops/kernels.ARMS)."""
     arm = _kernels.check_arm(name, vector, bf16_operands, J=J)
@@ -622,7 +1038,7 @@ def _check_coupling(name: str, shape, plan: SegPlan, vector: torch.Tensor,
         raise NotImplementedError(
             f"{name}: no CUDA kernel for shape {shape} (built for "
             f"{SUPPORTED_BLOCKS})")
-    check_plan(name, plan, vector.device)
+    check_plan(name, plan, vector.device, expand)
     return arm
 
 
@@ -662,7 +1078,7 @@ def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
     return out[: d * d], out[d * d:]
 
 
-def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: SegPlan,
+def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: ExpandPlan,
                     d: int, bf16_operands: bool = False) -> torch.Tensor:
     """u[o] = sum_a J[o*d+a] * table[a, seg] -> [od, n] rows.
 
@@ -681,7 +1097,7 @@ def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: SegPlan,
             f"{tuple(J.shape)}, d={d} and {plan.n_slots} plan slots "
             "disagree")
     arm_code, arm = _check_coupling("coupling_expand", (od, d), plan,
-                                    table, bf16_operands, J)
+                                    table, bf16_operands, J, expand=True)
     dev = table.device
     if dev.type == "cpu":
         return coupling_expand_plain(table, J, plan, d, bf16_operands)
@@ -748,14 +1164,15 @@ def seg_reduce(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
     return out
 
 
-def seg_expand(table: torch.Tensor, plan: SegPlan) -> torch.Tensor:
+def seg_expand(table: torch.Tensor, plan: ExpandPlan) -> torch.Tensor:
     """Gather of segment rows to plan-ordered slots: table [F, nS] ->
     [F, n], out[:, e] = table[:, seg[e]]."""
     F = table.shape[0]
     if table.shape != (F, plan.num_segments):
         raise ValueError(f"seg_expand: table {tuple(table.shape)} and "
                          f"{plan.num_segments} plan segments disagree")
-    dev = _check("seg_expand", F, SUPPORTED_WIDTHS, plan, table=table)
+    dev = _check("seg_expand", F, SUPPORTED_WIDTHS, plan, expand=True,
+                 table=table)
     if dev.type == "cpu":
         return seg_expand_plain(table, plan)
     n = plan.n_slots

@@ -1,6 +1,7 @@
 """Deterministic fault injection at the residual / linear-system boundary.
 
-Counterpart of `megba_tpu/robustness/faults.py` on one device.  A
+Counterpart of `megba_tpu/robustness/faults.py`; on an edge-sharded mesh
+each shard carries the poison of its own edges (`fault_partition`).  A
 `FaultPlan` carries two tensors and a window:
 
 - `edge_nan` ([nE]): NaN at the poisoned edges, 0 elsewhere, added to
@@ -140,3 +141,17 @@ def lower_edge_vector(vec: np.ndarray, perm: Optional[np.ndarray] = None,
     if n_padded is not None and v.shape[0] < n_padded:
         v = np.concatenate([v, np.zeros((n_padded - v.shape[0],), v.dtype)])
     return np.ascontiguousarray(v)
+
+
+def fault_partition(plan: FaultPlan, bounds: Sequence[int],
+                    devices: Sequence[torch.device]) -> Tuple[FaultPlan, ...]:
+    """Split a lowered plan over contiguous edge shards (JAX
+    `fault_partition_specs`, faults.py:215): shard k's plan carries the
+    poison of edges [bounds[k], bounds[k+1]) of the concatenated shard
+    streams on devices[k]; the point mask, window and offset are
+    replicated (the first shard's plan crushes the summed system)."""
+    return tuple(
+        dataclasses.replace(
+            plan, edge_nan=plan.edge_nan[bounds[k]:bounds[k + 1]].to(d),
+            point_crush=plan.point_crush.to(devices[0]))
+        for k, d in enumerate(devices))

@@ -1,13 +1,23 @@
 """Flat solve pipeline + one-call BAL convenience (PyTorch).
 
-Counterpart of `megba_tpu/solve.py` on the single-device plan path:
-`flat_solve` takes the conventional edge-major numpy arrays, plans both
-segment orders on the host (ops/segtiles.make_dual_plans: the stable
+Counterpart of `megba_tpu/solve.py`: `flat_solve` takes the
+conventional edge-major numpy arrays, plans both segment orders of each
+shard's edges on the host (ops/segtiles.make_dual_plans: the stable
 camera sort is the canonical edge order), with `fused_kernels` derives
 from them the input index of each fused direction once
-(ops/fused.with_fused_plans), moves feature-major tensors to the device
+(ops/fused.with_fused_plans), moves feature-major tensors to the devices
 once, runs the LM loop, and returns the solved cameras and points
 edge-major ([N, d]) again.
+
+The solve runs over a mesh of `ProblemOption.world_size` N shards
+(parallel/mesh.py; one device is the mesh of one shard): the 1-D
+edge-sharded mesh, whose shards take contiguous pieces of the
+camera-sorted edge stream, or with `SolverOption.mesh_2d` the 2-D
+camera x edge mesh, whose shards take the device blocks of the
+camera-tile plan (ops/segtiles.build_camera_tile_plan).  At N > 1
+`device` is a sequence of N devices, which may repeat one (N shards on
+one card, or on the CPU); without one the solve takes the first N
+visible cards and raises when there are fewer.
 
 Entry points run on CUDA unless the caller passes `device="cpu"` (or an
 option with `device=Device.CPU`); with no card and no such request they
@@ -18,12 +28,12 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from megba_tpu_torch.algo.lm import LMResult, lm_solve
+from megba_tpu_torch.algo.lm import LMResult
 from megba_tpu_torch.common import (
     DTYPE_TO_TORCH,
     EdgeOrder,
@@ -35,14 +45,28 @@ from megba_tpu_torch.common import (
 from megba_tpu_torch.io.bal import BALFile, load_bal
 from megba_tpu_torch.ops.fused import with_fused_plans
 from megba_tpu_torch.ops.segtiles import (
+    build_camera_tile_plan,
     build_cluster_plan,
     build_multilevel_plan,
     coobservation_edge_order,
-    device_cluster_plan,
-    device_multilevel_plan,
+    device_camera_tile_plan,
+    device_sharded_coarse_plan,
     make_dual_plans,
+    make_sharded_dual_plans,
+    tile_plan_shards,
 )
-from megba_tpu_torch.robustness.faults import FaultPlan, lower_edge_vector
+from megba_tpu_torch.parallel.mesh import (
+    distributed_lm_solve,
+    factor_mesh_2d,
+    make_mesh,
+    make_mesh_2d,
+    resolve_devices,
+)
+from megba_tpu_torch.robustness.faults import (
+    FaultPlan,
+    fault_partition,
+    lower_edge_vector,
+)
 
 
 def _host(a) -> np.ndarray:
@@ -64,7 +88,7 @@ def flat_solve(
     cam_fixed: Optional[np.ndarray] = None,
     pt_fixed: Optional[np.ndarray] = None,
     verbose: bool = False,
-    device: Union[None, str, torch.device] = None,
+    device: Union[None, str, torch.device, Sequence] = None,
     residual_jac_fn: Optional[Callable] = None,
     initial_region: Optional[float] = None,
     initial_v: Optional[float] = None,
@@ -98,9 +122,36 @@ def flat_solve(
     `SolverOption.precond` TWO_LEVEL or MULTILEVEL the camera clusters are
     planned on the host over the final edge stream; the result's
     `coarse_plan_seconds` says how long that took.
+
+    With `option.world_size` N > 1, `device` is a sequence of N devices
+    (or None: the first N visible cards; fewer raise), and the solve
+    runs over the 1-D edge-sharded mesh or, with `SolverOption.mesh_2d`
+    (Schur only), the 2-D camera x edge mesh of `cam_blocks` camera
+    columns (0: the largest divisor of N up to its square root).  As in
+    the JAX package, `fused_kernels` needs the 2-D mesh there, and COOBS
+    orders only the 1-D streams (the 2-D plan orders its columns
+    co-observation first itself).  The result lives on the first
+    device.
     """
     validate_options(option)
-    dev = resolve_device(device, option)
+    ws = option.world_size
+    so = option.solver_option
+    mesh2d = bool(ws > 1 and option.use_schur and so.mesh_2d)
+    if option.use_schur and so.fused_kernels and ws > 1 and not mesh2d:
+        raise ValueError(
+            "SolverOption.fused_kernels is implemented for the "
+            "single-device tiled lowering and the 2-D mesh ring step; "
+            "the 1-D multi-device lowerings keep the segtiles/XLA "
+            "paths — pass fused_kernels=False, or mesh_2d=True for a "
+            "fused distributed solve")
+    if ws > 1:
+        devices = resolve_devices(ws, device, default=option.device.value)
+        mesh = (make_mesh_2d(*factor_mesh_2d(ws, so.cam_blocks), devices)
+                if mesh2d else make_mesh(ws, devices))
+    else:
+        if isinstance(device, (list, tuple)):
+            device = resolve_devices(1, device)[0]
+        mesh = make_mesh(1, [resolve_device(device, option)])
     dtype = np.dtype(option.dtype)
     tdtype = DTYPE_TO_TORCH[dtype]
     cameras = np.asarray(cameras).astype(dtype, copy=False)
@@ -127,7 +178,7 @@ def flat_solve(
             raise ValueError(
                 f"fault_plan.edge_nan has {fault_edge.shape[0]} entries "
                 f"for a problem with {n_edges} edges")
-    if option.solver_option.edge_order == EdgeOrder.COOBS:
+    if option.solver_option.edge_order == EdgeOrder.COOBS and not mesh2d:
         # A host pre-permutation of the caller's edges; the stable camera
         # sort below keeps its point-minor order (JAX solve.py:368-389).
         operm = coobservation_edge_order(cam_idx, pt_idx)
@@ -138,65 +189,55 @@ def flat_solve(
         if fault_edge is not None:
             fault_edge = fault_edge[operm]
 
-    # Canonical edge order = the stable camera sort (cam plan slots).
-    plan_c, plans = make_dual_plans(cam_idx, pt_idx, cameras.shape[0],
-                                    points.shape[0], dev)
-    if option.solver_option.fused_kernels:
-        plans = with_fused_plans(plans)
-    perm = plan_c.perm
-    cluster_plan, plan_seconds = _coarse_plan(option, plan_c.seg,
-                                              pt_idx[perm], mask[perm],
-                                              cameras.shape[0],
-                                              points.shape[0], dev)
-    if verbose and plan_seconds is not None:
-        print(f"coarse plan: {plan_seconds:.3f} s on the host", flush=True)
+    return _mesh_solve(
+        mesh, cameras, points, obs, cam_idx, pt_idx, mask, option,
+        sqrt_info, cam_fixed, pt_fixed, verbose, residual_jac_fn,
+        initial_region, initial_v, initial_dx, fault_plan, fault_edge)
 
-    def edge_rows(a: np.ndarray) -> torch.Tensor:
-        """[nE, ...] caller order -> feature-major [F, nE] slot order."""
-        a = a[perm].reshape(n_edges, -1)
-        return torch.from_numpy(np.ascontiguousarray(a.T)).to(dev)
 
-    def vertex_rows(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a.T)).to(dev)
+def _vertex_rows(a: np.ndarray, dev) -> torch.Tensor:
+    """[N, d] edge-major -> feature-major [d, N] on `dev`."""
+    return torch.from_numpy(np.ascontiguousarray(a.T)).to(dev)
 
-    def flags(a: Optional[np.ndarray], n: int) -> Optional[torch.Tensor]:
-        if a is None:
-            return None
-        a = np.asarray(a, dtype=bool).reshape(-1)
-        if a.shape[0] != n:
-            raise ValueError(f"fixed mask has {a.shape[0]} entries, "
-                             f"expected {n}")
-        return torch.from_numpy(a).to(dev)
 
-    si = None
-    if sqrt_info is not None:
-        si = edge_rows(np.asarray(sqrt_info).astype(dtype, copy=False))
-    dx0 = None
-    if initial_dx is not None and option.solver_option.warm_start:
-        initial_dx = np.asarray(initial_dx).astype(dtype, copy=False)
-        if initial_dx.shape != cameras.shape:
-            raise ValueError(f"initial_dx has shape {initial_dx.shape}, "
-                             f"cameras {cameras.shape}")
-        dx0 = vertex_rows(initial_dx)
-    fault = None
-    if fault_plan is not None:
-        fault = FaultPlan(
-            edge_nan=torch.from_numpy(lower_edge_vector(fault_edge, perm)).to(
-                dev, tdtype),
-            point_crush=torch.from_numpy(
-                _host(fault_plan.point_crush)).to(dev, tdtype),
-            window=(int(fault_plan.window[0]), int(fault_plan.window[1])),
-            offset=int(fault_plan.offset))
-    result = lm_solve(
-        vertex_rows(cameras), vertex_rows(points), edge_rows(obs),
-        plans.cam.seg.long(),
-        torch.from_numpy(pt_idx[perm].astype(np.int64)).to(dev),
-        torch.from_numpy(mask[perm]).to(dev, tdtype), option, plans,
-        sqrt_info=si, cam_fixed=flags(cam_fixed, cameras.shape[0]),
-        pt_fixed=flags(pt_fixed, points.shape[0]), verbose=verbose,
-        residual_jac_fn=residual_jac_fn, initial_region=initial_region,
-        initial_v=initial_v, initial_dx=dx0, fault_plan=fault,
-        cluster_plan=cluster_plan)
+def _flags(a: Optional[np.ndarray], n: int, dev) -> Optional[torch.Tensor]:
+    """A fixed-vertex mask ([n] bool) on `dev`, or None."""
+    if a is None:
+        return None
+    a = np.asarray(a, dtype=bool).reshape(-1)
+    if a.shape[0] != n:
+        raise ValueError(f"fixed mask has {a.shape[0]} entries, "
+                         f"expected {n}")
+    return torch.from_numpy(a).to(dev)
+
+
+def _warm_dx(initial_dx, option: ProblemOption, cameras: np.ndarray, dev):
+    """The warm-start seed [cd, Nc] on `dev` (None unless warm starts are
+    on and one is given)."""
+    if initial_dx is None or not option.solver_option.warm_start:
+        return None
+    initial_dx = np.asarray(initial_dx).astype(cameras.dtype, copy=False)
+    if initial_dx.shape != cameras.shape:
+        raise ValueError(f"initial_dx has shape {initial_dx.shape}, "
+                         f"cameras {cameras.shape}")
+    return _vertex_rows(initial_dx, dev)
+
+
+def _lowered_fault(fault_plan: FaultPlan, fault_edge: np.ndarray,
+                   order: np.ndarray, tdtype) -> FaultPlan:
+    """The caller's fault plan with its edge poison in `order` (the
+    solve's stream order), on the host."""
+    return FaultPlan(
+        edge_nan=torch.from_numpy(lower_edge_vector(fault_edge, order)).to(
+            tdtype),
+        point_crush=torch.from_numpy(
+            _host(fault_plan.point_crush)).to(tdtype),
+        window=(int(fault_plan.window[0]), int(fault_plan.window[1])),
+        offset=int(fault_plan.offset))
+
+
+def _edge_major(result: LMResult, plan_seconds) -> LMResult:
+    """The result's parameters (and warm-start step) edge-major again."""
     result.coarse_plan_seconds = plan_seconds
     result.cameras = result.cameras.T.contiguous()
     result.points = result.points.T.contiguous()
@@ -207,25 +248,114 @@ def flat_solve(
 
 def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
                  pt_idx: np.ndarray, mask: np.ndarray, num_cameras: int,
-                 num_points: int, dev: torch.device):
+                 num_points: int, devs, shards):
     """The camera-cluster plan of a TWO_LEVEL or MULTILEVEL Schur solve
-    (JAX solve.py:587-628), over the solver's edge stream (camera slots),
-    with its host seconds; (None, None) for every other option."""
+    (JAX solve.py:587-628), over the camera-sorted edge stream, split
+    over the mesh's devices `devs` (`shards`: each shard's positions in
+    the stream, ops/segtiles.shard_cluster_plan), with its host seconds;
+    (None, None) for every other option."""
     so = option.solver_option
     if not option.use_schur or so.precond not in (PrecondKind.TWO_LEVEL,
                                                   PrecondKind.MULTILEVEL):
         return None, None
     t = time.perf_counter()
     if so.precond == PrecondKind.TWO_LEVEL:
-        plan = device_cluster_plan(build_cluster_plan(
+        plan = build_cluster_plan(
             cam_idx, pt_idx, num_cameras, num_points, so.coarse_clusters,
-            mask=mask), dev)
+            mask=mask)
     else:
-        plan = device_multilevel_plan(build_multilevel_plan(
+        plan = build_multilevel_plan(
             cam_idx, pt_idx, num_cameras, num_points, so.coarse_clusters,
             mask=mask, coarsen_factor=so.coarsen_factor,
-            max_levels=so.max_levels), dev)
+            max_levels=so.max_levels)
+    plan = device_sharded_coarse_plan(plan, shards, devs)
     return plan, time.perf_counter() - t
+
+
+def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
+                option, sqrt_info, cam_fixed, pt_fixed, verbose,
+                residual_jac_fn, initial_region, initial_v, initial_dx,
+                fault_plan, fault_edge) -> LMResult:
+    """The lowering of a solve over a mesh (JAX solve.py:408-500): the
+    shards' edge streams, their plans, the sharded coarse plan and fault
+    plan, then `distributed_lm_solve`."""
+    so = option.solver_option
+    dtype = np.dtype(option.dtype)
+    tdtype = DTYPE_TO_TORCH[dtype]
+    devs = mesh.devices
+    dev0 = devs[0]
+    nc, npt = cameras.shape[0], points.shape[0]
+    tile_plan = None
+    if mesh.is_2d:
+        # The camera-tile plan's device blocks, real edges only; each
+        # block is camera-sorted, so its camera-slot order is its own.
+        # Quantum 1: the JAX package pads each column to a multiple of
+        # E * EDGE_QUANTUM for static shapes, which on a small problem
+        # leaves whole edge shards empty; the CSR plans need no padding,
+        # so each edge shard takes an even piece of its column.
+        tplan = build_camera_tile_plan(cam_idx, pt_idx, nc, npt,
+                                       mesh.edge_shards, mesh.cam_blocks,
+                                       quantum=1)
+        perms = tile_plan_shards(tplan)
+        shard_plans = []
+        for p, d in zip(perms, devs):
+            plan_c, dp = make_dual_plans(cam_idx[p], pt_idx[p], nc, npt, d)
+            if not np.array_equal(plan_c.perm, np.arange(p.shape[0])):
+                raise AssertionError("a 2-D device block is not "
+                                     "camera-sorted")
+            shard_plans.append(dp)
+        shard_plans = tuple(shard_plans)
+        tile_plan = device_camera_tile_plan(tplan, devs)
+    else:
+        perms, shard_plans = make_sharded_dual_plans(cam_idx, pt_idx, nc,
+                                                     npt, devs)
+    if option.use_schur and so.fused_kernels:
+        shard_plans = tuple(with_fused_plans(p) for p in shard_plans)
+    bounds = tuple(int(b) for b in np.cumsum([0] + [p.shape[0]
+                                                    for p in perms]))
+    stream = np.concatenate(perms)
+    # The coarse space is planned over the stable camera sort, the
+    # world-1 stream, on every mesh: its clusters depend on the stream's
+    # order, so every mesh then solves with the world-1 coarse space (the
+    # JAX package plans the 2-D mesh's over its 2-D stream instead).
+    canon = np.argsort(cam_idx, kind="stable")
+    at = np.empty_like(canon)
+    at[canon] = np.arange(canon.shape[0])
+    cluster_plan, plan_seconds = _coarse_plan(
+        option, cam_idx[canon], pt_idx[canon], mask[canon], nc, npt, devs,
+        [at[p] for p in perms])
+    if verbose and plan_seconds is not None:
+        print(f"coarse plan: {plan_seconds:.3f} s on the host", flush=True)
+
+    def per_shard(a: np.ndarray):
+        """[nE, ...] caller order -> each shard's [F, n_k] rows."""
+        a = a.reshape(a.shape[0], -1)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[p].T)).to(d)
+                     for p, d in zip(perms, devs))
+
+    si = None
+    if sqrt_info is not None:
+        si = per_shard(np.asarray(sqrt_info).astype(dtype, copy=False))
+    faults = None
+    if fault_plan is not None:
+        faults = fault_partition(
+            _lowered_fault(fault_plan, fault_edge, stream, tdtype),
+            bounds, devs)
+    result = distributed_lm_solve(
+        _vertex_rows(cameras, dev0), _vertex_rows(points, dev0),
+        per_shard(obs), tuple(p.cam.seg.long() for p in shard_plans),
+        tuple(torch.from_numpy(pt_idx[p].astype(np.int64)).to(d)
+              for p, d in zip(perms, devs)),
+        tuple(torch.from_numpy(mask[p]).to(d, tdtype)
+              for p, d in zip(perms, devs)),
+        option, mesh, shard_plans, sqrt_info=si,
+        cam_fixed=_flags(cam_fixed, nc, dev0),
+        pt_fixed=_flags(pt_fixed, npt, dev0), verbose=verbose,
+        residual_jac_fn=residual_jac_fn, initial_region=initial_region,
+        initial_v=initial_v,
+        initial_dx=_warm_dx(initial_dx, option, cameras, dev0),
+        fault_plan=faults, cluster_plan=cluster_plan, tile_plan=tile_plan)
+    return _edge_major(result, plan_seconds)
 
 
 def solve_bal(

@@ -39,6 +39,18 @@ the host once per iteration.  Either body takes a warm start `x0`
 (SolverOption.warm_start): one more S·p product and one more M^-1 apply
 per solve.  The same core runs the plain full-system solve
 (`plain_pcg_solve`, `use_schur=False`) over a (camera, point) pair.
+
+Both solvers run over a mesh (`plans` a `parallel.mesh.ShardedPlans`,
+one device a mesh of one shard; the edge rows per-shard tuples): every
+coupling product runs per shard (`make_coupling_matvecs` over the
+shard's own plans) and is summed across the shards on the first shard's
+device (`summed_matvecs`, the psums at JAX pcg.py:270-417, 1095, 1309
+and 1333); the CG vectors, scalars and the preconditioner apply are
+replicated state and live there once.  With `bf16_collectives` the S.p
+product's sums over several shards carry bfloat16 payloads, the reduced
+RHS and the back-substitution full precision.  On the 2-D camera x edge
+mesh (`plans.tile_plan`) the S.p product is `make_matvec_2d`: subgroup
+sums and a ring over the camera columns.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import dataclasses
 from typing import Callable, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from megba_tpu_torch.common import ComputeKind, PrecondKind, PreconditionerKind
 from megba_tpu_torch.core.fm import block_inv_fm, block_matvec_fm, damp_rows_fm
@@ -54,6 +67,17 @@ from megba_tpu_torch.linear_system.builder import SchurSystem, damp_blocks
 from megba_tpu_torch.ops.accum import comp_dot
 from megba_tpu_torch.ops import fused, segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
+from megba_tpu_torch.parallel.collectives import (
+    all_gather,
+    for_shards,
+    payload_cast,
+    per_shard,
+    ppermute,
+    psum,
+    psum_groups,
+    psum_scatter,
+)
+from megba_tpu_torch.parallel.mesh import CAM_AXIS, EDGE_AXIS, ShardedPlans
 from megba_tpu_torch.solver.precond import (
     block_inv,
     cam_block_matvec,
@@ -123,6 +147,40 @@ MatvecPair = Tuple[Callable[[torch.Tensor], torch.Tensor],
                    Callable[[torch.Tensor], torch.Tensor]]
 
 
+def shard_matvec_pairs(Jc, Jp, plans: ShardedPlans,
+                       compute_kind: ComputeKind = ComputeKind.IMPLICIT,
+                       W=None, fused_kernels: bool = False,
+                       bf16_ops: bool = False) -> list:
+    """Each shard's (hpl, hlp) over its own edges (`make_coupling_matvecs`
+    over the shard's plans): per-vertex partial sums on the shard's
+    device, not yet summed across the shards."""
+    n = len(plans.shards)
+    return for_shards(
+        lambda jc, jp, w, pl: make_coupling_matvecs(
+            jc, jp, pl, compute_kind, w, fused_kernels, bf16_ops),
+        per_shard(Jc, n), per_shard(Jp, n), per_shard(W, n), plans.shards)
+
+
+def summed_matvecs(pairs: list, devices,
+                   bf16_collectives: bool = False) -> MatvecPair:
+    """The world-wide (hpl, hlp) of the shards' pairs: each shard applies
+    its own to the vector (moved to its device), and the partial sums are
+    summed in shard order on the vector's device, as bfloat16 payloads
+    under `bf16_collectives` when there are several (one shard's sum
+    moves nothing)."""
+    wire = bf16_collectives and len(pairs) > 1
+
+    def reduced(i):
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            down, up = payload_cast(wire, x.dtype)
+            parts = for_shards(lambda pr, d: down(pr[i](x.to(d))), pairs,
+                               devices)
+            return up(psum(parts, x.device))
+        return apply
+
+    return reduced(0), reduced(1)
+
+
 def make_coupling_matvecs(
     Jc: Optional[torch.Tensor],
     Jp: Optional[torch.Tensor],
@@ -142,7 +200,9 @@ def make_coupling_matvecs(
     carry the fused directions (ops/fused.with_fused_plans).  The rows
     may be bfloat16 (a precision rung): each kernel, and the unfused
     EXPLICIT contraction, takes them upcast before each multiply, or
-    multiplied in bfloat16 under `bf16_ops`.
+    multiplied in bfloat16 under `bf16_ops`.  One device's (or one
+    shard's) edges: `shard_matvec_pairs` and `summed_matvecs` make the
+    pair of a mesh.
     """
     if fused_kernels:
         if plans.fused_to_pt is None or plans.fused_to_cam is None:
@@ -506,26 +566,12 @@ def _pcg_core_classic(matvec, precond, b, max_iter, threshold, refuse_ratio,
             restarts, broken)
 
 
-def _equilibrate(system: SchurSystem, Jc, Jp, W, plans: DualPlans,
-                 Hpp_d: torch.Tensor, Hll_d: torch.Tensor,
-                 compute_kind: ComputeKind):
-    """Jacobi (scale-then-cast) equilibration of both precision rungs
-    (JAX pcg.py:1196-1243): with d = diag(damped H)^-1/2, scale Hpp_d and
-    Hll_d symmetrically, g by d, the coupling rows per edge, and cast the
-    scaled rows to bfloat16.  The per-edge scales are `seg_expand`s of d
-    (kernel 5 on the card).  Returns the scaled system's pieces and the
-    scales (d_cam [cd, Nc], d_pt [pd, Np]) that unscale the solution."""
-    cd = Hpp_d.shape[-1]
-    pd = int(round(Hll_d.shape[0] ** 0.5))
-    dc = torch.rsqrt(torch.diagonal(Hpp_d, dim1=-2, dim2=-1))  # [Nc, cd]
-    Hpp_d = Hpp_d * dc[:, :, None] * dc[:, None, :]
-    d_cam = dc.T.contiguous()
-    d_pt = torch.rsqrt(torch.stack([Hll_d[i * (pd + 1)]
-                                    for i in range(pd)]))  # [pd, Np]
-    Hll_d = Hll_d * torch.stack([d_pt[i] * d_pt[j]
-                                 for i in range(pd) for j in range(pd)])
-    g_cam = system.g_cam * d_cam
-    g_pt = system.g_pt * d_pt
+def _scale_rows(Jc, Jp, W, plans: DualPlans, d_cam: torch.Tensor,
+                d_pt: torch.Tensor, compute_kind: ComputeKind):
+    """One shard's coupling rows scaled per edge by the equilibration
+    scales and cast to bfloat16 (the scales' `seg_expand`s are kernel 5
+    on the card)."""
+    cd, pd = d_cam.shape[0], d_pt.shape[0]
     bf = torch.bfloat16
     dc_e = segtiles.seg_expand(d_cam, plans.cam)
     dp_e = segtiles.seg_expand(d_pt, plans.pt)  # pt slots, like Jp
@@ -539,14 +585,186 @@ def _equilibrate(system: SchurSystem, Jc, Jp, W, plans: DualPlans,
                           for o in range(od) for a in range(cd)]).to(bf)
         Jp = torch.stack([Jp[o * pd + b] * dp_e[b]
                           for o in range(od) for b in range(pd)]).to(bf)
+    return Jc, Jp, W
+
+
+def _equilibrate(system: SchurSystem, Jc, Jp, W, plans: ShardedPlans,
+                 Hpp_d: torch.Tensor, Hll_d: torch.Tensor,
+                 compute_kind: ComputeKind):
+    """Jacobi (scale-then-cast) equilibration of both precision rungs
+    (JAX pcg.py:1196-1243): with d = diag(damped H)^-1/2, scale Hpp_d and
+    Hll_d symmetrically, g by d, the coupling rows per edge, and cast the
+    scaled rows to bfloat16 (`_scale_rows`, per shard).  Returns
+    the scaled system's pieces and the scales (d_cam [cd, Nc], d_pt
+    [pd, Np]) that unscale the solution."""
+    pd = int(round(Hll_d.shape[0] ** 0.5))
+    dc = torch.rsqrt(torch.diagonal(Hpp_d, dim1=-2, dim2=-1))  # [Nc, cd]
+    Hpp_d = Hpp_d * dc[:, :, None] * dc[:, None, :]
+    d_cam = dc.T.contiguous()
+    d_pt = torch.rsqrt(torch.stack([Hll_d[i * (pd + 1)]
+                                    for i in range(pd)]))  # [pd, Np]
+    Hll_d = Hll_d * torch.stack([d_pt[i] * d_pt[j]
+                                 for i in range(pd) for j in range(pd)])
+    g_cam = system.g_cam * d_cam
+    g_pt = system.g_pt * d_pt
+    n = len(plans.shards)
+    out = for_shards(
+        lambda jc, jp, w, pl, d: _scale_rows(
+            jc, jp, w, pl, d_cam.to(d), d_pt.to(d), compute_kind),
+        per_shard(Jc, n), per_shard(Jp, n), per_shard(W, n),
+        plans.shards, plans.devices)
+    Jc, Jp, W = (None if out[0][i] is None else
+                 tuple(o[i] for o in out) for i in range(3))
     return Hpp_d, Hll_d, g_cam, g_pt, Jc, Jp, W, d_cam, d_pt
+
+
+def make_matvec_2d(Jc, Jp, W, plans: ShardedPlans, Hpp_d: torch.Tensor,
+                   Hll_inv: torch.Tensor,
+                   compute_kind: ComputeKind = ComputeKind.IMPLICIT,
+                   bf16_ops: bool = False, bf16_collectives: bool = False,
+                   fused_kernels: bool = False, pairs: Optional[list] = None):
+    """The Schur S.p product on the 2-D camera x edge mesh (JAX
+    pcg.py:423-635), in five stages; device (e, c) is shard e*C + c, and
+    the column-wide work of camera column c (its summed point shard, the
+    Hll^-1 product and the camera reduction) runs on device (0, c), where
+    the JAX package's subgroup psums leave a copy on every device:
+
+      1. camera gather and product: each device's own hlp over its edges
+         (every edge of device (e, c) has a camera in tile c), partial
+         point sums [pd, Np] padded to C * Sp;
+      2. point reduction: psum_scatter over the column (device (e, c)'s
+         partials of point shard c summed over c'), then psum over the
+         edge shards e;
+      3. Hll^-1 on the owned point shard;
+      4. the ring: device (e, c) first takes point shard c from device
+         (0, c) (the broadcast half of the edge-axis psum); at step j it
+         holds point shard s = (c + j) mod C, contracts its bucket over
+         s with it and passes it one hop on, to device (e, c - 1), so
+         each shard goes around the row's ring of columns (C - 1 hops);
+         each step adds onto the device's [cd, Tc] tile in step order:
+         one kernel 7 or 8 launch a step in its ring-step form
+         (`fused.fused_single_block_apply`) with `fused_kernels`, or the
+         unfused kernels (2 then 3 on IMPLICIT, 5, the plain W
+         contraction and 4 on EXPLICIT) over the bucket's plans;
+      5. camera reduction: the tiles summed over the edge shards, the
+         camera blocks' own product Hpp_d p subtracted from, and all
+         gathered over the columns.
+
+    With `bf16_collectives` every payload of stages 2-5 (the scatter,
+    both subgroup sums, the ring and the gather) is rounded to bfloat16
+    (parallel/collectives.py), as the JAX package casts them.  The
+    bucket rows are gathered into each bucket's entry order once here,
+    per PCG solve.  An empty bucket adds nothing and launches nothing.
+    `pairs` are the shards' (hpl, hlp) (`shard_matvec_pairs`, built here
+    when not given).  Returns s_matvec(p [cd, Nc]) -> [cd, Nc] on p's
+    device.
+    """
+    tp = plans.tile_plan
+    C, Tc, Sp = tp.cam_blocks, tp.tile_cams, tp.shard_points
+    devs = plans.devices
+    Nc, cd = Hpp_d.shape[0], Hpp_d.shape[-1]
+    Np = Hll_inv.shape[1]
+    pd = int(round(Hll_inv.shape[0] ** 0.5))
+    dtype = Hpp_d.dtype
+    down, up = payload_cast(bf16_collectives, dtype)
+    vec, acc = _edge_precision(bf16_ops)
+    col_dev = [devs[c] for c in range(C)]
+    edge_groups = plans.mesh.axis_groups(EDGE_AXIS)
+    cam_groups = plans.mesh.axis_groups(CAM_AXIS)
+    Hpp_pad = F.pad(Hpp_d, (0, 0, 0, 0, 0, C * Tc - Nc))
+    Hll_pad = F.pad(Hll_inv, (0, C * Sp - Np))
+    Hpp_t = [Hpp_pad[c * Tc:(c + 1) * Tc].to(col_dev[c]) for c in range(C)]
+    Hll_t = [Hll_pad[:, c * Sp:(c + 1) * Sp].contiguous().to(col_dev[c])
+             for c in range(C)]
+    n = len(plans.shards)
+    if pairs is None:
+        pairs = shard_matvec_pairs(Jc, Jp, plans, compute_kind, W,
+                                   fused_kernels, bf16_ops)
+    hlp_parts = [pr[1] for pr in pairs]
+
+    def bucket_rows(jc, jp, w, pl, d):
+        """Device d's rows in each bucket's entry order: (Jin, Jout) =
+        (Jp, Jc) on IMPLICIT, W on EXPLICIT (camera-slot order)."""
+        if compute_kind == ComputeKind.EXPLICIT:
+            return [(w.index_select(1, ring.out.inv),)
+                    for ring in tp.rings[d]]
+        jp_cam = pl.to_cam(jp)
+        return [(jp_cam.index_select(1, ring.out.inv),
+                 jc.index_select(1, ring.out.inv)) for ring in tp.rings[d]]
+
+    rows = for_shards(bucket_rows, per_shard(Jc, n), per_shard(Jp, n),
+                      per_shard(W, n), plans.shards, range(n))
+
+    def ring_step(d: int, s: int, cur: torch.Tensor) -> torch.Tensor:
+        ring, rr = tp.rings[d][s], rows[d][s]
+        if fused_kernels:
+            if compute_kind == ComputeKind.EXPLICIT:
+                return fused.fused_single_block_apply(
+                    rr[0], cur, ring, w_in_major=False,
+                    bf16_operands=bf16_ops)
+            return fused.fused_single_block_apply(
+                rr[0], cur, ring, rows_out=rr[1], bf16_operands=bf16_ops)
+        in_plan = tp.in_plans[d][s]
+        if compute_kind == ComputeKind.EXPLICIT:
+            qe = vec(segtiles.seg_expand(cur, in_plan))
+            te = _edge_pt_to_cam_explicit(rr[0], qe, cd, pd, acc)
+            return segtiles.seg_reduce(te, ring.out)
+        u = segtiles.coupling_expand(cur, rr[0], in_plan, pd, bf16_ops)
+        return segtiles.coupling_reduce(rr[1], u, ring.out, cd, bf16_ops)
+
+    def ring(curs: list) -> list:
+        """Stage 4: every device's [cd, Tc] tile, summed over the steps
+        in step order; `held[d]` is the point shard device d holds."""
+        held = [ppermute(curs[d % C], devs[d]) for d in range(n)]
+        tiles = [torch.zeros((cd, Tc), dtype=dtype, device=devs[d])
+                 for d in range(n)]
+        for j in range(C):
+            if j:
+                held = [ppermute(held[d - d % C + (d + 1) % C], devs[d])
+                        for d in range(n)]
+
+            def step(d: int):
+                s = (d % C + j) % C
+                if tp.rings[d][s].out.n_slots == 0:
+                    return None
+                return ring_step(d, s, up(held[d])).to(dtype)
+
+            for d, t in enumerate(for_shards(step, range(n))):
+                if t is not None:
+                    tiles[d] = tiles[d] + t
+        return [down(t) for t in tiles]
+
+    def s_matvec(p: torch.Tensor) -> torch.Tensor:
+        # (1) per device: partial point sums of its edges.
+        t_part = for_shards(
+            lambda h, d: down(F.pad(h(p.to(d)), (0, C * Sp - Np))),
+            hlp_parts, devs)
+        # (2) scatter over the camera axis (shard (e, c) takes point
+        # shard c of its row's partials), then sum over the edge axis.
+        scattered = [x for g in cam_groups for x in psum_scatter(
+            [t_part[i] for i in g], C, 1, [devs[i] for i in g])]
+        t_sh = [up(x) for x in psum_groups(scattered, edge_groups, col_dev)]
+        # (3) Hll^-1 on each owned shard.
+        curs = [down(block_matvec_fm(Hll_t[c], t_sh[c])) for c in range(C)]
+        # (4) the ring, per device.
+        tiles = ring(curs)
+        # (5) sum over the edge shards, Hpp p - Hpl t, gather the tiles.
+        p_pad = F.pad(p, (0, C * Tc - Nc))
+        hpl_t = psum_groups(tiles, edge_groups, col_dev)
+        y_t = []
+        for c in range(C):
+            p_t = p_pad[:, c * Tc:(c + 1) * Tc].to(col_dev[c])
+            y_t.append(down(cam_block_matvec(Hpp_t[c], p_t) - up(hpl_t[c])))
+        return up(all_gather(y_t, 1, p.device))[:, :Nc].contiguous()
+
+    return s_matvec
 
 
 def plain_pcg_solve(
     system: SchurSystem,
-    Jc: Optional[torch.Tensor],
-    Jp: Optional[torch.Tensor],
-    plans: DualPlans,
+    Jc: Optional[Tuple[torch.Tensor, ...]],
+    Jp: Optional[Tuple[torch.Tensor, ...]],
+    plans: ShardedPlans,
     region: torch.Tensor,
     max_iter: int = 100,
     tol: float = 1e-1,
@@ -581,7 +799,8 @@ def plain_pcg_solve(
     Hll_d = damp_rows_fm(system.Hll, region)
     Minv_c = block_inv(Hpp_d)
     Minv_p = block_inv_fm(Hll_d)
-    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans, compute_kind, system.W)
+    hpl, hlp = summed_matvecs(shard_matvec_pairs(
+        Jc, Jp, plans, compute_kind, system.W), plans.devices)
 
     def h_matvec(x):
         xc, xp = x
@@ -602,9 +821,9 @@ def plain_pcg_solve(
 
 def schur_pcg_solve(
     system: SchurSystem,
-    Jc: Optional[torch.Tensor],
-    Jp: Optional[torch.Tensor],
-    plans: DualPlans,
+    Jc: Optional[Tuple[torch.Tensor, ...]],
+    Jp: Optional[Tuple[torch.Tensor, ...]],
+    plans: ShardedPlans,
     region: torch.Tensor,
     max_iter: int = 100,
     tol: float = 1e-1,
@@ -614,6 +833,7 @@ def schur_pcg_solve(
     fused_kernels: bool = False,
     mixed_precision: bool = False,
     bf16: bool = False,
+    bf16_collectives: bool = False,
     x0: Optional[torch.Tensor] = None,
     guard: bool = False,
     max_restarts: int = 0,
@@ -633,7 +853,10 @@ def schur_pcg_solve(
     apply as one fused kernel.  `mixed_precision` (float32 or float64)
     and `bf16` (float32) solve the equilibrated system with bfloat16
     coupling rows, and unscale the solution; `bf16` runs the textbook CG
-    body and floors a relative `tol` at `_BF16_TOL_FLOOR`.  `tol` may be
+    body and floors a relative `tol` at `_BF16_TOL_FLOOR`, and
+    `bf16_collectives` carries the S.p product's sums across the shards
+    as bfloat16 payloads.  `Jc`, `Jp` and `system.W` are per-shard
+    tuples.  `tol` may be
     a device scalar (the LM loop's forcing term).  `x0` ([cd, Nc], the
     original variables) warm-starts the reduced CG; on a precision rung
     it is brought into the equilibrated variables.  `guard` and
@@ -655,13 +878,24 @@ def schur_pcg_solve(
          d_pt) = _equilibrate(system, Jc, Jp, W, plans, Hpp_d, Hll_d,
                               compute_kind)
     Hll_inv = block_inv_fm(Hll_d)
-    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans, compute_kind, W,
-                                     fused_kernels, bf16_ops=bf16)
+    pairs = shard_matvec_pairs(Jc, Jp, plans, compute_kind, W,
+                               fused_kernels, bf16)
+    hpl, hlp = summed_matvecs(pairs, plans.devices)
+    if plans.tile_plan is not None:
+        # The 2-D mesh: S.p alone runs the subgroup stages and the ring;
+        # the reduced RHS, the back-substitution and the preconditioner
+        # builds keep the world-wide products above.
+        s_matvec = make_matvec_2d(Jc, Jp, W, plans, Hpp_d, Hll_inv,
+                                  compute_kind, bf16, bf16_collectives,
+                                  fused_kernels, pairs)
+    else:
+        # Compressed payloads (bf16_collectives) for the S.p product only.
+        hpl_c, hlp_c = summed_matvecs(pairs, plans.devices, bf16_collectives)
 
-    def s_matvec(p: torch.Tensor) -> torch.Tensor:
-        # S p = Hpp_d p - Hpl Hll_d^-1 Hlp p
-        t = block_matvec_fm(Hll_inv, hlp(p))
-        return cam_block_matvec(Hpp_d, p) - hpl(t)
+        def s_matvec(p: torch.Tensor) -> torch.Tensor:
+            # S p = Hpp_d p - Hpl Hll_d^-1 Hlp p
+            t = block_matvec_fm(Hll_inv, hlp_c(p))
+            return cam_block_matvec(Hpp_d, p) - hpl_c(t)
 
     precond_apply, fallback = make_schur_preconditioner(
         precond, preconditioner, Hpp_d, Hll_inv, W, Jc, Jp, plans,

@@ -46,6 +46,15 @@ nine rows a pair chunk) and, when smoothing, the two passes of
 `_smooth_correction` (per column block, by point and then by camera).
 The small dense algebra runs through `torch.einsum` / matmul.
 
+The builds run over a mesh (`plans` a `parallel.mesh.ShardedPlans`, one
+device a mesh of one shard; the coupling rows per-shard tuples, the
+coarse plan split over the shards): every edge-scale sum runs per shard
+over that shard's edges and is summed across the shards on the first
+shard's device, the psums of JAX
+precond.py:283 (SCHUR_DIAG), 387 and 409 (the smoothing passes), 483
+(the incidence rows V) and 518 (the contraction); everything after them
+is replicated work, done there once.
+
 A non-finite coarse operator never raises: its level's `ok` is False,
 the cycle truncates there (at level 1 it is bitwise the base apply,
 through `torch.where`), and the level's bit is set in the high half of
@@ -67,7 +76,10 @@ from megba_tpu_torch.ops.segtiles import (
     DeviceMultiLevelPlan,
     DualPlans,
     SegPlan,
+    ShardedClusterPlan,
 )
+from megba_tpu_torch.parallel.collectives import for_shards, per_shard, psum
+from megba_tpu_torch.parallel.mesh import ShardedPlans
 from megba_tpu_torch.solver.dense import (
     dense_filtered_factor,
     dense_filtered_solve,
@@ -165,28 +177,20 @@ def block_inv(H: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nki,nkj->nij", inv_l, inv_l)
 
 
-def _schur_diag_precond(
-    Hpp_d: torch.Tensor,
-    Hll_inv: torch.Tensor,
-    W: Optional[torch.Tensor],
-    Jc: Optional[torch.Tensor],
-    Jp: Optional[torch.Tensor],
-    plans: DualPlans,
-    compute_kind: ComputeKind,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The true Schur block diagonal Hpp_d - sum_e W_e Hll^-1 W_e^T,
-    inverted, and the number of camera blocks that fell back to the Hpp
-    inverse (JAX precond.py:244-299).
+# Per-shard edge rows (W, Jc or Jp), or None.
+ShardRows = Optional[Tuple[torch.Tensor, ...]]
 
-    The coupling rows come in camera-slot order (`coupling_row_provider`:
-    W in EXPLICIT mode, Jc^T Jp rebuilt in IMPLICIT mode, bfloat16 rows
-    upcast); each edge's correction block W_e Hll^-1 W_e^T is formed per
-    slot, nine of its 81 rows at a time, and summed per camera by kernel
-    4, nine launches of nine rows.  The whole edge axis is one chunk.
-    """
-    cd = Hpp_d.shape[-1]
-    pd = int(round(Hll_inv.shape[0] ** 0.5))
-    dtype = Hpp_d.dtype
+
+def _shard_args(plans: ShardedPlans, *xs):
+    """Per-shard operand lists (None -> Nones)."""
+    return [per_shard(x, len(plans.shards)) for x in xs]
+
+
+def _schur_diag_rows(Hll_inv, W, Jc, Jp, plans: DualPlans,
+                     compute_kind: ComputeKind, cd: int, pd: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """One shard's correction rows [cd*cd, Nc]: sum_e W_e Hll^-1 W_e^T
+    per camera over its edges."""
     od = 0 if Jc is None else Jc.shape[0] // cd
     rows_of = coupling_row_provider(W, Jc, Jp, od, compute_kind, dtype,
                                     plans=plans)
@@ -202,12 +206,41 @@ def _schur_diag_precond(
     # corr[a, b] = sum_q t[a, q] w[b, q]; camera row a's nine rows are
     # formed and summed per camera together, so only nine of the 81 edge
     # rows exist at a time.
-    corr_rows = torch.cat([
+    return torch.cat([
         segtiles.seg_reduce(torch.stack([
             sum(t[a * pd + q] * w[b * pd + q] for q in range(pd))
             for b in range(cd)]), plans.cam)
         for a in range(cd)])
-    del w, t
+
+
+def _schur_diag_precond(
+    Hpp_d: torch.Tensor,
+    Hll_inv: torch.Tensor,
+    W,
+    Jc,
+    Jp,
+    plans: ShardedPlans,
+    compute_kind: ComputeKind,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The true Schur block diagonal Hpp_d - sum_e W_e Hll^-1 W_e^T,
+    inverted, and the number of camera blocks that fell back to the Hpp
+    inverse (JAX precond.py:244-299).
+
+    The coupling rows come in camera-slot order (`coupling_row_provider`:
+    W in EXPLICIT mode, Jc^T Jp rebuilt in IMPLICIT mode, bfloat16 rows
+    upcast); each edge's correction block W_e Hll^-1 W_e^T is formed per
+    slot, nine of its 81 rows at a time, and summed per camera by kernel
+    4, nine launches of nine rows (per shard, then summed across the
+    shards).  The whole edge axis is one chunk.
+    """
+    cd = Hpp_d.shape[-1]
+    pd = int(round(Hll_inv.shape[0] ** 0.5))
+    dtype = Hpp_d.dtype
+    corr_rows = psum(for_shards(
+        lambda w, jc, jp, pl, d: _schur_diag_rows(
+            Hll_inv.to(d), w, jc, jp, pl, compute_kind, cd, pd, dtype),
+        *_shard_args(plans, W, Jc, Jp), plans.shards, plans.devices),
+        Hpp_d.device)
     num_cameras = Hpp_d.shape[0]
     corr = torch.movedim(corr_rows.reshape(cd, cd, num_cameras), -1, 0)
     # Exact arithmetic keeps Hpp_d - corr SPD (a principal block of S);
@@ -264,8 +297,49 @@ def _smooth_block_columns(cd: int, n: int, itemsize: int, m: int) -> int:
     return min(m, max(3, mc // 3 * 3))
 
 
+def _smooth_u_rows(w: torch.Tensor, plans: DualPlans, Yb: torch.Tensor,
+                   pd: int) -> torch.Tensor:
+    """One shard's first smoothing pass over a column block: the rows
+    W_e^T Y[cam(e)] summed per point, [pd * k, Np]."""
+    cd = Yb.shape[0]
+    k, n = Yb.shape[2], w.shape[1]
+    cam_of_slot = plans.cam.seg.long()
+    # U rows [pd, k, n]: W_e^T Y[cam(e)] per column, summed over a in
+    # ascending order, each row contiguous.
+    u_rows = torch.empty((pd, k, n), dtype=w.dtype, device=w.device)
+    for a in range(cd):
+        g = Yb[a].T.contiguous().index_select(1, cam_of_slot)
+        for q in range(pd):
+            if a == 0:
+                torch.mul(w[a * pd + q], g, out=u_rows[q])
+            else:
+                u_rows[q] += w[a * pd + q] * g
+    u_rows = u_rows.reshape(pd * k, n)
+    return torch.cat([segtiles.seg_reduce(plans.to_pt(u_rows[i:i + 9]),
+                                          plans.pt)
+                      for i in range(0, pd * k, 9)])
+
+
+def _smooth_z_rows(w: torch.Tensor, plans: DualPlans, T: torch.Tensor,
+                   cd: int) -> torch.Tensor:
+    """One shard's second smoothing pass: the rows W_e T[pt(e)] summed
+    per camera, [cd * k, Nc]."""
+    pd, k = T.shape[0], T.shape[1]
+    n = w.shape[1]
+    pt_of_slot = plans.pt.seg.long().index_select(0, plans.cam.inv)
+    z_rows = torch.empty((cd, k, n), dtype=w.dtype, device=w.device)
+    for q in range(pd):
+        g = T[q].index_select(1, pt_of_slot)
+        for a in range(cd):
+            if q == 0:
+                torch.mul(w[a * pd + q], g, out=z_rows[a])
+            else:
+                z_rows[a] += w[a * pd + q] * g
+    return _reduce_rows(z_rows.reshape(cd * k, n), plans.cam)
+
+
 def _smooth_correction(Hpp_d: torch.Tensor, Hll_inv: torch.Tensor,
-                       w: torch.Tensor, plans: DualPlans,
+                       w: Tuple[torch.Tensor, ...], plans: ShardedPlans,
                        Y: torch.Tensor) -> torch.Tensor:
     """Z = S_d Y for the smoothing correction's columns (JAX
     precond.py:337-411).
@@ -275,54 +349,35 @@ def _smooth_correction(Hpp_d: torch.Tensor, Hll_inv: torch.Tensor,
     summed per point (over `plans.pt`, after `to_pt`), Hll^-1 per point,
     then the rows W_e (Hll^-1 Hlp Y)[pt(e)] summed per camera (over
     `plans.cam`), each sum by kernel 4, nine rows a launch: 12 C launches
-    a build whatever the block.  `w` are the coupling rows [cd*pd, nE] in
+    a build whatever the block (per shard, each pass summed across the
+    shards).  `w` are each shard's coupling rows [cd*pd, n_k] in
     camera-slot order.
     """
     cd = Hpp_d.shape[-1]
     pd = int(round(Hll_inv.shape[0] ** 0.5))
     num_cameras = Hpp_d.shape[0]
     Np = Hll_inv.shape[1]
-    n = w.shape[1]
     C = Y.shape[2]
     m = C * cd
     Ym = Y.reshape(cd, num_cameras, m)
     hinv = Hll_inv.reshape(pd, pd, Np)
-    cam_of_slot = plans.cam.seg.long()
-    pt_of_slot = plans.pt.seg.long().index_select(0, plans.cam.inv)
-    mc = _smooth_block_columns(cd, n, w.element_size(), m)
+    # The block size follows the largest shard's edge count.
+    n = max(x.shape[1] for x in w)
+    mc = _smooth_block_columns(cd, n, w[0].element_size(), m)
     z_cols = []
     for m0 in range(0, m, mc):
         k = min(m0 + mc, m) - m0
         Yb = Ym[:, :, m0:m0 + k]
-        # U rows [pd, k, n]: W_e^T Y[cam(e)] per column, summed over a in
-        # ascending order, each row contiguous.
-        u_rows = torch.empty((pd, k, n), dtype=w.dtype, device=w.device)
-        for a in range(cd):
-            g = Yb[a].T.contiguous().index_select(1, cam_of_slot)
-            for q in range(pd):
-                if a == 0:
-                    torch.mul(w[a * pd + q], g, out=u_rows[q])
-                else:
-                    u_rows[q] += w[a * pd + q] * g
-        u_rows = u_rows.reshape(pd * k, n)
-        U = torch.cat([segtiles.seg_reduce(plans.to_pt(u_rows[i:i + 9]),
-                                           plans.pt)
-                       for i in range(0, pd * k, 9)]).reshape(pd, k, Np)
-        del u_rows
+        U = psum(for_shards(
+            lambda ws, pl, d: _smooth_u_rows(ws, pl, Yb.to(d), pd),
+            w, plans.shards, plans.devices), Hpp_d.device).reshape(pd, k, Np)
         # Hll^-1 (Hlp Y) per point.
         T = torch.stack([sum(hinv[q, s] * U[s] for s in range(pd))
                          for q in range(pd)])  # [pd, k, Np]
-        z_rows = torch.empty((cd, k, n), dtype=w.dtype, device=w.device)
-        for q in range(pd):
-            g = T[q].index_select(1, pt_of_slot)
-            for a in range(cd):
-                if q == 0:
-                    torch.mul(w[a * pd + q], g, out=z_rows[a])
-                else:
-                    z_rows[a] += w[a * pd + q] * g
-        z_cols.append(_reduce_rows(z_rows.reshape(cd * k, n), plans.cam)
-                      .reshape(cd, k, num_cameras))
-        del z_rows
+        z = psum(for_shards(
+            lambda ws, pl, d: _smooth_z_rows(ws, pl, T.to(d), cd),
+            w, plans.shards, plans.devices), Hpp_d.device)
+        z_cols.append(z.reshape(cd, k, num_cameras))
     Zcoup = torch.cat(z_cols, dim=1).permute(0, 2, 1).reshape(
         cd, num_cameras, C, cd)
     Z1 = torch.einsum("nac,cnJb->anJb", Hpp_d, Y)
@@ -332,12 +387,12 @@ def _smooth_correction(Hpp_d: torch.Tensor, Hll_inv: torch.Tensor,
 def build_two_level_coarse(
     Hpp_d: torch.Tensor,
     Hll_inv: torch.Tensor,
-    W: Optional[torch.Tensor],
-    Jc: Optional[torch.Tensor],
-    Jp: Optional[torch.Tensor],
-    cluster_plan: DeviceClusterPlan,
+    W: ShardRows,
+    Jc: ShardRows,
+    Jp: ShardRows,
+    cluster_plan: Union[DeviceClusterPlan, ShardedClusterPlan],
     compute_kind: ComputeKind,
-    plans: DualPlans,
+    plans: ShardedPlans,
     cam_fixed: Optional[torch.Tensor] = None,
     smooth_omega: float = 0.0,
     Minv: Optional[torch.Tensor] = None,
@@ -363,13 +418,20 @@ def build_two_level_coarse(
     dtype = Hpp_d.dtype
     num_cameras = Hpp_d.shape[0]
     C = cluster_plan.num_clusters
-    od = 0 if Jc is None else Jc.shape[0] // cd
-    w = coupling_row_provider(W, Jc, Jp, od, compute_kind, dtype,
-                              plans=plans)(0, plans.cam.n_slots)
+    od = 0 if Jc is None else Jc[0].shape[0] // cd
 
-    # V rows [cd*pd, n_pc]: the coupling rows summed per (point, cluster)
-    # incidence, the real edges gathered to incidence order.
-    V = _reduce_rows(w.index_select(1, cluster_plan.pc.inv), cluster_plan.pc)
+    def rows_of(w_, jc, jp, pl):
+        return coupling_row_provider(w_, jc, jp, od, compute_kind, dtype,
+                                     plans=pl)(0, pl.cam.n_slots)
+
+    w = tuple(for_shards(rows_of, *_shard_args(plans, W, Jc, Jp),
+                         plans.shards))
+    # V rows [cd*pd, n_pc]: each shard's coupling rows summed per (point,
+    # cluster) incidence, its real edges gathered to incidence order,
+    # summed across the shards.
+    V = psum(for_shards(
+        lambda ws, cp: _reduce_rows(ws.index_select(1, cp.pc.inv), cp.pc),
+        w, cluster_plan.shards), Hpp_d.device)
     # T = V Hll^-1 per incidence (Hll^-1 symmetric: T's columns are the
     # Hll^-1 V^T blocks of the contraction).
     hinv = Hll_inv.index_select(1, cluster_plan.pc_pt)
@@ -378,22 +440,29 @@ def build_two_level_coarse(
         for a in range(cd) for q in range(pd)])  # [cd*pd, n_pc]
     del V, hinv
 
-    # The edge-incidence contraction: corrG[(a, b), (n, J)] sums
-    # W_e[a, q] T_s[b, q] over the pairs of segment n*C + J, nine of the
-    # 81 rows formed and summed at a time, pair chunk by pair chunk.
-    blocks = []
-    for p0, p1, _, plan in cluster_plan.ec_chunks:
-        we = w.index_select(1, plan.inv)
-        te = T.index_select(1, cluster_plan.ec_slot[p0:p1])
-        blocks.append(torch.cat([
-            segtiles.seg_reduce(torch.stack([
-                sum(we[a * pd + q] * te[b * pd + q] for q in range(pd))
-                for b in range(cd)]), plan)
-            for a in range(cd)]))
-        del we, te
-    corrg = torch.cat(blocks, dim=1).reshape(cd, cd, num_cameras, C)
+    def contraction(ws, cp, T_):
+        """The edge-incidence contraction of one edge set:
+        corrG[(a, b), (n, J)] sums W_e[a, q] T_s[b, q] over the pairs of
+        segment n*C + J, nine of the 81 rows formed and summed at a
+        time, pair chunk by pair chunk."""
+        blocks = []
+        for p0, p1, _, plan in cp.ec_chunks:
+            we = ws.index_select(1, plan.inv)
+            te = T_.index_select(1, cp.ec_slot[p0:p1])
+            blocks.append(torch.cat([
+                segtiles.seg_reduce(torch.stack([
+                    sum(we[a * pd + q] * te[b * pd + q] for q in range(pd))
+                    for b in range(cd)]), plan)
+                for a in range(cd)]))
+            del we, te
+        return torch.cat(blocks, dim=1)
+
+    corrg = psum(for_shards(
+        lambda ws, cp, d: contraction(ws, cp, T.to(d)), w,
+        cluster_plan.shards, plans.devices), Hpp_d.device)
+    corrg = corrg.reshape(cd, cd, num_cameras, C)
     corrg = corrg.permute(0, 2, 3, 1)  # [a, n, J, b]
-    del blocks, T
+    del T
 
     # Fine half Hpp_d R^T: camera n's block in coarse column cluster(n).
     sel = (cluster_plan.cluster[None, :] == torch.arange(
@@ -557,12 +626,12 @@ def _smoother_weight(A4: torch.Tensor, D_inv: torch.Tensor) -> torch.Tensor:
 def build_multilevel_coarse(
     Hpp_d: torch.Tensor,
     Hll_inv: torch.Tensor,
-    W: Optional[torch.Tensor],
-    Jc: Optional[torch.Tensor],
-    Jp: Optional[torch.Tensor],
+    W: ShardRows,
+    Jc: ShardRows,
+    Jp: ShardRows,
     multilevel_plan: DeviceMultiLevelPlan,
     compute_kind: ComputeKind,
-    plans: DualPlans,
+    plans: ShardedPlans,
     cam_fixed: Optional[torch.Tensor] = None,
     smooth_omega: float = 0.0,
     Minv: Optional[torch.Tensor] = None,
@@ -660,10 +729,10 @@ def make_schur_preconditioner(
     block_kind: PreconditionerKind,
     Hpp_d: torch.Tensor,
     Hll_inv: Optional[torch.Tensor] = None,
-    W: Optional[torch.Tensor] = None,
-    Jc: Optional[torch.Tensor] = None,
-    Jp: Optional[torch.Tensor] = None,
-    plans: Optional[DualPlans] = None,
+    W: ShardRows = None,
+    Jc: ShardRows = None,
+    Jp: ShardRows = None,
+    plans: Optional[ShardedPlans] = None,
     compute_kind: ComputeKind = ComputeKind.IMPLICIT,
     neumann_order: int = 2,
     cluster_plan: Union[None, DeviceClusterPlan, DeviceMultiLevelPlan] = None,

@@ -36,6 +36,7 @@ import megba_tpu_torch as mt
 from megba_tpu_torch.core.fm import block_inv_fm, damp_rows_fm
 from megba_tpu_torch.linear_system.builder import damp_blocks
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.solver import pcg as tpcg
 from megba_tpu_torch.solver import precond as tprecond
 
@@ -49,7 +50,8 @@ HPP = mt.PreconditionerKind.HPP
 def _problem(kind="IMPLICIT", num_cameras=16, num_points=120, seed=2,
              locality="ring", fixed=False, region=50.0, rows=None):
     """One scene's damped system in both packages: JAX's operands (caller
-    order, unplanned) and the port's (camera slots), the same numbers."""
+    order, unplanned) and the port's (camera slots, on the mesh of one
+    shard: `plans`; `dual` its one device's plans), the same numbers."""
     s = mt.make_synthetic_bal(num_cameras=num_cameras, num_points=num_points,
                               obs_per_point=4, seed=seed, locality=locality)
     assert (np.diff(s.cam_idx) >= 0).all()  # both packages plan one stream
@@ -75,14 +77,14 @@ def _problem(kind="IMPLICIT", num_cameras=16, num_points=120, seed=2,
     W, jW = tsys.W, jsys.W
     if rows == "bf16":  # a rung's rows: both packages upcast them
         bf = torch.bfloat16
-        W = None if W is None else W.to(bf)
+        W = None if W is None else (W[0].to(bf),)
         tJc, tJp = tJc.to(bf), tJp.to(bf)
         jW = None if jW is None else jnp.asarray(jW).astype(jnp.bfloat16)
         Jc, Jp = Jc.astype(jnp.bfloat16), Jp.astype(jnp.bfloat16)
     return dict(
-        s=s, nc=nc, npt=npt, kind=kind, plans=plans,
+        s=s, nc=nc, npt=npt, kind=kind, plans=one_shard(plans), dual=plans,
         systems=((jsys, Jc, Jp), (tsys, tJc, tJp)),
-        port=(Hpp_d, Hll_inv, W, tJc, tJp),
+        port=(Hpp_d, Hll_inv, W, (tJc,), (tJp,)),
         jax=(jnp.asarray(Hpp_d.numpy()), jnp.asarray(Hll_inv.numpy()), jW,
              Jc, Jp),
         ci=ci, pi=pi, cam_fixed=None if cf is None else torch.from_numpy(cf),
@@ -202,10 +204,10 @@ def test_bf16_two_level_schur_pcg_matches_jax(kind, fused):
     p, dplan, jsys, refs = _bf16_pcg_case(kind)
     _, (_, tJc, tJp) = p["systems"]
     tsys = schur_system_to_torch(jsys, device="cpu", dtype=torch.float32)
-    plans = tfused.with_fused_plans(p["plans"])
+    plans = one_shard(tfused.with_fused_plans(p["dual"]))
     for region, ref in zip(_BF16_REGIONS, refs):
         got = tpcg.schur_pcg_solve(
-            tsys, tJc.float(), tJp.float(), plans,
+            tsys, (tJc.float(),), (tJp.float(),), plans,
             torch.tensor(region, dtype=torch.float32),
             compute_kind=mt.ComputeKind[kind], fused_kernels=fused,
             precond=TWO, cluster_plan=dplan, **_BF16_PCG)
@@ -236,7 +238,7 @@ def test_coarse_build_is_bitwise_chunk_and_block_free(monkeypatch):
             cam_fixed=p["cam_fixed"], smooth_omega=0.5)
 
     a = build(whole)
-    n = p["plans"].cam.n_slots
+    n = p["dual"].cam.n_slots
     assert tprecond._smooth_block_columns(CD, n, 8, 9 * plan.num_clusters
                                           ) == 9 * plan.num_clusters
     # Blocks of three columns.
@@ -290,8 +292,8 @@ def test_multilevel_coarse_matches_jax(knobs, omega):
 def _dense(p):
     """The explicit damped Schur complement S_d [Nc*cd, Nc*cd], D^-1 and
     a materialiser of an apply, from the port's operands (numpy)."""
-    Hpp_d, Hll_inv, _, Jc, Jp = p["port"]
-    plans = p["plans"]
+    Hpp_d, Hll_inv, _, (Jc,), (Jp,) = p["port"]
+    plans = p["dual"]
     from megba_tpu_torch.core.fm import coupling_rows
     W = coupling_rows(Jc, plans.to_cam(Jp), 2).numpy()
     cam = plans.cam.seg.numpy()
@@ -509,7 +511,7 @@ def _carry_system(p):
     from megba_tpu_torch.ops.residuals import (
         bal_residual_jacobian_analytical_fm as teng)
 
-    s, plans = p["s"], p["plans"]
+    s, plans = p["s"], p["dual"]
     tci = plans.cam.seg.long()
     tpi = plans.pt.seg.long().index_select(0, plans.cam.inv)
     r, Jc, Jp = teng(torch.from_numpy(s.cameras0.T.copy()).index_select(
@@ -518,5 +520,6 @@ def _carry_system(p):
     r, Jc, Jp = tb.weight_system_inputs(
         r, Jc, Jp, tci, tpi, torch.ones(r.shape[1], dtype=torch.float64))
     Jp = plans.to_pt(Jp)
-    return (tb.build_schur_system(r, Jc, Jp, plans, p["nc"], p["npt"]),
-            Jc, Jp, plans)
+    return (tb.build_schur_system((r,), (Jc,), (Jp,), p["plans"], p["nc"],
+                                  p["npt"]),
+            (Jc,), (Jp,), p["plans"])

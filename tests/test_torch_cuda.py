@@ -979,3 +979,166 @@ def test_f64_coarse_paths_kernels_match_plain_and_are_deterministic(
         assert float(kern.cost) < float(np.nanmax(ck))
         if fault == "nan":
             assert kern.status == SolveStatus.RECOVERED
+
+
+def _to_plain(monkeypatch):
+    """Route every kernel wrapper to its plain version."""
+    for m in (tseg, tfused):
+        for k in m.KERNELS:
+            monkeypatch.setattr(m, k.__name__,
+                                getattr(m, k.__name__ + "_plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["implicit_fused_neumann", "explicit"])
+def test_f64_plain_reference_is_deterministic_on_the_card(monkeypatch,
+                                                          path):
+    """On the card: two solves through the plain versions are bitwise
+    equal in every trace field and in the solved parameters (their
+    segment sums run in a fixed order, not through CUDA atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import PrecondKind, flat_solve
+
+    kind = "IMPLICIT" if path.startswith("implicit") else "EXPLICIT"
+    opt = _small_option(np.float64, kind, fused="fused" in path)
+    if path.endswith("neumann"):
+        opt = dataclasses.replace(opt, solver_option=dataclasses.replace(
+            opt.solver_option, precond=PrecondKind.NEUMANN))
+    s = _small_scene(np.float64)
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
+    _to_plain(monkeypatch)
+    one = flat_solve(*args, device="cuda")
+    two = flat_solve(*args, device="cuda")
+    for f in dataclasses.fields(one.trace):
+        assert _bitwise_equal(getattr(one.trace, f.name),
+                              getattr(two.trace, f.name)), f.name
+    assert _bitwise_equal(one.cameras, two.cameras)
+    assert _bitwise_equal(one.points, two.points)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,Tc", [(700, 200), (20000, 13)],
+                         ids=["slot_tiles", "block_per_camera"])
+def test_cuda_ring_step_kernels_match_plain(n, Tc):
+    """On the card: kernels 7 and 8 in their ring-step call form
+    (`fused_single_block_apply`) against their plain versions, f64 and
+    f32, bitwise repeatable, counted under their own names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n)
+    Sp = 500
+    in_local = rng.integers(0, Sp, n)
+    out_local = np.sort(rng.integers(0, Tc, n))
+    plan = tfused.ring_step_plan(in_local, out_local, np.arange(n), Sp, Tc,
+                                 dev)
+    assert plan.out.per_thread == (n == 700)
+    for dtype, tol in ((np.float64, 1e-12), (np.float32, 1e-5)):
+        W, Jin, Jout = (torch.from_numpy(
+            (0.1 * rng.standard_normal((rows, n))).astype(dtype)).to(dev)
+            for rows in (27, 6, 18))
+        table = torch.from_numpy(rng.standard_normal((3, Sp)).astype(
+            dtype)).to(dev)
+        for kernel, args, kw in (
+                (tfused.fused_ring_step_apply, (W, table, plan), {}),
+                (tfused.fused_ring_step_apply_implicit,
+                 (Jin, Jout, table, plan), {})):
+            before = kernel.launches
+            if kernel is tfused.fused_ring_step_apply:
+                got = tfused.fused_single_block_apply(W, table, plan)
+            else:
+                got = tfused.fused_single_block_apply(Jin, table, plan,
+                                                      rows_out=Jout)
+            again = kernel(*args, **kw)
+            plain = getattr(tfused, kernel.__name__ + "_plain")
+            ref = plain(*args, **kw)
+            scale = plain(*(a.abs() if isinstance(a, torch.Tensor) else a
+                            for a in args), **kw)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 2
+            assert torch.equal(got, again)
+            assert bool(((got - ref).abs() <= tol * scale).all())
+
+
+_MESH_PATHS = {
+    # name: (kind, fused, world, mesh_2d, extra)
+    "w2_implicit": ("IMPLICIT", False, 2, False, {}),
+    "w2_explicit": ("EXPLICIT", False, 2, False, {}),
+    "w2_nan_burst": ("IMPLICIT", False, 2, False, dict(guards=True)),
+    "w2_two_level": ("IMPLICIT", False, 2, False, dict(
+        precond="TWO_LEVEL")),
+    "2x2_implicit": ("IMPLICIT", False, 4, True, {}),
+    "2x2_implicit_fused": ("IMPLICIT", True, 4, True, {}),
+    "2x2_explicit_fused": ("EXPLICIT", True, 4, True, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(_MESH_PATHS))
+def test_f64_multi_device_paths_kernels_match_plain(monkeypatch, path):
+    """On the card, every shard on cuda:0: the 1-D and 2-D meshes through
+    the kernels and through their plain versions (trial costs at rtol
+    1e-9, NaN at the same iterations, equal traces, counts and status),
+    two kernel solves bitwise equal, and the kernel solve against the
+    world-1 kernel solve at rtol 1e-9 with equal counts; the fused 2-D
+    paths launch the ring-step kernels, every shard its share."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from megba_tpu_torch import (PrecondKind, RobustOption, SolveStatus,
+                                 flat_solve, make_nan_burst)
+    from megba_tpu_torch.parallel.collectives import ShardLaunches
+
+    kind, fused, world, mesh2d, extra = _MESH_PATHS[path]
+    base = _small_option(np.float64, kind, fused=fused)
+    so = dataclasses.replace(
+        base.solver_option,
+        precond=PrecondKind[extra.get("precond", "JACOBI")])
+    one_opt = dataclasses.replace(
+        base, solver_option=so,
+        robust_option=RobustOption(guards=extra.get("guards", False)))
+    opt = dataclasses.replace(
+        one_opt, world_size=world, solver_option=dataclasses.replace(
+            so, mesh_2d=mesh2d, cam_blocks=2 if mesh2d else 0))
+    s = _small_scene(np.float64)
+    kw = {}
+    if extra.get("guards"):
+        kw["fault_plan"] = make_nan_burst(s.obs.shape[0], [2, 9], 0, 1)
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
+    devs = ["cuda:0"] * world
+    for m in (tseg, tfused):
+        m.reset_launch_counts()
+    ring = (tfused.fused_ring_step_apply_implicit if kind == "IMPLICIT"
+            else tfused.fused_ring_step_apply)
+    with ShardLaunches([ring]) as tally:
+        kern = flat_solve(*args, opt, device=devs, **kw)
+    if fused:
+        assert ring.launches > 0
+        assert sorted(tally.counts[ring.__name__]) == list(range(world))
+    again = flat_solve(*args, opt, device=devs, **kw)
+    one = flat_solve(*args, one_opt, device="cuda", **kw)
+    _to_plain(monkeypatch)
+    plain = flat_solve(*args, opt, device=devs, **kw)
+    k = kern.iterations
+    tally = (k, kern.accepted, kern.pcg_iterations, kern.status,
+             kern.recoveries)
+    assert tally == (plain.iterations, plain.accepted, plain.pcg_iterations,
+                     plain.status, plain.recoveries)
+    assert tally == (one.iterations, one.accepted, one.pcg_iterations,
+                     one.status, one.recoveries)
+    for f in ("accept", "pcg_iters", "recovery", "precond_fallback"):
+        assert torch.equal(getattr(kern.trace, f)[:k],
+                           getattr(plain.trace, f)[:k]), f
+    ck = kern.trace.cost[:k].numpy()
+    for other in (plain, one):
+        co = other.trace.cost[:k].numpy()
+        np.testing.assert_array_equal(np.isnan(ck), np.isnan(co))
+        fin = ~np.isnan(ck)
+        np.testing.assert_allclose(ck[fin], co[fin], rtol=1e-9)
+    for f in dataclasses.fields(kern.trace):
+        assert _bitwise_equal(getattr(kern.trace, f.name),
+                              getattr(again.trace, f.name)), f.name
+    if extra.get("guards"):
+        assert kern.status == SolveStatus.RECOVERED
+    else:
+        assert float(kern.cost) < float(kern.initial_cost)

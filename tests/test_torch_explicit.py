@@ -37,6 +37,7 @@ from megba_tpu_torch.convert import result_to_numpy, schur_system_to_torch
 from megba_tpu_torch.linear_system import builder as tb
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.ops.residuals import (
     bal_residual_jacobian_analytical_fm as teng)
 from megba_tpu_torch.solver import pcg as tpcg
@@ -204,8 +205,8 @@ def _explicit_systems(seed, fixed):
     r, tJc, tJp = tb.weight_system_inputs(
         r, tJc, tJp, tci, tpi, torch.from_numpy(mask[perm]), None, tcf, tpf)
     tJp = plans.to_pt(tJp)
-    tsys = tb.build_schur_system(r, tJc, tJp, plans, nc, npt, tcf, tpf,
-                                 EXPLICIT)
+    tsys = tb.build_schur_system((r,), (tJc,), (tJp,), one_shard(plans), nc,
+                                 npt, tcf, tpf, EXPLICIT)
     return (jsys, Jc, Jp, ci, pi), (tsys, plans, perm)
 
 
@@ -213,9 +214,10 @@ def _explicit_systems(seed, fixed):
 def test_explicit_schur_system_W_matches_jax(seed, fixed):
     (jsys, *_), (tsys, plans, perm) = _explicit_systems(seed, fixed)
     want = np.asarray(jsys.W)[:, perm]  # JAX edge order -> cam slots
-    assert tsys.W is not None and tsys.W.shape == want.shape == (27, perm.size)
-    assert tsys.W.is_contiguous()
-    np.testing.assert_allclose(tsys.W.numpy(), want, rtol=1e-12,
+    assert tsys.W is not None and len(tsys.W) == 1  # one shard's rows
+    W = tsys.W[0]
+    assert W.shape == want.shape == (27, perm.size) and W.is_contiguous()
+    np.testing.assert_allclose(W.numpy(), want, rtol=1e-12,
                                atol=1e-12 * np.abs(want).max())
     for name in ("Hpp", "Hll", "g_cam", "g_pt"):
         ref = np.asarray(getattr(jsys, name))
@@ -232,8 +234,8 @@ def test_implicit_build_stores_no_W():
     r, Jc, Jp = (torch.ones(2, n, dtype=torch.float64),
                  torch.ones(18, n, dtype=torch.float64),
                  torch.ones(6, n, dtype=torch.float64))
-    sys = tb.build_schur_system(r, Jc, Jp, plans, cams.shape[0],
-                                pts.shape[0])
+    sys = tb.build_schur_system((r,), (Jc,), (Jp,), one_shard(plans),
+                                cams.shape[0], pts.shape[0])
     assert sys.W is None
     with pytest.raises(ValueError, match="W rows"):
         tpcg.make_coupling_matvecs(Jc, Jp, plans, EXPLICIT, None)
@@ -259,7 +261,8 @@ def test_explicit_schur_pcg_matches_jax(fused, seed, fixed, tol, refuse, rel):
             jsys, jJc, jJp, ci, pi, jnp.asarray(region),
             **dict(kw, compute_kind=jc.ComputeKind.EXPLICIT))
         got = tpcg.schur_pcg_solve(
-            tsys, None, None, plans, torch.tensor(region, dtype=torch.float64),
+            tsys, None, None, one_shard(plans),
+            torch.tensor(region, dtype=torch.float64),
             fused_kernels=fused, **kw)
         assert got.iterations == int(ref.iterations)
         for name in ("dx_cam", "dx_pt"):
@@ -284,7 +287,8 @@ def test_schur_system_to_torch_reorders_W():
     t = schur_system_to_torch(Sys, device="cpu", dtype=torch.float32,
                               edge_perm=perm)
     assert t.Hpp.dtype == torch.float32 and t.Hpp.shape == (3, 9, 9)
-    np.testing.assert_array_equal(t.W.numpy(),
+    assert len(t.W) == 1  # the rows of a one-shard mesh
+    np.testing.assert_array_equal(t.W[0].numpy(),
                                   Sys.W[:, perm].astype(np.float32))
     Sys.W = None
     assert schur_system_to_torch(Sys, device="cpu").W is None

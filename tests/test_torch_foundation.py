@@ -106,12 +106,12 @@ def test_robust_kind_and_status_names():
 ])
 def test_unported_options_raise_typed(field, value):
     # float32: the bf16 rung exists at f32 only (f64 is a ValueError);
-    # the fused kernels and the whole single-device precision ladder are
-    # ported, their multi-device pieces (bf16_collectives, mesh_2d) are
-    # not.  mixed_precision_pcg, both autodiff Jacobian modes, the
-    # robust losses, forcing and warm starts, guards, the plain solver,
-    # COOBS, SCHUR_DIAG, NEUMANN, TWO_LEVEL and MULTILEVEL are ported:
-    # they validate.
+    # the fused kernels, the whole precision ladder and the multi-device
+    # options (world_size, mesh_2d, bf16_collectives) are ported, as are
+    # mixed_precision_pcg, both autodiff Jacobian modes, the robust
+    # losses, forcing and warm starts, guards, the plain solver, COOBS,
+    # SCHUR_DIAG, NEUMANN, TWO_LEVEL and MULTILEVEL: they validate.
+    # Only telemetry and metrics are refused.
     base = dict(jacobian_mode=tc.JacobianMode.ANALYTICAL, dtype=np.float32)
     base[field] = value
     if (field, value) in _PORTED:
@@ -136,28 +136,36 @@ _PORTED = [
     ("solver_option", tc.SolverOption(edge_order=tc.EdgeOrder.COOBS)),
     ("solver_option", tc.SolverOption(precond=tc.PrecondKind.TWO_LEVEL)),
     ("solver_option", tc.SolverOption(precond=tc.PrecondKind.MULTILEVEL)),
+    ("world_size", 2),
+    ("solver_option", tc.SolverOption(fused_kernels=True, bf16=True,
+                                      bf16_collectives=True)),
+    ("solver_option", tc.SolverOption(mesh_2d=True)),
+    ("solver_option", tc.SolverOption(bf16=True, bf16_collectives=True)),
+    ("solver_option", tc.SolverOption(fused_kernels=True, mesh_2d=True)),
+    ("solver_option", tc.SolverOption(forcing=True, mesh_2d=True)),
 ]
 
 
 @pytest.mark.parametrize("kw,refused", [
-    # Guards, use_schur=False, NEUMANN, TWO_LEVEL and MULTILEVEL are
-    # ported: each case keeps a still-refused option beside them (its id
-    # is the case's old one).
+    # Guards, use_schur=False, NEUMANN, TWO_LEVEL, MULTILEVEL and the
+    # multi-device options are ported: each case keeps a still-refused
+    # option (telemetry or metrics) beside them (its id is the case's old
+    # one).
     pytest.param(dict(robust_kind=tc.RobustKind.HUBER,
                       robust_option=tc.RobustOption(guards=True),
-                      world_size=2,
+                      world_size=2, telemetry="t.jsonl",
                       solver_option=tc.SolverOption(
                           precond=tc.PrecondKind.TWO_LEVEL)),
-                 "world_size", id="kw0-guards"),
-    pytest.param(dict(robust_kind=tc.RobustKind.CAUCHY,
+                 "telemetry", id="kw0-guards"),
+    pytest.param(dict(robust_kind=tc.RobustKind.CAUCHY, metrics=True,
                       solver_option=tc.SolverOption(
                           mesh_2d=True, edge_order=tc.EdgeOrder.COOBS)),
-                 "mesh_2d", id="kw1-use_schur"),
-    (dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2),
-     "world_size"),
-    pytest.param(dict(solver_option=tc.SolverOption(
+                 "metrics", id="kw1-use_schur"),
+    (dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2,
+          telemetry="t.jsonl"), "telemetry"),
+    pytest.param(dict(metrics=True, solver_option=tc.SolverOption(
         warm_start=True, precond=tc.PrecondKind.MULTILEVEL, mesh_2d=True,
-        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), "mesh_2d",
+        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), "metrics",
         id="kw3-precond"),
 ])
 def test_still_refused_beside_ported_options(kw, refused):

@@ -32,6 +32,7 @@ import megba_tpu_torch as mt
 from megba_tpu_torch.convert import result_to_numpy
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.solver import pcg as tpcg
 
 from test_torch_fused import _graph, _port_direction
@@ -127,7 +128,7 @@ def test_implicit_fused_schur_pcg_matches_jax(seed, fixed, tol, refuse, rel):
         kw = dict(max_iter=30, tol=tol, refuse_ratio=refuse, tol_relative=rel)
         ref = jpcg.schur_pcg_solve(jsys, jJc, jJp, ci, pi,
                                    jnp.asarray(region), **kw)
-        got = tpcg.schur_pcg_solve(tsys, tJc, tJp, plans,
+        got = tpcg.schur_pcg_solve(tsys, (tJc,), (tJp,), one_shard(plans),
                                    torch.tensor(region, dtype=torch.float64),
                                    fused_kernels=True, **kw)
         assert got.iterations == int(ref.iterations)

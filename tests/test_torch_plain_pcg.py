@@ -28,6 +28,7 @@ from megba_tpu.solver.dense import dense_reference_solve
 import megba_tpu_torch as mt
 from megba_tpu_torch.convert import schur_system_to_torch
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.solver import pcg as tpcg
 
 from tests.test_solver import build_test_system
@@ -70,7 +71,7 @@ def test_plain_pcg_solve_matches_jax(kind, seed):
         ref = jpcg.plain_pcg_solve(jsys, jJc, jJp, ci, pi,
                                    jnp.asarray(region),
                                    compute_kind=jc.ComputeKind[kind], **kw)
-        got = tpcg.plain_pcg_solve(tsys, tJc, tJp, plans,
+        got = tpcg.plain_pcg_solve(tsys, (tJc,), (tJp,), one_shard(plans),
                                    torch.tensor(region, dtype=torch.float64),
                                    compute_kind=mt.ComputeKind[kind], **kw)
         assert got.iterations == int(ref.iterations)
@@ -93,7 +94,7 @@ def test_plain_pcg_matches_dense(kind):
     region = 100.0
     dx_cam, dx_pt = dense_reference_solve(jsys, jJc, jJp, ci, pi,
                                           jnp.asarray(region))
-    got = tpcg.plain_pcg_solve(tsys, tJc, tJp, plans,
+    got = tpcg.plain_pcg_solve(tsys, (tJc,), (tJp,), one_shard(plans),
                                torch.tensor(region, dtype=torch.float64),
                                max_iter=2000, tol=1e-14, tol_relative=True,
                                refuse_ratio=1e30,
@@ -171,6 +172,6 @@ def test_plain_mode_option_validation():
     _, (tsys, tJc, tJp, plans) = _carried("IMPLICIT", 0)
     for kw in (dict(mixed_precision=True), dict(bf16=True)):
         with pytest.raises(NotImplementedError):
-            tpcg.plain_pcg_solve(tsys, tJc, tJp, plans,
+            tpcg.plain_pcg_solve(tsys, (tJc,), (tJp,), one_shard(plans),
                                  torch.tensor(10.0, dtype=torch.float64),
                                  **kw)

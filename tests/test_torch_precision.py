@@ -41,12 +41,13 @@ from megba_tpu_torch import common as tc
 from megba_tpu_torch.convert import schur_system_to_torch
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.solver import pcg as tpcg
 
 from test_torch_explicit import _explicit_systems
 from test_torch_fused import _graph, _port_direction
 from test_torch_fused_implicit import implicit_case
-from test_torch_schur import _systems
+from test_torch_schur import _systems, one
 
 BF16 = torch.bfloat16
 F32_REL_TO_ABS_SUM = 1e-5
@@ -203,7 +204,8 @@ def test_precision_schur_pcg_matches_jax(kind, rung, limit):
             jsys, jJc, jJp, ci, pi, jnp.asarray(region, jnp.float32),
             compute_kind=jc.ComputeKind[kind], **kw)
         got = tpcg.schur_pcg_solve(
-            tsys, tJc, tJp, plans, torch.tensor(region, dtype=torch.float32),
+            tsys, one(tJc), one(tJp), one_shard(plans),
+            torch.tensor(region, dtype=torch.float32),
             compute_kind=mt.ComputeKind[kind], fused_kernels=True, **kw)
         assert got.dx_cam.dtype == got.dx_pt.dtype == torch.float32
         want = np.concatenate([np.asarray(ref.dx_cam).ravel(),
@@ -219,7 +221,8 @@ def test_precision_rungs_need_fused_kernels():
     JAX package by tests/test_torch_unfused_precision.py)."""
     _, (tsys, tJc, tJp, plans) = _f32_systems("IMPLICIT", 1)
     for kw in (dict(bf16=True), dict(mixed_precision=True)):
-        got = tpcg.schur_pcg_solve(tsys, tJc, tJp, plans, torch.tensor(1e3),
+        got = tpcg.schur_pcg_solve(tsys, (tJc,), (tJp,), one_shard(plans),
+                                   torch.tensor(1e3),
                                    **kw)
         assert got.dx_cam.dtype == torch.float32 and got.iterations > 0
         assert bool(torch.isfinite(got.dx_cam).all())
@@ -328,9 +331,9 @@ def test_validate_options_accepts_fused_precision(kw):
           solver_option=dict(bf16=True, **FUSED)), ValueError, "pick one"),
     (dict(dtype=F32, solver_option=dict(bf16_collectives=True)), ValueError,
      "requires SolverOption.bf16"),
+    # Accepted since the multi-device solve was ported (err None).
     (dict(dtype=F32, solver_option=dict(bf16=True, bf16_collectives=True,
-                                        **FUSED)),
-     NotImplementedError, "bf16_collectives"),
+                                        **FUSED)), None, None),
     (dict(dtype=F32, use_schur=False, solver_option=dict(bf16=True)),
      ValueError, "Schur solver"),
     (dict(use_schur=False, mixed_precision_pcg=True), ValueError,
@@ -348,8 +351,9 @@ def test_validate_options_refuses_precision(kw, err, match):
 
 
 def test_precision_refusal_fires_before_planning():
-    """flat_solve refuses the option before it reads the arrays."""
-    opt = _opt(dtype=F32, solver_option=dict(bf16=True,
-                                             bf16_collectives=True))
-    with pytest.raises(NotImplementedError, match="bf16_collectives"):
+    """flat_solve refuses the option before it reads the arrays (the
+    bf16 rung with bf16 collectives is ported; telemetry is not)."""
+    opt = _opt(dtype=F32, telemetry="t.jsonl", solver_option=dict(
+        bf16=True, bf16_collectives=True))
+    with pytest.raises(NotImplementedError, match="telemetry"):
         mt.flat_solve(None, None, None, None, None, opt, device="cpu")

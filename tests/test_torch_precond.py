@@ -31,6 +31,7 @@ from megba_tpu_torch.convert import fault_plan_to_torch
 from megba_tpu_torch.core.fm import block_inv_fm, damp_rows_fm
 from megba_tpu_torch.linear_system.builder import damp_blocks
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.solver import precond as tprecond
 
 from test_torch_guards import _args, _jax_solve, _options, _scene
@@ -42,14 +43,15 @@ IMPLICIT, EXPLICIT = mt.ComputeKind.IMPLICIT, mt.ComputeKind.EXPLICIT
 
 def _damped(kind, seed, region=2.0):
     """The carried system damped at `region`: JAX's (Hpp_d, Hll^-1) and
-    the port's, with both packages' coupling operands."""
+    the port's, with both packages' coupling operands (the port's on the
+    mesh of one shard)."""
     (jsys, jJc, jJp, ci, pi), (tsys, tJc, tJp, plans) = _carried(kind, seed)
     t_region = torch.tensor(region, dtype=torch.float64)
     Hpp_d = damp_blocks(tsys.Hpp, t_region)
     Hll_inv = block_inv_fm(damp_rows_fm(tsys.Hll, t_region))
     jside = (jnp.asarray(Hpp_d.numpy()), jnp.asarray(Hll_inv.numpy()),
              jsys.W, jJc, jJp, ci, pi)
-    return jside, (Hpp_d, Hll_inv, tsys.W, tJc, tJp, plans)
+    return jside, (Hpp_d, Hll_inv, tsys.W, (tJc,), (tJp,), one_shard(plans))
 
 
 @pytest.mark.parametrize("rows", ["f64", "bf16"])
@@ -59,8 +61,8 @@ def test_schur_diag_precond_matches_jax(kind, rows):
         kind, 0)
     if rows == "bf16":  # a rung's rows: both packages upcast them
         bf = torch.bfloat16
-        W = None if W is None else W.to(bf)
-        Jc, Jp = Jc.to(bf), Jp.to(bf)
+        W = None if W is None else (W[0].to(bf),)
+        Jc, Jp = (Jc[0].to(bf),), (Jp[0].to(bf),)
         jW = None if jW is None else jnp.asarray(jW).astype(jnp.bfloat16)
         jJc = jnp.asarray(jJc).astype(jnp.bfloat16)
         jJp = jnp.asarray(jJp).astype(jnp.bfloat16)
@@ -88,8 +90,9 @@ def test_schur_diag_precond_fallback_is_counted():
                      dtype=torch.float64)  # only camera 0's edge couples
     _, plans = tseg.make_dual_plans(np.array([0, 1]), np.zeros(2, int), 2, 1,
                                     "cpu")
-    minv, n_bad = tprecond._schur_diag_precond(Hpp_d, Hll_inv, W, None, None,
-                                               plans, EXPLICIT)
+    minv, n_bad = tprecond._schur_diag_precond(Hpp_d, Hll_inv, (W,), None,
+                                               None, one_shard(plans),
+                                               EXPLICIT)
     want, want_bad = jprecond._schur_diag_precond(
         jnp.asarray(Hpp_d.numpy()), jnp.asarray(Hll_inv.numpy()),
         jnp.asarray(W.numpy()), None, None, jnp.asarray([0, 1]),

@@ -24,6 +24,7 @@ from megba_tpu_torch.core import fm as tfm
 from megba_tpu_torch.io.synthetic import make_synthetic_bal
 from megba_tpu_torch.linear_system import builder as tb
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.ops.residuals import (
     bal_residual_jacobian_analytical_fm as teng)
 from megba_tpu_torch.solver import pcg as tpcg
@@ -47,6 +48,12 @@ def _scene(seed, fixed):
     rng = np.random.default_rng(seed)
     mask = (rng.random(s.obs.shape[0]) > 0.1).astype(np.float64)
     return s, cams, pts, mask, cam_fixed, pt_fixed
+
+
+def one(x):
+    """One device's edge rows as the per-shard tuple of a one-shard mesh
+    (parallel.mesh.one_shard); None stays None."""
+    return None if x is None else (x,)
 
 
 def _systems(seed, fixed):
@@ -79,7 +86,9 @@ def _systems(seed, fixed):
     r, Jc, Jp = tb.weight_system_inputs(
         r, Jc, Jp, tci, tpi, torch.from_numpy(mask[perm]), None, tcf, tpf)
     Jp = plans.to_pt(Jp)
-    tsys = tb.build_schur_system(r, Jc, Jp, plans, nc, npt, tcf, tpf)
+    # One device: the mesh of one shard, its rows 1-tuples.
+    tsys = tb.build_schur_system((r,), (Jc,), (Jp,), one_shard(plans), nc,
+                                 npt, tcf, tpf)
     return jax_side, (tsys, Jc, Jp, plans)
 
 
@@ -110,7 +119,7 @@ def test_schur_pcg_solve_matches_jax(seed, fixed, tol, refuse, rel):
         kw = dict(max_iter=30, tol=tol, refuse_ratio=refuse, tol_relative=rel)
         ref = jpcg.schur_pcg_solve(jsys, jJc, jJp, ci, pi,
                                    jnp.asarray(region), **kw)
-        got = tpcg.schur_pcg_solve(tsys, tJc, tJp, plans,
+        got = tpcg.schur_pcg_solve(tsys, (tJc,), (tJp,), one_shard(plans),
                                    torch.tensor(region, dtype=torch.float64),
                                    **kw)
         assert got.iterations == int(ref.iterations)

@@ -55,6 +55,7 @@ from megba_tpu.solver import precond as jprecond
 import megba_tpu_torch as mt
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
+from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.solver import pcg as tpcg
 from megba_tpu_torch.solver import precond as tprecond
 
@@ -62,7 +63,7 @@ from test_torch_explicit import _explicit_systems
 from test_torch_fused import _graph, _port_direction
 from test_torch_fused_implicit import implicit_case
 from test_torch_precision import _f32_systems, _jax_strict
-from test_torch_schur import _systems
+from test_torch_schur import _systems, one
 from test_torch_segtiles import (_inputs, _jax_slots, _plans, _port_slots,
                                  _segment_ids)
 from test_torch_solve import _compare
@@ -340,7 +341,7 @@ def test_equilibrated_f64_rows_match_jax_bitwise(kind, monkeypatch):
     kw = dict(max_iter=1, mixed_precision=True)
     jpcg.schur_pcg_solve(jsys, jJc, jJp, ci, pi, jnp.asarray(0.5),
                          compute_kind=jc.ComputeKind[kind], **kw)
-    tpcg.schur_pcg_solve(tsys, tJc, tJp, plans,
+    tpcg.schur_pcg_solve(tsys, one(tJc), one(tJp), one_shard(plans),
                          torch.tensor(0.5, dtype=torch.float64),
                          compute_kind=mt.ComputeKind[kind], **kw)
     jW, jJc_b, jJp_b = jseen[0][0][:3]  # (W, Jc, Jp, ...)
@@ -368,7 +369,7 @@ def test_mixed_f64_schur_pcg_matches_jax(kind):
         ref = jpcg.schur_pcg_solve(jsys, jJc, jJp, ci, pi,
                                    jnp.asarray(region),
                                    compute_kind=jc.ComputeKind[kind], **kw)
-        got = tpcg.schur_pcg_solve(tsys, tJc, tJp, plans,
+        got = tpcg.schur_pcg_solve(tsys, one(tJc), one(tJp), one_shard(plans),
                                    torch.tensor(region, dtype=torch.float64),
                                    compute_kind=mt.ComputeKind[kind], **kw)
         assert got.iterations == int(ref.iterations)
@@ -394,7 +395,8 @@ def test_unfused_precision_schur_pcg_matches_jax(kind, rung, limit):
             jsys, jJc, jJp, ci, pi, jnp.asarray(region, jnp.float32),
             compute_kind=jc.ComputeKind[kind], **kw)
         got = tpcg.schur_pcg_solve(
-            tsys, tJc, tJp, plans, torch.tensor(region, dtype=torch.float32),
+            tsys, one(tJc), one(tJp), one_shard(plans),
+            torch.tensor(region, dtype=torch.float32),
             compute_kind=mt.ComputeKind[kind], **kw)
         assert got.dx_cam.dtype == got.dx_pt.dtype == torch.float32
         want = np.concatenate([np.asarray(ref.dx_cam).ravel(),

@@ -9,7 +9,10 @@ Phases, in order; none catches its own failure, so any mismatch or
 exception ends the run with a non-zero exit code:
 
 1. build: every CUDA source of megba_tpu_torch/csrc with nvcc for sm_90a
-   (all sources started together), and print the build time;
+   (all sources started together), and print the build time and each
+   kernel instantiation's registers and spill bytes (the kernel-1
+   instantiations and every one that spills in the log, the whole table
+   in chiprun_out/nvcc_resources.txt);
 2. the card's name and power limit, as nvidia-smi gives them;
 3. kernels: at the venice shapes, each of the eight kernels on each side
    or direction it runs on (camera d=9, point d=3) at f32, and the
@@ -27,7 +30,9 @@ exception ends the run with a non-zero exit code:
    short enough for slot tiles), checked and timed as sides of their
    own, outside the row's totals; kernels 8 and 7 in the 2-D mesh's
    ring-step form (`fused_ring_step_apply`, `_implicit`) on the first
-   bucket of device (0, 0) of the venice 2 x 2 camera-tile plan;
+   bucket of device (0, 0) of the venice 2 x 2 camera-tile plan; and the
+   f64 arm of kernels 1-5 (rows `name[f64]`, the arm of ProblemOption(),
+   solve_bal's default solve);
 4. engines: at the venice shapes, f64, the AUTODIFF (reverse mode) and
    AUTODIFF_FORWARD (forward mode) Jacobian engines against the
    ANALYTICAL one per edge (r, Jc, Jp each within 1e-9 of the row's
@@ -99,7 +104,24 @@ exception ends the run with a non-zero exit code:
    camera stations, cut to 200,000 points (`LOCALITY`), through JACOBI
    and the three coarse paths, with the venice options and again with a
    relative PCG tolerance: the coarse paths' final costs within rtol 1e-3
-   of JACOBI's, their PCG counts, walls and final costs side by side.
+   of JACOBI's, their PCG counts, walls and final costs side by side;
+9. factors: the registered families beside BAL (planar, rig,
+   pinhole_radial, pose_prior) through `flat_solve(factor=...)`: on a
+   trafalgar-sized scene of each at f64 with ProblemOption() (AUTODIFF,
+   `DEFAULT_LM_CAP`), kernels against plain versions under the f64 gates;
+   on a venice-scale scene of each (`FAMILY_VENICE`) one f32 solve with
+   the venice options and AUTODIFF (wall, LM / PCG, peak, device busy
+   share from one more solve under torch.profiler, final cost below the
+   initial); launches per kernel and block shape as the code implies
+   (half of each kernel's launches at the camera shape, half at the
+   point shape); kernel rows `name(od,d)` / `name(od,d)[f64]` of kernels
+   1-3 at each new block shape on the venice-scale scenes, held to the
+   plain versions (f64 also within 1e-9 of the row's largest magnitude);
+   then the Problem facade on the trafalgar-sized BAL scene: CameraVertex
+   / PointVertex / default edges solve bitwise to `flat_solve` on the same
+   arrays, and a custom forward() on a 6-dof pose camera (focal and
+   distortion as edge constants; kernels 1-3 at (2, 6)) kernels against
+   plain versions at f64, and once at f32.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -145,6 +167,9 @@ F32_REL_TO_ABS_SUM = 1e-5
 # terms' magnitudes.
 F64_REL_TO_ABS_SUM = 1e-12
 F64_COST_RTOL = 1e-9
+# f64 kernel rows are also held within this share of the row's largest
+# magnitude (per output row).
+F64_REL_TO_ROW_MAX = 1e-9
 # The engine phase: an autodiff Jacobian against the closed form at f64,
 # per edge, within this share of the row's largest magnitude.
 ENGINE_REL_TO_ROW_MAX = 1e-9
@@ -164,6 +189,10 @@ AUTODIFF_COST_RTOL = 1e-3
 # A library yardstick in bf16 (cuSPARSE with bf16 values) rounds its
 # output to bf16: it is held to 2^-6 of the sum of the terms' magnitudes.
 BF16_LIBRARY_REL_TO_ABS_SUM = 2.0 ** -6
+# An f32 library yardstick of the factor rows, held to the f64 plain
+# version: its f32 sum over one 200,000-slot segment (the pose prior's
+# point side) parts from the f64 sum by more than the f32 rule.
+F32_LONG_LIBRARY_REL_TO_ABS_SUM = 1e-4
 
 VENICE = dict(num_cameras=1778, num_points=993_923,
               obs_per_point=5_001_946 / 993_923)
@@ -425,14 +454,50 @@ ARM_PATHS = {
     "coupling_expand[bf16]": "implicit_bf16",
     "coupling_reduce[bf16]": "implicit_bf16",
 }
-# The mixed64 rows take theirs from the f64 phase's (trafalgar) run of
-# the path: the venice phase runs f32 only.
+# The mixed64 and f64 rows take theirs from the f64 phase's (trafalgar)
+# run of the path: the venice phase runs f32 only.  Kernels 1-3 at f64
+# count on the reference's default solve, 4 and 5 on EXPLICIT.
 F64_ARM_PATHS = {
     "coupling_expand[mixed64]": "implicit_mixed",
     "coupling_reduce[mixed64]": "implicit_mixed",
     "fused_coupling_apply_implicit[mixed64]": "implicit_fused_mixed",
     "fused_coupling_apply[mixed64]": "explicit_fused_mixed",
+    "jtj_grad_reduce[f64]": DEFAULT_PATH,
+    "coupling_expand[f64]": DEFAULT_PATH,
+    "coupling_reduce[f64]": DEFAULT_PATH,
+    "seg_reduce[f64]": "explicit",
+    "seg_expand[f64]": "explicit",
 }
+
+
+# The factor phase: the registered camera/point families beside BAL, at
+# their own block shapes.  Venice scale: venice's cameras and points
+# (obs_per_point 5; the rig 3 over 2 mounts), the pose prior 100,000
+# poses with 2 priors each; trafalgar scale for the f64 gates.  The pose
+# prior's priors carry noise 0.01: with exact priors the optimum's cost
+# is ~0, where a relative gate on the costs says nothing.
+FAMILIES = ("planar", "rig", "pinhole_radial", "pose_prior")
+FAMILY_VENICE = {
+    "planar": dict(num_cameras=1778, num_points=993_923, obs_per_point=5),
+    "rig": dict(num_bodies=1778, num_points=993_923, rig_cameras=2,
+                obs_per_point=3),
+    "pinhole_radial": dict(num_cameras=1778, num_points=993_923,
+                           obs_per_point=5),
+    "pose_prior": dict(num_poses=100_000, priors_per_pose=2,
+                       prior_noise=0.01),
+}
+FAMILY_TRAFALGAR = {
+    "planar": dict(num_cameras=257, num_points=65_132, obs_per_point=4),
+    "rig": dict(num_bodies=257, num_points=65_132, rig_cameras=2,
+                obs_per_point=3),
+    "pinhole_radial": dict(num_cameras=257, num_points=65_132,
+                           obs_per_point=4),
+    "pose_prior": dict(num_poses=4096, priors_per_pose=2, prior_noise=0.01),
+}
+# The Problem facade's custom edge: a 6-dof pose camera [angle-axis,
+# t] with the focal and the distortion as edge constants, obs = [u, v, f,
+# k1, k2]; its camera side runs kernels 1-3 at (2, 6).
+POSE_CAMERA_BLOCK = (2, 6)
 
 
 def log(*args) -> None:
@@ -579,6 +644,58 @@ def count_shard_launches():
                 for name, per in tally.counts.items() if per})
 
 
+def kernel_resources(build_logs: dict) -> dict:
+    """Registers and spill bytes of every kernel instantiation, from the
+    `--ptxas-options=-v` output of the builds (ops/kernels.BUILD_LOGS):
+    the full table, demangled, goes to chiprun_out/nvcc_resources.txt;
+    the log gets the instantiations of kernel 1 (the largest sums a
+    thread) and every one that spills.  Returns {demangled name:
+    (registers, spill stores, spill loads)}."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = {}
+    for lib, text in build_logs.items():
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = (lib, m.group(1))
+                found.setdefault(cur, [None, None, None])
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and cur:
+                found[cur][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                found[cur][0] = int(m.group(1))
+    names = [n for _, n in found]
+    filt = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cu++filt"
+    demangled = names
+    if names and filt.exists():
+        demangled = subprocess.run(
+            [str(filt)], input="\n".join(names), capture_output=True,
+            text=True, check=True, timeout=60).stdout.splitlines()
+    out = {}
+    lines = []
+    for (lib, _), name, (regs, st, ld) in zip(found, demangled,
+                                              found.values()):
+        out[name] = (regs, st, ld)
+        lines.append(f"{lib}: {name}: {regs} registers, spill stores {st} "
+                     f"B, spill loads {ld} B")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "nvcc_resources.txt").write_text("\n".join(lines) + "\n")
+    for line in lines:
+        if "JtjRows" in line or "spill stores 0 B" not in line:
+            log(f"resources {line}")
+    log(f"resources: {len(lines)} kernel instantiations, "
+        f"{sum(1 for v in out.values() if v[1])} of them spill; table in "
+        "chiprun_out/nvcc_resources.txt")
+    return out
+
+
 def kernel_modules():
     """The port's kernel modules; every kernel wrapper lives in one."""
     from megba_tpu_torch.ops import fused, segtiles
@@ -587,8 +704,9 @@ def kernel_modules():
 
 
 def base_name(row: str) -> str:
-    """The kernel wrapper of a kernel row ("name" or "name[arm]")."""
-    return row.split("[")[0]
+    """The kernel wrapper of a kernel row ("name", "name[arm]",
+    "name(od,d)" or "name(od,d)[arm]")."""
+    return row.split("[")[0].split("(")[0]
 
 
 def kernel_module(name: str):
@@ -797,7 +915,7 @@ def _abs(args):
 
 
 def _case(side, args, nbytes, flops, library=None, kwargs=None,
-          library_tol=F32_REL_TO_ABS_SUM, in_total=True):
+          library_tol=F32_REL_TO_ABS_SUM, in_total=True, ref64=False):
     """One side of a kernel: its arguments (the same arguments with every
     float operand made |.| give the scale of the f32 check), the bytes
     the kernel must move and the operations it must do, a zero-argument
@@ -805,10 +923,18 @@ def _case(side, args, nbytes, flops, library=None, kwargs=None,
     return a string, the reason there is none), the kernel's keyword
     arguments, the library's tolerance, and whether the side counts in
     the row's totals (the main path's shapes) or only stands beside
-    them."""
+    them.  With `ref64` an f32 kernel is held to its plain version
+    evaluated in float64 on the same inputs, not to the float32 plain
+    version: over a segment of ~1e5 slots two f32 summation orders part
+    by more than the f32 rule."""
     return dict(side=side, args=args, abs_args=_abs(args), bytes=nbytes,
                 flops=flops, library=library, kwargs=kwargs or {},
-                library_tol=library_tol, in_total=in_total)
+                library_tol=library_tol, in_total=in_total, ref64=ref64)
+
+
+def _f64(args):
+    return tuple(a.to(torch.float64) if isinstance(a, torch.Tensor)
+                 and a.is_floating_point() else a for a in args)
 
 
 def _plan_of(args):
@@ -820,6 +946,129 @@ def _plan_of(args):
         if hasattr(a, "out") and isinstance(a.out, SegPlan):
             return a.out
     return None
+
+
+def row_arm(name: str) -> str:
+    """The precision arm of a kernel row: "name[arm]" or f32."""
+    return name.split("[")[1][:-1] if "[" in name else "f32"
+
+
+def row_shape(name: str):
+    """The (od, d) block shape of a kernel row "name(od,d)[arm]", or
+    None (the BAL rows, whose sides are the camera and the point)."""
+    head = name.split("[")[0]
+    if "(" not in head:
+        return None
+    od, d = head[head.index("(") + 1:-1].split(",")
+    return int(od), int(d)
+
+
+def measure_rows(cases: dict) -> dict:
+    """Each kernel row of `cases` ({row name: [_case, ...]}): per side, the
+    kernel against its plain version (two launches bitwise equal; f32
+    within `F32_REL_TO_ABS_SUM` and f64 within `F64_REL_TO_ABS_SUM` of
+    the sums of the terms' magnitudes, and f64 also within
+    `F64_REL_TO_ROW_MAX` of the row's largest magnitude), then CUDA-event
+    medians of the kernel, the plain version and the library yardstick,
+    and the bound; the row totals over its main-path sides."""
+    rows = {}
+    for name, sides in cases.items():
+        module = kernel_module(name)
+        kernel = getattr(module, base_name(name))
+        plain = getattr(module, base_name(name) + "_plain")
+        arm = row_arm(name)
+        entry = dict(name=name, route="cuda", source=kernel_source(name),
+                     replaces=REPLACES[base_name(name)], arm=arm,
+                     shape=row_shape(name),
+                     launches=None, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                     bound_ms=0.0, bound_by=None, library_ms=0.0, sides={})
+        worst = (0.0, None)
+        for c in sides:
+            side, args, kw = c["side"], c["args"], c["kwargs"]
+            got = _flat(kernel(*args, **kw))
+            again = _flat(kernel(*args, **kw))
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}[{side}]: two launches differ")
+            if c["ref64"]:
+                ref = _flat(plain(*_f64(args), **kw))
+                scale = _flat(plain(*_f64(c["abs_args"]), **kw)).abs()
+                err = (got.to(ref.dtype) - ref).abs()
+            else:
+                ref = _flat(plain(*args, **kw))
+                scale = _flat(plain(*c["abs_args"], **kw)).abs()
+                err = (got - ref).abs()
+            rel = (F64_REL_TO_ABS_SUM if got.dtype == torch.float64
+                   else F32_REL_TO_ABS_SUM)
+            row_max = ref.abs().amax(dim=-1, keepdim=True)
+            if not bool((err <= rel * scale).all()) or (
+                    got.dtype == torch.float64
+                    and not bool((err <= F64_REL_TO_ROW_MAX * row_max).all())):
+                raise AssertionError(
+                    f"{name}[{side}]: kernel disagrees with plain version "
+                    f"(max |err| {float(err.max()):.3e})")
+            lib_ms, lib_note = None, None
+            if c["library"] is not None:
+                run = c["library"]()
+                if isinstance(run, str):
+                    lib_note = run
+                else:
+                    lib_err = (run().to(ref.dtype) - ref).abs()
+                    lib_ok = bool((lib_err <= c["library_tol"] * scale).all())
+                    if not lib_ok and (c["library_tol"]
+                                       < BF16_LIBRARY_REL_TO_ABS_SUM):
+                        raise AssertionError(
+                            f"{name}[{side}]: library yardstick disagrees "
+                            f"(max |err| {float(lib_err.max()):.3e})")
+                    if lib_ok:
+                        lib_ms = cuda_ms(run)
+                    else:  # a bf16 product that rounds beyond bf16 reach
+                        lib_note = (f"bf16 library result off by up to "
+                                    f"{float(lib_err.max()):.3e}")
+                del run
+            k_ms = cuda_ms(lambda: kernel(*args, **kw))
+            p_ms = cuda_ms(lambda: plain(*args, **kw), reps=5)
+            nbytes, flops = c["bytes"], c["flops"]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[got.dtype] * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            e_max = float(err.max())
+            plan = _plan_of(args)
+            entry["sides"][side] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, share=bound / k_ms, bytes=nbytes, flops=flops,
+                max_abs_err=e_max, in_total=c["in_total"],
+                per_thread=None if plan is None else plan.per_thread,
+                library_note=lib_note)
+            lib = ("-" if lib_ms is None else f"{lib_ms:.4f} ms") + (
+                "" if lib_note is None else f" (none: {lib_note})")
+            log(f"kernel {name}[{side}]: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"library {lib}, bound {bound:.4f} ms ({by}, "
+                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), {bound / k_ms:.1%} of "
+                f"bound, max |err| {e_max:.3e}, bitwise repeat ok")
+            if not c["in_total"]:
+                continue
+            entry["ms"] += k_ms
+            entry["plain_ms"] += p_ms
+            entry["bound_ms"] += bound
+            entry["library_ms"] = (None if lib_ms is None or
+                                   entry["library_ms"] is None
+                                   else entry["library_ms"] + lib_ms)
+            entry["max_abs_err"] = max(entry["max_abs_err"], e_max)
+            if bound > worst[0]:
+                worst = (bound, by)
+        entry["bound_by"] = worst[1]
+        if base_name(name) in FUSED_COUPLING:
+            log(f"kernel {name} per direction: " + "; ".join(
+                f"{side} {d['ms']:.4f} ms, bound {d['bound_ms']:.4f} ms, "
+                f"{d['share']:.1%} of bound"
+                for side, d in entry["sides"].items()) +
+                f"; row total {entry['ms']:.4f} ms, bound "
+                f"{entry['bound_ms']:.4f} ms, "
+                f"{entry['bound_ms'] / entry['ms']:.1%} of bound")
+        rows[name] = entry
+    return rows
 
 
 def kernel_phase(scene) -> dict:
@@ -1048,6 +1297,40 @@ def kernel_phase(scene) -> dict:
         "fused_coupling_apply[mixed64]": w_cases(
             b_W_tp, b_W, bs, mixed, "f64", (b_W_tp.to(f64), b_W.to(f64))),
     }
+    # The f64 arm of kernels 1-5, the arm of ProblemOption() (solve_bal's
+    # default solve), at 8 bytes a value; the library yardsticks in f64.
+    Jc64, Jp64, r64, r64_pt = (t.to(f64) for t in (Jc, Jp, r, r_pt))
+    d64_cam, d64_pt = d_cam.to(f64), d_pt.to(f64)
+    cases.update({
+        "jtj_grad_reduce[f64]": [
+            _case("cam", (Jc64, r64, plans.cam),
+                  (20 * n + 90 * nc) * ds + (nc + 1) * i64,
+                  n * (2 * 2 * 81 + 2 * 2 * 9)),
+            _case("pt", (Jp64, r64_pt, plans.pt),
+                  (8 * n + 12 * npt) * ds + (npt + 1) * i64,
+                  n * (2 * 2 * 9 + 2 * 2 * 3)),
+        ],
+        "coupling_expand[f64]": expand_cases(Jc64, Jp64, ds, ds, {}, "f64"),
+        "coupling_reduce[f64]": reduce_cases(Jc64, Jp64, ds, ds, {}, "f64"),
+        "seg_reduce[f64]": [
+            _case("cam", (d64_cam, plans.cam),
+                  (9 * n + 9 * nc) * ds + (nc + 1) * i64, 9 * n,
+                  lambda: lambda: torch.segment_reduce(
+                      d64_cam, "sum", lengths=len_cam, axis=1, unsafe=True)),
+            _case("pt", (d64_pt, plans.pt),
+                  (3 * n + 3 * npt) * ds + (npt + 1) * i64, 3 * n,
+                  lambda: lambda: torch.segment_reduce(
+                      d64_pt, "sum", lengths=len_pt, axis=1, unsafe=True)),
+        ],
+        "seg_expand[f64]": [
+            _case("cam", (x64_cam, plans.cam),
+                  (9 * nc + 9 * n) * ds + n * i32, 0,
+                  lambda: lambda: x64_cam.index_select(1, plans.cam.seg)),
+            _case("pt", (x64_pt, plans.pt),
+                  (3 * npt + 3 * n) * ds + n * i32, 0,
+                  lambda: lambda: x64_pt.index_select(1, plans.pt.seg)),
+        ],
+    })
     # Kernels 7 and 8 at f32 on the heavy-tailed graph: random rows, the
     # bytes and operations counted as for venice.
     hnc, hnp = HEAVY["num_cameras"], HEAVY["num_points"]
@@ -1127,93 +1410,7 @@ def kernel_phase(scene) -> dict:
         f"points without one; with {HEAVY_SHORT_CAMERAS} cameras for the "
         "short-camera pt->cam")
 
-    rows = {}
-    for name, sides in cases.items():
-        module = kernel_module(name)
-        kernel = getattr(module, base_name(name))
-        plain = getattr(module, base_name(name) + "_plain")
-        arm = name[len(base_name(name)) + 1:-1] or "f32"
-        entry = dict(name=name, route="cuda", source=kernel_source(name),
-                     replaces=REPLACES[base_name(name)], arm=arm,
-                     launches=None, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                     bound_ms=0.0, bound_by=None, library_ms=0.0, sides={})
-        worst = (0.0, None)
-        for c in sides:
-            side, args, kw = c["side"], c["args"], c["kwargs"]
-            got = _flat(kernel(*args, **kw))
-            again = _flat(kernel(*args, **kw))
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"{name}[{side}]: two launches differ")
-            ref = _flat(plain(*args, **kw))
-            scale = _flat(plain(*c["abs_args"], **kw)).abs()
-            err = (got - ref).abs()
-            rel = (F64_REL_TO_ABS_SUM if got.dtype == torch.float64
-                   else F32_REL_TO_ABS_SUM)
-            if not bool((err <= rel * scale).all()):
-                raise AssertionError(
-                    f"{name}[{side}]: kernel disagrees with plain version "
-                    f"(max |err| {float(err.max()):.3e})")
-            lib_ms, lib_note = None, None
-            if c["library"] is not None:
-                run = c["library"]()
-                if isinstance(run, str):
-                    lib_note = run
-                else:
-                    lib_err = (run().to(ref.dtype) - ref).abs()
-                    lib_ok = bool((lib_err <= c["library_tol"] * scale).all())
-                    if not lib_ok and c["library_tol"] == F32_REL_TO_ABS_SUM:
-                        raise AssertionError(
-                            f"{name}[{side}]: library yardstick disagrees "
-                            f"(max |err| {float(lib_err.max()):.3e})")
-                    if lib_ok:
-                        lib_ms = cuda_ms(run)
-                    else:  # a bf16 product that rounds beyond bf16 reach
-                        lib_note = (f"bf16 library result off by up to "
-                                    f"{float(lib_err.max()):.3e}")
-                del run
-            k_ms = cuda_ms(lambda: kernel(*args, **kw))
-            p_ms = cuda_ms(lambda: plain(*args, **kw), reps=5)
-            nbytes, flops = c["bytes"], c["flops"]
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[got.dtype] * 1e3
-            bound = max(t_bytes, t_ops)
-            by = "bytes" if t_bytes >= t_ops else "operations"
-            e_max = float(err.max())
-            plan = _plan_of(args)
-            entry["sides"][side] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by=by, share=bound / k_ms, bytes=nbytes, flops=flops,
-                max_abs_err=e_max, in_total=c["in_total"],
-                per_thread=None if plan is None else plan.per_thread,
-                library_note=lib_note)
-            lib = ("-" if lib_ms is None else f"{lib_ms:.4f} ms") + (
-                "" if lib_note is None else f" (none: {lib_note})")
-            log(f"kernel {name}[{side}]: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"library {lib}, bound {bound:.4f} ms ({by}, "
-                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), {bound / k_ms:.1%} of "
-                f"bound, max |err| {e_max:.3e}, bitwise repeat ok")
-            if not c["in_total"]:
-                continue
-            entry["ms"] += k_ms
-            entry["plain_ms"] += p_ms
-            entry["bound_ms"] += bound
-            entry["library_ms"] = (None if lib_ms is None or
-                                   entry["library_ms"] is None
-                                   else entry["library_ms"] + lib_ms)
-            entry["max_abs_err"] = max(entry["max_abs_err"], e_max)
-            if bound > worst[0]:
-                worst = (bound, by)
-        entry["bound_by"] = worst[1]
-        if base_name(name) in FUSED_COUPLING:
-            log(f"kernel {name} per direction: " + "; ".join(
-                f"{side} {d['ms']:.4f} ms, bound {d['bound_ms']:.4f} ms, "
-                f"{d['share']:.1%} of bound"
-                for side, d in entry["sides"].items()) +
-                f"; row total {entry['ms']:.4f} ms, bound "
-                f"{entry['bound_ms']:.4f} ms, "
-                f"{entry['bound_ms'] / entry['ms']:.1%} of bound")
-        rows[name] = entry
+    rows = measure_rows(cases)
     # Kernel 6 runs at its launch floor, where a CUDA-event time of back
     # to back launches is the wrapper's host time: both arms and their
     # einsum yardsticks also get torch.profiler's device time per call.
@@ -1816,9 +2013,12 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
     return counts, arms, res, wall
 
 
-def profile_solve(args, path: str, kw: dict, label: str) -> None:
+def profile_solve(args, path: str, kw: dict, label: str) -> float:
     """One more solve under torch.profiler: device time by kernel and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time, which it returns.  The device
+    activity alone is traced: with the host's operators too, summing a
+    venice-scale solve's events took ~24 s against ~10 s on an H100, for
+    the same device time (within 2 %)."""
     from torch.profiler import ProfilerActivity, profile
 
     from megba_tpu_torch import flat_solve
@@ -1826,8 +2026,7 @@ def profile_solve(args, path: str, kw: dict, label: str) -> None:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         flat_solve(*args, device=devices_of(path), **kw)
         torch.cuda.synchronize()
@@ -1838,10 +2037,11 @@ def profile_solve(args, path: str, kw: dict, label: str) -> None:
     dev_us = sum(getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
                  for e in events if e.device_type.name == "CUDA")
-    log(f"profile {label} {path}: wall {wall:.3f} s under the profiler, device "
-        f"busy {dev_us / 1e6:.3f} s ({dev_us / 1e6 / wall:.1%}); kernel "
-        f"table in chiprun_out/profile_{label}_{path}.txt")
+    log(f"profile {label} {path}: wall {wall:.3f} s under the profiler, "
+        f"device busy {dev_us / 1e6:.3f} s ({dev_us / 1e6 / wall:.1%}); "
+        f"kernel table in chiprun_out/profile_{label}_{path}.txt")
     log("\n".join(table.splitlines()[:18]))
+    return dev_us / 1e6 / wall
 
 
 def locality_phase(scene, profile: bool) -> None:
@@ -1862,6 +2062,372 @@ def locality_phase(scene, profile: bool) -> None:
             table.append(f"{path}: PCG {res.pcg_iterations}, flat_solve "
                          f"{wall:.3f} s, final cost {float(res.cost):.8e}")
         log(f"{label} side by side: " + "; ".join(table))
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the factor families and the Problem facade
+# ---------------------------------------------------------------------------
+
+
+def make_family_scene(factor: str, cfg: dict, dtype):
+    """A family's synthetic scene (seed 0) from its generator."""
+    from megba_tpu_torch.factors import priors, radial, rig
+    from megba_tpu_torch.models.planar import make_synthetic_planar
+
+    make = {"planar": make_synthetic_planar, "rig": rig.make_synthetic_rig,
+            "pinhole_radial": radial.make_synthetic_radial,
+            "pose_prior": priors.make_synthetic_priors}[factor]
+    t = time.perf_counter()
+    s = make(seed=0, dtype=dtype, **cfg)
+    log(f"scene {factor}: {s.cameras0.shape[0]} x {s.cameras0.shape[1]} "
+        f"cameras, {s.points0.shape[0]} x {s.points0.shape[1]} points, "
+        f"{s.obs.shape[0]} edges, {np.dtype(dtype).name}, made in "
+        f"{time.perf_counter() - t:.1f} s")
+    return s
+
+
+def shape_cases(od: int, d: int, plan, tag: str) -> dict:
+    """Kernel rows of kernels 1-3 at one block shape (od, d) on one side's
+    plan of a venice-scale scene, f32 and f64: seeded random J rows,
+    residual rows, table and u (the values do not change the work), the
+    bytes read once and written once, the library yardstick a cuSPARSE
+    CSR product for 2 and 3 (none for 1).  The f32 rows are held to the
+    plain versions in float64 (`_case`'s `ref64`): the pose prior's point
+    side is one segment of 200,000 slots."""
+    n, ns = plan.n_slots, plan.num_segments
+    g = torch.Generator(device=DEVICE).manual_seed(od * 100 + d)
+    cases = {}
+    for dtype, elt, suffix in ((torch.float32, 4, ""),
+                               (torch.float64, 8, "[f64]")):
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(shape, generator=g, device=DEVICE,
+                                       dtype=dtype)
+
+        J, r, u = randn(od * d, n, scale=0.1), randn(od, n), randn(od, n)
+        x = randn(d, ns)
+        seg, k = plan.seg, f"({od},{d}){suffix}"
+        ref64 = dtype == torch.float32
+        lib_tol = (F32_LONG_LIBRARY_REL_TO_ABS_SUM if ref64
+                   else F32_REL_TO_ABS_SUM)
+        cases[f"jtj_grad_reduce{k}"] = [_case(
+            tag, (J, r, plan),
+            ((od * d + od) * n + (d * d + d) * ns) * elt + (ns + 1) * 8,
+            n * (2 * od * d * d + 2 * od * d), ref64=ref64)]
+        cases[f"coupling_expand{k}"] = [_case(
+            tag, (x, J, plan, d),
+            (od * d * n + d * ns + od * n) * elt + n * 4, n * 2 * od * d,
+            lambda J=J, x=x: _spmv(_csr_expand, J, seg, d, ns, vec=x,
+                                   shape=(od, n)),
+            library_tol=lib_tol, ref64=ref64)]
+        cases[f"coupling_reduce{k}"] = [_case(
+            tag, (J, u, plan, d),
+            (od * d * n + od * n + d * ns) * elt + (ns + 1) * 8,
+            n * 2 * od * d,
+            lambda J=J, u=u: _spmv(_csr_reduce, J, seg, d, ns, vec=u,
+                                   shape=(d, ns)),
+            library_tol=lib_tol, ref64=ref64)]
+    return cases
+
+
+def family_kernel_cases(factor: str, scene, done: set) -> dict:
+    """The rows of `factor`'s camera and point block shapes on its
+    venice-scale scene, for each shape not yet in `done` (BAL's shapes
+    have rows of their own)."""
+    from megba_tpu_torch.factors import get_factor
+    from megba_tpu_torch.ops import segtiles
+
+    spec = get_factor(factor)
+    _, plans = segtiles.make_dual_plans(
+        scene.cam_idx, scene.pt_idx, scene.cameras0.shape[0],
+        scene.points0.shape[0], DEVICE)
+    cases = {}
+    for side, plan, d in (("cam", plans.cam, spec.cam_dim),
+                          ("pt", plans.pt, spec.pt_dim)):
+        shape = (spec.residual_dim, d)
+        log(f"{factor} {side} side {shape}: {plan.num_segments} segments, "
+            f"{plan.n_slots} slots, "
+            f"{'a thread' if plan.per_thread else 'a block'} per segment")
+        if shape in done:
+            continue
+        done.add(shape)
+        cases.update(shape_cases(*shape, plan, f"{factor}_{side}"))
+    return cases
+
+
+def check_shape_launches(what: str, counts: dict, shapes: dict,
+                         blocks) -> None:
+    """Each of kernels 1-3 launched its total (`counts`) half at each of
+    the two block shapes `blocks` (camera, point): every linearisation
+    and coupling product runs once on each side."""
+    for name in ("jtj_grad_reduce", "coupling_expand", "coupling_reduce"):
+        want = {f"{name}({od},{d})": counts[name] // 2 for od, d in blocks}
+        got = {k: v for k, v in shapes.items() if k.startswith(name + "(")}
+        if got != want or counts[name] % 2:
+            raise AssertionError(f"{what}: {name} launches per shape {got}, "
+                                 f"the code implies {want}")
+
+
+def family_f64_solve(factor: str, scene) -> dict:
+    """`flat_solve(factor=)` at f64 with ProblemOption() (AUTODIFF) under
+    `DEFAULT_LM_CAP`, through the kernels and through the plain versions,
+    both on the card: trial costs within `F64_COST_RTOL`, equal accept
+    pattern, LM / PCG counts and status, launches as the code implies
+    per kernel and shape.  Returns the kernel run's launches per shape."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.factors import get_factor
+    from megba_tpu_torch.ops import segtiles
+
+    spec = get_factor(factor)
+    blocks = ((spec.residual_dim, spec.cam_dim),
+              (spec.residual_dim, spec.pt_dim))
+    opt = solve_option(np.float64, DEFAULT_PATH)
+    args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
+            scene.pt_idx, opt)
+    reset_launch_counts()
+    kern = flat_solve(*args, device=DEVICE, factor=factor)
+    torch.cuda.synchronize()
+    counts, shapes = launch_counts(), segtiles.shape_launch_counts()
+    with plain_path():
+        plain = flat_solve(*args, device=DEVICE, factor=factor)
+    what = f"f64 {factor}"
+    k = kern.iterations
+    tally = (k, kern.accepted, kern.pcg_iterations, kern.status)
+    if tally != (plain.iterations, plain.accepted, plain.pcg_iterations,
+                 plain.status) or not torch.equal(
+                     kern.trace.accept[:k], plain.trace.accept[:k]):
+        raise AssertionError(f"{what}: kernels {tally}, plain "
+                             f"{(plain.iterations, plain.accepted)}")
+    gap, _ = cost_gap(kern.trace.cost[:k].numpy(),
+                      plain.trace.cost[:k].numpy(), what,
+                      np.zeros(k, bool))
+    if gap > F64_COST_RTOL:
+        raise AssertionError(f"{what}: trial costs {gap:.3e} apart")
+    c0, c1 = float(kern.initial_cost), float(kern.cost)
+    if not c1 < c0:
+        raise AssertionError(f"{what}: {k} LM iterations, cost {c0} -> {c1}")
+    want = expected_launches("implicit", kern)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, the code implies "
+                             f"{want}")
+    check_shape_launches(what, counts, shapes, blocks)
+    log(f"{what}: cost {c0:.10e} -> {c1:.10e}, {k} LM iterations "
+        f"({kern.accepted} accepted), {kern.pcg_iterations} PCG, status "
+        f"{kern.status}; kernels vs plain {gap:.3e} (gate "
+        f"{F64_COST_RTOL:g}); launches {shapes} (as the code implies)")
+    return shapes
+
+
+def family_venice_solve(factor: str, scene) -> dict:
+    """One venice-scale f32 solve of a family with the venice phase's
+    options and AUTODIFF: wall, LM (accepts) / PCG, peak memory (above
+    what the card held before the solve), device
+    busy share (one more solve under torch.profiler), launches per kernel
+    and shape as the code implies, final cost finite and below the
+    initial.  Returns the launches per shape."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.factors import get_factor
+    from megba_tpu_torch.ops import segtiles
+
+    spec = get_factor(factor)
+    blocks = ((spec.residual_dim, spec.cam_dim),
+              (spec.residual_dim, spec.pt_dim))
+    opt = solve_option(np.float32, DEFAULT_PATH)
+    args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
+            scene.pt_idx, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the earlier families' rows
+    reset_launch_counts()
+    t = time.perf_counter()
+    res = flat_solve(*args, device=DEVICE, factor=factor)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts, shapes = launch_counts(), segtiles.shape_launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    what = f"venice f32 {factor}"
+    want = expected_launches("implicit", res)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, the code implies "
+                             f"{want}")
+    check_shape_launches(what, counts, shapes, blocks)
+    c0, c1 = float(res.initial_cost), float(res.cost)
+    if not (np.isfinite(c1) and c1 < c0) or res.cameras.shape != \
+            scene.cameras0.shape or not bool(torch.isfinite(
+                res.cameras).all() & torch.isfinite(res.points).all()):
+        raise AssertionError(f"{what}: cost {c0} -> {c1}, or solved "
+                             "parameters malformed")
+    log(f"{what}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM "
+        f"iterations ({res.accepted} accepted), {res.pcg_iterations} PCG "
+        f"iterations, flat_solve {wall:.3f} s = "
+        f"{wall / res.iterations:.3f} s per LM iteration (planning and "
+        f"transfer included), peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {shapes} (as the code implies)")
+    busy = profile_solve(args, "implicit", dict(factor=factor),
+                         f"venice_{factor}")
+    log(f"{what} summary: wall {wall:.3f} s, LM {res.iterations} "
+        f"({res.accepted}) / PCG {res.pcg_iterations}, peak "
+        f"{peak / 2**30:.3f} GiB, device busy {busy:.1%}")
+    return shapes
+
+
+def pose_camera_edge():
+    """The facade's custom edge: a pose camera [angle-axis, t], the BAL
+    projection with obs = [u, v, f, k1, k2] (focal and distortion as
+    edge constants), written as a user of the facade would write it."""
+    from megba_tpu_torch import BaseEdge
+    from megba_tpu_torch.ops import geo
+
+    class PoseCameraEdge(BaseEdge):
+        def forward(self):
+            cam, X = self.vertex_estimation(0), self.vertex_estimation(1)
+            m = self.get_measurement()
+            P = geo.angle_axis_rotate_point(cam[0:3], X) + cam[3:6]
+            p = -P[0:2] / P[2]
+            n = (p * p).sum(0)
+            return m[2] * (1.0 + m[3] * n + m[4] * n * n) * p - m[0:2]
+
+    return PoseCameraEdge
+
+
+def facade_phase(scene) -> dict:
+    """The Problem facade on the card, on the trafalgar-sized BAL scene
+    (f64, ProblemOption() under `DEFAULT_LM_CAP`): the graph built of
+    CameraVertex / PointVertex / default edges solves to cameras, points
+    and trial costs bitwise equal to `flat_solve` on the same arrays;
+    then the custom pose-camera edge (kernels 1-3 at (2, 6)), kernels vs
+    plain at f64 under the f64 gates, and once at f32 (the venice
+    options; final cost below the initial).  Returns the launches per
+    shape of the custom edge's f64 and f32 kernel runs."""
+    from megba_tpu_torch import (BaseEdge, BaseProblem, CameraVertex,
+                                 PointVertex, flat_solve)
+    from megba_tpu_torch.ops import segtiles
+
+    opt = solve_option(np.float64, DEFAULT_PATH)
+
+    def build(edge_cls, cameras, obs):
+        t = time.perf_counter()
+        pb = BaseProblem(opt, device=DEVICE)
+        cams = [CameraVertex(c) for c in cameras]
+        pts = [PointVertex(p) for p in scene.points0]
+        for i, v in enumerate(cams + pts):
+            pb.append_vertex(i, v)
+        for c, p, m in zip(scene.cam_idx, scene.pt_idx, obs):
+            pb.append_edge(edge_cls([cams[c], pts[p]], measurement=m))
+        log(f"facade: {len(cams)} cameras, {len(pts)} points and "
+            f"{len(obs)} edges appended in {time.perf_counter() - t:.1f} s")
+        return pb, cams, pts
+
+    pb, cams, pts = build(BaseEdge, scene.cameras0, scene.obs)
+    res = pb.solve()
+    direct = flat_solve(scene.cameras0, scene.points0, scene.obs,
+                        scene.cam_idx, scene.pt_idx, opt, device=DEVICE)
+    torch.cuda.synchronize()
+    same = (np.array_equal(np.stack([v.estimation for v in cams]),
+                           direct.cameras.cpu().numpy())
+            and np.array_equal(np.stack([v.estimation for v in pts]),
+                               direct.points.cpu().numpy())
+            and bitwise_equal(res.trace.cost, direct.trace.cost))
+    if not same:
+        raise AssertionError("facade: the Problem solve is not bitwise "
+                             "flat_solve's on the same arrays")
+    log(f"facade BAL: cost {float(res.initial_cost):.10e} -> "
+        f"{float(res.cost):.10e}, {res.iterations} LM iterations, cameras, "
+        "points and trial costs bitwise equal to flat_solve's")
+
+    obs = np.concatenate([scene.obs, scene.cameras0[scene.cam_idx, 6:9]], 1)
+    pb, cams, pts = build(pose_camera_edge(), scene.cameras0[:, :6], obs)
+    start = [v.estimation.copy() for v in cams + pts]
+
+    def solve(option):
+        for v, e in zip(cams + pts, start):
+            v.estimation = e.copy()
+        pb.option = option
+        reset_launch_counts()
+        out = pb.solve()
+        torch.cuda.synchronize()
+        return out, launch_counts(), segtiles.shape_launch_counts()
+
+    kern, counts, shapes64 = solve(opt)
+    with plain_path():
+        plain, _, _ = solve(opt)
+    what = "facade pose-camera edge f64"
+    k = kern.iterations
+    gap, _ = cost_gap(kern.trace.cost[:k].numpy(),
+                      plain.trace.cost[:k].numpy(), what, np.zeros(k, bool))
+    if (k, kern.accepted, kern.pcg_iterations, kern.status) != (
+            plain.iterations, plain.accepted, plain.pcg_iterations,
+            plain.status) or gap > F64_COST_RTOL or k < 2 or not float(
+                kern.cost) < float(kern.initial_cost):
+        raise AssertionError(f"{what}: kernels {k} LM / "
+                             f"{kern.pcg_iterations} PCG, plain "
+                             f"{plain.iterations} / {plain.pcg_iterations}, "
+                             f"trial costs {gap:.3e} apart")
+    if counts != expected_launches("implicit", kern):
+        raise AssertionError(f"{what}: launches {counts}")
+    check_shape_launches(what, counts, shapes64, (POSE_CAMERA_BLOCK, (2, 3)))
+    log(f"{what}: cost {float(kern.initial_cost):.10e} -> "
+        f"{float(kern.cost):.10e}, {k} LM iterations, "
+        f"{kern.pcg_iterations} PCG; kernels vs plain {gap:.3e}; launches "
+        f"{shapes64}")
+    f32, _, shapes32 = solve(solve_option(np.float32, DEFAULT_PATH))
+    if not float(f32.cost) < float(f32.initial_cost):
+        raise AssertionError("facade pose-camera edge f32: cost did not "
+                             "fall")
+    log(f"facade pose-camera edge f32: cost {float(f32.initial_cost):.8e} "
+        f"-> {float(f32.cost):.8e}, {f32.iterations} LM iterations; "
+        f"launches {shapes32}")
+    return {"f64": shapes64, "f32": shapes32}
+
+
+def factor_phase(venice, trafalgar64) -> dict:
+    """Phase 9: each registered family beside BAL at its own block shapes,
+    and the Problem facade.  Returns its kernel rows, each with its
+    launches: a shape's f32 row from the family's venice solve (the
+    facade's f32 run for the pose-camera edge), its f64 row from the f64
+    run."""
+    from megba_tpu_torch.ops import segtiles
+
+    t0 = time.perf_counter()
+    done = {(2, 9), (2, 3)}  # BAL's shapes: rows of their own
+    launches = {}
+    cases = {}
+    for factor in FAMILIES:
+        steps = [time.perf_counter()]
+        small = make_family_scene(factor, FAMILY_TRAFALGAR[factor],
+                                  np.float64)
+        for row, n in family_f64_solve(factor, small).items():
+            launches[f"{row}[f64]"] = n
+        del small
+        steps.append(time.perf_counter())
+        big = make_family_scene(factor, FAMILY_VENICE[factor], np.float32)
+        steps.append(time.perf_counter())
+        cases.update(family_kernel_cases(factor, big, done))
+        steps.append(time.perf_counter())
+        launches.update(family_venice_solve(factor, big))
+        del big
+        torch.cuda.empty_cache()
+        steps.append(time.perf_counter())
+        log(f"factor phase: {factor} done at {steps[-1] - t0:.1f} s (f64 "
+            "gates, venice scene, kernel-row inputs, venice solves: "
+            + ", ".join(f"{b - a:.1f}" for a, b in zip(steps, steps[1:]))
+            + " s)")
+    _, plans = segtiles.make_dual_plans(
+        venice.cam_idx, venice.pt_idx, venice.cameras0.shape[0],
+        venice.points0.shape[0], DEVICE)
+    cases.update(shape_cases(*POSE_CAMERA_BLOCK, plans.cam,
+                             "venice_pose_camera"))
+    del plans
+    tag = "({},{})".format(*POSE_CAMERA_BLOCK)
+    for dt, shapes in facade_phase(trafalgar64).items():
+        for row, n in shapes.items():
+            if row.endswith(tag):
+                launches[row + ("[f64]" if dt == "f64" else "")] = n
+    log(f"factor phase: facade done at {time.perf_counter() - t0:.1f} s")
+    rows = measure_rows(cases)
+    for name, row in rows.items():
+        row["launches"] = launches.get(name)
+    log(f"factor phase: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -1892,8 +2458,7 @@ def main() -> int:
     kernels.build_all(sources)
     log(f"build: {time.perf_counter() - t:.1f} s for {len(sources)} "
         f"source(s) into {kernels.BUILD_DIR}")
-    for name, text in kernels.BUILD_LOGS.items():
-        print(f"--- nvcc {name}.cu ---\n{text}", file=sys.stderr, flush=True)
+    kernel_resources(kernels.BUILD_LOGS)
     smi = nvidia_smi_line()
     log(smi)
 
@@ -1918,6 +2483,7 @@ def main() -> int:
             if arm_path == path:
                 rows[row]["launches"] = arms.get(row, 0)
     locality_phase(make_scene(LOCALITY, np.float32), opts.profile)
+    rows.update(factor_phase(venice, make_scene(TRAFALGAR, np.float64)))
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernel rows never launched on their "

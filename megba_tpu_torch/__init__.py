@@ -11,7 +11,12 @@ CPU with `device="cpu"`.  Jacobians come from reverse- or forward-mode
 `torch.func` or the closed form (`make_residual_jacobian_fn`), with
 optional Huber / Cauchy losses (`rho_and_weight`, `robustify`);
 `Jet` / `seed_jets` are JetVector-style forward-mode dual numbers.
-`RobustOption(guards=True)` contains faults, and `flat_solve(...,
+`flat_solve(..., factor=...)` solves any registered residual family
+(`factors`: bal, planar, rig, pinhole_radial, pose_prior, and the
+pose-graph specs, whose driver is not ported yet; `register_factor` adds
+one), and `BaseProblem` with `CameraVertex` / `PointVertex` / `BaseEdge`
+is the g2o-style object API over it.  `RobustOption(guards=True)`
+contains faults, and `flat_solve(...,
 fault_plan=...)` seeds them (`FaultPlan`, `make_nan_burst`,
 `make_point_indefinite_burst`).  `ProblemOption(world_size=N)` solves
 over N shards (`parallel/mesh.py`), the 1-D edge-sharded mesh or the 2-D
@@ -37,6 +42,14 @@ from megba_tpu_torch.common import (
     SolveStatus,
     status_name,
 )
+from megba_tpu_torch.factors import (
+    FactorError,
+    FactorSpec,
+    engine_for,
+    get_factor,
+    list_factors,
+    register_factor,
+)
 from megba_tpu_torch.io.bal import BALFile, load_bal, loads_bal, save_bal
 from megba_tpu_torch.io.synthetic import make_synthetic_bal
 from megba_tpu_torch.ops.jet import Jet, seed_jets
@@ -47,6 +60,15 @@ from megba_tpu_torch.ops.residuals import (
     make_residual_jacobian_fn,
 )
 from megba_tpu_torch.ops.robust import rho_and_weight, robustify
+from megba_tpu_torch.problem import (
+    BaseEdge,
+    BaseProblem,
+    BetweenEdge,
+    CameraVertex,
+    PointVertex,
+    PoseVertex,
+    VertexKind,
+)
 from megba_tpu_torch.robustness.faults import (
     FaultPlan,
     make_nan_burst,

@@ -173,9 +173,10 @@ def lm_solve(
     """Run the LM loop to convergence over the mesh of `plans`
     (parallel/mesh.py; parallel.mesh.distributed_lm_solve builds it).
 
-    FEATURE-MAJOR contract: cameras [9, Nc], points [3, Np] on the first
-    shard's device; obs [2, n_k], cam_idx, pt_idx, mask, sqrt_info
-    [4, n_k] and `fault_plan` are tuples, one entry per shard on its
+    FEATURE-MAJOR contract, at the engine's widths (BAL: cd 9, pd 3,
+    od = rd = 2): cameras [cd, Nc], points [pd, Np] on the first shard's
+    device; obs [od, n_k], cam_idx, pt_idx, mask, sqrt_info [rd*rd, n_k]
+    and `fault_plan` are tuples, one entry per shard on its
     device (a shard's fault plan carries its own edge poison), each edge
     array in its shard's cam plan slot order (solve.flat_solve arranges
     this).  Jp is carried in pt-slot order,

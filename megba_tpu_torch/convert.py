@@ -1,12 +1,13 @@
 """Carry state between the JAX package's numpy arrays and the port.
 
 `to_torch` turns the arrays of a BA problem (cameras, points, obs,
-cam_idx, pt_idx and optional sqrt_info, edge-major or feature-major) into
-tensors on a given device and dtype; `schur_system_to_torch` turns an
-assembled Schur system of the JAX package (its fields read as numpy)
-into the port's `SchurSystem`; `fault_plan_to_torch` turns a fault plan
-of the JAX package into the port's `FaultPlan`; `result_to_numpy` turns
-an `LMResult` back into numpy.  Both packages then compute on the same
+cam_idx, pt_idx and optional sqrt_info, edge-major or feature-major, at
+a registered factor's widths) into tensors on a given device and dtype;
+`schur_system_to_torch` turns an assembled Schur system of the JAX
+package (its fields read as numpy) into the port's `SchurSystem`;
+`fault_plan_to_torch` turns a fault plan of the JAX package into the
+port's `FaultPlan`; `result_to_numpy` turns an `LMResult` back into
+numpy.  Both packages then compute on the same
 inputs.
 """
 
@@ -23,8 +24,17 @@ from megba_tpu_torch.linear_system.builder import SchurSystem
 from megba_tpu_torch.observability.trace import TRACE_FIELDS
 from megba_tpu_torch.robustness.faults import FaultPlan
 
-# Leading (feature) width of each float array in feature-major layout.
-_WIDTHS = {"cameras": 9, "points": 3, "obs": 2, "sqrt_info": 4}
+
+
+def _widths(factor) -> Dict[str, int]:
+    """Leading (feature) width of each float array in feature-major
+    layout, from a factor's spec (a name or a `factors.FactorSpec`)."""
+    from megba_tpu_torch.factors import get_factor
+    from megba_tpu_torch.factors.registry import require_schur
+
+    spec = require_schur(get_factor(factor), "to_torch")
+    return {"cameras": spec.cam_dim, "points": spec.pt_dim,
+            "obs": spec.obs_dim, "sqrt_info": spec.residual_dim ** 2}
 
 
 def to_torch(
@@ -38,13 +48,17 @@ def to_torch(
     device: Union[str, torch.device],
     dtype: torch.dtype = torch.float64,
     feature_major: bool = False,
+    factor="bal",
 ) -> Dict[str, Optional[torch.Tensor]]:
     """Numpy problem arrays -> contiguous feature-major tensors.
 
-    With `feature_major=False` the inputs are edge-major (cameras [Nc, 9],
-    obs [nE, 2], sqrt_info [nE, 2, 2]) and are transposed; with True they
-    are already [F, N] (sqrt_info [4, nE]).  Index arrays become int64.
+    The widths are `factor`'s (a registered name or a spec; BAL: cameras
+    9, points 3, obs 2, sqrt_info 2 x 2).  With `feature_major=False` the
+    inputs are edge-major (cameras [Nc, cd], obs [nE, od], sqrt_info
+    [nE, rd, rd]) and are transposed; with True they are already [F, N]
+    (sqrt_info [rd*rd, nE]).  Index arrays become int64.
     """
+    widths = _widths(factor)
     out: Dict[str, Optional[torch.Tensor]] = {}
     for name, a in (("cameras", cameras), ("points", points), ("obs", obs),
                     ("sqrt_info", sqrt_info)):
@@ -54,8 +68,8 @@ def to_torch(
         a = np.asarray(a)
         if not feature_major:
             a = a.reshape(a.shape[0], -1).T
-        if a.shape[0] != _WIDTHS[name]:
-            raise ValueError(f"{name}: expected {_WIDTHS[name]} feature "
+        if a.shape[0] != widths[name]:
+            raise ValueError(f"{name}: expected {widths[name]} feature "
                              f"rows, got shape {a.shape}")
         out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(
             device=device, dtype=dtype)

@@ -8,8 +8,10 @@
 // `__device__ void add(int64_t slot, T* acc) const`; the slot-tile shape
 // also needs `__device__ void term(int64_t slot, T* t) const`, the F
 // values alone, which `add` adds).  The launch shapes below walk the CSR
-// offsets seg_ptr[nS + 1] of a segment-sorted slot stream and write
-// out[f * nS + s]:
+// offsets seg_ptr[nS + 1] of a segment-sorted slot stream and write sum f
+// of segment s through `store_sum`: to out[f * nS + s], unless the Rows
+// type has an overload of its own (segtiles.cu's JtjRows keeps the upper
+// triangle of a symmetric block and writes each sum to both halves):
 //
 //   - reduce_block_per_segment, for long segments (cameras: thousands
 //     of slots each): one 256-thread block per segment;
@@ -54,6 +56,16 @@ constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
 constexpr int64_t kMaxGrid = 2147483647;
 
+// Where sum f of segment s goes: row f of out.  A Rows type may overload
+// it (found by argument-dependent lookup where a launch shape is
+// instantiated).
+template <class Rows, typename T>
+__device__ __forceinline__ void store_sum(const Rows&, T* __restrict__ out,
+                                          int64_t num_segments, int64_t s,
+                                          int f, T v) {
+  out[f * num_segments + s] = v;
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
@@ -66,7 +78,7 @@ __device__ __forceinline__ T warp_sum(T v) {
 // Segment s = [lo, hi) summed by the whole block: threads stride over its
 // slots, each keeping its F partial sums in registers; a warp-shuffle
 // tree and a fixed-order sum over the warps' shared-memory partials
-// finish it into out[f * num_segments + s].
+// finish it through store_sum.
 template <typename T, class Rows>
 __device__ __forceinline__ void block_segment_sum(
     const Rows& rows, int64_t lo, int64_t hi, T (*partial)[Rows::F],
@@ -88,7 +100,7 @@ __device__ __forceinline__ void block_segment_sum(
     T v = partial[0][f];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) v += partial[w][f];
-    out[f * num_segments + s] = v;
+    store_sum(rows, out, num_segments, s, f, v);
   }
 }
 
@@ -120,7 +132,9 @@ reduce_thread_per_segment(Rows rows, const int64_t* __restrict__ seg_ptr,
   const int64_t hi = seg_ptr[s + 1];
   for (int64_t e = seg_ptr[s]; e < hi; ++e) rows.add(e, acc);
 #pragma unroll
-  for (int f = 0; f < F; ++f) out[f * num_segments + s] = acc[f];
+  for (int f = 0; f < F; ++f) {
+    store_sum(rows, out, num_segments, s, f, acc[f]);
+  }
 }
 
 // One block per tile of consecutive slots, for short segments with
@@ -199,7 +213,9 @@ reduce_slot_tiles(Rows rows, const int64_t* __restrict__ seg_ptr,
       for (int f = 0; f < F; ++f) last[f] = acc[f];
     } else {
 #pragma unroll
-      for (int f = 0; f < F; ++f) out[f * num_segments + s] = acc[f];
+      for (int f = 0; f < F; ++f) {
+        store_sum(rows, out, num_segments, s, f, acc[f]);
+      }
     }
   }
   if (long_last) {
@@ -214,7 +230,9 @@ reduce_slot_tiles(Rows rows, const int64_t* __restrict__ seg_ptr,
     if (owns_last) {
       add_staged<T, F>(term, 0, e_hi - chunk_end, last);
 #pragma unroll
-      for (int f = 0; f < F; ++f) out[f * num_segments + s_hi - 1] = last[f];
+      for (int f = 0; f < F; ++f) {
+        store_sum(rows, out, num_segments, s_hi - 1, f, last[f]);
+      }
     }
   }
 }

@@ -24,6 +24,16 @@
 // seg_ptr[nS + 1]; a reduction walks each segment's contiguous edge range
 // (segreduce.cuh: one 256-thread block per camera, one thread per point).
 //
+// Block shapes: kernels 1-3 are instantiated for every (od, d) of
+// block_shapes.cuh, the one list of the shapes the registered factor
+// families use (BAL's (2, 9) / (2, 3), planar's (1, 4) / (1, 2), the
+// rig's (2, 7), pinhole_radial's (2, 12), the pose prior's (6, 6) /
+// (6, 3), and (2, 6) for a Problem edge on a pose camera), in every
+// precision arm.  A library built with -DMEGBA_ONE_BLOCK_OD / _D holds
+// one other shape (ops/segtiles.py builds it at first use).  JtjRows keeps
+// the upper triangle of J^T J only, which keeps its sums in registers up
+// to d = 12 (its note below).
+//
 // Layout: feature-major, row f of a [F, n] array starts at f * n.
 //
 // Bound on the H100: every kernel reads its per-edge rows once and does at
@@ -62,11 +72,27 @@
 
 namespace {
 
-// Per-edge rows of J^T J (D*D values, row a*D+b) and -J^T r (D values),
-// added into acc: the fused Hessian-block + gradient build.
+// Index of entry (a, b), a <= b, of the upper triangle of a D x D block,
+// row by row, and the triangle's size.
+__host__ __device__ constexpr int tri_index(int a, int b, int D) {
+  return a * (2 * D - a + 1) / 2 + (b - a);
+}
+__host__ __device__ constexpr int tri_size(int D) { return D * (D + 1) / 2; }
+
+// Per-edge rows of J^T J and -J^T r: the fused Hessian-block + gradient
+// build.  J^T J is symmetric, so only its upper triangle is summed
+// (D(D+1)/2 sums, then the D of the gradient: F = 90 in place of 156 at
+// D = 12), and `store_sum` below writes each triangle sum to row a*D+b
+// and to its mirror b*D+a of the [D*D + D, nS] output.  The mirror is
+// bitwise the sum the full form would give: its terms
+// j[b]*j[a] + j[D+b]*j[D+a] + ... are products of the same factors (IEEE
+// products and fused multiply-adds are commutative in their factors),
+// added in the same order.  What the triangle saves is registers: each
+// thread keeps F sums, and at D = 12 in f64 the full 156 would need 312
+// 32-bit registers, past the 255 a thread may have.
 template <typename T, int OD, int D>
 struct JtjRows {
-  static constexpr int F = D * D + D;
+  static constexpr int F = tri_size(D) + D;
   const T* __restrict__ J;  // [OD*D, n]
   const T* __restrict__ r;  // [OD, n]
   int64_t n;
@@ -81,11 +107,11 @@ struct JtjRows {
 #pragma unroll
     for (int a = 0; a < D; ++a) {
 #pragma unroll
-      for (int b = 0; b < D; ++b) {
+      for (int b = a; b < D; ++b) {
         T t = j[a] * j[b];
 #pragma unroll
         for (int o = 1; o < OD; ++o) t += j[o * D + a] * j[o * D + b];
-        acc[a * D + b] += t;
+        acc[tri_index(a, b, D)] += t;
       }
     }
 #pragma unroll
@@ -93,10 +119,28 @@ struct JtjRows {
       T t = j[a] * rr[0];
 #pragma unroll
       for (int o = 1; o < OD; ++o) t += j[o * D + a] * rr[o];
-      acc[D * D + a] -= t;
+      acc[tri_size(D) + a] -= t;
     }
   }
 };
+
+// Sum f of a JtjRows segment: a triangle entry goes to (a, b) and (b, a),
+// a gradient entry to row D*D + a.
+template <typename T, int OD, int D>
+__device__ __forceinline__ void store_sum(const JtjRows<T, OD, D>&,
+                                          T* __restrict__ out,
+                                          int64_t num_segments, int64_t s,
+                                          int f, T v) {
+  if (f >= tri_size(D)) {
+    out[(D * D + f - tri_size(D)) * num_segments + s] = v;
+    return;
+  }
+  int a = 0;
+  while (f >= tri_index(a + 1, a + 1, D)) ++a;
+  const int b = a + f - tri_index(a, a, D);
+  out[(a * D + b) * num_segments + s] = v;
+  if (b != a) out[(b * D + a) * num_segments + s] = v;
+}
 
 // Per-edge rows of J^T u (D values): the reduce half of a coupling product.
 template <typename T, typename R, bool BF16, int OD, int D>
@@ -155,14 +199,13 @@ int jtj_typed(int od, int d, const void* J, const void* r,
   const T* Jt = static_cast<const T*>(J);
   const T* rt = static_cast<const T*>(r);
   T* o = static_cast<T*>(out);
-  if (od == 2 && d == 9) {
-    return launch_reduce<T>(JtjRows<T, 2, 9>{Jt, rt, n}, seg_ptr, o,
-                            num_segments, per_thread, stream);
+#define MEGBA_BLOCK(OD, D)                                                \
+  if (od == (OD) && d == (D)) {                                           \
+    return launch_reduce<T>(JtjRows<T, (OD), (D)>{Jt, rt, n}, seg_ptr, o, \
+                            num_segments, per_thread, stream);            \
   }
-  if (od == 2 && d == 3) {
-    return launch_reduce<T>(JtjRows<T, 2, 3>{Jt, rt, n}, seg_ptr, o,
-                            num_segments, per_thread, stream);
-  }
+#include "block_shapes.cuh"
+#undef MEGBA_BLOCK
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -173,14 +216,13 @@ int reduce_typed(int od, int d, const void* J, const void* u,
   const R* Jt = static_cast<const R*>(J);
   const T* ut = static_cast<const T*>(u);
   T* o = static_cast<T*>(out);
-  if (od == 2 && d == 9) {
-    return launch_reduce<T>(JtuRows<T, R, BF16, 2, 9>{Jt, ut, n}, seg_ptr, o,
-                            num_segments, per_thread, stream);
+#define MEGBA_BLOCK(OD, D)                                                  \
+  if (od == (OD) && d == (D)) {                                             \
+    return launch_reduce<T>(JtuRows<T, R, BF16, (OD), (D)>{Jt, ut, n},      \
+                            seg_ptr, o, num_segments, per_thread, stream);  \
   }
-  if (od == 2 && d == 3) {
-    return launch_reduce<T>(JtuRows<T, R, BF16, 2, 3>{Jt, ut, n}, seg_ptr, o,
-                            num_segments, per_thread, stream);
-  }
+#include "block_shapes.cuh"
+#undef MEGBA_BLOCK
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -202,14 +244,13 @@ template <typename T, typename R, bool BF16>
 int expand_typed(int od, int d, const void* table, const void* J,
                  const int32_t* seg, void* u, int64_t n, int64_t num_segments,
                  cudaStream_t stream) {
-  if (od == 2 && d == 9) {
-    return launch_expand<T, R, BF16, 2, 9>(table, J, seg, u, n, num_segments,
-                                           stream);
+#define MEGBA_BLOCK(OD, D)                                                \
+  if (od == (OD) && d == (D)) {                                           \
+    return launch_expand<T, R, BF16, (OD), (D)>(table, J, seg, u, n,      \
+                                                num_segments, stream);    \
   }
-  if (od == 2 && d == 3) {
-    return launch_expand<T, R, BF16, 2, 3>(table, J, seg, u, n, num_segments,
-                                           stream);
-  }
+#include "block_shapes.cuh"
+#undef MEGBA_BLOCK
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,7 +8,9 @@ checkout, into `build/megba_tpu_torch/` beside the package (listed in
 only: an installed package would build into its install prefix.  The
 library name carries a digest of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source never loads a stale
-build.
+build.  A library may be built with preprocessor definitions of its own
+(`load_library(..., defines=)`): a library of one other block shape of
+csrc/segtiles.cu, built at first use, is one.
 
 A source that includes no PyTorch header compiles in seconds, where one
 built through `torch.utils.cpp_extension.load` takes minutes; each
@@ -36,7 +38,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -48,7 +50,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, tuple], ctypes.CDLL] = {}
 # Compiler output (registers, shared memory, spills per kernel) of each
 # build, kept for chip_smoke.py to print.
 BUILD_LOGS: Dict[str, str] = {}
@@ -64,24 +66,29 @@ def nvcc_path() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _lib_path(name: str) -> Path:
+def _define_flags(defines: tuple) -> list:
+    return [f"-D{k}={v}" for k, v in defines]
+
+
+def _lib_path(name: str, defines: tuple = ()) -> Path:
     h = hashlib.blake2b(digest_size=8)
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
+    h.update(" ".join(NVCC_FLAGS + tuple(_define_flags(defines))).encode())
+    tag = "".join(f"_{v}" for _, v in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()}.so"
 
 
-def _start_build(name: str):
+def _start_build(name: str, defines: tuple = ()):
     """Start nvcc for one source; returns (process, tmp_path, lib_path) or
     None when the library is already built."""
-    lib = _lib_path(name)
+    lib = _lib_path(name, defines)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *_define_flags(defines), "-o",
+           str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
@@ -90,12 +97,12 @@ def _start_build(name: str):
 def _finish_build(name: str, started) -> None:
     proc, tmp, lib = started
     out, _ = proc.communicate()
-    BUILD_LOGS[name] = out
+    BUILD_LOGS[lib.name] = out
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"megba_tpu_torch: nvcc failed to build csrc/{name}.cu "
-            f"(exit {proc.returncode}):\n{out}")
+            f"megba_tpu_torch: nvcc failed to build csrc/{name}.cu into "
+            f"{lib.name} (exit {proc.returncode}):\n{out}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -108,22 +115,25 @@ def build_all(names: Iterable[str]) -> None:
                 _finish_build(n, s)
 
 
-def load_library(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (once) and load csrc/<name>.cu; `signatures` maps each C
+def load_library(name: str, signatures: dict,
+                 defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
+    """Build (once) and load csrc/<name>.cu, with the preprocessor
+    `defines` if given (a library of its own); `signatures` maps each C
     function to (restype, [argtypes])."""
+    key = (name, tuple(sorted((defines or {}).items())))
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is not None:
             return lib
-        started = _start_build(name)
+        started = _start_build(*key)
         if started is not None:
             _finish_build(name, started)
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(_lib_path(*key)))
         for fn, (restype, argtypes) in signatures.items():
             f = getattr(lib, fn)
             f.restype = restype
             f.argtypes = argtypes
-        _LIBS[name] = lib
+        _LIBS[key] = lib
         return lib
 
 
@@ -138,17 +148,22 @@ def raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
 
 
-def count_launch(kernel, arm: str) -> None:
-    """Count one launch of a kernel wrapper: its total (`launches`) and
-    that of the arm it launched (`arm_launches`)."""
+def count_launch(kernel, arm: str, shape: Optional[tuple] = None) -> None:
+    """Count one launch of a kernel wrapper: its total (`launches`), that
+    of the arm it launched (`arm_launches`) and, for a kernel built per
+    block shape, that of the shape (`shape_launches`)."""
     kernel.launches += 1
     kernel.arm_launches[arm] = kernel.arm_launches.get(arm, 0) + 1
+    if shape is not None:
+        kernel.shape_launches[shape] = kernel.shape_launches.get(shape,
+                                                                 0) + 1
 
 
 def reset_counts(kernels) -> None:
     for k in kernels:
         k.launches = 0
         k.arm_launches = {}
+        k.shape_launches = {}
 
 
 def dtype_arm(dtype: torch.dtype) -> str:

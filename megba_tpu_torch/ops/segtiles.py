@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import re
 from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
@@ -59,9 +60,24 @@ from megba_tpu_torch.ops import kernels as _kernels
 if TYPE_CHECKING:
     from megba_tpu_torch.ops.fused import FusedPlan
 
-# (od, d) pairs the CUDA kernels are instantiated for: the BAL camera
-# (9) and point (3) blocks with 2-row residuals.
-SUPPORTED_BLOCKS = ((2, 9), (2, 3))
+
+def _listed_blocks() -> Tuple[Tuple[int, int], ...]:
+    """The (od, d) shapes of csrc/block_shapes.cuh: the one list, which the
+    CUDA dispatch of kernels 1-3 expands as well."""
+    text = (_kernels.CSRC_DIR / "block_shapes.cuh").read_text()
+    return tuple((int(od), int(d)) for od, d in re.findall(
+        r"^MEGBA_BLOCK\((\d+),\s*(\d+)\)", text, re.MULTILINE))
+
+
+# (od, d) pairs (od residual rows, d block parameters) the library of
+# kernels 1-3 is built for: every registered factor family's camera and
+# point blocks.
+SUPPORTED_BLOCKS = _listed_blocks()
+# A shape outside the list, up to this (od, d), gets a library of its own
+# built at first use (`_lib`); beyond it the kernels raise.  At d = 16
+# the Hessian kernel keeps 152 sums a thread (f64: 304 registers), which
+# spill: the cap bounds how far that is allowed to go.
+MAX_BUILT_BLOCK = (8, 16)
 # Row counts F the plain segment reduce / expand kernels are built for.
 SUPPORTED_WIDTHS = (9, 3)
 
@@ -967,8 +983,30 @@ _SIGNATURES = {
 KERNEL_SOURCES = ("segtiles",)
 
 
-def _lib() -> ctypes.CDLL:
-    return _kernels.load_library("segtiles", _SIGNATURES)
+def _lib(shape: Optional[Tuple[int, int]] = None) -> ctypes.CDLL:
+    """The library of kernels 1-5 (`shape` None or listed), or that of one
+    other (od, d) shape of kernels 1-3, built at first use."""
+    if shape is None or shape in SUPPORTED_BLOCKS:
+        return _kernels.load_library("segtiles", _SIGNATURES)
+    od, d = shape
+    return _kernels.load_library(
+        "segtiles", _SIGNATURES,
+        defines={"MEGBA_ONE_BLOCK_OD": od, "MEGBA_ONE_BLOCK_D": d})
+
+
+def check_block(name: str, shape: Tuple[int, int]) -> None:
+    """Raise the typed refusal of a CUDA call of kernel `name` at an
+    (od, d) shape with no kernel: outside the list and beyond
+    `MAX_BUILT_BLOCK`.  Nothing falls back to the plain version."""
+    if shape in SUPPORTED_BLOCKS:
+        return
+    if not (1 <= shape[0] <= MAX_BUILT_BLOCK[0]
+            and 1 <= shape[1] <= MAX_BUILT_BLOCK[1]):
+        raise NotImplementedError(
+            f"{name}: no CUDA kernel for block shape (od, d) = {shape}: "
+            f"csrc/block_shapes.cuh lists {SUPPORTED_BLOCKS}, and a shape "
+            f"outside it is built at first use up to (od, d) <= "
+            f"{MAX_BUILT_BLOCK}")
 
 
 def check_operands(name: str, **tensors: torch.Tensor) -> torch.device:
@@ -1013,17 +1051,17 @@ def check_plan(name: str, plan, dev: torch.device,
                          f"({plan.num_segments + 1},)")
 
 
-def _check(name: str, shape, supported: tuple, plan, expand: bool = False,
+def _check(name: str, width: int, plan, expand: bool = False,
            **tensors: torch.Tensor) -> torch.device:
-    """Validate the operands on either device, and what the CUDA kernel
-    does not check itself; raise on anything it does not take.  `shape`
-    is the block shape the call needs (an (od, d) pair or a row count F),
-    `supported` those built."""
+    """Validate the operands of a plain segment kernel (4, 5) on either
+    device, and what the CUDA kernel does not check itself; raise on
+    anything it does not take.  `width` is the row count F the call
+    needs."""
     dev = check_operands(name, **tensors)
-    if dev.type == "cuda" and shape not in supported:
+    if dev.type == "cuda" and width not in SUPPORTED_WIDTHS:
         raise NotImplementedError(
-            f"{name}: no CUDA kernel for shape {shape} (built for "
-            f"{supported})")
+            f"{name}: no CUDA kernel for width {width} (built for "
+            f"{SUPPORTED_WIDTHS})")
     check_plan(name, plan, dev, expand)
     return dev
 
@@ -1031,13 +1069,11 @@ def _check(name: str, shape, supported: tuple, plan, expand: bool = False,
 def _check_coupling(name: str, shape, plan, vector: torch.Tensor,
                     bf16_operands: bool, J: torch.Tensor,
                     expand: bool = False) -> tuple:
-    """`_check` for the coupling kernels, whose J rows may be bfloat16:
+    """The checks of a coupling kernel, whose J rows may be bfloat16:
     returns the (code, name) of the precision arm (ops/kernels.ARMS)."""
     arm = _kernels.check_arm(name, vector, bf16_operands, J=J)
-    if vector.device.type == "cuda" and shape not in SUPPORTED_BLOCKS:
-        raise NotImplementedError(
-            f"{name}: no CUDA kernel for shape {shape} (built for "
-            f"{SUPPORTED_BLOCKS})")
+    if vector.device.type == "cuda":
+        check_block(name, shape)
     check_plan(name, plan, vector.device, expand)
     return arm
 
@@ -1061,20 +1097,23 @@ def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
         raise ValueError(
             f"jtj_grad_reduce: J {tuple(J.shape)}, r {tuple(r.shape)} and "
             f"{plan.n_slots} plan slots disagree")
-    dev = _check("jtj_grad_reduce", (od, d), SUPPORTED_BLOCKS, plan,
-                 J=J, r=r)
+    dev = check_operands("jtj_grad_reduce", J=J, r=r)
+    if dev.type == "cuda":
+        check_block("jtj_grad_reduce", (od, d))
+    check_plan("jtj_grad_reduce", plan, dev)
     if dev.type == "cpu":
         return jtj_grad_reduce_plain(J, r, plan)
     out = torch.empty((d * d + d, plan.num_segments), dtype=J.dtype,
                       device=dev)
     with torch.cuda.device(dev):
-        code = _lib().megba_jtj_grad_reduce(
+        code = _lib((od, d)).megba_jtj_grad_reduce(
             int(J.dtype == torch.float64), od, d, J.data_ptr(),
             r.data_ptr(), plan.seg_ptr.data_ptr(), out.data_ptr(), n,
             plan.num_segments, int(plan.per_thread),
             _kernels.current_stream(dev))
     _raise_on(code, "jtj_grad_reduce")
-    _kernels.count_launch(jtj_grad_reduce, _kernels.dtype_arm(J.dtype))
+    _kernels.count_launch(jtj_grad_reduce, _kernels.dtype_arm(J.dtype),
+                          (od, d))
     return out[: d * d], out[d * d:]
 
 
@@ -1103,12 +1142,12 @@ def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: ExpandPlan,
         return coupling_expand_plain(table, J, plan, d, bf16_operands)
     u = torch.empty((od, n), dtype=table.dtype, device=dev)
     with torch.cuda.device(dev):
-        code = _lib().megba_coupling_expand(
+        code = _lib((od, d)).megba_coupling_expand(
             arm_code, od, d, table.data_ptr(), J.data_ptr(),
             plan.seg.data_ptr(), u.data_ptr(), n, plan.num_segments,
             _kernels.current_stream(dev))
     _raise_on(code, "coupling_expand")
-    _kernels.count_launch(coupling_expand, arm)
+    _kernels.count_launch(coupling_expand, arm, (od, d))
     return u
 
 
@@ -1134,12 +1173,12 @@ def coupling_reduce(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
         return coupling_reduce_plain(J, u, plan, d, bf16_operands)
     out = torch.empty((d, plan.num_segments), dtype=u.dtype, device=dev)
     with torch.cuda.device(dev):
-        code = _lib().megba_coupling_reduce(
+        code = _lib((od, d)).megba_coupling_reduce(
             arm_code, od, d, J.data_ptr(), u.data_ptr(),
             plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
             int(plan.per_thread), _kernels.current_stream(dev))
     _raise_on(code, "coupling_reduce")
-    _kernels.count_launch(coupling_reduce, arm)
+    _kernels.count_launch(coupling_reduce, arm, (od, d))
     return out
 
 
@@ -1150,7 +1189,7 @@ def seg_reduce(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
     if plan.n_slots != n:
         raise ValueError(f"seg_reduce: data {tuple(data.shape)} and "
                          f"{plan.n_slots} plan slots disagree")
-    dev = _check("seg_reduce", F, SUPPORTED_WIDTHS, plan, data=data)
+    dev = _check("seg_reduce", F, plan, data=data)
     if dev.type == "cpu":
         return seg_reduce_plain(data, plan)
     out = torch.empty((F, plan.num_segments), dtype=data.dtype, device=dev)
@@ -1171,7 +1210,7 @@ def seg_expand(table: torch.Tensor, plan: ExpandPlan) -> torch.Tensor:
     if table.shape != (F, plan.num_segments):
         raise ValueError(f"seg_expand: table {tuple(table.shape)} and "
                          f"{plan.num_segments} plan segments disagree")
-    dev = _check("seg_expand", F, SUPPORTED_WIDTHS, plan, expand=True,
+    dev = _check("seg_expand", F, plan, expand=True,
                  table=table)
     if dev.type == "cpu":
         return seg_expand_plain(table, plan)
@@ -1206,3 +1245,9 @@ def arm_launch_counts() -> dict:
     """Launches per kernel and precision arm, as {"name[arm]": count}."""
     return {f"{k.__name__}[{arm}]": n for k in KERNELS
             for arm, n in k.arm_launches.items()}
+
+
+def shape_launch_counts() -> dict:
+    """Launches of kernels 1-3 per block shape, as {"name(od,d)": count}."""
+    return {f"{k.__name__}({od},{d})": n for k in KERNELS
+            for (od, d), n in sorted(k.shape_launches.items())}

@@ -39,6 +39,7 @@ from megba_tpu_torch.common import (
     EdgeOrder,
     PrecondKind,
     ProblemOption,
+    RobustKind,
     resolve_device,
     validate_options,
 )
@@ -94,11 +95,13 @@ def flat_solve(
     initial_v: Optional[float] = None,
     initial_dx: Optional[np.ndarray] = None,
     fault_plan: Optional[FaultPlan] = None,
+    factor=None,
 ) -> LMResult:
-    """Lower flat arrays and run the solve on one device.
+    """Lower flat arrays and run the solve.
 
-    Arrays are edge-major numpy: cameras [Nc, 9], points [Np, 3],
-    obs [nE, 2], cam_idx/pt_idx [nE], sqrt_info [nE, 2, 2].  `edge_mask`
+    Arrays are edge-major numpy: cameras [Nc, cd], points [Np, pd],
+    obs [nE, od], cam_idx/pt_idx [nE], sqrt_info [nE, rd, rd], at the
+    factor's widths (BAL: cd 9, pd 3, od = rd = 2).  `edge_mask`
     ([nE] 0/1, caller's edge order) soft-deletes edges: a 0 edge adds
     nothing to the cost or the system.  `cam_fixed` / `pt_fixed` ([Nc] /
     [Np] bool) freeze vertices.  The result's cameras/points (and, under
@@ -106,9 +109,17 @@ def flat_solve(
     device.
 
     `residual_jac_fn` is the residual + Jacobian engine
-    (ops.residuals.make_residual_jacobian_fn); None is the BAL engine of
-    `option.jacobian_mode`.  `initial_region` / `initial_v` replace the
-    trust-region start state, and `initial_dx` ([Nc, 9], edge-major like
+    (ops.residuals.make_residual_jacobian_fn); None is the engine of
+    `factor` or, without one, the BAL engine of `option.jacobian_mode`.
+    `factor` (a registered factor name or a `factors.FactorSpec`) routes
+    the solve through the factor registry as the JAX package does
+    (megba_tpu/solve.py:219-250): a pose-graph factor or an unknown name
+    raises a typed `factors.FactorError` here, the arrays' widths are
+    checked against the spec, the factor's solver defaults are folded
+    into `option`, a robust loss on a `robust_ok=False` family is
+    refused, and the engine is `factors.engine_for(spec,
+    option.jacobian_mode)`.  `initial_region` / `initial_v` replace the
+    trust-region start state, and `initial_dx` ([Nc, cd], edge-major like
     `cameras`) seeds the warm-start carry under `SolverOption.warm_start`
     (ignored otherwise): with a previous result's `region`, `v` and
     `dx_cam` they resume a solve split in two.
@@ -133,6 +144,9 @@ def flat_solve(
     co-observation first itself).  The result lives on the first
     device.
     """
+    if factor is not None:
+        option, engine = _factor_route(factor, option, cameras, points, obs)
+        residual_jac_fn = residual_jac_fn or engine
     validate_options(option)
     ws = option.world_size
     so = option.solver_option
@@ -193,6 +207,34 @@ def flat_solve(
         mesh, cameras, points, obs, cam_idx, pt_idx, mask, option,
         sqrt_info, cam_fixed, pt_fixed, verbose, residual_jac_fn,
         initial_region, initial_v, initial_dx, fault_plan, fault_edge)
+
+
+def _factor_route(factor, option: ProblemOption, cameras, points, obs):
+    """The registry's checks and defaults for a solve of `factor`
+    (JAX solve.py:219-250): returns the option with the factor's solver
+    defaults and the factor's engine."""
+    from megba_tpu_torch.factors import (
+        engine_for,
+        get_factor,
+        validate_factor_arrays,
+    )
+    from megba_tpu_torch.factors.registry import (
+        FactorError,
+        apply_factor_solver_defaults,
+        require_schur,
+    )
+
+    spec = require_schur(get_factor(factor), "flat_solve")
+    validate_factor_arrays(spec, np.asarray(cameras), np.asarray(points),
+                           np.asarray(obs), where="flat_solve")
+    option = apply_factor_solver_defaults(spec, option)
+    if option.robust_kind != RobustKind.NONE and not spec.robust_ok:
+        raise FactorError(
+            f"flat_solve: factor {spec.name!r} is not "
+            "robust-kernel eligible (robust_ok=False — e.g. a "
+            "marginalization prior must not be IRLS-downweighted); "
+            "submit with robust_kind=NONE")
+    return option, engine_for(spec, option.jacobian_mode)
 
 
 def _vertex_rows(a: np.ndarray, dev) -> torch.Tensor:

@@ -1142,3 +1142,195 @@ def test_f64_multi_device_paths_kernels_match_plain(monkeypatch, path):
         assert kern.status == SolveStatus.RECOVERED
     else:
         assert float(kern.cost) < float(kern.initial_cost)
+
+
+# The block shapes of the registered factor families beside BAL's (and
+# the (2, 6) of a Problem edge on a pose camera): kernels 1-3 are
+# instantiated for each (csrc/block_shapes.cuh).
+_FAMILY_BLOCKS = [(1, 4), (1, 2), (2, 7), (2, 12), (6, 6), (6, 3), (2, 6)]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _within_abs_sum(name, got, ref, scale, dtype):
+    """|kernel - plain| within 1e-5 (f32) / 1e-12 (f64) of the plain
+    version's sums of the terms' magnitudes (chip_smoke.py's rule)."""
+    rel = 1e-12 if dtype == np.float64 else 1e-5
+    err = (got - ref).abs()
+    assert bool((err <= rel * scale).all()), (name, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("od,d", _FAMILY_BLOCKS,
+                         ids=[f"{od}x{d}" for od, d in _FAMILY_BLOCKS])
+def test_cuda_kernels_at_family_block_shapes(od, d, dtype):
+    """On the card: kernels 1-3 at each family's block shape, against the
+    plain versions, on both launch shapes (a thread per segment on the
+    short segments, a block per segment on one 6000-edge segment); two
+    launches bitwise equal, the J^T J rows exactly symmetric (the
+    triangle form writes each sum to both halves), one launch counted
+    per call and per shape."""
+    dev = _need_card()
+    for ns, idx in ((2000, _segment_ids(5, 2000)),
+                    (1, np.zeros(6000, np.int32))):
+        hplan = tseg.build_seg_plan(idx, ns)
+        plan = tseg.device_plan(hplan, np.zeros_like(hplan.perm), dev)
+        J, r, table = _inputs(5, idx.shape[0], ns, d, dtype, od=od)
+        Jt, rt = (_port_slots(a, hplan).to(dev) for a in (J, r))
+        tt = torch.from_numpy(table).to(dev)
+        for name, args in (("jtj_grad_reduce", (Jt, rt, plan)),
+                           ("coupling_expand", (tt, Jt, plan, d)),
+                           ("coupling_reduce", (Jt, rt, plan, d))):
+            kernel = getattr(tseg, name)
+            plain = getattr(tseg, name + "_plain")
+            before = kernel.shape_launches.get((od, d), 0)
+            got, again = kernel(*args), kernel(*args)
+            torch.cuda.synchronize()
+            assert kernel.shape_launches[(od, d)] == before + 2
+            if name == "jtj_grad_reduce":
+                h = got[0].reshape(d, d, ns)
+                assert torch.equal(h, h.transpose(0, 1))
+            got, again, ref, scale = (
+                torch.cat(x) if isinstance(x, tuple) else x
+                for x in (got, again, plain(*args),
+                          plain(*(a.abs() if isinstance(a, torch.Tensor)
+                                  and a.is_floating_point() else a
+                                  for a in args))))
+            assert torch.equal(got, again), name
+            _within_abs_sum(name, got, ref, scale.abs(), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_block_shape_outside_the_list_builds_at_first_use():
+    """A shape outside csrc/block_shapes.cuh (a 5-parameter camera) gets
+    a library of its own at first use and agrees with the plain
+    versions; beyond the cap the wrappers raise a typed
+    NotImplementedError naming the kernel and the shape."""
+    dev = _need_card()
+    idx = _segment_ids(6, 500)
+    hplan = tseg.build_seg_plan(idx, 500)
+    plan = tseg.device_plan(hplan, np.zeros_like(hplan.perm), dev)
+    for d in (5, 17):
+        J, r, table = _inputs(6, idx.shape[0], 500, d, np.float64)
+        Jt, rt = (_port_slots(a, hplan).to(dev) for a in (J, r))
+        tt = torch.from_numpy(table).to(dev)
+        for name, args in (("jtj_grad_reduce", (Jt, rt, plan)),
+                           ("coupling_expand", (tt, Jt, plan, d)),
+                           ("coupling_reduce", (Jt, rt, plan, d))):
+            kernel = getattr(tseg, name)
+            if d == 17:
+                with pytest.raises(NotImplementedError,
+                                   match=rf"{name}: .*\(2, 17\)"):
+                    kernel(*args)
+                continue
+            got = kernel(*args)
+            ref = getattr(tseg, name + "_plain")(*args)
+            got, ref = (torch.cat(x) if isinstance(x, tuple) else x
+                        for x in (got, ref))
+            torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+
+def _family_scene(factor):
+    from megba_tpu_torch.factors import priors, radial, rig
+    from megba_tpu_torch.models.planar import make_synthetic_planar
+
+    if factor == "planar":
+        return make_synthetic_planar(8, 600, 4, seed=1)
+    if factor == "rig":
+        return rig.make_synthetic_rig(8, 600, 2, 3, seed=1)
+    if factor == "pinhole_radial":
+        return radial.make_synthetic_radial(8, 600, 4, seed=1)
+    return priors.make_synthetic_priors(64, 2, prior_noise=0.01, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", ["planar", "rig", "pinhole_radial",
+                                    "pose_prior"])
+def test_f64_family_solve_kernels_match_plain(monkeypatch, factor):
+    """On the card: `flat_solve(factor=...)` at f64 with ProblemOption()
+    (AUTODIFF) through the kernels and through their plain versions:
+    trial costs within 1e-9, equal accepts, counts and status; two
+    kernel solves bitwise equal; the family's shapes launched."""
+    from megba_tpu_torch import AlgoOption, ProblemOption, flat_solve
+    from megba_tpu_torch.factors import get_factor
+
+    _need_card()
+    s = _family_scene(factor)
+    spec = get_factor(factor)
+    opt = ProblemOption(algo_option=AlgoOption(max_iter=5, epsilon1=1e-12,
+                                               epsilon2=1e-15))
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
+    od = spec.residual_dim
+    tseg.reset_launch_counts()
+    kern = flat_solve(*args, device="cuda", factor=factor)
+    for name in ("jtj_grad_reduce", "coupling_expand", "coupling_reduce"):
+        shapes = getattr(tseg, name).shape_launches
+        assert shapes.get((od, spec.cam_dim)) and shapes.get(
+            (od, spec.pt_dim)), (name, shapes)
+    again = flat_solve(*args, device="cuda", factor=factor)
+    _to_plain(monkeypatch)
+    plain = flat_solve(*args, device="cuda", factor=factor)
+    k = kern.iterations
+    assert k > 1
+    assert (k, kern.accepted, kern.pcg_iterations, kern.status) == (
+        plain.iterations, plain.accepted, plain.pcg_iterations, plain.status)
+    assert torch.equal(kern.trace.accept[:k], plain.trace.accept[:k])
+    assert torch.equal(kern.trace.cost[:k], again.trace.cost[:k])
+    assert torch.equal(kern.cameras, again.cameras)
+    np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
+                               plain.trace.cost[:k].numpy(), rtol=1e-9)
+    assert float(kern.cost) < float(kern.initial_cost)
+
+
+@pytest.mark.cuda
+def test_f64_problem_custom_edge_kernels_match_plain(monkeypatch):
+    """On the card: a Problem whose custom forward() has a 5-parameter
+    camera ([angle-axis, tx, ty]; tz and the focal as edge constants),
+    so its camera side runs kernels 1-3 at (2, 5), a shape built at first
+    use; kernels vs plain at f64."""
+    from megba_tpu_torch import (AlgoOption, BaseEdge, BaseProblem,
+                                 CameraVertex, PointVertex, ProblemOption)
+    from megba_tpu_torch.io.synthetic import make_synthetic_bal
+    from megba_tpu_torch.ops import geo
+
+    _need_card()
+
+    class PanTiltEdge(BaseEdge):
+        def forward(self):
+            cam, X, m = (self.vertex_estimation(0),
+                         self.vertex_estimation(1), self.get_measurement())
+            t = torch.stack([cam[3], cam[4], m[2]])
+            P = geo.angle_axis_rotate_point(cam[0:3], X) + t
+            return m[3] * (-P[0:2] / P[2]) - m[0:2]
+
+    s = make_synthetic_bal(num_cameras=8, num_points=400, obs_per_point=3,
+                           seed=2, param_noise=1e-2, pixel_noise=0.5)
+
+    def solve():
+        pb = BaseProblem(ProblemOption(algo_option=AlgoOption(
+            max_iter=5, epsilon1=1e-12, epsilon2=1e-15)), device="cuda")
+        cams = [CameraVertex(c[:5]) for c in s.cameras0]
+        pts = [PointVertex(p) for p in s.points0]
+        for i, v in enumerate(cams + pts):
+            pb.append_vertex(i, v)
+        for c, p, uv in zip(s.cam_idx, s.pt_idx, s.obs):
+            m = np.concatenate([uv, s.cameras0[c, 5:7]])
+            pb.append_edge(PanTiltEdge([cams[c], pts[p]], measurement=m))
+        return pb.solve()
+
+    tseg.reset_launch_counts()
+    kern = solve()
+    assert tseg.jtj_grad_reduce.shape_launches.get((2, 5))
+    _to_plain(monkeypatch)
+    plain = solve()
+    k = kern.iterations
+    assert k > 1 and (k, kern.accepted, kern.pcg_iterations) == (
+        plain.iterations, plain.accepted, plain.pcg_iterations)
+    np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
+                               plain.trace.cost[:k].numpy(), rtol=1e-9)

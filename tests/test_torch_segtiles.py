@@ -11,6 +11,14 @@ coupling kernels are held to that composition there.  Also the dual-plan
 lowering: the port's CSR plans order the real edges exactly as the JAX
 tile plans do.  CPU only; the CUDA kernels are held to the same plain
 versions by chip_smoke.py on the card (and by tests/test_torch_cuda.py).
+
+The factor families' block shapes, (od, d) = (1, 4), (1, 2), (2, 7),
+(2, 12), (6, 6), (6, 3) and the (2, 6) of a Problem edge on a pose
+camera, go through the same comparisons: at float32 against the Pallas
+kernels in interpret mode, at float64 at 1e-12 against the JAX
+package's float64 lowering (the Pallas kernels compute in float32
+whatever their inputs' dtype, so they agree with an f64 sum to ~1e-7
+only).
 """
 
 import numpy as np
@@ -198,3 +206,55 @@ def test_wrappers_validate_operands():
     with pytest.raises(ValueError, match="disagree"):
         tseg.coupling_reduce(Jt[:, :-1].contiguous(), rt[:, :-1].contiguous(),
                              tplan, 9)
+
+
+FAMILY_BLOCKS = [(1, 4), (1, 2), (2, 7), (2, 12), (6, 6), (6, 3), (2, 6)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("od,d", FAMILY_BLOCKS,
+                         ids=[f"{od}x{d}" for od, d in FAMILY_BLOCKS])
+def test_kernels_at_family_block_shapes_match_jax(od, d, dtype):
+    """Kernels 1-3's plain versions at each family's block shape."""
+    ns = 40
+    idx = _segment_ids(2, ns)
+    jplan, jdp, hplan, tplan = _plans(idx, ns, 9 if d > 3 else 3)
+    n = idx.shape[0]
+    J, u, table = _inputs(2, n, ns, d, dtype, od=od)
+    Jt, ut = _port_slots(J, hplan), _port_slots(u, hplan)
+    th, tg = tseg.jtj_grad_reduce(Jt, ut, tplan)
+    tred = tseg.coupling_reduce(Jt, ut, tplan, d).numpy()
+    texp = np.empty((od, n), dtype)
+    texp[:, hplan.perm] = tseg.coupling_expand(
+        torch.from_numpy(table), Jt, tplan, d).numpy()
+    if dtype == np.float32:
+        kw = dict(use_kernels=False, interpret=True)
+        jh, jg = jseg.jtj_grad_reduce(_jax_slots(J, jplan),
+                                      _jax_slots(u, jplan), jdp, **kw)
+        jred = jseg.coupling_reduce(_jax_slots(J, jplan),
+                                    _jax_slots(u, jplan), jdp, d, **kw)
+        ju = np.asarray(jseg.coupling_expand(
+            jnp.asarray(table), _jax_slots(J, jplan), jdp, d, **kw))
+        real = jplan.mask > 0
+        jexp = np.empty((od, n), ju.dtype)
+        jexp[:, jplan.perm[real]] = ju[:, real]
+        tol = F32_TOL
+    else:
+        jh, jg = jseg.jtj_grad_reduce(_jax_slots(J, jplan),
+                                      _jax_slots(u, jplan), jdp,
+                                      use_kernels=False)
+        te = jnp.stack([sum(jnp.asarray(J[o * d + b] * u[o])
+                            for o in range(od)) for b in range(d)])
+        jred = jfm.segsum_fm(te, jnp.asarray(idx), ns)
+        pe = jfm.gather_fm(jnp.asarray(table), jnp.asarray(idx))
+        jexp = np.asarray(jnp.stack([
+            sum(jnp.asarray(J[o * d + a]) * pe[a] for a in range(d))
+            for o in range(od)]))
+        tol = F64_TOL
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **tol)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **tol)
+    np.testing.assert_allclose(tred, np.asarray(jred), **tol)
+    np.testing.assert_allclose(texp, np.asarray(jexp), **tol)
+    assert th.dtype == torch.from_numpy(J).dtype
+    assert not th[:, 0].any() and not tred[:, 0].any()

@@ -10,9 +10,10 @@ exception ends the run with a non-zero exit code:
 
 1. build: every CUDA source of megba_tpu_torch/csrc with nvcc for sm_90a
    (all sources started together), and print the build time and each
-   kernel instantiation's registers and spill bytes (the kernel-1
-   instantiations and every one that spills in the log, the whole table
-   in chiprun_out/nvcc_resources.txt);
+   kernel instantiation's registers, shared memory and spill bytes (the
+   kernel-1 instantiations, every one that spills and each library's
+   widest in the log, the whole table in
+   chiprun_out/nvcc_resources.txt);
 2. the card's name and power limit, as nvidia-smi gives them;
 3. kernels: at the venice shapes, each of the eight kernels on each side
    or direction it runs on (camera d=9, point d=3) at f32, and the
@@ -107,21 +108,33 @@ exception ends the run with a non-zero exit code:
    of JACOBI's, their PCG counts, walls and final costs side by side;
 9. factors: the registered families beside BAL (planar, rig,
    pinhole_radial, pose_prior) through `flat_solve(factor=...)`: on a
-   trafalgar-sized scene of each at f64 with ProblemOption() (AUTODIFF,
-   `DEFAULT_LM_CAP`), kernels against plain versions under the f64 gates;
-   on a venice-scale scene of each (`FAMILY_VENICE`) one f32 solve with
-   the venice options and AUTODIFF (wall, LM / PCG, peak, device busy
-   share from one more solve under torch.profiler, final cost below the
-   initial); launches per kernel and block shape as the code implies
-   (half of each kernel's launches at the camera shape, half at the
-   point shape); kernel rows `name(od,d)` / `name(od,d)[f64]` of kernels
-   1-3 at each new block shape on the venice-scale scenes, held to the
-   plain versions (f64 also within 1e-9 of the row's largest magnitude);
-   then the Problem facade on the trafalgar-sized BAL scene: CameraVertex
-   / PointVertex / default edges solve bitwise to `flat_solve` on the same
+   trafalgar-sized scene of each at f64 (`family_option`: AUTODIFF,
+   ProblemOption()'s PCG, `DEFAULT_LM_CAP`), kernels against plain
+   versions under the f64 gates, on the default path and on EXPLICIT,
+   IMPLICIT and EXPLICIT with fused kernels, SCHUR_DIAG, TWO_LEVEL and
+   fused mixed (`FAMILY_F64_PATHS`), and the rig on the 2 x 2 mesh with
+   fused kernels (the ring step at its shapes; also held to its world-1
+   run); at f32 on the same scene the fused mixed and bf16 rungs,
+   kernels against plain versions under phase 6's rules, and EXPLICIT
+   unfused and fused through the kernels; on a venice-scale scene of
+   each (`FAMILY_VENICE`) an f32 solve with the venice options,
+   AUTODIFF and no fused kernels, and another with fused IMPLICIT
+   kernels (wall, LM / PCG, peak, device busy share from one more solve
+   under torch.profiler, final cost below the initial); launches per
+   kernel, block shape and arm as the code implies on every run
+   (`check_family_launches`); kernel rows `name(shape)` /
+   `name(shape)[f64]` of kernels 1-3 at each new (od, d) and of kernels
+   4-8 at each new width or (cd, pd, od) on the venice-scale scenes,
+   held to the plain versions (f32 against the plain version in f64,
+   f64 also within 1e-9 of the row's largest magnitude); then the
+   Problem facade on the trafalgar-sized BAL scene: CameraVertex /
+   PointVertex / default edges solve bitwise to `flat_solve` on the same
    arrays, and a custom forward() on a 6-dof pose camera (focal and
-   distortion as edge constants; kernels 1-3 at (2, 6)) kernels against
-   plain versions at f64, and once at f32.
+   distortion as edge constants; kernels 1-3 at (2, 6), kernel 7 at
+   (6, 3, 2) with fused kernels) kernels against plain versions at f64,
+   and once at f32, unfused and fused; and a pan-tilt camera edge of
+   five parameters, whose kernels (1-3 at (2, 5), 7 at (5, 3, 2), 6 at
+   5) are built at first use, fused, kernels against plain at f64.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -145,6 +158,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -645,12 +659,14 @@ def count_shard_launches():
 
 
 def kernel_resources(build_logs: dict) -> dict:
-    """Registers and spill bytes of every kernel instantiation, from the
-    `--ptxas-options=-v` output of the builds (ops/kernels.BUILD_LOGS):
-    the full table, demangled, goes to chiprun_out/nvcc_resources.txt;
-    the log gets the instantiations of kernel 1 (the largest sums a
-    thread) and every one that spills.  Returns {demangled name:
-    (registers, spill stores, spill loads)}."""
+    """Registers, shared memory and spill bytes of every kernel
+    instantiation, from the `--ptxas-options=-v` output of the builds
+    (ops/kernels.BUILD_LOGS): the full table, demangled, goes to
+    chiprun_out/nvcc_resources.txt; the log gets the instantiations of
+    kernel 1 (the largest sums a thread), every one that spills, and per
+    library the one with the most registers and the one with the most
+    shared memory (the widest shapes of csrc/fused_shapes.cuh).  Returns
+    {demangled name: (registers, spill stores, spill loads)}."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -662,14 +678,17 @@ def kernel_resources(build_logs: dict) -> dict:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 cur = (lib, m.group(1))
-                found.setdefault(cur, [None, None, None])
+                found.setdefault(cur, [None, None, None, 0])
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m and cur:
-                found[cur][1:] = [int(m.group(1)), int(m.group(2))]
+                found[cur][1:3] = [int(m.group(1)), int(m.group(2))]
             m = re.search(r"Used (\d+) registers", line)
             if m and cur:
                 found[cur][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m and cur:
+                found[cur][3] = int(m.group(1))
     names = [n for _, n in found]
     filt = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cu++filt"
     demangled = names
@@ -679,17 +698,24 @@ def kernel_resources(build_logs: dict) -> dict:
             text=True, check=True, timeout=60).stdout.splitlines()
     out = {}
     lines = []
-    for (lib, _), name, (regs, st, ld) in zip(found, demangled,
-                                              found.values()):
+    widest = {}
+    for (lib, _), name, (regs, st, ld, smem) in zip(found, demangled,
+                                                    found.values()):
         out[name] = (regs, st, ld)
-        lines.append(f"{lib}: {name}: {regs} registers, spill stores {st} "
-                     f"B, spill loads {ld} B")
+        line = (f"{lib}: {name}: {regs} registers, {smem} B shared memory, "
+                f"spill stores {st} B, spill loads {ld} B")
+        lines.append(line)
+        for key, v in (("registers", regs or 0), ("shared memory", smem)):
+            if v > widest.get((lib, key), (-1, ""))[0]:
+                widest[(lib, key)] = (v, line)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "nvcc_resources.txt").write_text("\n".join(lines) + "\n")
     for line in lines:
         if "JtjRows" in line or "spill stores 0 B" not in line:
             log(f"resources {line}")
+    for (lib, key), (_, line) in sorted(widest.items()):
+        log(f"resources, most {key}: {line}")
     log(f"resources: {len(lines)} kernel instantiations, "
         f"{sum(1 for v in out.values() if v[1])} of them spill; table in "
         "chiprun_out/nvcc_resources.txt")
@@ -954,13 +980,14 @@ def row_arm(name: str) -> str:
 
 
 def row_shape(name: str):
-    """The (od, d) block shape of a kernel row "name(od,d)[arm]", or
-    None (the BAL rows, whose sides are the camera and the point)."""
+    """The shape of a kernel row "name(a,b,...)[arm]" ((od, d) for
+    kernels 1-3, (F,) for 4-5, (d,) for 6, (d_in, d_out) for 8, (cd, pd,
+    od) for 7), or None (the BAL rows, whose sides are the camera and the
+    point)."""
     head = name.split("[")[0]
     if "(" not in head:
         return None
-    od, d = head[head.index("(") + 1:-1].split(",")
-    return int(od), int(d)
+    return tuple(int(v) for v in head[head.index("(") + 1:-1].split(","))
 
 
 def measure_rows(cases: dict) -> dict:
@@ -1839,7 +1866,7 @@ def precision_phase(scene) -> None:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(path: str, res, builds=()) -> dict:
+def expected_launches(path: str, res, builds=(), dims=(9, 3)) -> dict:
     """Launch counts the code implies for one solve.  With k PCG
     iterations an LM iteration runs hpl and hlp k+2 times each under the
     Chronopoulos-Gear body (reduced RHS, k+1 S.p products, back-
@@ -1856,15 +1883,17 @@ def expected_launches(path: str, res, builds=()) -> dict:
     to b, where a cold start applies it to b alone.  NEUMANN of order m
     runs m S.p products and m + 1 base applies per preconditioner apply;
     SCHUR_DIAG sums its correction per camera with nine `seg_reduce`
-    launches per PCG solve.  The guards keep one product and one apply
+    launches per PCG solve (cd of them at a camera block of cd, `dims`
+    = (cd, pd)).  The guards keep one product and one apply
     per PCG iteration, restarts included.  The Jacobian mode, the robust
     loss, the edge order and a fault plan launch nothing.  A TWO_LEVEL or
     MULTILEVEL build (one per PCG solve; `builds` from `watch_builds`)
-    sums with `seg_reduce`: three launches for the incidence rows V, nine
-    per pair chunk of its plan for the contraction and, when smoothed,
-    12 C for the two passes over the C * 9 coarse columns (3 C by point,
-    9 C by camera, whatever the column block); the cycle applies the base
-    once per preconditioner apply."""
+    sums with `seg_reduce`: ceil(cd pd / 9) launches for the incidence
+    rows V (three at BAL's), cd per pair chunk of its plan for the
+    contraction and, when smoothed (BAL's blocks only), 12 C for the two
+    passes over the C * 9 coarse columns (3 C by point, 9 C by camera,
+    whatever the column block); the cycle applies the base once per
+    preconditioner apply."""
     kind, fused, rung, _ = PATHS[path]
     extra = VARIANTS.get(path, (path, {}))[1]
     warm = extra.get("forcing", False)
@@ -1905,18 +1934,98 @@ def expected_launches(path: str, res, builds=()) -> dict:
         want["fused_block_diag_apply"] = (order + 1) * applies
     if rung is not None:
         want["seg_expand"] += N * 2 * L
+    cd, pd = dims
     if extra.get("preconditioner") == "SCHUR_DIAG":
-        want["seg_reduce"] += N * 9 * L
+        want["seg_reduce"] += N * cd * L
     if extra.get("precond") in ("TWO_LEVEL", "MULTILEVEL"):
         if len(builds) != L:
             raise AssertionError(f"{path}: {len(builds)} preconditioner "
                                  f"builds in {L} LM iterations")
+        if extra.get("smooth_omega") and dims != (9, 3):
+            raise AssertionError(f"{path}: smoothed launches are counted "
+                                 "at BAL's blocks only")
         plan = builds[0][2]
         base = getattr(plan, "base", plan)  # a multilevel plan's level 1
-        per_build = 3 * N + 9 * len(base.ec_chunks) + (
+        per_build = N * -(-cd * pd // 9) + cd * len(base.ec_chunks) + (
             12 * N * base.num_clusters if extra.get("smooth_omega") else 0)
         want["seg_reduce"] += per_build * L
     return want
+
+
+# Kernels 4-8: their launches per shape are checked apart from 1-3's.
+SHAPED_4_8 = ("seg_reduce", "seg_expand", "fused_block_diag_apply",
+              "fused_coupling_apply", "fused_coupling_apply_implicit",
+              "fused_ring_step_apply", "fused_ring_step_apply_implicit")
+
+
+def expected_shape_launches(path: str, res, builds, spec) -> dict:
+    """Launches per shape of kernels 4-8 that one solve of `path` on the
+    factor family `spec` implies ({"name(shape)": count}), from the totals
+    of `expected_launches`.  Each coupling product runs one direction:
+    hlp cam -> pt (kernel 8 at (cd, pd), kernel 7 at (cd, pd, od); an
+    unfused EXPLICIT hlp expands cd rows and reduces pd), hpl pt -> cam;
+    every LM iteration's products are half hlp, half hpl, but on the 2-D
+    mesh, where the RHS runs one world hpl an LM iteration and every
+    other product an hlp, beside C ring steps (pt -> cam).  Kernel 6 runs
+    at cd; a rung's equilibration expands once at cd and once at pd per
+    LM iteration; SCHUR_DIAG reduces cd rows a launch; a coarse build
+    reduces V's cd pd rows nine a launch (the last takes the remainder)
+    and the contraction cd rows a launch."""
+    from collections import Counter
+
+    kind, fused, rung, _ = PATHS[path]
+    extra = VARIANTS.get(path, (path, {}))[1]
+    cd, pd, od = spec.cam_dim, spec.pt_dim, spec.residual_dim
+    want = expected_launches(path, res, builds, (cd, pd))
+    N, L = extra.get("world", 1), res.iterations
+    out = Counter()
+
+    def add(name, shape, n):
+        if n:
+            out[f"{name}({','.join(map(str, shape))})"] += n
+
+    if fused:
+        implicit = kind == "IMPLICIT"
+        name = ("fused_coupling_apply_implicit" if implicit
+                else "fused_coupling_apply")
+        ring = ("fused_ring_step_apply_implicit" if implicit
+                else "fused_ring_step_apply")
+        tail = (od,) if implicit else ()
+        hpl = N * L if extra.get("mesh_2d") else want[name] // 2
+        add(name, (cd, pd) + tail, want[name] - hpl)
+        add(name, (pd, cd) + tail, hpl)
+        add(ring, (pd, cd) + tail, want[ring])
+        add("fused_block_diag_apply", (cd,), want["fused_block_diag_apply"])
+    elif kind == "EXPLICIT":
+        products = want["seg_reduce"] // 2 if rung is None else None
+        if extra.get("preconditioner") or extra.get("precond") or \
+                extra.get("mesh_2d") or products is None:
+            raise AssertionError(f"{path}: per-shape launches of an unfused "
+                                 "EXPLICIT path are counted on its plain "
+                                 "form only")
+        for d in (cd, pd):
+            add("seg_expand", (d,), products)
+            add("seg_reduce", (d,), products)
+    if rung is not None:
+        add("seg_expand", (cd,), N * L)
+        add("seg_expand", (pd,), N * L)
+    if extra.get("preconditioner") == "SCHUR_DIAG":
+        add("seg_reduce", (cd,), N * cd * L)
+    if extra.get("precond") in ("TWO_LEVEL", "MULTILEVEL"):
+        base = getattr(builds[0][2], "base", builds[0][2])
+        for i in range(0, cd * pd, 9):
+            add("seg_reduce", (min(9, cd * pd - i),), N * L)
+        add("seg_reduce", (cd,), cd * len(base.ec_chunks) * L)
+    return dict(out)
+
+
+def shaped_launch_counts() -> dict:
+    """Launches of kernels 4-8 per shape, {"name(shape)": count}."""
+    out = {}
+    for m in kernel_modules():
+        out.update({k: v for k, v in m.shape_launch_counts().items()
+                    if base_name(k) in SHAPED_4_8})
+    return out
 
 
 def venice_phase(scene, path: str, profile: bool, ref=None,
@@ -2154,84 +2263,372 @@ def family_kernel_cases(factor: str, scene, done: set) -> dict:
     return cases
 
 
+def coupling_shape_cases(cd: int, pd: int, od: int, plans, tag: str,
+                         rows: set) -> dict:
+    """Kernel rows of kernels 8, 7 and 6 at one family's (cd, pd, od) on
+    its venice-scale dual plans (with their fused directions), f32 and
+    f64, each row once (`rows`: the row names already made): seeded
+    random W, J and M^-1 rows, tables and vectors; both directions of 7
+    and 8 (cam -> pt on its launch shape, pt -> cam on its own), the
+    bytes each direction must read and write once; the library yardstick
+    a cuSPARSE CSR product of the assembled coupling matrix for 7 and 8
+    (W = Jc^T Jp per edge for 7), `torch.einsum` for 6.  The f32 rows are
+    held to the plain versions in float64 (`_case`'s `ref64`): the pose
+    prior's cam -> pt direction is one segment of 200,000 slots."""
+    from megba_tpu_torch.core.fm import coupling_rows
+
+    n = plans.cam.n_slots
+    nc, npt = plans.cam.num_segments, plans.pt.num_segments
+    to_pt, to_cam = plans.fused_to_pt, plans.fused_to_cam
+    g = torch.Generator(device=DEVICE).manual_seed(cd * 100 + pd * 10 + od)
+    cases = {}
+    for dtype, elt, suffix in ((torch.float32, 4, ""),
+                               (torch.float64, 8, "[f64]")):
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(shape, generator=g, device=DEVICE,
+                                       dtype=dtype)
+
+        ref64 = dtype == torch.float32
+        lib_tol = (F32_LONG_LIBRARY_REL_TO_ABS_SUM if ref64
+                   else F32_REL_TO_ABS_SUM)
+        x_cam, x_pt = randn(cd, nc), randn(pd, npt)
+
+        def directions(rows_tp, rows_tc, row_vals, flops_per_slot, w_tp,
+                       w_tc, tails):
+            """cam -> pt over the point-order rows, pt -> cam over the
+            camera-order rows: each slot reads its rows and input id, the
+            output side's offsets, the table once, the output written
+            once."""
+            def nbytes(n_in_vals, n_out_vals, n_out):
+                return ((row_vals * n + n_in_vals + n_out_vals) * elt
+                        + n * 4 + (n_out + 1) * 8)
+
+            return [
+                _case("cam_to_pt", (*rows_tp, x_cam, to_pt, *tails[0]),
+                      nbytes(cd * nc, pd * npt, npt), n * flops_per_slot,
+                      lambda x=x_cam: _spmv(_csr_coupling, w_tp, to_pt, cd,
+                                            True, vec=x, shape=(pd, npt)),
+                      library_tol=lib_tol, ref64=ref64),
+                _case("pt_to_cam", (*rows_tc, x_pt, to_cam, *tails[1]),
+                      nbytes(pd * npt, cd * nc, nc), n * flops_per_slot,
+                      lambda x=x_pt: _spmv(_csr_coupling, w_tc, to_cam, pd,
+                                           False, vec=x, shape=(cd, nc)),
+                      library_tol=lib_tol, ref64=ref64),
+            ]
+
+        k8 = f"fused_coupling_apply({cd},{pd}){suffix}"
+        if k8 not in rows:
+            rows.add(k8)
+            W = randn(cd * pd, n, scale=0.1)
+            W_tp = plans.to_pt(W).contiguous()
+            cases[k8] = directions((W_tp,), (W,), cd * pd, 2 * cd * pd,
+                                   W_tp, W, ((True,), (False,)))
+        k7 = f"fused_coupling_apply_implicit({cd},{pd},{od}){suffix}"
+        if k7 not in rows:
+            rows.add(k7)
+            Jc, Jp = randn(od * cd, n, scale=0.1), randn(od * pd, n,
+                                                         scale=0.1)
+            W = coupling_rows(Jc, Jp, od).contiguous()
+            cases[k7] = directions(
+                (plans.to_pt(Jc).contiguous(), plans.to_pt(Jp).contiguous()),
+                (Jp, Jc), od * (cd + pd), 2 * od * (cd + pd),
+                plans.to_pt(W).contiguous(), W, ((), ()))
+        k6 = f"fused_block_diag_apply({cd}){suffix}"
+        if k6 not in rows:
+            rows.add(k6)
+            Hrows = randn(cd * cd, nc)
+            Minv = Hrows.T.reshape(nc, cd, cd)
+            cases[k6] = [_case(
+                tag, (Hrows, x_cam), (cd * cd + 2 * cd) * nc * elt,
+                2 * cd * cd * nc,
+                lambda Minv=Minv, x=x_cam: lambda: torch.einsum(
+                    "nij,jn->in", Minv, x),
+                library_tol=lib_tol, ref64=ref64)]
+        for name, (d, plan, side) in {
+                f"seg_reduce({cd}){suffix}": (cd, plans.cam, "cam"),
+                f"seg_reduce({pd}){suffix}": (pd, plans.pt, "pt"),
+                f"seg_expand({cd}){suffix}": (cd, plans.cam, "cam"),
+                f"seg_expand({pd}){suffix}": (pd, plans.pt, "pt")}.items():
+            if name in rows or d in (9, 3):  # BAL's widths: rows of their own
+                continue
+            rows.add(name)
+            ns = plan.num_segments
+            if name.startswith("seg_reduce"):
+                data = randn(d, n)
+                lengths = (plan.seg_ptr[1:] - plan.seg_ptr[:-1]).expand(
+                    d, ns).contiguous()
+                cases[name] = [_case(
+                    f"{tag}_{side}", (data, plan),
+                    (d * n + d * ns) * elt + (ns + 1) * 8, d * n,
+                    lambda data=data, lengths=lengths: lambda:
+                    torch.segment_reduce(data, "sum", lengths=lengths,
+                                         axis=1, unsafe=True),
+                    library_tol=lib_tol, ref64=ref64)]
+            else:
+                table = randn(d, ns)
+                cases[name] = [_case(
+                    f"{tag}_{side}", (table, plan),
+                    (d * ns + d * n) * elt + n * 4, 0,
+                    lambda table=table, seg=plan.seg: lambda:
+                    table.index_select(1, seg))]
+    return cases
+
+
+def remainder_reduce_case(width: int, plan, tag: str) -> dict:
+    """The f64 row of kernel 4 at a coarse build's remainder width (V's
+    last nine-row group) on one side's plan: random rows, the bytes read
+    once and written once, `torch.segment_reduce` as the yardstick."""
+    n, ns = plan.n_slots, plan.num_segments
+    g = torch.Generator(device=DEVICE).manual_seed(width)
+    data = torch.randn((width, n), generator=g, device=DEVICE,
+                       dtype=torch.float64)
+    lengths = (plan.seg_ptr[1:] - plan.seg_ptr[:-1]).expand(
+        width, ns).contiguous()
+    return {f"seg_reduce({width})[f64]": [_case(
+        tag, (data, plan), (width * n + width * ns) * 8 + (ns + 1) * 8,
+        width * n, lambda: lambda: torch.segment_reduce(
+            data, "sum", lengths=lengths, axis=1, unsafe=True))]}
+
+
 def check_shape_launches(what: str, counts: dict, shapes: dict,
                          blocks) -> None:
     """Each of kernels 1-3 launched its total (`counts`) half at each of
     the two block shapes `blocks` (camera, point): every linearisation
     and coupling product runs once on each side."""
     for name in ("jtj_grad_reduce", "coupling_expand", "coupling_reduce"):
-        want = {f"{name}({od},{d})": counts[name] // 2 for od, d in blocks}
+        want = {f"{name}({od},{d})": counts[name] // 2 for od, d in blocks
+                if counts[name]}
         got = {k: v for k, v in shapes.items() if k.startswith(name + "(")}
         if got != want or counts[name] % 2:
             raise AssertionError(f"{what}: {name} launches per shape {got}, "
                                  f"the code implies {want}")
 
 
-def family_f64_solve(factor: str, scene) -> dict:
-    """`flat_solve(factor=)` at f64 with ProblemOption() (AUTODIFF) under
-    `DEFAULT_LM_CAP`, through the kernels and through the plain versions,
-    both on the card: trial costs within `F64_COST_RTOL`, equal accept
-    pattern, LM / PCG counts and status, launches as the code implies
-    per kernel and shape.  Returns the kernel run's launches per shape."""
-    from megba_tpu_torch import flat_solve
-    from megba_tpu_torch.factors import get_factor
+def check_family_launches(what: str, path: str, res, builds, spec) -> dict:
+    """A family solve's launches as the code implies: per kernel
+    (`expected_launches` at the family's blocks), per shape (kernels 1-3
+    half at each side's (od, d), 4-8 by `expected_shape_launches`), and,
+    off the precision rungs, every launch in the solve's own arm.
+    Returns the launches per shape of kernels 1-8 and per arm."""
     from megba_tpu_torch.ops import segtiles
 
-    spec = get_factor(factor)
-    blocks = ((spec.residual_dim, spec.cam_dim),
-              (spec.residual_dim, spec.pt_dim))
-    opt = solve_option(np.float64, DEFAULT_PATH)
-    args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
-            scene.pt_idx, opt)
-    reset_launch_counts()
-    kern = flat_solve(*args, device=DEVICE, factor=factor)
-    torch.cuda.synchronize()
-    counts, shapes = launch_counts(), segtiles.shape_launch_counts()
-    with plain_path():
-        plain = flat_solve(*args, device=DEVICE, factor=factor)
-    what = f"f64 {factor}"
-    k = kern.iterations
-    tally = (k, kern.accepted, kern.pcg_iterations, kern.status)
-    if tally != (plain.iterations, plain.accepted, plain.pcg_iterations,
-                 plain.status) or not torch.equal(
-                     kern.trace.accept[:k], plain.trace.accept[:k]):
-        raise AssertionError(f"{what}: kernels {tally}, plain "
-                             f"{(plain.iterations, plain.accepted)}")
-    gap, _ = cost_gap(kern.trace.cost[:k].numpy(),
-                      plain.trace.cost[:k].numpy(), what,
-                      np.zeros(k, bool))
-    if gap > F64_COST_RTOL:
-        raise AssertionError(f"{what}: trial costs {gap:.3e} apart")
-    c0, c1 = float(kern.initial_cost), float(kern.cost)
-    if not c1 < c0:
-        raise AssertionError(f"{what}: {k} LM iterations, cost {c0} -> {c1}")
-    want = expected_launches("implicit", kern)
+    cd, pd, od = spec.cam_dim, spec.pt_dim, spec.residual_dim
+    counts = launch_counts()
+    want = expected_launches(path, res, builds, (cd, pd))
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, the code implies "
                              f"{want}")
-    check_shape_launches(what, counts, shapes, blocks)
+    shapes = segtiles.shape_launch_counts()
+    check_shape_launches(what, counts, shapes, ((od, cd), (od, pd)))
+    got, want45 = shaped_launch_counts(), expected_shape_launches(
+        path, res, builds, spec)
+    if got != want45:
+        raise AssertionError(f"{what}: kernels 4-8 launches per shape "
+                             f"{got}, the code implies {want45}")
+    arms = arm_launch_counts()
+    if PATHS[path][2] is None:
+        arm = "f64" if res.cameras.dtype == torch.float64 else "f32"
+        one_arm = {f"{k}[{arm}]": v for k, v in counts.items() if v}
+        if arms != one_arm:
+            raise AssertionError(f"{what}: launches per arm {arms}, the "
+                                 f"code implies {one_arm}")
+    shapes.update(got)
+    return dict(shapes=shapes, arms=arms)
+
+
+# The factor phase's paths of each family beside its default solve (a
+# path of the kernel slices: its kernels and launches, with AUTODIFF):
+# at f64 on the trafalgar-sized scene, kernels against plain versions,
+# with ProblemOption()'s PCG under `DEFAULT_LM_CAP` (`family_option`);
+# at f32 the precision rungs under phase 6's rules, and EXPLICIT unfused
+# and fused through the kernels alone (the launches of the f32 rows of
+# kernels 4, 5 and 8); at venice scale IMPLICIT with fused kernels.
+FAMILY_F64_PATHS = [DEFAULT_PATH, "explicit", "implicit_fused",
+                    "explicit_fused", "implicit_schur_diag",
+                    "implicit_two_level", "implicit_fused_mixed"]
+FAMILY_F32_RUNG_PATHS = ["implicit_fused_mixed", "implicit_fused_bf16"]
+# The f32 rung gates start from trust region 1, as every mixed-f64 gate
+# does (`solve_option`): from 1e3, reordering the plain versions' own
+# sums (the edges in a seeded random order) moves the 8-camera planar
+# scene's first trial cost by 3.2e-4 on the mixed rung and 0.10 on bf16,
+# and pinhole_radial's bf16 costs by 0.09-0.55, beyond phase 6's limits;
+# from 1 by at most 5.6e-7 (first) and 3.7e-5 (final).
+FAMILY_F32_REGION = 1.0
+FAMILY_F32_LAUNCH_PATHS = ["explicit", "explicit_fused"]
+FAMILY_VENICE_PATHS = [DEFAULT_PATH, "implicit_fused"]
+# The 2-D mesh's family path: the rig on the 2 x 2 mesh, IMPLICIT fused
+# (kernel 7 and its ring-step form at the rig's shapes), held to its
+# world-1 path as the f64 phase holds the mesh paths.
+FAMILY_MESH = ("rig", "2x2_implicit_fused")
+
+
+def family_option(dtype, path: str, tol_relative: bool = False,
+                  region: float = 0.0):
+    """A family path's options: the path's (`solve_option`) with AUTODIFF
+    (and the initial trust region `region`, if given); at f64
+    ProblemOption()'s PCG tolerance and refuse ratio (the family's own
+    default, `factors.registry.resolve_refuse_ratio`) under
+    `DEFAULT_LM_CAP`.  Driven to an absolute PCG tolerance of 1e-10, the
+    8-camera planar SCHUR_DIAG solve moves its trial costs by up to
+    2.7e-10 under a 1e-15 relative change of its observations through the
+    plain versions alone (these options: 9e-14)."""
+    from megba_tpu_torch import JacobianMode, SolverOption
+
+    opt = dataclasses.replace(solve_option(dtype, path, tol_relative),
+                              jacobian_mode=JacobianMode.AUTODIFF)
+    if region:
+        opt = dataclasses.replace(opt, algo_option=dataclasses.replace(
+            opt.algo_option, initial_region=region))
+    if dtype != np.float64 or path == DEFAULT_PATH:
+        return opt
+    default = SolverOption()
+    return dataclasses.replace(
+        opt, algo_option=dataclasses.replace(opt.algo_option,
+                                             max_iter=DEFAULT_LM_CAP),
+        solver_option=dataclasses.replace(
+            opt.solver_option, tol=default.tol, tol_relative=False,
+            refuse_ratio=default.refuse_ratio))
+
+
+def family_f64_solve(factor: str, scene, path: str, world1=None) -> dict:
+    """`flat_solve(factor=)` of one path at f64 (`family_option`) through
+    the kernels and through the plain versions, both on the card: trial
+    costs within `F64_COST_RTOL`, equal accept pattern, LM / PCG counts
+    and status, launches as the code implies per kernel, shape and arm
+    (`check_family_launches`); a mesh path also against its world-1 run
+    `world1`.  Returns the kernel run and its launches."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.factors import get_factor
+
+    spec = get_factor(factor)
+    opt = family_option(np.float64, path)
+    args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
+            scene.pt_idx, opt)
+    devs = devices_of(path)
+    reset_launch_counts()
+    t = time.perf_counter()
+    with watch_builds() as builds, count_shard_launches() as shards:
+        kern = flat_solve(*args, device=devs, factor=factor)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t
+    what = f"f64 {factor} {path}"
+    launches = check_family_launches(what, path, kern, builds, spec)
+    t = time.perf_counter()
+    with plain_path():
+        plain = flat_solve(*args, device=devs, factor=factor)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t
+    k = kern.iterations
+
+    def tally(res):
+        return (res.iterations, res.accepted, res.pcg_iterations,
+                int(res.status))
+
+    others = [("plain", plain)] + ([("world 1", world1)] if world1 else [])
+    gaps = []
+    for label, other in others:
+        if tally(kern) != tally(other) or not torch.equal(
+                kern.trace.accept[:k], other.trace.accept[:k]):
+            raise AssertionError(f"{what}: kernels {tally(kern)}, {label} "
+                                 f"{tally(other)}, or the accept patterns "
+                                 "differ")
+        gap, _ = cost_gap(kern.trace.cost[:k].numpy(),
+                          other.trace.cost[:k].numpy(), what,
+                          np.zeros(k, bool))
+        if gap > F64_COST_RTOL:
+            raise AssertionError(f"{what}: trial costs {gap:.3e} from the "
+                                 f"{label} run's")
+        gaps.append(f"{gap:.3e} from {label}")
+    c0, c1 = float(kern.initial_cost), float(kern.cost)
+    if not c1 < c0:
+        raise AssertionError(f"{what}: {k} LM iterations, cost {c0} -> {c1}")
+    extra = ""
+    if VARIANTS.get(path, (path, {}))[1].get("precond"):
+        extra = f"; {coarse_words(builds)}"
+    if world1 is not None:
+        extra += f"; launches per shard {shards}"
     log(f"{what}: cost {c0:.10e} -> {c1:.10e}, {k} LM iterations "
         f"({kern.accepted} accepted), {kern.pcg_iterations} PCG, status "
-        f"{kern.status}; kernels vs plain {gap:.3e} (gate "
-        f"{F64_COST_RTOL:g}); launches {shapes} (as the code implies)")
-    return shapes
+        f"{int(kern.status)}; kernels vs {', '.join(gaps)} (gate "
+        f"{F64_COST_RTOL:g}), counts and accept pattern equal{extra}; "
+        f"solve {t_k:.2f} s with kernels, {t_p:.2f} s plain; launches "
+        f"{launches['shapes']} {launches['arms']} (as the code implies)")
+    return dict(res=kern, **launches)
 
 
-def family_venice_solve(factor: str, scene) -> dict:
+def family_f32_solves(factor: str, scene) -> dict:
+    """The f32 family paths on the trafalgar-sized scene: each precision
+    rung from trust region `FAMILY_F32_REGION`, kernels against plain
+    versions under phase 6's rules (first trial cost within
+    `FIRST_COST_RTOL`, final within `FINAL_COST_RTOL`, both finite and
+    below the initial; the bf16 rung is held to the port's own plain
+    solve, not to JAX's: both packages' bf16 CG part from the f32 solve on
+    pinhole_radial, ROADMAP Queue 3), its final cost printed beside the
+    f32 IMPLICIT fused solve's from the same region; then EXPLICIT unfused
+    and fused through the kernels alone.  Launches as the code implies
+    per kernel and shape.  Returns each path's launches per shape."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.factors import get_factor
+
+    spec = get_factor(factor)
+    arrays = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
+              scene.pt_idx)
+    out = {}
+    f32_ref = flat_solve(*arrays, family_option(
+        np.float32, "implicit_fused", tol_relative=True,
+        region=FAMILY_F32_REGION), device=DEVICE, factor=factor)
+    for path in FAMILY_F32_RUNG_PATHS + FAMILY_F32_LAUNCH_PATHS:
+        rung = PATHS[path][2]
+        args = arrays + (family_option(
+            np.float32, path, tol_relative=rung is not None,
+            region=FAMILY_F32_REGION if rung else 0.0),)
+        what = f"f32 {factor} {path}"
+        reset_launch_counts()
+        res_k = flat_solve(*args, device=DEVICE, factor=factor)
+        torch.cuda.synchronize()
+        out[path] = check_family_launches(what, path, res_k, (), spec)
+        c0, c_k = float(res_k.initial_cost), float(res_k.cost)
+        if not (np.isfinite(c_k) and c_k < c0):
+            raise AssertionError(f"{what}: cost did not fall ({c0} -> {c_k})")
+        words = ""
+        if rung is not None:
+            with plain_path():
+                res_p = flat_solve(*args, device=DEVICE, factor=factor)
+                torch.cuda.synchronize()
+            c_p = float(res_p.cost)
+            first_k, first_p = (float(res_k.trace.cost[0]),
+                                float(res_p.trace.cost[0]))
+            gap_first = abs(first_k - first_p) / abs(first_p)
+            gap = abs(c_k - c_p) / abs(c_p)
+            if not (np.isfinite(c_p) and c_p < c0):
+                raise AssertionError(f"{what}: plain cost did not fall")
+            words = (f", kernels vs plain: first trial cost gap "
+                     f"{gap_first:.3e} (limit {FIRST_COST_RTOL[rung]:g}), "
+                     f"final {gap:.3e} (limit {FINAL_COST_RTOL:g}); final "
+                     f"cost {c_k / float(f32_ref.cost):.4f}x the f32 "
+                     f"IMPLICIT fused solve's")
+            if not (gap_first <= FIRST_COST_RTOL[rung]
+                    and gap <= FINAL_COST_RTOL):
+                raise AssertionError(f"{what}{words}")
+        log(f"{what}: {res_k.iterations} LM iterations, "
+            f"{res_k.pcg_iterations} PCG, cost {c0:.8e} -> {c_k:.8e}{words}; "
+            f"launches {out[path]['shapes']} (as the code implies)")
+    return out
+
+
+def family_venice_solve(factor: str, scene, path: str = DEFAULT_PATH
+                        ) -> dict:
     """One venice-scale f32 solve of a family with the venice phase's
-    options and AUTODIFF: wall, LM (accepts) / PCG, peak memory (above
-    what the card held before the solve), device
-    busy share (one more solve under torch.profiler), launches per kernel
-    and shape as the code implies, final cost finite and below the
+    options, AUTODIFF and a path's kernels: wall, LM (accepts) / PCG,
+    peak memory (above what the card held before the solve), device busy
+    share (one more solve under torch.profiler), launches per kernel,
+    shape and arm as the code implies, final cost finite and below the
     initial.  Returns the launches per shape."""
     from megba_tpu_torch import flat_solve
     from megba_tpu_torch.factors import get_factor
-    from megba_tpu_torch.ops import segtiles
 
     spec = get_factor(factor)
-    blocks = ((spec.residual_dim, spec.cam_dim),
-              (spec.residual_dim, spec.pt_dim))
-    opt = solve_option(np.float32, DEFAULT_PATH)
+    opt = family_option(np.float32, path)
     args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
             scene.pt_idx, opt)
     torch.cuda.synchronize()
@@ -2242,14 +2639,9 @@ def family_venice_solve(factor: str, scene) -> dict:
     res = flat_solve(*args, device=DEVICE, factor=factor)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts, shapes = launch_counts(), segtiles.shape_launch_counts()
     peak = torch.cuda.max_memory_allocated() - held
-    what = f"venice f32 {factor}"
-    want = expected_launches("implicit", res)
-    if counts != want:
-        raise AssertionError(f"{what}: launches {counts}, the code implies "
-                             f"{want}")
-    check_shape_launches(what, counts, shapes, blocks)
+    what = f"venice f32 {factor} {path}"
+    launches = check_family_launches(what, path, res, (), spec)
     c0, c1 = float(res.initial_cost), float(res.cost)
     if not (np.isfinite(c1) and c1 < c0) or res.cameras.shape != \
             scene.cameras0.shape or not bool(torch.isfinite(
@@ -2261,13 +2653,13 @@ def family_venice_solve(factor: str, scene) -> dict:
         f"iterations, flat_solve {wall:.3f} s = "
         f"{wall / res.iterations:.3f} s per LM iteration (planning and "
         f"transfer included), peak memory {peak / 2**30:.3f} GiB; "
-        f"launches {shapes} (as the code implies)")
-    busy = profile_solve(args, "implicit", dict(factor=factor),
+        f"launches {launches['shapes']} (as the code implies)")
+    busy = profile_solve(args, path, dict(factor=factor),
                          f"venice_{factor}")
     log(f"{what} summary: wall {wall:.3f} s, LM {res.iterations} "
         f"({res.accepted}) / PCG {res.pcg_iterations}, peak "
         f"{peak / 2**30:.3f} GiB, device busy {busy:.1%}")
-    return shapes
+    return launches["shapes"]
 
 
 def pose_camera_edge():
@@ -2289,6 +2681,27 @@ def pose_camera_edge():
     return PoseCameraEdge
 
 
+def pan_tilt_edge():
+    """A user's edge of a shape outside every list: a 5-parameter camera
+    [angle-axis, tx, ty] with tz, the focal and the distortion as edge
+    constants (obs = [u, v, tz, f, k1, k2]); kernels 1-3 at (2, 5), 7 at
+    (5, 3, 2) and 6 at 5 are built at first use."""
+    from megba_tpu_torch import BaseEdge
+    from megba_tpu_torch.ops import geo
+
+    class PanTiltEdge(BaseEdge):
+        def forward(self):
+            cam, X = self.vertex_estimation(0), self.vertex_estimation(1)
+            m = self.get_measurement()
+            t = torch.stack([cam[3], cam[4], m[2]])
+            P = geo.angle_axis_rotate_point(cam[0:3], X) + t
+            p = -P[0:2] / P[2]
+            n = (p * p).sum(0)
+            return m[3] * (1.0 + m[4] * n + m[5] * n * n) * p - m[0:2]
+
+    return PanTiltEdge
+
+
 def facade_phase(scene) -> dict:
     """The Problem facade on the card, on the trafalgar-sized BAL scene
     (f64, ProblemOption() under `DEFAULT_LM_CAP`): the graph built of
@@ -2296,8 +2709,12 @@ def facade_phase(scene) -> dict:
     and trial costs bitwise equal to `flat_solve` on the same arrays;
     then the custom pose-camera edge (kernels 1-3 at (2, 6)), kernels vs
     plain at f64 under the f64 gates, and once at f32 (the venice
-    options; final cost below the initial).  Returns the launches per
-    shape of the custom edge's f64 and f32 kernel runs."""
+    options; final cost below the initial); the same edge with fused
+    IMPLICIT kernels (kernel 7 at (6, 3, 2), 6 at 6), kernels vs plain at
+    f64 and once at f32; and the pan-tilt edge (a shape built at first
+    use: kernels 1-3 at (2, 5), 7 at (5, 3, 2), 6 at 5) fused IMPLICIT,
+    kernels vs plain at f64.  Returns the launches per shape of each
+    kernel run, by run."""
     from megba_tpu_torch import (BaseEdge, BaseProblem, CameraVertex,
                                  PointVertex, flat_solve)
     from megba_tpu_torch.ops import segtiles
@@ -2334,98 +2751,177 @@ def facade_phase(scene) -> dict:
         f"{float(res.cost):.10e}, {res.iterations} LM iterations, cameras, "
         "points and trial costs bitwise equal to flat_solve's")
 
-    obs = np.concatenate([scene.obs, scene.cameras0[scene.cam_idx, 6:9]], 1)
-    pb, cams, pts = build(pose_camera_edge(), scene.cameras0[:, :6], obs)
-    start = [v.estimation.copy() for v in cams + pts]
+    def edge_problem(edge_cls, cam_dims, consts):
+        obs = np.concatenate([scene.obs, consts[scene.cam_idx]], 1)
+        pb, cams, pts = build(edge_cls, scene.cameras0[:, :cam_dims], obs)
+        start = [v.estimation.copy() for v in cams + pts]
 
-    def solve(option):
-        for v, e in zip(cams + pts, start):
-            v.estimation = e.copy()
-        pb.option = option
-        reset_launch_counts()
-        out = pb.solve()
-        torch.cuda.synchronize()
-        return out, launch_counts(), segtiles.shape_launch_counts()
+        def solve(option):
+            for v, e in zip(cams + pts, start):
+                v.estimation = e.copy()
+            pb.option = option
+            reset_launch_counts()
+            out = pb.solve()
+            torch.cuda.synchronize()
+            return out
 
-    kern, counts, shapes64 = solve(opt)
-    with plain_path():
-        plain, _, _ = solve(opt)
-    what = "facade pose-camera edge f64"
-    k = kern.iterations
-    gap, _ = cost_gap(kern.trace.cost[:k].numpy(),
-                      plain.trace.cost[:k].numpy(), what, np.zeros(k, bool))
-    if (k, kern.accepted, kern.pcg_iterations, kern.status) != (
-            plain.iterations, plain.accepted, plain.pcg_iterations,
-            plain.status) or gap > F64_COST_RTOL or k < 2 or not float(
-                kern.cost) < float(kern.initial_cost):
-        raise AssertionError(f"{what}: kernels {k} LM / "
-                             f"{kern.pcg_iterations} PCG, plain "
-                             f"{plain.iterations} / {plain.pcg_iterations}, "
-                             f"trial costs {gap:.3e} apart")
-    if counts != expected_launches("implicit", kern):
-        raise AssertionError(f"{what}: launches {counts}")
-    check_shape_launches(what, counts, shapes64, (POSE_CAMERA_BLOCK, (2, 3)))
-    log(f"{what}: cost {float(kern.initial_cost):.10e} -> "
-        f"{float(kern.cost):.10e}, {k} LM iterations, "
-        f"{kern.pcg_iterations} PCG; kernels vs plain {gap:.3e}; launches "
-        f"{shapes64}")
-    f32, _, shapes32 = solve(solve_option(np.float32, DEFAULT_PATH))
-    if not float(f32.cost) < float(f32.initial_cost):
-        raise AssertionError("facade pose-camera edge f32: cost did not "
-                             "fall")
-    log(f"facade pose-camera edge f32: cost {float(f32.initial_cost):.8e} "
-        f"-> {float(f32.cost):.8e}, {f32.iterations} LM iterations; "
-        f"launches {shapes32}")
-    return {"f64": shapes64, "f32": shapes32}
+        return solve
+
+    def spec(cd):  # the edge's widths, as a factor spec names them
+        return types.SimpleNamespace(cam_dim=cd, pt_dim=3, residual_dim=2)
+
+    def f64_gate(what, solve, path, cd):
+        option = family_option(np.float64, path)
+        kern = solve(option)
+        launches = check_family_launches(what, path, kern, (), spec(cd))
+        with plain_path():
+            plain = solve(option)
+        k = kern.iterations
+        gap, _ = cost_gap(kern.trace.cost[:k].numpy(),
+                          plain.trace.cost[:k].numpy(), what,
+                          np.zeros(k, bool))
+        if (k, kern.accepted, kern.pcg_iterations, kern.status) != (
+                plain.iterations, plain.accepted, plain.pcg_iterations,
+                plain.status) or not torch.equal(
+                    kern.trace.accept[:k], plain.trace.accept[:k]) \
+                or gap > F64_COST_RTOL or k < 2 or not float(
+                    kern.cost) < float(kern.initial_cost):
+            raise AssertionError(f"{what}: kernels {k} LM / "
+                                 f"{kern.pcg_iterations} PCG, plain "
+                                 f"{plain.iterations} / "
+                                 f"{plain.pcg_iterations}, trial costs "
+                                 f"{gap:.3e} apart")
+        log(f"{what}: cost {float(kern.initial_cost):.10e} -> "
+            f"{float(kern.cost):.10e}, {k} LM iterations, "
+            f"{kern.pcg_iterations} PCG; kernels vs plain {gap:.3e}; "
+            f"launches {launches['shapes']} (as the code implies)")
+        return launches["shapes"]
+
+    def f32_run(what, solve, path, cd):
+        res = solve(family_option(np.float32, path))
+        launches = check_family_launches(what, path, res, (), spec(cd))
+        if not float(res.cost) < float(res.initial_cost):
+            raise AssertionError(f"{what}: cost did not fall")
+        log(f"{what}: cost {float(res.initial_cost):.8e} -> "
+            f"{float(res.cost):.8e}, {res.iterations} LM iterations; "
+            f"launches {launches['shapes']}")
+        return launches["shapes"]
+
+    pose = edge_problem(pose_camera_edge(), 6, scene.cameras0[:, 6:9])
+    out = {}
+    what = "facade pose-camera edge"
+    out["f64"] = f64_gate(f"{what} f64", pose, DEFAULT_PATH, 6)
+    out["f32"] = f32_run(f"{what} f32", pose, DEFAULT_PATH, 6)
+    out["f64 fused"] = f64_gate(f"{what} f64 fused", pose,
+                                "implicit_fused", 6)
+    out["f32 fused"] = f32_run(f"{what} f32 fused", pose, "implicit_fused",
+                               6)
+    pan = edge_problem(pan_tilt_edge(), 5, scene.cameras0[:, 5:9])
+    t = time.perf_counter()
+    out["first use"] = f64_gate("facade pan-tilt edge f64 fused (first "
+                                "use)", pan, "implicit_fused", 5)
+    log(f"facade pan-tilt edge: {time.perf_counter() - t:.1f} s with the "
+        "first-use builds")
+    return out
 
 
 def factor_phase(venice, trafalgar64) -> dict:
-    """Phase 9: each registered family beside BAL at its own block shapes,
-    and the Problem facade.  Returns its kernel rows, each with its
-    launches: a shape's f32 row from the family's venice solve (the
-    facade's f32 run for the pose-camera edge), its f64 row from the f64
-    run."""
-    from megba_tpu_torch.ops import segtiles
+    """Phase 9: each registered family beside BAL at its own shapes, and
+    the Problem facade.  Returns its kernel rows, each measured right
+    after its inputs are made (they are freed before the next family's
+    solves) and carrying its launches: every phase-9 run of the row's
+    arm at its shape (the f32 row: the venice solves for 1-3, 6 and 7,
+    the trafalgar-sized f32 EXPLICIT runs for 4, 5, 6 and 8, the facade's
+    f32 runs at (2, 6) and (6, 3, 2); the f64 row: the f64 runs off the
+    mixed rung)."""
+    from megba_tpu_torch.factors import get_factor
+    from megba_tpu_torch.ops import fused, segtiles
 
     t0 = time.perf_counter()
     done = {(2, 9), (2, 3)}  # BAL's shapes: rows of their own
-    launches = {}
-    cases = {}
+    made = set()
+    f32_launches, f64_launches = {}, {}
+    rows = {}
+
+    def credit(table, shapes):
+        for row, n in shapes.items():
+            table[row] = table.get(row, 0) + n
+
     for factor in FAMILIES:
+        spec = get_factor(factor)
         steps = [time.perf_counter()]
         small = make_family_scene(factor, FAMILY_TRAFALGAR[factor],
                                   np.float64)
-        for row, n in family_f64_solve(factor, small).items():
-            launches[f"{row}[f64]"] = n
+        world1 = None
+        for path in FAMILY_F64_PATHS:
+            run = family_f64_solve(factor, small, path)
+            if PATHS[path][2] is None:  # the mixed rung runs mixed64 rows
+                credit(f64_launches, run["shapes"])
+            if path == MESH_BASE[FAMILY_MESH[1]]:
+                world1 = run["res"]
+        if factor == FAMILY_MESH[0]:
+            credit(f64_launches, family_f64_solve(
+                factor, small, FAMILY_MESH[1], world1)["shapes"])
         del small
+        steps.append(time.perf_counter())
+        small32 = make_family_scene(factor, FAMILY_TRAFALGAR[factor],
+                                    np.float32)
+        for path, run in family_f32_solves(factor, small32).items():
+            if PATHS[path][2] is None:
+                credit(f32_launches, run["shapes"])
+        del small32
         steps.append(time.perf_counter())
         big = make_family_scene(factor, FAMILY_VENICE[factor], np.float32)
         steps.append(time.perf_counter())
-        cases.update(family_kernel_cases(factor, big, done))
+        cases = family_kernel_cases(factor, big, done)
+        _, plans = segtiles.make_dual_plans(
+            big.cam_idx, big.pt_idx, big.cameras0.shape[0],
+            big.points0.shape[0], DEVICE)
+        plans = fused.with_fused_plans(plans)
+        cases.update(coupling_shape_cases(
+            spec.cam_dim, spec.pt_dim, spec.residual_dim, plans, factor,
+            made))
+        if factor == "planar":  # V's one group of cd pd = 8 rows
+            cases.update(remainder_reduce_case(8, plans.pt, "planar_pt"))
+        rows.update(measure_rows(cases))
+        del plans, cases
+        torch.cuda.empty_cache()
         steps.append(time.perf_counter())
-        launches.update(family_venice_solve(factor, big))
+        for path in FAMILY_VENICE_PATHS:
+            credit(f32_launches, family_venice_solve(factor, big, path))
         del big
         torch.cuda.empty_cache()
         steps.append(time.perf_counter())
         log(f"factor phase: {factor} done at {steps[-1] - t0:.1f} s (f64 "
-            "gates, venice scene, kernel-row inputs, venice solves: "
-            + ", ".join(f"{b - a:.1f}" for a, b in zip(steps, steps[1:]))
+            "paths, f32 paths, venice scene, kernel rows, venice "
+            "solves: " + ", ".join(f"{b - a:.1f}"
+                                   for a, b in zip(steps, steps[1:]))
             + " s)")
     _, plans = segtiles.make_dual_plans(
         venice.cam_idx, venice.pt_idx, venice.cameras0.shape[0],
         venice.points0.shape[0], DEVICE)
-    cases.update(shape_cases(*POSE_CAMERA_BLOCK, plans.cam,
-                             "venice_pose_camera"))
-    del plans
-    tag = "({},{})".format(*POSE_CAMERA_BLOCK)
-    for dt, shapes in facade_phase(trafalgar64).items():
-        for row, n in shapes.items():
-            if row.endswith(tag):
-                launches[row + ("[f64]" if dt == "f64" else "")] = n
+    plans = fused.with_fused_plans(plans)
+    cases = shape_cases(*POSE_CAMERA_BLOCK, plans.cam, "venice_pose_camera")
+    cases.update(coupling_shape_cases(POSE_CAMERA_BLOCK[1], 3,
+                                      POSE_CAMERA_BLOCK[0], plans,
+                                      "venice_pose_camera", made))
+    rows.update(measure_rows(cases))
+    del plans, cases
+    torch.cuda.empty_cache()
+    facade = facade_phase(trafalgar64)
+    # The facade's rows: (2, 6) of kernels 1-3 from its unfused runs,
+    # (6, 3, 2) of kernel 7 from its fused ones.
+    for run, tag in (("f64", "(2,6)"), ("f32", "(2,6)"),
+                     ("f64 fused", "(6,3,2)"), ("f32 fused", "(6,3,2)")):
+        table = f64_launches if run.startswith("f64") else f32_launches
+        credit(table, {row: n for row, n in facade[run].items()
+                       if row.endswith(tag)})
     log(f"factor phase: facade done at {time.perf_counter() - t0:.1f} s")
-    rows = measure_rows(cases)
     for name, row in rows.items():
-        row["launches"] = launches.get(name)
+        if name.endswith("[f64]"):
+            row["launches"] = f64_launches.get(name[:-len("[f64]")])
+        else:
+            row["launches"] = f32_launches.get(name)
     log(f"factor phase: {time.perf_counter() - t0:.1f} s")
     return rows
 

@@ -46,6 +46,7 @@ import dataclasses
 import time
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from megba_tpu_torch.common import (
@@ -446,9 +447,12 @@ def lm_solve(
         pcg_total += pcg.iterations
         stop = bool(stop_t) or fatal
         if verbose:
+            # The JAX package's line (megba_tpu/observability/emit.py), the
+            # format its utils/curves parses.
             c = float(trace_k[0])
-            print(f"iter {k}: cost {c:.6e} accept {accept} "
-                  f"pcg_iters {pcg.iterations} "
+            print(f"iter {k}: cost {c:.6e} "
+                  f"log10 {np.log10(max(c, 1e-300)):.3f} "
+                  f"accept {bool(accept)} pcg_iters {int(pcg.iterations)} "
                   f"elapsed {(time.perf_counter() - t0) * 1e3:.1f} ms",
                   flush=True)
         k += 1

@@ -17,7 +17,7 @@
 // megba_fused_implicit_apply: one direction of the implicit-Schur coupling
 // product from the stored Jacobian rows, out[:, o] = sum over the edges e
 // with output vertex o of Jout_e^T (Jin_e . table[:, in(e)]), with
-// Jin rows o*DIN+a and Jout rows o*DOUT+b (od = 2 residual rows).
+// Jin rows o*DIN+a and Jout rows o*DOUT+b (OD residual rows).
 // The TPU kernels one-hot-gathered and one-hot-scattered bucket-padded edge
 // tiles so that the per-edge rows never left VMEM.  Here the rows of a
 // direction are in the OUTPUT side's segment-sorted slot order (the point
@@ -25,14 +25,28 @@
 // order for pt->cam), with the input vertex of each slot in `in_idx`, and
 // the product is a segment reduction (segreduce.cuh) whose per-slot term
 // (`term`) gathers DIN table values and contracts them with the slot's
-// rows in registers (for the implicit product: the od = 2 values
+// rows in registers (for the implicit product: the OD values
 // u = Jin_e x, then Jout_e^T u).  No per-edge [cd, n], [pd, n] or [od, n]
 // row and no cross permute touches device memory.
 //
-// Bound on the H100: bytes.  Each slot reads its 27 W values (or 18 + 6
-// Jacobian values), its input index and DIN table values (from L1 or L2)
-// for 2*27 (2*24) flops: < 0.5 flop per HBM byte, against the card's
-// ~20 f32 flop/byte balance.  So the design reads each row once, with
+// Block shapes: every (cd, pd, od) of csrc/fused_shapes.cuh, the one list
+// of the registered factor families' shapes (BAL (9, 3, 2), planar
+// (4, 2, 1), the rig's (7, 3, 2), pinhole_radial's (12, 3, 2), the pose
+// prior's (6, 3, 6) and a Problem edge on a pose camera, (6, 3, 2)), in
+// every precision arm: kernel 8 in both directions of each (cd, pd),
+// kernel 7 in both directions of each (cd, pd, od), kernel 6 at each cd.
+// A library built with -DMEGBA_ONE_FUSED_CD / _PD / _OD holds one other
+// shape (ops/fused.py builds it at first use).  The per-slot term keeps
+// the JAX kernels' order at every shape: u[o] summed over a ascending,
+// then t[b] summed over o ascending; at BAL's (9, 3, 2) it is the code
+// of the od = 2 kernel before OD became a template parameter, so those
+// outputs are bitwise what they were.
+//
+// Bound on the H100: bytes.  At BAL's shapes each slot reads its 27 W
+// values (or 18 + 6 Jacobian values), its input index and DIN table
+// values (from L1 or L2) for 2*27 (2*24) flops: < 0.5 flop per HBM byte,
+// against the card's ~20 f32 flop/byte balance (the widest family,
+// pinhole_radial, 36 W or 24 + 6 J values a slot, the same ratio).  So the design reads each row once, with
 // every byte of a warp's load used, and writes only the [DOUT, nS]
 // result.  Launch shapes (segreduce.cuh):
 //   - cam->pt (output = points, ~5 slots each): slot tiles.  Block b
@@ -62,7 +76,11 @@
 // a block at f32, 32-44 and 3.1 KB in the bf16-row arms beside an f32
 // table, 48-62 and 6.2 KB at f64 and mixed64 (8 bytes of spill in the
 // f64 and mixed W instantiations); a short-camera pt->cam 44 and 9.3 KB
-// at f32 and bf16 rows, 64-66 and 18.6 KB at f64 and mixed64.
+// at f32 and bf16 rows, 64-66 and 18.6 KB at f64 and mixed64.  At the
+// families' widest shapes: pt->cam slot tiles at DOUT = 12 (pinhole_radial)
+// 78 registers and 25.3 KB at f64 and mixed64; the pose prior's pt->cam
+// (3, 6, 6) on the block-per-segment launch 98 registers at f64; no
+// spill but the two 8-byte ones above (nvcc -Xptxas -v for sm_90a).
 //
 // megba_block_diag_apply: out[:, c] = M^-1_c x[:, c] with the inverted
 // block diagonal laid out feature-major ([d*d, Nc], row i*d+j).  One thread
@@ -131,12 +149,11 @@ struct WRows {
 };
 
 // Per-slot term of one implicit fused direction: gather the input
-// vertex's DIN values, u = Jin_e x (od = 2 values, in registers), add
+// vertex's DIN values, u = Jin_e x (OD values, in registers), add
 // Jout_e^T u.
-template <typename T, typename R, bool BF16, int DIN, int DOUT>
+template <typename T, typename R, bool BF16, int DIN, int DOUT, int OD>
 struct JRows {
   static constexpr int F = DOUT;
-  static constexpr int OD = 2;
   const R* __restrict__ Jin;           // [OD*DIN, n], row o*DIN+a
   const R* __restrict__ Jout;          // [OD*DOUT, n], row o*DOUT+b
   const T* __restrict__ table;         // [DIN, num_in]
@@ -199,39 +216,63 @@ int launch(const Rows& rows, const Launch& l) {
                                 l.num_tiles, l.stream);
 }
 
+// A shape with a zero width (a MEGBA_COUPLING line with pd = 0 or
+// od = 0) instantiates no kernel: its dispatch test never matches a call.
 template <typename T, typename R, bool BF16, int DIN, int DOUT, bool IN_MAJOR>
 int w_shape(const void* W, const Launch& l) {
-  WRows<T, R, BF16, DIN, DOUT, IN_MAJOR> rows{
-      static_cast<const R*>(W), static_cast<const T*>(l.table), l.in_idx,
-      l.n, l.num_in};
-  return launch<T>(rows, l);
+  if constexpr (DIN == 0 || DOUT == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    WRows<T, R, BF16, DIN, DOUT, IN_MAJOR> rows{
+        static_cast<const R*>(W), static_cast<const T*>(l.table), l.in_idx,
+        l.n, l.num_in};
+    return launch<T>(rows, l);
+  }
 }
 
 template <typename T, typename R, bool BF16>
 int w_directions(int d_in, int d_out, int w_in_major, const void* W,
                  const Launch& l) {
-  if (d_in == 9 && d_out == 3 && w_in_major) {
-    return w_shape<T, R, BF16, 9, 3, true>(W, l);
+#define MEGBA_WIDTH(F)
+#define MEGBA_COUPLING(CD, PD, OD)                              \
+  if (d_in == (CD) && d_out == (PD) && w_in_major) {            \
+    return w_shape<T, R, BF16, (CD), (PD), true>(W, l);         \
+  }                                                             \
+  if (d_in == (PD) && d_out == (CD) && !w_in_major) {           \
+    return w_shape<T, R, BF16, (PD), (CD), false>(W, l);        \
   }
-  if (d_in == 3 && d_out == 9 && !w_in_major) {
-    return w_shape<T, R, BF16, 3, 9, false>(W, l);
-  }
+#include "fused_shapes.cuh"
+#undef MEGBA_COUPLING
+#undef MEGBA_WIDTH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, typename R, bool BF16, int DIN, int DOUT>
+template <typename T, typename R, bool BF16, int DIN, int DOUT, int OD>
 int j_shape(const void* Jin, const void* Jout, const Launch& l) {
-  JRows<T, R, BF16, DIN, DOUT> rows{
-      static_cast<const R*>(Jin), static_cast<const R*>(Jout),
-      static_cast<const T*>(l.table), l.in_idx, l.n, l.num_in};
-  return launch<T>(rows, l);
+  if constexpr (DIN == 0 || DOUT == 0 || OD == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    JRows<T, R, BF16, DIN, DOUT, OD> rows{
+        static_cast<const R*>(Jin), static_cast<const R*>(Jout),
+        static_cast<const T*>(l.table), l.in_idx, l.n, l.num_in};
+    return launch<T>(rows, l);
+  }
 }
 
 template <typename T, typename R, bool BF16>
-int j_directions(int d_in, int d_out, const void* Jin, const void* Jout,
-                 const Launch& l) {
-  if (d_in == 9 && d_out == 3) return j_shape<T, R, BF16, 9, 3>(Jin, Jout, l);
-  if (d_in == 3 && d_out == 9) return j_shape<T, R, BF16, 3, 9>(Jin, Jout, l);
+int j_directions(int d_in, int d_out, int od, const void* Jin,
+                 const void* Jout, const Launch& l) {
+#define MEGBA_WIDTH(F)
+#define MEGBA_COUPLING(CD, PD, OD)                                    \
+  if (d_in == (CD) && d_out == (PD) && od == (OD)) {                  \
+    return j_shape<T, R, BF16, (CD), (PD), (OD)>(Jin, Jout, l);       \
+  }                                                                   \
+  if (d_in == (PD) && d_out == (CD) && od == (OD)) {                  \
+    return j_shape<T, R, BF16, (PD), (CD), (OD)>(Jin, Jout, l);       \
+  }
+#include "fused_shapes.cuh"
+#undef MEGBA_COUPLING
+#undef MEGBA_WIDTH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -254,18 +295,31 @@ block_diag_kernel(const R* __restrict__ H, const T* __restrict__ x,
   out[k] = t;
 }
 
-template <typename T, typename R, bool BF16>
-int block_diag_typed(int d, const void* H, const void* x, void* out,
-                     int64_t nc, cudaStream_t stream) {
-  if (d != 9) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, typename R, bool BF16, int D>
+int block_diag_shape(const void* H, const void* x, void* out, int64_t nc,
+                     cudaStream_t stream) {
   if (nc == 0) return static_cast<int>(cudaSuccess);
-  const int64_t grid = (9 * nc + kBlock - 1) / kBlock;
+  const int64_t grid = (D * nc + kBlock - 1) / kBlock;
   if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
-  block_diag_kernel<T, R, BF16, 9>
+  block_diag_kernel<T, R, BF16, D>
       <<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
           static_cast<const R*>(H), static_cast<const T*>(x),
           static_cast<T*>(out), nc);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename R, bool BF16>
+int block_diag_typed(int d, const void* H, const void* x, void* out,
+                     int64_t nc, cudaStream_t stream) {
+#define MEGBA_WIDTH(F)
+#define MEGBA_COUPLING(CD, PD, OD)                                      \
+  if (d == (CD)) {                                                      \
+    return block_diag_shape<T, R, BF16, (CD)>(H, x, out, nc, stream);   \
+  }
+#include "fused_shapes.cuh"
+#undef MEGBA_COUPLING
+#undef MEGBA_WIDTH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -308,8 +362,10 @@ int megba_fused_coupling_apply(int arm, int d_in, int d_out, int w_in_major,
 }
 
 // out [d_out, num_out] = per output segment: sum over its slots e of
-// Jout_e^T (Jin_e . table[:, in_idx[e]]); the launch as above.
-int megba_fused_implicit_apply(int arm, int d_in, int d_out, const void* Jin,
+// Jout_e^T (Jin_e . table[:, in_idx[e]]), od residual rows; the launch as
+// above.
+int megba_fused_implicit_apply(int arm, int d_in, int d_out, int od,
+                               const void* Jin,
                                const void* Jout, const void* table,
                                const int32_t* in_idx, const int64_t* seg_ptr,
                                const int64_t* tile_ptr, void* out, int64_t n,
@@ -322,17 +378,19 @@ int megba_fused_implicit_apply(int arm, int d_in, int d_out, const void* Jin,
                  num_tiles, per_thread, static_cast<cudaStream_t>(stream)};
   switch (arm) {
     case kF32:
-      return j_directions<float, float, false>(d_in, d_out, Jin, Jout, l);
+      return j_directions<float, float, false>(d_in, d_out, od, Jin, Jout,
+                                               l);
     case kF64:
-      return j_directions<double, double, false>(d_in, d_out, Jin, Jout, l);
+      return j_directions<double, double, false>(d_in, d_out, od, Jin, Jout,
+                                                 l);
     case kMixed:
-      return j_directions<float, __nv_bfloat16, false>(d_in, d_out, Jin, Jout,
-                                                       l);
+      return j_directions<float, __nv_bfloat16, false>(d_in, d_out, od, Jin,
+                                                       Jout, l);
     case kBf16:
-      return j_directions<float, __nv_bfloat16, true>(d_in, d_out, Jin, Jout,
-                                                      l);
+      return j_directions<float, __nv_bfloat16, true>(d_in, d_out, od, Jin,
+                                                      Jout, l);
     case kMixed64:
-      return j_directions<double, __nv_bfloat16, false>(d_in, d_out, Jin,
+      return j_directions<double, __nv_bfloat16, false>(d_in, d_out, od, Jin,
                                                         Jout, l);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -237,37 +237,46 @@ reduce_slot_tiles(Rows rows, const int64_t* __restrict__ seg_ptr,
   }
 }
 
+// A block per segment (the launch of long segments).
+template <typename T, class Rows>
+int launch_block_reduce(Rows rows, const int64_t* seg_ptr, T* out,
+                        int64_t num_segments, cudaStream_t stream) {
+  if (num_segments == 0) return static_cast<int>(cudaSuccess);
+  if (num_segments > kMaxGrid) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  reduce_block_per_segment<T, Rows>
+      <<<static_cast<unsigned>(num_segments), kBlock, 0, stream>>>(
+          rows, seg_ptr, out, num_segments);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, class Rows>
 int launch_reduce(Rows rows, const int64_t* seg_ptr, T* out,
                   int64_t num_segments, int per_thread, cudaStream_t stream) {
-  if (num_segments == 0) return static_cast<int>(cudaSuccess);
-  if (per_thread) {
-    const int64_t grid = (num_segments + kBlock - 1) / kBlock;
-    if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
-    reduce_thread_per_segment<T, Rows>
-        <<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
-            rows, seg_ptr, out, num_segments);
-  } else {
-    if (num_segments > kMaxGrid) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    reduce_block_per_segment<T, Rows>
-        <<<static_cast<unsigned>(num_segments), kBlock, 0, stream>>>(
-            rows, seg_ptr, out, num_segments);
+  if (!per_thread) {
+    return launch_block_reduce<T>(rows, seg_ptr, out, num_segments, stream);
   }
+  if (num_segments == 0) return static_cast<int>(cudaSuccess);
+  const int64_t grid = (num_segments + kBlock - 1) / kBlock;
+  if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
+  reduce_thread_per_segment<T, Rows>
+      <<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
+          rows, seg_ptr, out, num_segments);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The fused kernels' launch: slot tiles (a plan's `num_tiles` tiles of
 // at most kBlock slots) where the segments are short, else a block per
-// segment.
+// segment (so the fused kernels never instantiate the thread per
+// segment).
 template <typename T, class Rows>
 int launch_tiled_reduce(Rows rows, const int64_t* seg_ptr, T* out,
                         int64_t num_segments, int per_thread,
                         const int64_t* tile_ptr, int64_t num_tiles,
                         cudaStream_t stream) {
   if (!per_thread) {
-    return launch_reduce<T>(rows, seg_ptr, out, num_segments, 0, stream);
+    return launch_block_reduce<T>(rows, seg_ptr, out, num_segments, stream);
   }
   if (num_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (num_segments == 0) return static_cast<int>(cudaSuccess);

@@ -34,6 +34,14 @@
 // the upper triangle of J^T J only, which keeps its sums in registers up
 // to d = 12 (its note below).
 //
+// Widths: kernels 4 and 5 are instantiated for every row count F of
+// csrc/fused_shapes.cuh (MEGBA_WIDTH: 1 to 16), in f32 and f64.  The
+// callers group rows by the families' block widths (the EXPLICIT
+// products, SCHUR_DIAG and the precision rungs' equilibration at cd and
+// pd) and nine to a launch (the coarse builds, whose last launch takes
+// the remainder), so every width up to 12 occurs, and a Problem edge's
+// block up to 16.
+//
 // Layout: feature-major, row f of a [F, n] array starts at f * n.
 //
 // Bound on the H100: every kernel reads its per-edge rows once and does at
@@ -273,14 +281,15 @@ int seg_reduce_typed(int F, const void* data, const int64_t* seg_ptr,
                      int per_thread, cudaStream_t stream) {
   const T* dt = static_cast<const T*>(data);
   T* o = static_cast<T*>(out);
-  if (F == 9) {
-    return launch_reduce<T>(SumRows<T, 9>{dt, n}, seg_ptr, o, num_segments,
-                            per_thread, stream);
+#define MEGBA_COUPLING(CD, PD, OD)
+#define MEGBA_WIDTH(W)                                                  \
+  if (F == (W)) {                                                       \
+    return launch_reduce<T>(SumRows<T, (W)>{dt, n}, seg_ptr, o,         \
+                            num_segments, per_thread, stream);          \
   }
-  if (F == 3) {
-    return launch_reduce<T>(SumRows<T, 3>{dt, n}, seg_ptr, o, num_segments,
-                            per_thread, stream);
-  }
+#include "fused_shapes.cuh"
+#undef MEGBA_WIDTH
+#undef MEGBA_COUPLING
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -312,12 +321,15 @@ int launch_seg_expand(const void* table, const int32_t* seg, void* out,
 template <typename T>
 int seg_expand_typed(int F, const void* table, const int32_t* seg, void* out,
                      int64_t n, int64_t num_segments, cudaStream_t stream) {
-  if (F == 9) {
-    return launch_seg_expand<T, 9>(table, seg, out, n, num_segments, stream);
+#define MEGBA_COUPLING(CD, PD, OD)
+#define MEGBA_WIDTH(W)                                                  \
+  if (F == (W)) {                                                       \
+    return launch_seg_expand<T, (W)>(table, seg, out, n, num_segments,  \
+                                     stream);                           \
   }
-  if (F == 3) {
-    return launch_seg_expand<T, 3>(table, seg, out, n, num_segments, stream);
-  }
+#include "fused_shapes.cuh"
+#undef MEGBA_WIDTH
+#undef MEGBA_COUPLING
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -35,7 +35,14 @@ once per plan); a side of long segments runs a block per segment.
 
 W keeps the JAX layout: row a*pd + b holds (Jc^T Jp)[a, b] of each
 edge, a the camera dimension and b the point dimension.  The implicit
-product reads Jin rows o*d_in + a and Jout rows o*d_out + b (od = 2).
+product reads Jin rows o*d_in + a and Jout rows o*d_out + b (od rows).
+
+Shapes: the CUDA kernels are built for every (cd, pd, od) of
+csrc/fused_shapes.cuh (the registered factor families' blocks), which
+this module reads into `SUPPORTED_DIRECTIONS`, `SUPPORTED_IMPLICIT` and
+`SUPPORTED_BLOCK_DIAG`.  Another shape up to `segtiles.MAX_BUILT_BLOCK`
+(a Problem edge of the user's own widths) gets a library of its own,
+built at first use; beyond it the wrappers raise `NotImplementedError`.
 
 Precision (the JAX kernels' `_contract_rows` / `_acc_dtype`; the arms
 of ops/kernels.ARMS): the table is float32 or float64 and the output has
@@ -73,13 +80,22 @@ from megba_tpu_torch.ops import segtiles
 from megba_tpu_torch.ops.segtiles import (DualPlans, SegPlan, contract,
                                           operand)
 
-# (d_in, d_out, w_in_major) the CUDA coupling kernel is built for: the
-# BAL camera (9) and point (3) blocks, one entry per direction.
-SUPPORTED_DIRECTIONS = ((9, 3, True), (3, 9, False))
-# (d_in, d_out, od) the CUDA implicit coupling kernel is built for.
-SUPPORTED_IMPLICIT = ((9, 3, 2), (3, 9, 2))
-# Block size the CUDA block-diagonal apply is built for (the camera).
-SUPPORTED_BLOCK_DIAG = (9,)
+# (cd, pd, od) of each registered factor family: the MEGBA_COUPLING lines
+# of csrc/fused_shapes.cuh, the one list the CUDA dispatch expands too.
+SUPPORTED_COUPLINGS = _kernels.listed_shapes("fused_shapes.cuh",
+                                             "MEGBA_COUPLING")
+# (d_in, d_out, w_in_major) the CUDA coupling kernel (8) is built for:
+# cam -> pt input-major and pt -> cam output-major, per (cd, pd).
+SUPPORTED_DIRECTIONS = tuple(dict.fromkeys(
+    s for cd, pd, _ in SUPPORTED_COUPLINGS
+    for s in ((cd, pd, True), (pd, cd, False))))
+# (d_in, d_out, od) the CUDA implicit coupling kernel (7) is built for.
+SUPPORTED_IMPLICIT = tuple(dict.fromkeys(
+    s for cd, pd, od in SUPPORTED_COUPLINGS
+    for s in ((cd, pd, od), (pd, cd, od))))
+# Block sizes the CUDA block-diagonal apply (6) is built for: the cameras.
+SUPPORTED_BLOCK_DIAG = tuple(dict.fromkeys(
+    cd for cd, _, _ in SUPPORTED_COUPLINGS))
 # Slots per tile of the slot-tile launch (csrc/segreduce.cuh
 # `reduce_slot_tiles`): the kernel's block size, kBlock, and the most a
 # tile may hold.
@@ -235,8 +251,8 @@ _SIGNATURES = {
         ctypes.c_int, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                        _L, _I, _P]),
     "megba_fused_implicit_apply": (
-        ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                       _L, _I, _P]),
+        ctypes.c_int, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L,
+                       _L, _L, _I, _P]),
     "megba_block_diag_apply": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _P]),
     "megba_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -246,8 +262,37 @@ KERNEL_SOURCES = ("fused",)
 _BLOCK_DIAG_ARMS = _kernels.ALL_ARMS - {"mixed64"}
 
 
-def _lib() -> ctypes.CDLL:
-    return _kernels.load_library("fused", _SIGNATURES)
+def _lib(key=None) -> ctypes.CDLL:
+    """The library of the listed shapes (`key` None), or that of one
+    other (cd, pd, od) built at first use (pd = 0: kernel 6 alone; od = 0:
+    no kernel 7)."""
+    if key is None:
+        return _kernels.load_library("fused", _SIGNATURES)
+    cd, pd, od = key
+    return _kernels.load_library(
+        "fused", _SIGNATURES, defines={"MEGBA_ONE_FUSED_CD": cd,
+                                       "MEGBA_ONE_FUSED_PD": pd,
+                                       "MEGBA_ONE_FUSED_OD": od})
+
+
+def _shape_lib(name: str, shape: tuple, listed: tuple, key: tuple,
+               widths: tuple, od: int = 1) -> ctypes.CDLL:
+    """The library that holds kernel `name` at `shape`: the listed one, or
+    the one-shape library `key` built at first use.  Beyond segtiles'
+    cap on kernels 1-3, `MAX_BUILT_BLOCK` (block widths `widths`,
+    residual rows `od`), raise the typed refusal; nothing falls back to
+    the plain version.  At the cap's d = 16 a pt -> cam slot tile stages
+    16 sums of 256 slots (32 KB at f64), within the 48 KB of static
+    shared memory."""
+    if shape in listed:
+        return _lib()
+    cap = segtiles.MAX_BUILT_BLOCK
+    if not (1 <= od <= cap[0] and all(1 <= w <= cap[1] for w in widths)):
+        raise NotImplementedError(
+            f"{name}: no CUDA kernel for shape {shape}: "
+            f"csrc/fused_shapes.cuh lists {listed}, and a shape outside it "
+            f"is built at first use up to (od, d) <= {cap}")
+    return _lib(key)
 
 
 def _check_plan(name: str, fplan: FusedPlan, n: int,
@@ -296,24 +341,22 @@ def _coupling_apply(counter, name: str, W: torch.Tensor,
             f"{tuple(table.shape)} and {n} plan slots disagree")
     arm_code, arm = _kernels.check_arm(name, table, bf16_operands, W=W)
     dev = table.device
-    shape = (d_in, d_out, bool(w_in_major))
-    if dev.type == "cuda" and shape not in SUPPORTED_DIRECTIONS:
-        raise NotImplementedError(
-            f"{name}: no CUDA kernel for (d_in, d_out, "
-            f"w_in_major) = {shape} (built for {SUPPORTED_DIRECTIONS})")
     _check_plan(name, fplan, n, dev)
     if dev.type == "cpu":
         return fused_coupling_apply_plain(W, table, fplan, w_in_major,
                                           bf16_operands)
+    cd, pd = (d_in, d_out) if w_in_major else (d_out, d_in)
+    lib = _shape_lib(name, (d_in, d_out, bool(w_in_major)),
+                     SUPPORTED_DIRECTIONS, (cd, pd, 0), (cd, pd))
     out = torch.empty((d_out, fplan.out.num_segments), dtype=table.dtype,
                       device=dev)
     with torch.cuda.device(dev):
-        code = _lib().megba_fused_coupling_apply(
+        code = lib.megba_fused_coupling_apply(
             arm_code, d_in, d_out, int(w_in_major), W.data_ptr(),
             table.data_ptr(), *_plan_args(fplan, out, n),
             _kernels.current_stream(dev))
-    _kernels.raise_on(_lib(), code, name)
-    _kernels.count_launch(counter, arm)
+    _kernels.raise_on(lib, code, name)
+    _kernels.count_launch(counter, arm, (d_in, d_out))
     return out
 
 
@@ -347,24 +390,24 @@ def _implicit_apply(counter, name: str, Jin: torch.Tensor,
     arm_code, arm = _kernels.check_arm(name, table, bf16_operands, Jin=Jin,
                                        Jout=Jout)
     dev = table.device
-    shape = (d_in, d_out, od)
-    if dev.type == "cuda" and shape not in SUPPORTED_IMPLICIT:
-        raise NotImplementedError(
-            f"{name}: no CUDA kernel for (d_in, "
-            f"d_out, od) = {shape} (built for {SUPPORTED_IMPLICIT})")
     _check_plan(name, fplan, n, dev)
     if dev.type == "cpu":
         return fused_coupling_apply_implicit_plain(Jin, Jout, table, fplan,
                                                    bf16_operands)
+    # A one-shape library holds both directions: one key for the two.
+    shape = (d_in, d_out, od)
+    lib = _shape_lib(name, shape, SUPPORTED_IMPLICIT,
+                     (max(d_in, d_out), min(d_in, d_out), od),
+                     (d_in, d_out), od)
     out = torch.empty((d_out, fplan.out.num_segments), dtype=table.dtype,
                       device=dev)
     with torch.cuda.device(dev):
-        code = _lib().megba_fused_implicit_apply(
-            arm_code, d_in, d_out, Jin.data_ptr(), Jout.data_ptr(),
+        code = lib.megba_fused_implicit_apply(
+            arm_code, d_in, d_out, od, Jin.data_ptr(), Jout.data_ptr(),
             table.data_ptr(), *_plan_args(fplan, out, n),
             _kernels.current_stream(dev))
-    _kernels.raise_on(_lib(), code, name)
-    _kernels.count_launch(counter, arm)
+    _kernels.raise_on(lib, code, name)
+    _kernels.count_launch(counter, arm, shape)
     return out
 
 
@@ -448,19 +491,17 @@ def fused_block_diag_apply(Hrows: torch.Tensor, x: torch.Tensor,
                                        bf16_operands, _BLOCK_DIAG_ARMS,
                                        Hrows=Hrows)
     dev = x.device
-    if dev.type == "cuda" and d not in SUPPORTED_BLOCK_DIAG:
-        raise NotImplementedError(
-            f"fused_block_diag_apply: no CUDA kernel for d={d} (built for "
-            f"{SUPPORTED_BLOCK_DIAG})")
     if dev.type == "cpu":
         return fused_block_diag_apply_plain(Hrows, x, bf16_operands)
+    lib = _shape_lib("fused_block_diag_apply", d, SUPPORTED_BLOCK_DIAG,
+                     (d, 0, 0), (d,))
     out = torch.empty((d, nc), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
-        code = _lib().megba_block_diag_apply(
+        code = lib.megba_block_diag_apply(
             arm_code, d, Hrows.data_ptr(), x.data_ptr(), out.data_ptr(), nc,
             _kernels.current_stream(dev))
-    _kernels.raise_on(_lib(), code, "fused_block_diag_apply")
-    _kernels.count_launch(fused_block_diag_apply, arm)
+    _kernels.raise_on(lib, code, "fused_block_diag_apply")
+    _kernels.count_launch(fused_block_diag_apply, arm, (d,))
     return out
 
 
@@ -484,3 +525,10 @@ def arm_launch_counts() -> dict:
     """Launches per kernel and precision arm, as {"name[arm]": count}."""
     return {f"{k.__name__}[{arm}]": n for k in KERNELS
             for arm, n in k.arm_launches.items()}
+
+
+def shape_launch_counts() -> dict:
+    """Launches per kernel and shape: {"name(d_in,d_out)": count} for
+    kernel 8, {"name(d_in,d_out,od)": count} for 7, {"name(d)": count}
+    for 6."""
+    return _kernels.shape_counts(KERNELS)

@@ -10,7 +10,9 @@ library name carries a digest of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source never loads a stale
 build.  A library may be built with preprocessor definitions of its own
 (`load_library(..., defines=)`): a library of one other block shape of
-csrc/segtiles.cu, built at first use, is one.
+csrc/segtiles.cu or csrc/fused.cu, built at first use, is one.  The
+shapes each source is built for are X-macro lists in csrc/*.cuh, which
+the wrappers read with `listed_shapes`.
 
 A source that includes no PyTorch header compiles in seconds, where one
 built through `torch.utils.cpp_extension.load` takes minutes; each
@@ -35,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -54,6 +57,16 @@ _LIBS: Dict[Tuple[str, tuple], ctypes.CDLL] = {}
 # Compiler output (registers, shared memory, spills per kernel) of each
 # build, kept for chip_smoke.py to print.
 BUILD_LOGS: Dict[str, str] = {}
+
+
+def listed_shapes(header: str, macro: str) -> Tuple[Tuple[int, ...], ...]:
+    """The integer arguments of each `macro(...)` line of the X-macro
+    header csrc/<header> (lines whose arguments are all integers), in
+    order: the one list a CUDA dispatch expands and its wrapper reads."""
+    text = (CSRC_DIR / header).read_text()
+    return tuple(tuple(int(v) for v in args.split(","))
+                 for args in re.findall(rf"^{macro}\(([\d,\s]+)\)", text,
+                                        re.MULTILINE))
 
 
 def nvcc_path() -> str:
@@ -151,12 +164,18 @@ def raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
 def count_launch(kernel, arm: str, shape: Optional[tuple] = None) -> None:
     """Count one launch of a kernel wrapper: its total (`launches`), that
     of the arm it launched (`arm_launches`) and, for a kernel built per
-    block shape, that of the shape (`shape_launches`)."""
+    shape, that of the shape (`shape_launches`)."""
     kernel.launches += 1
     kernel.arm_launches[arm] = kernel.arm_launches.get(arm, 0) + 1
     if shape is not None:
         kernel.shape_launches[shape] = kernel.shape_launches.get(shape,
                                                                  0) + 1
+
+
+def shape_counts(kernels) -> dict:
+    """Launches per kernel and shape, as {"name(a,b,...)": count}."""
+    return {f"{k.__name__}({','.join(str(int(v)) for v in shape)})": n
+            for k in kernels for shape, n in sorted(k.shape_launches.items())}
 
 
 def reset_counts(kernels) -> None:

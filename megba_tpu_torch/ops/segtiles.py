@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import re
 from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
@@ -61,25 +60,22 @@ if TYPE_CHECKING:
     from megba_tpu_torch.ops.fused import FusedPlan
 
 
-def _listed_blocks() -> Tuple[Tuple[int, int], ...]:
-    """The (od, d) shapes of csrc/block_shapes.cuh: the one list, which the
-    CUDA dispatch of kernels 1-3 expands as well."""
-    text = (_kernels.CSRC_DIR / "block_shapes.cuh").read_text()
-    return tuple((int(od), int(d)) for od, d in re.findall(
-        r"^MEGBA_BLOCK\((\d+),\s*(\d+)\)", text, re.MULTILINE))
-
-
 # (od, d) pairs (od residual rows, d block parameters) the library of
 # kernels 1-3 is built for: every registered factor family's camera and
-# point blocks.
-SUPPORTED_BLOCKS = _listed_blocks()
+# point blocks, the MEGBA_BLOCK lines of csrc/block_shapes.cuh, the one
+# list, which the CUDA dispatch of kernels 1-3 expands as well.
+SUPPORTED_BLOCKS = _kernels.listed_shapes("block_shapes.cuh", "MEGBA_BLOCK")
 # A shape outside the list, up to this (od, d), gets a library of its own
 # built at first use (`_lib`); beyond it the kernels raise.  At d = 16
 # the Hessian kernel keeps 152 sums a thread (f64: 304 registers), which
 # spill: the cap bounds how far that is allowed to go.
 MAX_BUILT_BLOCK = (8, 16)
-# Row counts F the plain segment reduce / expand kernels are built for.
-SUPPORTED_WIDTHS = (9, 3)
+# Row counts F the plain segment reduce / expand kernels are built for:
+# the MEGBA_WIDTH lines of csrc/fused_shapes.cuh (1 to 16: every block
+# width up to MAX_BUILT_BLOCK's, and the nine-row groups of the coarse
+# builds with their remainders).
+SUPPORTED_WIDTHS = tuple(
+    f for (f,) in _kernels.listed_shapes("fused_shapes.cuh", "MEGBA_WIDTH"))
 
 # A side whose mean segment length is below this many edges reduces with
 # one thread per segment (points: ~5 edges each); longer segments get one
@@ -1060,8 +1056,8 @@ def _check(name: str, width: int, plan, expand: bool = False,
     dev = check_operands(name, **tensors)
     if dev.type == "cuda" and width not in SUPPORTED_WIDTHS:
         raise NotImplementedError(
-            f"{name}: no CUDA kernel for width {width} (built for "
-            f"{SUPPORTED_WIDTHS})")
+            f"{name}: no CUDA kernel for width {width}: "
+            f"csrc/fused_shapes.cuh lists {SUPPORTED_WIDTHS}")
     check_plan(name, plan, dev, expand)
     return dev
 
@@ -1199,7 +1195,7 @@ def seg_reduce(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
             plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
             int(plan.per_thread), _kernels.current_stream(dev))
     _raise_on(code, "seg_reduce")
-    _kernels.count_launch(seg_reduce, _kernels.dtype_arm(data.dtype))
+    _kernels.count_launch(seg_reduce, _kernels.dtype_arm(data.dtype), (F,))
     return out
 
 
@@ -1222,7 +1218,7 @@ def seg_expand(table: torch.Tensor, plan: ExpandPlan) -> torch.Tensor:
             plan.seg.data_ptr(), out.data_ptr(), n, plan.num_segments,
             _kernels.current_stream(dev))
     _raise_on(code, "seg_expand")
-    _kernels.count_launch(seg_expand, _kernels.dtype_arm(table.dtype))
+    _kernels.count_launch(seg_expand, _kernels.dtype_arm(table.dtype), (F,))
     return out
 
 
@@ -1248,6 +1244,6 @@ def arm_launch_counts() -> dict:
 
 
 def shape_launch_counts() -> dict:
-    """Launches of kernels 1-3 per block shape, as {"name(od,d)": count}."""
-    return {f"{k.__name__}({od},{d})": n for k in KERNELS
-            for (od, d), n in sorted(k.shape_launches.items())}
+    """Launches per shape, as {"name(od,d)": count} for kernels 1-3 and
+    {"name(F)": count} for kernels 4-5."""
+    return _kernels.shape_counts(KERNELS)

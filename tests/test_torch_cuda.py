@@ -1164,46 +1164,203 @@ def _within_abs_sum(name, got, ref, scale, dtype):
     assert bool((err <= rel * scale).all()), (name, float(err.max()))
 
 
+# Precision arms: (row dtype, vector dtype, bf16_operands), as
+# ops/kernels.ARMS names them.
+_ARMS = {"f32": (torch.float32, torch.float32, False),
+         "f64": (torch.float64, torch.float64, False),
+         "mixed": (torch.bfloat16, torch.float32, False),
+         "mixed64": (torch.bfloat16, torch.float64, False),
+         "bf16": (torch.bfloat16, torch.float32, True)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.float32, np.float64],
-                         ids=["f32", "f64"])
+@pytest.mark.parametrize("arm", list(_ARMS))
 @pytest.mark.parametrize("od,d", _FAMILY_BLOCKS,
                          ids=[f"{od}x{d}" for od, d in _FAMILY_BLOCKS])
-def test_cuda_kernels_at_family_block_shapes(od, d, dtype):
+def test_cuda_kernels_at_family_block_shapes(od, d, arm):
     """On the card: kernels 1-3 at each family's block shape, against the
     plain versions, on both launch shapes (a thread per segment on the
     short segments, a block per segment on one 6000-edge segment); two
     launches bitwise equal, the J^T J rows exactly symmetric (the
     triangle form writes each sum to both halves), one launch counted
-    per call and per shape."""
+    per call, per arm and per shape.  The bf16-row arms (mixed, mixed64,
+    bf16) are kernels 2 and 3's alone."""
     dev = _need_card()
+    rows_dt, vec_dt, ops = _ARMS[arm]
     for ns, idx in ((2000, _segment_ids(5, 2000)),
                     (1, np.zeros(6000, np.int32))):
         hplan = tseg.build_seg_plan(idx, ns)
         plan = tseg.device_plan(hplan, np.zeros_like(hplan.perm), dev)
-        J, r, table = _inputs(5, idx.shape[0], ns, d, dtype, od=od)
+        J, r, table = _inputs(5, idx.shape[0], ns, d, np.float64, od=od)
         Jt, rt = (_port_slots(a, hplan).to(dev) for a in (J, r))
         tt = torch.from_numpy(table).to(dev)
-        for name, args in (("jtj_grad_reduce", (Jt, rt, plan)),
-                           ("coupling_expand", (tt, Jt, plan, d)),
-                           ("coupling_reduce", (Jt, rt, plan, d))):
+        Jt, rt, tt = Jt.to(rows_dt), rt.to(vec_dt), tt.to(vec_dt)
+        cases = [("coupling_expand", (tt, Jt, plan, d)),
+                 ("coupling_reduce", (Jt, rt, plan, d))]
+        if rows_dt == vec_dt:
+            cases.insert(0, ("jtj_grad_reduce", (Jt, rt, plan)))
+        for name, args in cases:
             kernel = getattr(tseg, name)
             plain = getattr(tseg, name + "_plain")
+            kw = {} if name == "jtj_grad_reduce" else dict(bf16_operands=ops)
             before = kernel.shape_launches.get((od, d), 0)
-            got, again = kernel(*args), kernel(*args)
+            before_arm = kernel.arm_launches.get(arm, 0)
+            got, again = kernel(*args, **kw), kernel(*args, **kw)
             torch.cuda.synchronize()
             assert kernel.shape_launches[(od, d)] == before + 2
+            assert kernel.arm_launches[arm] == before_arm + 2
             if name == "jtj_grad_reduce":
                 h = got[0].reshape(d, d, ns)
                 assert torch.equal(h, h.transpose(0, 1))
             got, again, ref, scale = (
                 torch.cat(x) if isinstance(x, tuple) else x
-                for x in (got, again, plain(*args),
+                for x in (got, again, plain(*args, **kw),
                           plain(*(a.abs() if isinstance(a, torch.Tensor)
                                   and a.is_floating_point() else a
-                                  for a in args))))
-            assert torch.equal(got, again), name
-            _within_abs_sum(name, got, ref, scale.abs(), dtype)
+                                  for a in args), **kw)))
+            assert got.dtype == vec_dt and torch.equal(got, again), name
+            _within_abs_sum(name, got, ref, scale.abs(),
+                            np.float64 if vec_dt == torch.float64
+                            else np.float32)
+
+
+# The (cd, pd, od) of each registered family (csrc/fused_shapes.cuh):
+# kernels 6-8 are instantiated for each, in every arm.
+_FAMILY_COUPLINGS = [(4, 2, 1), (7, 3, 2), (12, 3, 2), (6, 3, 6), (6, 3, 2),
+                     (9, 3, 2)]
+
+
+def _coupling_graphs(dev):
+    """Two graphs for both launch shapes of kernels 7 and 8: short
+    segments on both sides (slot tiles both ways; point 0 holds a
+    400-slot track, summed by its whole tile's block), and 12 long
+    cameras (pt -> cam a block per camera)."""
+    out = []
+    for nc, npt, n in ((4000, 3000, 12000), (12, 2000, 9000)):
+        cam_idx, pt_idx = _graph(11, nc, npt, n)
+        pt_idx[:400] = 0
+        _, plans = tseg.make_dual_plans(cam_idx, pt_idx, nc, npt, dev)
+        out.append((nc, npt, n, tfused.with_fused_plans(plans)))
+    return out
+
+
+def _check_shape(kernel, plain, args, arm, shape, dtype, **kw):
+    """`_check_arm` and one launch counted per call at `shape`."""
+    before = kernel.shape_launches.get(shape, 0)
+    _check_arm(kernel, plain, args, arm, dtype, **kw)
+    assert kernel.shape_launches[shape] == before + 2, (shape,
+                                                       kernel.shape_launches)
+
+
+def _check_couplings(dev, cd, pd, od, arm):
+    """Kernels 8, 7 (both directions, both launch shapes) and 6 at one
+    (cd, pd, od) in one arm against their plain versions."""
+    rows_dt, vec_dt, ops = _ARMS[arm]
+    rng = np.random.default_rng(12)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.from_numpy(rng.standard_normal(shape))).to(dev)
+
+    for nc, npt, n, plans in _coupling_graphs(dev):
+        W = rand(cd * pd, n, scale=0.1)
+        Jc, Jp = rand(od * cd, n, scale=0.1), rand(od * pd, n, scale=0.1)
+        x_cam, x_pt = rand(cd, nc).to(vec_dt), rand(pd, npt).to(vec_dt)
+        k8 = (tfused.fused_coupling_apply, tfused.fused_coupling_apply_plain)
+        k7 = (tfused.fused_coupling_apply_implicit,
+              tfused.fused_coupling_apply_implicit_plain)
+        for rows, x, fplan, major, shape in (
+                (plans.to_pt(W), x_cam, plans.fused_to_pt, True, (cd, pd)),
+                (W, x_pt, plans.fused_to_cam, False, (pd, cd))):
+            _check_shape(*k8, (rows.to(rows_dt), x, fplan, major), arm,
+                         shape, vec_dt, bf16_operands=ops)
+        for jin, jout, x, fplan, shape in (
+                (plans.to_pt(Jc), plans.to_pt(Jp), x_cam, plans.fused_to_pt,
+                 (cd, pd, od)),
+                (plans.to_cam(Jp), Jc, x_pt, plans.fused_to_cam,
+                 (pd, cd, od))):
+            _check_shape(*k7, (jin.contiguous().to(rows_dt),
+                               jout.contiguous().to(rows_dt), x, fplan),
+                         arm, shape, vec_dt, bf16_operands=ops)
+        if arm != "mixed64":  # kernel 6 has no mixed64 arm
+            A = rand(nc, cd, cd)
+            Hrows = tfused.block_diag_rows(A @ A.transpose(1, 2))
+            _check_shape(tfused.fused_block_diag_apply,
+                         tfused.fused_block_diag_apply_plain,
+                         (Hrows.to(rows_dt), x_cam), arm, (cd,), vec_dt,
+                         bf16_operands=ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", list(_ARMS))
+@pytest.mark.parametrize("cd,pd,od", _FAMILY_COUPLINGS,
+                         ids=[f"{c}x{p}x{o}" for c, p, o in _FAMILY_COUPLINGS])
+def test_cuda_fused_kernels_at_family_shapes(cd, pd, od, arm):
+    """On the card: kernels 8 and 7 in both directions on both launch
+    shapes (slot tiles, a long track among them; a block per camera) and
+    kernel 6, at each family's (cd, pd, od) in each arm, against their
+    plain versions within 1e-5 (f32 sums) / 1e-12 (f64 sums) of the
+    terms' magnitude sums; two launches bitwise equal; one launch counted
+    per call, per arm and per shape."""
+    _check_couplings(_need_card(), cd, pd, od, arm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_cuda_seg_kernels_at_every_width(dtype):
+    """On the card: kernels 4 and 5 at every width F = 1..16 of
+    csrc/fused_shapes.cuh, on a block-per-segment side (12 cameras) and a
+    thread-per-segment side (points), against their plain versions, two
+    launches bitwise equal, one launch counted per call and width."""
+    dev = _need_card()
+    assert tseg.SUPPORTED_WIDTHS == tuple(range(1, 17))
+    cam_idx, pt_idx = _graph(13, 12, 2000, 9000)
+    _, plans = tseg.make_dual_plans(cam_idx, pt_idx, 12, 2000, dev)
+    rng = np.random.default_rng(14)
+    arm = "f64" if dtype == np.float64 else "f32"
+    vec_dt = torch.float64 if dtype == np.float64 else torch.float32
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev, vec_dt)
+
+    for F in tseg.SUPPORTED_WIDTHS:
+        for side in (plans.cam, plans.pt):
+            _check_shape(tseg.seg_reduce, tseg.seg_reduce_plain,
+                         (rand(F, 9000), side), arm, (F,), vec_dt)
+            _check_shape(tseg.seg_expand, tseg.seg_expand_plain,
+                         (rand(F, side.num_segments), side), arm, (F,),
+                         vec_dt)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_shape_outside_the_list_builds_at_first_use():
+    """Kernels 6-8 at a shape outside csrc/fused_shapes.cuh (a Problem
+    edge of 3 residual rows on a 5-parameter camera and a 2-parameter
+    point) build libraries of their own at first use and agree with the
+    plain versions; beyond the cap each wrapper raises a typed
+    NotImplementedError naming the kernel and the shape."""
+    dev = _need_card()
+    assert (5, 2, 3) not in tfused.SUPPORTED_IMPLICIT
+    for arm in ("f64", "mixed"):
+        _check_couplings(dev, 5, 2, 3, arm)
+    nc, npt, n, plans = _coupling_graphs(dev)[1]
+    x17 = torch.zeros(17, nc, device=dev, dtype=torch.float64)
+    with pytest.raises(NotImplementedError,
+                       match=r"fused_block_diag_apply: .*17"):
+        tfused.fused_block_diag_apply(torch.zeros(289, nc, device=dev,
+                                                  dtype=torch.float64), x17)
+    with pytest.raises(NotImplementedError,
+                       match=r"fused_coupling_apply: .*\(17, 3, True\)"):
+        tfused.fused_coupling_apply(
+            torch.zeros(51, n, device=dev, dtype=torch.float64),
+            x17, plans.fused_to_pt, True)
+    with pytest.raises(NotImplementedError,
+                       match=r"fused_coupling_apply_implicit: .*\(9, 3, 9\)"):
+        tfused.fused_coupling_apply_implicit(
+            torch.zeros(81, n, device=dev, dtype=torch.float64),
+            torch.zeros(27, n, device=dev, dtype=torch.float64),
+            torch.zeros(9, nc, device=dev, dtype=torch.float64),
+            plans.fused_to_pt)
 
 
 @pytest.mark.cuda
@@ -1286,6 +1443,131 @@ def test_f64_family_solve_kernels_match_plain(monkeypatch, factor):
     np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
                                plain.trace.cost[:k].numpy(), rtol=1e-9)
     assert float(kern.cost) < float(kern.initial_cost)
+
+
+# The non-default Schur paths of a family (kernels 4-8 at its shapes):
+# (compute kind, fused_kernels, option fields).
+_FAMILY_PATHS = {
+    "explicit": ("EXPLICIT", False, {}),
+    "implicit_fused": ("IMPLICIT", True, {}),
+    "explicit_fused": ("EXPLICIT", True, {}),
+    "schur_diag": ("IMPLICIT", False, dict(preconditioner="SCHUR_DIAG")),
+    "two_level": ("IMPLICIT", False, dict(precond="TWO_LEVEL")),
+    "mixed_fused": ("IMPLICIT", True, dict(mixed=True)),
+}
+
+
+def _family_option(path, dtype=np.float64, bf16=False):
+    """ProblemOption()'s PCG with the path's fields under an LM cap of 5
+    (test_f64_family_solve_kernels_match_plain's options): driven to an
+    absolute tolerance of 1e-10 instead, the 8-camera planar SCHUR_DIAG
+    solve moves its trial costs by up to 2.7e-10 under a 1e-15 relative
+    change of the observations through the plain versions alone, where
+    these options move them by 9e-14.  At float32 a rung's PCG stops at
+    1e-6 of the RHS energy (chip_smoke.precision_phase says why), from
+    trust region 1 (chip_smoke.FAMILY_F32_REGION says why)."""
+    from megba_tpu_torch import (AlgoOption, ComputeKind, PrecondKind,
+                                 PreconditionerKind, ProblemOption,
+                                 SolverOption)
+
+    kind, fused, extra = _FAMILY_PATHS[path]
+    so = dict(fused_kernels=fused, bf16=bf16,
+              precond=PrecondKind[extra.get("precond", "JACOBI")],
+              preconditioner=PreconditionerKind[
+                  extra.get("preconditioner", "HPP")])
+    if dtype == np.float32:
+        so.update(max_iter=30, tol=1e-6, tol_relative=True,
+                  refuse_ratio=1e30)
+    return ProblemOption(
+        dtype=dtype, compute_kind=ComputeKind[kind],
+        mixed_precision_pcg=extra.get("mixed", False),
+        algo_option=AlgoOption(
+            max_iter=5, epsilon1=1e-12, epsilon2=1e-15,
+            initial_region=1.0 if extra.get("mixed") or dtype == np.float32
+            else 1e3),
+        solver_option=SolverOption(**so))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(_FAMILY_PATHS))
+@pytest.mark.parametrize("factor", ["planar", "rig", "pinhole_radial",
+                                    "pose_prior"])
+def test_f64_family_paths_kernels_match_plain(monkeypatch, factor, path):
+    """On the card: a family's EXPLICIT, fused IMPLICIT and EXPLICIT,
+    SCHUR_DIAG, TWO_LEVEL and fused mixed paths at f64 (kernels 4-8 at
+    its shapes) through the kernels and through their plain versions:
+    trial costs within 1e-9, equal accepts, counts and status; two
+    kernel solves bitwise equal; every fused or segment kernel the path
+    runs launched at the family's shapes alone."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.factors import get_factor
+
+    _need_card()
+    s = _family_scene(factor)
+    spec = get_factor(factor)
+    cd, pd, od = spec.cam_dim, spec.pt_dim, spec.residual_dim
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+            _family_option(path))
+    for m in (tseg, tfused):
+        m.reset_launch_counts()
+    kern = flat_solve(*args, device="cuda", factor=factor)
+    shapes = {**tfused.shape_launch_counts(), **tseg.shape_launch_counts()}
+    kind, fused, _ = _FAMILY_PATHS[path]
+    want = ({f"fused_coupling_apply_implicit({cd},{pd},{od})",
+             f"fused_coupling_apply_implicit({pd},{cd},{od})",
+             f"fused_block_diag_apply({cd})"} if fused and kind == "IMPLICIT"
+            else {f"fused_coupling_apply({cd},{pd})",
+                  f"fused_coupling_apply({pd},{cd})",
+                  f"fused_block_diag_apply({cd})"} if fused
+            else {f"seg_reduce({cd})", f"seg_reduce({pd})",
+                  f"seg_expand({cd})", f"seg_expand({pd})"}
+            if kind == "EXPLICIT" else {f"seg_reduce({cd})"})
+    assert want <= set(shapes), (want, shapes)
+    fused_rows = {k for k in shapes if k.startswith("fused_")}
+    assert fused_rows <= want, (fused_rows, want)
+    again = flat_solve(*args, device="cuda", factor=factor)
+    _to_plain(monkeypatch)
+    plain = flat_solve(*args, device="cuda", factor=factor)
+    k = kern.iterations
+    assert k > 1
+    assert (k, kern.accepted, kern.pcg_iterations, kern.status) == (
+        plain.iterations, plain.accepted, plain.pcg_iterations, plain.status)
+    assert torch.equal(kern.trace.accept[:k], plain.trace.accept[:k])
+    assert torch.equal(kern.trace.cost[:k], again.trace.cost[:k])
+    np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
+                               plain.trace.cost[:k].numpy(), rtol=1e-9)
+    assert float(kern.cost) < float(kern.initial_cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["mixed", "bf16"])
+@pytest.mark.parametrize("factor", ["planar", "rig", "pinhole_radial",
+                                    "pose_prior"])
+def test_f32_family_rungs_kernels_match_plain(monkeypatch, factor, rung):
+    """On the card: a family's fused IMPLICIT solve on the mixed or bf16
+    rung at f32 (relative PCG tolerance), kernels against plain versions:
+    the first trial cost within 1e-4 (mixed) / 2e-2 (bf16), the final
+    cost within 1e-3, both below the initial (chip_smoke.py's phase 6
+    rules; the bf16 rung is held to the port's own plain solve, not to
+    JAX's, whose bf16 CG parts from it on pinhole_radial)."""
+    from megba_tpu_torch import flat_solve
+
+    _need_card()
+    s = _family_scene(factor)
+    opt = _family_option("mixed_fused" if rung == "mixed" else
+                         "implicit_fused", np.float32, bf16=rung == "bf16")
+    args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
+    kern = flat_solve(*args, device="cuda", factor=factor)
+    _to_plain(monkeypatch)
+    plain = flat_solve(*args, device="cuda", factor=factor)
+    first = abs(float(kern.trace.cost[0]) - float(plain.trace.cost[0]))
+    assert first <= {"mixed": 1e-4, "bf16": 2e-2}[rung] * abs(
+        float(plain.trace.cost[0]))
+    c0 = float(kern.initial_cost)
+    for res in (kern, plain):
+        assert np.isfinite(float(res.cost)) and float(res.cost) < c0
+    np.testing.assert_allclose(float(kern.cost), float(plain.cost),
+                               rtol=1e-3)
 
 
 @pytest.mark.cuda

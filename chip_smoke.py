@@ -29,7 +29,10 @@ exception ends the run with a non-zero exit code:
    at f32 on a heavy-tailed graph too (~1e6 slots, Zipf track lengths,
    `io.synthetic.heavy_tailed_graph`; pt->cam also over 40,000 cameras,
    short enough for slot tiles), checked and timed as sides of their
-   own, outside the row's totals; kernels 8 and 7 in the 2-D mesh's
+   own, outside the row's totals, as are kernels 1 and 3 on that graph's
+   camera side; each side's launch shape of kernels 1 and 3 (a thread
+   per segment, or split segments and their chunk count) is logged;
+   kernels 8 and 7 in the 2-D mesh's
    ring-step form (`fused_ring_step_apply`, `_implicit`) on the first
    bucket of device (0, 0) of the venice 2 x 2 camera-tile plan; and the
    f64 arm of kernels 1-5 (rows `name[f64]`, the arm of ProblemOption(),
@@ -141,8 +144,11 @@ The last two lines of standard output are the `kernels` JSON object and
 pass over a second solve of each full-width path and writes its kernel
 table to chiprun_out/.  Kernel 6's rows also carry torch.profiler's
 device time per launch beside their einsum yardstick's (`device_ms`,
-`library_device_ms`).  The scenes are fixed: a quick check of a new
-kernel build is the `cuda`-marked test, `pytest -m cuda
+`library_device_ms`), and so do the pose prior's rows of kernels 1 and 3
+at (6, 3) (its one-segment point side, beside cuSPARSE's for 3) and of
+kernel 5 at F = 6 (its poses, beside `index_select`'s).  The scenes are
+fixed: a quick check of a new kernel build is the `cuda`-marked test,
+`pytest -m cuda
 tests/test_torch_cuda.py`.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -205,7 +211,8 @@ AUTODIFF_COST_RTOL = 1e-3
 BF16_LIBRARY_REL_TO_ABS_SUM = 2.0 ** -6
 # An f32 library yardstick of the factor rows, held to the f64 plain
 # version: its f32 sum over one 200,000-slot segment (the pose prior's
-# point side) parts from the f64 sum by more than the f32 rule.
+# point side) parts from the f64 sum by more than the f32 rule.  The
+# long cameras' yardstick (to 40,000 slots a camera) is held to it too.
 F32_LONG_LIBRARY_REL_TO_ABS_SUM = 1e-4
 
 VENICE = dict(num_cameras=1778, num_points=993_923,
@@ -217,6 +224,10 @@ VENICE = dict(num_cameras=1778, num_points=993_923,
 # direction on slot tiles too.
 HEAVY = dict(num_cameras=1778, num_points=170_000)
 HEAVY_SHORT_CAMERAS = 40_000
+# Kernels 1 and 3 also run on a camera side of this many long cameras
+# (`io.synthetic.long_camera_idx`: 5,000-40,000 edges each, ~1.07e6
+# slots), longer than venice's, where the split shape cuts cameras.
+LONG_CAMERAS = 64
 # The fused coupling kernels, whose rows print per direction.
 FUSED_COUPLING = ("fused_coupling_apply", "fused_coupling_apply_implicit")
 TRAFALGAR = dict(num_cameras=257, num_points=65_132,
@@ -512,6 +523,11 @@ FAMILY_TRAFALGAR = {
 # t] with the focal and the distortion as edge constants, obs = [u, v, f,
 # k1, k2]; its camera side runs kernels 1-3 at (2, 6).
 POSE_CAMERA_BLOCK = (2, 6)
+# The pose prior's rows near the launch floor, which also get
+# torch.profiler's device time: kernels 1 and 3 on its one-segment point
+# side, kernel 5 on its 100,000 poses.
+POSE_PRIOR_DEVICE_ROWS = ("jtj_grad_reduce(6,3)", "coupling_reduce(6,3)",
+                          "seg_expand(6)")
 
 
 def log(*args) -> None:
@@ -1067,6 +1083,8 @@ def measure_rows(cases: dict) -> dict:
                 bound_by=by, share=bound / k_ms, bytes=nbytes, flops=flops,
                 max_abs_err=e_max, in_total=c["in_total"],
                 per_thread=None if plan is None else plan.per_thread,
+                chunks=(None if plan is None or plan.split is None
+                        else plan.split.num_chunks),
                 library_note=lib_note)
             lib = ("-" if lib_ms is None else f"{lib_ms:.4f} ms") + (
                 "" if lib_note is None else f" (none: {lib_note})")
@@ -1100,7 +1118,8 @@ def measure_rows(cases: dict) -> dict:
 
 def kernel_phase(scene) -> dict:
     from megba_tpu_torch.core.fm import coupling_rows
-    from megba_tpu_torch.io.synthetic import heavy_tailed_graph
+    from megba_tpu_torch.io.synthetic import (heavy_tailed_graph,
+                                              long_camera_idx)
     from megba_tpu_torch.linear_system.builder import damp_blocks
     from megba_tpu_torch.ops import fused, segtiles
     from megba_tpu_torch.ops.residuals import (
@@ -1400,6 +1419,19 @@ def kernel_phase(scene) -> dict:
 
     cases["fused_coupling_apply"] += heavy_cases(
         (hplans.to_pt(hW),), (hW,), 27 * es, 2 * 27, ((True,), (False,)))
+    # Kernels 1 and 3 on the heavy graph's camera side (split segments),
+    # beside 7 and 8's rows: random rows in camera order.
+    hr, hu = randn(2, hn), randn(2, hn)
+    cases["jtj_grad_reduce"].append(_case(
+        "cam_zipf", (hJc, hr, hplans.cam),
+        (20 * hn + 90 * hnc) * es + (hnc + 1) * i64,
+        hn * (2 * 2 * 81 + 2 * 2 * 9), in_total=False))
+    cases["coupling_reduce"].append(_case(
+        "cam_zipf", (hJc, hu, hplans.cam, 9),
+        18 * hn * es + (2 * hn + 9 * hnc) * es + (hnc + 1) * i64,
+        hn * 2 * 18,
+        lambda: _spmv(_csr_reduce, hJc, hplans.cam.seg, 9, hnc, vec=hu,
+                      shape=(9, hnc)), in_total=False))
     cases["fused_coupling_apply_implicit"] += heavy_cases(
         (hplans.to_pt(hJc), hplans.to_pt(hJp)), (hJp, hJc), 24 * es, 2 * 24,
         ((), ()))
@@ -1431,11 +1463,35 @@ def kernel_phase(scene) -> dict:
     log(f"ring-step bucket (venice 2 x 2, device (0, 0), step 0): {rn} "
         f"slots, {Sp} points a shard, {Tc} cameras a tile, "
         f"{'slot tiles' if ring.out.per_thread else 'a block per camera'}")
+    # Kernels 1 and 3 on LONG_CAMERAS long cameras: random rows, held to
+    # the plain versions in float64 (`_case`'s `ref64`) as the pose
+    # prior's 200,000-slot point is.
+    lhost = segtiles.build_seg_plan(long_camera_idx(LONG_CAMERAS),
+                                    LONG_CAMERAS)
+    lplan = segtiles.device_plan(lhost, np.zeros_like(lhost.perm), dev)
+    ln, lnc = lplan.n_slots, LONG_CAMERAS
+    lJ, lr, lu = 0.1 * randn(18, ln), randn(2, ln), randn(2, ln)
+    cases["jtj_grad_reduce"].append(_case(
+        "cam_long", (lJ, lr, lplan),
+        (20 * ln + 90 * lnc) * es + (lnc + 1) * i64,
+        ln * (2 * 2 * 81 + 2 * 2 * 9), in_total=False, ref64=True))
+    cases["coupling_reduce"].append(_case(
+        "cam_long", (lJ, lu, lplan, 9),
+        (20 * ln + 9 * lnc) * es + (lnc + 1) * i64, ln * 2 * 18,
+        lambda: _spmv(_csr_reduce, lJ, lplan.seg, 9, lnc, vec=lu,
+                      shape=(9, lnc)),
+        library_tol=F32_LONG_LIBRARY_REL_TO_ABS_SUM, in_total=False,
+        ref64=True))
     track = hplans.pt.seg_ptr[1:] - hplans.pt.seg_ptr[:-1]
     log(f"heavy-tailed graph: {hnc} cameras, {hnp} points, {hn} slots, "
         f"longest track {int(track.max())}, {int((track == 0).sum())} "
         f"points without one; with {HEAVY_SHORT_CAMERAS} cameras for the "
         "short-camera pt->cam")
+    for label, plan in (("venice cam", plans.cam), ("venice pt", plans.pt),
+                        ("heavy-tailed cam", hplans.cam),
+                        ("long cam", lplan)):
+        log(f"{label} side: {plan.num_segments} segments, {plan.n_slots} "
+            f"slots; kernels 1 and 3 {launch_shape(plan)}")
 
     rows = measure_rows(cases)
     # Kernel 6 runs at its launch floor, where a CUDA-event time of back
@@ -1459,6 +1515,58 @@ def kernel_phase(scene) -> dict:
             f"(its operands made beforehand): the kernel is {verdict} than "
             "its library call on the device")
     return rows
+
+
+def launch_shape(plan) -> str:
+    """Kernels 1 and 3's launch shape on one side's plan, with its
+    chunk count where it splits segments."""
+    from megba_tpu_torch.ops.segtiles import SPLIT_ABOVE, SPLIT_CHUNK
+
+    if plan.per_thread:
+        return "a thread per segment"
+    return (f"split segments, {plan.split.num_chunks} chunks (a segment "
+            f"over {SPLIT_ABOVE} slots in chunks of at most {SPLIT_CHUNK}; "
+            f"at most {plan.split.longest} a segment)")
+
+
+def row_device_times(rows: dict, cases: dict, names) -> None:
+    """torch.profiler's device time per launch of each named row's
+    first side and of its library call (`device_ms`,
+    `library_device_ms`), and the wrapper's host time a call (`host_ms`),
+    for rows near the launch floor, where a CUDA-event time of
+    back-to-back launches is the wrapper's host time."""
+    for name in names:
+        c = cases[name][0]
+        kernel = getattr(kernel_module(name), base_name(name))
+        entry = rows[name]
+        k_ms = entry["device_ms"] = device_ms_per_call(
+            lambda: kernel(*c["args"], **c["kwargs"]))
+        h_ms = entry["host_ms"] = host_ms_per_call(
+            lambda: kernel(*c["args"], **c["kwargs"]))
+        run = c["library"]() if c["library"] is not None else None
+        lib = "no library call"
+        if callable(run):
+            lib_ms = entry["library_device_ms"] = device_ms_per_call(run)
+            verdict = "slower" if k_ms > lib_ms else "not slower"
+            lib = (f"its library call {lib_ms * 1e3:.3f} us: the kernel is "
+                   f"{verdict} on the device")
+        log(f"kernel {name}[{c['side']}]: device time {k_ms * 1e3:.3f} us a "
+            f"launch (torch.profiler), host time {h_ms * 1e3:.3f} us a call "
+            f"(CUDA events {entry['ms'] * 1e3:.3f} us), {lib}")
+
+
+def host_ms_per_call(fn, calls: int = 200) -> float:
+    """The host's time a call of `fn`, in milliseconds: perf_counter over
+    `calls` calls that do not wait for the card (fewer launches than its
+    queue holds), then a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / calls * 1e3
 
 
 def device_ms_per_call(fn, calls: int = 200) -> float:
@@ -2254,8 +2362,7 @@ def family_kernel_cases(factor: str, scene, done: set) -> dict:
                           ("pt", plans.pt, spec.pt_dim)):
         shape = (spec.residual_dim, d)
         log(f"{factor} {side} side {shape}: {plan.num_segments} segments, "
-            f"{plan.n_slots} slots, "
-            f"{'a thread' if plan.per_thread else 'a block'} per segment")
+            f"{plan.n_slots} slots; kernels 1 and 3 {launch_shape(plan)}")
         if shape in done:
             continue
         done.add(shape)
@@ -2884,6 +2991,8 @@ def factor_phase(venice, trafalgar64) -> dict:
         if factor == "planar":  # V's one group of cd pd = 8 rows
             cases.update(remainder_reduce_case(8, plans.pt, "planar_pt"))
         rows.update(measure_rows(cases))
+        if factor == "pose_prior":  # the rows near the launch floor
+            row_device_times(rows, cases, POSE_PRIOR_DEVICE_ROWS)
         del plans, cases
         torch.cuda.empty_cache()
         steps.append(time.perf_counter())

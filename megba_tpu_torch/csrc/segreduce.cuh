@@ -20,7 +20,11 @@
 //   - reduce_slot_tiles, for short segments, the fused kernels
 //     (fused.cu): one block per tile of consecutive slots, lane i
 //     computing slot i's terms, and one thread per segment summing them
-//     from shared memory.
+//     from shared memory;
+//   - reduce_split_segments, for long segments, kernels 1 and 3
+//     (segtiles.cu): one block per chunk of at most ~2048 slots of a
+//     segment, the chunks of one segment combined in chunk order by the
+//     block that finishes last (its note below).
 //
 // Why a third shape.  All three are bound by HBM bytes: a slot's terms
 // read its rows once (F to 27 values) and do ~1 flop per byte.  With a
@@ -39,10 +43,14 @@
 // same terms; a segment of kBlock slots or more is summed in the
 // block-per-segment order.
 //
-// Determinism: no atomics.  A segment's sum is formed by one thread, or
-// by one block with a fixed strided split, a fixed warp-shuffle tree and
-// a fixed sum over warps, so for a given launch shape the output is
-// bitwise-reproducible from run to run.
+// Determinism: no atomics on values.  A segment's sum is formed by one
+// thread, or by one block with a fixed strided split, a fixed
+// warp-shuffle tree and a fixed sum over warps, or (split segments) by
+// such blocks over fixed chunks whose sums one thread per value adds in
+// chunk order, so for a given launch shape the output is
+// bitwise-reproducible from run to run.  The split shape's one atomic
+// counts finished chunks, to elect the block that adds them up; it
+// orders no sum.
 
 #pragma once
 
@@ -251,12 +259,10 @@ int launch_block_reduce(Rows rows, const int64_t* seg_ptr, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A thread per segment (the launch of short segments).
 template <typename T, class Rows>
-int launch_reduce(Rows rows, const int64_t* seg_ptr, T* out,
-                  int64_t num_segments, int per_thread, cudaStream_t stream) {
-  if (!per_thread) {
-    return launch_block_reduce<T>(rows, seg_ptr, out, num_segments, stream);
-  }
+int launch_thread_reduce(Rows rows, const int64_t* seg_ptr, T* out,
+                         int64_t num_segments, cudaStream_t stream) {
   if (num_segments == 0) return static_cast<int>(cudaSuccess);
   const int64_t grid = (num_segments + kBlock - 1) / kBlock;
   if (grid > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -264,6 +270,15 @@ int launch_reduce(Rows rows, const int64_t* seg_ptr, T* out,
       <<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
           rows, seg_ptr, out, num_segments);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, class Rows>
+int launch_reduce(Rows rows, const int64_t* seg_ptr, T* out,
+                  int64_t num_segments, int per_thread, cudaStream_t stream) {
+  if (!per_thread) {
+    return launch_block_reduce<T>(rows, seg_ptr, out, num_segments, stream);
+  }
+  return launch_thread_reduce<T>(rows, seg_ptr, out, num_segments, stream);
 }
 
 // The fused kernels' launch: slot tiles (a plan's `num_tiles` tiles of
@@ -286,6 +301,211 @@ int launch_tiled_reduce(Rows rows, const int64_t* seg_ptr, T* out,
   reduce_slot_tiles<T, Rows>
       <<<static_cast<unsigned>(num_tiles), kBlock, 0, stream>>>(
           rows, seg_ptr, tile_ptr, out, num_segments);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Split segments (kernels 1 and 3 where segments are long).
+//
+// Why.  A block per segment gives a segment of L slots one block however
+// long it is: the pose prior's point side (all 200,000 edges on one dummy
+// point) ran on one of the card's 132 SMs.  Here the plan
+// (ops/segtiles.split_table, built once with the plan from its host
+// offsets) cuts a segment of L slots into m chunks of near-equal length
+// (chunk k of a segment starting at lo is [lo + k L / m,
+// lo + (k + 1) L / m)): m = 1 up to L = 4096 (a camera), else
+// m = ceil(L / 2048); the grid has one block per chunk.  The boundaries
+// relative to a segment's start depend on L alone, so a segment's
+// summation order does not depend on where it sits in the stream, on the
+// shard or on the other segments.
+//
+// A block sums its chunk as block_segment_sum sums a segment (a strided
+// loop, the warp-shuffle tree, a fixed sum over warps), with the loop
+// unrolled so that a thread issues the loads of up to Rows::kUnroll load
+// steps (at most four slots) before it adds them, in the same order.  A one-chunk segment
+// (an empty one included: its chunk is empty and it stores zeros) stores
+// its sums directly, bitwise what reduce_block_per_segment gives when
+// Rows::kSlots is 1.  Otherwise the block writes its F sums to the
+// launch's workspace partials[chunk][F], fences, and counts itself
+// finished on the segment's counter; the block that finds the others
+// done adds the segment's partials in chunk order (read past L1) and
+// stores them through store_sum, then resets the counter to 0.
+//
+// The counters (one per segment) belong to the plan: zeroed once when it
+// is built, left zero by every launch.  That relies on the launches that
+// share a plan being ordered, which they are: the port issues every
+// launch on the device's current stream (ops/kernels.current_stream).
+//
+// A Rows type taken by this shape also has
+//   static constexpr int kSlots       slots a load step covers (1, or 2
+//                                     for bf16 rows loaded in pairs);
+//   struct Slot                       the values of one load step;
+//   load<kAligned>(e, Slot&), accumulate(const Slot&, acc)
+//                                     load step e..e + kSlots - 1 (in one
+//                                     load a row where kAligned), and add
+//                                     it as add() would, slot by slot;
+//   aligned(lo)                       (kSlots 2) whether the steps of a
+//                                     chunk starting at lo are aligned;
+//   static constexpr int kUnroll      load steps a thread has in flight.
+// A chunk's steps go to the threads in turn (step i to thread i mod
+// kBlock); its last L mod kSlots slots, to the thread whose next step
+// would have been the first missing one, through add().
+// ---------------------------------------------------------------------------
+
+// The split-segment table of one plan, in one int64 array:
+// chunk_ptr[num_chunks + 1] (slot offsets), chunk_seg[num_chunks] (the
+// segment of each chunk), seg_chunk[nS + 1] (the first chunk of each
+// segment), and the plan's counters.
+struct SplitTable {
+  const int64_t* __restrict__ chunk_ptr;
+  const int64_t* __restrict__ chunk_seg;
+  const int64_t* __restrict__ seg_chunk;
+  unsigned int* __restrict__ counters;
+  int64_t num_chunks;
+};
+
+__host__ inline SplitTable split_table(const int64_t* table,
+                                       unsigned int* counters,
+                                       int64_t num_chunks) {
+  return SplitTable{table, table + num_chunks + 1,
+                    table + 2 * num_chunks + 1, counters, num_chunks};
+}
+
+// How many load steps a thread issues before it adds them (its unroll
+// depth, Rows::kUnroll): as many as fit beside its F sums in a budget of
+// registers, at least one, and at most kSplitMaxSlots slots in flight (a
+// deeper unroll costs registers at the wide shapes).
+constexpr int kSplitMaxSlots = 4;
+constexpr int kSplitRegisters = 96;
+
+constexpr int split_unroll(size_t acc_bytes, size_t slot_bytes, int slots) {
+  const int left = kSplitRegisters - static_cast<int>(acc_bytes / 4);
+  const int u = left / static_cast<int>(slot_bytes < 4 ? 1 : slot_bytes / 4);
+  const int most = kSplitMaxSlots / slots;
+  return u < 1 ? 1 : (u > most ? (most < 1 ? 1 : most) : u);
+}
+
+// The slots [lo, hi) of one chunk added into this thread's acc, in load
+// steps of Rows::kSlots slots, kUnroll steps loaded before they are added.
+// kAligned: every step's pair of slots is 4-byte aligned in every row
+// (Rows::aligned(lo), the same for the whole block), so that a pair is
+// one load a row; otherwise a step loads its slots one by one, the same
+// values summed in the same order.
+template <typename T, class Rows, bool kAligned>
+__device__ __forceinline__ void chunk_steps(const Rows& rows, int64_t lo,
+                                            int64_t hi, T* acc) {
+  constexpr int S = Rows::kSlots;
+  constexpr int U = Rows::kUnroll;
+  const int64_t steps = (hi - lo) / S;
+  int64_t i = threadIdx.x;
+  for (; i + (U - 1) * kBlock < steps; i += U * kBlock) {
+    typename Rows::Slot v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      rows.template load<kAligned>(lo + (i + u * kBlock) * S, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) rows.accumulate(v[u], acc);
+  }
+  if (U > 1 && i < steps) {  // the last (fewer than U) steps, masked
+    typename Rows::Slot v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i + u * kBlock < steps) {
+        rows.template load<kAligned>(lo + (i + u * kBlock) * S, v[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i + u * kBlock < steps) rows.accumulate(v[u], acc);
+    }
+    i += ((steps - 1 - i) / kBlock + 1) * kBlock;
+  }
+  // i is now this thread's first step past the chunk's last full one.
+  if (S > 1 && i == steps) {
+    for (int64_t e = lo + steps * S; e < hi; ++e) rows.add(e, acc);
+  }
+}
+
+template <typename T, class Rows>
+__device__ __forceinline__ void chunk_slots(const Rows& rows, int64_t lo,
+                                            int64_t hi, T* acc) {
+  if constexpr (Rows::kSlots > 1) {
+    if (rows.aligned(lo)) {
+      chunk_steps<T, Rows, true>(rows, lo, hi, acc);
+      return;
+    }
+  }
+  chunk_steps<T, Rows, false>(rows, lo, hi, acc);
+}
+
+template <typename T, class Rows>
+__global__ void __launch_bounds__(kBlock)
+reduce_split_segments(Rows rows, SplitTable tab, T* __restrict__ partials,
+                      T* __restrict__ out, int64_t num_segments) {
+  constexpr int F = Rows::F;
+  __shared__ T partial[kWarps][F];
+  __shared__ bool finisher;
+  const int64_t c = blockIdx.x;
+  const int64_t s = tab.chunk_seg[c];
+  const int64_t c0 = tab.seg_chunk[s];
+  const int64_t m = tab.seg_chunk[s + 1] - c0;
+  T acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = T(0);
+  chunk_slots<T>(rows, tab.chunk_ptr[c], tab.chunk_ptr[c + 1], acc);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const T v = warp_sum(acc[f]);
+    if (lane == 0) partial[warp][f] = v;
+  }
+  __syncthreads();
+  if (m == 1) {
+    for (int f = threadIdx.x; f < F; f += kBlock) {
+      T v = partial[0][f];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += partial[w][f];
+      store_sum(rows, out, num_segments, s, f, v);
+    }
+    return;
+  }
+  for (int f = threadIdx.x; f < F; f += kBlock) {
+    T v = partial[0][f];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += partial[w][f];
+    partials[c * F + f] = v;
+  }
+  __threadfence();  // this chunk's sums before its count
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int done = atomicAdd(&tab.counters[s], 1u);
+    finisher = done + 1 == static_cast<unsigned int>(m);
+  }
+  __syncthreads();
+  if (!finisher) return;
+  __threadfence();  // the other chunks' sums after their counts
+  for (int f = threadIdx.x; f < F; f += kBlock) {
+    T v = __ldcg(&partials[c0 * F + f]);
+    for (int64_t k = 1; k < m; ++k) v += __ldcg(&partials[(c0 + k) * F + f]);
+    store_sum(rows, out, num_segments, s, f, v);
+  }
+  if (threadIdx.x == 0) tab.counters[s] = 0u;
+}
+
+// A block per chunk (the launch of long segments in kernels 1 and 3).
+// `partials` holds Rows::F values a chunk.
+template <typename T, class Rows>
+int launch_split_reduce(Rows rows, const SplitTable& tab, T* partials,
+                        T* out, int64_t num_segments, cudaStream_t stream) {
+  if (tab.num_chunks == 0) return static_cast<int>(cudaSuccess);
+  if (tab.num_chunks > kMaxGrid) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  reduce_split_segments<T, Rows>
+      <<<static_cast<unsigned>(tab.num_chunks), kBlock, 0, stream>>>(
+          rows, tab, partials, out, num_segments);
   return static_cast<int>(cudaGetLastError());
 }
 

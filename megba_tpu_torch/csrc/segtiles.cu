@@ -22,7 +22,10 @@
 // block-aligned edge tiles.  Here the edge stream of one vertex kind is
 // sorted by segment (camera or point) and described by CSR offsets
 // seg_ptr[nS + 1]; a reduction walks each segment's contiguous edge range
-// (segreduce.cuh: one 256-thread block per camera, one thread per point).
+// (segreduce.cuh: one thread per point; long segments, cameras, as one
+// 256-thread block per segment in seg_reduce, and as split segments, one
+// block per chunk of ~2048 slots, in jtj_grad_reduce and coupling_reduce,
+// whose plans carry the chunk table).
 //
 // Block shapes: kernels 1-3 are instantiated for every (od, d) of
 // block_shapes.cuh, the one list of the shapes the registered factor
@@ -101,34 +104,51 @@ __host__ __device__ constexpr int tri_size(int D) { return D * (D + 1) / 2; }
 template <typename T, int OD, int D>
 struct JtjRows {
   static constexpr int F = tri_size(D) + D;
+  static constexpr int kSlots = 1;
+  struct Slot {
+    T j[OD * D];
+    T rr[OD];
+  };
+  // At D = 12 in f64 the 90 sums take ~180 registers: one slot in flight.
+  static constexpr int kUnroll =
+      split_unroll(F * sizeof(T), sizeof(Slot), kSlots);
   const T* __restrict__ J;  // [OD*D, n]
   const T* __restrict__ r;  // [OD, n]
   int64_t n;
 
-  __device__ __forceinline__ void add(int64_t e, T* acc) const {
-    T j[OD * D];
-    T rr[OD];
+  template <bool kAligned>
+  __device__ __forceinline__ void load(int64_t e, Slot& v) const {
 #pragma unroll
-    for (int k = 0; k < OD * D; ++k) j[k] = J[k * n + e];
+    for (int k = 0; k < OD * D; ++k) v.j[k] = J[k * n + e];
 #pragma unroll
-    for (int o = 0; o < OD; ++o) rr[o] = r[o * n + e];
+    for (int o = 0; o < OD; ++o) v.rr[o] = r[o * n + e];
+  }
+
+  __device__ __forceinline__ void accumulate(const Slot& v, T* acc) const {
 #pragma unroll
     for (int a = 0; a < D; ++a) {
 #pragma unroll
       for (int b = a; b < D; ++b) {
-        T t = j[a] * j[b];
+        T t = v.j[a] * v.j[b];
 #pragma unroll
-        for (int o = 1; o < OD; ++o) t += j[o * D + a] * j[o * D + b];
+        for (int o = 1; o < OD; ++o) t += v.j[o * D + a] * v.j[o * D + b];
         acc[tri_index(a, b, D)] += t;
       }
     }
 #pragma unroll
     for (int a = 0; a < D; ++a) {
-      T t = j[a] * rr[0];
+      T t = v.j[a] * v.rr[0];
 #pragma unroll
-      for (int o = 1; o < OD; ++o) t += j[o * D + a] * rr[o];
+      for (int o = 1; o < OD; ++o) t += v.j[o * D + a] * v.rr[o];
       acc[tri_size(D) + a] -= t;
     }
+  }
+
+  // One slot (the thread-per-segment shape's step: points).
+  __device__ __forceinline__ void add(int64_t e, T* acc) const {
+    Slot v;
+    load<false>(e, v);
+    accumulate(v, acc);
   }
 };
 
@@ -151,9 +171,23 @@ __device__ __forceinline__ void store_sum(const JtjRows<T, OD, D>&,
 }
 
 // Per-edge rows of J^T u (D values): the reduce half of a coupling product.
+// In the split shape, bf16 rows (the mixed, mixed64 and bf16 arms) are
+// loaded two neighbouring slots at a time: one __nv_bfloat162 a row where
+// a chunk's pairs are 4-byte aligned in every row (n even and the chunk's
+// first slot at an even bf16 offset; with n odd every other row is not),
+// else two bf16 loads a row.  A pair's slots are added one after the
+// other, as add() would.  add() keeps the form the thread-per-segment
+// shape runs (points).
 template <typename T, typename R, bool BF16, int OD, int D>
 struct JtuRows {
   static constexpr int F = D;
+  static constexpr int kSlots = sizeof(R) == 2 ? 2 : 1;
+  struct Slot {
+    R j[kSlots][OD * D];
+    T uu[kSlots][OD];
+  };
+  static constexpr int kUnroll =
+      split_unroll(F * sizeof(T), sizeof(Slot), kSlots);
   const R* __restrict__ J;  // [OD*D, n]
   const T* __restrict__ u;  // [OD, n]
   int64_t n;
@@ -172,7 +206,70 @@ struct JtuRows {
       acc[b] += t;
     }
   }
+
+  __device__ __forceinline__ bool aligned(int64_t lo) const {
+    return n % 2 == 0 && (reinterpret_cast<uintptr_t>(J + lo) & 3) == 0;
+  }
+
+  template <bool kAligned>
+  __device__ __forceinline__ void load(int64_t e, Slot& v) const {
+#pragma unroll
+    for (int k = 0; k < OD * D; ++k) {
+      const R* p = J + k * n + e;
+      if constexpr (kSlots == 2 && kAligned) {
+        const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(p);
+        v.j[0][k] = q.x;
+        v.j[1][k] = q.y;
+      } else {
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) v.j[q][k] = p[q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+#pragma unroll
+      for (int o = 0; o < OD; ++o) v.uu[q][o] = u[o * n + e + q];
+    }
+  }
+
+  // acc += J_e^T u_e for each slot of a step, in the arithmetic of add().
+  __device__ __forceinline__ void accumulate(const Slot& v, T* acc) const {
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      T uu[OD];
+#pragma unroll
+      for (int o = 0; o < OD; ++o) uu[o] = operand<BF16>(v.uu[q][o]);
+#pragma unroll
+      for (int b = 0; b < D; ++b) {
+        T t = product<BF16>(v.j[q][b], uu[0]);
+#pragma unroll
+        for (int o = 1; o < OD; ++o) {
+          t += product<BF16>(v.j[q][o * D + b], uu[o]);
+        }
+        acc[b] += t;
+      }
+    }
+  }
 };
+
+// Kernels 1 and 3's launch: a thread per segment where segments are
+// short, split segments where they are long (the plan's chunk table and
+// counters, `partials` F values a chunk).
+template <typename T, class Rows>
+int launch_segment_sums(Rows rows, const int64_t* seg_ptr,
+                        const SplitTable& tab, void* partials, T* out,
+                        int64_t num_segments, int per_thread,
+                        cudaStream_t stream) {
+  if (per_thread) {
+    return launch_thread_reduce<T>(rows, seg_ptr, out, num_segments, stream);
+  }
+  if (num_segments > 0 && (tab.chunk_ptr == nullptr ||
+                           tab.counters == nullptr || partials == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_split_reduce<T>(rows, tab, static_cast<T*>(partials), out,
+                                num_segments, stream);
+}
 
 // One thread per edge slot: gather the segment's D-row vertex vector and
 // take the OD x D per-edge matvec u = J_e x[seg(e)].
@@ -202,15 +299,17 @@ expand_matvec(const T* __restrict__ table, const R* __restrict__ J,
 
 template <typename T>
 int jtj_typed(int od, int d, const void* J, const void* r,
-              const int64_t* seg_ptr, void* out, int64_t n,
-              int64_t num_segments, int per_thread, cudaStream_t stream) {
+              const int64_t* seg_ptr, const SplitTable& tab, void* partials,
+              void* out, int64_t n, int64_t num_segments, int per_thread,
+              cudaStream_t stream) {
   const T* Jt = static_cast<const T*>(J);
   const T* rt = static_cast<const T*>(r);
   T* o = static_cast<T*>(out);
-#define MEGBA_BLOCK(OD, D)                                                \
-  if (od == (OD) && d == (D)) {                                           \
-    return launch_reduce<T>(JtjRows<T, (OD), (D)>{Jt, rt, n}, seg_ptr, o, \
-                            num_segments, per_thread, stream);            \
+#define MEGBA_BLOCK(OD, D)                                                   \
+  if (od == (OD) && d == (D)) {                                              \
+    return launch_segment_sums<T>(JtjRows<T, (OD), (D)>{Jt, rt, n},          \
+                                  seg_ptr, tab, partials, o, num_segments,   \
+                                  per_thread, stream);                       \
   }
 #include "block_shapes.cuh"
 #undef MEGBA_BLOCK
@@ -219,15 +318,17 @@ int jtj_typed(int od, int d, const void* J, const void* r,
 
 template <typename T, typename R, bool BF16>
 int reduce_typed(int od, int d, const void* J, const void* u,
-                 const int64_t* seg_ptr, void* out, int64_t n,
-                 int64_t num_segments, int per_thread, cudaStream_t stream) {
+                 const int64_t* seg_ptr, const SplitTable& tab,
+                 void* partials, void* out, int64_t n, int64_t num_segments,
+                 int per_thread, cudaStream_t stream) {
   const R* Jt = static_cast<const R*>(J);
   const T* ut = static_cast<const T*>(u);
   T* o = static_cast<T*>(out);
-#define MEGBA_BLOCK(OD, D)                                                  \
-  if (od == (OD) && d == (D)) {                                             \
-    return launch_reduce<T>(JtuRows<T, R, BF16, (OD), (D)>{Jt, ut, n},      \
-                            seg_ptr, o, num_segments, per_thread, stream);  \
+#define MEGBA_BLOCK(OD, D)                                                   \
+  if (od == (OD) && d == (D)) {                                              \
+    return launch_segment_sums<T>(JtuRows<T, R, BF16, (OD), (D)>{Jt, ut, n}, \
+                                  seg_ptr, tab, partials, o, num_segments,   \
+                                  per_thread, stream);                       \
   }
 #include "block_shapes.cuh"
 #undef MEGBA_BLOCK
@@ -338,16 +439,23 @@ int seg_expand_typed(int F, const void* table, const int32_t* seg, void* out,
 extern "C" {
 
 // out [d*d + d, nS] = per segment: sum_e J_e^T J_e rows, then -sum_e J_e^T r_e.
+// Long segments (per_thread 0) take the plan's split table (`split`, the
+// int64 array of segreduce.cuh's SplitTable, num_chunks chunks), its
+// counters, and a workspace `partials` of d(d+1)/2 + d values a chunk.
 int megba_jtj_grad_reduce(int is_double, int od, int d, const void* J,
-                          const void* r, const int64_t* seg_ptr, void* out,
+                          const void* r, const int64_t* seg_ptr,
+                          const int64_t* split, unsigned int* counters,
+                          int64_t num_chunks, void* partials, void* out,
                           int64_t n, int64_t num_segments, int per_thread,
                           void* stream) {
   if (const int prior = pending_error()) return prior;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? jtj_typed<double>(od, d, J, r, seg_ptr, out, n,
-                                       num_segments, per_thread, st)
-                   : jtj_typed<float>(od, d, J, r, seg_ptr, out, n,
-                                      num_segments, per_thread, st);
+  const SplitTable tab = split_table(split, counters, num_chunks);
+  return is_double
+             ? jtj_typed<double>(od, d, J, r, seg_ptr, tab, partials, out, n,
+                                 num_segments, per_thread, st)
+             : jtj_typed<float>(od, d, J, r, seg_ptr, tab, partials, out, n,
+                                num_segments, per_thread, st);
 }
 
 // u [od, n] = per edge: J_e table[:, seg(e)], in the arm's arithmetic.
@@ -378,28 +486,38 @@ int megba_coupling_expand(int arm, int od, int d, const void* table,
 }
 
 // out [d, nS] = per segment: sum_e J_e^T u_e, in the arm's arithmetic.
+// Long segments take the split table as megba_jtj_grad_reduce does, with a
+// workspace of d values a chunk.
 int megba_coupling_reduce(int arm, int od, int d, const void* J,
-                          const void* u, const int64_t* seg_ptr, void* out,
+                          const void* u, const int64_t* seg_ptr,
+                          const int64_t* split, unsigned int* counters,
+                          int64_t num_chunks, void* partials, void* out,
                           int64_t n, int64_t num_segments, int per_thread,
                           void* stream) {
   if (const int prior = pending_error()) return prior;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const SplitTable tab = split_table(split, counters, num_chunks);
   switch (arm) {
     case kF32:
-      return reduce_typed<float, float, false>(od, d, J, u, seg_ptr, out, n,
-                                               num_segments, per_thread, st);
+      return reduce_typed<float, float, false>(
+          od, d, J, u, seg_ptr, tab, partials, out, n, num_segments,
+          per_thread, st);
     case kF64:
       return reduce_typed<double, double, false>(
-          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+          od, d, J, u, seg_ptr, tab, partials, out, n, num_segments,
+          per_thread, st);
     case kMixed:
       return reduce_typed<float, __nv_bfloat16, false>(
-          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+          od, d, J, u, seg_ptr, tab, partials, out, n, num_segments,
+          per_thread, st);
     case kBf16:
       return reduce_typed<float, __nv_bfloat16, true>(
-          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+          od, d, J, u, seg_ptr, tab, partials, out, n, num_segments,
+          per_thread, st);
     case kMixed64:
       return reduce_typed<double, __nv_bfloat16, false>(
-          od, d, J, u, seg_ptr, out, n, num_segments, per_thread, st);
+          od, d, J, u, seg_ptr, tab, partials, out, n, num_segments,
+          per_thread, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -420,3 +420,18 @@ def heavy_tailed_graph(num_cameras: int, num_points: int, seed: int = 0,
     cam_idx = rng.integers(0, num_cameras, pt_idx.shape[0])
     order = rng.permutation(pt_idx.shape[0])
     return cam_idx[order].astype(np.int32), pt_idx[order].astype(np.int32)
+
+
+def long_camera_idx(num_cameras: int, shortest: int = 5000,
+                    longest: int = 40000, seed: int = 0) -> np.ndarray:
+    """Camera ids (int32, shuffled) of a camera side with long and skewed
+    segments: camera c has L_c edges, L_c log-uniform on [`shortest`,
+    `longest`] (mean ~16,800 at the defaults).  At 5k-40k observations a
+    camera it stands for the cameras of a dense capture, longer than any
+    of the BAL-sized synthetics' (~2,800), where a side's longest cameras
+    set how its camera sums are split over blocks."""
+    rng = np.random.default_rng(seed)
+    lengths = np.exp(rng.uniform(np.log(shortest), np.log(longest),
+                                 num_cameras)).astype(np.int64)
+    cam_idx = np.repeat(np.arange(num_cameras), lengths)
+    return cam_idx[rng.permutation(cam_idx.shape[0])].astype(np.int32)

@@ -78,7 +78,7 @@ import torch
 from megba_tpu_torch.ops import kernels as _kernels
 from megba_tpu_torch.ops import segtiles
 from megba_tpu_torch.ops.segtiles import (DualPlans, SegPlan, contract,
-                                          operand)
+                                          operand, plan_split)
 
 # (cd, pd, od) of each registered factor family: the MEGBA_COUPLING lines
 # of csrc/fused_shapes.cuh, the one list the CUDA dispatch expands too.
@@ -173,7 +173,8 @@ def ring_step_plan(in_local, out_local, slots, num_in: int, num_out: int,
     out = SegPlan(
         seg=torch.from_numpy(out_local.astype(np.int32)).to(device),
         seg_ptr=torch.from_numpy(seg_ptr).to(device), num_segments=num_out,
-        inv=torch.from_numpy(np.asarray(slots, np.int64)).to(device))
+        inv=torch.from_numpy(np.asarray(slots, np.int64)).to(device),
+        split=plan_split(seg_ptr, out_local.shape[0], device))
     return _fused_plan(
         torch.from_numpy(np.asarray(in_local, np.int32)).to(device), out,
         num_in)

@@ -43,12 +43,22 @@ float32 sums (the bf16 rung); `contract` / `operand` are their plain
 arithmetic, shared with ops/fused.py.  All five read their
 per-edge rows once and are bound by HBM bytes on the H100; see the
 source note in `csrc/segtiles.cu`.
+
+Launch shapes (`csrc/segreduce.cuh`): a side of short segments
+(`SegPlan.per_thread`: points) is summed a thread per segment.  Where
+segments are long, `seg_reduce` gives each one block, and
+`jtj_grad_reduce` and `coupling_reduce` a block per chunk: a segment of
+more than `SPLIT_ABOVE` slots is split into chunks of at most
+`SPLIT_CHUNK`.  The plan carries the chunk table (`SplitTable`, built
+once from the host offsets by `split_table`) and the counters that
+elect the block which adds a segment's chunk sums in chunk order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
@@ -79,8 +89,27 @@ SUPPORTED_WIDTHS = tuple(
 
 # A side whose mean segment length is below this many edges reduces with
 # one thread per segment (points: ~5 edges each); longer segments get one
-# thread block each (cameras: thousands of edges each).
+# thread block each (cameras: thousands of edges each) in seg_reduce, and
+# a block per chunk in jtj_grad_reduce and coupling_reduce.
 PER_THREAD_MAX_MEAN = 64
+# The chunks of a split segment: a segment of L slots is one chunk up to
+# SPLIT_ABOVE slots (a camera: a block sums it, as a block per segment
+# would), and beyond that ceil(L / SPLIT_CHUNK) chunks of near-equal
+# length (the pose prior's 200,000-slot point: 98 blocks, where one
+# block used one SM of 132).  Timed in turns against one block a segment
+# (scripts/torch_split_reduce_turns.py --split, PERF.md §6): splitting
+# venice's ~2,800-slot cameras from 2048 slots made kernel 1 13 % slower;
+# on cameras of 5,000-40,000 slots chunks of 2048 beat chunks of 1024 (by
+# 10-13 points for kernel 1) and 4096-slot chunks from 8192.
+SPLIT_CHUNK = 2048
+SPLIT_ABOVE = 4096
+
+
+def is_per_thread(n_slots: int, num_segments: int) -> bool:
+    """Whether a side of `n_slots` slots over `num_segments` segments
+    is summed a thread per segment (mean length under
+    PER_THREAD_MAX_MEAN)."""
+    return n_slots < PER_THREAD_MAX_MEAN * max(num_segments, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +142,75 @@ def build_seg_plan(idx: np.ndarray, num_segments: int) -> HostPlan:
                     seg_ptr=seg_ptr, num_segments=int(num_segments))
 
 
+def split_chunks(seg_ptr: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The chunks of the split-segment launch over CSR offsets
+    `seg_ptr` [nS + 1]: (chunk_ptr [nc + 1] slot offsets, chunk_seg [nc]
+    the segment of each chunk, seg_chunk [nS + 1] the first chunk of
+    each segment), int64.  A segment of L slots has m = 1 chunk if
+    L <= SPLIT_ABOVE, else m = ceil(L / SPLIT_CHUNK); chunk k starts
+    k * L // m slots past the segment's start: near-equal lengths, in
+    ascending order, placed by L alone.  An empty segment has one empty chunk,
+    whose block stores its zero sums."""
+    seg_ptr = np.asarray(seg_ptr, np.int64)
+    lengths = np.diff(seg_ptr)
+    per_seg = np.where(lengths > SPLIT_ABOVE, -(-lengths // SPLIT_CHUNK), 1)
+    seg_chunk = np.zeros(lengths.shape[0] + 1, np.int64)
+    np.cumsum(per_seg, out=seg_chunk[1:])
+    chunk_seg = np.repeat(np.arange(lengths.shape[0], dtype=np.int64),
+                          per_seg)
+    k = np.arange(chunk_seg.shape[0], dtype=np.int64) - seg_chunk[chunk_seg]
+    chunk_ptr = np.empty(chunk_seg.shape[0] + 1, np.int64)
+    chunk_ptr[:-1] = seg_ptr[chunk_seg] + (k * lengths[chunk_seg]
+                                           // per_seg[chunk_seg])
+    chunk_ptr[-1] = seg_ptr[-1]
+    return chunk_ptr, chunk_seg, seg_chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitTable:
+    """The device chunk table of a side summed as split segments
+    (`csrc/segreduce.cuh`, `reduce_split_segments`): `table` holds
+    chunk_ptr, chunk_seg and seg_chunk of `split_chunks` end to end;
+    `counters` [nS] counts a segment's finished chunks during a launch
+    and is zero between launches (each launch's last block of a segment
+    resets it), which holds because every launch that reads a plan is
+    issued on the device's current stream."""
+
+    table: torch.Tensor  # [2 * num_chunks + 1 + nS + 1] int64
+    counters: torch.Tensor  # [nS] int32, zero between launches
+    num_chunks: int
+    longest: int  # most chunks of one segment
+    # The launches' chunk sums, per (width, dtype): made at first use and
+    # reused by every launch, which the stream orders as it does the
+    # counters.
+    _work: dict = dataclasses.field(default_factory=dict, repr=False,
+                                    compare=False)
+
+    def workspace(self, width: int, dtype: torch.dtype) -> torch.Tensor:
+        """[num_chunks * width] scratch for a launch's chunk sums."""
+        work = self._work.get((width, dtype))
+        if work is None:
+            work = self._work[(width, dtype)] = torch.empty(
+                self.num_chunks * width, dtype=dtype,
+                device=self.table.device)
+        return work
+
+
+def split_table(seg_ptr: np.ndarray, device) -> SplitTable:
+    """Build a side's `SplitTable` on `device` from its host offsets
+    (once, with the plan: a launch reads it as it is)."""
+    chunk_ptr, chunk_seg, seg_chunk = split_chunks(seg_ptr)
+    table = np.concatenate([chunk_ptr, chunk_seg, seg_chunk])
+    per_seg = np.diff(seg_chunk)
+    return SplitTable(
+        table=torch.from_numpy(table).to(device),
+        counters=torch.zeros(seg_chunk.shape[0] - 1, dtype=torch.int32,
+                             device=device),
+        num_chunks=int(chunk_seg.shape[0]),
+        longest=int(per_seg.max()) if per_seg.size else 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class SegPlan:
     """The device half of one side's plan."""
@@ -122,14 +220,28 @@ class SegPlan:
     num_segments: int
     # Slot in the OTHER order holding this slot's edge (cross permute).
     inv: torch.Tensor  # [n] int64
+    # The chunk table of kernels 1 and 3 where segments are long
+    # (`plan_split`); None on a per-thread side, and on plans only kernel
+    # 4, 5 or the fused kernels read.
+    split: Optional[SplitTable] = None
 
     @property
     def n_slots(self) -> int:
         return self.seg.shape[0]
 
-    @property
+    @functools.cached_property
     def per_thread(self) -> bool:
-        return self.n_slots < PER_THREAD_MAX_MEAN * max(self.num_segments, 1)
+        return is_per_thread(self.n_slots, self.num_segments)
+
+
+def plan_split(seg_ptr: np.ndarray, n_slots: int,
+               device) -> Optional[SplitTable]:
+    """The `SegPlan.split` of a side with host offsets `seg_ptr`: its
+    chunk table where segments are long, None where they are summed a
+    thread per segment."""
+    if is_per_thread(n_slots, len(seg_ptr) - 1):
+        return None
+    return split_table(seg_ptr, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,12 +283,14 @@ class DualPlans:
 
 def device_plan(plan: HostPlan, inv: np.ndarray,
                 device: torch.device) -> SegPlan:
-    """Move one side's host plan to `device`; `inv` is its cross permute."""
+    """Move one side's host plan to `device`; `inv` is its cross permute.
+    A side of long segments gets its chunk table (`plan_split`)."""
     return SegPlan(
         seg=torch.from_numpy(plan.seg).to(device),
         seg_ptr=torch.from_numpy(plan.seg_ptr).to(device),
         num_segments=plan.num_segments,
-        inv=torch.from_numpy(inv).to(device))
+        inv=torch.from_numpy(inv).to(device),
+        split=plan_split(plan.seg_ptr, plan.seg.shape[0], device))
 
 
 def make_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
@@ -967,11 +1081,13 @@ def seg_expand_plain(table: torch.Tensor, plan: ExpandPlan) -> torch.Tensor:
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "megba_jtj_grad_reduce": (
-        ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _L, _L, _I, _P]),
+        ctypes.c_int,
+        [_I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _L, _L, _I, _P]),
     "megba_coupling_expand": (
         ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P]),
     "megba_coupling_reduce": (
-        ctypes.c_int, [_I, _I, _I, _P, _P, _P, _P, _L, _L, _I, _P]),
+        ctypes.c_int,
+        [_I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _L, _L, _I, _P]),
     "megba_seg_reduce": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _L, _I, _P]),
     "megba_seg_expand": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _L, _P]),
     "megba_error_string": (ctypes.c_char_p, [_I]),
@@ -1078,6 +1194,27 @@ def _raise_on(code: int, name: str) -> None:
     _kernels.raise_on(_lib(), code, name)
 
 
+def _split_args(name: str, plan: SegPlan, width: int, dtype: torch.dtype,
+                dev: torch.device) -> tuple:
+    """The split-segment arguments of kernel 1 or 3's C launcher: the
+    chunk table, the counters, the chunk count and the workspace of
+    `width` values a chunk (`SplitTable`, made by `split_table`).  A
+    per-thread side passes none; a side of long segments must carry its
+    chunk table on `dev`."""
+    if plan.per_thread:
+        return None, None, 0, None
+    split = plan.split
+    if split is None:
+        raise ValueError(
+            f"{name}: a plan of long segments needs its chunk table "
+            "(SegPlan.split; device_plan and plan_split build it)")
+    if split.table.device != dev:
+        raise ValueError(f"{name}: plan.split is on {split.table.device}, "
+                         f"expected {dev}")
+    return (split.table.data_ptr(), split.counters.data_ptr(),
+            split.num_chunks, split.workspace(width, dtype).data_ptr())
+
+
 def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
                     plan: SegPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused block-diagonal Hessian + gradient for one vertex kind.
@@ -1101,10 +1238,12 @@ def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
         return jtj_grad_reduce_plain(J, r, plan)
     out = torch.empty((d * d + d, plan.num_segments), dtype=J.dtype,
                       device=dev)
+    split = _split_args("jtj_grad_reduce", plan, d * (d + 1) // 2 + d,
+                        J.dtype, dev)
     with torch.cuda.device(dev):
         code = _lib((od, d)).megba_jtj_grad_reduce(
             int(J.dtype == torch.float64), od, d, J.data_ptr(),
-            r.data_ptr(), plan.seg_ptr.data_ptr(), out.data_ptr(), n,
+            r.data_ptr(), plan.seg_ptr.data_ptr(), *split, out.data_ptr(), n,
             plan.num_segments, int(plan.per_thread),
             _kernels.current_stream(dev))
     _raise_on(code, "jtj_grad_reduce")
@@ -1168,11 +1307,13 @@ def coupling_reduce(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
     if dev.type == "cpu":
         return coupling_reduce_plain(J, u, plan, d, bf16_operands)
     out = torch.empty((d, plan.num_segments), dtype=u.dtype, device=dev)
+    split = _split_args("coupling_reduce", plan, d, u.dtype, dev)
     with torch.cuda.device(dev):
         code = _lib((od, d)).megba_coupling_reduce(
             arm_code, od, d, J.data_ptr(), u.data_ptr(),
-            plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
-            int(plan.per_thread), _kernels.current_stream(dev))
+            plan.seg_ptr.data_ptr(), *split, out.data_ptr(), n,
+            plan.num_segments, int(plan.per_thread),
+            _kernels.current_stream(dev))
     _raise_on(code, "coupling_reduce")
     _kernels.count_launch(coupling_reduce, arm, (od, d))
     return out

@@ -29,16 +29,38 @@ from pathlib import Path
 
 import torch
 
-_RUN = r"""
+# The head of a timing process (argv: checkout, result file): the
+# checkout's package first on the path, the card, and `event_ms`, the
+# CUDA-event median ms a launch over 7 runs of 10 back-to-back launches
+# (after 2 unmeasured).  scripts/torch_split_reduce_turns.py runs it too.
+PROCESS_HEAD = r"""
 import sys
 import numpy as np, torch
 sys.path.insert(0, sys.argv[1])
+dev = torch.device("cuda")
+
+def event_ms(fn):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(7):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(10):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 10)
+    return sorted(times)[3]
+"""
+
+_RUN = PROCESS_HEAD + r"""
 from megba_tpu_torch.io.synthetic import make_synthetic_bal
 from megba_tpu_torch.ops import fused, segtiles
 s = make_synthetic_bal(num_cameras=1778, num_points=993_923,
                        obs_per_point=5_001_946 / 993_923, seed=0,
                        dtype=np.float32)
-dev = torch.device("cuda")
 _, plans = segtiles.make_dual_plans(s.cam_idx, s.pt_idx, 1778, 993_923, dev)
 plans = fused.with_fused_plans(plans)
 n = plans.cam.n_slots
@@ -83,29 +105,41 @@ for dt in (torch.float32, torch.float64):
 out, ms = {}, {}
 for key, (fn, args) in calls.items():
     out[key] = fn(*args)
-    for _ in range(2):
-        fn(*args)
-    times = []
-    for _ in range(7):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(10):
-            fn(*args)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / 10)
-    ms[key] = sorted(times)[3]
+    ms[key] = event_ms(lambda: fn(*args))
 torch.cuda.synchronize()
 torch.save(({k: v.cpu() for k, v in out.items()}, ms), sys.argv[2])
 """
 
 
-def run(tree: Path, dest: Path) -> tuple:
-    """(outputs, ms per output) of one process on `tree`."""
-    subprocess.run([sys.executable, "-c", _RUN, str(tree), str(dest)],
+def run(code: str, tree: Path, dest: Path, *args: str):
+    """The result a process running `code` on `tree` saved to `dest`."""
+    subprocess.run([sys.executable, "-c", code, str(tree), str(dest), *args],
                    check=True, timeout=900, cwd=tree)
     return torch.load(dest)
+
+
+def in_turns(code: str, other: Path, rounds: int, args=None) -> dict:
+    """{"other": [...], "this": [...]}: the results of `code`'s processes
+    on OTHER and on this checkout, run in the order other, this, this,
+    other per round; `args` maps a tree's name to its extra arguments."""
+    trees = {"other": other.resolve(),
+             "this": Path(__file__).resolve().parents[1]}
+    runs = {"other": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(rounds):
+            for name in ("other", "this", "this", "other"):
+                runs[name].append(run(code, trees[name],
+                                      Path(tmp) / f"{name}.pt",
+                                      *(args or {}).get(name, ())))
+    return runs
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -117,27 +151,14 @@ def main() -> int:
     ap.add_argument("other", type=Path)
     ap.add_argument("--rounds", type=int, default=2)
     opts = ap.parse_args()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
-    trees = {"other": opts.other.resolve(),
-             "this": Path(__file__).resolve().parents[1]}
-    runs = {"other": [], "this": []}  # ms per output, per process
-    outs = {}  # each tree's outputs, from its first process
-    with tempfile.TemporaryDirectory() as tmp:
-        for _ in range(opts.rounds):
-            for name in ("other", "this", "this", "other"):
-                out, ms = run(trees[name], Path(tmp) / f"{name}.pt")
-                outs.setdefault(name, out)
-                runs[name].append(ms)
-    this, other = outs["this"], outs["other"]
+    print(card(), flush=True)
+    runs = in_turns(_RUN, opts.other, opts.rounds)  # (outputs, ms) each
+    this, other = runs["this"][0][0], runs["other"][0][0]
     differ = []
     for key, t in this.items():
         same = key in other and t.dtype == other[key].dtype and torch.equal(
             bits(t), bits(other[key]))
-        med = {name: statistics.median(ms[key] for ms in rs)
+        med = {name: statistics.median(ms[key] for _, ms in rs)
                for name, rs in runs.items()}
         print(f"{key}: {tuple(t.shape)} "
               f"{'bitwise equal' if same else 'DIFFERS'}; this "

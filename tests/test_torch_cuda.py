@@ -1616,3 +1616,124 @@ def test_f64_problem_custom_edge_kernels_match_plain(monkeypatch):
         plain.iterations, plain.accepted, plain.pcg_iterations)
     np.testing.assert_allclose(kern.trace.cost[:k].numpy(),
                                plain.trace.cost[:k].numpy(), rtol=1e-9)
+
+
+# The split-segment launch of kernels 1 and 3 (csrc/segreduce.cuh,
+# reduce_split_segments): plans whose segments are long, as lengths.
+_SPLIT_C, _SPLIT_A = tseg.SPLIT_CHUNK, tseg.SPLIT_ABOVE
+_SPLIT_PLANS = {
+    "one_segment_200000": [200_000],
+    "edge_lengths": [0, 1, _SPLIT_C - 1, _SPLIT_C, _SPLIT_C + 1, _SPLIT_A,
+                     _SPLIT_A + 1, 7 * _SPLIT_C + 3],
+    "zipf_tracks_x16": None,
+}
+
+
+def _split_plan(lengths, dev):
+    """A device plan of consecutive segments of `lengths` slots (the zipf
+    case: the track lengths of a heavy-tailed graph's 2000 points, each
+    times 16, so that the mean length reaches the block launch's)."""
+    if lengths is None:
+        from megba_tpu_torch.io.synthetic import heavy_tailed_graph
+
+        _, pt_idx = heavy_tailed_graph(12, 2000, seed=3)
+        lengths = 16 * np.bincount(pt_idx, minlength=2000)
+    lengths = np.asarray(lengths, np.int64)
+    idx = np.repeat(np.arange(lengths.shape[0]), lengths).astype(np.int32)
+    hplan = tseg.build_seg_plan(idx, lengths.shape[0])
+    return tseg.device_plan(hplan, np.zeros_like(hplan.perm), dev)
+
+
+def _split_inputs(seed, n, od, d, arm, dev):
+    rows_dt, vec_dt, _ = _ARMS[arm]
+    rng = np.random.default_rng(seed)
+    J = torch.from_numpy(0.1 * rng.standard_normal((od * d, n))).to(dev)
+    u = torch.from_numpy(rng.standard_normal((od, n))).to(dev)
+    return J.to(rows_dt), u.to(vec_dt)
+
+
+def _split_calls(J, u, plan, d, arm):
+    """(name, kernel, plain, args, kwargs) of kernels 1 (f32 / f64 arms
+    only) and 3 on one plan."""
+    ops = _ARMS[arm][2]
+    calls = [("coupling_reduce", tseg.coupling_reduce,
+              tseg.coupling_reduce_plain, (J, u, plan, d),
+              dict(bf16_operands=ops))]
+    if J.dtype == u.dtype:
+        calls.insert(0, ("jtj_grad_reduce", tseg.jtj_grad_reduce,
+                         tseg.jtj_grad_reduce_plain, (J, u, plan), {}))
+    return calls
+
+
+def _cat(x):
+    return torch.cat(x) if isinstance(x, tuple) else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", list(_ARMS))
+@pytest.mark.parametrize("od,d", tseg.SUPPORTED_BLOCKS,
+                         ids=[f"{od}x{d}" for od, d in tseg.SUPPORTED_BLOCKS])
+def test_cuda_split_segments_match_plain(od, d, arm):
+    """On the card: kernels 1 and 3 on plans of long segments (one
+    segment of 200,000 slots; lengths 0, 1, C - 1, C, C + 1 and 7C + 3;
+    Zipf track lengths, times 16) at every listed block shape and
+    arm (lengths A = SPLIT_ABOVE and A + 1 too: one chunk, and the
+    first length split), against the plain versions within 1e-5 (float
+    sums) / 1e-12
+    (double sums) of the terms' magnitude sums, the float sums against
+    the plain version in float64 (over 1e5 slots two float32 orders part
+    by more); empty segments exactly zero; two launches bitwise equal;
+    kernel 1 then kernel 3 on one plan, twice, bitwise the same both
+    times (each launch leaves the plan's counters at zero)."""
+    dev = _need_card()
+    vec_dt = _ARMS[arm][1]
+    for case, lengths in _SPLIT_PLANS.items():
+        plan = _split_plan(lengths, dev)
+        assert not plan.per_thread and plan.split is not None, case
+        J, u = _split_inputs(7, plan.n_slots, od, d, arm, dev)
+        calls = _split_calls(J, u, plan, d, arm)
+        first = [_cat(k(*a, **kw)) for _, k, _, a, kw in calls]
+        second = [_cat(k(*a, **kw)) for _, k, _, a, kw in calls]
+        torch.cuda.synchronize()
+        assert not plan.split.counters.any(), case
+        lens = plan.seg_ptr[1:] - plan.seg_ptr[:-1]
+        for (name, _, plain, args, kw), got, again in zip(calls, first,
+                                                          second):
+            assert got.dtype == vec_dt and torch.equal(got, again), (
+                case, name)
+            assert not got[:, lens == 0].any(), (case, name)
+            f64 = tuple(a.to(torch.float64) if isinstance(a, torch.Tensor)
+                        and a.dtype == torch.float32 else a for a in args)
+            ref = _cat(plain(*f64, **kw))
+            scale = _cat(plain(*(a.abs() if isinstance(a, torch.Tensor)
+                                 and a.is_floating_point() else a
+                                 for a in f64), **kw)).abs()
+            _within_abs_sum(f"{case} {name}", got.to(torch.float64), ref,
+                            scale, np.float64 if vec_dt == torch.float64
+                            else np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", list(_ARMS))
+@pytest.mark.parametrize("od,d", [(2, 9), (6, 3), (2, 12)],
+                         ids=["2x9", "6x3", "2x12"])
+def test_cuda_split_segment_sums_do_not_depend_on_the_offset(od, d, arm):
+    """On the card: a segment of 7C + 3 slots summed alone, and inside a
+    longer stream at an odd offset (after a 5-slot and an empty segment,
+    before a long one), gives bitwise the same sums in kernels 1 and 3:
+    its chunks, and so its summation order, depend on its length alone
+    (the bf16 rows' pair loads are misaligned at the odd offset and go
+    through single loads of the same values)."""
+    dev = _need_card()
+    L = 7 * _SPLIT_C + 3
+    alone = _split_plan([L], dev)
+    inside = _split_plan([5, 0, L, 2 * _SPLIT_C + 1], dev)
+    J, u = _split_inputs(8, L, od, d, arm, dev)
+    Jb, ub = _split_inputs(9, inside.n_slots, od, d, arm, dev)
+    Jb[:, 5:5 + L], ub[:, 5:5 + L] = J, u
+    for (name, kernel, _, a, kw), (_, _, _, b, _) in zip(
+            _split_calls(J, u, alone, d, arm),
+            _split_calls(Jb, ub, inside, d, arm)):
+        got_alone, got_inside = _cat(kernel(*a, **kw)), _cat(kernel(*b, **kw))
+        torch.cuda.synchronize()
+        assert torch.equal(got_alone[:, 0], got_inside[:, 2]), name

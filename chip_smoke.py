@@ -137,7 +137,25 @@ exception ends the run with a non-zero exit code:
    (6, 3, 2) with fused kernels) kernels against plain versions at f64,
    and once at f32, unfused and fused; and a pan-tilt camera edge of
    five parameters, whose kernels (1-3 at (2, 5), 7 at (5, 3, 2), 6 at
-   5) are built at first use, fused, kernels against plain at f64.
+   5) are built at first use, fused, kernels against plain at f64;
+10. pose graphs: the pose-graph driver (`models/pgo.solve_pgo`), whose
+   sums run through kernels 1-3 at (6, 6) (SE(3)) or (7, 7) (sim(3)) and
+   kernel 6 at 6 or 7: on 4,096-pose graphs at f64 (`ProblemOption()`
+   under `PGO_SMALL_LM`) SE(3), sim(3), Huber, priors and world 2 on
+   the one card, kernels against plain versions (trial costs at rtol
+   1e-9, equal counts and status, poses within 1e-9 of their magnitude;
+   world 2 also against world 1); a g2o file with EDGE_SE3_PRIOR
+   records through `solve_g2o`, bitwise `solve_pgo` on the arrays read
+   back; at full size (`PGO_FULL`, the JAX package's PGO_SCALE.json:
+   50,000 poses, 15,000 loop closures) f32 and f64 of each family under
+   `solve_pgo`'s defaults with `PGO_FULL_LM` LM iterations (wall, LM /
+   accept / PCG, peak, the largest translation drift from the ground
+   truth before and after, the device's busy share under
+   torch.profiler; gated on a finite cost below the initial and a
+   smaller drift); launches as the code implies on every run
+   (`pgo_expected_launches`); and kernel rows `name(shape) pgo` /
+   `name(shape)[f64] pgo` of 1-3 (both sides) and 6 on the full-size
+   plans, each carrying its launches from the full-size run of its arm.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -745,10 +763,16 @@ def kernel_modules():
     return segtiles, fused
 
 
+def untagged(row: str) -> str:
+    """A kernel row's name without its path tag ("name(6,6)[f64] pgo":
+    the pose-graph rows of phase 10)."""
+    return row.split(" ")[0]
+
+
 def base_name(row: str) -> str:
     """The kernel wrapper of a kernel row ("name", "name[arm]",
-    "name(od,d)" or "name(od,d)[arm]")."""
-    return row.split("[")[0].split("(")[0]
+    "name(od,d)" or "name(od,d)[arm]", with or without a path tag)."""
+    return untagged(row).split("[")[0].split("(")[0]
 
 
 def kernel_module(name: str):
@@ -992,6 +1016,7 @@ def _plan_of(args):
 
 def row_arm(name: str) -> str:
     """The precision arm of a kernel row: "name[arm]" or f32."""
+    name = untagged(name)
     return name.split("[")[1][:-1] if "[" in name else "f32"
 
 
@@ -1000,7 +1025,7 @@ def row_shape(name: str):
     kernels 1-3, (F,) for 4-5, (d,) for 6, (d_in, d_out) for 8, (cd, pd,
     od) for 7), or None (the BAL rows, whose sides are the camera and the
     point)."""
-    head = name.split("[")[0]
+    head = untagged(name).split("[")[0]
     if "(" not in head:
         return None
     return tuple(int(v) for v in head[head.index("(") + 1:-1].split(","))
@@ -1569,24 +1594,34 @@ def host_ms_per_call(fn, calls: int = 200) -> float:
     return t / calls * 1e3
 
 
+# Profiled windows per device-time reading: a window of 200 small launches
+# has come back from torch.profiler with no device event at all on an
+# H100, so a reading takes up to this many windows before it fails.
+DEVICE_TIME_WINDOWS = 3
+
+
 def device_ms_per_call(fn, calls: int = 200) -> float:
     """torch.profiler's device time of `calls` calls of `fn`, summed over
-    every kernel they launch, per call, in milliseconds."""
+    every kernel they launch (the trace's device events,
+    `device_time_by_name`), per call, in milliseconds.  A window that
+    recorded no device time is profiled again, up to
+    `DEVICE_TIME_WINDOWS` windows; then the reading fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if e.device_type.name == "CUDA")
-    if not us > 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / calls / 1e3
+    for window in range(1, DEVICE_TIME_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us, _ = device_time_by_name(prof)
+        if us > 0:
+            return us / calls / 1e3
+        log(f"torch.profiler recorded no device time in window {window} of "
+            f"{DEVICE_TIME_WINDOWS}")
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 # ---------------------------------------------------------------------------
@@ -3035,6 +3070,390 @@ def factor_phase(venice, trafalgar64) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: pose graphs
+# ---------------------------------------------------------------------------
+
+# The pose-graph driver's full size: the JAX package's scale record
+# (PGO_SCALE.json, scripts/pgo_scale_cpu.py: 50,000 poses, 15,000 loop
+# closures, odometry drift 0.005), here with measurement noise 0.01, under
+# solve_pgo's defaults (ProblemOption()) with PGO_FULL_LM LM iterations.
+PGO_FULL = dict(num_poses=50_000, loop_closures=15_000, meas_noise=0.01,
+                drift_noise=0.005)
+PGO_FULL_LM = 30
+# The f64 kernels-vs-plain graph: 4,096 poses at the generator's drift,
+# ProblemOption() under PGO_SMALL_LM LM iterations, which stop before the
+# cost floor (past it an accept turns on rounding).
+PGO_SMALL = dict(num_poses=4096, loop_closures=1200, meas_noise=0.01)
+PGO_SMALL_LM = 4
+PGO_FACTORS = {"se3": "se3_between", "sim3": "sim3_between"}
+# The f64 paths: (family, robust kind, priors on three poses, world size).
+# The world-2 path is also held to its world-1 path (PGO_MESH_BASE).
+PGO_PATHS = {
+    "se3": ("se3", None, False, 1),
+    "sim3": ("sim3", None, False, 1),
+    "se3_huber": ("se3", "HUBER", False, 1),
+    "se3_priors": ("se3", None, True, 1),
+    "se3_w2": ("se3", None, False, 2),
+}
+PGO_MESH_BASE = {"se3_w2": "se3"}
+PGO_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
+               "fused_block_diag_apply")
+
+
+def pgo_graph(family: str, cfg: dict):
+    """A synthetic loop-closure graph of a family (seed 0)."""
+    from megba_tpu_torch.factors.sim3 import make_synthetic_sim3_graph
+    from megba_tpu_torch.models.pgo import make_synthetic_pose_graph
+
+    make = (make_synthetic_sim3_graph if family == "sim3"
+            else make_synthetic_pose_graph)
+    t = time.perf_counter()
+    g = make(seed=0, **cfg)
+    log(f"pose graph {family}: {g.poses0.shape[0]} poses, "
+        f"{g.edge_i.shape[0]} edges, made in {time.perf_counter() - t:.1f} s")
+    return g
+
+
+def pgo_expected_launches(res, world: int, d: int) -> dict:
+    """The launches of a solve_pgo run as the code implies, per kernel
+    and shape: per shard, kernel 1 twice per linearisation (the initial
+    one and one per accept), kernels 2 and 3 twice per matvec (one PCG
+    solve per LM iteration: its PCG iterations and one priming matvec),
+    kernel 2 twice more per gain ratio; kernel 6 once per matvec, on the
+    first device.  No warm starts on these paths."""
+    mv = res.pcg_iterations + res.iterations
+    out = {f"jtj_grad_reduce({d},{d})": 2 * world * (1 + res.accepted),
+           f"coupling_expand({d},{d})": 2 * world * (mv + res.iterations),
+           f"coupling_reduce({d},{d})": 2 * world * mv,
+           f"fused_block_diag_apply({d})": mv}
+    return {k: v for k, v in out.items() if v}
+
+
+def pgo_launches(what: str, res, world: int, d: int) -> dict:
+    """The run's launches per kernel shape, checked against the code's
+    count; no other kernel may have launched."""
+    from megba_tpu_torch.ops import fused, segtiles
+
+    counts = {k: v for k, v in launch_counts().items() if v}
+    shapes = {k: v for k, v in {**segtiles.shape_launch_counts(),
+                                **fused.shape_launch_counts()}.items() if v}
+    want = pgo_expected_launches(res, world, d)
+    if shapes != want or set(counts) != set(PGO_KERNELS):
+        raise AssertionError(f"{what}: launches {shapes}, the code implies "
+                             f"{want}")
+    return shapes
+
+
+@contextlib.contextmanager
+def record_trial_costs():
+    """Collect each LM iteration's trial cost of the solve_pgo runs
+    inside (summed over the shards in shard order, as the loop sums
+    them): a list the context yields."""
+    from megba_tpu_torch.models import pgo
+
+    inner = pgo._trial_cost
+    parts = []
+
+    def recorded(sh, *args):
+        out = inner(sh, *args)
+        parts.append(out)
+        return out
+
+    pgo._trial_cost = recorded
+    try:
+        yield parts
+    finally:
+        pgo._trial_cost = inner
+
+
+def pgo_path_inputs(path: str, graphs: dict):
+    """(arrays, keywords, option, world) of an f64 path on the small
+    graph of its family."""
+    from megba_tpu_torch import AlgoOption, ProblemOption, RobustKind
+    from megba_tpu_torch.models.pgo import with_priors
+
+    family, robust, priors, world = PGO_PATHS[path]
+    g = graphs[family]
+    args, kw = [g.poses0, g.edge_i, g.edge_j, g.meas], {}
+    if priors:
+        n = g.poses0.shape[0]
+        idx = np.array([7, n // 3, (2 * n) // 3])
+        out = with_priors(*args, prior_idx=idx, prior_poses=g.poses_gt[idx],
+                          prior_sqrt_info=np.broadcast_to(
+                              np.eye(6) * 10.0, (3, 6, 6)))
+        args, kw = list(out[:4]), dict(fixed=out[4], sqrt_info=out[5])
+    opt = ProblemOption(world_size=world,
+                        algo_option=AlgoOption(max_iter=PGO_SMALL_LM))
+    if robust is not None:
+        opt = dataclasses.replace(opt, robust_kind=RobustKind[robust],
+                                  robust_delta=0.1)
+    return args, dict(kw, factor=PGO_FACTORS[family]), opt, world
+
+
+def pgo_run(args, kw, opt, world: int):
+    """One solve_pgo run on the card with its trial costs (every shard
+    on the one card)."""
+    from megba_tpu_torch.models.pgo import solve_pgo
+
+    device = [DEVICE] * world if world > 1 else DEVICE
+    reset_launch_counts()
+    with record_trial_costs() as parts:
+        res = solve_pgo(*args, opt, device=device, **kw)
+    torch.cuda.synchronize()
+    trial = torch.stack([sum(parts[k * world:(k + 1) * world][1:],
+                             parts[k * world].to(DEVICE))
+                         for k in range(res.iterations)]).cpu().numpy()
+    return res, trial
+
+
+def pgo_gate(what: str, kern, kt, ref, rt) -> float:
+    """Two runs agree: trial costs at rtol 1e-9, equal LM, accept and PCG
+    counts and status, poses within 1e-9 of their magnitude.  Returns the
+    trial costs' largest relative gap."""
+    gap = float(np.max(np.abs(kt - rt) / np.abs(rt))) if len(rt) else 0.0
+    err = float((kern.poses - ref.poses).abs().max())
+    if (kern.iterations, kern.accepted, kern.pcg_iterations, kern.status) \
+            != (ref.iterations, ref.accepted, ref.pcg_iterations,
+                ref.status) or not gap <= F64_COST_RTOL \
+            or not err <= 1e-9 * float(ref.poses.abs().max()):
+        raise AssertionError(
+            f"{what}: {kern.iterations} LM / {kern.accepted} accepted / "
+            f"{kern.pcg_iterations} PCG against {ref.iterations} / "
+            f"{ref.accepted} / {ref.pcg_iterations}, trial costs {gap:.3e} "
+            f"apart, poses {err:.3e} apart")
+    return gap
+
+
+def pgo_f64_paths(graphs: dict) -> dict:
+    """Each f64 path through the kernels and through the plain versions
+    on the small graph, under `pgo_gate`, with launches as the code
+    implies; the world-2 path also against its world-1 path.  Returns the
+    kernel runs' launches per shape, summed."""
+    launches, kernel_runs = {}, {}
+    for path in PGO_PATHS:
+        args, kw, opt, world = pgo_path_inputs(path, graphs)
+        d = 7 if kw["factor"] == "sim3_between" else 6
+        kern, kt = pgo_run(args, kw, opt, world)
+        shapes = pgo_launches(f"pgo f64 {path}", kern, world, d)
+        with plain_path():
+            plain, pt = pgo_run(args, kw, opt, world)
+        gap = pgo_gate(f"pgo f64 {path} kernels vs plain", kern, kt, plain,
+                       pt)
+        extra = ""
+        if path in PGO_MESH_BASE:
+            base, bt = kernel_runs[PGO_MESH_BASE[path]]
+            w1 = pgo_gate(f"pgo f64 {path} vs world 1", kern, kt, base, bt)
+            extra = f"; against world 1 {w1:.3e}"
+        if kern.accepted < 1 or not float(kern.cost) < float(
+                kern.initial_cost):
+            raise AssertionError(f"pgo f64 {path}: the cost did not fall")
+        kernel_runs[path] = (kern, kt)
+        for k, v in shapes.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"pgo f64 {path}: cost {float(kern.initial_cost):.10e} -> "
+            f"{float(kern.cost):.10e}, {kern.iterations} LM iterations "
+            f"({kern.accepted} accepted), {kern.pcg_iterations} PCG, status "
+            f"{kern.status}; trial costs kernels vs plain {gap:.3e}{extra}; "
+            f"launches {shapes} (as the code implies)")
+    return launches
+
+
+def pgo_g2o_round_trip(g) -> dict:
+    """A g2o file with EDGE_SE3_PRIOR records written from the small SE(3)
+    graph, read and solved by solve_g2o on the card: bitwise
+    with_priors + solve_pgo on the arrays read back.  Returns the
+    solve_g2o run's launches per shape."""
+    import tempfile
+
+    from megba_tpu_torch import AlgoOption, ProblemOption
+    from megba_tpu_torch.core.linalg import psd_sqrt
+    from megba_tpu_torch.io.g2o import (G2OGraph, read_g2o, solve_g2o,
+                                        sqrt_info_of, write_g2o)
+    from megba_tpu_torch.models.pgo import solve_pgo, with_priors
+
+    n = g.poses0.shape[0]
+    idx = np.array([11, n // 2], np.int32)
+    graph = G2OGraph(
+        poses=g.poses0, edge_i=g.edge_i, edge_j=g.edge_j, meas=g.meas,
+        info=np.tile(np.diag([4.0, 4.0, 4.0, 1.0, 1.0, 1.0]),
+                     (g.edge_i.shape[0], 1, 1)),
+        fixed=np.eye(1, n, 0, dtype=bool)[0], ids=np.arange(n) * 2 + 5,
+        had_fix=False, prior_idx=idx, prior_meas=g.poses_gt[idx],
+        prior_info=np.tile(np.eye(6) * 100.0, (2, 1, 1)))
+    opt = ProblemOption(algo_option=AlgoOption(max_iter=PGO_SMALL_LM))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "graph.g2o")
+        write_g2o(path, graph)
+        reset_launch_counts()
+        back, res = solve_g2o(path, opt, device=DEVICE)
+        torch.cuda.synchronize()
+        shapes = pgo_launches("pgo g2o", res, 1, 6)
+        back2 = read_g2o(path)
+    arrays = with_priors(back2.poses, back2.edge_i, back2.edge_j, back2.meas,
+                         prior_idx=back2.prior_idx,
+                         prior_poses=back2.prior_meas,
+                         prior_sqrt_info=psd_sqrt(back2.prior_info),
+                         fixed=np.zeros(n, bool),
+                         sqrt_info=sqrt_info_of(back2))
+    ref = solve_pgo(*arrays[:4], opt, sqrt_info=arrays[5], fixed=arrays[4],
+                    device=DEVICE)
+    if not (bitwise_equal(res.cost, ref.cost)
+            and bitwise_equal(res.poses, ref.poses[:n].contiguous())
+            and back.prior_idx.tolist() == idx.tolist()
+            and res.accepted >= 1):
+        raise AssertionError("pgo g2o: solve_g2o is not bitwise solve_pgo "
+                             "on the arrays read back")
+    log(f"pgo g2o round trip: {n} poses, {back.edge_i.shape[0]} edges, "
+        f"{back.prior_idx.shape[0]} EDGE_SE3_PRIOR records; cost "
+        f"{float(res.initial_cost):.10e} -> {float(res.cost):.10e}, "
+        f"{res.iterations} LM iterations, bitwise solve_pgo's")
+    return shapes
+
+
+def pgo_full_solve(family: str, g, dtype) -> dict:
+    """One full-size solve: wall, LM / accept / PCG counts, peak memory,
+    launches as the code implies, the maximum translation drift from the
+    ground truth before and after (gated: a finite final cost below the
+    initial, a smaller drift), then the same solve under torch.profiler
+    for the device's busy share.  Returns the launches per shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from megba_tpu_torch import AlgoOption, ProblemOption
+    from megba_tpu_torch.models.pgo import solve_pgo
+
+    what = f"pgo full {family} {np.dtype(dtype).name}"
+    d = g.poses0.shape[1]
+    opt = ProblemOption(dtype=dtype,
+                        algo_option=AlgoOption(max_iter=PGO_FULL_LM))
+    args = (g.poses0, g.edge_i, g.edge_j, g.meas, opt)
+    kw = dict(factor=PGO_FACTORS[family], device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    res = solve_pgo(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    shapes = pgo_launches(what, res, 1, d)
+
+    def drift(poses):
+        return float(np.max(np.linalg.norm(
+            np.asarray(poses, np.float64)[:, 3:6] - g.poses_gt[:, 3:6],
+            axis=1)))
+
+    d0, d1 = drift(g.poses0), drift(res.poses.cpu().numpy())
+    c0, c1 = float(res.initial_cost), float(res.cost)
+    if not (np.isfinite(c1) and c1 < c0 and d1 < d0):
+        raise AssertionError(f"{what}: cost {c0} -> {c1}, drift {d0} -> "
+                             f"{d1}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        solve_pgo(*args, **kw)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t
+    dev_us, by_name = device_time_by_name(prof)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    log(f"{what}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM iterations "
+        f"({res.accepted} accepted), {res.pcg_iterations} PCG, status "
+        f"{res.status}, solve_pgo {wall:.3f} s = "
+        f"{wall / max(res.iterations, 1) * 1e3:.1f} ms per LM iteration "
+        f"(planning and transfer included), peak memory "
+        f"{peak / 2**30:.3f} GiB; max translation drift {d0:.6f} -> "
+        f"{d1:.6f}; under torch.profiler {pwall:.3f} s, device busy "
+        f"{dev_us / 1e6:.3f} s ({dev_us / 1e6 / pwall:.1%}); launches "
+        f"{shapes} (as the code implies); top device time: " + ", ".join(
+            f"{name[:48]} {us / 1e3:.1f} ms" for name, us in top))
+    return shapes
+
+
+def device_time_by_name(prof):
+    """(device microseconds, {kernel name: microseconds}) of a finished
+    torch.profiler run, summed over its device events straight from the
+    trace: `key_averages()` builds the event tree first, which took tens
+    of seconds on the H100 host for a full-size pose-graph solve's ~10^5
+    small launches."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e.device_type(), "name", "") == "CUDA":
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + \
+                e.duration_ns() / 1e3
+    return sum(by_name.values()), by_name
+
+
+def pgo_kernel_cases(family: str, g) -> dict:
+    """The phase's kernel rows at the family's shapes on its full-size
+    plans (the i-side and the j-side of kernels 1-3, kernel 6 over the
+    poses), f32 and f64, each named with the tag " pgo": seeded random
+    rows as in `shape_cases`; the library yardsticks cuSPARSE CSR
+    products for 2 and 3 and `torch.einsum` for 6."""
+    from megba_tpu_torch.ops import segtiles
+
+    d = g.poses0.shape[1]
+    n_poses = g.poses0.shape[0]
+    _, plans = segtiles.make_dual_plans(g.edge_i, g.edge_j, n_poses, n_poses,
+                                        DEVICE)
+    for side, plan in (("i", plans.cam), ("j", plans.pt)):
+        log(f"pgo {family} {side} side ({d}, {d}): {plan.num_segments} "
+            f"segments, {plan.n_slots} slots; kernels 1 and 3 "
+            f"{launch_shape(plan)}")
+    cases = shape_cases(d, d, plans.cam, f"pgo_{family}_i")
+    for name, sides in shape_cases(d, d, plans.pt,
+                                   f"pgo_{family}_j").items():
+        cases[name] = cases[name] + sides
+    gen = torch.Generator(device=DEVICE).manual_seed(d)
+    for dtype, elt, suffix in ((torch.float32, 4, ""),
+                               (torch.float64, 8, "[f64]")):
+        Hrows = torch.randn((d * d, n_poses), generator=gen, device=DEVICE,
+                            dtype=dtype)
+        x = torch.randn((d, n_poses), generator=gen, device=DEVICE,
+                        dtype=dtype)
+        Minv = Hrows.T.reshape(n_poses, d, d)
+        cases[f"fused_block_diag_apply({d}){suffix}"] = [_case(
+            f"pgo_{family}", (Hrows, x), (d * d + 2 * d) * n_poses * elt,
+            2 * d * d * n_poses,
+            lambda Minv=Minv, x=x: lambda: torch.einsum("nij,jn->in", Minv,
+                                                        x),
+            ref64=dtype == torch.float32)]
+    return {f"{name} pgo": sides for name, sides in cases.items()}
+
+
+def pgo_phase() -> dict:
+    """Phase 10: the pose-graph driver (models/pgo.py) on the card.  The
+    f64 paths kernels against plain on the small graphs, the g2o round
+    trip, the full-size f32 and f64 solves of each family, then the
+    kernel rows at (6, 6) / 6 and (7, 7) / 7, each carrying its launches
+    from the full-size run of its arm and family.  Returns the rows."""
+    t0 = time.perf_counter()
+    small = {f: pgo_graph(f, PGO_SMALL) for f in PGO_FACTORS}
+    pgo_f64_paths(small)
+    pgo_g2o_round_trip(small["se3"])
+    del small
+    steps = [time.perf_counter()]
+    rows = {}
+    for family in PGO_FACTORS:
+        g = pgo_graph(family, PGO_FULL)
+        launches = {arm: pgo_full_solve(family, g, dtype)
+                    for arm, dtype in (("f32", np.float32),
+                                       ("f64", np.float64))}
+        steps.append(time.perf_counter())
+        fam_rows = measure_rows(pgo_kernel_cases(family, g))
+        for name, row in fam_rows.items():
+            key = untagged(name)
+            arm = "f64" if key.endswith("[f64]") else "f32"
+            row["launches"] = launches[arm].get(key.replace("[f64]", ""))
+        rows.update(fam_rows)
+        del g
+        torch.cuda.empty_cache()
+        steps.append(time.perf_counter())
+    log(f"pgo phase: {time.perf_counter() - t0:.1f} s (f64 paths and g2o "
+        f"{steps[0] - t0:.1f} s; per family full-size solves, kernel rows: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(steps, steps[1:]))
+        + " s)")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -3089,6 +3508,7 @@ def main() -> int:
                 rows[row]["launches"] = arms.get(row, 0)
     locality_phase(make_scene(LOCALITY, np.float32), opts.profile)
     rows.update(factor_phase(venice, make_scene(TRAFALGAR, np.float64)))
+    rows.update(pgo_phase())
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernel rows never launched on their "

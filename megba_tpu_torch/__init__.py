@@ -11,12 +11,15 @@ CPU with `device="cpu"`.  Jacobians come from reverse- or forward-mode
 `torch.func` or the closed form (`make_residual_jacobian_fn`), with
 optional Huber / Cauchy losses (`rho_and_weight`, `robustify`);
 `Jet` / `seed_jets` are JetVector-style forward-mode dual numbers.
-`flat_solve(..., factor=...)` solves any registered residual family
-(`factors`: bal, planar, rig, pinhole_radial, pose_prior, and the
-pose-graph specs, whose driver is not ported yet; `register_factor` adds
-one), and `BaseProblem` with `CameraVertex` / `PointVertex` / `BaseEdge`
-is the g2o-style object API over it.  `RobustOption(guards=True)`
-contains faults, and `flat_solve(...,
+`flat_solve(..., factor=...)` solves any registered camera/point
+residual family (`factors`: bal, planar, rig, pinhole_radial,
+pose_prior; `register_factor` adds one), and `BaseProblem` with
+`CameraVertex` / `PointVertex` / `BaseEdge` is the g2o-style object API
+over it.  `solve_pgo` solves SE(3) and sim(3) pose graphs (the
+registered `se3_between` / `sim3_between` families, models/pgo.py),
+`solve_g2o` a `.g2o` file (io/g2o.py), and `BaseProblem` with
+`PoseVertex` / `BetweenEdge` routes a pose graph to `solve_pgo`.
+`RobustOption(guards=True)` contains faults, and `flat_solve(...,
 fault_plan=...)` seeds them (`FaultPlan`, `make_nan_burst`,
 `make_point_indefinite_burst`).  `ProblemOption(world_size=N)` solves
 over N shards (`parallel/mesh.py`), the 1-D edge-sharded mesh or the 2-D
@@ -75,3 +78,17 @@ from megba_tpu_torch.robustness.faults import (
     make_point_indefinite_burst,
 )
 from megba_tpu_torch.solve import flat_solve, solve_bal
+
+
+def solve_pgo(*args, **kwargs):
+    """Solve a pose graph: see models/pgo.py."""
+    from megba_tpu_torch.models.pgo import solve_pgo as _solve_pgo
+
+    return _solve_pgo(*args, **kwargs)
+
+
+def solve_g2o(*args, **kwargs):
+    """Read and solve a .g2o pose-graph file: see io/g2o.py."""
+    from megba_tpu_torch.io.g2o import solve_g2o as _solve_g2o
+
+    return _solve_g2o(*args, **kwargs)

@@ -6,8 +6,9 @@ a registered factor's widths) into tensors on a given device and dtype;
 `schur_system_to_torch` turns an assembled Schur system of the JAX
 package (its fields read as numpy) into the port's `SchurSystem`;
 `fault_plan_to_torch` turns a fault plan of the JAX package into the
-port's `FaultPlan`; `result_to_numpy` turns an `LMResult` back into
-numpy.  Both packages then compute on the same
+port's `FaultPlan`; `g2o_graph_to_torch` copies a parsed `G2OGraph` of
+the JAX package into the port's (io/g2o.py); `result_to_numpy` turns an
+`LMResult` back into numpy.  Both packages then compute on the same
 inputs.
 """
 
@@ -121,6 +122,19 @@ def fault_plan_to_torch(plan, *, device: Union[str, torch.device] = "cpu"
                      point_crush=put(plan.point_crush),
                      window=(int(window[0]), int(window[1])),
                      offset=int(np.asarray(plan.offset)))
+
+
+def g2o_graph_to_torch(graph):
+    """A `G2OGraph` with the JAX package's fields -> the port's
+    `io.g2o.G2OGraph`, every array copied (numpy, host side), so one
+    parsed graph is solved by both packages."""
+    from megba_tpu_torch.io.g2o import G2OGraph
+
+    def copy(v):
+        return v if isinstance(v, bool) else np.array(v)
+
+    return G2OGraph(**{f.name: copy(getattr(graph, f.name))
+                       for f in dataclasses.fields(G2OGraph)})
 
 
 def _np(x):

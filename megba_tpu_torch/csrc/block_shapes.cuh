@@ -26,4 +26,5 @@ MEGBA_BLOCK(2, 12)  // pinhole_radial camera
 MEGBA_BLOCK(6, 6)   // pose_prior pose
 MEGBA_BLOCK(6, 3)   // pose_prior (dummy) point
 MEGBA_BLOCK(2, 6)   // a Problem edge on a 6-dof pose camera
+MEGBA_BLOCK(7, 7)   // sim3_between pose (se3_between poses: (6, 6))
 #endif

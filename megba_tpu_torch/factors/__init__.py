@@ -12,8 +12,8 @@ and `problem.BaseProblem`:
   - ``pinhole_radial`` full-intrinsics radial pinhole (12/3/2)
   - ``pose_prior``     GPS/IMU/marginalization unary SE(3) prior (6/3/6)
 
-Pose-graph families, whose driver is not ported yet (the Schur pipeline
-refuses them):
+Pose-graph families, solved by `models.pgo.solve_pgo(factor=)` (the
+Schur pipeline refuses them):
 
   - ``se3_between``    SE(3) between-factor PGO (6-dof)
   - ``sim3_between``   scale-aware sim(3) PGO (7-dof)

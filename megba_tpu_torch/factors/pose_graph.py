@@ -1,10 +1,9 @@
 """SE(3) between-factor PGO as a registered pose-graph factor.
 
 Counterpart of `megba_tpu/factors/pose_graph.py`, with the residual of
-`megba_tpu/models/pgo.py` (`between_residual`).  Its driver,
-`solve_pgo`, is not ported yet (ROADMAP Queue 1.7): the spec is
-registered so that the registry names the JAX package's seven families,
-and the Schur pipeline refuses it (`registry.require_schur`).
+`megba_tpu/models/pgo.py` (`between_residual`).  Its driver is
+`models/pgo.solve_pgo` (the default factor there); the Schur pipeline
+refuses it (`registry.require_schur`).
 
 Model: pose = [angle_axis (3), translation (3)], T maps body -> world; a
 measurement m on edge (i, j) is the expected relative pose

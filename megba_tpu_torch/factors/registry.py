@@ -9,9 +9,8 @@ and validates the arrays against it.
 
 Two spec kinds cover the solver's two drivers: `FactorSpec` for the
 camera/point (Schur) pipeline and `PoseFactorSpec` for the pose-graph
-driver (two same-kind blocks), which this package does not have yet:
-its specs are registered, and `require_schur` refuses them at the Schur
-pipeline's door.  Both kinds are frozen and hashable: a spec is a cache
+driver (two same-kind blocks, `models/pgo.solve_pgo`), whose specs
+`require_schur` refuses at the Schur pipeline's door.  Both kinds are frozen and hashable: a spec is a cache
 key.
 
 The residual functions of this package act on the leading (feature) axis
@@ -180,14 +179,13 @@ def list_factors() -> Dict[str, AnySpec]:
 
 def require_schur(spec: AnySpec, where: str) -> FactorSpec:
     """Typed refusal when a pose-graph factor reaches the Schur pipeline
-    (its blocks are of one kind).  The pose-graph driver, `solve_pgo`, is
-    not in this package yet (ROADMAP Queue 1.7)."""
+    (its blocks are of one kind): point the caller at `solve_pgo`."""
     if spec.kind != "schur":
         raise FactorError(
             f"{where}: factor {spec.name!r} is a pose-graph family "
-            "(two same-kind blocks); solve it with the pose-graph driver "
-            "models.pgo.solve_pgo(factor=...), not the camera/point Schur "
-            "pipeline (megba_tpu_torch has no pose-graph driver yet)")
+            "(two same-kind blocks); solve it with "
+            "megba_tpu_torch.models.pgo.solve_pgo(factor=...), not the "
+            "camera/point Schur pipeline")
     return spec  # type: ignore[return-value]
 
 

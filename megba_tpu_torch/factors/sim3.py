@@ -12,11 +12,14 @@ and the between residual on edge (i, j) with measurement m = T_i^{-1} T_j:
   E     = T_m^{-1} T_rel
   r     = [log_SO3(E_R); E_t; E_l]            (7 rows)
 
-with the host chart maps `compose_sim3` / `relative_sim3`.  The
-pose-graph driver that solves it is not ported yet (ROADMAP Queue 1.7).
+with the host chart maps `compose_sim3` / `relative_sim3` and the
+synthetic graph generator `make_synthetic_sim3_graph`.  The pose-graph
+driver `models/pgo.solve_pgo(factor="sim3_between")` solves it.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -82,3 +85,62 @@ def relative_sim3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.concatenate(
         [se3[..., 0:3], np.exp(-a[..., 6:7]) * se3[..., 3:6],
          b[..., 6:7] - a[..., 6:7]], axis=-1)
+
+
+@dataclasses.dataclass
+class SyntheticSim3Graph:
+    """Ground truth + scale-drifted odometry init for a loop-closed
+    sim(3) graph."""
+
+    poses_gt: np.ndarray  # [N, 7]
+    poses0: np.ndarray
+    edge_i: np.ndarray
+    edge_j: np.ndarray
+    meas: np.ndarray  # [nE, 7]
+
+
+def make_synthetic_sim3_graph(
+    num_poses: int = 24,
+    loop_closures: int = 5,
+    meas_noise: float = 0.0,
+    drift_noise: float = 0.04,
+    scale_drift: float = 0.02,
+    seed: int = 0,
+) -> SyntheticSim3Graph:
+    """Circle trajectory with odometry + loop closures, monocular-style:
+    the init integrates noisy odometry whose LOG-SCALE also drifts, so
+    loop closures must correct rotation, translation AND scale.  The JAX
+    package's generator: the same seed gives equal arrays."""
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(num_poses) / num_poses
+    poses_gt = np.zeros((num_poses, SIM3_DIM))
+    poses_gt[:, 2] = th
+    poses_gt[:, 3] = np.cos(th)
+    poses_gt[:, 4] = np.sin(th)
+    poses_gt[:, 5] = 0.05 * np.sin(2 * th)
+    # A gentle scale wave keeps the scale dof live even in noise-free
+    # measurements.
+    poses_gt[:, 6] = 0.1 * np.sin(th)
+
+    ei = list(range(num_poses - 1))
+    ej = list(range(1, num_poses))
+    for _ in range(loop_closures):
+        a = int(rng.integers(0, num_poses - 4))
+        b = int(rng.integers(a + 2, num_poses))
+        ei.append(a)
+        ej.append(b)
+    ei, ej = np.asarray(ei, np.int32), np.asarray(ej, np.int32)
+
+    meas = (relative_sim3(poses_gt[ei], poses_gt[ej])
+            + meas_noise * rng.standard_normal((len(ei), SIM3_DIM)))
+
+    poses0 = poses_gt.copy()
+    cur = poses_gt[0].copy()
+    noise = rng.standard_normal((num_poses - 1, SIM3_DIM))
+    noise[:, 0:6] *= drift_noise
+    noise[:, 6] *= scale_drift
+    for k in range(1, num_poses):
+        cur = compose_sim3(cur, meas[k - 1] + noise[k - 1])
+        poses0[k] = cur
+    return SyntheticSim3Graph(
+        poses_gt=poses_gt, poses0=poses0, edge_i=ei, edge_j=ej, meas=meas)

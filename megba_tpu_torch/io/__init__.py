@@ -1,1 +1,1 @@
-"""BAL file IO and the synthetic scene generator (numpy)."""
+"""BAL and g2o file IO and the synthetic scene generator (numpy)."""

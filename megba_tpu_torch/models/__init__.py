@@ -4,11 +4,12 @@
 cameras, 3D points, 2D reprojections).  `planar`: 2D bundle adjustment
 (SE(2) pose + focal, 2D points, a 1D image line), the same solver at
 other block widths.  Each is a residual function (+ optional closed-form
-Jacobian).  The JAX package's third family, the pose-graph driver
-`pgo`, is not ported yet (ROADMAP Queue 1.7); its residual families are
-registered in `factors` (`se3_between`, `sim3_between`).
+Jacobian).  `pgo`: the pose-graph driver (`solve_pgo`) over the
+registered pose-graph families (`se3_between`, `sim3_between`), with
+unary priors (`with_priors`), the spanning-tree bootstrap and the
+synthetic loop-closure graph.
 """
 
-from megba_tpu_torch.models import bal, planar
+from megba_tpu_torch.models import bal, pgo, planar
 
-__all__ = ["bal", "planar"]
+__all__ = ["bal", "pgo", "planar"]

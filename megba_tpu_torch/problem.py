@@ -17,9 +17,9 @@ act on the leading axis as the residual functions of this package do.
 One engine per problem, never shared: the prototype edge's instance
 constants are baked into it.
 
-Pose graphs (PoseVertex + BetweenEdge) are accepted and checked as in
-the JAX package, but their driver, `solve_pgo`, is not ported yet
-(ROADMAP Queue 1.7): solving one raises `PoseGraphNotPortedError`.
+Pose graphs (PoseVertex + BetweenEdge) are checked as in the JAX
+package and lowered into the pose-graph driver, `models/pgo.solve_pgo`,
+whose `PGOResult` `solve()` returns.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from megba_tpu_torch.algo.lm import LMResult
 from megba_tpu_torch.common import (JacobianMode, ProblemOption,
                                     validate_options)
 from megba_tpu_torch.ops.residuals import (
@@ -38,10 +37,6 @@ from megba_tpu_torch.ops.residuals import (
     build_residual_jacobian_fn,
     make_residual_jacobian_fn,
 )
-
-
-class PoseGraphNotPortedError(NotImplementedError):
-    """A pose graph reached `solve()`: its driver is not ported yet."""
 
 
 class VertexKind(enum.Enum):
@@ -203,7 +198,8 @@ class BaseProblem:
         self._edges: List[BaseEdge] = []
         self._edge_type: Optional[type] = None
         self._engine: Optional[Callable] = None  # the custom-edge engine
-        self.result: Optional[LMResult] = None
+        # LMResult, or a PGOResult after a pose graph's solve.
+        self.result = None
 
     # -- graph construction ------------------------------------------------
     def append_vertex(self, vertex_id: int, vertex: BaseVertex) -> None:
@@ -287,13 +283,15 @@ class BaseProblem:
 
     def _lower_pgo(self):
         """The pose graph's arrays, checked as the JAX package checks
-        them (information matrices through `core.linalg.psd_sqrt`)."""
+        them (information matrices through `core.linalg.psd_sqrt`), with
+        the vertices' fixed flags and the (id, vertex) list."""
         poses = [(i, v) for i, v in self._vertices.items()
                  if v.kind == VertexKind.POSE]
         if not poses or not self._edges:
             raise ValueError("pose-graph problem needs poses and edges")
         rank = {id(v): r for r, (_, v) in enumerate(poses)}
         table = np.stack([v.estimation for _, v in poses])
+        fixed = np.array([v.fixed for _, v in poses])
         edge_i = np.array([rank[id(e.vertices[0])] for e in self._edges],
                           np.int32)
         edge_j = np.array([rank[id(e.vertices[1])] for e in self._edges],
@@ -306,19 +304,32 @@ class BaseProblem:
             infos = np.stack([e.information if e.information is not None
                               else np.eye(6) for e in self._edges])
             sqrt_info = psd_sqrt(infos, what="edge")
-        return table, edge_i, edge_j, meas, sqrt_info
+        return table, edge_i, edge_j, meas, fixed, sqrt_info, poses
 
-    def solve(self, verbose: bool = False) -> LMResult:
-        """Solve and write back (reference base_problem.cpp:273-278).
-        A pose graph raises `PoseGraphNotPortedError` once its arrays have
-        been checked."""
-        if self._edges and isinstance(self._edges[0], BetweenEdge):
+    def _solve_pgo(self, verbose: bool):
+        from megba_tpu_torch.models.pgo import solve_pgo
+
+        table, edge_i, edge_j, meas, fixed, sqrt_info, poses = \
             self._lower_pgo()
-            raise PoseGraphNotPortedError(
-                "pose-graph problems (PoseVertex + BetweenEdge) need the "
-                "pose-graph driver models/pgo.solve_pgo, which "
-                "megba_tpu_torch does not port yet (ROADMAP Queue 1.7, "
-                "the PGO slice)")
+        result = solve_pgo(
+            table, edge_i, edge_j, meas, self.option, sqrt_info=sqrt_info,
+            # No fixed vertex: solve_pgo's default gauge anchor (the
+            # first pose).
+            fixed=fixed if fixed.any() else None,
+            verbose=verbose, device=self.device)
+        out = result.poses.detach().cpu().numpy().astype(np.float64)
+        for r, (_, v) in enumerate(poses):
+            v.estimation = out[r].copy()
+        self.result = result
+        return result
+
+    def solve(self, verbose: bool = False):
+        """Solve and write back (reference base_problem.cpp:273-278).
+        Returns an LMResult for a BA graph; a pose graph (PoseVertex +
+        BetweenEdge) goes through the pose-graph driver and returns its
+        PGOResult."""
+        if self._edges and isinstance(self._edges[0], BetweenEdge):
+            return self._solve_pgo(verbose)
         opt = self.option
         (cameras, points, obs, cam_idx, pt_idx,
          cam_fixed, pt_fixed, sqrt_info, cams, pts) = self._lower()

@@ -1144,10 +1144,11 @@ def test_f64_multi_device_paths_kernels_match_plain(monkeypatch, path):
         assert float(kern.cost) < float(kern.initial_cost)
 
 
-# The block shapes of the registered factor families beside BAL's (and
-# the (2, 6) of a Problem edge on a pose camera): kernels 1-3 are
-# instantiated for each (csrc/block_shapes.cuh).
-_FAMILY_BLOCKS = [(1, 4), (1, 2), (2, 7), (2, 12), (6, 6), (6, 3), (2, 6)]
+# The block shapes of the registered factor families beside BAL's (the
+# (2, 6) of a Problem edge on a pose camera, and the sim(3) pose graph's
+# (7, 7)): kernels 1-3 are instantiated for each (csrc/block_shapes.cuh).
+_FAMILY_BLOCKS = [(1, 4), (1, 2), (2, 7), (2, 12), (6, 6), (6, 3), (2, 6),
+                  (7, 7)]
 
 
 def _need_card():
@@ -1737,3 +1738,86 @@ def test_cuda_split_segment_sums_do_not_depend_on_the_offset(od, d, arm):
         got_alone, got_inside = _cat(kernel(*a, **kw)), _cat(kernel(*b, **kw))
         torch.cuda.synchronize()
         assert torch.equal(got_alone[:, 0], got_inside[:, 2]), name
+
+
+# The pose-graph driver's paths on the card (models/pgo.py): (factor,
+# robust kind, priors, world size).
+_PGO_PATHS = {
+    "se3": ("se3_between", None, False, 1),
+    "sim3": ("sim3_between", None, False, 1),
+    "se3_huber": ("se3_between", "HUBER", False, 1),
+    "se3_priors": ("se3_between", None, True, 1),
+    "se3_w2": ("se3_between", None, False, 2),
+}
+
+
+def _pgo_inputs(path):
+    from megba_tpu_torch import AlgoOption, ProblemOption, RobustKind
+    from megba_tpu_torch.factors.sim3 import make_synthetic_sim3_graph
+    from megba_tpu_torch.models import pgo
+
+    factor, robust, priors, world = _PGO_PATHS[path]
+    make = (make_synthetic_sim3_graph if factor == "sim3_between"
+            else pgo.make_synthetic_pose_graph)
+    g = make(200, 40, meas_noise=0.01, seed=3)
+    args, kw = [g.poses0, g.edge_i, g.edge_j, g.meas], {}
+    if priors:
+        idx = np.array([5, 90])
+        out = pgo.with_priors(*args, prior_idx=idx,
+                              prior_poses=g.poses_gt[idx],
+                              prior_sqrt_info=np.broadcast_to(
+                                  np.eye(6) * 10.0, (2, 6, 6)))
+        args, kw = list(out[:4]), dict(fixed=out[4], sqrt_info=out[5])
+    opt = ProblemOption(world_size=world,
+                        algo_option=AlgoOption(max_iter=4, epsilon1=1e-12,
+                                               epsilon2=1e-15))
+    if robust is not None:
+        opt = dataclasses.replace(opt, robust_kind=RobustKind[robust],
+                                  robust_delta=0.1)
+    return args, dict(kw, factor=factor), opt, world
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(_PGO_PATHS))
+def test_f64_pose_graph_solves_kernels_match_plain(monkeypatch, path):
+    """On the card: solve_pgo through kernels 1-3 at (rd, pd) and kernel
+    6 at pd against the same solve through the plain versions (final
+    cost at rtol 1e-9, equal counts, poses within 1e-9 of their
+    magnitude), a world-2 solve on one card held to both, and the launch
+    counts the code implies: per shard, kernel 1 twice per
+    linearisation, kernels 2 and 3 twice per matvec, kernel 2 twice more
+    per gain ratio; kernel 6 once per matvec."""
+    dev = _need_card()
+    from megba_tpu_torch.models import pgo
+
+    args, kw, opt, world = _pgo_inputs(path)
+    device = [dev] * world if world > 1 else dev
+    tseg.reset_launch_counts()
+    tfused.reset_launch_counts()
+    kern = pgo.solve_pgo(*args, opt, device=device, **kw)
+    torch.cuda.synchronize()
+    counts = {**tseg.launch_counts(), **tfused.launch_counts()}
+    d = 7 if kw["factor"] == "sim3_between" else 6
+    mv = kern.pcg_iterations + kern.iterations
+    want = {"jtj_grad_reduce": 2 * world * (1 + kern.accepted),
+            "coupling_expand": 2 * world * (mv + kern.iterations),
+            "coupling_reduce": 2 * world * mv,
+            "fused_block_diag_apply": mv}
+    assert {k: v for k, v in counts.items() if v} == want
+    shapes = tseg.shape_launch_counts()
+    assert {k for k, v in shapes.items() if v} == {
+        f"{k}({d},{d})" for k in ("jtj_grad_reduce", "coupling_expand",
+                                  "coupling_reduce")}
+    assert tfused.shape_launch_counts()[f"fused_block_diag_apply({d})"] == mv
+    _to_plain(monkeypatch)
+    plain = pgo.solve_pgo(*args, opt, device=device, **kw)
+    for other in (plain,) + ((pgo.solve_pgo(*args, dataclasses.replace(
+            opt, world_size=1), device=dev, **kw),) if world > 1 else ()):
+        np.testing.assert_allclose(float(kern.cost), float(other.cost),
+                                   rtol=1e-9)
+        assert (kern.iterations, kern.accepted, kern.pcg_iterations,
+                kern.status) == (other.iterations, other.accepted,
+                                 other.pcg_iterations, other.status)
+        err = (kern.poses - other.poses).abs().max()
+        assert float(err) <= 1e-9 * float(other.poses.abs().max())
+    assert kern.accepted >= 1 and float(kern.cost) < float(kern.initial_cost)

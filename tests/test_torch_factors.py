@@ -187,14 +187,14 @@ def test_registry_errors_carry_jax_messages():
 
 def test_pipeline_refusals_match_jax():
     se3, bal = tf.get_factor("se3_between"), tf.get_factor("bal")
-    # The same stem; the port names no driver it does not have.
+    # The same stem; each names its own pose-graph driver.
     t_msg = _message(tf.FactorError, require_schur, se3, "flat_solve")
     j_msg = _message(jf.FactorError, j_require_schur,
                      jf.get_factor("se3_between"), "flat_solve")
     stem = ("flat_solve: factor 'se3_between' is a pose-graph family (two "
             "same-kind blocks); solve it with")
     assert t_msg.startswith(stem) and j_msg.startswith(stem)
-    assert "megba_tpu_torch has no pose-graph driver yet" in t_msg
+    assert "megba_tpu_torch.models.pgo.solve_pgo(factor=...)" in t_msg
     assert require_schur(bal, "x") is bal
     with pytest.raises(tf.FactorError, match="is a camera/point"):
         require_pose_graph(bal, "solve_pgo")

@@ -7,10 +7,10 @@ accept pattern and LM / PCG counts, the written-back estimations), a
 custom `forward()` (plain torch in the port, plain jnp in the JAX
 package), `erase_vertex`, and the refusals of heterogeneous edges and of
 wrong vertex kinds.  Pose graphs (PoseVertex + BetweenEdge) keep the JAX
-package's guards, and solving one raises the typed
-`PoseGraphNotPortedError` (the pose-graph driver is not ported yet).
-CPU only; tests/test_torch_cuda.py solves a custom-shape edge on the
-card.
+package's guards and solve through the pose-graph driver: bitwise the
+port's `solve_pgo` on the lowered arrays, and JAX's `BaseProblem` at
+rtol 1e-9, a fixed vertex holding the gauge.  CPU only;
+tests/test_torch_cuda.py solves a custom-shape edge on the card.
 """
 
 import functools
@@ -28,8 +28,8 @@ from megba_tpu.problem import PoseVertex as JPoseVertex
 
 import megba_tpu_torch as mt
 from megba_tpu_torch.core.linalg import psd_sqrt
+from megba_tpu_torch.models.pgo import make_synthetic_pose_graph, solve_pgo
 from megba_tpu_torch.ops import geo as tgeo
-from megba_tpu_torch.problem import PoseGraphNotPortedError
 
 from test_torch_solve import _compare
 
@@ -202,6 +202,9 @@ def test_solve_without_card_raises_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_pose_graph_guards_match_jax_and_solve_is_refused():
+    """The pose-graph guards of both packages; a pose graph then solves
+    (held to solve_pgo and JAX), and only an indefinite information
+    matrix refuses the solve."""
     for pkg, pv, be in ((mt, mt.PoseVertex, mt.BetweenEdge),
                         (jm, JPoseVertex, JBetweenEdge)):
         pb = pkg.BaseProblem(pkg.ProblemOption())
@@ -222,27 +225,82 @@ def test_pose_graph_guards_match_jax_and_solve_is_refused():
         pb.append_vertex(3, pt)
         with pytest.raises(TypeError, match="two PoseVertex"):
             pb.append_edge(be([cam, pt], measurement=np.zeros(6)))
-    # A pose graph with PSD information is lowered, then refused typed.
-    pb = mt.BaseProblem(mt.ProblemOption(), device="cpu")
-    verts = [mt.PoseVertex(np.full(6, 0.1 * k), fixed=(k == 0))
-             for k in range(4)]
-    for k, v in enumerate(verts):
-        pb.append_vertex(k, v)
+    # A pose graph with PSD information and a fixed vertex (not the
+    # first) solves through the pose-graph driver in both packages.
+    g = make_synthetic_pose_graph(16, 3, meas_noise=0.01, seed=2)
     info = np.diag([1.0, 1.0, 1.0, 1.0, 1.0, 0.0])
-    for a in range(3):
-        pb.append_edge(mt.BetweenEdge([verts[a], verts[a + 1]],
-                                      measurement=np.zeros(6),
-                                      information=info))
-    with pytest.raises(PoseGraphNotPortedError, match="Queue 1.7"):
-        pb.solve()
-    assert isinstance(PoseGraphNotPortedError(), NotImplementedError)
+    results = {}
+    for pkg, pv, be in ((mt, mt.PoseVertex, mt.BetweenEdge),
+                        (jm, JPoseVertex, JBetweenEdge)):
+        opt = pkg.ProblemOption(
+            algo_option=pkg.AlgoOption(max_iter=4, epsilon1=1e-12,
+                                       epsilon2=1e-15),
+            solver_option=pkg.SolverOption(max_iter=60, tol=1e-12,
+                                           refuse_ratio=1e30))
+        kw = dict(device="cpu") if pkg is mt else {}
+        pb = pkg.BaseProblem(opt, **kw)
+        verts = [pv(p, fixed=(k == 5)) for k, p in enumerate(g.poses0)]
+        for k, v in enumerate(verts):
+            pb.append_vertex(10 + k, v)
+        for e, (a, b) in enumerate(zip(g.edge_i, g.edge_j)):
+            pb.append_edge(be([verts[a], verts[b]], measurement=g.meas[e],
+                              information=info if e % 3 == 0 else None))
+        res = pb.solve()
+        assert pb.result is res
+        out = np.stack([v.estimation for v in verts])
+        results[pkg] = (res, out, opt)
+    t_res, t_out, t_opt = results[mt]
+    j_res, j_out, _ = results[jm]
+    # The fixed vertex holds; pose 0 (no longer the default anchor) moves.
+    np.testing.assert_array_equal(t_out[5], g.poses0[5])
+    assert np.abs(t_out[0] - g.poses0[0]).max() > 1e-6
+    infos = np.stack([info if e % 3 == 0 else np.eye(6)
+                      for e in range(len(g.edge_i))])
+    fixed = np.arange(16) == 5
+    ref = solve_pgo(g.poses0, g.edge_i, g.edge_j, g.meas, t_opt,
+                    sqrt_info=psd_sqrt(infos, what="edge"), fixed=fixed,
+                    device="cpu")
+    assert torch.equal(t_res.cost, ref.cost)
+    assert torch.equal(t_res.poses, ref.poses)
+    np.testing.assert_array_equal(t_out, ref.poses.numpy())
+    assert (t_res.iterations, t_res.accepted, t_res.pcg_iterations) == (
+        ref.iterations, ref.accepted, ref.pcg_iterations)
+    np.testing.assert_allclose(float(t_res.cost), float(j_res.cost),
+                               rtol=1e-9)
+    assert (t_res.iterations, t_res.accepted, t_res.pcg_iterations,
+            t_res.status) == (int(j_res.iterations), int(j_res.accepted),
+                              int(j_res.pcg_iterations), int(j_res.status))
+    assert t_res.accepted >= 1
+    assert np.abs(t_out - j_out).max() <= 1e-9 * np.abs(j_out).max()
     with pytest.raises(ValueError, match="indefinite"):
         pb2 = mt.BaseProblem(device="cpu")
+        verts = [mt.PoseVertex(np.full(6, 0.1 * k)) for k in range(2)]
         for k, v in enumerate(verts[:2]):
             pb2.append_vertex(k, v)
         pb2.append_edge(mt.BetweenEdge(verts[:2], measurement=np.zeros(6),
                                        information=-np.eye(6)))
         pb2.solve()
+
+
+def test_pose_graph_without_fixed_vertex_anchors_the_first_pose():
+    """No fixed vertex: the facade passes fixed=None, so solve_pgo's
+    default gauge anchor (the first pose) holds, as in the JAX package;
+    the result is solve_pgo's on the lowered arrays."""
+    g = make_synthetic_pose_graph(8, 2, meas_noise=0.01, seed=6)
+    opt = mt.ProblemOption(algo_option=mt.AlgoOption(max_iter=3))
+    pb = mt.BaseProblem(opt, device="cpu")
+    verts = [mt.PoseVertex(p) for p in g.poses0]
+    for k, v in enumerate(verts):
+        pb.append_vertex(k, v)
+    for e, (a, b) in enumerate(zip(g.edge_i, g.edge_j)):
+        pb.append_edge(mt.BetweenEdge([verts[a], verts[b]],
+                                      measurement=g.meas[e]))
+    res = pb.solve()
+    ref = solve_pgo(g.poses0, g.edge_i, g.edge_j, g.meas, opt,
+                    device="cpu")
+    assert torch.equal(res.poses, ref.poses)
+    np.testing.assert_array_equal(verts[0].estimation, g.poses0[0])
+    assert res.iterations == ref.iterations >= 1
 
 
 def test_psd_sqrt_matches_jax():

@@ -208,7 +208,8 @@ def test_wrappers_validate_operands():
                              tplan, 9)
 
 
-FAMILY_BLOCKS = [(1, 4), (1, 2), (2, 7), (2, 12), (6, 6), (6, 3), (2, 6)]
+FAMILY_BLOCKS = [(1, 4), (1, 2), (2, 7), (2, 12), (6, 6), (6, 3), (2, 6),
+                 (7, 7)]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64],

@@ -155,16 +155,41 @@ exception ends the run with a non-zero exit code:
    smaller drift); launches as the code implies on every run
    (`pgo_expected_launches`); and kernel rows `name(shape) pgo` /
    `name(shape)[f64] pgo` of 1-3 (both sides) and 6 on the full-size
-   plans, each carrying its launches from the full-size run of its arm.
+   plans, each carrying its launches from the full-size run of its arm;
+11. durability: `solve_checkpointed` on venice f32 IMPLICIT in chunks of
+   `CHUNK_BA` LM iterations against phase 7's straight run (equal counts
+   and status, final cost within 1e-6, whether the stitched trial costs
+   are bitwise the straight run's, launches the straight run's plus one
+   linearisation a chunk boundary and `expected_launches` summed over
+   the chunks; the walls, each snapshot's seconds and bytes and each
+   chunk's host seconds of re-lowering); on the trafalgar-sized f64
+   scene under ProblemOption() with `DEFAULT_LM_CAP`, and guarded with a
+   NaN burst whose window spans a chunk boundary, kernels against plain
+   versions under the f64 gates; the kill-resume worker
+   (scripts/torch_killresume_worker.py) on cuda:0, SIGKILLed once its
+   first snapshot lands and resumed, bitwise an uninterrupted run;
+   `solve_pgo_checkpointed` on phase 10's full-size SE(3) f64 graph in
+   chunks of `CHUNK_PGO` against phase 10's straight solve (equal counts
+   and status, final cost within 1e-9, `pgo_expected_launches` summed
+   over the chunks); pre-flight triage on a venice-sized scene with
+   orphan, behind-camera and disconnected degeneracies (`TRIAGE_KNOBS`):
+   `triage_problem`'s host seconds and findings, REJECT raising
+   `ProblemRejected` with no launch and no device allocation, a REPAIR
+   solve with the venice options (no recovery, no fallback, a finite
+   cost below the initial), and a trafalgar-sized f64 REPAIR solve
+   kernels against plain versions.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
 pass over a second solve of each full-width path and writes its kernel
 table to chiprun_out/.  Kernel 6's rows also carry torch.profiler's
 device time per launch beside their einsum yardstick's (`device_ms`,
-`library_device_ms`), and so do the pose prior's rows of kernels 1 and 3
-at (6, 3) (its one-segment point side, beside cuSPARSE's for 3) and of
-kernel 5 at F = 6 (its poses, beside `index_select`'s).  The scenes are
+`library_device_ms`), and so do the pose prior's rows of kernels 1-3
+at (6, 3) (its one-segment point side, beside cuSPARSE's for 2 and 3),
+of kernel 2 at (6, 6) and of kernels 4 and 5 at F = 6 (its poses,
+beside `segment_reduce`'s and `index_select`'s), and the pose-graph rows
+of kernel 2 at (6, 6) and (7, 7), both arms, summed over the i- and
+j-side as their CUDA-event time is.  The scenes are
 fixed: a quick check of a new kernel build is the `cuda`-marked test,
 `pytest -m cuda
 tests/test_torch_cuda.py`.  Without a CUDA device, or outside a
@@ -542,10 +567,11 @@ FAMILY_TRAFALGAR = {
 # k1, k2]; its camera side runs kernels 1-3 at (2, 6).
 POSE_CAMERA_BLOCK = (2, 6)
 # The pose prior's rows near the launch floor, which also get
-# torch.profiler's device time: kernels 1 and 3 on its one-segment point
-# side, kernel 5 on its 100,000 poses.
+# torch.profiler's device time: kernels 1-3 on its one-segment point
+# side, kernel 2 on its poses, kernels 4 and 5 on its 100,000 poses.
 POSE_PRIOR_DEVICE_ROWS = ("jtj_grad_reduce(6,3)", "coupling_reduce(6,3)",
-                          "seg_expand(6)")
+                          "coupling_expand(6,3)", "coupling_expand(6,6)",
+                          "seg_reduce(6)", "seg_expand(6)")
 
 
 def log(*args) -> None:
@@ -1555,29 +1581,39 @@ def launch_shape(plan) -> str:
 
 
 def row_device_times(rows: dict, cases: dict, names) -> None:
-    """torch.profiler's device time per launch of each named row's
-    first side and of its library call (`device_ms`,
-    `library_device_ms`), and the wrapper's host time a call (`host_ms`),
-    for rows near the launch floor, where a CUDA-event time of
-    back-to-back launches is the wrapper's host time."""
+    """torch.profiler's device time per launch of each named row and of
+    its library call (`device_ms`, `library_device_ms`), and the
+    wrapper's host time a call (`host_ms`), each summed over the row's
+    sides as its CUDA-event time is, for rows near the launch floor,
+    where a CUDA-event time of back-to-back launches is the wrapper's
+    host time."""
     for name in names:
-        c = cases[name][0]
-        kernel = getattr(kernel_module(name), base_name(name))
         entry = rows[name]
-        k_ms = entry["device_ms"] = device_ms_per_call(
-            lambda: kernel(*c["args"], **c["kwargs"]))
-        h_ms = entry["host_ms"] = host_ms_per_call(
-            lambda: kernel(*c["args"], **c["kwargs"]))
-        run = c["library"]() if c["library"] is not None else None
+        k_ms = h_ms = lib_ms = 0.0
+        for c in cases[name]:
+            kernel = getattr(kernel_module(name), base_name(name))
+            k_ms += device_ms_per_call(
+                lambda c=c: kernel(*c["args"], **c["kwargs"]))
+            h_ms += host_ms_per_call(
+                lambda c=c: kernel(*c["args"], **c["kwargs"]))
+            run = c["library"]() if c["library"] is not None else None
+            lib_ms = (lib_ms + device_ms_per_call(run)
+                      if callable(run) and lib_ms is not None else None)
+        entry["device_ms"], entry["host_ms"] = k_ms, h_ms
         lib = "no library call"
-        if callable(run):
-            lib_ms = entry["library_device_ms"] = device_ms_per_call(run)
+        if lib_ms is not None:
+            entry["library_device_ms"] = lib_ms
             verdict = "slower" if k_ms > lib_ms else "not slower"
             lib = (f"its library call {lib_ms * 1e3:.3f} us: the kernel is "
                    f"{verdict} on the device")
-        log(f"kernel {name}[{c['side']}]: device time {k_ms * 1e3:.3f} us a "
-            f"launch (torch.profiler), host time {h_ms * 1e3:.3f} us a call "
-            f"(CUDA events {entry['ms'] * 1e3:.3f} us), {lib}")
+        bound = entry.get("bound_ms")
+        share = ("" if not bound else
+                 f", {bound / k_ms:.1%} of its bound {bound * 1e3:.3f} us "
+                 "by device time")
+        sides = "+".join(c["side"] for c in cases[name])
+        log(f"kernel {name}[{sides}]: device time {k_ms * 1e3:.3f} us a "
+            f"launch (torch.profiler){share}, host time {h_ms * 1e3:.3f} us "
+            f"a call (CUDA events {entry['ms'] * 1e3:.3f} us), {lib}")
 
 
 def host_ms_per_call(fn, calls: int = 200) -> float:
@@ -3099,6 +3135,8 @@ PGO_PATHS = {
 PGO_MESH_BASE = {"se3_w2": "se3"}
 PGO_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
                "fused_block_diag_apply")
+# The full-size solve phase 11 chunks: (family, arm).
+PGO_KEEP = ("se3", "f64")
 
 
 def pgo_graph(family: str, cfg: dict):
@@ -3311,12 +3349,13 @@ def pgo_g2o_round_trip(g) -> dict:
     return shapes
 
 
-def pgo_full_solve(family: str, g, dtype) -> dict:
+def pgo_full_solve(family: str, g, dtype, keep=None) -> dict:
     """One full-size solve: wall, LM / accept / PCG counts, peak memory,
     launches as the code implies, the maximum translation drift from the
     ground truth before and after (gated: a finite final cost below the
     initial, a smaller drift), then the same solve under torch.profiler
-    for the device's busy share.  Returns the launches per shape."""
+    for the device's busy share.  Returns the launches per shape; `keep`
+    (a dict) receives the result and the wall."""
     from torch.profiler import ProfilerActivity, profile
 
     from megba_tpu_torch import AlgoOption, ProblemOption
@@ -3337,6 +3376,8 @@ def pgo_full_solve(family: str, g, dtype) -> dict:
     wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     shapes = pgo_launches(what, res, 1, d)
+    if keep is not None:
+        keep.update(res=res, wall=wall)
 
     def drift(poses):
         return float(np.max(np.linalg.norm(
@@ -3419,12 +3460,14 @@ def pgo_kernel_cases(family: str, g) -> dict:
     return {f"{name} pgo": sides for name, sides in cases.items()}
 
 
-def pgo_phase() -> dict:
+def pgo_phase(keep: dict) -> dict:
     """Phase 10: the pose-graph driver (models/pgo.py) on the card.  The
     f64 paths kernels against plain on the small graphs, the g2o round
     trip, the full-size f32 and f64 solves of each family, then the
     kernel rows at (6, 6) / 6 and (7, 7) / 7, each carrying its launches
-    from the full-size run of its arm and family.  Returns the rows."""
+    from the full-size run of its arm and family, kernel 2's (both arms)
+    also with its device time.  Returns the rows; `keep` receives the
+    full-size SE(3) graph and its f64 solve (`PGO_KEEP`) for phase 11."""
     t0 = time.perf_counter()
     small = {f: pgo_graph(f, PGO_SMALL) for f in PGO_FACTORS}
     pgo_f64_paths(small)
@@ -3434,11 +3477,18 @@ def pgo_phase() -> dict:
     rows = {}
     for family in PGO_FACTORS:
         g = pgo_graph(family, PGO_FULL)
-        launches = {arm: pgo_full_solve(family, g, dtype)
-                    for arm, dtype in (("f32", np.float32),
-                                       ("f64", np.float64))}
+        kept = {}
+        launches = {arm: pgo_full_solve(
+            family, g, dtype, kept if (family, arm) == PGO_KEEP else None)
+            for arm, dtype in (("f32", np.float32), ("f64", np.float64))}
+        if kept:
+            keep.update(kept, graph=g)
         steps.append(time.perf_counter())
-        fam_rows = measure_rows(pgo_kernel_cases(family, g))
+        cases = pgo_kernel_cases(family, g)
+        fam_rows = measure_rows(cases)
+        d = g.poses0.shape[1]
+        row_device_times(fam_rows, cases, [
+            f"coupling_expand({d},{d}){arm} pgo" for arm in ("", "[f64]")])
         for name, row in fam_rows.items():
             key = untagged(name)
             arm = "f64" if key.endswith("[f64]") else "f32"
@@ -3452,6 +3502,429 @@ def pgo_phase() -> dict:
         + ", ".join(f"{b - a:.1f}" for a, b in zip(steps, steps[1:]))
         + " s)")
     return rows
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: durable single-host solves
+# ---------------------------------------------------------------------------
+
+# LM iterations a chunk: the venice and trafalgar-sized solves snapshot
+# every CHUNK_BA, the full-size pose graph every CHUNK_PGO.
+CHUNK_BA = 2
+CHUNK_PGO = 5
+# The chunked venice solve's final cost against the straight one's.
+CHUNKED_COST_RTOL = 1e-6
+# The f64 chunked gate's NaN burst, global iterations [1, 3): its window
+# spans the first chunk boundary.
+CHUNK_BURST = (1, 3)
+# The triage scenes: venice's sizes (and trafalgar's for the f64 gate)
+# with degeneracies injected by io.synthetic's knobs.
+TRIAGE_KNOBS = dict(n_orphan_points=1000, n_behind_camera=1000,
+                    n_disconnect=1)
+TRIAGE_KNOBS_SMALL = dict(n_orphan_points=100, n_behind_camera=100,
+                          n_disconnect=1)
+KILL_WORKER = ROOT / "scripts" / "torch_killresume_worker.py"
+KILL_ARGS = ("--device", "cuda:0", "--scene", "trafalgar")
+
+
+@contextlib.contextmanager
+def record_chunks(module, name: str):
+    """Wrap `module.name`, the per-chunk solve of a chunked driver (it is
+    imported at call time), for the calls made inside: yields a list of
+    {"res", "seconds", "timer"} (a fresh utils.timing.PhaseTimer a chunk
+    for flat_solve, None for solve_pgo), one a chunk."""
+    from megba_tpu_torch.utils.timing import PhaseTimer
+
+    inner = getattr(module, name)
+    chunks = []
+
+    def recorded(*args, **kwargs):
+        timer = None
+        if name == "flat_solve":
+            timer = kwargs["timer"] = PhaseTimer()
+        t = time.perf_counter()
+        res = inner(*args, **kwargs)
+        chunks.append(dict(res=res, seconds=time.perf_counter() - t,
+                           timer=timer))
+        return res
+
+    setattr(module, name, recorded)
+    try:
+        yield chunks
+    finally:
+        setattr(module, name, inner)
+
+
+@contextlib.contextmanager
+def record_snapshots():
+    """The host seconds and bytes of each snapshot the chunked drivers
+    write inside (save_state: serialise, fsync, rename): a list of
+    (seconds, bytes) the context yields."""
+    from megba_tpu_torch.algo import checkpointed
+
+    inner = checkpointed.save_state
+    saves = []
+
+    def recorded(path, *args, **kwargs):
+        t = time.perf_counter()
+        inner(path, *args, **kwargs)
+        saves.append((time.perf_counter() - t, Path(path).stat().st_size))
+
+    checkpointed.save_state = recorded
+    try:
+        yield saves
+    finally:
+        checkpointed.save_state = inner
+
+
+def chunk_words(chunks, saves) -> str:
+    """Each chunk's host seconds of re-lowering (the timer's "lowering",
+    "sort" and "plan" phases, and the first two apart), its LM loop
+    ("dispatch") and its whole call, and each snapshot's save seconds
+    and bytes, for the log."""
+    parts = []
+    for i, (c, (ss, nb)) in enumerate(zip(chunks, saves)):
+        tot = c["timer"].totals if c["timer"] is not None else {}
+        lower = sum(tot.get(k, 0.0) for k in ("lowering", "sort", "plan"))
+        lm = (f"re-lowering {lower:.3f} s (lowering "
+              f"{tot.get('lowering', 0.0):.3f}, plan "
+              f"{tot.get('plan', 0.0):.3f}), LM loop "
+              f"{tot.get('dispatch', 0.0):.3f} s, " if tot else "")
+        parts.append(f"chunk {i}: {c['res'].iterations} LM, {lm}call "
+                     f"{c['seconds']:.3f} s, snapshot {ss:.4f} s "
+                     f"{nb} bytes")
+    return "; ".join(parts)
+
+
+def chunked_solve(arrays, opt, kw, module, name: str, every: int):
+    """One solve of a chunked driver (`solve_checkpointed`, or
+    `solve_pgo_checkpointed` with `name="solve_pgo"`) on the card into a
+    temporary snapshot, launches counted from zero: (result, wall,
+    chunks, saves, launch counts)."""
+    import tempfile
+
+    from megba_tpu_torch import solve_checkpointed, solve_pgo_checkpointed
+
+    driver = (solve_pgo_checkpointed if name == "solve_pgo"
+              else solve_checkpointed)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with record_chunks(module, name) as chunks, \
+                record_snapshots() as saves:
+            t = time.perf_counter()
+            res = driver(*arrays, opt,
+                         checkpoint_path=str(Path(tmp) / "snapshot.npz"),
+                         checkpoint_every=every, device=DEVICE, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    return res, wall, chunks, saves, launch_counts()
+
+
+def same_counts(what: str, a, b) -> None:
+    """Equal LM, accepted and PCG counts and status (recoveries where the
+    results carry them)."""
+    fields = ("iterations", "accepted", "pcg_iterations", "status",
+              "recoveries")
+    ka = tuple(getattr(a, f, None) for f in fields)
+    kb = tuple(getattr(b, f, None) for f in fields)
+    if ka != kb:
+        raise AssertionError(f"{what}: (LM, accepted, PCG, status, "
+                             f"recoveries) {ka} against {kb}")
+
+
+def trial_gate(what: str, a, b) -> float:
+    """Two BA runs agree: `same_counts`, the accept and recovery traces
+    equal, the trial costs at `F64_COST_RTOL` where finite and NaN at the
+    same iterations.  Returns the trial costs' largest relative gap."""
+    same_counts(what, a, b)
+    k = a.iterations
+    for f in ("accept", "recovery"):
+        if not torch.equal(getattr(a.trace, f)[:k], getattr(b.trace, f)[:k]):
+            raise AssertionError(f"{what}: {f} traces differ")
+    gap, _ = cost_gap(a.trace.cost[:k].numpy(), b.trace.cost[:k].numpy(),
+                      what, np.zeros(k, bool))
+    if not gap <= F64_COST_RTOL:
+        raise AssertionError(f"{what}: trial costs {gap:.3e} apart")
+    return gap
+
+
+def chunked_venice(venice, straight) -> None:
+    """11.1: venice f32 IMPLICIT through `solve_checkpointed` in chunks of
+    `CHUNK_BA`, against phase 7's straight IMPLICIT run (`straight`: its
+    launch counts, result and wall).  Each chunk starts with one
+    linearisation at the carried parameters (algo/lm.py's pre-loop
+    `linearize`), so kernel 1 launches twice more a chunk boundary and
+    kernels 2-3 as often as straight; the launches must also be
+    `expected_launches` summed over the chunks."""
+    from megba_tpu_torch import solve as solve_mod
+    from megba_tpu_torch import status_name
+
+    counts0, ref, wall0 = straight
+    opt = solve_option(np.float32, "implicit")
+    arrays, kw = solve_inputs(venice, "implicit", venice=True)
+    res, wall, chunks, saves, counts = chunked_solve(
+        arrays, opt, kw, solve_mod, "flat_solve", CHUNK_BA)
+    same_counts("durable venice chunked vs straight", res, ref)
+    c1, c_ref = float(res.cost), float(ref.cost)
+    if not abs(c1 - c_ref) <= CHUNKED_COST_RTOL * abs(c_ref):
+        raise AssertionError(f"durable venice: final cost {c1} against the "
+                             f"straight run's {c_ref}")
+    k = res.iterations
+    ct, rt = res.trace.cost[:k], ref.trace.cost[:k]
+    bitwise = ct.dtype == rt.dtype and torch.equal(ct, rt)
+    gap = float(((ct.double() - rt.double()).abs() / rt.double().abs()).max())
+    want = {}
+    for c in chunks:
+        for name, n in expected_launches("implicit", c["res"]).items():
+            want[name] = want.get(name, 0) + n
+    boundary = {"jtj_grad_reduce": 2 * (len(chunks) - 1)}
+    extra = {n: counts[n] - counts0[n] for n in counts
+             if counts[n] != counts0[n]}
+    if counts != want or extra != {n: v for n, v in boundary.items() if v}:
+        raise AssertionError(f"durable venice: launches {counts}, the code "
+                             f"implies {want}; beyond the straight run's "
+                             f"{extra}")
+    log(f"durable venice f32 implicit: {len(chunks)} chunks of "
+        f"{CHUNK_BA} LM, cost {float(res.initial_cost):.8e} -> {c1:.8e} "
+        f"(straight {c_ref:.8e}), {k} LM ({res.accepted} accepted), "
+        f"{res.pcg_iterations} PCG, status {status_name(res.status)}, as the "
+        f"straight run; stitched trial costs {'bitwise' if bitwise else 'not bitwise'}"
+        f" the straight run's (largest gap {gap:.3e}); wall chunked "
+        f"{wall:.3f} s against straight {wall0:.3f} s ({wall / wall0:.2f}x); "
+        f"launches {counts}: the straight run's plus "
+        f"{boundary['jtj_grad_reduce']} of kernel 1 (one linearisation a "
+        f"chunk boundary)")
+    log("durable venice chunks: " + chunk_words(chunks, saves))
+
+
+def chunked_f64(scene) -> None:
+    """11.2: the trafalgar-sized f64 scene under `ProblemOption()` with
+    the LM cap `DEFAULT_LM_CAP` through `solve_checkpointed`, kernels
+    against plain versions; then guarded with a NaN burst whose window
+    (`CHUNK_BURST`) spans the first chunk boundary."""
+    from megba_tpu_torch import make_nan_burst
+    from megba_tpu_torch import solve as solve_mod
+
+    arrays, _ = solve_inputs(scene, DEFAULT_PATH)
+    n_edges = arrays[2].shape[0]
+    cases = {
+        "default": (solve_option(np.float64, DEFAULT_PATH), {}),
+        "nan_burst_across_boundary": (
+            solve_option(np.float64, "implicit_nan_burst"),
+            dict(fault_plan=make_nan_burst(n_edges, NAN_EDGES_F64,
+                                           *CHUNK_BURST))),
+    }
+    for case, (opt, kw) in cases.items():
+        kern, _, chunks, _, _ = chunked_solve(arrays, opt, kw, solve_mod,
+                                              "flat_solve", CHUNK_BA)
+        with plain_path():
+            plain, _, _, _, _ = chunked_solve(arrays, opt, kw, solve_mod,
+                                              "flat_solve", CHUNK_BA)
+        what = f"durable f64 {case}"
+        gap = trial_gate(f"{what} kernels vs plain", kern, plain)
+        words = check_path_outcome(
+            what, "implicit_nan_burst" if kw else "implicit", kern,
+            float(kern.initial_cost))
+        log(f"{what}: {len(chunks)} chunks of {CHUNK_BA} LM, cost "
+            f"{float(kern.initial_cost):.10e} -> {float(kern.cost):.10e}, "
+            f"{kern.iterations} LM ({kern.accepted} accepted), "
+            f"{kern.pcg_iterations} PCG, {words}; trial costs kernels vs "
+            f"plain {gap:.3e}, the same counts, accepts, recoveries and "
+            f"status")
+
+
+def killresume_on_card() -> None:
+    """11.3: the kill-resume worker on cuda:0 (trafalgar-sized f64, 8 LM
+    in chunks of 2): one uninterrupted run, then a run SIGKILLed once its
+    first snapshot lands and resumed; the results bitwise equal."""
+    import tempfile
+
+    from megba_tpu_torch.robustness.harness import (
+        python_worker, run_to_completion, run_until_snapshot_then_kill)
+    from megba_tpu_torch.utils.checkpoint import load_state
+
+    args = KILL_ARGS
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_a, out_a = f"{tmp}/a.npz", f"{tmp}/a_result.npz"
+        ck_b, out_b = f"{tmp}/b.npz", f"{tmp}/b_result.npz"
+        t = time.perf_counter()
+        run_to_completion(python_worker(str(KILL_WORKER), ck_a, out_a,
+                                        *args), timeout=300)
+        t_ref = time.perf_counter() - t
+        argv = python_worker(str(KILL_WORKER), ck_b, out_b, *args)
+        t = time.perf_counter()
+        rc = run_until_snapshot_then_kill(argv, ck_b, timeout=300)
+        t_kill = time.perf_counter() - t
+        at = int(load_state(ck_b)["iteration"])
+        if rc == 0 or Path(out_b).exists():
+            raise AssertionError("durable kill: the worker was not killed")
+        t = time.perf_counter()
+        run_to_completion(argv, timeout=300)
+        t_resume = time.perf_counter() - t
+        with np.load(out_a) as za, np.load(out_b) as zb:
+            a = {k: za[k] for k in za.files}
+            b = {k: zb[k] for k in zb.files}
+    differ = [k for k in a if not (a[k].dtype == b[k].dtype and np.array_equal(
+        a[k], b[k], equal_nan=True))]
+    if set(a) != set(b) or differ:
+        raise AssertionError(f"durable kill: killed + resumed differs from "
+                             f"the uninterrupted run in {differ}")
+    log(f"durable kill-resume on cuda:0: reference run {t_ref:.1f} s, "
+        f"SIGKILL (rc {rc}) {t_kill:.1f} s after start with the snapshot "
+        f"at iteration {at}, resume {t_resume:.1f} s; {int(a['iterations'])} "
+        f"LM ({int(a['accepted'])} accepted), cost {float(a['cost']):.10e}; "
+        f"cameras, points, counts and the stitched trace bitwise the "
+        f"uninterrupted run's")
+
+
+def chunked_pgo(kept: dict) -> None:
+    """11.4: phase 10's full-size SE(3) graph at f64 through
+    `solve_pgo_checkpointed` in chunks of `CHUNK_PGO`, against phase
+    10's straight solve: equal counts and status, final cost within
+    `F64_COST_RTOL`, launches `pgo_expected_launches` summed over the
+    chunks."""
+    from megba_tpu_torch import AlgoOption, ProblemOption, status_name
+    from megba_tpu_torch.models import pgo
+    from megba_tpu_torch.ops import fused, segtiles
+
+    g, ref, wall0 = kept["graph"], kept["res"], kept["wall"]
+    opt = ProblemOption(dtype=np.float64,
+                        algo_option=AlgoOption(max_iter=PGO_FULL_LM))
+    res, wall, chunks, saves, _ = chunked_solve(
+        (g.poses0, g.edge_i, g.edge_j, g.meas), opt,
+        dict(factor=PGO_FACTORS["se3"]), pgo, "solve_pgo", CHUNK_PGO)
+    shapes = {k: v for k, v in {**segtiles.shape_launch_counts(),
+                                **fused.shape_launch_counts()}.items() if v}
+    want = {}
+    for c in chunks:
+        for k, v in pgo_expected_launches(c["res"], 1, 6).items():
+            want[k] = want.get(k, 0) + v
+    if shapes != want:
+        raise AssertionError(f"durable pgo: launches {shapes}, the code "
+                             f"implies {want}")
+    same_counts("durable pgo chunked vs straight", res, ref)
+    c1, c_ref = float(res.cost), float(ref.cost)
+    if not abs(c1 - c_ref) <= F64_COST_RTOL * abs(c_ref):
+        raise AssertionError(f"durable pgo: final cost {c1} against the "
+                             f"straight run's {c_ref}")
+    log(f"durable pgo se3 f64: {len(chunks)} chunks of {CHUNK_PGO} LM, "
+        f"cost {float(res.initial_cost):.10e} -> {c1:.10e} (straight "
+        f"{c_ref:.10e}, {abs(c1 - c_ref) / c_ref:.3e} apart), "
+        f"{res.iterations} LM ({res.accepted} accepted), "
+        f"{res.pcg_iterations} PCG, status {status_name(res.status)}, as the "
+        f"straight run; wall chunked {wall:.3f} s against straight {wall0:.3f} s; "
+        f"launches {shapes} (pgo_expected_launches summed over the chunks)")
+    log("durable pgo chunks: " + chunk_words(chunks, saves))
+
+
+def triage_full_width(trafalgar_cfg: dict) -> None:
+    """11.5: pre-flight triage on a venice-sized scene with degeneracies
+    (`TRIAGE_KNOBS`): the host seconds and findings of `triage_problem`;
+    REJECT raises ProblemRejected with no launch and no device
+    allocation; REPAIR solves with the venice f32 options, with no
+    recovery and no preconditioner fallback, to a finite cost below the
+    initial; then a trafalgar-sized f64 REPAIR solve, kernels against
+    plain versions under the f64 gates."""
+    from megba_tpu_torch import (ProblemRejected, TriageAction, TriagePolicy,
+                                 flat_solve, status_name)
+    from megba_tpu_torch.robustness.triage import triage_problem
+    from megba_tpu_torch.utils.timing import PhaseTimer
+
+    repair = TriagePolicy(on_degenerate=TriageAction.REPAIR)
+    scene = make_scene(dict(VENICE, **TRIAGE_KNOBS), np.float32)
+    arrays = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
+              scene.pt_idx)
+    t = time.perf_counter()
+    outcome = triage_problem(*arrays, repair)
+    host = time.perf_counter() - t
+    log(f"durable triage: triage_problem {host:.3f} s on the host for "
+        f"{scene.obs.shape[0]} edges; findings {outcome.report.counts()}, "
+        f"{outcome.report.n_components} components; repair "
+        f"{outcome.repair.counters()}")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mem0 = torch.cuda.memory_allocated()
+    timer = PhaseTimer()
+    opt = solve_option(np.float32, "implicit")
+    try:
+        flat_solve(*arrays, opt, device=DEVICE, timer=timer,
+                   triage=TriagePolicy())
+    except ProblemRejected as exc:
+        rejected = exc
+    else:
+        raise AssertionError("durable triage: REJECT solved the problem")
+    launched = {k: v for k, v in launch_counts().items() if v}
+    mem1 = torch.cuda.memory_allocated()
+    if launched or mem1 != mem0 or list(timer.totals) != ["triage"]:
+        raise AssertionError(f"durable triage: REJECT launched {launched}, "
+                             f"device memory {mem0} -> {mem1} bytes, "
+                             f"phases {list(timer.totals)}")
+    log(f"durable triage REJECT: ProblemRejected ({str(rejected)[:160]}) "
+        f"after the triage phase alone ({timer.totals['triage']:.3f} s), "
+        f"no launch, device memory unchanged at {mem0} bytes")
+
+    timer = PhaseTimer()
+    reset_launch_counts()
+    t = time.perf_counter()
+    res = flat_solve(*arrays, opt, device=DEVICE, timer=timer,
+                     triage=repair)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k = res.iterations
+    fallback = res.trace.precond_fallback[:k].tolist()
+    c0, c1 = float(res.initial_cost), float(res.cost)
+    if res.recoveries or any(fallback) or not (np.isfinite(c1) and c1 < c0):
+        raise AssertionError(f"durable triage REPAIR: cost {c0} -> {c1}, "
+                             f"{res.recoveries} recoveries, precond_fallback "
+                             f"{fallback}")
+    events = {n: v["calls"] for n, v in timer.as_dict().items()
+              if n.startswith("triage_")}
+    log(f"durable triage REPAIR venice f32: cost {c0:.8e} -> {c1:.8e}, {k} "
+        f"LM ({res.accepted} accepted), {res.pcg_iterations} PCG, status "
+        f"{status_name(res.status)}, no recovery, precond_fallback {fallback}; "
+        f"flat_solve {wall:.3f} s (triage {timer.totals['triage']:.3f} s); "
+        f"timer events {events}")
+    del scene, arrays, res
+    torch.cuda.empty_cache()
+
+    small = make_scene(dict(trafalgar_cfg, **TRIAGE_KNOBS_SMALL), np.float64)
+    arrays = (small.cameras0, small.points0, small.obs, small.cam_idx,
+              small.pt_idx)
+    opt = solve_option(np.float64, DEFAULT_PATH)
+    kern = flat_solve(*arrays, opt, device=DEVICE, triage=repair)
+    with plain_path():
+        plain = flat_solve(*arrays, opt, device=DEVICE, triage=repair)
+    gap = trial_gate("durable triage REPAIR f64 kernels vs plain", kern,
+                     plain)
+    log(f"durable triage REPAIR f64: cost {float(kern.initial_cost):.10e} -> "
+        f"{float(kern.cost):.10e}, {kern.iterations} LM ({kern.accepted} "
+        f"accepted), {kern.pcg_iterations} PCG, status "
+        f"{status_name(kern.status)}; trial "
+        f"costs kernels vs plain {gap:.3e}, the same counts and status")
+
+
+def durable_phase(venice, trafalgar64, straight, pgo_kept) -> None:
+    """Phase 11: the chunked drivers, the kill-resume and pre-flight
+    triage on the card."""
+    t0 = time.perf_counter()
+    steps = [t0]
+    chunked_venice(venice, straight)
+    steps.append(time.perf_counter())
+    chunked_f64(trafalgar64)
+    steps.append(time.perf_counter())
+    killresume_on_card()
+    steps.append(time.perf_counter())
+    chunked_pgo(pgo_kept)
+    steps.append(time.perf_counter())
+    triage_full_width(TRAFALGAR)
+    steps.append(time.perf_counter())
+    log(f"durable phase: {steps[-1] - t0:.1f} s (chunked venice, f64 "
+        "gates, kill-resume, chunked pose graph, triage: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(steps, steps[1:]))
+        + " s)")
 
 
 def main() -> int:
@@ -3489,7 +3962,8 @@ def main() -> int:
     venice = make_scene(VENICE, np.float32)
     rows = kernel_phase(venice)
     engine_phase(venice)
-    f64_counts = f64_phase(make_scene(TRAFALGAR, np.float64),
+    trafalgar64 = make_scene(TRAFALGAR, np.float64)
+    f64_counts = f64_phase(trafalgar64,
                            make_scene(TRAFALGAR_GRID, np.float64))
     for row, arm_path in F64_ARM_PATHS.items():
         rows[row]["launches"] = f64_counts[arm_path].get(row, 0)
@@ -3497,9 +3971,10 @@ def main() -> int:
     ref = None
     for path in VENICE_PATHS:
         _, _, rung, kernels_of_path = PATHS[path]
-        counts, arms, res, _ = venice_phase(venice, path, opts.profile,
-                                            ref)
-        ref = res if ref is None else ref
+        counts, arms, res, wall = venice_phase(venice, path,
+                                               opts.profile, ref)
+        if ref is None:  # the IMPLICIT run, phase 11's straight solve
+            ref, straight = res, (counts, res, wall)
         for name in kernels_of_path:  # the first f32 path that runs it
             if rung is None and rows[name]["launches"] is None:
                 rows[name]["launches"] = counts[name]
@@ -3507,8 +3982,10 @@ def main() -> int:
             if arm_path == path:
                 rows[row]["launches"] = arms.get(row, 0)
     locality_phase(make_scene(LOCALITY, np.float32), opts.profile)
-    rows.update(factor_phase(venice, make_scene(TRAFALGAR, np.float64)))
-    rows.update(pgo_phase())
+    rows.update(factor_phase(venice, trafalgar64))
+    pgo_kept = {}
+    rows.update(pgo_phase(pgo_kept))
+    durable_phase(venice, trafalgar64, straight, pgo_kept)
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernel rows never launched on their "

@@ -25,6 +25,14 @@ fault_plan=...)` seeds them (`FaultPlan`, `make_nan_burst`,
 over N shards (`parallel/mesh.py`), the 1-D edge-sharded mesh or the 2-D
 camera x edge mesh (`SolverOption(mesh_2d=True)`), given N devices that
 may repeat one (`flat_solve(..., device=["cuda:0"] * N)`).
+`solve_checkpointed` runs `flat_solve` in chunks of LM iterations with an
+atomic, checksummed snapshot after each (the JAX package's schema-v3
+format) and resumes from one transparently, after a kill too;
+`solve_pgo_checkpointed` does the same for `solve_pgo`.
+`flat_solve(..., triage=TriagePolicy(...))` checks a problem on the host
+before any device work; its `TriageAction` REJECT raises
+`ProblemRejected`, REPAIR freezes, masks, anchors and downweights, WARN
+solves it as submitted.
 """
 
 from megba_tpu_torch.common import (
@@ -72,10 +80,19 @@ from megba_tpu_torch.problem import (
     PoseVertex,
     VertexKind,
 )
+from megba_tpu_torch.algo.checkpointed import (
+    solve_checkpointed,
+    solve_pgo_checkpointed,
+)
 from megba_tpu_torch.robustness.faults import (
     FaultPlan,
     make_nan_burst,
     make_point_indefinite_burst,
+)
+from megba_tpu_torch.robustness.triage import (
+    ProblemRejected,
+    TriageAction,
+    TriagePolicy,
 )
 from megba_tpu_torch.solve import flat_solve, solve_bal
 

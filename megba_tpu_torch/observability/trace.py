@@ -67,3 +67,37 @@ class SolveTrace:
         for name, v in values.items():
             getattr(self, name)[k] = v
 
+
+def trace_slice(trace: SolveTrace, n: int) -> SolveTrace:
+    """The first n iterations (drops the unused tail)."""
+    return SolveTrace(**{f: getattr(trace, f)[:n].clone()
+                         for f in TRACE_FIELDS})
+
+
+def trace_filler(n: int) -> SolveTrace:
+    """n iterations of inert history: NaN (float64) in the float fields,
+    no accepts or recoveries, 0 in the counters, as the JAX package's.
+
+    Used when a checkpointed solve resumes a snapshot written before
+    traces existed: the pre-resume iterations are unknowable, but the
+    stitched trace must still line up index-for-index with
+    `LMResult.iterations`.
+    """
+    return SolveTrace(**{
+        f: (torch.zeros((n,), dtype=_FIELD_DTYPES[f]) if f in _FIELD_DTYPES
+            else torch.full((n,), float("nan"), dtype=torch.float64))
+        for f in TRACE_FIELDS})
+
+
+def trace_concat(parts) -> SolveTrace:
+    """Concatenate per-chunk traces into one solve history (the float
+    fields promote as numpy's concatenate does: float32 beside float64
+    filler gives float64).  The checkpointed drivers slice each chunk's
+    trace to the iterations it ran and stitch the chunks back together,
+    so a resumed solve reports the trace a straight run would."""
+    return SolveTrace(**{
+        f: torch.cat([torch.as_tensor(getattr(p, f)) for p in parts])
+        if parts else torch.zeros((0,),
+                                  dtype=_FIELD_DTYPES.get(f, torch.float64))
+        for f in TRACE_FIELDS})
+

@@ -68,6 +68,7 @@ from megba_tpu_torch.robustness.faults import (
     fault_partition,
     lower_edge_vector,
 )
+from megba_tpu_torch.utils.timing import PhaseTimer
 
 
 def _host(a) -> np.ndarray:
@@ -96,6 +97,8 @@ def flat_solve(
     initial_dx: Optional[np.ndarray] = None,
     fault_plan: Optional[FaultPlan] = None,
     factor=None,
+    timer: Optional[PhaseTimer] = None,
+    triage=None,
 ) -> LMResult:
     """Lower flat arrays and run the solve.
 
@@ -143,11 +146,48 @@ def flat_solve(
     orders only the 1-D streams (the 2-D plan orders its columns
     co-observation first itself).  The result lives on the first
     device.
+
+    `timer` (utils.timing.PhaseTimer, a fresh one if None) records the
+    host phases of the JAX package's names: "triage", "lowering" (the
+    arrays' checks and conversions and their moves to the devices),
+    "sort" (COOBS), "plan" (the segment, fused and coarse plans) and
+    "dispatch" (the LM loop).  `triage` (robustness.triage.TriagePolicy)
+    arms the pre-flight health checks (JAX solve.py:266-292): the
+    problem is checked on the host in a "triage" phase before any
+    lowering or tensor allocation.  Under REJECT a degenerate problem
+    raises `ProblemRejected` (HealthReport attached) with no kernel
+    launched and nothing allocated on a device; under REPAIR the repairs
+    merge into this call's arrays and operands (edge_mask multiplies,
+    fixed masks OR, non-finite values sanitised) and each repair counter
+    lands on the timer as a `triage_*` event; under WARN the solve is
+    unchanged.  With `factor`, the spec's triage hooks drive the
+    geometric checks; without, the BAL hooks of io/synthetic.
     """
+    spec = None
     if factor is not None:
-        option, engine = _factor_route(factor, option, cameras, points, obs)
+        option, engine, spec = _factor_route(factor, option, cameras,
+                                             points, obs)
         residual_jac_fn = residual_jac_fn or engine
     validate_options(option)
+    timer = PhaseTimer() if timer is None else timer
+    if triage is not None:
+        from megba_tpu_torch.robustness.triage import triage_problem
+
+        # Before any lowering: a REJECT propagates ProblemRejected out of
+        # this phase, with the timer holding a "triage" phase alone.
+        with timer.phase("triage"):
+            outcome = triage_problem(
+                cameras, points, obs, cam_idx, pt_idx, triage,
+                edge_mask=edge_mask, cam_fixed=cam_fixed,
+                pt_fixed=pt_fixed, factor=spec)
+        rep = outcome.repair
+        if rep is not None and not rep.is_noop:
+            for name, n in rep.counters().items():
+                if n:
+                    timer.count_event(f"triage_{name}", n)
+            cameras, points, obs = rep.merged_arrays(cameras, points, obs)
+            edge_mask, cam_fixed, pt_fixed = rep.merge_operands(
+                edge_mask, cam_fixed, pt_fixed)
     ws = option.world_size
     so = option.solver_option
     mesh2d = bool(ws > 1 and option.use_schur and so.mesh_2d)
@@ -167,52 +207,54 @@ def flat_solve(
             device = resolve_devices(1, device)[0]
         mesh = make_mesh(1, [resolve_device(device, option)])
     dtype = np.dtype(option.dtype)
-    tdtype = DTYPE_TO_TORCH[dtype]
-    cameras = np.asarray(cameras).astype(dtype, copy=False)
-    points = np.asarray(points).astype(dtype, copy=False)
-    obs = np.asarray(obs).astype(dtype, copy=False)
-    cam_idx = np.asarray(cam_idx)
-    pt_idx = np.asarray(pt_idx)
-    n_edges = int(cam_idx.shape[0])
-    if obs.shape[0] != n_edges or pt_idx.shape[0] != n_edges:
-        raise ValueError(
-            f"obs ({obs.shape[0]}), cam_idx ({n_edges}) and pt_idx "
-            f"({pt_idx.shape[0]}) must have one row per edge")
-    mask = np.ones(n_edges, dtype)
-    if edge_mask is not None:
-        mask = np.asarray(edge_mask).astype(dtype, copy=False).reshape(-1)
-        if mask.shape[0] != n_edges:
+    with timer.phase("lowering"):
+        cameras = np.asarray(cameras).astype(dtype, copy=False)
+        points = np.asarray(points).astype(dtype, copy=False)
+        obs = np.asarray(obs).astype(dtype, copy=False)
+        cam_idx = np.asarray(cam_idx)
+        pt_idx = np.asarray(pt_idx)
+        n_edges = int(cam_idx.shape[0])
+        if obs.shape[0] != n_edges or pt_idx.shape[0] != n_edges:
             raise ValueError(
-                f"edge_mask has {mask.shape[0]} entries for a problem "
-                f"with {n_edges} edges")
-    fault_edge = None
-    if fault_plan is not None:
-        fault_edge = _host(fault_plan.edge_nan)
-        if fault_edge.shape[0] != n_edges:
-            raise ValueError(
-                f"fault_plan.edge_nan has {fault_edge.shape[0]} entries "
-                f"for a problem with {n_edges} edges")
+                f"obs ({obs.shape[0]}), cam_idx ({n_edges}) and pt_idx "
+                f"({pt_idx.shape[0]}) must have one row per edge")
+        mask = np.ones(n_edges, dtype)
+        if edge_mask is not None:
+            mask = np.asarray(edge_mask).astype(dtype, copy=False).reshape(
+                -1)
+            if mask.shape[0] != n_edges:
+                raise ValueError(
+                    f"edge_mask has {mask.shape[0]} entries for a problem "
+                    f"with {n_edges} edges")
+        fault_edge = None
+        if fault_plan is not None:
+            fault_edge = _host(fault_plan.edge_nan)
+            if fault_edge.shape[0] != n_edges:
+                raise ValueError(
+                    f"fault_plan.edge_nan has {fault_edge.shape[0]} "
+                    f"entries for a problem with {n_edges} edges")
     if option.solver_option.edge_order == EdgeOrder.COOBS and not mesh2d:
         # A host pre-permutation of the caller's edges; the stable camera
         # sort below keeps its point-minor order (JAX solve.py:368-389).
-        operm = coobservation_edge_order(cam_idx, pt_idx)
-        cam_idx, pt_idx, obs = cam_idx[operm], pt_idx[operm], obs[operm]
-        mask = mask[operm]
-        if sqrt_info is not None:
-            sqrt_info = np.asarray(sqrt_info)[operm]
-        if fault_edge is not None:
-            fault_edge = fault_edge[operm]
+        with timer.phase("sort"):
+            operm = coobservation_edge_order(cam_idx, pt_idx)
+            cam_idx, pt_idx, obs = cam_idx[operm], pt_idx[operm], obs[operm]
+            mask = mask[operm]
+            if sqrt_info is not None:
+                sqrt_info = np.asarray(sqrt_info)[operm]
+            if fault_edge is not None:
+                fault_edge = fault_edge[operm]
 
     return _mesh_solve(
         mesh, cameras, points, obs, cam_idx, pt_idx, mask, option,
         sqrt_info, cam_fixed, pt_fixed, verbose, residual_jac_fn,
-        initial_region, initial_v, initial_dx, fault_plan, fault_edge)
+        initial_region, initial_v, initial_dx, fault_plan, fault_edge, timer)
 
 
 def _factor_route(factor, option: ProblemOption, cameras, points, obs):
     """The registry's checks and defaults for a solve of `factor`
     (JAX solve.py:219-250): returns the option with the factor's solver
-    defaults and the factor's engine."""
+    defaults, the factor's engine and its spec."""
     from megba_tpu_torch.factors import (
         engine_for,
         get_factor,
@@ -234,7 +276,7 @@ def _factor_route(factor, option: ProblemOption, cameras, points, obs):
             "robust-kernel eligible (robust_ok=False — e.g. a "
             "marginalization prior must not be IRLS-downweighted); "
             "submit with robust_kind=NONE")
-    return option, engine_for(spec, option.jacobian_mode)
+    return option, engine_for(spec, option.jacobian_mode), spec
 
 
 def _vertex_rows(a: np.ndarray, dev) -> torch.Tensor:
@@ -317,55 +359,57 @@ def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
 def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
                 option, sqrt_info, cam_fixed, pt_fixed, verbose,
                 residual_jac_fn, initial_region, initial_v, initial_dx,
-                fault_plan, fault_edge) -> LMResult:
+                fault_plan, fault_edge, timer) -> LMResult:
     """The lowering of a solve over a mesh (JAX solve.py:408-500): the
-    shards' edge streams, their plans, the sharded coarse plan and fault
-    plan, then `distributed_lm_solve`."""
+    shards' edge streams and their plans (the "plan" phase of `timer`),
+    the sharded coarse plan and fault plan and the arrays' moves to the
+    devices ("lowering"), then `distributed_lm_solve` ("dispatch")."""
     so = option.solver_option
     dtype = np.dtype(option.dtype)
     tdtype = DTYPE_TO_TORCH[dtype]
     devs = mesh.devices
     dev0 = devs[0]
     nc, npt = cameras.shape[0], points.shape[0]
-    tile_plan = None
-    if mesh.is_2d:
-        # The camera-tile plan's device blocks, real edges only; each
-        # block is camera-sorted, so its camera-slot order is its own.
-        # Quantum 1: the JAX package pads each column to a multiple of
-        # E * EDGE_QUANTUM for static shapes, which on a small problem
-        # leaves whole edge shards empty; the CSR plans need no padding,
-        # so each edge shard takes an even piece of its column.
-        tplan = build_camera_tile_plan(cam_idx, pt_idx, nc, npt,
-                                       mesh.edge_shards, mesh.cam_blocks,
-                                       quantum=1)
-        perms = tile_plan_shards(tplan)
-        shard_plans = []
-        for p, d in zip(perms, devs):
-            plan_c, dp = make_dual_plans(cam_idx[p], pt_idx[p], nc, npt, d)
-            if not np.array_equal(plan_c.perm, np.arange(p.shape[0])):
-                raise AssertionError("a 2-D device block is not "
-                                     "camera-sorted")
-            shard_plans.append(dp)
-        shard_plans = tuple(shard_plans)
-        tile_plan = device_camera_tile_plan(tplan, devs)
-    else:
-        perms, shard_plans = make_sharded_dual_plans(cam_idx, pt_idx, nc,
-                                                     npt, devs)
-    if option.use_schur and so.fused_kernels:
-        shard_plans = tuple(with_fused_plans(p) for p in shard_plans)
-    bounds = tuple(int(b) for b in np.cumsum([0] + [p.shape[0]
-                                                    for p in perms]))
-    stream = np.concatenate(perms)
-    # The coarse space is planned over the stable camera sort, the
-    # world-1 stream, on every mesh: its clusters depend on the stream's
-    # order, so every mesh then solves with the world-1 coarse space (the
-    # JAX package plans the 2-D mesh's over its 2-D stream instead).
-    canon = np.argsort(cam_idx, kind="stable")
-    at = np.empty_like(canon)
-    at[canon] = np.arange(canon.shape[0])
-    cluster_plan, plan_seconds = _coarse_plan(
-        option, cam_idx[canon], pt_idx[canon], mask[canon], nc, npt, devs,
-        [at[p] for p in perms])
+    with timer.phase("plan"):
+        tile_plan = None
+        if mesh.is_2d:
+            # The camera-tile plan's device blocks, real edges only; each
+            # block is camera-sorted, so its camera-slot order is its own.
+            # Quantum 1: the JAX package pads each column to a multiple of
+            # E * EDGE_QUANTUM for static shapes, which on a small problem
+            # leaves whole edge shards empty; the CSR plans need no padding,
+            # so each edge shard takes an even piece of its column.
+            tplan = build_camera_tile_plan(cam_idx, pt_idx, nc, npt,
+                                           mesh.edge_shards, mesh.cam_blocks,
+                                           quantum=1)
+            perms = tile_plan_shards(tplan)
+            shard_plans = []
+            for p, d in zip(perms, devs):
+                plan_c, dp = make_dual_plans(cam_idx[p], pt_idx[p], nc, npt, d)
+                if not np.array_equal(plan_c.perm, np.arange(p.shape[0])):
+                    raise AssertionError("a 2-D device block is not "
+                                         "camera-sorted")
+                shard_plans.append(dp)
+            shard_plans = tuple(shard_plans)
+            tile_plan = device_camera_tile_plan(tplan, devs)
+        else:
+            perms, shard_plans = make_sharded_dual_plans(cam_idx, pt_idx, nc,
+                                                         npt, devs)
+        if option.use_schur and so.fused_kernels:
+            shard_plans = tuple(with_fused_plans(p) for p in shard_plans)
+        bounds = tuple(int(b) for b in np.cumsum([0] + [p.shape[0]
+                                                        for p in perms]))
+        stream = np.concatenate(perms)
+        # The coarse space is planned over the stable camera sort, the
+        # world-1 stream, on every mesh: its clusters depend on the stream's
+        # order, so every mesh then solves with the world-1 coarse space (the
+        # JAX package plans the 2-D mesh's over its 2-D stream instead).
+        canon = np.argsort(cam_idx, kind="stable")
+        at = np.empty_like(canon)
+        at[canon] = np.arange(canon.shape[0])
+        cluster_plan, plan_seconds = _coarse_plan(
+            option, cam_idx[canon], pt_idx[canon], mask[canon], nc, npt, devs,
+            [at[p] for p in perms])
     if verbose and plan_seconds is not None:
         print(f"coarse plan: {plan_seconds:.3f} s on the host", flush=True)
 
@@ -375,28 +419,32 @@ def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
         return tuple(torch.from_numpy(np.ascontiguousarray(a[p].T)).to(d)
                      for p, d in zip(perms, devs))
 
-    si = None
-    if sqrt_info is not None:
-        si = per_shard(np.asarray(sqrt_info).astype(dtype, copy=False))
-    faults = None
-    if fault_plan is not None:
-        faults = fault_partition(
-            _lowered_fault(fault_plan, fault_edge, stream, tdtype),
-            bounds, devs)
-    result = distributed_lm_solve(
-        _vertex_rows(cameras, dev0), _vertex_rows(points, dev0),
-        per_shard(obs), tuple(p.cam.seg.long() for p in shard_plans),
-        tuple(torch.from_numpy(pt_idx[p].astype(np.int64)).to(d)
-              for p, d in zip(perms, devs)),
-        tuple(torch.from_numpy(mask[p]).to(d, tdtype)
-              for p, d in zip(perms, devs)),
-        option, mesh, shard_plans, sqrt_info=si,
-        cam_fixed=_flags(cam_fixed, nc, dev0),
-        pt_fixed=_flags(pt_fixed, npt, dev0), verbose=verbose,
-        residual_jac_fn=residual_jac_fn, initial_region=initial_region,
-        initial_v=initial_v,
-        initial_dx=_warm_dx(initial_dx, option, cameras, dev0),
-        fault_plan=faults, cluster_plan=cluster_plan, tile_plan=tile_plan)
+    with timer.phase("lowering"):
+        si = None
+        if sqrt_info is not None:
+            si = per_shard(np.asarray(sqrt_info).astype(dtype, copy=False))
+        faults = None
+        if fault_plan is not None:
+            faults = fault_partition(
+                _lowered_fault(fault_plan, fault_edge, stream, tdtype),
+                bounds, devs)
+        operands = (
+            _vertex_rows(cameras, dev0), _vertex_rows(points, dev0),
+            per_shard(obs), tuple(p.cam.seg.long() for p in shard_plans),
+            tuple(torch.from_numpy(pt_idx[p].astype(np.int64)).to(d)
+                  for p, d in zip(perms, devs)),
+            tuple(torch.from_numpy(mask[p]).to(d, tdtype)
+                  for p, d in zip(perms, devs)))
+        flags = dict(cam_fixed=_flags(cam_fixed, nc, dev0),
+                     pt_fixed=_flags(pt_fixed, npt, dev0),
+                     initial_dx=_warm_dx(initial_dx, option, cameras, dev0))
+    with timer.phase("dispatch"):
+        result = distributed_lm_solve(
+            *operands, option, mesh, shard_plans, sqrt_info=si,
+            verbose=verbose, residual_jac_fn=residual_jac_fn,
+            initial_region=initial_region, initial_v=initial_v,
+            fault_plan=faults, cluster_plan=cluster_plan,
+            tile_plan=tile_plan, **flags)
     return _edge_major(result, plan_seconds)
 
 

@@ -177,7 +177,30 @@ exception ends the run with a non-zero exit code:
    `ProblemRejected` with no launch and no device allocation, a REPAIR
    solve with the venice options (no recovery, no fallback, a finite
    cost below the initial), and a trafalgar-sized f64 REPAIR solve
-   kernels against plain versions.
+   kernels against plain versions;
+12. the fleet service (`serving/`, `algo/lanes.py`): the JAX package's
+   `make_fleet(1024, size_range=(128, 1024), seed=0)` (~1.6M edges)
+   through `solve_many` under `ProblemOption()` at f64, then at f32: per
+   bucket its shape, lanes and problems, LM and PCG counts, wall,
+   device busy share (torch.profiler over one more run) and launches
+   of kernels 1-3 and 6, exactly what the lanes' traces imply (one
+   launch serves every lane); the fleet's wall, problems a second, peak
+   memory, lane and edge fill; every cost finite and at or below its
+   initial, no FATAL.  The first 64 problems one by one through
+   `flat_solve` and as one `solve_many` (problems a second each, the
+   latter with telemetry: 64 reports in chiprun_out/fleet_reports.jsonl
+   read back by the port's summarize, --aggregate and --fleet); the 64
+   under `ProblemOption()`'s PCG with an LM cap of 4 through the kernels
+   and through the plain versions (trial costs at rtol 1e-9, equal
+   counts, accepts and status), and 8 problems of one bucket each solved
+   as a fleet of one, bitwise equal to its lane; the JAX package's
+   serving chaos smoke at 64 problems (`FleetQueue`, max_batch 16, the
+   escalation ladder: two poisoned problems RECOVERED at rung 1, one
+   shed, the clean results bitwise the closed-window `solve_many`
+   control's), then the 64 from four submitter threads; and kernel rows
+   `name fleet` / `name[f64] fleet` of kernels 1-3 (camera and point
+   side) and 6 at the largest bucket's union plan, with CUDA-event and
+   device times, bounds and library calls.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -2304,9 +2327,9 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
 def profile_solve(args, path: str, kw: dict, label: str) -> float:
     """One more solve under torch.profiler: device time by kernel and the
     device's busy share of the wall time, which it returns.  The device
-    activity alone is traced: with the host's operators too, summing a
-    venice-scale solve's events took ~24 s against ~10 s on an H100, for
-    the same device time (within 2 %)."""
+    activity alone is traced, and its events are summed straight from the
+    trace (`device_time_by_name`): `key_averages()` took ~10 s a
+    venice-scale solve on an H100 (PR 13), for the same device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from megba_tpu_torch import flat_solve
@@ -2319,16 +2342,16 @@ def profile_solve(args, path: str, kw: dict, label: str) -> float:
         flat_solve(*args, device=devices_of(path), **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    events = prof.key_averages()
-    table = events.table(sort_by="self_cuda_time_total", row_limit=-1)
-    (out_dir / f"profile_{label}_{path}.txt").write_text(table)
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in events if e.device_type.name == "CUDA")
+    dev_us, by_name = device_time_by_name(prof)
+    table = "\n".join(
+        [f"{'device us':>14}  {'share':>6}  kernel"]
+        + [f"{us:14.1f}  {us / max(dev_us, 1e-9):6.1%}  {name[:160]}"
+           for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])])
+    (out_dir / f"profile_{label}_{path}.txt").write_text(table + "\n")
     log(f"profile {label} {path}: wall {wall:.3f} s under the profiler, "
         f"device busy {dev_us / 1e6:.3f} s ({dev_us / 1e6 / wall:.1%}); "
         f"kernel table in chiprun_out/profile_{label}_{path}.txt")
-    log("\n".join(table.splitlines()[:18]))
+    log("\n".join(table.splitlines()[:12]))
     return dev_us / 1e6 / wall
 
 
@@ -3927,6 +3950,521 @@ def durable_phase(venice, trafalgar64, straight, pgo_kept) -> None:
         + " s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the fleet service
+# ---------------------------------------------------------------------------
+
+# The full-size fleet: 1024 problems of 128-1024 points (16-128 cameras,
+# ~256-3,600 edges each, ~1.6M real edges), the JAX package's
+# `make_fleet` at seed 0.
+FLEET_N = 1024
+FLEET_SIZES = (128, 1024)
+# The first FLEET_SMALL problems: batched against serial, kernels against
+# plain (LM-capped at FLEET_LM_CAP, before the cost floor), the queue
+# under chaos and the telemetry.
+FLEET_SMALL = 64
+FLEET_LM_CAP = 4
+# Problems of one bucket each solved as a fleet of one, bitwise against
+# its lane in the batch.
+FLEET_BITWISE = 8
+FLEET_REPORTS = ROOT / "chiprun_out" / "fleet_reports.jsonl"
+FLEET_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
+                 "fused_block_diag_apply")
+
+
+def fleet_problems(n: int, dtype):
+    from megba_tpu_torch import FleetProblem
+    from megba_tpu_torch.io.synthetic import make_fleet
+
+    t = time.perf_counter()
+    fl = make_fleet(n, size_range=FLEET_SIZES, seed=0, dtype=dtype)
+    probs = [FleetProblem.from_synthetic(s, name=f"fleet{i}")
+             for i, s in enumerate(fl)]
+    edges = sum(p.obs.shape[0] for p in probs)
+    log(f"fleet: {n} problems of {FLEET_SIZES[0]}-{FLEET_SIZES[1]} points, "
+        f"{edges} edges, {np.dtype(dtype).name}, made in "
+        f"{time.perf_counter() - t:.1f} s")
+    return probs
+
+
+def fleet_expected_launches(results) -> dict:
+    """The launches the lane-batched solve (algo/lanes.py) implies for one
+    bucket, from its lanes' traces alone: the batch runs LM iteration k
+    while any lane is live (k < its iterations), its PCG n_k iterations
+    (the most of the live lanes'), and relinearises after k when a live
+    lane accepted or recovered.  A PCG of n iterations (cold start) runs
+    n + 1 S.p products (2 coupling_expand, 2 coupling_reduce, 1
+    fused_block_diag_apply each) and n + 1 M^-1 applies (kernel 6), the
+    reduced right-hand side and the back-substitution one coupling
+    product each (kernels 2 and 3); the gain ratio 2 coupling_expand; a
+    linearisation 2 jtj_grad_reduce."""
+    k_max = max(r.iterations for r in results)
+    lin = 1
+    k2 = k3 = k6 = 0
+    for k in range(k_max):
+        live = [r for r in results if r.iterations > k]
+        n = max(int(r.trace.pcg_iters[k]) for r in live)
+        k2 += 2 * n + 6
+        k3 += 2 * n + 4
+        k6 += 2 * n + 2
+        if any(bool(r.trace.accept[k]) or bool(r.trace.recovery[k])
+               for r in live):
+            lin += 1
+    return {"jtj_grad_reduce": 2 * lin, "coupling_expand": k2,
+            "coupling_reduce": k3, "fused_block_diag_apply": k6}
+
+
+@contextlib.contextmanager
+def record_buckets(profile: bool = False):
+    """Record every lane-batched solve run inside (each bucket of a
+    `solve_many` or a queue dispatch): its wall (synchronised), its
+    launches per kernel, its `LaneSolve`, and with `profile` its device
+    busy share under torch.profiler (device activity only).  Yields the
+    list of records."""
+    from megba_tpu_torch.algo import lanes
+
+    inner = lanes.lane_lm_solve
+    records = []
+
+    def recorded(*args, **kw):
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ctx = (prof_ctx(activities=[ProfilerActivity.CUDA]) if profile
+               else contextlib.nullcontext())
+        with ctx as prof:
+            t = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy = None
+        if profile:
+            busy = device_time_by_name(prof)[0] / 1e6 / wall
+        records.append(dict(solve=out, wall=wall, busy=busy,
+                            launches={k: v for k, v in launch_counts().items()
+                                      if v}))
+        return out
+
+    lanes.lane_lm_solve = recorded
+    try:
+        yield records
+    finally:
+        lanes.lane_lm_solve = inner
+
+
+def fleet_solve(probs, opt, profile: bool = False, **kw):
+    """`solve_many` on the card, each bucket recorded; returns (results,
+    wall, records)."""
+    from megba_tpu_torch import solve_many
+
+    with record_buckets(profile) as records:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = solve_many(probs, opt, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return res, wall, records
+
+
+def check_bucket_launches(what: str, res, records) -> dict:
+    """Each record's launches are exactly `fleet_expected_launches` of its
+    bucket's lanes and the batch's own counts agree with them; returns
+    the launches summed over the buckets."""
+    by_bucket = {}
+    for r in res:
+        by_bucket.setdefault((str(r.shape), r.lanes), []).append(r)
+    if len(records) != len(by_bucket):
+        raise AssertionError(f"{what}: {len(records)} batched solves for "
+                             f"{len(by_bucket)} buckets")
+    total = {}
+    for rec, ((bucket, lanes), lane_res) in zip(records, by_bucket.items()):
+        want = fleet_expected_launches(lane_res)
+        solve = rec["solve"]
+        own = dict(lm=solve.lm_iterations, pcg=solve.pcg_iterations,
+                   lin=solve.linearizations)
+        if (rec["launches"] != want
+                or own["lm"] != max(r.iterations for r in lane_res)
+                or 2 * own["lin"] != want["jtj_grad_reduce"]):
+            raise AssertionError(
+                f"{what} {bucket}: launches {rec['launches']}, the lanes' "
+                f"traces imply {want}; the batch's own counts {own}")
+        rec.update(bucket=bucket, lanes=lanes, real=len(lane_res),
+                   lm=own["lm"], pcg=sum(own["pcg"]))
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def fleet_gate(what: str, res) -> None:
+    from megba_tpu_torch import SolveStatus
+
+    for r in res:
+        c0, c1 = float(r.initial_cost), float(r.cost)
+        if not (np.isfinite(c1) and c1 <= c0) or (
+                r.status == int(SolveStatus.FATAL_NONFINITE)):
+            raise AssertionError(f"{what} {r.name}: cost {c0} -> {c1}, "
+                                 f"status {r.status_name}")
+
+
+def fleet_full(dtype, profile: bool = True):
+    """12.1: the full-size fleet through `solve_many` under
+    ProblemOption() at `dtype`: per bucket its shape, lanes and real
+    problems, LM and PCG counts, wall, launches (checked exact) and, from
+    one more run under torch.profiler, the device's busy share; the
+    fleet's wall, problems a second, peak memory, lane and edge fill."""
+    from megba_tpu_torch import ProblemOption
+    from megba_tpu_torch.serving import FleetStats
+
+    probs = fleet_problems(FLEET_N, dtype)
+    opt = ProblemOption(dtype=dtype)
+    fleet_solve(probs[:1], opt)  # first use of the dtype's code paths
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats = FleetStats()
+    res, wall, records = fleet_solve(probs, opt, stats=stats)
+    peak = torch.cuda.max_memory_allocated()
+    what = f"fleet {np.dtype(dtype).name}"
+    launches = check_bucket_launches(what, res, records)
+    fleet_gate(what, res)
+    busy = []
+    if profile:
+        res_p, _, rec_p = fleet_solve(probs, opt, profile=True)
+        busy = [rec["busy"] for rec in rec_p]
+        for a, b in zip(res, res_p):
+            if not (a.cost.tobytes() == b.cost.tobytes()
+                    and a.cameras.tobytes() == b.cameras.tobytes()):
+                raise AssertionError(f"{what}: the profiled run differs "
+                                     f"from the first in {a.name}")
+    for i, rec in enumerate(records):
+        share = "" if not busy else f", device busy {busy[i]:.1%}"
+        log(f"{what} bucket {rec['bucket']}: {rec['lanes']} lanes, "
+            f"{rec['real']} problems, {rec['lm']} LM iterations, "
+            f"{rec['pcg']} PCG iterations (batch), wall {rec['wall']:.3f} s"
+            f"{share}; launches {rec['launches']} (as the lanes' traces "
+            "imply)")
+    d = stats.as_dict()
+    lane_fill = d["problems"] / d["lane_slots"]
+    edge_fill = d["edges_real"] / d["edge_slots"]
+    n_stat = {}
+    for r in res:
+        n_stat[r.status_name] = n_stat.get(r.status_name, 0) + 1
+    log(f"{what}: {len(probs)} problems in {len(records)} buckets, wall "
+        f"{wall:.3f} s ({len(probs) / wall:.1f} problems/s), peak "
+        f"{peak / 2**30:.2f} GiB, lane fill {lane_fill:.1%}, edge fill "
+        f"{edge_fill:.1%}; statuses {n_stat}; LM iterations "
+        f"{sum(r.iterations for r in res)}, PCG "
+        f"{sum(r.pcg_iterations for r in res)} over the problems")
+    return probs, res, launches
+
+
+def fleet_serial(probs) -> None:
+    """12.2: the first problems one by one through `flat_solve`, then as
+    one `solve_many`, problems a second of each (the latter with
+    telemetry, the reports of 12.5)."""
+    from megba_tpu_torch import ProblemOption, flat_solve
+
+    small = probs[:FLEET_SMALL]
+    opt = ProblemOption()
+    flat_solve(*fleet_arrays(small[0]), opt, device=DEVICE)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    serial = [flat_solve(*fleet_arrays(p), opt, device=DEVICE)
+              for p in small]
+    torch.cuda.synchronize()
+    t_serial = time.perf_counter() - t
+    FLEET_REPORTS.parent.mkdir(exist_ok=True)
+    FLEET_REPORTS.unlink(missing_ok=True)
+    tele = dataclasses.replace(opt, telemetry=str(FLEET_REPORTS))
+    res, t_batch, _ = fleet_solve(small, tele)
+    fleet_gate("fleet batched 64", res)
+    gaps = [abs(float(a.cost) - float(b.cost)) / abs(float(a.cost))
+            for a, b in zip(serial, res)]
+    log(f"fleet serial vs batched, {len(small)} problems under "
+        f"ProblemOption(): flat_solve one by one {t_serial:.3f} s "
+        f"({len(small) / t_serial:.1f} problems/s), solve_many "
+        f"{t_batch:.3f} s ({len(small) / t_batch:.1f} problems/s, "
+        f"{t_serial / t_batch:.1f}x); final costs part by at most "
+        f"{max(gaps):.3e} (the solo loop's reductions are not the "
+        f"batch's); {nvidia_smi_line()}")
+    fleet_reports(len(small))
+
+
+def fleet_arrays(p):
+    return (p.cameras, p.points, p.obs, p.cam_idx, p.pt_idx)
+
+
+def fleet_reports(n: int) -> None:
+    """12.5: the batched run's telemetry: one report a problem, read back
+    by the port's summarize (--aggregate and --fleet)."""
+    from megba_tpu_torch.observability import summarize
+
+    lines = FLEET_REPORTS.read_text().splitlines()
+    if len(lines) != n:
+        raise AssertionError(f"fleet telemetry: {len(lines)} reports for "
+                             f"{n} problems")
+    reps = summarize.load_reports(str(FLEET_REPORTS))
+    backend = "gpu" if DEVICE.type == "cuda" else "cpu"
+    if any(r.fleet is None or r.backend.get("backend") != backend
+           for r in reps):
+        raise AssertionError("fleet telemetry: a report lacks its fleet "
+                             f"block or the {backend} backend")
+    log(f"fleet telemetry: {n} reports in {FLEET_REPORTS.relative_to(ROOT)}")
+    log(summarize.aggregate_reports(reps))
+    log(summarize.fleet_table(reps))
+
+
+def fleet_kernels_vs_plain(probs) -> None:
+    """12.3: the first problems under ProblemOption()'s PCG with the LM
+    cap, through the kernels and through the plain versions on the card:
+    trial costs at rtol 1e-9, equal counts, accepts and status; then
+    problems of one bucket each solved as a fleet of one, bitwise equal
+    to its lane in the batch."""
+    from megba_tpu_torch import AlgoOption, ProblemOption
+
+    small = probs[:FLEET_SMALL]
+    opt = ProblemOption(algo_option=AlgoOption(max_iter=FLEET_LM_CAP))
+    kern, _, _ = fleet_solve(small, opt)
+    with plain_path():
+        plain, _, _ = fleet_solve(small, opt)
+    worst = 0.0
+    for a, b in zip(kern, plain):
+        if (a.iterations, a.accepted, a.pcg_iterations, a.status) != (
+                b.iterations, b.accepted, b.pcg_iterations, b.status):
+            raise AssertionError(f"fleet kernels vs plain {a.name}: counts "
+                                 f"differ")
+        k = a.iterations
+        if not (torch.equal(a.trace.accept[:k], b.trace.accept[:k])
+                and torch.equal(a.trace.pcg_iters[:k], b.trace.pcg_iters[:k])):
+            raise AssertionError(f"fleet kernels vs plain {a.name}: traces "
+                                 "differ")
+        ca, cb = a.trace.cost[:k].numpy(), b.trace.cost[:k].numpy()
+        gap = float(np.max(np.abs(ca - cb) / np.abs(cb)))
+        if not gap <= F64_COST_RTOL:
+            raise AssertionError(f"fleet kernels vs plain {a.name}: trial "
+                                 f"costs {gap:.3e} apart")
+        worst = max(worst, gap)
+    log(f"fleet kernels vs plain f64, {len(small)} problems, LM cap "
+        f"{FLEET_LM_CAP}: trial costs within {worst:.3e}, equal counts, "
+        "accepts and status")
+    buckets = {}
+    for p, r in zip(small, kern):
+        buckets.setdefault(str(r.shape), []).append((p, r))
+    big = max(buckets.values(), key=len)
+    mates = big[:FLEET_BITWISE]
+    for p, r in mates:
+        alone = fleet_solve([p], opt)[0][0]
+        if alone.lanes != 1 or not all(
+                bitwise_equal(torch.as_tensor(getattr(alone, f)),
+                              torch.as_tensor(getattr(r, f)))
+                for f in ("cameras", "points", "cost")) or not all(
+                bitwise_equal(getattr(alone.trace, f), getattr(r.trace, f))
+                for f in ("cost", "grad_inf_norm", "trust_region", "rho",
+                          "accept", "pcg_iters", "pcg_r0_ratio")):
+            raise AssertionError(f"fleet lane independence {p.name}: alone "
+                                 f"differs from its lane {r.lane} of "
+                                 f"{r.lanes}")
+    log(f"fleet lane independence: {len(mates)} problems of bucket "
+        f"{mates[0][1].shape} ({mates[0][1].lanes} lanes), each solved as a "
+        "fleet of one, bitwise equal to its lane (cameras, points, cost, "
+        "trace)")
+
+
+def fleet_queue_chaos(probs) -> None:
+    """12.4: the JAX package's serving chaos smoke
+    (scripts/run_tests.sh:338-470) at 64 problems: two poisoned members
+    of the most populated bucket heal at rung 1, one problem of another
+    bucket is shed, the clean results are bitwise the `solve_many`
+    control's; then the same 64 from four submitter threads."""
+    import threading
+
+    from megba_tpu_torch import (EscalationPolicy, FleetQueue, ProblemOption,
+                                 SolveStatus, make_nan_burst, solve_many)
+    from megba_tpu_torch.robustness.faults import close_fault_window
+    from megba_tpu_torch.serving import (BucketLadder, DeadlineExceeded,
+                                         FleetStats, classify)
+
+    opt = ProblemOption()
+    small = probs[:FLEET_SMALL]
+    buckets = {}
+    for i, p in enumerate(small):
+        buckets.setdefault(classify(*p.dims(), opt.dtype, BucketLadder()),
+                           []).append(i)
+    big = max(buckets.values(), key=len)
+    poisoned = set(big[:2])
+    doomed = next(i for i in range(len(small)) if i not in set(big))
+
+    def poison(p):
+        plan = make_nan_burst(p.obs.shape[0], [1, 5], start=0, stop=1,
+                              n_points=p.points.shape[0], dtype=np.float64)
+        return dataclasses.replace(p, fault_plan=plan)
+
+    submitted = [poison(p) if i in poisoned else p
+                 for i, p in enumerate(small)]
+    stats = FleetStats()
+    t = time.perf_counter()
+    with FleetQueue(opt, max_batch=16, max_wait_s=30.0, stats=stats,
+                    escalation=EscalationPolicy(backoff_base_s=0.01, seed=0),
+                    device=DEVICE) as q:
+        futs = [q.submit(p, deadline_s=0.0 if i == doomed else None)
+                for i, p in enumerate(submitted)]
+        q.flush()
+        if not q._thread.is_alive() or not all(f.done() for f in futs):
+            raise AssertionError("fleet queue: the dispatcher died or a "
+                                 "future is open after flush")
+        results, shed = {}, None
+        for i, f in enumerate(futs):
+            try:
+                results[i] = f.result(timeout=1)
+            except DeadlineExceeded:
+                shed = i
+    wall = time.perf_counter() - t
+    if shed != doomed:
+        raise AssertionError(f"fleet queue: problem {doomed} was not shed")
+    for i in poisoned:
+        r = results[i]
+        if (r.status != int(SolveStatus.RECOVERED) or r.attempts != 2
+                or r.rung != 1 or not np.isfinite(float(r.cost))):
+            raise AssertionError(f"fleet queue: poisoned {r.name} ended "
+                                 f"{r.status_name}, attempts {r.attempts}, "
+                                 f"rung {r.rung}")
+    control = solve_many(
+        [dataclasses.replace(p, fault_plan=close_fault_window(p.fault_plan))
+         if p.fault_plan is not None else p
+         for i, p in enumerate(submitted) if i != doomed], opt, device=DEVICE)
+    ctrl = dict(zip([i for i in range(len(small)) if i != doomed], control))
+    clean = [i for i in range(len(small)) if i not in poisoned and i != doomed]
+    for i in clean:
+        r, c = results[i], ctrl[i]
+        if (r.status != c.status or r.cameras.tobytes() != c.cameras.tobytes()
+                or r.cost.tobytes() != c.cost.tobytes() or r.attempts != 1
+                or r.deadline_missed):
+            raise AssertionError(f"fleet queue: clean {r.name} differs from "
+                                 "the closed-window control")
+    d = stats.as_dict()
+    if d["sheds"] != 1 or d["retries"] != 2:
+        raise AssertionError(f"fleet queue: counters {d}")
+    log(f"fleet queue under chaos: {len(small)} problems, max_batch 16, "
+        f"{d['batches']} batches in {wall:.3f} s; poisoned "
+        f"{sorted(poisoned)} RECOVERED at rung 1 (attempts 2), problem "
+        f"{doomed} shed (DeadlineExceeded), {len(clean)} clean results "
+        f"bitwise the closed-window solve_many control's; retries "
+        f"{d['retries']}, sheds {d['sheds']}")
+
+    stats = FleetStats()
+    out = [None] * len(small)
+    t = time.perf_counter()
+    with FleetQueue(opt, max_batch=16, max_wait_s=0.05, stats=stats,
+                    device=DEVICE) as q:
+        def submit(idx):
+            futs = [(i, q.submit(small[i])) for i in idx]
+            for i, f in futs:
+                out[i] = f.result(timeout=600)
+
+        threads = [threading.Thread(target=submit,
+                                    args=(range(k, len(small), 4),))
+                   for k in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("fleet queue, 4 threads: a submitter hung")
+        alive = q._thread.is_alive()
+    wall = time.perf_counter() - t
+    if (not alive or any(r is None for r in out)
+            or stats.problems != len(small)):
+        raise AssertionError(f"fleet queue, 4 threads: dispatcher alive "
+                             f"{alive}, {stats.problems} problems solved")
+    fleet_gate("fleet queue 4 threads", out)
+    log(f"fleet queue, 4 submitter threads: {len(small)} futures resolved in "
+        f"{wall:.3f} s over {stats.batches} batches, the dispatcher alive")
+
+
+def fleet_kernel_cases(probs) -> dict:
+    """12.6: kernel rows of kernels 1-3 and 6 at the largest bucket's
+    union plan (its lanes stacked as the batch stacks them), f32 and f64:
+    rows "name fleet" / "name[f64] fleet", the camera side (2, 9) and the
+    point side (2, 3) of kernels 1-3 and kernel 6 over the union's
+    cameras; seeded random rows as in `shape_cases`, the library
+    yardsticks cuSPARSE CSR products for 2 and 3 and `torch.einsum` for 6
+    (PERF.md section 6's)."""
+    from megba_tpu_torch.ops import segtiles
+    from megba_tpu_torch.serving import BucketLadder, classify, pad_to_class
+
+    groups = {}
+    for p in probs:
+        groups.setdefault(classify(*p.dims(), np.float64, BucketLadder()),
+                          []).append(p)
+    shape, members = max(groups.items(),
+                         key=lambda kv: BucketLadder().bucket_lanes(
+                             len(kv[1])) * kv[0].n_edge)
+    lanes = BucketLadder().bucket_lanes(len(members))
+    padded = [pad_to_class(p.cameras, p.points, p.obs, p.cam_idx, p.pt_idx,
+                           shape) for p in members]
+    padded += [padded[0]] * (lanes - len(padded))
+    ci = np.concatenate([pp.cam_idx + k * shape.n_cam
+                         for k, pp in enumerate(padded)])
+    pi = np.concatenate([pp.pt_idx + k * shape.n_pt
+                         for k, pp in enumerate(padded)])
+    _, plans = segtiles.make_dual_plans(ci, pi, lanes * shape.n_cam,
+                                        lanes * shape.n_pt, DEVICE)
+    for side, plan in (("cam", plans.cam), ("pt", plans.pt)):
+        log(f"fleet union {shape} x {lanes} lanes, {side} side: "
+            f"{plan.num_segments} segments, {plan.n_slots} slots; kernels 1 "
+            f"and 3 {launch_shape(plan)}")
+    cam = shape_cases(2, 9, plans.cam, "fleet_cam")
+    pt = shape_cases(2, 3, plans.pt, "fleet_pt")
+    cases = {}
+    for name in FLEET_KERNELS[:3]:
+        for suffix in ("", "[f64]"):
+            cases[f"{name}{suffix} fleet"] = (cam[f"{name}(2,9){suffix}"]
+                                              + pt[f"{name}(2,3){suffix}"])
+    nc = lanes * shape.n_cam
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    for dtype, elt, suffix in ((torch.float32, 4, ""),
+                               (torch.float64, 8, "[f64]")):
+        Hrows = torch.randn((81, nc), generator=gen, device=DEVICE,
+                            dtype=dtype)
+        x = torch.randn((9, nc), generator=gen, device=DEVICE, dtype=dtype)
+        Minv = Hrows.T.reshape(nc, 9, 9)
+        cases[f"fused_block_diag_apply{suffix} fleet"] = [_case(
+            "fleet_cam", (Hrows, x), (81 + 18) * nc * elt, 2 * 81 * nc,
+            lambda Minv=Minv, x=x: lambda: torch.einsum("nij,jn->in", Minv,
+                                                        x),
+            ref64=dtype == torch.float32)]
+    return cases
+
+
+def fleet_phase() -> dict:
+    """Phase 12: the fleet service (serving/, algo/lanes.py) on the card.
+    Returns the kernel rows at the largest bucket's union, each with its
+    launches from the full-size fleet run of its arm."""
+    t0 = time.perf_counter()
+    probs64, _, launches64 = fleet_full(np.float64)
+    steps = [time.perf_counter()]
+    _, _, launches32 = fleet_full(np.float32)
+    steps.append(time.perf_counter())
+    fleet_serial(probs64)
+    steps.append(time.perf_counter())
+    fleet_kernels_vs_plain(probs64)
+    steps.append(time.perf_counter())
+    fleet_queue_chaos(probs64)
+    steps.append(time.perf_counter())
+    cases = fleet_kernel_cases(probs64)
+    rows = measure_rows(cases)
+    row_device_times(rows, cases, list(rows))
+    for name, row in rows.items():
+        arm = launches64 if "[f64]" in name else launches32
+        row["launches"] = arm.get(base_name(name))
+    steps.append(time.perf_counter())
+    log(f"fleet phase: {steps[-1] - t0:.1f} s (full fleet f64, f32, serial "
+        f"vs batched, kernels vs plain, queue, kernel rows: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip([t0] + steps, steps))
+        + " s)")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -3986,6 +4524,7 @@ def main() -> int:
     pgo_kept = {}
     rows.update(pgo_phase(pgo_kept))
     durable_phase(venice, trafalgar64, straight, pgo_kept)
+    rows.update(fleet_phase())
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernel rows never launched on their "

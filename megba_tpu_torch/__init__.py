@@ -32,7 +32,13 @@ format) and resumes from one transparently, after a kill too;
 `flat_solve(..., triage=TriagePolicy(...))` checks a problem on the host
 before any device work; its `TriageAction` REJECT raises
 `ProblemRejected`, REPAIR freezes, masks, anchors and downweights, WARN
-solves it as submitted.
+solves it as submitted.  `ProblemOption(telemetry=path)` appends one
+JSONL `SolveReport` per solve (`python -m
+megba_tpu_torch.observability.summarize path` renders them).
+`solve_many(problems)` solves a fleet of independent problems
+(`FleetProblem`), one lane-batched LM per shape bucket, and `FleetQueue`
+serves them asynchronously with deadlines, escalation, admission control
+and circuit breakers (`serving/`).
 """
 
 from megba_tpu_torch.common import (
@@ -93,6 +99,13 @@ from megba_tpu_torch.robustness.triage import (
     ProblemRejected,
     TriageAction,
     TriagePolicy,
+)
+from megba_tpu_torch.serving import (
+    EscalationPolicy,
+    FleetProblem,
+    FleetQueue,
+    FleetResult,
+    solve_many,
 )
 from megba_tpu_torch.solve import flat_solve, solve_bal
 

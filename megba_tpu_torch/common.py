@@ -11,9 +11,9 @@ Two things differ on purpose:
   `ProblemOption.device` defaults to `Device.CUDA`.  An entry point's own
   `device=` argument, when given, wins over it.
 - `validate_options` refuses every option value the port does not
-  implement yet (telemetry, metrics) with a `NotImplementedError` that
-  names the option, so a configuration is never silently run as
-  something else.  The option
+  implement yet (metrics: the metrics plane is not ported) with a
+  `NotImplementedError` that names the option, so a configuration is
+  never silently run as something else.  The option
   combinations the JAX package itself refuses raise its `ValueError`s
   first.
 """
@@ -116,6 +116,28 @@ def status_name(code) -> str:
         return f"unknown({int(code)})"
 
 
+# The statuses a fleet service should not hand back as they are: STALLED
+# (no accepted step) and FATAL_NONFINITE (the guards gave up).  The
+# escalation ladder (serving/resilience.py) re-solves them.
+RETRYABLE_STATUSES = frozenset(
+    {SolveStatus.STALLED, SolveStatus.FATAL_NONFINITE})
+
+
+def status_retryable(code, final_cost=None,
+                     statuses=RETRYABLE_STATUSES) -> bool:
+    """Should a fleet-level retry ladder re-solve this outcome?  True for
+    a status in `statuses`, for an unknown code, and for any solve whose
+    final cost is not finite whatever its code (with guards off a
+    poisoned carry can end MAX_ITER or CONVERGED around a NaN cost)."""
+    try:
+        retry = SolveStatus(int(code)) in statuses
+    except ValueError:
+        retry = True
+    if final_cost is not None and not np.isfinite(float(final_cost)):
+        return True
+    return retry
+
+
 @dataclasses.dataclass(frozen=True)
 class RobustOption:
     guards: bool = False
@@ -198,6 +220,27 @@ class ProblemOption:
                 f"robust_delta must be > 0, got {self.robust_delta}")
 
 
+@dataclasses.dataclass
+class AlgoStatus:
+    """Mutable LM status (the reference's common.h:55-60)."""
+
+    region: float = 1e3
+    recover_diag: bool = False
+
+
+# The ProblemOption fields that are host-side sinks, cleared off an option
+# before it reaches a cache key, a program key or a warm-up manifest.
+OBSERVABILITY_FIELDS = ("telemetry", "metrics")
+
+
+def strip_observability(option: ProblemOption) -> ProblemOption:
+    """The option with its observability sinks (`OBSERVABILITY_FIELDS`)
+    cleared; `option` itself when none is set."""
+    if option.telemetry is not None or option.metrics:
+        return dataclasses.replace(option, telemetry=None, metrics=False)
+    return option
+
+
 DTYPE_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
@@ -214,8 +257,8 @@ def _unported(name: str, value) -> NotImplementedError:
         "injection, either edge order, every preconditioner family "
         "(JACOBI, NEUMANN, TWO_LEVEL, MULTILEVEL) on the HPP or "
         "SCHUR_DIAG block diagonal, and the multi-device solve (world_size, "
-        "mesh_2d, cam_blocks, bf16_collectives); still refused: telemetry "
-        "and metrics")
+        "mesh_2d, cam_blocks, bf16_collectives), with JSONL telemetry; still "
+        "refused: metrics (the metrics plane)")
 
 
 def validate_options(option: ProblemOption) -> None:
@@ -311,13 +354,8 @@ def validate_options(option: ProblemOption) -> None:
             "M^-1 apply (use_schur=True); the plain full-system path has no "
             "edge pipeline to fuse")
     _validate_precision(option)
-    unported = [
-        ("telemetry", option.telemetry, option.telemetry is not None),
-        ("metrics", option.metrics, bool(option.metrics)),
-    ]
-    for name, value, refused in unported:
-        if refused:
-            raise _unported(name, value)
+    if option.metrics:
+        raise _unported("metrics", option.metrics)
 
 
 def _validate_precision(option: ProblemOption) -> None:

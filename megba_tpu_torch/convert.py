@@ -6,7 +6,8 @@ a registered factor's widths) into tensors on a given device and dtype;
 `schur_system_to_torch` turns an assembled Schur system of the JAX
 package (its fields read as numpy) into the port's `SchurSystem`;
 `fault_plan_to_torch` turns a fault plan of the JAX package into the
-port's `FaultPlan`; `g2o_graph_to_torch` copies a parsed `G2OGraph` of
+port's `FaultPlan`; `fleet_problem_to_torch` a JAX `FleetProblem` (its
+fault plan included) into the port's; `g2o_graph_to_torch` copies a parsed `G2OGraph` of
 the JAX package into the port's (io/g2o.py); `result_to_numpy` turns an
 `LMResult` back into numpy.  Both packages then compute on the same
 inputs.
@@ -122,6 +123,28 @@ def fault_plan_to_torch(plan, *, device: Union[str, torch.device] = "cpu"
                      point_crush=put(plan.point_crush),
                      window=(int(window[0]), int(window[1])),
                      offset=int(np.asarray(plan.offset)))
+
+
+def fleet_problem_to_torch(problem):
+    """A `FleetProblem` with the JAX package's fields -> the port's
+    `serving.FleetProblem`: every array copied (numpy, host side), the
+    fault plan through `fault_plan_to_torch` (CPU tensors), the health
+    record copied."""
+    from megba_tpu_torch.serving.batcher import FleetProblem
+
+    def copy(v):
+        return None if v is None else np.array(v)
+
+    return FleetProblem(
+        cameras=copy(problem.cameras), points=copy(problem.points),
+        obs=copy(problem.obs), cam_idx=copy(problem.cam_idx),
+        pt_idx=copy(problem.pt_idx), name=str(problem.name),
+        fault_plan=(None if problem.fault_plan is None
+                    else fault_plan_to_torch(problem.fault_plan)),
+        edge_mask=copy(problem.edge_mask), cam_fixed=copy(problem.cam_fixed),
+        pt_fixed=copy(problem.pt_fixed),
+        health=None if problem.health is None else dict(problem.health),
+        factor=str(problem.factor))
 
 
 def g2o_graph_to_torch(graph):

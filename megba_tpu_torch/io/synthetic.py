@@ -13,7 +13,7 @@ of the fused kernels' slot tiles placed in it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -435,3 +435,47 @@ def long_camera_idx(num_cameras: int, shortest: int = 5000,
                                  num_cameras)).astype(np.int64)
     cam_idx = np.repeat(np.arange(num_cameras), lengths)
     return cam_idx[rng.permutation(cam_idx.shape[0])].astype(np.int32)
+
+
+def make_fleet(
+    n_problems: int,
+    size_range: Tuple[int, int] = (12, 96),
+    rng: Optional[np.random.Generator] = None,
+    *,
+    seed: int = 0,
+    obs_per_point_range: Tuple[float, float] = (2.0, 3.5),
+    pixel_noise: float = 0.4,
+    param_noise: float = 2e-2,
+    dtype: np.dtype = np.float64,
+) -> List[SyntheticBAL]:
+    """A heterogeneous fleet of small BA problems, reproducibly (the JAX
+    package's `make_fleet`, array-equal for the same arguments).
+
+    `size_range` bounds each problem's point count (inclusive); its
+    camera count is about one per 8 points (at least 3), and
+    `obs_per_point_range` bounds its edge density.  Problem i's sizes and
+    scene derive from (`seed`, i) alone, so `make_fleet(8, ...)[:4]`
+    equals `make_fleet(4, ...)`.  A given `rng` only shuffles the order.
+    """
+    if n_problems < 1:
+        raise ValueError(f"n_problems must be >= 1, got {n_problems}")
+    lo, hi = int(size_range[0]), int(size_range[1])
+    if not 1 <= lo <= hi:
+        raise ValueError(f"bad size_range {size_range}")
+    olo, ohi = float(obs_per_point_range[0]), float(obs_per_point_range[1])
+    if not 1.0 <= olo <= ohi:
+        raise ValueError(f"bad obs_per_point_range {obs_per_point_range}")
+
+    fleet: List[SyntheticBAL] = []
+    for i in range(n_problems):
+        r_i = np.random.default_rng(np.random.SeedSequence([seed, i]))
+        n_pt = int(r_i.integers(lo, hi + 1))
+        n_cam = max(3, n_pt // 8)
+        opp = float(r_i.uniform(olo, ohi))
+        fleet.append(make_synthetic_bal(
+            num_cameras=n_cam, num_points=n_pt, obs_per_point=opp,
+            pixel_noise=pixel_noise, param_noise=param_noise,
+            seed=int(r_i.integers(0, 2**31 - 1)), dtype=dtype))
+    if rng is not None:
+        rng.shuffle(fleet)
+    return fleet

@@ -8,6 +8,9 @@ Counterpart of `megba_tpu/observability/trace.py`: fixed-size
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, List
+
+import numpy as np
 import torch
 
 TRACE_FIELDS = (
@@ -101,3 +104,16 @@ def trace_concat(parts) -> SolveTrace:
                                   dtype=_FIELD_DTYPES.get(f, torch.float64))
         for f in TRACE_FIELDS})
 
+
+
+def trace_to_dict(trace: SolveTrace, iterations: int) -> Dict[str, List]:
+    """The first `iterations` entries as plain Python lists (bools, ints
+    and floats), the JAX package's `trace_to_dict`: the one host transfer
+    of the trace, made by telemetry and never inside a solve."""
+    out: Dict[str, List] = {}
+    for f in TRACE_FIELDS:
+        a = np.asarray(torch.as_tensor(getattr(trace, f)).cpu())[:iterations]
+        out[f] = [bool(x) if a.dtype == np.bool_ else
+                  int(x) if np.issubdtype(a.dtype, np.integer) else float(x)
+                  for x in a]
+    return out

@@ -24,6 +24,8 @@ window adds nothing.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -155,3 +157,118 @@ def fault_partition(plan: FaultPlan, bounds: Sequence[int],
             plan, edge_nan=plan.edge_nan[bounds[k]:bounds[k + 1]].to(d),
             point_crush=plan.point_crush.to(devices[0]))
         for k, d in enumerate(devices))
+
+
+def lower_fault_plan(plan: FaultPlan, *, n_edges: int, n_points: int,
+                     dtype, perm: Optional[np.ndarray] = None) -> FaultPlan:
+    """Lower one plan onto a padded shape class (JAX faults.py:136-171):
+    `edge_nan` takes the camera-sort permutation the problem's edges took
+    (`perm`, from serving.shape_class.pad_to_class) and is zero-padded to
+    the bucket's edge count; `point_crush` is zero-padded to its point
+    count (padding points are fixed identity blocks).  A plan built
+    without an edge or point axis lowers to zeros there."""
+    edge = np.asarray(torch.as_tensor(plan.edge_nan).cpu()).astype(
+        dtype, copy=False)
+    if edge.shape[0] == 0:
+        edge = np.zeros((n_edges,), dtype)
+    else:
+        edge = lower_edge_vector(edge, perm=perm, n_padded=n_edges)
+    if edge.shape[0] != n_edges:
+        raise ValueError(
+            f"fault plan edge_nan has {np.asarray(plan.edge_nan).shape[0]} "
+            f"edges; problem lowers to {n_edges}")
+    crush = np.asarray(torch.as_tensor(plan.point_crush).cpu()).astype(
+        dtype, copy=False)
+    if crush.shape[0] > n_points:
+        raise ValueError(
+            f"fault plan point_crush has {crush.shape[0]} points; bucket "
+            f"holds {n_points}")
+    if crush.shape[0] < n_points:
+        crush = np.concatenate(
+            [crush, np.zeros((n_points - crush.shape[0],), dtype)])
+    return FaultPlan(edge_nan=torch.from_numpy(edge),
+                     point_crush=torch.from_numpy(crush),
+                     window=(int(plan.window[0]), int(plan.window[1])),
+                     offset=int(plan.offset))
+
+
+def stack_fault_plans(plans: Sequence[FaultPlan]) -> FaultPlan:
+    """Same-shape plans on a leading lane axis (JAX faults.py:174-185):
+    `edge_nan` [L, nE], `point_crush` [L, Np], `window` an [L, 2] and
+    `offset` an [L] host int32 array; each lane reads only its own
+    rows."""
+    if not plans:
+        raise ValueError("stack_fault_plans needs at least one plan")
+    return FaultPlan(
+        edge_nan=torch.stack([torch.as_tensor(p.edge_nan) for p in plans]),
+        point_crush=torch.stack([torch.as_tensor(p.point_crush)
+                                 for p in plans]),
+        window=np.asarray([[int(p.window[0]), int(p.window[1])]
+                           for p in plans], np.int32),
+        offset=np.asarray([int(p.offset) for p in plans], np.int32))
+
+
+class InjectedDispatchError(RuntimeError):
+    """The exception DispatchChaos raises: distinguishable from real
+    dispatch failures in logs and assertions."""
+
+
+@dataclasses.dataclass
+class DispatchChaos:
+    """Deterministic host-level chaos for the fleet dispatch path (JAX
+    faults.py:237-308).
+
+    The fleet queue's dispatcher calls `before_dispatch(bucket)` right
+    after taking a batch; the hook raises `InjectedDispatchError` (the
+    retry and circuit-breaker paths) or sleeps `delay_s` (deadline
+    pressure).  `fail_first` fails the first N dispatches of every
+    matching bucket; `fail_rate` also fails a seeded pseudo-random subset,
+    one `np.random.default_rng` per bucket from (`seed`, bucket name), so
+    a fixed submission order replays the same failures.  `buckets` (names
+    as `str(ShapeClass)`) restricts the chaos; None means all.
+    """
+
+    fail_first: int = 0
+    fail_rate: float = 0.0
+    delay_s: float = 0.0
+    seed: int = 0
+    buckets: Optional[frozenset] = None
+
+    def __post_init__(self) -> None:
+        if not 0.0 <= self.fail_rate <= 1.0:
+            raise ValueError(f"fail_rate must be in [0, 1], got "
+                             f"{self.fail_rate}")
+        if self.fail_first < 0 or self.delay_s < 0:
+            raise ValueError("fail_first and delay_s must be >= 0")
+        self._lock = threading.Lock()
+        self._counts: dict = {}
+        self._rngs: dict = {}
+
+    def dispatches(self, bucket: str) -> int:
+        """How many dispatches this bucket has seen."""
+        with self._lock:
+            return self._counts.get(bucket, 0)
+
+    def before_dispatch(self, bucket: str) -> None:
+        """Raises `InjectedDispatchError` when this dispatch of `bucket`
+        is chosen to fail."""
+        if self.buckets is not None and bucket not in self.buckets:
+            return
+        with self._lock:
+            n = self._counts.get(bucket, 0)
+            self._counts[bucket] = n + 1
+            if self.fail_rate > 0.0:
+                rng = self._rngs.get(bucket)
+                if rng is None:
+                    rng = np.random.default_rng(np.random.SeedSequence(
+                        [self.seed, *bucket.encode()]))
+                    self._rngs[bucket] = rng
+                roll = float(rng.random())
+            else:
+                roll = 1.0
+        if self.delay_s > 0.0:
+            time.sleep(self.delay_s)
+        if n < self.fail_first or roll < self.fail_rate:
+            raise InjectedDispatchError(
+                f"chaos: injected dispatch failure #{n} for bucket "
+                f"{bucket}")

@@ -41,6 +41,7 @@ from megba_tpu_torch.common import (
     ProblemOption,
     RobustKind,
     resolve_device,
+    strip_observability,
     validate_options,
 )
 from megba_tpu_torch.io.bal import BALFile, load_bal
@@ -162,6 +163,14 @@ def flat_solve(
     lands on the timer as a `triage_*` event; under WARN the solve is
     unchanged.  With `factor`, the spec's triage hooks drive the
     geometric checks; without, the BAL hooks of io/synthetic.
+
+    Telemetry (JAX solve.py:252-256 and 737-809): `option.telemetry`, or
+    else the `MEGBA_TELEMETRY` environment variable, names a JSONL file
+    that receives one `observability.report.SolveReport` per call, with
+    the timer's phases, an "execute" phase that syncs the result, and
+    the guards' recoveries as a `fault_recovery` event.  The knob is
+    stripped off the option before the solve.  With telemetry off
+    nothing of the report is imported and nothing more is synced.
     """
     spec = None
     if factor is not None:
@@ -169,7 +178,11 @@ def flat_solve(
                                              points, obs)
         residual_jac_fn = residual_jac_fn or engine
     validate_options(option)
+    telemetry = option.telemetry or os.environ.get("MEGBA_TELEMETRY") or None
+    report_option = option
+    option = strip_observability(option)
     timer = PhaseTimer() if timer is None else timer
+    health = None
     if triage is not None:
         from megba_tpu_torch.robustness.triage import triage_problem
 
@@ -180,6 +193,7 @@ def flat_solve(
                 cameras, points, obs, cam_idx, pt_idx, triage,
                 edge_mask=edge_mask, cam_fixed=cam_fixed,
                 pt_fixed=pt_fixed, factor=spec)
+        health = outcome.report.to_dict()
         rep = outcome.repair
         if rep is not None and not rep.is_noop:
             for name, n in rep.counters().items():
@@ -245,10 +259,49 @@ def flat_solve(
             if fault_edge is not None:
                 fault_edge = fault_edge[operm]
 
-    return _mesh_solve(
+    result = _mesh_solve(
         mesh, cameras, points, obs, cam_idx, pt_idx, mask, option,
         sqrt_info, cam_fixed, pt_fixed, verbose, residual_jac_fn,
         initial_region, initial_v, initial_dx, fault_plan, fault_edge, timer)
+    if telemetry:
+        problem = {"num_cameras": int(cameras.shape[0]),
+                   "num_points": int(points.shape[0]),
+                   "num_edges": n_edges, "num_edges_padded": n_edges,
+                   "world_size": ws}
+        if mesh.is_2d:
+            problem["mesh"] = f"{mesh.edge_shards}x{mesh.cam_blocks}"
+        _emit_report(telemetry, report_option, result, timer, problem,
+                     health, mesh.devices[0])
+    return result
+
+
+def _emit_report(telemetry: str, option: ProblemOption, result: LMResult,
+                 timer: PhaseTimer, problem: dict, health, device) -> None:
+    """Append the solve's SolveReport to `telemetry` (JAX
+    solve.py:737-809): an "execute" phase syncs the result, the trace's
+    preconditioner fallbacks and the guards' recoveries become timer
+    events, then the report is built and appended."""
+    from megba_tpu_torch.observability.report import (
+        _decode_fallback_totals,
+        append_report,
+        build_report,
+    )
+
+    with timer.phase("execute") as ph:
+        ph.sync(result.cameras)
+    iters = int(result.iterations)
+    level = _decode_fallback_totals(result.trace, iters) or {}
+    if level.get("block"):
+        timer.count_event("precond_fallback", level["block"])
+    if level.get("coarse"):
+        timer.count_event("precond_fallback_coarse", level["coarse"])
+    for li, n in enumerate(level.get("coarse_levels") or []):
+        if n:
+            timer.count_event(f"precond_fallback_coarse_l{li + 1}", n)
+    if result.recoveries:
+        timer.count_event("fault_recovery", int(result.recoveries))
+    append_report(build_report(option, result, timer.as_dict(), problem,
+                               health=health, device=device), telemetry)
 
 
 def _factor_route(factor, option: ProblemOption, cameras, points, obs):

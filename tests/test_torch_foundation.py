@@ -110,8 +110,8 @@ def test_unported_options_raise_typed(field, value):
     # options (world_size, mesh_2d, bf16_collectives) are ported, as are
     # mixed_precision_pcg, both autodiff Jacobian modes, the robust
     # losses, forcing and warm starts, guards, the plain solver, COOBS,
-    # SCHUR_DIAG, NEUMANN, TWO_LEVEL and MULTILEVEL: they validate.
-    # Only telemetry and metrics are refused.
+    # SCHUR_DIAG, NEUMANN, TWO_LEVEL and MULTILEVEL, and the JSONL
+    # telemetry: they validate.  Only metrics is refused.
     base = dict(jacobian_mode=tc.JacobianMode.ANALYTICAL, dtype=np.float32)
     base[field] = value
     if (field, value) in _PORTED:
@@ -143,26 +143,28 @@ _PORTED = [
     ("solver_option", tc.SolverOption(bf16=True, bf16_collectives=True)),
     ("solver_option", tc.SolverOption(fused_kernels=True, mesh_2d=True)),
     ("solver_option", tc.SolverOption(forcing=True, mesh_2d=True)),
+    ("telemetry", "t.jsonl"),
 ]
 
 
 @pytest.mark.parametrize("kw,refused", [
     # Guards, use_schur=False, NEUMANN, TWO_LEVEL, MULTILEVEL and the
-    # multi-device options are ported: each case keeps a still-refused
-    # option (telemetry or metrics) beside them (its id is the case's old
+    # multi-device options and telemetry are ported: each case keeps the
+    # still-refused option (metrics) beside them (its id is the case's old
     # one).
     pytest.param(dict(robust_kind=tc.RobustKind.HUBER,
                       robust_option=tc.RobustOption(guards=True),
-                      world_size=2, telemetry="t.jsonl",
+                      world_size=2, telemetry="t.jsonl", metrics=True,
                       solver_option=tc.SolverOption(
                           precond=tc.PrecondKind.TWO_LEVEL)),
-                 "telemetry", id="kw0-guards"),
+                 "metrics", id="kw0-guards"),
     pytest.param(dict(robust_kind=tc.RobustKind.CAUCHY, metrics=True,
                       solver_option=tc.SolverOption(
                           mesh_2d=True, edge_order=tc.EdgeOrder.COOBS)),
                  "metrics", id="kw1-use_schur"),
-    (dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2,
-          telemetry="t.jsonl"), "telemetry"),
+    pytest.param(dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2,
+                      telemetry="t.jsonl", metrics=True), "metrics",
+                 id="kw2-telemetry"),
     pytest.param(dict(metrics=True, solver_option=tc.SolverOption(
         warm_start=True, precond=tc.PrecondKind.MULTILEVEL, mesh_2d=True,
         preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), "metrics",

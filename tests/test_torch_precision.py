@@ -352,8 +352,8 @@ def test_validate_options_refuses_precision(kw, err, match):
 
 def test_precision_refusal_fires_before_planning():
     """flat_solve refuses the option before it reads the arrays (the
-    bf16 rung with bf16 collectives is ported; telemetry is not)."""
-    opt = _opt(dtype=F32, telemetry="t.jsonl", solver_option=dict(
+    bf16 rung with bf16 collectives is ported; metrics is not)."""
+    opt = _opt(dtype=F32, metrics=True, solver_option=dict(
         bf16=True, bf16_collectives=True))
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(NotImplementedError, match="metrics"):
         mt.flat_solve(None, None, None, None, None, opt, device="cpu")

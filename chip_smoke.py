@@ -122,8 +122,9 @@ exception ends the run with a non-zero exit code:
    unfused and fused through the kernels; on a venice-scale scene of
    each (`FAMILY_VENICE`) an f32 solve with the venice options,
    AUTODIFF and no fused kernels, and another with fused IMPLICIT
-   kernels (wall, LM / PCG, peak, device busy share from one more solve
-   under torch.profiler, final cost below the initial); launches per
+   kernels (wall, LM / PCG, peak, final cost below the initial; the
+   unfused one's device busy share from one more solve under
+   torch.profiler); launches per
    kernel, block shape and arm as the code implies on every run
    (`check_family_launches`); kernel rows `name(shape)` /
    `name(shape)[f64]` of kernels 1-3 at each new (od, d) and of kernels
@@ -180,27 +181,37 @@ exception ends the run with a non-zero exit code:
    kernels against plain versions;
 12. the fleet service (`serving/`, `algo/lanes.py`): the JAX package's
    `make_fleet(1024, size_range=(128, 1024), seed=0)` (~1.6M edges)
-   through `solve_many` under `ProblemOption()` at f64, then at f32: per
-   bucket its shape, lanes and problems, LM and PCG counts, wall,
-   device busy share (torch.profiler over one more run) and launches
-   of kernels 1-3 and 6, exactly what the lanes' traces imply (one
+   through `solve_many` under `ProblemOption()` at f64, then at f32, then
+   on the lane-batched LM's other coupling paths (EXPLICIT, fused
+   IMPLICIT, fused EXPLICIT; `FLEET_PATHS`) at f64 and f32: per bucket its
+   shape, lanes and problems, LM and PCG counts, wall, device busy share
+   (torch.profiler over one more run; not on the f32 runs of the other
+   paths) and launches of every kernel of the path (1-3 and 6; EXPLICIT
+   4-5 for 3; fused 7 or 8), exactly what the lanes' traces imply (one
    launch serves every lane); the fleet's wall, problems a second, peak
    memory, lane and edge fill; every cost finite and at or below its
-   initial, no FATAL.  The first 64 problems one by one through
-   `flat_solve` and as one `solve_many` (problems a second each, the
-   latter with telemetry: 64 reports in chiprun_out/fleet_reports.jsonl
-   read back by the port's summarize, --aggregate and --fleet); the 64
-   under `ProblemOption()`'s PCG with an LM cap of 4 through the kernels
-   and through the plain versions (trial costs at rtol 1e-9, equal
-   counts, accepts and status), and 8 problems of one bucket each solved
-   as a fleet of one, bitwise equal to its lane; the JAX package's
-   serving chaos smoke at 64 problems (`FleetQueue`, max_batch 16, the
-   escalation ladder: two poisoned problems RECOVERED at rung 1, one
-   shed, the clean results bitwise the closed-window `solve_many`
-   control's), then the 64 from four submitter threads; and kernel rows
-   `name fleet` / `name[f64] fleet` of kernels 1-3 (camera and point
-   side) and 6 at the largest bucket's union plan, with CUDA-event and
-   device times, bounds and library calls.
+   initial, no FATAL.  The f64 IMPLICIT fleet again with the
+   observability plane armed (MEGBA_METRICS, MEGBA_TRACE, MEGBA_FLIGHT):
+   bitwise the unarmed run with equal launches, its series counting
+   every problem and dispatch, its Chrome trace (one `solve_bucket` span
+   a dispatch) and Prometheus text written under chiprun_out/.  The first
+   64 problems one by one through `flat_solve` and as one `solve_many`
+   (problems a second each, the latter with telemetry: 64 reports in
+   chiprun_out/fleet_reports.jsonl read back by the port's summarize,
+   --aggregate and --fleet); on each of the four paths the 64 under
+   `ProblemOption()`'s PCG with an LM cap of 4 through the kernels and
+   through the plain versions (trial costs at rtol 1e-9, equal counts,
+   accepts and status), and 8 problems of one bucket each solved as a
+   fleet of one, bitwise equal to its lane; the JAX package's serving
+   chaos smoke at 64 problems with the flight ring armed (`FleetQueue`,
+   max_batch 16, the escalation ladder: two poisoned problems RECOVERED
+   at rung 1, one shed, one bucket's first dispatch failed by
+   `DispatchChaos`, the clean results bitwise the closed-window
+   `solve_many` control's, the ring holding the events the chaos drove),
+   then the 64 from four submitter threads; and kernel rows `name fleet`
+   / `name[f64] fleet` of kernels 1-5 (camera and point side), 6, and 7
+   and 8 (both directions) at the largest bucket's union plan, with
+   CUDA-event and device times, bounds and library calls.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -2657,6 +2668,10 @@ FAMILY_F32_RUNG_PATHS = ["implicit_fused_mixed", "implicit_fused_bf16"]
 FAMILY_F32_REGION = 1.0
 FAMILY_F32_LAUNCH_PATHS = ["explicit", "explicit_fused"]
 FAMILY_VENICE_PATHS = [DEFAULT_PATH, "implicit_fused"]
+# The venice-scale family paths given a profiled re-solve (device busy
+# share): the default path only, since phase 12's EXPLICIT and fused
+# fleet paths took the fused one's ~60 s of the run's 1200 s.
+FAMILY_VENICE_PROFILED = (DEFAULT_PATH,)
 # The 2-D mesh's family path: the rig on the 2 x 2 mesh, IMPLICIT fused
 # (kernel 7 and its ring-step form at the rig's shapes), held to its
 # world-1 path as the f64 phase holds the mesh paths.
@@ -2822,9 +2837,10 @@ def family_venice_solve(factor: str, scene, path: str = DEFAULT_PATH
     """One venice-scale f32 solve of a family with the venice phase's
     options, AUTODIFF and a path's kernels: wall, LM (accepts) / PCG,
     peak memory (above what the card held before the solve), device busy
-    share (one more solve under torch.profiler), launches per kernel,
-    shape and arm as the code implies, final cost finite and below the
-    initial.  Returns the launches per shape."""
+    share (one more solve under torch.profiler, on the paths of
+    `FAMILY_VENICE_PROFILED`), launches per kernel, shape and arm as the
+    code implies, final cost finite and below the initial.  Returns the
+    launches per shape."""
     from megba_tpu_torch import flat_solve
     from megba_tpu_torch.factors import get_factor
 
@@ -2855,11 +2871,13 @@ def family_venice_solve(factor: str, scene, path: str = DEFAULT_PATH
         f"{wall / res.iterations:.3f} s per LM iteration (planning and "
         f"transfer included), peak memory {peak / 2**30:.3f} GiB; "
         f"launches {launches['shapes']} (as the code implies)")
-    busy = profile_solve(args, path, dict(factor=factor),
-                         f"venice_{factor}")
+    busy = ""
+    if path in FAMILY_VENICE_PROFILED:
+        busy = ", device busy " + format(profile_solve(
+            args, path, dict(factor=factor), f"venice_{factor}"), ".1%")
     log(f"{what} summary: wall {wall:.3f} s, LM {res.iterations} "
         f"({res.accepted}) / PCG {res.pcg_iterations}, peak "
-        f"{peak / 2**30:.3f} GiB, device busy {busy:.1%}")
+        f"{peak / 2**30:.3f} GiB{busy}")
     return launches["shapes"]
 
 
@@ -3609,7 +3627,8 @@ def chunk_words(chunks, saves) -> str:
     parts = []
     for i, (c, (ss, nb)) in enumerate(zip(chunks, saves)):
         tot = c["timer"].totals if c["timer"] is not None else {}
-        lower = sum(tot.get(k, 0.0) for k in ("lowering", "sort", "plan"))
+        lower = sum(tot.get(k, 0.0)
+                    for k in ("lowering", "sort", "plan", "coarse_plan"))
         lm = (f"re-lowering {lower:.3f} s (lowering "
               f"{tot.get('lowering', 0.0):.3f}, plan "
               f"{tot.get('plan', 0.0):.3f}), LM loop "
@@ -3970,6 +3989,27 @@ FLEET_BITWISE = 8
 FLEET_REPORTS = ROOT / "chiprun_out" / "fleet_reports.jsonl"
 FLEET_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
                  "fused_block_diag_apply")
+# The lane-batched LM's coupling paths: name -> (ComputeKind name,
+# fused_kernels).  "implicit" is ProblemOption()'s; the others run
+# kernels 4-5, 7 and 8 at the bucket union.
+FLEET_PATHS = {"implicit": ("IMPLICIT", False),
+               "explicit": ("EXPLICIT", False),
+               "fused_implicit": ("IMPLICIT", True),
+               "fused_explicit": ("EXPLICIT", True)}
+# The kernels that carry one coupling direction on each path.
+FLEET_DIRECTION_KERNELS = {
+    "implicit": ("coupling_expand", "coupling_reduce"),
+    "explicit": ("seg_expand", "seg_reduce"),
+    "fused_implicit": ("fused_coupling_apply_implicit",),
+    "fused_explicit": ("fused_coupling_apply",)}
+# The path whose full-size f64 / f32 run gives a union row its launches.
+FLEET_ROW_PATH = {"seg_reduce": "explicit", "seg_expand": "explicit",
+                  "fused_coupling_apply_implicit": "fused_implicit",
+                  "fused_coupling_apply": "fused_explicit"}
+FLEET_TRACE = ROOT / "chiprun_out" / "fleet_trace.json"
+FLEET_METRICS = ROOT / "chiprun_out" / "fleet_metrics.prom"
+FLEET_FLIGHT = ROOT / "chiprun_out" / "fleet_flight.jsonl"
+PLANE_KNOBS = ("MEGBA_METRICS", "MEGBA_TRACE", "MEGBA_FLIGHT")
 
 
 def fleet_problems(n: int, dtype):
@@ -3987,31 +4027,46 @@ def fleet_problems(n: int, dtype):
     return probs
 
 
-def fleet_expected_launches(results) -> dict:
+def fleet_option(dtype, path: str = "implicit", **kw):
+    """`ProblemOption()` at `dtype` on one of `FLEET_PATHS` (its other
+    fields the defaults; `kw` more fields)."""
+    from megba_tpu_torch import ComputeKind, ProblemOption, SolverOption
+
+    kind, fk = FLEET_PATHS[path]
+    return ProblemOption(dtype=dtype, compute_kind=ComputeKind[kind],
+                         solver_option=SolverOption(fused_kernels=fk), **kw)
+
+
+def fleet_expected_launches(results, path: str = "implicit") -> dict:
     """The launches the lane-batched solve (algo/lanes.py) implies for one
-    bucket, from its lanes' traces alone: the batch runs LM iteration k
-    while any lane is live (k < its iterations), its PCG n_k iterations
-    (the most of the live lanes'), and relinearises after k when a live
-    lane accepted or recovered.  A PCG of n iterations (cold start) runs
-    n + 1 S.p products (2 coupling_expand, 2 coupling_reduce, 1
-    fused_block_diag_apply each) and n + 1 M^-1 applies (kernel 6), the
-    reduced right-hand side and the back-substitution one coupling
-    product each (kernels 2 and 3); the gain ratio 2 coupling_expand; a
+    bucket on `path`, from its lanes' traces alone: the batch runs LM
+    iteration k while any lane is live (k < its iterations), its PCG n_k
+    iterations (the most of the live lanes'), and relinearises after k
+    when a live lane accepted or recovered.  A PCG of n iterations (cold
+    start) runs n + 1 S.p products (two coupling directions and one
+    fused_block_diag_apply each) and n + 1 M^-1 applies (kernel 6); the
+    reduced right-hand side and the back-substitution one direction each:
+    2n + 4 directions, each one launch of every kernel of
+    `FLEET_DIRECTION_KERNELS[path]` (IMPLICIT unfused: coupling_expand
+    and coupling_reduce; EXPLICIT unfused: seg_expand and seg_reduce;
+    fused: one fused kernel).  The gain ratio adds 2 coupling_expand, a
     linearisation 2 jtj_grad_reduce."""
     k_max = max(r.iterations for r in results)
     lin = 1
-    k2 = k3 = k6 = 0
+    directions = k6 = 0
     for k in range(k_max):
         live = [r for r in results if r.iterations > k]
         n = max(int(r.trace.pcg_iters[k]) for r in live)
-        k2 += 2 * n + 6
-        k3 += 2 * n + 4
+        directions += 2 * n + 4
         k6 += 2 * n + 2
         if any(bool(r.trace.accept[k]) or bool(r.trace.recovery[k])
                for r in live):
             lin += 1
-    return {"jtj_grad_reduce": 2 * lin, "coupling_expand": k2,
-            "coupling_reduce": k3, "fused_block_diag_apply": k6}
+    out = {"jtj_grad_reduce": 2 * lin, "coupling_expand": 2 * k_max,
+           "fused_block_diag_apply": k6}
+    for name in FLEET_DIRECTION_KERNELS[path]:
+        out[name] = out.get(name, 0) + directions
+    return out
 
 
 @contextlib.contextmanager
@@ -4067,10 +4122,11 @@ def fleet_solve(probs, opt, profile: bool = False, **kw):
     return res, wall, records
 
 
-def check_bucket_launches(what: str, res, records) -> dict:
+def check_bucket_launches(what: str, res, records,
+                          path: str = "implicit") -> dict:
     """Each record's launches are exactly `fleet_expected_launches` of its
-    bucket's lanes and the batch's own counts agree with them; returns
-    the launches summed over the buckets."""
+    bucket's lanes on `path` and the batch's own counts agree with them;
+    returns the launches summed over the buckets."""
     by_bucket = {}
     for r in res:
         by_bucket.setdefault((str(r.shape), r.lanes), []).append(r)
@@ -4079,7 +4135,7 @@ def check_bucket_launches(what: str, res, records) -> dict:
                              f"{len(by_bucket)} buckets")
     total = {}
     for rec, ((bucket, lanes), lane_res) in zip(records, by_bucket.items()):
-        want = fleet_expected_launches(lane_res)
+        want = fleet_expected_launches(lane_res, path)
         solve = rec["solve"]
         own = dict(lm=solve.lm_iterations, pcg=solve.pcg_iterations,
                    lin=solve.linearizations)
@@ -4107,25 +4163,25 @@ def fleet_gate(what: str, res) -> None:
                                  f"status {r.status_name}")
 
 
-def fleet_full(dtype, profile: bool = True):
-    """12.1: the full-size fleet through `solve_many` under
-    ProblemOption() at `dtype`: per bucket its shape, lanes and real
-    problems, LM and PCG counts, wall, launches (checked exact) and, from
-    one more run under torch.profiler, the device's busy share; the
-    fleet's wall, problems a second, peak memory, lane and edge fill."""
-    from megba_tpu_torch import ProblemOption
+def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True):
+    """12.1: the full-size fleet `probs` through `solve_many` under
+    ProblemOption() at `dtype` on `path` (`FLEET_PATHS`): per bucket its
+    shape, lanes and real problems, LM and PCG counts, wall, launches
+    (checked exact) and, with `profile`, from one more run under
+    torch.profiler (bitwise the first), the device's busy share; the
+    fleet's wall, problems a second, peak memory, lane and edge fill.
+    Returns (results, launches summed over the buckets, records, wall)."""
     from megba_tpu_torch.serving import FleetStats
 
-    probs = fleet_problems(FLEET_N, dtype)
-    opt = ProblemOption(dtype=dtype)
-    fleet_solve(probs[:1], opt)  # first use of the dtype's code paths
+    opt = fleet_option(dtype, path)
+    fleet_solve(probs[:1], opt)  # first use of the path's code
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     stats = FleetStats()
     res, wall, records = fleet_solve(probs, opt, stats=stats)
     peak = torch.cuda.max_memory_allocated()
-    what = f"fleet {np.dtype(dtype).name}"
-    launches = check_bucket_launches(what, res, records)
+    what = f"fleet {path} {np.dtype(dtype).name}"
+    launches = check_bucket_launches(what, res, records, path)
     fleet_gate(what, res)
     busy = []
     if profile:
@@ -4154,8 +4210,9 @@ def fleet_full(dtype, profile: bool = True):
         f"{peak / 2**30:.2f} GiB, lane fill {lane_fill:.1%}, edge fill "
         f"{edge_fill:.1%}; statuses {n_stat}; LM iterations "
         f"{sum(r.iterations for r in res)}, PCG "
-        f"{sum(r.pcg_iterations for r in res)} over the problems")
-    return probs, res, launches
+        f"{sum(r.pcg_iterations for r in res)} over the problems; "
+        f"launches {launches}")
+    return res, launches, records, wall
 
 
 def fleet_serial(probs) -> None:
@@ -4214,16 +4271,17 @@ def fleet_reports(n: int) -> None:
     log(summarize.fleet_table(reps))
 
 
-def fleet_kernels_vs_plain(probs) -> None:
-    """12.3: the first problems under ProblemOption()'s PCG with the LM
-    cap, through the kernels and through the plain versions on the card:
-    trial costs at rtol 1e-9, equal counts, accepts and status; then
-    problems of one bucket each solved as a fleet of one, bitwise equal
-    to its lane in the batch."""
-    from megba_tpu_torch import AlgoOption, ProblemOption
+def fleet_kernels_vs_plain(probs, path: str = "implicit") -> None:
+    """12.3: the first problems under ProblemOption()'s PCG on `path`
+    with the LM cap, through the kernels and through the plain versions
+    on the card: trial costs at rtol 1e-9, equal counts, accepts and
+    status; then problems of one bucket each solved as a fleet of one,
+    bitwise equal to its lane in the batch."""
+    from megba_tpu_torch import AlgoOption
 
     small = probs[:FLEET_SMALL]
-    opt = ProblemOption(algo_option=AlgoOption(max_iter=FLEET_LM_CAP))
+    opt = fleet_option(np.float64, path,
+                       algo_option=AlgoOption(max_iter=FLEET_LM_CAP))
     kern, _, _ = fleet_solve(small, opt)
     with plain_path():
         plain, _, _ = fleet_solve(small, opt)
@@ -4231,20 +4289,20 @@ def fleet_kernels_vs_plain(probs) -> None:
     for a, b in zip(kern, plain):
         if (a.iterations, a.accepted, a.pcg_iterations, a.status) != (
                 b.iterations, b.accepted, b.pcg_iterations, b.status):
-            raise AssertionError(f"fleet kernels vs plain {a.name}: counts "
-                                 f"differ")
+            raise AssertionError(f"fleet {path} kernels vs plain {a.name}: "
+                                 "counts differ")
         k = a.iterations
         if not (torch.equal(a.trace.accept[:k], b.trace.accept[:k])
                 and torch.equal(a.trace.pcg_iters[:k], b.trace.pcg_iters[:k])):
-            raise AssertionError(f"fleet kernels vs plain {a.name}: traces "
-                                 "differ")
+            raise AssertionError(f"fleet {path} kernels vs plain {a.name}: "
+                                 "traces differ")
         ca, cb = a.trace.cost[:k].numpy(), b.trace.cost[:k].numpy()
         gap = float(np.max(np.abs(ca - cb) / np.abs(cb)))
         if not gap <= F64_COST_RTOL:
-            raise AssertionError(f"fleet kernels vs plain {a.name}: trial "
-                                 f"costs {gap:.3e} apart")
+            raise AssertionError(f"fleet {path} kernels vs plain {a.name}: "
+                                 f"trial costs {gap:.3e} apart")
         worst = max(worst, gap)
-    log(f"fleet kernels vs plain f64, {len(small)} problems, LM cap "
+    log(f"fleet {path} kernels vs plain f64, {len(small)} problems, LM cap "
         f"{FLEET_LM_CAP}: trial costs within {worst:.3e}, equal counts, "
         "accepts and status")
     buckets = {}
@@ -4261,26 +4319,126 @@ def fleet_kernels_vs_plain(probs) -> None:
                 bitwise_equal(getattr(alone.trace, f), getattr(r.trace, f))
                 for f in ("cost", "grad_inf_norm", "trust_region", "rho",
                           "accept", "pcg_iters", "pcg_r0_ratio")):
-            raise AssertionError(f"fleet lane independence {p.name}: alone "
-                                 f"differs from its lane {r.lane} of "
+            raise AssertionError(f"fleet {path} lane independence {p.name}: "
+                                 f"alone differs from its lane {r.lane} of "
                                  f"{r.lanes}")
-    log(f"fleet lane independence: {len(mates)} problems of bucket "
+    log(f"fleet {path} lane independence: {len(mates)} problems of bucket "
         f"{mates[0][1].shape} ({mates[0][1].lanes} lanes), each solved as a "
         "fleet of one, bitwise equal to its lane (cameras, points, cost, "
         "trace)")
 
 
+@contextlib.contextmanager
+def armed_plane(flight_path=None, knobs=PLANE_KNOBS):
+    """Arm the observability plane's `knobs` (MEGBA_FLIGHT to
+    `flight_path`) with fresh process defaults; disarm and reset after."""
+    import os
+
+    from megba_tpu_torch.observability import flight, metrics, spans
+
+    values = {"MEGBA_METRICS": "1", "MEGBA_TRACE": "1",
+              "MEGBA_FLIGHT": str(flight_path)}
+    saved = {k: os.environ.get(k) for k in knobs}
+
+    def reset():
+        metrics.reset_default_registry()
+        spans.reset_default_recorder()
+        flight.reset_default_recorder()
+
+    reset()
+    try:
+        for k in knobs:
+            os.environ[k] = values[k]
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset()
+
+
+def fleet_armed(probs, ref, ref_records, ref_wall) -> None:
+    """12.7: the full-size f64 fleet again with MEGBA_METRICS, MEGBA_TRACE
+    and MEGBA_FLIGHT armed: bitwise the unarmed run `ref` (cameras,
+    points, costs, traces, status) with equal launches a bucket; the
+    fleet series count every problem, bucket and dispatch; the Chrome
+    trace, written under chiprun_out/ and read back, has one
+    `solve_bucket` span a dispatch; the Prometheus text is written
+    beside it."""
+    from megba_tpu_torch import observability as obs
+    from megba_tpu_torch.observability import metrics, spans
+    from megba_tpu_torch.observability.trace import TRACE_FIELDS
+
+    opt = fleet_option(np.float64)
+    FLEET_TRACE.parent.mkdir(exist_ok=True)
+    FLEET_FLIGHT.unlink(missing_ok=True)
+    with armed_plane(FLEET_FLIGHT):
+        res, wall, records = fleet_solve(probs, opt)
+        snap = obs.metrics_registry().snapshot()
+        spans.write_chrome_trace(str(FLEET_TRACE),
+                                 obs.span_recorder().spans())
+    for a, b in zip(res, ref):
+        if not (a.cameras.tobytes() == b.cameras.tobytes()
+                and a.points.tobytes() == b.points.tobytes()
+                and a.cost.tobytes() == b.cost.tobytes()
+                and a.status == b.status and all(
+                    bitwise_equal(getattr(a.trace, f), getattr(b.trace, f))
+                    for f in TRACE_FIELDS)):
+            raise AssertionError(f"fleet armed: {a.name} differs from the "
+                                 "unarmed run")
+    if [r["launches"] for r in records] != [r["launches"]
+                                            for r in ref_records]:
+        raise AssertionError("fleet armed: launches differ from the "
+                             "unarmed run's")
+    m = snap["metrics"]
+    problems = sum(m["megba_fleet_problems_total"]["series"].values())
+    batches = sum(m["megba_fleet_batches_total"]["series"].values())
+    lm = sum(h["count"] for h in
+             m["megba_solve_lm_iterations"]["series"].values())
+    if (problems, batches, lm) != (len(probs), len(records), len(probs)):
+        raise AssertionError(f"fleet armed: series count {problems} "
+                             f"problems, {batches} batches, {lm} LM "
+                             f"observations for {len(probs)} problems in "
+                             f"{len(records)} dispatches")
+    FLEET_METRICS.write_text(metrics.render_prometheus(snap))
+    doc = json.loads(FLEET_TRACE.read_text())
+    buckets = [e for e in doc["traceEvents"]
+               if e["ph"] == "X" and e["name"] == "solve_bucket"]
+    if doc.get("schema") != spans.SCHEMA or len(buckets) != len(records):
+        raise AssertionError(f"fleet armed: the Chrome trace has "
+                             f"{len(buckets)} solve_bucket spans for "
+                             f"{len(records)} dispatches")
+    log(f"fleet armed (metrics, spans, flight): {len(probs)} problems "
+        f"bitwise the unarmed run with equal launches; wall {wall:.3f} s "
+        f"armed against {ref_wall:.3f} s unarmed; megba_fleet_problems_total "
+        f"{problems:.0f}, megba_fleet_batches_total {batches:.0f}, "
+        f"megba_solve_lm_iterations {lm} observations; "
+        f"{len(doc['traceEvents'])} trace events, {len(buckets)} "
+        f"solve_bucket spans in {FLEET_TRACE.relative_to(ROOT)}; "
+        f"{len(snap['metrics'])} metric families in "
+        f"{FLEET_METRICS.relative_to(ROOT)}")
+
+
 def fleet_queue_chaos(probs) -> None:
     """12.4: the JAX package's serving chaos smoke
-    (scripts/run_tests.sh:338-470) at 64 problems: two poisoned members
-    of the most populated bucket heal at rung 1, one problem of another
-    bucket is shed, the clean results are bitwise the `solve_many`
-    control's; then the same 64 from four submitter threads."""
+    (scripts/run_tests.sh:338-470) at 64 problems, with the flight ring
+    armed (MEGBA_FLIGHT): two poisoned members of the most populated
+    bucket heal at rung 1, one problem of another bucket is shed, the
+    first dispatch of a third bucket fails by injection
+    (`DispatchChaos`) and its problems heal at rung 1, the clean results
+    are bitwise the `solve_many` control's, and the ring holds the
+    chaos_injection, dispatch_failure, escalation_retry and queue_shed
+    events the chaos drove; then the same 64 from four submitter
+    threads."""
     import threading
 
     from megba_tpu_torch import (EscalationPolicy, FleetQueue, ProblemOption,
                                  SolveStatus, make_nan_burst, solve_many)
-    from megba_tpu_torch.robustness.faults import close_fault_window
+    from megba_tpu_torch import observability as obs
+    from megba_tpu_torch.robustness.faults import (DispatchChaos,
+                                                   close_fault_window)
     from megba_tpu_torch.serving import (BucketLadder, DeadlineExceeded,
                                          FleetStats, classify)
 
@@ -4293,6 +4451,11 @@ def fleet_queue_chaos(probs) -> None:
     big = max(buckets.values(), key=len)
     poisoned = set(big[:2])
     doomed = next(i for i in range(len(small)) if i not in set(big))
+    # The smallest bucket holding neither: its first dispatch fails.
+    chaos_key, chaos_members = min(
+        ((k, v) for k, v in buckets.items()
+         if v is not big and doomed not in v), key=lambda kv: len(kv[1]))
+    injected = set(chaos_members)
 
     def poison(p):
         plan = make_nan_burst(p.obs.shape[0], [1, 5], start=0, stop=1,
@@ -4302,25 +4465,43 @@ def fleet_queue_chaos(probs) -> None:
     submitted = [poison(p) if i in poisoned else p
                  for i, p in enumerate(small)]
     stats = FleetStats()
+    FLEET_FLIGHT.parent.mkdir(exist_ok=True)
     t = time.perf_counter()
-    with FleetQueue(opt, max_batch=16, max_wait_s=30.0, stats=stats,
-                    escalation=EscalationPolicy(backoff_base_s=0.01, seed=0),
-                    device=DEVICE) as q:
-        futs = [q.submit(p, deadline_s=0.0 if i == doomed else None)
-                for i, p in enumerate(submitted)]
-        q.flush()
-        if not q._thread.is_alive() or not all(f.done() for f in futs):
-            raise AssertionError("fleet queue: the dispatcher died or a "
-                                 "future is open after flush")
-        results, shed = {}, None
-        for i, f in enumerate(futs):
-            try:
-                results[i] = f.result(timeout=1)
-            except DeadlineExceeded:
-                shed = i
+    with armed_plane(FLEET_FLIGHT, knobs=("MEGBA_FLIGHT",)):
+        with FleetQueue(opt, max_batch=16, max_wait_s=30.0, stats=stats,
+                        escalation=EscalationPolicy(backoff_base_s=0.01,
+                                                    seed=0),
+                        chaos=DispatchChaos(
+                            fail_first=1,
+                            buckets=frozenset({str(chaos_key)})),
+                        device=DEVICE) as q:
+            futs = [q.submit(p, deadline_s=0.0 if i == doomed else None)
+                    for i, p in enumerate(submitted)]
+            q.flush()
+            if not q._thread.is_alive() or not all(f.done() for f in futs):
+                raise AssertionError("fleet queue: the dispatcher died or a "
+                                     "future is open after flush")
+            results, shed = {}, None
+            for i, f in enumerate(futs):
+                try:
+                    results[i] = f.result(timeout=1)
+                except DeadlineExceeded:
+                    shed = i
+        events = obs.flight_recorder().events()
     wall = time.perf_counter() - t
     if shed != doomed:
         raise AssertionError(f"fleet queue: problem {doomed} was not shed")
+    # Each retry climbs one rung: the retries are the rungs the healed
+    # problems ended on.
+    retries = sum(results[i].rung for i in poisoned | injected)
+    kinds = {}
+    for e in events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    want = {"chaos_injection": 1, "dispatch_failure": 1,
+            "escalation_retry": retries, "queue_shed": 1}
+    if any(kinds.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"fleet queue: the flight ring holds {kinds}, "
+                             f"the chaos drove {want}")
     for i in poisoned:
         r = results[i]
         if (r.status != int(SolveStatus.RECOVERED) or r.attempts != 2
@@ -4328,12 +4509,22 @@ def fleet_queue_chaos(probs) -> None:
             raise AssertionError(f"fleet queue: poisoned {r.name} ended "
                                  f"{r.status_name}, attempts {r.attempts}, "
                                  f"rung {r.rung}")
+    for i in injected:
+        r = results[i]
+        if (r.rung < 1 or r.attempts != r.rung + 1
+                or not np.isfinite(float(r.cost))
+                or r.status == int(SolveStatus.FATAL_NONFINITE)
+                or r.history[0]["error"] is None):
+            raise AssertionError(f"fleet queue: injected {r.name} ended "
+                                 f"{r.status_name}, attempts {r.attempts}, "
+                                 f"rung {r.rung}")
     control = solve_many(
         [dataclasses.replace(p, fault_plan=close_fault_window(p.fault_plan))
          if p.fault_plan is not None else p
          for i, p in enumerate(submitted) if i != doomed], opt, device=DEVICE)
     ctrl = dict(zip([i for i in range(len(small)) if i != doomed], control))
-    clean = [i for i in range(len(small)) if i not in poisoned and i != doomed]
+    clean = [i for i in range(len(small))
+             if i not in poisoned and i not in injected and i != doomed]
     for i in clean:
         r, c = results[i], ctrl[i]
         if (r.status != c.status or r.cameras.tobytes() != c.cameras.tobytes()
@@ -4342,14 +4533,17 @@ def fleet_queue_chaos(probs) -> None:
             raise AssertionError(f"fleet queue: clean {r.name} differs from "
                                  "the closed-window control")
     d = stats.as_dict()
-    if d["sheds"] != 1 or d["retries"] != 2:
+    if d["sheds"] != 1 or d["retries"] != retries:
         raise AssertionError(f"fleet queue: counters {d}")
     log(f"fleet queue under chaos: {len(small)} problems, max_batch 16, "
         f"{d['batches']} batches in {wall:.3f} s; poisoned "
         f"{sorted(poisoned)} RECOVERED at rung 1 (attempts 2), problem "
-        f"{doomed} shed (DeadlineExceeded), {len(clean)} clean results "
+        f"{doomed} shed (DeadlineExceeded), bucket {chaos_key}'s first "
+        f"dispatch failed by injection and its problems {sorted(injected)} "
+        f"solved at rungs {[results[i].rung for i in sorted(injected)]}, "
+        f"{len(clean)} clean results "
         f"bitwise the closed-window solve_many control's; retries "
-        f"{d['retries']}, sheds {d['sheds']}")
+        f"{d['retries']}, sheds {d['sheds']}; flight ring {kinds}")
 
     stats = FleetStats()
     out = [None] * len(small)
@@ -4382,14 +4576,18 @@ def fleet_queue_chaos(probs) -> None:
 
 
 def fleet_kernel_cases(probs) -> dict:
-    """12.6: kernel rows of kernels 1-3 and 6 at the largest bucket's
-    union plan (its lanes stacked as the batch stacks them), f32 and f64:
-    rows "name fleet" / "name[f64] fleet", the camera side (2, 9) and the
-    point side (2, 3) of kernels 1-3 and kernel 6 over the union's
-    cameras; seeded random rows as in `shape_cases`, the library
-    yardsticks cuSPARSE CSR products for 2 and 3 and `torch.einsum` for 6
-    (PERF.md section 6's)."""
-    from megba_tpu_torch.ops import segtiles
+    """12.6: kernel rows at the largest bucket's union plan (its lanes
+    stacked as the batch stacks them), f32 and f64: rows "name fleet" /
+    "name[f64] fleet", the camera side (2, 9) and the point side (2, 3)
+    of kernels 1-3, kernel 6 over the union's cameras, kernels 4 and 5
+    at the widths EXPLICIT's coupling directions take them (9 on the
+    camera side, 3 on the point side), and both directions of kernels 7
+    and 8 over the union's fused plans; seeded random rows as in
+    `shape_cases` and `coupling_shape_cases`, the library yardsticks
+    cuSPARSE CSR products for 2, 3, 7 and 8, `torch.einsum` for 6,
+    `torch.segment_reduce` for 4 and `index_select` for 5 (PERF.md
+    section 6's)."""
+    from megba_tpu_torch.ops import fused, segtiles
     from megba_tpu_torch.serving import BucketLadder, classify, pad_to_class
 
     groups = {}
@@ -4433,21 +4631,69 @@ def fleet_kernel_cases(probs) -> dict:
             lambda Minv=Minv, x=x: lambda: torch.einsum("nij,jn->in", Minv,
                                                         x),
             ref64=dtype == torch.float32)]
+    # Kernels 7 and 8 (both directions) through `coupling_shape_cases`,
+    # its rows of 6 and of 4-5 at other widths skipped.
+    skip = {f"fused_block_diag_apply(9){x}" for x in ("", "[f64]")}
+    coupling = coupling_shape_cases(9, 3, 2, fused.with_fused_plans(plans),
+                                    "fleet", skip)
+    for name in ("fused_coupling_apply(9,3)",
+                 "fused_coupling_apply_implicit(9,3,2)"):
+        for suffix in ("", "[f64]"):
+            cases[f"{name.split('(')[0]}{suffix} fleet"] = coupling[
+                name + suffix]
+    n = plans.cam.n_slots
+    for dtype, elt, suffix in ((torch.float32, 4, ""),
+                               (torch.float64, 8, "[f64]")):
+        reduce_sides, expand_sides = [], []
+        for side, plan, d in (("fleet_cam", plans.cam, 9),
+                              ("fleet_pt", plans.pt, 3)):
+            ns = plan.num_segments
+            data = torch.randn((d, n), generator=gen, device=DEVICE,
+                               dtype=dtype)
+            lengths = (plan.seg_ptr[1:] - plan.seg_ptr[:-1]).expand(
+                d, ns).contiguous()
+            reduce_sides.append(_case(
+                side, (data, plan), (d * n + d * ns) * elt + (ns + 1) * 8,
+                d * n, lambda data=data, lengths=lengths: lambda:
+                torch.segment_reduce(data, "sum", lengths=lengths, axis=1,
+                                     unsafe=True),
+                ref64=dtype == torch.float32))
+            table = torch.randn((d, ns), generator=gen, device=DEVICE,
+                                dtype=dtype)
+            expand_sides.append(_case(
+                side, (table, plan), (d * ns + d * n) * elt + n * 4, 0,
+                lambda table=table, seg=plan.seg: lambda:
+                table.index_select(1, seg)))
+        cases[f"seg_reduce{suffix} fleet"] = reduce_sides
+        cases[f"seg_expand{suffix} fleet"] = expand_sides
     return cases
 
 
 def fleet_phase() -> dict:
     """Phase 12: the fleet service (serving/, algo/lanes.py) on the card.
     Returns the kernel rows at the largest bucket's union, each with its
-    launches from the full-size fleet run of its arm."""
+    launches from the full-size fleet run of its path (`FLEET_ROW_PATH`;
+    IMPLICIT's for kernels 1-3 and 6) and arm."""
     t0 = time.perf_counter()
-    probs64, _, launches64 = fleet_full(np.float64)
+    probs64 = fleet_problems(FLEET_N, np.float64)
+    probs32 = fleet_problems(FLEET_N, np.float32)
+    launches = {}
+    ref64, launches[64, "implicit"], ref_records, ref_wall = fleet_full(
+        probs64, np.float64)
     steps = [time.perf_counter()]
-    _, _, launches32 = fleet_full(np.float32)
+    launches[32, "implicit"] = fleet_full(probs32, np.float32)[1]
+    steps.append(time.perf_counter())
+    for path in list(FLEET_PATHS)[1:]:
+        launches[64, path] = fleet_full(probs64, np.float64, path)[1]
+        launches[32, path] = fleet_full(probs32, np.float32, path,
+                                        profile=False)[1]
+    steps.append(time.perf_counter())
+    fleet_armed(probs64, ref64, ref_records, ref_wall)
     steps.append(time.perf_counter())
     fleet_serial(probs64)
     steps.append(time.perf_counter())
-    fleet_kernels_vs_plain(probs64)
+    for path in FLEET_PATHS:
+        fleet_kernels_vs_plain(probs64, path)
     steps.append(time.perf_counter())
     fleet_queue_chaos(probs64)
     steps.append(time.perf_counter())
@@ -4455,11 +4701,13 @@ def fleet_phase() -> dict:
     rows = measure_rows(cases)
     row_device_times(rows, cases, list(rows))
     for name, row in rows.items():
-        arm = launches64 if "[f64]" in name else launches32
-        row["launches"] = arm.get(base_name(name))
+        path = FLEET_ROW_PATH.get(base_name(name), "implicit")
+        arm = 64 if "[f64]" in name else 32
+        row["launches"] = launches[arm, path].get(base_name(name))
     steps.append(time.perf_counter())
-    log(f"fleet phase: {steps[-1] - t0:.1f} s (full fleet f64, f32, serial "
-        f"vs batched, kernels vs plain, queue, kernel rows: "
+    log(f"fleet phase: {steps[-1] - t0:.1f} s (full fleet f64, f32, the "
+        "EXPLICIT and fused paths f64 and f32, armed, serial vs batched, "
+        "kernels vs plain on four paths, queue, kernel rows: "
         + ", ".join(f"{b - a:.1f}" for a, b in zip([t0] + steps, steps))
         + " s)")
     return rows

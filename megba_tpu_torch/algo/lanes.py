@@ -10,14 +10,20 @@ lane l's cameras and points are offset by l*n_cam and l*n_pt, and the
 union is planned once (`ops.segtiles.make_dual_plans`; a camera-sorted
 lane stays camera-sorted, so the camera slot order is the stacking
 order).  Per-edge and per-vertex tensors are the union's, and every
-per-vertex reduction is per lane by construction: kernel 1
-(`jtj_grad_reduce`), kernels 2-3 (`coupling_expand` / `coupling_reduce`,
-the S.p product, the reduced right-hand side, the back-substitution and
-the gain ratio's J.dx) and kernel 6 (`fused_block_diag_apply`: the
-JACOBI M^-1 apply and the camera blocks' own Hpp_d p) each launch once a
-step for all lanes.  The linearisation (`linear_system.builder`), the
-coupling products (`solver.pcg.make_coupling_matvecs`) and the kernel
-wrappers are the solo solve's.
+per-vertex reduction is per lane by construction: each kernel launches
+once a step for all lanes.  Kernel 1 (`jtj_grad_reduce`) builds the
+system, kernel 2 (`coupling_expand`) the gain ratio's J.dx, and kernel 6
+(`fused_block_diag_apply`) the JACOBI M^-1 apply and the camera blocks'
+own Hpp_d p.  The coupling products (the S.p product, the reduced
+right-hand side and the back-substitution) are the solo solve's
+`solver.pcg.make_coupling_matvecs`: IMPLICIT unfused, kernels 2-3;
+EXPLICIT unfused, kernel 5 (`seg_expand`), the elementwise per-edge W
+contraction and kernel 4 (`seg_reduce`); with `fused_kernels`, kernel 7
+(`fused_coupling_apply_implicit`, IMPLICIT) or kernel 8
+(`fused_coupling_apply`, EXPLICIT) over the union's fused plans
+(`ops.fused.with_fused_plans`).  The linearisation
+(`linear_system.builder`, EXPLICIT's stored W rows included) and the
+kernel wrappers are the solo solve's too.
 
 Per-lane control, as JAX's vmapped `while_loop`: every scalar of the LM
 and of the PCG (costs, trust region, v, rho, the forcing term, the PCG's
@@ -40,6 +46,10 @@ the lane count.  What keeps it:
   (`ops.segtiles.is_per_thread`), which on the union is the bucket's
   n_edge / n_cam (or / n_pt) whatever L is; split segments are decided
   per segment; no kernel sums with atomics;
+- the fused kernels' slot tiles (`ops.fused.SLOT_TILE` slots; a segment
+  belongs to the tile where it starts) never straddle two lanes: a
+  bucket's edge count is a multiple of the tile (`core.fm.EDGE_QUANTUM`
+  is), which `lane_lm_solve` asserts;
 - no batched library call (matmul, Cholesky, triangular solve) whose
   algorithm may change with the batch size: the camera blocks' M^-1 is
   an unrolled Cholesky inverse over feature-major rows (`block_inv_rows`)
@@ -48,11 +58,11 @@ the lane count.  What keeps it:
   float32 `atan2` rounds by position in the vectorised loop; no BAL
   path calls it).
 
-The option surface is what the escalation ladder reaches from
-`ProblemOption()`: IMPLICIT Schur PCG with JACOBI on HPP, every Jacobian
-mode, HUBER and CAUCHY, guards, forcing with warm starts, `tol_relative`,
-edge masks, fixed vertices and fault plans, at float32 and float64.
-`check_lane_option` refuses the rest.
+The option surface: Schur PCG with JACOBI on HPP, IMPLICIT or EXPLICIT,
+with or without `fused_kernels`, every Jacobian mode, HUBER and CAUCHY,
+guards, forcing with warm starts, `tol_relative`, edge masks, fixed
+vertices and fault plans, at float32 and float64.  `check_lane_option`
+refuses the rest.
 """
 
 from __future__ import annotations
@@ -97,14 +107,11 @@ _TINY_RHO = 1e-30
 def check_lane_option(option: ProblemOption) -> None:
     """Refuse, naming the option, what the lane-batched solve does not
     run yet (the JAX package's bucket program runs them through its XLA
-    path): EXPLICIT, `fused_kernels`, the precision rungs, SCHUR_DIAG,
-    NEUMANN, TWO_LEVEL, MULTILEVEL and the plain full-system solver."""
+    path): the precision rungs, SCHUR_DIAG, NEUMANN, TWO_LEVEL, MULTILEVEL
+    and the plain full-system solver."""
     so = option.solver_option
     refused = [
         ("use_schur", option.use_schur, not option.use_schur),
-        ("compute_kind", option.compute_kind,
-         option.compute_kind != ComputeKind.IMPLICIT),
-        ("solver_option.fused_kernels", so.fused_kernels, so.fused_kernels),
         ("mixed_precision_pcg", option.mixed_precision_pcg,
          option.mixed_precision_pcg),
         ("solver_option.bf16", so.bf16, so.bf16),
@@ -118,15 +125,19 @@ def check_lane_option(option: ProblemOption) -> None:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported to the lane-batched fleet "
                 "solve yet (megba_tpu_torch/algo/lanes.py): the batch runs "
-                "IMPLICIT Schur PCG with JACOBI on HPP, the options the "
-                "escalation ladder reaches from ProblemOption(); solve "
-                "such a problem alone with flat_solve")
+                "Schur PCG with JACOBI on HPP, IMPLICIT or EXPLICIT, with or "
+                "without fused_kernels; solve such a problem alone with "
+                "flat_solve")
 
 
-def prepare_kernels(cd: int, pd: int, od: int, device) -> None:
+def prepare_kernels(cd: int, pd: int, od: int, device,
+                    option: ProblemOption) -> None:
     """Build (or load) the kernel libraries a bucket of block widths
-    (cd, pd) and residual rows od launches on `device`: kernels 1-3 at
-    (od, cd) and (od, pd), kernel 6 at cd.  Nothing to do on the CPU."""
+    (cd, pd) and residual rows od launches on `device` under `option`:
+    kernels 1-3 at (od, cd) and (od, pd) (kernels 4-5, EXPLICIT unfused,
+    live in the same library at every width of csrc/fused_shapes.cuh),
+    kernel 6 at cd, and with `fused_kernels` kernel 7 (IMPLICIT) or 8
+    (EXPLICIT) in both directions.  Nothing to do on the CPU."""
     if torch.device(device).type != "cuda":
         return
     for d in (cd, pd):
@@ -134,6 +145,17 @@ def prepare_kernels(cd: int, pd: int, od: int, device) -> None:
         segtiles._lib((od, d))
     fused._shape_lib("fused_block_diag_apply", cd, fused.SUPPORTED_BLOCK_DIAG,
                      (cd, 0, 0), (cd,))
+    if not option.solver_option.fused_kernels:
+        return
+    if option.compute_kind == ComputeKind.EXPLICIT:
+        for shape in ((cd, pd, True), (pd, cd, False)):
+            fused._shape_lib("fused_coupling_apply", shape,
+                             fused.SUPPORTED_DIRECTIONS, (cd, pd, 0),
+                             (cd, pd))
+    else:
+        fused._shape_lib("fused_coupling_apply_implicit", (cd, pd, od),
+                         fused.SUPPORTED_IMPLICIT,
+                         (max(cd, pd), min(cd, pd), od), (cd, pd), od)
 
 
 # ---------------------------------------------------------------------------
@@ -402,17 +424,22 @@ def _lane_pcg_core(matvec, precond, b, cams: Lanes, live, max_iter, tol,
 
 def lane_schur_pcg(system, Jc, Jp, plans, region, cams: Lanes, pts: Lanes,
                    live, max_iter, tol, refuse_ratio, tol_relative, x0=None,
-                   guard=False, max_restarts=0) -> LanePCG:
-    """The damped Schur solve of every live lane (`schur_pcg_solve` on
-    IMPLICIT, JACOBI on HPP), `region` [L]: S p = Hpp_d p - Hpl Hll_d^-1
-    Hlp p with the coupling products of `make_coupling_matvecs` (kernels
-    2-3) and the camera blocks' products by kernel 6."""
+                   guard=False, max_restarts=0,
+                   compute_kind: ComputeKind = ComputeKind.IMPLICIT,
+                   fused_kernels: bool = False) -> LanePCG:
+    """The damped Schur solve of every live lane (`schur_pcg_solve` with
+    JACOBI on HPP), `region` [L]: S p = Hpp_d p - Hpl Hll_d^-1 Hlp p with
+    the coupling products of `make_coupling_matvecs` under
+    `compute_kind` and `fused_kernels` (EXPLICIT reads `system.W`; fused
+    needs the fused plans on `plans`) and the camera blocks' products by
+    kernel 6."""
     Hpp_rows = damp_rows(fused.block_diag_rows(system.Hpp),
                          cams.expand(region))
     Hll_inv = block_inv_fm(damp_rows(system.Hll, pts.expand(region)))
     Minv_rows = block_inv_rows(Hpp_rows)
-    hpl, hlp = make_coupling_matvecs(Jc, Jp, plans.shards[0],
-                                     ComputeKind.IMPLICIT)
+    hpl, hlp = make_coupling_matvecs(
+        Jc, Jp, plans.shards[0], compute_kind,
+        None if system.W is None else system.W[0], fused_kernels)
 
     def s_matvec(p: torch.Tensor) -> torch.Tensor:
         t = block_matvec_fm(Hll_inv, hlp(p))
@@ -511,6 +538,18 @@ def lane_lm_solve(
     if not np.array_equal(plan_c.perm, np.arange(ci.shape[0])):
         raise ValueError("lane_lm_solve: every lane's edges must be "
                          "camera-sorted (serving.shape_class.pad_to_class)")
+    compute_kind = option.compute_kind
+    fused_kernels = solver_opt.fused_kernels
+    if fused_kernels:
+        # A fused kernel's slot tile sums the segments that start in it:
+        # tiles that never straddle two lanes keep each lane's sums its
+        # own.  The ladder's edge buckets are multiples of EDGE_QUANTUM.
+        if n_edge % fused.SLOT_TILE:
+            raise ValueError(
+                f"lane_lm_solve: fused_kernels needs a bucket edge count "
+                f"that is a multiple of {fused.SLOT_TILE} (the fused slot "
+                f"tile), got {n_edge}")
+        dual = fused.with_fused_plans(dual)
     plans = one_shard(dual)
 
     def put(a: np.ndarray, dt=tdtype) -> torch.Tensor:
@@ -577,7 +616,7 @@ def lane_lm_solve(
         Jp = dual.to_pt(Jp)
         system = build_schur_system(
             (r,), (Jc,), (Jp,), plans, n_lanes * n_cam, n_lanes * n_pt,
-            cf_t, pf_t, ComputeKind.IMPLICIT)
+            cf_t, pf_t, compute_kind)
         return r, Jc, Jp, poison_system(system, k), cost, wcost
 
     def trial_cost(cams_u, pts_u, k):
@@ -624,7 +663,8 @@ def lane_lm_solve(
             solver_opt.max_iter, eta * eta if forcing else solver_opt.tol,
             solver_opt.refuse_ratio, forcing or solver_opt.tol_relative,
             x0=dx0, guard=guards,
-            max_restarts=robust_opt.pcg_max_restarts if guards else 0)
+            max_restarts=robust_opt.pcg_max_restarts if guards else 0,
+            compute_kind=compute_kind, fused_kernels=fused_kernels)
         batch_pcg.append(pcg.batch_iterations)
         dx_cam, dx_pt = pcg.dx_cam, pcg.dx_pt
         dx_norm = torch.sqrt(cams.sum(dx_cam * dx_cam)
@@ -670,12 +710,16 @@ def lane_lm_solve(
             Jc = _where(relin, Jc_n, Jc, edges)
             Jp = _where(relin, Jp_n, Jp, edges)
             rc, rp = cams.expand(relin), pts.expand(relin)
+            W = system.W
+            if W is not None:  # EXPLICIT: the stored rows, camera slots
+                W = (_where(relin, sys_n.W[0], W[0], edges),)
             system = dataclasses.replace(
                 system,
                 Hpp=torch.where(rc[:, None, None], sys_n.Hpp, system.Hpp),
                 Hll=torch.where(rp[None, :], sys_n.Hll, system.Hll),
                 g_cam=torch.where(rc[None, :], sys_n.g_cam, system.g_cam),
-                g_pt=torch.where(rp[None, :], sys_n.g_pt, system.g_pt))
+                g_pt=torch.where(rp[None, :], sys_n.g_pt, system.g_pt),
+                W=W)
             wcost = torch.where(accept, wcost_n, wcost)
         cameras_u = _where(accept, cams_new, cameras_u, cams)
         points_u = _where(accept, pts_new, points_u, pts)

@@ -43,10 +43,8 @@ once on the first shard's device.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from megba_tpu_torch.common import (
@@ -59,6 +57,10 @@ from megba_tpu_torch.common import (
 from megba_tpu_torch.linear_system.builder import (
     build_schur_system,
     weight_system_inputs,
+)
+from megba_tpu_torch.observability.emit import (
+    emit_verbose_iteration,
+    next_verbose_token,
 )
 from megba_tpu_torch.observability.trace import SolveTrace
 from megba_tpu_torch.ops.accum import comp_sum, comp_sum_sq
@@ -334,7 +336,7 @@ def lm_solve(
     trace = SolveTrace.empty(algo_opt.max_iter, dtype)
     k = accepted = pcg_total = recoveries = fail_streak = 0
     stop = fatal = False
-    t0 = time.perf_counter()
+    token = next_verbose_token() if verbose else None
     while k < algo_opt.max_iter and not stop:
         pcg = pcg_solve(
             system, Jc, Jp, plans, region,
@@ -447,14 +449,8 @@ def lm_solve(
         pcg_total += pcg.iterations
         stop = bool(stop_t) or fatal
         if verbose:
-            # The JAX package's line (megba_tpu/observability/emit.py), the
-            # format its utils/curves parses.
-            c = float(trace_k[0])
-            print(f"iter {k}: cost {c:.6e} "
-                  f"log10 {np.log10(max(c, 1e-300)):.3f} "
-                  f"accept {bool(accept)} pcg_iters {int(pcg.iterations)} "
-                  f"elapsed {(time.perf_counter() - t0) * 1e3:.1f} ms",
-                  flush=True)
+            emit_verbose_iteration(token, k, float(trace_k[0]), accept,
+                                   int(pcg.iterations))
         k += 1
 
     status = derive_status(stopped=stop, accepted=accepted,

@@ -5,17 +5,17 @@ same member values, `SolveStatus` with the same integer codes, and the
 option dataclasses with the same field names and defaults, so a
 configuration written for one package reads the same in the other.
 
-Two things differ on purpose:
+One thing differs on purpose: `Device` names the torch backends this
+package runs on (CUDA, CPU), and `ProblemOption.device` defaults to
+`Device.CUDA`.  An entry point's own `device=` argument, when given,
+wins over it.
 
-- `Device` names the torch backends this package runs on (CUDA, CPU);
-  `ProblemOption.device` defaults to `Device.CUDA`.  An entry point's own
-  `device=` argument, when given, wins over it.
-- `validate_options` refuses every option value the port does not
-  implement yet (metrics: the metrics plane is not ported) with a
-  `NotImplementedError` that names the option, so a configuration is
-  never silently run as something else.  The option
-  combinations the JAX package itself refuses raise its `ValueError`s
-  first.
+`validate_options` raises the JAX package's `ValueError`s for the
+option combinations it refuses; every option value the JAX package
+accepts is implemented here (the last, `metrics`, arms the metrics plane
+of observability/).  Calls that run a subset of the options (the
+lane-batched fleet solve, `algo/lanes.check_lane_option`) refuse the
+rest themselves, with a `NotImplementedError` naming the option.
 """
 
 from __future__ import annotations
@@ -247,23 +247,10 @@ DTYPE_TO_TORCH = {
 }
 
 
-def _unported(name: str, value) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name}={value!r} is not ported to megba_tpu_torch yet; the port "
-        "runs the single-device LM path (Schur PCG, IMPLICIT or EXPLICIT, "
-        "with or without fused kernels, on every rung of the precision "
-        "ladder, or the plain full-system PCG) with any Jacobian mode and "
-        "robust loss, forcing and warm starts, guards and fault "
-        "injection, either edge order, every preconditioner family "
-        "(JACOBI, NEUMANN, TWO_LEVEL, MULTILEVEL) on the HPP or "
-        "SCHUR_DIAG block diagonal, and the multi-device solve (world_size, "
-        "mesh_2d, cam_blocks, bf16_collectives), with JSONL telemetry; still "
-        "refused: metrics (the metrics plane)")
-
-
 def validate_options(option: ProblemOption) -> None:
-    """Check the option kinds, then refuse every value this port does
-    not implement (typed NotImplementedError naming the option)."""
+    """Check the option kinds and combinations with the JAX package's
+    ValueErrors.  The port implements every option value the JAX package
+    accepts, so nothing else is refused."""
     so = option.solver_option
     ro = option.robust_option
     if option.algo_kind != AlgoKind.LM or option.algo_option.algo_kind != AlgoKind.LM:
@@ -354,8 +341,6 @@ def validate_options(option: ProblemOption) -> None:
             "M^-1 apply (use_schur=True); the plain full-system path has no "
             "edge pipeline to fuse")
     _validate_precision(option)
-    if option.metrics:
-        raise _unported("metrics", option.metrics)
 
 
 def _validate_precision(option: ProblemOption) -> None:

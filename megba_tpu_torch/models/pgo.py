@@ -55,7 +55,6 @@ diagonal and every LM scalar are held once, on the first device.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -72,6 +71,10 @@ from megba_tpu_torch.common import (
 from megba_tpu_torch.core.host_se3 import compose, relative
 from megba_tpu_torch.core.types import pad_edges
 from megba_tpu_torch.factors.pose_graph import between_residual
+from megba_tpu_torch.observability.emit import (
+    emit_verbose_iteration,
+    next_verbose_token,
+)
 from megba_tpu_torch.ops import fused, segtiles
 from megba_tpu_torch.ops.accum import comp_sum, comp_sum_sq
 from megba_tpu_torch.ops.residuals import (
@@ -425,7 +428,7 @@ def _run(poses, fixed, shards, option, spec, region0, v0, verbose) -> dict:
     dx0 = torch.zeros_like(poses) if warm_start else None
     k = accepted = pcg_total = 0
     stop = False
-    t0 = time.perf_counter()
+    token = next_verbose_token() if verbose else None
     while k < algo_opt.max_iter and not stop:
         dx, pcg_iters = step_system(g, h_rows, Ji, Jj, region,
                                     eta * eta if forcing else solver_opt.tol,
@@ -475,14 +478,8 @@ def _run(poses, fixed, shards, option, spec, region0, v0, verbose) -> dict:
             stop = bool(converged)
         pcg_total += pcg_iters
         if verbose:
-            # The BA loop's line (the JAX package's observability/emit.py
-            # format).
-            c = float(cost_new)
-            print(f"iter {k}: cost {c:.6e} "
-                  f"log10 {np.log10(max(c, 1e-300)):.3f} "
-                  f"accept {accept} pcg_iters {int(pcg_iters)} "
-                  f"elapsed {(time.perf_counter() - t0) * 1e3:.1f} ms",
-                  flush=True)
+            emit_verbose_iteration(token, k, float(cost_new), accept,
+                                   int(pcg_iters))
         k += 1
     return dict(
         poses=poses, cost=cost, initial_cost=cost0, iterations=k,

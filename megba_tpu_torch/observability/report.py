@@ -13,8 +13,9 @@ per `flat_solve` call, and one per problem for `solve_many` and
 service's counters).  `python -m megba_tpu_torch.observability.summarize`
 renders them.  With telemetry off this module is never imported.
 
-The port has no span recorder and no federation worker yet: `trace_id`,
-`span_id` and `worker` are always None.
+`trace_id` / `span_id` are the active span's context when `MEGBA_TRACE`
+is armed (observability/spans.py), else None.  The port has no
+federation worker yet: `worker` is always None.
 """
 
 from __future__ import annotations
@@ -152,6 +153,7 @@ def build_report(option, result, phases: Dict[str, Any],
                  device=None) -> SolveReport:
     """Assemble a SolveReport from a finished solve (`result` an
     `LMResult`); reads its scalars and trace to the host."""
+    from megba_tpu_torch import observability as _obs
     from megba_tpu_torch.observability.trace import trace_to_dict
     from megba_tpu_torch.utils.meminfo import device_memory_stats
 
@@ -172,6 +174,8 @@ def build_report(option, result, phases: Dict[str, Any],
         "recoveries": None if recoveries is None else int(recoveries),
         "precond_fallback": _decode_fallback_totals(trace, iterations),
     }
+    recorder = _obs.span_recorder()
+    span_ctx = None if recorder is None else recorder.context()
     return SolveReport(
         problem=problem,
         config=config_to_dict(option),
@@ -182,6 +186,8 @@ def build_report(option, result, phases: Dict[str, Any],
         memory=device_memory_stats(device),
         fleet=fleet,
         health=health,
+        trace_id=None if span_ctx is None else span_ctx["trace_id"],
+        span_id=None if span_ctx is None else span_ctx["span_id"],
         created_unix=time.time(),
     )
 

@@ -269,6 +269,14 @@ class DispatchChaos:
         if self.delay_s > 0.0:
             time.sleep(self.delay_s)
         if n < self.fail_first or roll < self.fail_rate:
+            from megba_tpu_torch import observability as _obs
+
+            flight = _obs.flight_recorder()
+            if flight is not None:
+                # Injected faults land in the flight ring like real ones:
+                # a dump shows the chaos that drove it.
+                flight.record("chaos_injection", bucket=bucket,
+                              dispatch=n)
             raise InjectedDispatchError(
                 f"chaos: injected dispatch failure #{n} for bucket "
                 f"{bucket}")

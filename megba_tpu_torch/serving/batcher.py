@@ -21,12 +21,14 @@ request it raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from megba_tpu_torch import observability as _obs
 from megba_tpu_torch.common import (
     ProblemOption,
     resolve_device,
@@ -253,11 +255,32 @@ def _solve_bucket(
     program); `rung` / `attempts` are stamped onto results and
     telemetry.  Any item with a `fault_plan` puts the batch on the
     faulted program, the others on inert plans.  `device` is the
-    resolved torch device.
+    resolved torch device.  The observability plane (host only; a batch
+    launches the same kernels and gives the same bits either way): with
+    `MEGBA_TRACE` the dispatch is a `solve_bucket` span, and with the
+    metrics plane armed it feeds the `megba_fleet_*` series and each
+    problem's `megba_solve_*` series (JAX batcher.py:315-322, 392-460).
     """
-    dtype = np.dtype(option.dtype)
     n_real = len(items)
     lanes = ladder.bucket_lanes(n_real)
+    recorder = _obs.span_recorder()
+    span_scope = (contextlib.nullcontext() if recorder is None
+                  else recorder.span("solve_bucket", bucket=str(shape),
+                                     factor=factor, lanes=lanes,
+                                     problems=n_real, rung=rung))
+    with span_scope:
+        return _solve_bucket_inner(
+            items, shape, option, engine, pool, stats, timer, telemetry,
+            report_option, initial_region=initial_region, rung=rung,
+            attempts=attempts, factor=factor, device=device, lanes=lanes)
+
+
+def _solve_bucket_inner(items, shape, option, engine, pool, stats, timer,
+                        telemetry, report_option, *, initial_region, rung,
+                        attempts, factor, device, lanes
+                        ) -> List[Tuple[int, FleetResult]]:
+    dtype = np.dtype(option.dtype)
+    n_real = len(items)
     phases_before = timer.as_dict()
     faulted = any(p.fault_plan is not None for _, p in items)
     with timer.phase("lowering"):
@@ -306,6 +329,10 @@ def _solve_bucket(
     edges_real = sum(p.n_edge for p in padded)
     stats.record_batch(str(shape), lanes, n_real, edges_real,
                        shape.n_edge, wall)
+    registry = _obs.metrics_registry(report_option.metrics)
+    if registry is not None:
+        _observe_batch(registry, str(shape), factor, rung, lanes, n_real,
+                       edges_real, shape.n_edge, wall)
 
     out: List[Tuple[int, FleetResult]] = []
     for lane, ((orig_i, prob), pp) in enumerate(zip(items, padded)):
@@ -333,6 +360,8 @@ def _solve_bucket(
             health=prob.health,
         )
         out.append((orig_i, fr))
+        if registry is not None:
+            _observe_lane(registry, str(shape), factor, fr)
         if telemetry:
             from megba_tpu_torch.observability.report import (
                 append_report,
@@ -364,6 +393,55 @@ def _solve_bucket(
                              problem_shape, fleet=fleet, health=prob.health,
                              device=device), telemetry)
     return out
+
+
+def _observe_batch(registry, bucket: str, factor: str, rung: int,
+                   lanes: int, n_real: int, edges_real: int, n_edge: int,
+                   wall: float) -> None:
+    """One dispatch's `megba_fleet_*` series (JAX batcher.py:392-419)."""
+    from megba_tpu_torch.observability.metrics import RATIO_BUCKETS
+
+    registry.counter(
+        "megba_fleet_batches_total",
+        "Batched dispatches per (bucket, factor, rung)").inc(
+            1, bucket=bucket, factor=factor, rung=rung)
+    registry.counter(
+        "megba_fleet_problems_total",
+        "Problems solved per (bucket, factor)").inc(
+            n_real, bucket=bucket, factor=factor)
+    registry.histogram(
+        "megba_fleet_batch_latency_seconds",
+        "Batch dispatch+execute wall clock").observe(
+            wall, bucket=bucket, factor=factor)
+    registry.histogram(
+        "megba_fleet_lane_fill_ratio",
+        "Real lanes / dispatched lanes per batch",
+        buckets=RATIO_BUCKETS).observe(n_real / lanes, bucket=bucket)
+    registry.histogram(
+        "megba_fleet_edge_fill_ratio",
+        "Real edges / padded edge capacity per batch",
+        buckets=RATIO_BUCKETS).observe(
+            edges_real / (lanes * n_edge), bucket=bucket)
+
+
+def _observe_lane(registry, bucket: str, factor: str,
+                  fr: FleetResult) -> None:
+    """One problem's `megba_solve_*` series (JAX batcher.py:443-460)."""
+    from megba_tpu_torch.observability.metrics import ITER_BUCKETS
+
+    registry.histogram(
+        "megba_solve_lm_iterations", "LM iterations per solved problem",
+        buckets=ITER_BUCKETS).observe(fr.iterations, bucket=bucket,
+                                      factor=factor)
+    registry.histogram(
+        "megba_solve_pcg_iterations",
+        "Total PCG iterations per solved problem",
+        buckets=ITER_BUCKETS).observe(fr.pcg_iterations, bucket=bucket,
+                                      factor=factor)
+    registry.counter(
+        "megba_solve_status_total",
+        "Solve outcomes by SolveStatus name").inc(
+            1, status=fr.status_name, bucket=bucket)
 
 
 def solve_many(

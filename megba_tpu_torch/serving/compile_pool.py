@@ -6,7 +6,7 @@ lane-batched LM (algo/lanes.py) on a bucket's stacked operands, and
 building it does the one-time work its key fixes: resolving the engine
 and building, at first use, the kernel libraries of the bucket's block
 widths (`algo.lanes.prepare_kernels`: kernels 1-3 at (od, cd) and
-(od, pd), kernel 6 at cd).
+(od, pd), kernel 6 at cd, and kernel 7 or 8 under `fused_kernels`).
 
 - `batched_solve_program(engine, option, faulted)` is the callable of a
   configuration, memoised (`utils.memo.normalized_lru_cache`) and
@@ -119,7 +119,8 @@ class BucketProgram:
         from megba_tpu_torch.common import resolve_device
 
         check_lane_option(self.option)
-        prepare_kernels(cd, pd, od, resolve_device(device, self.option))
+        prepare_kernels(cd, pd, od, resolve_device(device, self.option),
+                        self.option)
 
     def __call__(self, cameras, points, obs, cam_idx, pt_idx, mask,
                  cam_fixed, pt_fixed, initial_region, initial_v,

@@ -17,7 +17,9 @@ with deterministic-jittered backoff; the result carries `attempts`,
 `RejectPolicy.RAISE` / `BLOCK`) and a per-bucket circuit breaker.
 `chaos` (robustness.faults.DispatchChaos) injects deterministic dispatch
 failures and delays.  `submit(triage=)` health-checks a problem on the
-submitter's thread first (robustness/triage.py).
+submitter's thread first (robustness/triage.py).  With `MEGBA_FLIGHT`
+armed, breaker events, sheds, escalation retries and dispatch failures
+land in the flight ring (observability/flight.py).
 
 `FleetQueue` is a context manager, `close()` drains what is pending and
 is idempotent, and `flush()` dispatches everything now (batch waits,
@@ -34,6 +36,7 @@ import time
 from concurrent.futures import Future, InvalidStateError
 from typing import Any, Dict, List, Optional, Tuple
 
+from megba_tpu_torch import observability as _obs
 from megba_tpu_torch.common import ProblemOption, resolve_device
 from megba_tpu_torch.serving.batcher import (
     FleetProblem,
@@ -166,6 +169,10 @@ class FleetQueue:
     def _breaker_event(self, event: str, bucket: str, reason: str) -> None:
         self.stats.record_breaker(event)
         self.timer.count_event(f"breaker_{event}")
+        flight = _obs.flight_recorder()
+        if flight is not None:
+            flight.record("breaker", event=event, bucket=bucket,
+                          reason=reason)
 
     def _rung_option(self, rung: int) -> ProblemOption:
         if rung == 0 or self.escalation is None:
@@ -469,6 +476,11 @@ class FleetQueue:
                 if shed:
                     self.stats.record_shed(len(shed))
                     self.timer.count_event("deadline_shed", len(shed))
+                    flight = _obs.flight_recorder()
+                    if flight is not None:
+                        flight.record(
+                            "queue_shed", count=len(shed),
+                            names=[it.problem.name for it in shed[:8]])
                     # Shed items count as in-flight until their futures
                     # carry DeadlineExceeded (set outside the lock):
                     # flush() must not observe "drained" while a shed
@@ -530,6 +542,10 @@ class FleetQueue:
         self._npending += 1
         self.stats.record_retry(item.rung)
         self.timer.count_event("fleet_retry")
+        flight = _obs.flight_recorder()
+        if flight is not None:
+            flight.record("escalation_retry", name=item.problem.name,
+                          rung=item.rung, attempts=item.attempts)
 
     def _dispatch(self, key, taken: List[_Pending]) -> None:
         sc, _dims, factor, rung = key
@@ -596,6 +612,10 @@ class FleetQueue:
 
     def _on_dispatch_failure(self, bucket: str, taken: List[_Pending],
                              exc: Exception) -> None:
+        flight = _obs.flight_recorder()
+        if flight is not None:
+            flight.record("dispatch_failure", bucket=bucket,
+                          problems=len(taken), error=repr(exc))
         with self._lock:
             self.breaker.record_failure(bucket, repr(exc))
         now = time.monotonic()

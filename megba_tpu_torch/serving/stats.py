@@ -1,13 +1,19 @@
 """FleetStats: service-level counters for the many-problem solver.
 
-Counterpart of `megba_tpu/serving/stats.py` without its metrics mirror
-(the metrics plane is not ported): problems per second at fixed
-convergence, how full the buckets run, how much padded work the ladder
-wastes, whether the compile pool absorbs the one-time work, and the
-resilience and triage counters.  One instance is shared by the batcher,
-the compile pool and the dispatch queue; every mutation holds its lock.
-`as_dict()` is the JSON view embedded in telemetry reports (the `fleet`
-block) and `report()` the human-readable one.
+Counterpart of `megba_tpu/serving/stats.py`: problems per second at
+fixed convergence, how full the buckets run, how much padded work the
+ladder wastes, whether the compile pool absorbs the one-time work, and
+the resilience and triage counters.  One instance is shared by the
+batcher, the compile pool and the dispatch queue; every mutation holds
+its lock.  `as_dict()` is the JSON view embedded in telemetry reports
+(the `fleet` block) and `report()` the human-readable one.
+
+When the metrics plane is armed (`MEGBA_METRICS`), every `record_*` call
+also lands in the process metrics registry (observability/metrics.py)
+under the JAX package's series names and labels (`megba_pool_*`,
+`megba_queue_*`, `megba_breaker_events_total`, `megba_triage_total`).
+Off, the gate is one environment lookup and the metrics module is never
+imported.
 """
 
 from __future__ import annotations
@@ -15,6 +21,11 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, Optional
 
+from megba_tpu_torch import observability as _obs
+
+
+def _registry():
+    return _obs.metrics_registry()
 
 
 class FleetStats:
@@ -77,6 +88,12 @@ class FleetStats:
                 self.pool_hits += 1
             else:
                 self.pool_misses += 1
+        reg = _registry()
+        if reg is not None:
+            reg.counter(
+                "megba_pool_requests_total",
+                "Compile-pool program requests by outcome").inc(
+                    1, outcome="hit" if hit else "miss")
 
     def record_artifact(self, loaded: bool) -> None:
         """One bucket warmed: `loaded`=True rode a serialized executable
@@ -86,16 +103,30 @@ class FleetStats:
                 self.artifact_loads += 1
             else:
                 self.artifact_compiles += 1
+        reg = _registry()
+        if reg is not None:
+            reg.counter(
+                "megba_pool_warm_total",
+                "Bucket warm-ups: artifact load vs real compile").inc(
+                    1, outcome="artifact_load" if loaded else "compile")
 
     # -- resilience recording (called by FleetQueue under its own lock,
     # but kept self-locking so direct callers stay safe) ----------------
     def record_shed(self, n: int = 1) -> None:
         with self._lock:
             self.sheds += n
+        reg = _registry()
+        if reg is not None:
+            reg.counter("megba_queue_shed_total",
+                        "Problems shed before dispatch").inc(n)
 
     def record_deadline_miss(self, n: int = 1) -> None:
         with self._lock:
             self.deadline_misses += n
+        reg = _registry()
+        if reg is not None:
+            reg.counter("megba_queue_deadline_misses_total",
+                        "Results delivered after their deadline").inc(n)
 
     def record_retry(self, rung: int) -> None:
         """One problem re-enqueued at escalation rung `rung`."""
@@ -103,10 +134,19 @@ class FleetStats:
             self.retries += 1
             self.retries_by_rung[int(rung)] = (
                 self.retries_by_rung.get(int(rung), 0) + 1)
+        reg = _registry()
+        if reg is not None:
+            reg.counter("megba_queue_retries_total",
+                        "Escalation re-enqueues by target rung").inc(
+                            1, rung=int(rung))
 
     def record_reject(self, n: int = 1) -> None:
         with self._lock:
             self.rejected += n
+        reg = _registry()
+        if reg is not None:
+            reg.counter("megba_queue_rejected_total",
+                        "Submits refused by admission control").inc(n)
 
     def record_breaker(self, event: str) -> None:
         """One breaker transition: trip / probe / recover / fast_fail."""
@@ -117,16 +157,32 @@ class FleetStats:
             raise ValueError(f"unknown breaker event {event!r}")
         with self._lock:
             setattr(self, field, getattr(self, field) + 1)
+        reg = _registry()
+        if reg is not None:
+            reg.counter("megba_breaker_events_total",
+                        "Circuit-breaker transitions by event").inc(
+                            1, event=event)
 
     def record_depth(self, depth: int) -> None:
         with self._lock:
             if depth > self.queue_depth_peak:
                 self.queue_depth_peak = depth
+        reg = _registry()
+        if reg is not None:
+            reg.gauge("megba_queue_depth",
+                      "Pending problems in the dispatch queue").set(depth)
+            reg.gauge("megba_queue_depth_peak",
+                      "High-water mark of pending problems").max(depth)
 
     def record_wait(self, bucket: str, wait_s: float) -> None:
         """Submit-to-dispatch wait of one problem (monotonic seconds).
-        FleetStats keeps no wait state: in the JAX package this is the
-        queue's bridge into the metrics histogram, which the port lacks."""
+        FleetStats keeps no wait state: this is the queue's bridge into
+        the metrics histogram."""
+        reg = _registry()
+        if reg is not None:
+            reg.histogram("megba_queue_wait_seconds",
+                          "Submit-to-dispatch wait per problem").observe(
+                              wait_s, bucket=bucket)
 
     def record_triage(self, action: str,
                       repair: Optional[Dict[str, int]] = None) -> None:
@@ -137,6 +193,10 @@ class FleetStats:
                  "warned": "triage_warned"}.get(action)
         if field is None:
             raise ValueError(f"unknown triage action {action!r}")
+        reg = _registry()
+        if reg is not None:
+            reg.counter("megba_triage_total",
+                        "Triaged problems by action").inc(1, action=action)
         with self._lock:
             setattr(self, field, getattr(self, field) + 1)
             if repair:

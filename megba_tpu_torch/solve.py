@@ -33,6 +33,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from megba_tpu_torch import observability as _obs
 from megba_tpu_torch.algo.lm import LMResult
 from megba_tpu_torch.common import (
     DTYPE_TO_TORCH,
@@ -151,8 +152,9 @@ def flat_solve(
     `timer` (utils.timing.PhaseTimer, a fresh one if None) records the
     host phases of the JAX package's names: "triage", "lowering" (the
     arrays' checks and conversions and their moves to the devices),
-    "sort" (COOBS), "plan" (the segment, fused and coarse plans) and
-    "dispatch" (the LM loop).  `triage` (robustness.triage.TriagePolicy)
+    "sort" (COOBS), "plan" (the segment and fused plans), "coarse_plan"
+    (the camera clusters of TWO_LEVEL and MULTILEVEL) and "dispatch"
+    (the LM loop).  `triage` (robustness.triage.TriagePolicy)
     arms the pre-flight health checks (JAX solve.py:266-292): the
     problem is checked on the host in a "triage" phase before any
     lowering or tensor allocation.  Under REJECT a degenerate problem
@@ -171,6 +173,10 @@ def flat_solve(
     the guards' recoveries as a `fault_recovery` event.  The knob is
     stripped off the option before the solve.  With telemetry off
     nothing of the report is imported and nothing more is synced.
+    `option.metrics` or `MEGBA_METRICS` arms the metrics plane: the solve
+    feeds the `megba_solve_*` series of the process registry
+    (observability.metrics_registry); `MEGBA_TRACE` records the phases
+    as spans.  Neither changes a launch or a bit of the result.
     """
     spec = None
     if factor is not None:
@@ -182,6 +188,10 @@ def flat_solve(
     report_option = option
     option = strip_observability(option)
     timer = PhaseTimer() if timer is None else timer
+    # Armed by MEGBA_TRACE, the recorder's first creation installs the
+    # PhaseTimer hook, so this solve's phases become spans (one
+    # environment lookup when off).
+    _obs.span_recorder()
     health = None
     if triage is not None:
         from megba_tpu_torch.robustness.triage import triage_problem
@@ -263,6 +273,9 @@ def flat_solve(
         mesh, cameras, points, obs, cam_idx, pt_idx, mask, option,
         sqrt_info, cam_fixed, pt_fixed, verbose, residual_jac_fn,
         initial_region, initial_v, initial_dx, fault_plan, fault_edge, timer)
+    registry = _obs.metrics_registry(report_option.metrics)
+    if registry is not None:
+        _observe_solve(registry, result)
     if telemetry:
         problem = {"num_cameras": int(cameras.shape[0]),
                    "num_points": int(points.shape[0]),
@@ -273,6 +286,29 @@ def flat_solve(
         _emit_report(telemetry, report_option, result, timer, problem,
                      health, mesh.devices[0])
     return result
+
+
+def _observe_solve(registry, result: LMResult) -> None:
+    """The per-solve metrics observables of an unbatched solve (JAX
+    solve.py:750-767): LM and PCG iterations over `ITER_BUCKETS` and the
+    status counter.  The counts are host values: no sync."""
+    from megba_tpu_torch.common import status_name
+    from megba_tpu_torch.observability.metrics import ITER_BUCKETS
+
+    registry.histogram(
+        "megba_solve_lm_iterations", "LM iterations per solved problem",
+        buckets=ITER_BUCKETS).observe(
+            int(result.iterations), bucket="unbatched", factor="-")
+    registry.histogram(
+        "megba_solve_pcg_iterations",
+        "Total PCG iterations per solved problem",
+        buckets=ITER_BUCKETS).observe(
+            int(result.pcg_iterations), bucket="unbatched", factor="-")
+    if result.status is not None:
+        registry.counter(
+            "megba_solve_status_total",
+            "Solve outcomes by SolveStatus name").inc(
+                1, status=status_name(result.status), bucket="unbatched")
 
 
 def _emit_report(telemetry: str, option: ProblemOption, result: LMResult,
@@ -385,28 +421,36 @@ def _edge_major(result: LMResult, plan_seconds) -> LMResult:
 
 def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
                  pt_idx: np.ndarray, mask: np.ndarray, num_cameras: int,
-                 num_points: int, devs, shards):
+                 num_points: int, devs, perms, timer: PhaseTimer):
     """The camera-cluster plan of a TWO_LEVEL or MULTILEVEL Schur solve
-    (JAX solve.py:587-628), over the camera-sorted edge stream, split
-    over the mesh's devices `devs` (`shards`: each shard's positions in
-    the stream, ops/segtiles.shard_cluster_plan), with its host seconds;
-    (None, None) for every other option."""
+    (JAX solve.py:587-628) and its host seconds, timed as the
+    "coarse_plan" phase of `timer`; (None, None) for every other option.
+
+    The coarse space is planned over the stable camera sort, the world-1
+    stream, on every mesh: its clusters depend on the stream's order, so
+    every mesh then solves with the world-1 coarse space (the JAX package
+    plans the 2-D mesh's over its 2-D stream instead).  The plan is split
+    over the mesh's devices `devs` (`perms`: each shard's edges in the
+    caller's order, ops/segtiles.shard_cluster_plan)."""
     so = option.solver_option
     if not option.use_schur or so.precond not in (PrecondKind.TWO_LEVEL,
                                                   PrecondKind.MULTILEVEL):
         return None, None
-    t = time.perf_counter()
-    if so.precond == PrecondKind.TWO_LEVEL:
-        plan = build_cluster_plan(
-            cam_idx, pt_idx, num_cameras, num_points, so.coarse_clusters,
-            mask=mask)
-    else:
-        plan = build_multilevel_plan(
-            cam_idx, pt_idx, num_cameras, num_points, so.coarse_clusters,
-            mask=mask, coarsen_factor=so.coarsen_factor,
-            max_levels=so.max_levels)
-    plan = device_sharded_coarse_plan(plan, shards, devs)
-    return plan, time.perf_counter() - t
+    with timer.phase("coarse_plan"):
+        t = time.perf_counter()
+        canon = np.argsort(cam_idx, kind="stable")
+        at = np.empty_like(canon)
+        at[canon] = np.arange(canon.shape[0])
+        ci, pi, m = cam_idx[canon], pt_idx[canon], mask[canon]
+        if so.precond == PrecondKind.TWO_LEVEL:
+            plan = build_cluster_plan(ci, pi, num_cameras, num_points,
+                                      so.coarse_clusters, mask=m)
+        else:
+            plan = build_multilevel_plan(
+                ci, pi, num_cameras, num_points, so.coarse_clusters, mask=m,
+                coarsen_factor=so.coarsen_factor, max_levels=so.max_levels)
+        plan = device_sharded_coarse_plan(plan, [at[p] for p in perms], devs)
+        return plan, time.perf_counter() - t
 
 
 def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
@@ -453,18 +497,8 @@ def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
         bounds = tuple(int(b) for b in np.cumsum([0] + [p.shape[0]
                                                         for p in perms]))
         stream = np.concatenate(perms)
-        # The coarse space is planned over the stable camera sort, the
-        # world-1 stream, on every mesh: its clusters depend on the stream's
-        # order, so every mesh then solves with the world-1 coarse space (the
-        # JAX package plans the 2-D mesh's over its 2-D stream instead).
-        canon = np.argsort(cam_idx, kind="stable")
-        at = np.empty_like(canon)
-        at[canon] = np.arange(canon.shape[0])
-        cluster_plan, plan_seconds = _coarse_plan(
-            option, cam_idx[canon], pt_idx[canon], mask[canon], nc, npt, devs,
-            [at[p] for p in perms])
-    if verbose and plan_seconds is not None:
-        print(f"coarse plan: {plan_seconds:.3f} s on the host", flush=True)
+    cluster_plan, plan_seconds = _coarse_plan(option, cam_idx, pt_idx, mask,
+                                              nc, npt, devs, perms, timer)
 
     def per_shard(a: np.ndarray):
         """[nE, ...] caller order -> each shard's [F, n_k] rows."""
@@ -519,12 +553,12 @@ def solve_bal(
     if not isinstance(bal, BALFile):
         bal = load_bal(bal, dtype=option.dtype)
     if verbose:
-        cd = np.bincount(bal.cam_idx, minlength=bal.num_cameras)
-        pdg = np.bincount(bal.pt_idx, minlength=bal.num_points)
-        print(f"cameras {bal.num_cameras} points {bal.num_points} "
-              f"observations {bal.num_observations} max camera degree "
-              f"{int(cd.max(initial=0))} max point degree "
-              f"{int(pdg.max(initial=0))}", flush=True)
+        from megba_tpu_torch.native import degree_stats
+
+        _, _, (max_cd, max_pd, nnz) = degree_stats(
+            bal.cam_idx, bal.pt_idx, bal.num_cameras, bal.num_points)
+        _obs.emit_problem_stats(bal.num_cameras, bal.num_points,
+                                bal.num_observations, max_cd, max_pd, nnz)
     result = flat_solve(bal.cameras, bal.points, bal.obs, bal.cam_idx,
                         bal.pt_idx, option, verbose=verbose, device=device)
     solved = BALFile(

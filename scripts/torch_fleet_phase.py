@@ -6,8 +6,9 @@
 from the root of a checkout: builds the kernels (all sources together),
 prints the card's name and power limit, runs `chip_smoke.fleet_phase()`
 and prints its kernel rows as one JSON line.  A quick check of the
-serving layer and the lane-batched LM on the card (~75 s after the
-build) without the script's other eleven phases.
+serving layer, the lane-batched LM on its four coupling paths and the
+observability plane on the card without the script's other eleven
+phases.
 """
 
 import json

@@ -110,8 +110,8 @@ def test_unported_options_raise_typed(field, value):
     # options (world_size, mesh_2d, bf16_collectives) are ported, as are
     # mixed_precision_pcg, both autodiff Jacobian modes, the robust
     # losses, forcing and warm starts, guards, the plain solver, COOBS,
-    # SCHUR_DIAG, NEUMANN, TWO_LEVEL and MULTILEVEL, and the JSONL
-    # telemetry: they validate.  Only metrics is refused.
+    # SCHUR_DIAG, NEUMANN, TWO_LEVEL and MULTILEVEL, the JSONL telemetry
+    # and the metrics plane: they validate.  Nothing is refused.
     base = dict(jacobian_mode=tc.JacobianMode.ANALYTICAL, dtype=np.float32)
     base[field] = value
     if (field, value) in _PORTED:
@@ -144,35 +144,56 @@ _PORTED = [
     ("solver_option", tc.SolverOption(fused_kernels=True, mesh_2d=True)),
     ("solver_option", tc.SolverOption(forcing=True, mesh_2d=True)),
     ("telemetry", "t.jsonl"),
+    ("metrics", True),
 ]
 
 
 @pytest.mark.parametrize("kw,refused", [
-    # Guards, use_schur=False, NEUMANN, TWO_LEVEL, MULTILEVEL and the
-    # multi-device options and telemetry are ported: each case keeps the
-    # still-refused option (metrics) beside them (its id is the case's old
-    # one).
+    # Guards, use_schur=False, NEUMANN, TWO_LEVEL, MULTILEVEL, the
+    # multi-device options, telemetry and (since the metrics plane is
+    # ported) metrics: each case held metrics, the last refused option,
+    # beside them.  Nothing is refused any more, so each case validates
+    # in both packages (its id is the case's old one).
     pytest.param(dict(robust_kind=tc.RobustKind.HUBER,
                       robust_option=tc.RobustOption(guards=True),
                       world_size=2, telemetry="t.jsonl", metrics=True,
                       solver_option=tc.SolverOption(
                           precond=tc.PrecondKind.TWO_LEVEL)),
-                 "metrics", id="kw0-guards"),
+                 None, id="kw0-guards"),
     pytest.param(dict(robust_kind=tc.RobustKind.CAUCHY, metrics=True,
                       solver_option=tc.SolverOption(
                           mesh_2d=True, edge_order=tc.EdgeOrder.COOBS)),
-                 "metrics", id="kw1-use_schur"),
+                 None, id="kw1-use_schur"),
     pytest.param(dict(jacobian_mode=tc.JacobianMode.AUTODIFF, world_size=2,
-                      telemetry="t.jsonl", metrics=True), "metrics",
+                      telemetry="t.jsonl", metrics=True), None,
                  id="kw2-telemetry"),
     pytest.param(dict(metrics=True, solver_option=tc.SolverOption(
         warm_start=True, precond=tc.PrecondKind.MULTILEVEL, mesh_2d=True,
-        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), "metrics",
+        preconditioner=tc.PreconditionerKind.SCHUR_DIAG)), None,
         id="kw3-precond"),
 ])
 def test_still_refused_beside_ported_options(kw, refused):
-    with pytest.raises(NotImplementedError, match=refused):
-        tc.validate_options(tc.ProblemOption(**kw))
+    assert refused is None
+    tc.validate_options(tc.ProblemOption(**kw))
+    jc.validate_options(_to_jax_option(kw))
+
+
+def _to_jax_option(kw):
+    """The JAX package's ProblemOption of the same keyword values (enums
+    and nested options by name)."""
+    from megba_tpu.ops import robust as jrobust
+
+    def conv(v):
+        if isinstance(v, enum.Enum):
+            home = jrobust if type(v).__name__ == "RobustKind" else jc
+            return getattr(home, type(v).__name__)[v.name]
+        if dataclasses.is_dataclass(v):
+            return getattr(jc, type(v).__name__)(
+                **{f.name: conv(getattr(v, f.name))
+                   for f in dataclasses.fields(v)})
+        return v
+
+    return jc.ProblemOption(**{k: conv(v) for k, v in kw.items()})
 
 
 def test_option_value_errors():

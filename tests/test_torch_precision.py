@@ -351,9 +351,10 @@ def test_validate_options_refuses_precision(kw, err, match):
 
 
 def test_precision_refusal_fires_before_planning():
-    """flat_solve refuses the option before it reads the arrays (the
-    bf16 rung with bf16 collectives is ported; metrics is not)."""
-    opt = _opt(dtype=F32, metrics=True, solver_option=dict(
+    """flat_solve refuses the option before it reads the arrays.  The
+    bf16 rung with bf16 collectives and metrics are ported; the refusal
+    held here is the precision ladder's ValueError for bf16 at f64."""
+    opt = _opt(metrics=True, solver_option=dict(
         bf16=True, bf16_collectives=True))
-    with pytest.raises(NotImplementedError, match="metrics"):
+    with pytest.raises(ValueError, match="float64"):
         mt.flat_solve(None, None, None, None, None, opt, device="cpu")

@@ -394,11 +394,22 @@ REFUSED = {
 }
 
 
+# Batched since EXPLICIT and the fused kernels run in the lane-batched
+# LM (tests/test_torch_lane_options.py holds them against JAX): their
+# cases now check the option is accepted.
+BATCHED = {"compute_kind", "fused_kernels"}
+
+
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refused_options_raise_not_implemented(case):
     opt = dataclasses.replace(OPT64, **REFUSED[case])
     p = _bal_fleet()[0]
     name = case.split("-")[0]
+    if case in BATCHED:
+        res = ts.solve_many([p], opt)[0]
+        assert np.isfinite(float(res.cost))
+        ts.FleetQueue(opt).close()
+        return
     with pytest.raises(NotImplementedError, match=name):
         ts.solve_many([p], opt)
     with pytest.raises(NotImplementedError, match=name):

@@ -185,11 +185,12 @@ def test_validate_options_matches_jax(case):
 
 
 def test_still_refused_and_fused_1d_refused_as_jax():
-    tc.validate_options(tc.ProblemOption(telemetry="/dev/null"))
-    with pytest.raises(NotImplementedError, match="metrics"):
-        tc.validate_options(tc.ProblemOption(metrics=True))
-    with pytest.raises(NotImplementedError, match="metrics"):
-        tc.validate_options(tc.ProblemOption(world_size=2, metrics=True))
+    # Telemetry and (since the metrics plane is ported) metrics validate
+    # at any world size, as in the JAX package.
+    for kw in (dict(telemetry="/dev/null"), dict(metrics=True),
+               dict(world_size=2, metrics=True)):
+        tc.validate_options(tc.ProblemOption(**kw))
+        jc.validate_options(jc.ProblemOption(**kw))
     s = _scene()
     jopt, topt = _options(False, fused=True)
     jopt = dataclasses.replace(

@@ -30,8 +30,16 @@ exception ends the run with a non-zero exit code:
    `io.synthetic.heavy_tailed_graph`; pt->cam also over 40,000 cameras,
    short enough for slot tiles), checked and timed as sides of their
    own, outside the row's totals, as are kernels 1 and 3 on that graph's
-   camera side; each side's launch shape of kernels 1 and 3 (a thread
-   per segment, or split segments and their chunk count) is logged;
+   camera side, and as is kernel 4, at f32 and f64, on that graph's
+   point side (Zipf tracks of 256 slots and more on a short side) and
+   camera side and on the long cameras (split); each side's launch
+   shape of kernels 1 and 3 (a thread per segment, or split segments and
+   their chunk count) and of kernel 4 (slot tiles and their count beside
+   the split chunks of the segments over SPLIT_ABOVE slots, a thread per
+   segment where all are under 256 slots, or split chunks) is logged,
+   and every kernel-4 side's most slots a block and a thread, read off
+   the plan's tables, is held to `segtiles.SEG_REDUCE_BOUNDS` of its
+   shape;
    kernels 8 and 7 in the 2-D mesh's
    ring-step form (`fused_ring_step_apply`, `_implicit`) on the first
    bucket of device (0, 0) of the venice 2 x 2 camera-tile plan; and the
@@ -128,7 +136,9 @@ exception ends the run with a non-zero exit code:
    kernel, block shape and arm as the code implies on every run
    (`check_family_launches`); kernel rows `name(shape)` /
    `name(shape)[f64]` of kernels 1-3 at each new (od, d) and of kernels
-   4-8 at each new width or (cd, pd, od) on the venice-scale scenes,
+   4-8 at each new width or (cd, pd, od) on the venice-scale scenes
+   (and kernel 4 on the pose prior's one 200,000-slot point, F = 3,
+   `seg_reduce(3)`, with device times),
    held to the plain versions (f32 against the plain version in f64,
    f64 also within 1e-9 of the row's largest magnitude); then the
    Problem facade on the trafalgar-sized BAL scene: CameraVertex /
@@ -211,7 +221,8 @@ exception ends the run with a non-zero exit code:
    then the 64 from four submitter threads; and kernel rows `name fleet`
    / `name[f64] fleet` of kernels 1-5 (camera and point side), 6, and 7
    and 8 (both directions) at the largest bucket's union plan, with
-   CUDA-event and device times, bounds and library calls.
+   CUDA-event and device times, bounds and library calls, and kernel 5's
+   rows against `index_select` in ten alternating pairs by device time.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -602,10 +613,12 @@ FAMILY_TRAFALGAR = {
 POSE_CAMERA_BLOCK = (2, 6)
 # The pose prior's rows near the launch floor, which also get
 # torch.profiler's device time: kernels 1-3 on its one-segment point
-# side, kernel 2 on its poses, kernels 4 and 5 on its 100,000 poses.
+# side, kernel 2 on its poses, kernels 4 and 5 on its 100,000 poses, and
+# kernel 4 on its one-segment point side (F = 3, f32 and f64).
 POSE_PRIOR_DEVICE_ROWS = ("jtj_grad_reduce(6,3)", "coupling_reduce(6,3)",
                           "coupling_expand(6,3)", "coupling_expand(6,6)",
-                          "seg_reduce(6)", "seg_expand(6)")
+                          "seg_reduce(6)", "seg_expand(6)", "seg_reduce(3)",
+                          "seg_reduce(3)[f64]")
 
 
 def log(*args) -> None:
@@ -757,7 +770,9 @@ def kernel_resources(build_logs: dict) -> dict:
     instantiation, from the `--ptxas-options=-v` output of the builds
     (ops/kernels.BUILD_LOGS): the full table, demangled, goes to
     chiprun_out/nvcc_resources.txt; the log gets the instantiations of
-    kernel 1 (the largest sums a thread), every one that spills, and per
+    kernel 1 (the largest sums a thread) and of kernel 4's slot tiles
+    (`seg_reduce_tiles`, up to 33 KB of static shared memory at F = 16,
+    f64), every one that spills, and per
     library the one with the most registers and the one with the most
     shared memory (the widest shapes of csrc/fused_shapes.cuh).  Returns
     {demangled name: (registers, spill stores, spill loads)}."""
@@ -806,7 +821,8 @@ def kernel_resources(build_logs: dict) -> dict:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "nvcc_resources.txt").write_text("\n".join(lines) + "\n")
     for line in lines:
-        if "JtjRows" in line or "spill stores 0 B" not in line:
+        if ("JtjRows" in line or "seg_reduce_tiles" in line
+                or "spill stores 0 B" not in line):
             log(f"resources {line}")
     for (lib, key), (_, line) in sorted(widest.items()):
         log(f"resources, most {key}: {line}")
@@ -863,7 +879,7 @@ def arm_launch_counts() -> dict:
 
 def kernel_source(name: str) -> str:
     return ("megba_tpu_torch/csrc/"
-            f"{kernel_module(name).KERNEL_SOURCES[0]}.cu")
+            f"{kernel_module(name).kernel_source(base_name(name))}.cu")
 
 
 def cuda_ms(fn, reps: int = 7, batch: int = 10, warmup: int = 2) -> float:
@@ -1163,6 +1179,8 @@ def measure_rows(cases: dict) -> dict:
             by = "bytes" if t_bytes >= t_ops else "operations"
             e_max = float(err.max())
             plan = _plan_of(args)
+            k4 = (check_seg_reduce_shape(f"{name}[{side}]", plan)
+                  if base_name(name) == "seg_reduce" else None)
             entry["sides"][side] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound,
                 bound_by=by, share=bound / k_ms, bytes=nbytes, flops=flops,
@@ -1170,7 +1188,7 @@ def measure_rows(cases: dict) -> dict:
                 per_thread=None if plan is None else plan.per_thread,
                 chunks=(None if plan is None or plan.split is None
                         else plan.split.num_chunks),
-                library_note=lib_note)
+                library_note=lib_note, seg_reduce_shape=k4)
             lib = ("-" if lib_ms is None else f"{lib_ms:.4f} ms") + (
                 "" if lib_note is None else f" (none: {lib_note})")
             log(f"kernel {name}[{side}]: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
@@ -1567,6 +1585,27 @@ def kernel_phase(scene) -> dict:
                       shape=(9, lnc)),
         library_tol=F32_LONG_LIBRARY_REL_TO_ABS_SUM, in_total=False,
         ref64=True))
+    # Kernel 4 at f32 and f64 on the heavy-tailed graph's point side
+    # (Zipf tracks: segments of 256 slots and more on a short side, summed
+    # by a whole block) and camera side, and on the long cameras
+    # (5,000-40,000 slots, split chunks; at f32 held to the f64 plain
+    # version).
+    for side, plan, d, kw in (("pt_zipf", hplans.pt, 3, {}),
+                              ("cam_zipf", hplans.cam, 9, {}),
+                              ("cam_long", lplan, 9, dict(
+                                  ref64=True, library_tol=(
+                                      F32_LONG_LIBRARY_REL_TO_ABS_SUM)))):
+        m, ns = plan.n_slots, plan.num_segments
+        data = randn(d, m)
+        seg_len = lengths(plan, d)
+        for row, x, size, arm_kw in (("seg_reduce", data, es, kw),
+                                     ("seg_reduce[f64]", data.to(f64), ds,
+                                      {})):
+            cases[row].append(_case(
+                side, (x, plan), (d * m + d * ns) * size + (ns + 1) * i64,
+                d * m, lambda x=x, seg_len=seg_len: lambda:
+                torch.segment_reduce(x, "sum", lengths=seg_len, axis=1,
+                                     unsafe=True), in_total=False, **arm_kw))
     track = hplans.pt.seg_ptr[1:] - hplans.pt.seg_ptr[:-1]
     log(f"heavy-tailed graph: {hnc} cameras, {hnp} points, {hn} slots, "
         f"longest track {int(track.max())}, {int((track == 0).sum())} "
@@ -1574,9 +1613,11 @@ def kernel_phase(scene) -> dict:
         "short-camera pt->cam")
     for label, plan in (("venice cam", plans.cam), ("venice pt", plans.pt),
                         ("heavy-tailed cam", hplans.cam),
+                        ("heavy-tailed pt", hplans.pt),
                         ("long cam", lplan)):
         log(f"{label} side: {plan.num_segments} segments, {plan.n_slots} "
-            f"slots; kernels 1 and 3 {launch_shape(plan)}")
+            f"slots; kernels 1 and 3 {launch_shape(plan)}; "
+            f"{seg_reduce_words(plan)}")
 
     rows = measure_rows(cases)
     # Kernel 6 runs at its launch floor, where a CUDA-event time of back
@@ -1612,6 +1653,39 @@ def launch_shape(plan) -> str:
     return (f"split segments, {plan.split.num_chunks} chunks (a segment "
             f"over {SPLIT_ABOVE} slots in chunks of at most {SPLIT_CHUNK}; "
             f"at most {plan.split.longest} a segment)")
+
+
+def seg_reduce_words(plan) -> str:
+    """Kernel 4's launch shape on one side's plan: slot tiles (with the
+    split chunks of its segments over SPLIT_ABOVE slots), a thread per
+    segment or split chunks, and the most slots a block reads and a
+    thread adds."""
+    from megba_tpu_torch.ops.segtiles import seg_reduce_shape
+
+    k4 = seg_reduce_shape(plan)
+    tiles = (f"{k4['tiles']} slot tiles and " if k4["shape"] == "slot tiles"
+             else "")
+    return (f"kernel 4 {k4['shape']}: {tiles}{k4['chunks']} split chunks, "
+            f"at most {k4['block_slots']} slots a block, "
+            f"{k4['thread_slots']} a thread")
+
+
+def check_seg_reduce_shape(what: str, plan) -> dict:
+    """Kernel 4's launch on `plan` (`segtiles.seg_reduce_shape`, read off
+    the plan's tables), logged and held to `SEG_REDUCE_BOUNDS`: no block
+    and no thread owns an unbounded run of slots."""
+    from megba_tpu_torch.ops.segtiles import (SEG_REDUCE_BOUNDS,
+                                              seg_reduce_shape)
+
+    k4 = seg_reduce_shape(plan)
+    bounds = SEG_REDUCE_BOUNDS[k4["shape"]]
+    for key, most in bounds.items():
+        if k4[key] > most:
+            raise AssertionError(f"{what}: kernel 4's {key} {k4[key]} "
+                                 f"exceeds its bound {most}")
+    log(f"{what}: {seg_reduce_words(plan)} (bounds "
+        f"{bounds['block_slots']} and {bounds['thread_slots']})")
+    return k4
 
 
 def row_device_times(rows: dict, cases: dict, names) -> None:
@@ -2602,6 +2676,30 @@ def remainder_reduce_case(width: int, plan, tag: str) -> dict:
             data, "sum", lengths=lengths, axis=1, unsafe=True))]}
 
 
+def prior_point_reduce_cases(plan) -> dict:
+    """Rows `seg_reduce(3)` / `seg_reduce(3)[f64]`: kernel 4 on the pose
+    prior's point side, one segment of 200,000 slots (EXPLICIT's hlp sums
+    there), which its split chunks cut into 98 blocks: random rows, the
+    bytes read once and written once, `torch.segment_reduce` as the
+    yardstick; the f32 row held to the plain version in float64."""
+    n, ns = plan.n_slots, plan.num_segments
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    lengths = (plan.seg_ptr[1:] - plan.seg_ptr[:-1]).expand(3, ns).contiguous()
+    cases = {}
+    for dtype, elt, suffix in ((torch.float32, 4, ""),
+                               (torch.float64, 8, "[f64]")):
+        data = torch.randn((3, n), generator=g, device=DEVICE, dtype=dtype)
+        ref64 = dtype == torch.float32
+        cases[f"seg_reduce(3){suffix}"] = [_case(
+            "pose_prior_pt", (data, plan), (3 * n + 3 * ns) * elt
+            + (ns + 1) * 8, 3 * n, lambda data=data: lambda:
+            torch.segment_reduce(data, "sum", lengths=lengths, axis=1,
+                                 unsafe=True),
+            library_tol=(F32_LONG_LIBRARY_REL_TO_ABS_SUM if ref64
+                         else F32_REL_TO_ABS_SUM), ref64=ref64)]
+    return cases
+
+
 def check_shape_launches(what: str, counts: dict, shapes: dict,
                          blocks) -> None:
     """Each of kernels 1-3 launched its total (`counts`) half at each of
@@ -3102,6 +3200,8 @@ def factor_phase(venice, trafalgar64) -> dict:
             made))
         if factor == "planar":  # V's one group of cd pd = 8 rows
             cases.update(remainder_reduce_case(8, plans.pt, "planar_pt"))
+        if factor == "pose_prior":  # kernel 4 on the one 200,000-slot point
+            cases.update(prior_point_reduce_cases(plans.pt))
         rows.update(measure_rows(cases))
         if factor == "pose_prior":  # the rows near the launch floor
             row_device_times(rows, cases, POSE_PRIOR_DEVICE_ROWS)
@@ -4669,6 +4769,48 @@ def fleet_kernel_cases(probs) -> dict:
     return cases
 
 
+# Alternating turns of kernel 5's fleet row against `index_select`, by
+# device time: pairs, and launches a profiled window.
+EXPAND_TURN_PAIRS = 10
+EXPAND_TURN_CALLS = 50
+
+
+def expand_turns(rows: dict, cases: dict, name: str) -> None:
+    """Kernel 5's row `name` (both sides a call) and its `index_select`
+    yardstick timed by torch.profiler's device time in alternating turns
+    (kernel first in even pairs, the library first in odd ones),
+    `EXPAND_TURN_PAIRS` pairs of `EXPAND_TURN_CALLS` calls a window:
+    medians and the pairs the kernel won go into the row
+    (`turns_device_ms`, `turns_library_device_ms`, `turns_won`)."""
+    kernel = getattr(kernel_module(name), base_name(name))
+    sides = cases[name]
+    libs = [c["library"]() for c in sides]
+
+    def run_kernel():
+        for c in sides:
+            kernel(*c["args"], **c["kwargs"])
+
+    def run_library():
+        for lib in libs:
+            lib()
+
+    k_ms, l_ms = [], []
+    for p in range(EXPAND_TURN_PAIRS):
+        order = ((k_ms, run_kernel), (l_ms, run_library))
+        for times, fn in (order if p % 2 == 0 else order[::-1]):
+            times.append(device_ms_per_call(fn, EXPAND_TURN_CALLS))
+    won = sum(k < lib for k, lib in zip(k_ms, l_ms))
+    entry = rows[name]
+    entry["turns_device_ms"] = statistics.median(k_ms)
+    entry["turns_library_device_ms"] = statistics.median(l_ms)
+    entry["turns_won"] = won
+    log(f"kernel {name} against index_select in {EXPAND_TURN_PAIRS} "
+        f"alternating pairs by device time: median "
+        f"{entry['turns_device_ms'] * 1e3:.3f} us against "
+        f"{entry['turns_library_device_ms'] * 1e3:.3f} us; the kernel is "
+        f"faster in {won} of {EXPAND_TURN_PAIRS} pairs")
+
+
 def fleet_phase() -> dict:
     """Phase 12: the fleet service (serving/, algo/lanes.py) on the card.
     Returns the kernel rows at the largest bucket's union, each with its
@@ -4700,6 +4842,8 @@ def fleet_phase() -> dict:
     cases = fleet_kernel_cases(probs64)
     rows = measure_rows(cases)
     row_device_times(rows, cases, list(rows))
+    for suffix in ("", "[f64]"):
+        expand_turns(rows, cases, f"seg_expand{suffix} fleet")
     for name, row in rows.items():
         path = FLEET_ROW_PATH.get(base_name(name), "implicit")
         arm = 64 if "[f64]" in name else 32

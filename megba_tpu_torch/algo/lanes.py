@@ -44,12 +44,18 @@ the lane count.  What keeps it:
   `torch.sum` over [L, n], whose order may depend on L;
 - the kernels' launch shape depends on a side's mean segment length
   (`ops.segtiles.is_per_thread`), which on the union is the bucket's
-  n_edge / n_cam (or / n_pt) whatever L is; split segments are decided
-  per segment; no kernel sums with atomics;
-- the fused kernels' slot tiles (`ops.fused.SLOT_TILE` slots; a segment
-  belongs to the tile where it starts) never straddle two lanes: a
-  bucket's edge count is a multiple of the tile (`core.fm.EDGE_QUANTUM`
-  is), which `lane_lm_solve` asserts;
+  n_edge / n_cam (or / n_pt) whatever L is; split chunks, and kernel 4's
+  choice between a tile thread, the whole block and split chunks, are
+  decided per segment by its length; kernel 4's thread per segment, on a
+  short side whose segments are all under 256 slots, sums each segment
+  in the same order as a tile thread, so that choice (made on the union)
+  moves no bit; no kernel sums with atomics;
+- the slot tiles of kernel 4 and of the fused kernels
+  (`ops.segtiles.SLOT_TILE` slots; a segment belongs to the tile where
+  it starts) never straddle two lanes, so a lane's tile and chunk tables
+  are its own shifted by its offset: a bucket's edge count is a multiple
+  of the tile (`core.fm.EDGE_QUANTUM` is), which `lane_lm_solve` asserts
+  on every path that launches them (EXPLICIT, `fused_kernels`);
 - no batched library call (matmul, Cholesky, triangular solve) whose
   algorithm may change with the batch size: the camera blocks' M^-1 is
   an unrolled Cholesky inverse over feature-major rows (`block_inv_rows`)
@@ -540,15 +546,17 @@ def lane_lm_solve(
                          "camera-sorted (serving.shape_class.pad_to_class)")
     compute_kind = option.compute_kind
     fused_kernels = solver_opt.fused_kernels
-    if fused_kernels:
-        # A fused kernel's slot tile sums the segments that start in it:
-        # tiles that never straddle two lanes keep each lane's sums its
-        # own.  The ladder's edge buckets are multiples of EDGE_QUANTUM.
-        if n_edge % fused.SLOT_TILE:
+    if fused_kernels or compute_kind == ComputeKind.EXPLICIT:
+        # A slot tile (kernel 4, the fused kernels) sums the segments that
+        # start in it: tiles that never straddle two lanes keep each
+        # lane's tables its own.  The ladder's edge buckets are multiples
+        # of EDGE_QUANTUM.
+        if n_edge % segtiles.SLOT_TILE:
             raise ValueError(
-                f"lane_lm_solve: fused_kernels needs a bucket edge count "
-                f"that is a multiple of {fused.SLOT_TILE} (the fused slot "
-                f"tile), got {n_edge}")
+                f"lane_lm_solve: EXPLICIT and fused_kernels need a bucket "
+                f"edge count that is a multiple of {segtiles.SLOT_TILE} "
+                f"(the slot tile), got {n_edge}")
+    if fused_kernels:
         dual = fused.with_fused_plans(dual)
     plans = one_shard(dual)
 

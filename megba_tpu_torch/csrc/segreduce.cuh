@@ -1,7 +1,7 @@
 // Segment-reduction machinery shared by the port's CUDA sources
-// (segtiles.cu, fused.cu).  Included into each source, so every shared
-// library carries its own copy; ops/kernels.py hashes this header into
-// each library's name, so editing it rebuilds both.
+// (segtiles.cu, segsum.cu, fused.cu).  Included into each source, so
+// every shared library carries its own copy; ops/kernels.py hashes this
+// header into each library's name, so editing it rebuilds them all.
 //
 // A "Rows" functor describes what one edge slot adds to its segment's
 // F partial sums (`static constexpr int F` and
@@ -14,18 +14,28 @@
 // triangle of a symmetric block and writes each sum to both halves):
 //
 //   - reduce_block_per_segment, for long segments (cameras: thousands
-//     of slots each): one 256-thread block per segment;
+//     of slots each), the fused kernels: one 256-thread block per
+//     segment;
 //   - reduce_thread_per_segment, for short segments (points: ~5 slots
-//     each), kernels 1-5 (segtiles.cu): one thread walks one segment;
+//     each), kernels 1 and 3 (segtiles.cu), and 4 (segsum.cu) where
+//     every segment is under kBlock slots: one thread walks one segment;
 //   - reduce_slot_tiles, for short segments, the fused kernels
 //     (fused.cu): one block per tile of consecutive slots, lane i
 //     computing slot i's terms, and one thread per segment summing them
 //     from shared memory;
 //   - reduce_split_segments, for long segments, kernels 1 and 3
-//     (segtiles.cu): one block per chunk of at most ~2048 slots of a
-//     segment, the chunks of one segment combined in chunk order by the
-//     block that finishes last (its note below).
+//     (segtiles.cu) and 4 (segsum.cu): one block per chunk of at most
+//     ~2048 slots of a segment, the chunks of one segment combined in
+//     chunk order by the block that finishes last (its note below,
+//     `split_chunk_sum`).
 //
+// Kernel 4 (segsum.cu, `seg_reduce_tiles`) walks a side of short
+// segments in windows of kBlock slots, a few tiles a block, its grid
+// also carrying the split chunks of that side's segments over
+// SPLIT_ABOVE slots, so that no thread and no block of it owns an
+// unbounded run of slots; where every segment is under kBlock slots it
+// runs a thread per segment, which sums them in the same order.
+
 // Why a third shape.  All three are bound by HBM bytes: a slot's terms
 // read its rows once (F to 27 values) and do ~1 flop per byte.  With a
 // thread per segment, the 32 lanes of a warp own 32 neighbouring
@@ -272,15 +282,6 @@ int launch_thread_reduce(Rows rows, const int64_t* seg_ptr, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class Rows>
-int launch_reduce(Rows rows, const int64_t* seg_ptr, T* out,
-                  int64_t num_segments, int per_thread, cudaStream_t stream) {
-  if (!per_thread) {
-    return launch_block_reduce<T>(rows, seg_ptr, out, num_segments, stream);
-  }
-  return launch_thread_reduce<T>(rows, seg_ptr, out, num_segments, stream);
-}
-
 // The fused kernels' launch: slot tiles (a plan's `num_tiles` tiles of
 // at most kBlock slots) where the segments are short, else a block per
 // segment (so the fused kernels never instantiate the thread per
@@ -305,7 +306,8 @@ int launch_tiled_reduce(Rows rows, const int64_t* seg_ptr, T* out,
 }
 
 // ---------------------------------------------------------------------------
-// Split segments (kernels 1 and 3 where segments are long).
+// Split segments (kernels 1, 3 and 4 where segments are long; kernel 4
+// also for the segments over SPLIT_ABOVE slots of a short-segment side).
 //
 // Why.  A block per segment gives a segment of L slots one block however
 // long it is: the pose prior's point side (all 200,000 edges on one dummy
@@ -317,7 +319,10 @@ int launch_tiled_reduce(Rows rows, const int64_t* seg_ptr, T* out,
 // m = ceil(L / 2048); the grid has one block per chunk.  The boundaries
 // relative to a segment's start depend on L alone, so a segment's
 // summation order does not depend on where it sits in the stream, on the
-// shard or on the other segments.
+// shard or on the other segments.  On a short-segment side (kernel 4)
+// the table lists only the segments over 4096 slots: every other segment
+// has no chunk (seg_chunk[s + 1] == seg_chunk[s]), and the slot tiles
+// sum it.
 //
 // A block sums its chunk as block_segment_sum sums a segment (a strided
 // loop, the warp-shuffle tree, a fixed sum over warps), with the loop
@@ -353,22 +358,28 @@ int launch_tiled_reduce(Rows rows, const int64_t* seg_ptr, T* out,
 // ---------------------------------------------------------------------------
 
 // The split-segment table of one plan, in one int64 array:
-// chunk_ptr[num_chunks + 1] (slot offsets), chunk_seg[num_chunks] (the
-// segment of each chunk), seg_chunk[nS + 1] (the first chunk of each
-// segment), and the plan's counters.
+// chunk_ptr[num_chunks + 1] (slot offsets: chunk c starts at
+// chunk_ptr[c] and ends at chunk_ptr[c + 1], or, the last chunk of its
+// segment, at the segment's end, which a short side's table, with no
+// chunk for most segments, needs), chunk_seg[num_chunks] (the segment
+// of each chunk), seg_chunk[nS + 1] (the first chunk of each segment);
+// the plan's counters, and its CSR offsets seg_ptr[nS + 1].
 struct SplitTable {
   const int64_t* __restrict__ chunk_ptr;
   const int64_t* __restrict__ chunk_seg;
   const int64_t* __restrict__ seg_chunk;
   unsigned int* __restrict__ counters;
+  const int64_t* __restrict__ seg_ptr;
   int64_t num_chunks;
 };
 
 __host__ inline SplitTable split_table(const int64_t* table,
                                        unsigned int* counters,
-                                       int64_t num_chunks) {
+                                       int64_t num_chunks,
+                                       const int64_t* seg_ptr) {
   return SplitTable{table, table + num_chunks + 1,
-                    table + 2 * num_chunks + 1, counters, num_chunks};
+                    table + 2 * num_chunks + 1, counters, seg_ptr,
+                    num_chunks};
 }
 
 // How many load steps a thread issues before it adds them (its unroll
@@ -439,21 +450,23 @@ __device__ __forceinline__ void chunk_slots(const Rows& rows, int64_t lo,
   chunk_steps<T, Rows, false>(rows, lo, hi, acc);
 }
 
+// Chunk c of a split table summed by the calling block (the whole block
+// calls it; `partial` and `finisher` in its shared memory).
 template <typename T, class Rows>
-__global__ void __launch_bounds__(kBlock)
-reduce_split_segments(Rows rows, SplitTable tab, T* __restrict__ partials,
-                      T* __restrict__ out, int64_t num_segments) {
+__device__ __forceinline__ void split_chunk_sum(
+    const Rows& rows, const SplitTable& tab, T* __restrict__ partials,
+    T* __restrict__ out, int64_t num_segments, int64_t c,
+    T (*partial)[Rows::F], bool& finisher) {
   constexpr int F = Rows::F;
-  __shared__ T partial[kWarps][F];
-  __shared__ bool finisher;
-  const int64_t c = blockIdx.x;
   const int64_t s = tab.chunk_seg[c];
   const int64_t c0 = tab.seg_chunk[s];
   const int64_t m = tab.seg_chunk[s + 1] - c0;
   T acc[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = T(0);
-  chunk_slots<T>(rows, tab.chunk_ptr[c], tab.chunk_ptr[c + 1], acc);
+  const int64_t hi =
+      c + 1 < c0 + m ? tab.chunk_ptr[c + 1] : tab.seg_ptr[s + 1];
+  chunk_slots<T>(rows, tab.chunk_ptr[c], hi, acc);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -494,7 +507,17 @@ reduce_split_segments(Rows rows, SplitTable tab, T* __restrict__ partials,
   if (threadIdx.x == 0) tab.counters[s] = 0u;
 }
 
-// A block per chunk (the launch of long segments in kernels 1 and 3).
+template <typename T, class Rows>
+__global__ void __launch_bounds__(kBlock)
+reduce_split_segments(Rows rows, SplitTable tab, T* __restrict__ partials,
+                      T* __restrict__ out, int64_t num_segments) {
+  __shared__ T partial[kWarps][Rows::F];
+  __shared__ bool finisher;
+  split_chunk_sum<T>(rows, tab, partials, out, num_segments, blockIdx.x,
+                     partial, finisher);
+}
+
+// A block per chunk (the launch of long segments in kernels 1, 3 and 4).
 // `partials` holds Rows::F values a chunk.
 template <typename T, class Rows>
 int launch_split_reduce(Rows rows, const SplitTable& tab, T* partials,

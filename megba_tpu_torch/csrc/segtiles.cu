@@ -3,14 +3,17 @@
 // with a plain C interface, loaded with ctypes; the Python wrappers live in
 // megba_tpu_torch/ops/segtiles.py.
 //
-// They replace five Pallas kernels of the JAX package
+// They replace four Pallas kernels of the JAX package
 // (megba_tpu/ops/segtiles.py):
 //
 //   megba_jtj_grad_reduce  <- _jtj_kernel            (body :404, pallas_call :469)
 //   megba_coupling_expand  <- _expand_matvec_kernel  (body :577, pallas_call :624)
 //   megba_coupling_reduce  <- _matvec_reduce_kernel  (body :632, pallas_call :688)
-//   megba_seg_reduce       <- _reduce_kernel         (body :238, pallas_call :279)
 //   megba_seg_expand       <- _expand_kernel         (body :305, pallas_call :336)
+//
+// and the fifth, megba_seg_reduce (<- _reduce_kernel, body :238,
+// pallas_call :279), lives in csrc/segsum.cu, a library of its own built
+// beside this one.
 //
 // The first three carry the implicit-Schur path (and the LM gain ratio);
 // seg_expand and seg_reduce are the gather and the segment sum around the
@@ -22,10 +25,9 @@
 // block-aligned edge tiles.  Here the edge stream of one vertex kind is
 // sorted by segment (camera or point) and described by CSR offsets
 // seg_ptr[nS + 1]; a reduction walks each segment's contiguous edge range
-// (segreduce.cuh: one thread per point; long segments, cameras, as one
-// 256-thread block per segment in seg_reduce, and as split segments, one
-// block per chunk of ~2048 slots, in jtj_grad_reduce and coupling_reduce,
-// whose plans carry the chunk table).
+// (segreduce.cuh).  jtj_grad_reduce and coupling_reduce run one thread
+// per point, and split segments, one block per chunk of ~2048 slots, on
+// long sides (cameras), whose plans carry the chunk table.
 //
 // Block shapes: kernels 1-3 are instantiated for every (od, d) of
 // block_shapes.cuh, the one list of the shapes the registered factor
@@ -37,8 +39,9 @@
 // the upper triangle of J^T J only, which keeps its sums in registers up
 // to d = 12 (its note below).
 //
-// Widths: kernels 4 and 5 are instantiated for every row count F of
-// csrc/fused_shapes.cuh (MEGBA_WIDTH: 1 to 16), in f32 and f64.  The
+// Widths: kernel 5 (and kernel 4, in segsum.cu) is instantiated for
+// every row count F of csrc/fused_shapes.cuh (MEGBA_WIDTH: 1 to 16), in
+// f32 and f64.  The
 // callers group rows by the families' block widths (the EXPLICIT
 // products, SCHUR_DIAG and the precision rungs' equilibration at cd and
 // pd) and nine to a launch (the coarse builds, whose last launch takes
@@ -363,37 +366,6 @@ int expand_typed(int od, int d, const void* table, const void* J,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Per-edge rows of the data itself (F values): the plain segment sum.
-template <typename T, int F_>
-struct SumRows {
-  static constexpr int F = F_;
-  const T* __restrict__ data;  // [F, n]
-  int64_t n;
-
-  __device__ __forceinline__ void add(int64_t e, T* acc) const {
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] += data[f * n + e];
-  }
-};
-
-template <typename T>
-int seg_reduce_typed(int F, const void* data, const int64_t* seg_ptr,
-                     void* out, int64_t n, int64_t num_segments,
-                     int per_thread, cudaStream_t stream) {
-  const T* dt = static_cast<const T*>(data);
-  T* o = static_cast<T*>(out);
-#define MEGBA_COUPLING(CD, PD, OD)
-#define MEGBA_WIDTH(W)                                                  \
-  if (F == (W)) {                                                       \
-    return launch_reduce<T>(SumRows<T, (W)>{dt, n}, seg_ptr, o,         \
-                            num_segments, per_thread, stream);          \
-  }
-#include "fused_shapes.cuh"
-#undef MEGBA_WIDTH
-#undef MEGBA_COUPLING
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // One thread per edge slot: copy the F values of the slot's segment row.
 // Each store instruction of a warp writes 32 neighbouring slots of a row.
 template <typename T, int F>
@@ -450,7 +422,7 @@ int megba_jtj_grad_reduce(int is_double, int od, int d, const void* J,
                           void* stream) {
   if (const int prior = pending_error()) return prior;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const SplitTable tab = split_table(split, counters, num_chunks);
+  const SplitTable tab = split_table(split, counters, num_chunks, seg_ptr);
   return is_double
              ? jtj_typed<double>(od, d, J, r, seg_ptr, tab, partials, out, n,
                                  num_segments, per_thread, st)
@@ -496,7 +468,7 @@ int megba_coupling_reduce(int arm, int od, int d, const void* J,
                           void* stream) {
   if (const int prior = pending_error()) return prior;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const SplitTable tab = split_table(split, counters, num_chunks);
+  const SplitTable tab = split_table(split, counters, num_chunks, seg_ptr);
   switch (arm) {
     case kF32:
       return reduce_typed<float, float, false>(
@@ -521,18 +493,6 @@ int megba_coupling_reduce(int arm, int od, int d, const void* J,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// out [F, nS] = per segment: the sum of its slots' F-value rows.
-int megba_seg_reduce(int is_double, int F, const void* data,
-                     const int64_t* seg_ptr, void* out, int64_t n,
-                     int64_t num_segments, int per_thread, void* stream) {
-  if (const int prior = pending_error()) return prior;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? seg_reduce_typed<double>(F, data, seg_ptr, out, n,
-                                              num_segments, per_thread, st)
-                   : seg_reduce_typed<float>(F, data, seg_ptr, out, n,
-                                             num_segments, per_thread, st);
 }
 
 // out [F, n] = per slot: table[:, seg(e)].

@@ -30,8 +30,9 @@ vertex o of the per-edge product applied to table[:, in(e)].
 Where the output side's segments are short (`SegPlan.per_thread`: the
 points, ~5 slots each), the kernel runs one block per tile of
 `SLOT_TILE` consecutive slots, its lanes over the slots, and the plan
-carries which output segments each tile owns (`slot_tiles`, computed
-once per plan); a side of long segments runs a block per segment.
+carries which output segments each tile owns (`segtiles.slot_tiles`,
+computed once per plan, the output plan's own where it carries them);
+a side of long segments runs a block per segment.
 
 W keeps the JAX layout: row a*pd + b holds (Jc^T Jp)[a, b] of each
 edge, a the camera dimension and b the point dimension.  The implicit
@@ -77,8 +78,9 @@ import torch
 
 from megba_tpu_torch.ops import kernels as _kernels
 from megba_tpu_torch.ops import segtiles
-from megba_tpu_torch.ops.segtiles import (DualPlans, SegPlan, contract,
-                                          operand, plan_split)
+from megba_tpu_torch.ops.segtiles import (SLOT_TILE, DualPlans, SegPlan,
+                                          contract, make_seg_plan, operand,
+                                          slot_tiles)
 
 # (cd, pd, od) of each registered factor family: the MEGBA_COUPLING lines
 # of csrc/fused_shapes.cuh, the one list the CUDA dispatch expands too.
@@ -96,10 +98,6 @@ SUPPORTED_IMPLICIT = tuple(dict.fromkeys(
 # Block sizes the CUDA block-diagonal apply (6) is built for: the cameras.
 SUPPORTED_BLOCK_DIAG = tuple(dict.fromkeys(
     cd for cd, _, _ in SUPPORTED_COUPLINGS))
-# Slots per tile of the slot-tile launch (csrc/segreduce.cuh
-# `reduce_slot_tiles`): the kernel's block size, kBlock, and the most a
-# tile may hold.
-SLOT_TILE = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,35 +113,11 @@ class FusedPlan:
     tile_ptr: torch.Tensor
 
 
-def slot_tiles(seg_ptr: torch.Tensor,
-               slot_tile: int = SLOT_TILE) -> torch.Tensor:
-    """Which segments each tile of `slot_tile` consecutive slots owns:
-    [num_tiles + 1] int64 offsets into the segments, num_tiles =
-    max(1, ceil(n / slot_tile)) for n = seg_ptr[-1] slots.
-
-    Tile b owns the segments whose first slot lies in [b * slot_tile,
-    (b + 1) * slot_tile).  An empty segment counts by its offset
-    (seg_ptr[s] = seg_ptr[s + 1]), and the last tile also owns the
-    trailing empty segments whose offset is n; so every segment has one
-    owner, tiles own consecutive runs in order, and a tile in which no
-    segment starts owns none.  The kernel takes tiles of at most
-    SLOT_TILE slots; smaller ones give the same sums."""
-    if not 1 <= slot_tile <= SLOT_TILE:
-        raise ValueError(f"slot_tile {slot_tile} outside [1, {SLOT_TILE}]")
-    n = int(seg_ptr[-1])
-    num_tiles = max(1, -(-n // slot_tile))
-    starts = torch.arange(num_tiles, dtype=torch.int64,
-                          device=seg_ptr.device) * slot_tile
-    owned = torch.searchsorted(seg_ptr[:-1].contiguous(), starts)
-    last = torch.full((1,), seg_ptr.shape[0] - 1, dtype=torch.int64,
-                      device=seg_ptr.device)
-    return torch.cat([owned, last])
-
-
 def _fused_plan(in_idx: torch.Tensor, out: SegPlan,
                 num_in: int) -> FusedPlan:
+    tiles = out.tiles if out.tiles is not None else slot_tiles(out.seg_ptr)
     return FusedPlan(in_idx=in_idx.contiguous(), out=out, num_in=num_in,
-                     tile_ptr=slot_tiles(out.seg_ptr))
+                     tile_ptr=tiles)
 
 
 def with_fused_plans(plans: DualPlans) -> DualPlans:
@@ -170,11 +144,7 @@ def ring_step_plan(in_local, out_local, slots, num_in: int, num_out: int,
     out_local = np.asarray(out_local, np.int64)
     seg_ptr = np.zeros(num_out + 1, np.int64)
     np.cumsum(np.bincount(out_local, minlength=num_out), out=seg_ptr[1:])
-    out = SegPlan(
-        seg=torch.from_numpy(out_local.astype(np.int32)).to(device),
-        seg_ptr=torch.from_numpy(seg_ptr).to(device), num_segments=num_out,
-        inv=torch.from_numpy(np.asarray(slots, np.int64)).to(device),
-        split=plan_split(seg_ptr, out_local.shape[0], device))
+    out = make_seg_plan(out_local, seg_ptr, num_out, slots, device)
     return _fused_plan(
         torch.from_numpy(np.asarray(in_local, np.int32)).to(device), out,
         num_in)
@@ -258,6 +228,12 @@ _SIGNATURES = {
     "megba_error_string": (ctypes.c_char_p, [_I]),
 }
 KERNEL_SOURCES = ("fused",)
+
+
+def kernel_source(name: str) -> str:
+    """The CUDA source (csrc/<source>.cu) of this module's kernel
+    `name`."""
+    return "fused"
 # The block-diagonal apply has no mixed64 arm: the mixed rungs apply M^-1
 # in the table's dtype.
 _BLOCK_DIAG_ARMS = _kernels.ALL_ARMS - {"mixed64"}

@@ -31,8 +31,8 @@ and an empty segment sums to zero.
 Kernels (`jtj_grad_reduce`, `coupling_expand`, `coupling_reduce`,
 `seg_reduce`, `seg_expand`): each has a plain PyTorch version (`*_plain`,
 gathers and fixed-order segment sums, `segment_sum_sorted`) and a
-hand-written CUDA kernel
-(`csrc/segtiles.cu`).  The wrapper takes the plain version only for
+hand-written CUDA kernel (`csrc/segtiles.cu`; kernel 4 in
+`csrc/segsum.cu`).  The wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises,
 and adds one to its `launches` count (and to that of the arm it ran,
 `arm_launches`) per launch.  The two coupling kernels take the
@@ -44,14 +44,24 @@ arithmetic, shared with ops/fused.py.  All five read their
 per-edge rows once and are bound by HBM bytes on the H100; see the
 source note in `csrc/segtiles.cu`.
 
-Launch shapes (`csrc/segreduce.cuh`): a side of short segments
-(`SegPlan.per_thread`: points) is summed a thread per segment.  Where
-segments are long, `seg_reduce` gives each one block, and
-`jtj_grad_reduce` and `coupling_reduce` a block per chunk: a segment of
-more than `SPLIT_ABOVE` slots is split into chunks of at most
-`SPLIT_CHUNK`.  The plan carries the chunk table (`SplitTable`, built
-once from the host offsets by `split_table`) and the counters that
-elect the block which adds a segment's chunk sums in chunk order.
+Launch shapes (`csrc/segreduce.cuh`, `csrc/segsum.cu`): where
+segments are long (`SegPlan.per_thread` false: cameras), the three
+reductions run a block per chunk: a segment of more than `SPLIT_ABOVE`
+slots is split into chunks of at most `SPLIT_CHUNK`, a shorter one is
+one chunk.  On a side of short segments (points), `jtj_grad_reduce` and
+`coupling_reduce` run a thread per segment.  `seg_reduce` runs a
+thread per segment too where every segment is under `SLOT_TILE` slots
+(`SegPlan.all_short`), and otherwise slot tiles (`SLOT_TILE`
+consecutive slots each, `SEG_WINDOWS` of them a block, staged a few at a
+time; a segment owned by the tile it starts in; one of `SLOT_TILE`
+slots or more summed by the whole block) beside the split chunks of the
+side's segments over `SPLIT_ABOVE` slots, so that none of its threads
+or blocks walks an unbounded run of slots (`seg_reduce_shape` reads the
+bounds off a plan).  Every plan carries its tables, built once from the
+host offsets (`make_seg_plan`): the chunk table (`SplitTable`: every
+segment on a long side, only those over `SPLIT_ABOVE` on a short one)
+with the counters that elect the block which adds a segment's chunk sums
+in chunk order, and on a short side the tile table (`SegPlan.tiles`).
 """
 
 from __future__ import annotations
@@ -87,10 +97,10 @@ MAX_BUILT_BLOCK = (8, 16)
 SUPPORTED_WIDTHS = tuple(
     f for (f,) in _kernels.listed_shapes("fused_shapes.cuh", "MEGBA_WIDTH"))
 
-# A side whose mean segment length is below this many edges reduces with
-# one thread per segment (points: ~5 edges each); longer segments get one
-# thread block each (cameras: thousands of edges each) in seg_reduce, and
-# a block per chunk in jtj_grad_reduce and coupling_reduce.
+# A side whose mean segment length is below this many edges is a side of
+# short segments (points: ~5 edges each): a thread per segment in
+# jtj_grad_reduce and coupling_reduce, slot tiles in seg_reduce; longer
+# segments (cameras: thousands of edges each) run a block per chunk.
 PER_THREAD_MAX_MEAN = 64
 # The chunks of a split segment: a segment of L slots is one chunk up to
 # SPLIT_ABOVE slots (a camera: a block sums it, as a block per segment
@@ -103,6 +113,16 @@ PER_THREAD_MAX_MEAN = 64
 # 10-13 points for kernel 1) and 4096-slot chunks from 8192.
 SPLIT_CHUNK = 2048
 SPLIT_ABOVE = 4096
+# Slots per tile of the slot-tile launches (kernel 4 on a short side,
+# csrc/segsum.cu `seg_reduce_tiles`; the fused kernels 7 and 8,
+# csrc/segreduce.cuh `reduce_slot_tiles`): the kernels' block size,
+# kBlock, and the most a tile may hold.
+SLOT_TILE = 256
+# Tiles one block of kernel 4's slot-tile launch walks: csrc/segsum.cu's
+# kSegWindows, which this must match.
+SEG_WINDOWS = 8
+# Kernel 4's launch shapes, by their code in csrc/segsum.cu (SegShape).
+SEG_SHAPES = ("split chunks", "slot tiles", "thread per segment")
 
 
 def is_per_thread(n_slots: int, num_segments: int) -> bool:
@@ -142,7 +162,7 @@ def build_seg_plan(idx: np.ndarray, num_segments: int) -> HostPlan:
                     seg_ptr=seg_ptr, num_segments=int(num_segments))
 
 
-def split_chunks(seg_ptr: np.ndarray
+def split_chunks(seg_ptr: np.ndarray, long_only: bool = False
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The chunks of the split-segment launch over CSR offsets
     `seg_ptr` [nS + 1]: (chunk_ptr [nc + 1] slot offsets, chunk_seg [nc]
@@ -151,10 +171,15 @@ def split_chunks(seg_ptr: np.ndarray
     L <= SPLIT_ABOVE, else m = ceil(L / SPLIT_CHUNK); chunk k starts
     k * L // m slots past the segment's start: near-equal lengths, in
     ascending order, placed by L alone.  An empty segment has one empty chunk,
-    whose block stores its zero sums."""
+    whose block stores its zero sums.  With `long_only` (a side of short
+    segments, which kernel 4 sums in slot tiles) a segment of at most
+    SPLIT_ABOVE slots has no chunk, so the listed chunks have gaps
+    between them: the last chunk of a segment ends at the segment's end
+    (`chunk_ends`), not where the next listed chunk starts."""
     seg_ptr = np.asarray(seg_ptr, np.int64)
     lengths = np.diff(seg_ptr)
-    per_seg = np.where(lengths > SPLIT_ABOVE, -(-lengths // SPLIT_CHUNK), 1)
+    per_seg = np.where(lengths > SPLIT_ABOVE, -(-lengths // SPLIT_CHUNK),
+                       0 if long_only else 1)
     seg_chunk = np.zeros(lengths.shape[0] + 1, np.int64)
     np.cumsum(per_seg, out=seg_chunk[1:])
     chunk_seg = np.repeat(np.arange(lengths.shape[0], dtype=np.int64),
@@ -165,6 +190,17 @@ def split_chunks(seg_ptr: np.ndarray
                                            // per_seg[chunk_seg])
     chunk_ptr[-1] = seg_ptr[-1]
     return chunk_ptr, chunk_seg, seg_chunk
+
+
+def chunk_ends(seg_ptr: np.ndarray, chunk_ptr: np.ndarray,
+               chunk_seg: np.ndarray, seg_chunk: np.ndarray) -> np.ndarray:
+    """[nc] end of each chunk of a `split_chunks` table: the next chunk's
+    start, or its segment's end for a segment's last chunk (what the
+    kernel reads)."""
+    ends = np.array(chunk_ptr[1:], np.int64)
+    last = np.arange(1, ends.shape[0] + 1) == seg_chunk[chunk_seg + 1]
+    ends[last] = np.asarray(seg_ptr)[chunk_seg[last] + 1]
+    return ends
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +214,8 @@ class SplitTable:
     issued on the device's current stream."""
 
     table: torch.Tensor  # [2 * num_chunks + 1 + nS + 1] int64
-    counters: torch.Tensor  # [nS] int32, zero between launches
+    counters: torch.Tensor  # [nS] int32 ([0] with no chunk), zero between
+    # launches
     num_chunks: int
     longest: int  # most chunks of one segment
     # The launches' chunk sums, per (width, dtype): made at first use and
@@ -197,18 +234,46 @@ class SplitTable:
         return work
 
 
-def split_table(seg_ptr: np.ndarray, device) -> SplitTable:
+def split_table(seg_ptr: np.ndarray, device,
+                long_only: bool = False) -> SplitTable:
     """Build a side's `SplitTable` on `device` from its host offsets
-    (once, with the plan: a launch reads it as it is)."""
-    chunk_ptr, chunk_seg, seg_chunk = split_chunks(seg_ptr)
+    (once, with the plan: a launch reads it as it is); `long_only` as in
+    `split_chunks`.  A table without chunks needs no counter."""
+    chunk_ptr, chunk_seg, seg_chunk = split_chunks(seg_ptr, long_only)
     table = np.concatenate([chunk_ptr, chunk_seg, seg_chunk])
     per_seg = np.diff(seg_chunk)
+    num_chunks = int(chunk_seg.shape[0])
     return SplitTable(
         table=torch.from_numpy(table).to(device),
-        counters=torch.zeros(seg_chunk.shape[0] - 1, dtype=torch.int32,
-                             device=device),
-        num_chunks=int(chunk_seg.shape[0]),
+        counters=torch.zeros(seg_chunk.shape[0] - 1 if num_chunks else 0,
+                             dtype=torch.int32, device=device),
+        num_chunks=num_chunks,
         longest=int(per_seg.max()) if per_seg.size else 0)
+
+
+def slot_tiles(seg_ptr: torch.Tensor,
+               slot_tile: int = SLOT_TILE) -> torch.Tensor:
+    """Which segments each tile of `slot_tile` consecutive slots owns:
+    [num_tiles + 1] int64 offsets into the segments, num_tiles =
+    max(1, ceil(n / slot_tile)) for n = seg_ptr[-1] slots.
+
+    Tile b owns the segments whose first slot lies in [b * slot_tile,
+    (b + 1) * slot_tile).  An empty segment counts by its offset
+    (seg_ptr[s] = seg_ptr[s + 1]), and the last tile also owns the
+    trailing empty segments whose offset is n; so every segment has one
+    owner, tiles own consecutive runs in order, and a tile in which no
+    segment starts owns none.  The kernels take tiles of at most
+    SLOT_TILE slots; smaller ones give the same sums."""
+    if not 1 <= slot_tile <= SLOT_TILE:
+        raise ValueError(f"slot_tile {slot_tile} outside [1, {SLOT_TILE}]")
+    n = int(seg_ptr[-1])
+    num_tiles = max(1, -(-n // slot_tile))
+    starts = torch.arange(num_tiles, dtype=torch.int64,
+                          device=seg_ptr.device) * slot_tile
+    owned = torch.searchsorted(seg_ptr[:-1].contiguous(), starts)
+    last = torch.full((1,), seg_ptr.shape[0] - 1, dtype=torch.int64,
+                      device=seg_ptr.device)
+    return torch.cat([owned, last])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,10 +285,17 @@ class SegPlan:
     num_segments: int
     # Slot in the OTHER order holding this slot's edge (cross permute).
     inv: torch.Tensor  # [n] int64
-    # The chunk table of kernels 1 and 3 where segments are long
-    # (`plan_split`); None on a per-thread side, and on plans only kernel
-    # 4, 5 or the fused kernels read.
+    # The chunk table (`plan_split`): on a long side every segment's
+    # chunks (kernels 1, 3 and 4), on a per-thread side those of the
+    # segments over SPLIT_ABOVE slots (kernel 4).  The slot tiles of a
+    # per-thread side (`slot_tiles`; kernel 4, and the fused kernels of
+    # an output side), None on a long side.  `make_seg_plan` builds
+    # both; a plan without them serves the plain versions only.
     split: Optional[SplitTable] = None
+    tiles: Optional[torch.Tensor] = None  # [num_tiles + 1] int64
+    # A per-thread side whose every segment is under SLOT_TILE slots:
+    # kernel 4 sums it a thread per segment (`seg_reduce_shape_of`).
+    all_short: bool = False
 
     @property
     def n_slots(self) -> int:
@@ -234,14 +306,144 @@ class SegPlan:
         return is_per_thread(self.n_slots, self.num_segments)
 
 
-def plan_split(seg_ptr: np.ndarray, n_slots: int,
-               device) -> Optional[SplitTable]:
-    """The `SegPlan.split` of a side with host offsets `seg_ptr`: its
-    chunk table where segments are long, None where they are summed a
-    thread per segment."""
-    if is_per_thread(n_slots, len(seg_ptr) - 1):
-        return None
-    return split_table(seg_ptr, device)
+def plan_split(seg_ptr: np.ndarray, n_slots: int, device) -> SplitTable:
+    """The `SegPlan.split` of a side with host offsets `seg_ptr`: every
+    segment's chunks where segments are long, only the chunks of those
+    over SPLIT_ABOVE slots where they are short."""
+    return split_table(seg_ptr, device,
+                       long_only=is_per_thread(n_slots, len(seg_ptr) - 1))
+
+
+def make_seg_plan(seg: np.ndarray, seg_ptr: np.ndarray, num_segments: int,
+                  inv: np.ndarray, device) -> SegPlan:
+    """One side's device plan from host arrays (segment ids [n], CSR
+    offsets [nS + 1], the cross permute `inv` [n]), with the tables its
+    kernels read: the chunk table (`plan_split`) and, on a side of short
+    segments, the slot tiles (`slot_tiles`) and whether all of them are
+    under SLOT_TILE slots.  Every `SegPlan` a kernel reads is built here,
+    once."""
+    seg_ptr = np.ascontiguousarray(seg_ptr, np.int64)
+    n = int(np.asarray(seg).shape[0])
+    per_thread = is_per_thread(n, int(num_segments))
+    longest = int(np.diff(seg_ptr).max(initial=0))
+    return SegPlan(
+        seg=torch.from_numpy(np.ascontiguousarray(seg, np.int32)).to(device),
+        seg_ptr=torch.from_numpy(seg_ptr).to(device),
+        num_segments=int(num_segments),
+        inv=torch.from_numpy(np.ascontiguousarray(inv, np.int64)).to(device),
+        split=plan_split(seg_ptr, n, device),
+        tiles=(slot_tiles(torch.from_numpy(seg_ptr)).to(device)
+               if per_thread else None),
+        all_short=per_thread and longest < SLOT_TILE)
+
+
+def seg_reduce_shape_of(plan: SegPlan) -> str:
+    """Kernel 4's launch shape on `plan`, one of SEG_SHAPES: split
+    chunks on a long side, a thread per segment on a short side whose
+    segments are all under SLOT_TILE slots, slot tiles on any other.
+    Under SLOT_TILE slots a segment is summed from 0 in ascending order
+    in the last two alike, so its sums do not depend on the choice."""
+    if not plan.per_thread:
+        return "split chunks"
+    return "thread per segment" if plan.all_short else "slot tiles"
+
+
+def seg_reduce_shape(plan: SegPlan) -> dict:
+    """Kernel 4's launch on `plan`, read off its tables on the host: its
+    shape (`seg_reduce_shape_of`), the tile and chunk counts, and what bounds the work of one block and
+    of one thread: `block_slots`, the most slots a block reads, and
+    `thread_slots`, the most slots one thread adds for one segment (from
+    shared memory in a window, strided in a block-summed segment or a
+    chunk).  A block of the slot-tile launch walks SEG_WINDOWS tiles,
+    a few at a time: it stages each tile that owns a segment
+    or follows one that does, and the rest of a segment carried past its
+    last tile, and sums each owned segment of SLOT_TILE to SPLIT_ABOVE
+    slots whole.  A block of the thread per segment reads its kBlock
+    segments.  `SEG_REDUCE_BOUNDS[shape]` holds whatever the segment
+    lengths."""
+    seg_ptr = plan.seg_ptr.cpu().numpy()
+    n = int(seg_ptr[-1])
+    table = plan.split.table.cpu().numpy()
+    nc = plan.split.num_chunks
+    chunk_ptr, chunk_seg = table[:nc + 1], table[nc + 1:2 * nc + 1]
+    seg_chunk = table[2 * nc + 1:]
+    chunk_len = (chunk_ends(seg_ptr, chunk_ptr, chunk_seg, seg_chunk)
+                 - chunk_ptr[:-1])
+    out = dict(shape="split chunks", tiles=0, chunks=nc,
+               block_slots=int(chunk_len.max(initial=0)),
+               thread_slots=int(-(-chunk_len.max(initial=0) // SLOT_TILE)))
+    shape = seg_reduce_shape_of(plan)
+    lengths = np.diff(seg_ptr)
+    if shape == "thread per segment":
+        groups = np.add.reduceat(lengths, np.arange(0, lengths.shape[0],
+                                                    SLOT_TILE)) if (
+            lengths.shape[0]) else lengths
+        return dict(out, shape=shape,
+                    block_slots=int(groups.max(initial=0)),
+                    thread_slots=int(lengths.max(initial=0)))
+    tiles = None if plan.tiles is None else plan.tiles.cpu().numpy()
+    if shape == "split chunks" or plan.num_segments == 0:
+        return out if tiles is None else dict(
+            out, shape=shape, tiles=tiles.shape[0] - 1)
+    num_tiles = tiles.shape[0] - 1
+
+    def window(w):  # the slots of tile w, to the stream's end
+        return max(0, min(SLOT_TILE, n - w * SLOT_TILE))
+
+    # Each block as the kernel walks it: each of its tiles that owns a
+    # segment, or follows one that does, staged (to the stream's end);
+    # each owned segment of SLOT_TILE to SPLIT_ABOVE slots read whole;
+    # and the rest of its last segment, if that runs on past its tiles.
+    # (The kernel stages less at the stream's end, and also reads the
+    # offsets of the segments.)
+    per_block = []
+    for w0 in range(0, num_tiles, SEG_WINDOWS):
+        nw = min(SEG_WINDOWS, num_tiles - w0)
+        tp = tiles[w0:w0 + nw + 1]
+        if tp[0] == tp[nw]:
+            continue
+        owns = tp[1:] > tp[:-1]
+        reads = 0
+        for k in range(nw):
+            if owns[k] or (k > 0 and owns[k - 1]):
+                reads += window(w0 + k)
+            last = tp[k + 1] - 1
+            if owns[k] and lengths[last] >= SLOT_TILE and (
+                    seg_chunk[last + 1] == seg_chunk[last]):
+                reads += int(lengths[last])
+        last, block_end = tp[nw] - 1, (w0 + nw) * SLOT_TILE
+        if owns[-1] and lengths[last] < SLOT_TILE:
+            reads += max(0, int(seg_ptr[last + 1]) - block_end)
+        per_block.append(reads)
+    short = lengths[lengths < SLOT_TILE]
+    summed = lengths[(lengths >= SLOT_TILE) & (lengths <= SPLIT_ABOVE)]
+    thread = max(int(short.max(initial=0)),
+                 int(-(-summed.max(initial=0) // SLOT_TILE)),
+                 out["thread_slots"])
+    out.update(shape="slot tiles", tiles=int(num_tiles),
+               block_slots=max(max(per_block, default=0),
+                               out["block_slots"]),
+               thread_slots=thread)
+    return out
+
+
+# What `seg_reduce_shape` may report on any plan, by its shape.  A block
+# of slot tiles reads at most its SEG_WINDOWS tiles, the rest of a
+# segment carried past them (under SLOT_TILE slots) and the segments of
+# SLOT_TILE to SPLIT_ABOVE slots that start in its tiles (disjoint: at
+# most its tiles' slots and SPLIT_ABOVE past them); a chunk at most
+# SPLIT_ABOVE, which 16 strided slots a thread cover; a block of the
+# thread per segment its SLOT_TILE segments of under SLOT_TILE slots.  A
+# thread adds at most SLOT_TILE - 1 slots of a segment.
+SEG_REDUCE_BOUNDS = {
+    "slot tiles": dict(
+        block_slots=(2 * SEG_WINDOWS + 1) * SLOT_TILE + SPLIT_ABOVE,
+        thread_slots=SLOT_TILE - 1),
+    "thread per segment": dict(block_slots=SLOT_TILE * (SLOT_TILE - 1),
+                               thread_slots=SLOT_TILE - 1),
+    "split chunks": dict(block_slots=SPLIT_ABOVE,
+                         thread_slots=SPLIT_ABOVE // SLOT_TILE),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -284,13 +486,9 @@ class DualPlans:
 def device_plan(plan: HostPlan, inv: np.ndarray,
                 device: torch.device) -> SegPlan:
     """Move one side's host plan to `device`; `inv` is its cross permute.
-    A side of long segments gets its chunk table (`plan_split`)."""
-    return SegPlan(
-        seg=torch.from_numpy(plan.seg).to(device),
-        seg_ptr=torch.from_numpy(plan.seg_ptr).to(device),
-        num_segments=plan.num_segments,
-        inv=torch.from_numpy(inv).to(device),
-        split=plan_split(plan.seg_ptr, plan.seg.shape[0], device))
+    With its kernels' tables (`make_seg_plan`)."""
+    return make_seg_plan(plan.seg, plan.seg_ptr, plan.num_segments, inv,
+                         device)
 
 
 def make_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
@@ -523,9 +721,8 @@ def device_cluster_plan(plan: ClusterPlan,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
     pc_seg = plan.pc_slot[plan.pc_order]
-    pc = SegPlan(seg=t(pc_seg, torch.int32),
-                 seg_ptr=t(_csr(pc_seg, plan.n_pc)),
-                 num_segments=plan.n_pc, inv=t(plan.pc_order))
+    pc = make_seg_plan(pc_seg, _csr(pc_seg, plan.n_pc), plan.n_pc,
+                       plan.pc_order, device)
     n_seg = plan.num_cameras * plan.num_clusters
     ptr = _csr(plan.ec_seg, n_seg)
     chunks = []
@@ -535,10 +732,9 @@ def device_cluster_plan(plan: ClusterPlan,
                                  side="right")) - 1
         s1 = min(max(s1, s0 + 1), n_seg)
         p0, p1 = int(ptr[s0]), int(ptr[s1])
-        chunks.append((p0, p1, s0, SegPlan(
-            seg=t(plan.ec_seg[p0:p1] - s0, torch.int32),
-            seg_ptr=t(ptr[s0:s1 + 1] - p0), num_segments=s1 - s0,
-            inv=t(plan.ec_edge[p0:p1]))))
+        chunks.append((p0, p1, s0, make_seg_plan(
+            plan.ec_seg[p0:p1] - s0, ptr[s0:s1 + 1] - p0, s1 - s0,
+            plan.ec_edge[p0:p1], device)))
         s0 = s1
     return DeviceClusterPlan(
         num_clusters=plan.num_clusters, n_pc=plan.n_pc,
@@ -1088,22 +1284,40 @@ _SIGNATURES = {
     "megba_coupling_reduce": (
         ctypes.c_int,
         [_I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _L, _L, _I, _P]),
-    "megba_seg_reduce": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _L, _I, _P]),
     "megba_seg_expand": (ctypes.c_int, [_I, _I, _P, _P, _P, _L, _L, _P]),
     "megba_error_string": (ctypes.c_char_p, [_I]),
 }
-KERNEL_SOURCES = ("segtiles",)
+# Kernel 4 (`seg_reduce`) has a source and library of its own
+# (csrc/segsum.cu), built in parallel with csrc/segtiles.cu's.
+SUM_SIGNATURES = {
+    "megba_seg_reduce": (
+        ctypes.c_int,
+        [_I, _I, _P, _P, _P, _L, _P, _P, _L, _P, _P, _L, _L, _I, _P]),
+    "megba_error_string": (ctypes.c_char_p, [_I]),
+}
+KERNEL_SOURCES = ("segtiles", "segsum")
 
 
 def _lib(shape: Optional[Tuple[int, int]] = None) -> ctypes.CDLL:
-    """The library of kernels 1-5 (`shape` None or listed), or that of one
-    other (od, d) shape of kernels 1-3, built at first use."""
+    """The library of kernels 1-3 and 5 (`shape` None or listed), or that
+    of one other (od, d) shape of kernels 1-3, built at first use."""
     if shape is None or shape in SUPPORTED_BLOCKS:
         return _kernels.load_library("segtiles", _SIGNATURES)
     od, d = shape
     return _kernels.load_library(
         "segtiles", _SIGNATURES,
         defines={"MEGBA_ONE_BLOCK_OD": od, "MEGBA_ONE_BLOCK_D": d})
+
+
+def _sum_lib() -> ctypes.CDLL:
+    """The library of kernel 4 (csrc/segsum.cu)."""
+    return _kernels.load_library("segsum", SUM_SIGNATURES)
+
+
+def kernel_source(name: str) -> str:
+    """The CUDA source (csrc/<source>.cu) of this module's kernel
+    `name`."""
+    return "segsum" if name == "seg_reduce" else "segtiles"
 
 
 def check_block(name: str, shape: Tuple[int, int]) -> None:
@@ -1194,25 +1408,52 @@ def _raise_on(code: int, name: str) -> None:
     _kernels.raise_on(_lib(), code, name)
 
 
-def _split_args(name: str, plan: SegPlan, width: int, dtype: torch.dtype,
+def _chunk_args(name: str, plan: SegPlan, width: int, dtype: torch.dtype,
                 dev: torch.device) -> tuple:
-    """The split-segment arguments of kernel 1 or 3's C launcher: the
-    chunk table, the counters, the chunk count and the workspace of
-    `width` values a chunk (`SplitTable`, made by `split_table`).  A
-    per-thread side passes none; a side of long segments must carry its
-    chunk table on `dev`."""
-    if plan.per_thread:
-        return None, None, 0, None
+    """The plan's chunk table as its C launcher takes it: the table, the
+    counters, the chunk count and the workspace of `width` values a chunk
+    (`SplitTable`, made by `split_table`), which must be on `dev`."""
     split = plan.split
     if split is None:
         raise ValueError(
-            f"{name}: a plan of long segments needs its chunk table "
-            "(SegPlan.split; device_plan and plan_split build it)")
+            f"{name}: the plan has no chunk table (SegPlan.split; "
+            "make_seg_plan builds it)")
     if split.table.device != dev:
         raise ValueError(f"{name}: plan.split is on {split.table.device}, "
                          f"expected {dev}")
     return (split.table.data_ptr(), split.counters.data_ptr(),
             split.num_chunks, split.workspace(width, dtype).data_ptr())
+
+
+def _split_args(name: str, plan: SegPlan, width: int, dtype: torch.dtype,
+                dev: torch.device) -> tuple:
+    """The split-segment arguments of kernel 1 or 3's C launcher
+    (`_chunk_args`).  A per-thread side passes none; a side of long
+    segments must carry its chunk table on `dev`."""
+    if plan.per_thread:
+        return None, None, 0, None
+    return _chunk_args(name, plan, width, dtype, dev)
+
+
+def _tile_args(name: str, plan: SegPlan, dev: torch.device) -> tuple:
+    """Kernel 4's tile arguments: the slot tiles and their count where it
+    runs slot tiles (the plan must carry them on `dev`, one tile per
+    SLOT_TILE slots), none in its other shapes."""
+    if seg_reduce_shape_of(plan) != "slot tiles":
+        return None, 0
+    tiles = plan.tiles
+    if tiles is None:
+        raise ValueError(
+            f"{name}: a plan of short segments needs its slot tiles "
+            "(SegPlan.tiles; make_seg_plan builds them)")
+    want = max(1, -(-plan.n_slots // SLOT_TILE)) + 1
+    if (tiles.device != dev or tiles.dtype != torch.int64
+            or not tiles.is_contiguous() or tiles.shape != (want,)):
+        raise ValueError(
+            f"{name}: plan.tiles must be a contiguous int64 tensor of "
+            f"{want} offsets on {dev} (a tile per {SLOT_TILE} slots), got "
+            f"{tuple(tiles.shape)} {tiles.dtype} on {tiles.device}")
+    return tiles.data_ptr(), want - 1
 
 
 def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
@@ -1330,12 +1571,16 @@ def seg_reduce(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
     if dev.type == "cpu":
         return seg_reduce_plain(data, plan)
     out = torch.empty((F, plan.num_segments), dtype=data.dtype, device=dev)
+    tiles = _tile_args("seg_reduce", plan, dev)
+    chunks = _chunk_args("seg_reduce", plan, F, data.dtype, dev)
+    lib = _sum_lib()
     with torch.cuda.device(dev):
-        code = _lib().megba_seg_reduce(
+        code = lib.megba_seg_reduce(
             int(data.dtype == torch.float64), F, data.data_ptr(),
-            plan.seg_ptr.data_ptr(), out.data_ptr(), n, plan.num_segments,
-            int(plan.per_thread), _kernels.current_stream(dev))
-    _raise_on(code, "seg_reduce")
+            plan.seg_ptr.data_ptr(), *tiles, *chunks, out.data_ptr(), n,
+            plan.num_segments, SEG_SHAPES.index(seg_reduce_shape_of(plan)),
+            _kernels.current_stream(dev))
+    _kernels.raise_on(lib, code, "seg_reduce")
     _kernels.count_launch(seg_reduce, _kernels.dtype_arm(data.dtype), (F,))
     return out
 

@@ -1821,3 +1821,165 @@ def test_f64_pose_graph_solves_kernels_match_plain(monkeypatch, path):
         err = (kern.poses - other.poses).abs().max()
         assert float(err) <= 1e-9 * float(other.poses.abs().max())
     assert kern.accepted >= 1 and float(kern.cost) < float(kern.initial_cost)
+
+
+# Kernel 4's launch (csrc/segsum.cu, seg_reduce_tiles): segment lengths
+# at the edges of its shapes (a tile thread under 256 slots, the whole
+# block from 256 to SPLIT_ABOVE, split chunks above; a thread per segment
+# where every segment of a short side is under 256 slots).
+_SEG4_LENGTHS = [0, 1, 255, 256, 257, 4096, 4097, 200_000]
+
+
+def _seg4_plan(side, dev, lengths=_SEG4_LENGTHS, seed=0, short=100_000):
+    """`lengths` on a side of long segments as they are, or on a side of
+    short ones spliced among `short` segments of 0-7 slots."""
+    lengths = np.asarray(lengths, np.int64)
+    if side == "short":
+        rng = np.random.default_rng(seed)
+        fill = rng.integers(0, 8, short)
+        at = np.sort(rng.choice(fill.shape[0], lengths.shape[0],
+                                replace=False))
+        fill[at] = lengths
+        lengths = fill
+    plan = _split_plan(lengths, dev)
+    assert plan.per_thread == (side == "short"), side
+    return plan
+
+
+def _check_seg4_bounds(plan, side):
+    shape = tseg.seg_reduce_shape(plan)
+    assert shape["shape"] == ("slot tiles" if side == "short"
+                              else "split chunks")
+    for key, most in tseg.SEG_REDUCE_BOUNDS[shape["shape"]].items():
+        assert shape[key] <= most, (side, key, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["short", "long"])
+@pytest.mark.parametrize("F", [1, 3, 9, 16])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_cuda_seg_reduce_on_edge_lengths(dtype, F, side):
+    """On the card: kernel 4 on segments of 0, 1, 255, 256, 257, 4096,
+    4097 and 200,000 slots, on a side of short segments (slot tiles with
+    the split chunks of the two longest) and of long ones (split chunks),
+    against the plain version in float64 within 1e-5 (f32) / 1e-12 (f64)
+    of the terms' magnitude sums; empty segments exactly zero; two
+    launches bitwise equal, the plan's counters zero after them, one
+    launch counted a call; the launch's bounded slots a block and a
+    thread read off the plan's tables."""
+    dev = _need_card()
+    plan = _seg4_plan(side, dev)
+    _check_seg4_bounds(plan, side)
+    vec_dt = torch.float64 if dtype == np.float64 else torch.float32
+    g = torch.Generator(device=dev).manual_seed(F)
+    data = torch.randn((F, plan.n_slots), generator=g, device=dev,
+                       dtype=vec_dt)
+    before = tseg.seg_reduce.shape_launches.get((F,), 0)
+    got = tseg.seg_reduce(data, plan)
+    again = tseg.seg_reduce(data, plan)
+    torch.cuda.synchronize()
+    assert tseg.seg_reduce.shape_launches[(F,)] == before + 2
+    assert got.dtype == vec_dt and torch.equal(got, again)
+    assert not plan.split.counters.any()
+    lens = plan.seg_ptr[1:] - plan.seg_ptr[:-1]
+    assert not got[:, lens == 0].any()
+    d64 = data.to(torch.float64)
+    ref = tseg.seg_reduce_plain(d64, plan)
+    scale = tseg.seg_reduce_plain(d64.abs(), plan)
+    _within_abs_sum(f"{side} F={F}", got.to(torch.float64), ref, scale,
+                    dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("L", [1, 200, 255, 256, 257, 4096, 4097, 10_000])
+def test_cuda_seg_reduce_sums_do_not_depend_on_the_offset(L, dtype):
+    """On the card: a segment of L slots summed by kernel 4 at the start
+    of a stream and inside another at an odd offset, on a short side
+    (among 0-7-slot segments) and on a long side (beside a 9,000-slot
+    segment), gives bitwise the same sums: its order depends on its
+    length (and the side's shape) alone."""
+    dev = _need_card()
+    vec_dt = torch.float64 if dtype == np.float64 else torch.float32
+    rng = np.random.default_rng(L)
+    fill = rng.integers(0, 8, 20_000).tolist()
+    k = 7001
+    prefix = [3] + fill[:k]
+    if sum(prefix) % 2 == 0:
+        prefix[0] = 4
+    cases = {"short": ([L] + fill, 0, prefix + [L] + fill[k:], len(prefix)),
+             "long": ([L, 9000], 0, [5, 0, L, 9000], 2)}
+    g = torch.Generator(device=dev).manual_seed(L)
+    seg = torch.randn((9, L), generator=g, device=dev, dtype=vec_dt)
+    for side, (first, s_first, inside, s_inside) in cases.items():
+        sums = []
+        for lengths, s in ((first, s_first), (inside, s_inside)):
+            plan = _seg4_plan("long", dev, lengths) if side == "long" else (
+                _split_plan(lengths, dev))
+            assert plan.per_thread == (side == "short")
+            lo = int(plan.seg_ptr[s])
+            data = torch.randn((9, plan.n_slots), generator=g, device=dev,
+                               dtype=vec_dt)
+            data[:, lo:lo + L] = seg
+            sums.append(tseg.seg_reduce(data, plan)[:, s])
+        torch.cuda.synchronize()
+        assert torch.equal(sums[0], sums[1]), (side, L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("side", ["short", "long"])
+def test_cuda_seg_reduce_is_bitwise_its_order_model(side, dtype):
+    """On the card: kernel 4's sums bitwise those of the order model of
+    tests/test_torch_seg_reduce.py evaluated on the host in the same
+    dtype: a short side's segments under 256 slots summed from 0 in
+    ascending order (what the thread per segment gave), the block's
+    strided sums, warp-shuffle tree and warps in order from 256 slots,
+    the split chunks in chunk order above SPLIT_ABOVE."""
+    from test_torch_seg_reduce import model_sums
+
+    dev = _need_card()
+    plan = _seg4_plan(side, dev, [0, 1, 200, 255, 256, 257, 300, 4096,
+                                  4097, 10_000], seed=3, short=20_000)
+    rng = np.random.default_rng(4)
+    for F in (3, 9, 16):
+        data = rng.standard_normal((F, plan.n_slots)).astype(dtype)
+        got = tseg.seg_reduce(torch.from_numpy(data).to(dev), plan)
+        want = model_sums(data, plan)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("F", [1, 3, 9, 16])
+def test_cuda_seg_reduce_thread_shape_is_bitwise_the_tiles(F, dtype):
+    """On the card: a short side whose segments are all under 256 slots
+    runs a thread per segment, and the same side with one 256-slot
+    segment appended runs slot tiles; every shorter segment's sums are
+    bitwise the same in both (from 0, in ascending order), and the
+    thread shape is bitwise the order model and reads no tile table."""
+    from test_torch_seg_reduce import model_sums
+
+    dev = _need_card()
+    rng = np.random.default_rng(F)
+    short = rng.integers(0, 8, 30_000)
+    short[rng.choice(short.shape[0], 20, replace=False)] = 255
+    thread = _split_plan(short, dev)
+    tiles = _split_plan(np.append(short, 256), dev)
+    assert tseg.seg_reduce_shape_of(thread) == "thread per segment"
+    assert tseg.seg_reduce_shape_of(tiles) == "slot tiles"
+    assert tseg._tile_args("seg_reduce", thread, dev) == (None, 0)
+    data = rng.standard_normal((F, tiles.n_slots)).astype(dtype)
+    whole = torch.from_numpy(data).to(dev)
+    before = tseg.seg_reduce.shape_launches.get((F,), 0)
+    got = tseg.seg_reduce(whole[:, :thread.n_slots].contiguous(), thread)
+    ref = tseg.seg_reduce(whole, tiles)[:, :thread.num_segments]
+    torch.cuda.synchronize()
+    assert tseg.seg_reduce.shape_launches[(F,)] == before + 2
+    assert torch.equal(got, ref)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), model_sums(data[:, :thread.n_slots], thread))

@@ -139,14 +139,17 @@ def test_split_table_packs_the_table_the_kernel_reads():
 
 def test_plans_carry_a_chunk_table_where_segments_are_long():
     """make_dual_plans gives the long side (cameras) its table and the
-    short side (points) none; the pose prior's one-segment point side
-    and a ring-step bucket plan of long cameras get theirs too."""
+    short side (points) one without chunks (none of its segments is over
+    SPLIT_ABOVE slots; kernel 4's slot tiles sum them); the pose prior's
+    one-segment point side and a ring-step bucket plan of long cameras
+    get theirs too."""
     rng = np.random.default_rng(0)
     n = 20_000
     cam_idx = rng.integers(0, 6, n).astype(np.int32)
     pt_idx = rng.integers(0, 4000, n).astype(np.int32)
     _, plans = tseg.make_dual_plans(cam_idx, pt_idx, 6, 4000, "cpu")
-    assert plans.pt.per_thread and plans.pt.split is None
+    assert plans.pt.per_thread and plans.pt.split.num_chunks == 0
+    assert plans.pt.tiles is not None and plans.cam.tiles is None
     assert not plans.cam.per_thread
     split = plans.cam.split
     counts = np.bincount(cam_idx, minlength=6)
@@ -161,7 +164,7 @@ def test_plans_carry_a_chunk_table_where_segments_are_long():
     chunks = -(-200_000 // C)  # 98 chunks of ~2041 slots
     assert prior.pt.split.num_chunks == chunks
     assert prior.pt.split.longest == chunks
-    assert prior.cam.per_thread and prior.cam.split is None
+    assert prior.cam.per_thread and prior.cam.split.num_chunks == 0
     # A ring step's output side (cameras of a tile) of long segments.
     ring = tfused.ring_step_plan(rng.integers(0, 50, 5000),
                                  np.sort(rng.integers(0, 3, 5000)),
@@ -169,7 +172,7 @@ def test_plans_carry_a_chunk_table_where_segments_are_long():
     assert ring.out.split is not None and not ring.out.per_thread
     short = tfused.ring_step_plan(np.zeros(10, np.int64), np.arange(10),
                                   np.arange(10), 1, 10, "cpu")
-    assert short.out.per_thread and short.out.split is None
+    assert short.out.per_thread and short.out.split.num_chunks == 0
 
 
 def test_split_arguments_of_the_launchers():

@@ -52,10 +52,11 @@ exception ends the run with a non-zero exit code:
    among the edges; then at f32 the CUDA-event time of one
    linearisation (gathers, engine and weighting) per mode and its peak
    memory.  No kernel of the port runs here;
-5. f64: a trafalgar-sized scene solved end to end on twenty-two paths
-   (IMPLICIT, EXPLICIT, each unfused and fused, each in full f64 and
-   with mixed_precision_pcg; the reference's default solve,
-   `implicit_autodiff`; `explicit_fused_autodiff_forward`;
+5. f64: a trafalgar-sized scene solved end to end (`F64_LM` LM
+   iterations) on twenty-two paths (IMPLICIT, EXPLICIT, each unfused
+   and fused, each in full f64 and with mixed_precision_pcg; the
+   reference's default solve, `implicit_autodiff`;
+   `explicit_fused_autodiff_forward`;
    `implicit_fused_huber` and `explicit_cauchy`; `implicit_forcing_warm`,
    Eisenstat-Walker forcing with warm starts; guards on a clean run
    (`implicit_guarded`, bitwise the `implicit` run), with a NaN burst
@@ -99,24 +100,28 @@ exception ends the run with a non-zero exit code:
    with forcing and warm starts, with guards (bitwise the IMPLICIT run),
    with guards and a NaN burst on 64 edges (RECOVERED), with the plain
    full-system solver, with SCHUR_DIAG (no fallback on a clean run) and
-   with COOBS on shuffled edges, then TWO_LEVEL, MULTILEVEL and smoothed
-   TWO_LEVEL (with the host seconds of their cluster plan and the
-   CUDA-event time of each preconditioner build), then the multi-device
+   with COOBS on shuffled edges, then the multi-device
    paths on the one card (world-2 IMPLICIT; 2 x 2 IMPLICIT fused,
    EXPLICIT fused, and IMPLICIT fused with bf16 and bf16 collectives),
-   each also profiled (device busy share) with its launches per shard,
+   each run under the profiler (device busy share) with its launches per
+   shard,
    its final cost within rtol 1e-3 of the IMPLICIT run's (the bf16 path
-   within 2e-2).  A world-N wall here is N shards' launches queued on
-   one card, not a scaling number.  Every kernel's launch
+   within 2e-2).  IMPLICIT and its guarded twin run 8 LM iterations,
+   every other venice path `VENICE_LM`.  A world-N wall here is N
+   shards' launches queued on one card, not a scaling number.  Every
+   kernel's launch
    count is read from its path's run alone and checked against the count
    the code implies; the final cost must be finite and below the (clean)
    initial, and on the autodiff and COOBS paths within rtol 1e-3 of the
-   ANALYTICAL IMPLICIT run's; no coarse level may fall back;
+   ANALYTICAL IMPLICIT run's;
 8. locality: venice's cameras and observations a point on a grid of
    camera stations, cut to 200,000 points (`LOCALITY`), through JACOBI
-   and the three coarse paths, with the venice options and again with a
-   relative PCG tolerance: the coarse paths' final costs within rtol 1e-3
-   of JACOBI's, their PCG counts, walls and final costs side by side;
+   and the three coarse paths (TWO_LEVEL, MULTILEVEL and smoothed
+   TWO_LEVEL, with the host seconds of their cluster plan and the
+   CUDA-event time of each preconditioner build; no coarse level may
+   fall back), with the venice options and again with a relative PCG
+   tolerance: the coarse paths' final costs within rtol 1e-3 of
+   JACOBI's, their PCG counts, walls and final costs side by side;
 9. factors: the registered families beside BAL (planar, rig,
    pinhole_radial, pose_prior) through `flat_solve(factor=...)`: on a
    trafalgar-sized scene of each at f64 (`family_option`: AUTODIFF,
@@ -130,9 +135,9 @@ exception ends the run with a non-zero exit code:
    unfused and fused through the kernels; on a venice-scale scene of
    each (`FAMILY_VENICE`) an f32 solve with the venice options,
    AUTODIFF and no fused kernels, and another with fused IMPLICIT
-   kernels (wall, LM / PCG, peak, final cost below the initial; the
-   unfused one's device busy share from one more solve under
-   torch.profiler); launches per
+   kernels, `VENICE_LM` LM iterations each (wall, LM / PCG, peak, final
+   cost below the initial; the unfused one run under torch.profiler,
+   with its device busy share); launches per
    kernel, block shape and arm as the code implies on every run
    (`check_family_launches`); kernel rows `name(shape)` /
    `name(shape)[f64]` of kernels 1-3 at each new (od, d) and of kernels
@@ -161,9 +166,11 @@ exception ends the run with a non-zero exit code:
    50,000 poses, 15,000 loop closures) f32 and f64 of each family under
    `solve_pgo`'s defaults with `PGO_FULL_LM` LM iterations (wall, LM /
    accept / PCG, peak, the largest translation drift from the ground
-   truth before and after, the device's busy share under
-   torch.profiler; gated on a finite cost below the initial and a
-   smaller drift); launches as the code implies on every run
+   truth before and after, the device's busy share, each solve run under
+   torch.profiler, but for the SE(3) f64 one phase 11 compares with,
+   which runs once more under it; gated on a finite cost below the
+   initial and a smaller drift); launches as the code implies on every
+   run
    (`pgo_expected_launches`); and kernel rows `name(shape) pgo` /
    `name(shape)[f64] pgo` of 1-3 (both sides) and 6 on the full-size
    plans, each carrying its launches from the full-size run of its arm;
@@ -186,21 +193,29 @@ exception ends the run with a non-zero exit code:
    orphan, behind-camera and disconnected degeneracies (`TRIAGE_KNOBS`):
    `triage_problem`'s host seconds and findings, REJECT raising
    `ProblemRejected` with no launch and no device allocation, a REPAIR
-   solve with the venice options (no recovery, no fallback, a finite
-   cost below the initial), and a trafalgar-sized f64 REPAIR solve
+   solve with the venice options under `VENICE_LM` (no recovery, no
+   fallback, a finite cost below the initial), and a trafalgar-sized f64
+   REPAIR solve
    kernels against plain versions;
 12. the fleet service (`serving/`, `algo/lanes.py`): the JAX package's
    `make_fleet(1024, size_range=(128, 1024), seed=0)` (~1.6M edges)
    through `solve_many` under `ProblemOption()` at f64, then at f32, then
    on the lane-batched LM's other coupling paths (EXPLICIT, fused
-   IMPLICIT, fused EXPLICIT; `FLEET_PATHS`) at f64 and f32: per bucket its
-   shape, lanes and problems, LM and PCG counts, wall, device busy share
-   (torch.profiler over one more run; not on the f32 runs of the other
-   paths) and launches of every kernel of the path (1-3 and 6; EXPLICIT
-   4-5 for 3; fused 7 or 8), exactly what the lanes' traces imply (one
-   launch serves every lane); the fleet's wall, problems a second, peak
-   memory, lane and edge fill; every cost finite and at or below its
-   initial, no FATAL.  The f64 IMPLICIT fleet again with the
+   IMPLICIT, fused EXPLICIT; `FLEET_PATHS`) at f64 and, on the first
+   `FLEET_F32_RERUN` problems, f32, then on the option paths
+   (`FLEET_OPTION_PATHS`: IMPLICIT mixed at f64, fused EXPLICIT mixed,
+   fused IMPLICIT bf16 and IMPLICIT bf16 at f32, EXPLICIT SCHUR_DIAG,
+   IMPLICIT NEUMANN and the plain solver at f64) once each, under
+   torch.profiler, their LM / PCG totals and walls beside IMPLICIT's at
+   their dtype: per bucket its shape, lanes and problems, LM and PCG
+   counts, wall, device busy share (torch.profiler over one more run on
+   the coupling paths' f64 runs and IMPLICIT's f32 run) and launches of
+   every kernel of the path (1-3 and 6; EXPLICIT 4-5 for 3; fused 7 or
+   8; a rung's arms and its 2 kernel-5 gathers a solve; SCHUR_DIAG's 9
+   kernel-4 launches a solve), exactly what the lanes' traces imply
+   (one launch serves every lane); the fleet's wall, problems a second,
+   peak memory, lane and edge fill; every cost finite and at or below
+   its initial, no FATAL.  The f64 IMPLICIT fleet again with the
    observability plane armed (MEGBA_METRICS, MEGBA_TRACE, MEGBA_FLIGHT):
    bitwise the unarmed run with equal launches, its series counting
    every problem and dispatch, its Chrome trace (one `solve_bucket` span
@@ -208,11 +223,14 @@ exception ends the run with a non-zero exit code:
    64 problems one by one through `flat_solve` and as one `solve_many`
    (problems a second each, the latter with telemetry: 64 reports in
    chiprun_out/fleet_reports.jsonl read back by the port's summarize,
-   --aggregate and --fleet); on each of the four paths the 64 under
+   --aggregate and --fleet); on each of the eleven paths the 64 under
    `ProblemOption()`'s PCG with an LM cap of 4 through the kernels and
-   through the plain versions (trial costs at rtol 1e-9, equal counts,
-   accepts and status), and 8 problems of one bucket each solved as a
-   fleet of one, bitwise equal to its lane; the JAX package's serving
+   through the plain versions (f64: trial costs at rtol 1e-9, equal
+   counts, accepts, status and `precond_fallback` traces; the f32 rungs
+   phase 6's rules with its PCG, the bf16 rung under an LM cap of 2;
+   every rung from trust region 1), and `FLEET_BITWISE` problems of one
+   bucket each solved as a fleet of one, bitwise equal to its lane; the
+   JAX package's serving
    chaos smoke at 64 problems with the flight ring armed (`FleetQueue`,
    max_batch 16, the escalation ladder: two poisoned problems RECOVERED
    at rung 1, one shed, one bucket's first dispatch failed by
@@ -220,7 +238,9 @@ exception ends the run with a non-zero exit code:
    `solve_many` control's, the ring holding the events the chaos drove),
    then the 64 from four submitter threads; and kernel rows `name fleet`
    / `name[f64] fleet` of kernels 1-5 (camera and point side), 6, and 7
-   and 8 (both directions) at the largest bucket's union plan, with
+   and 8 (both directions) at the largest bucket's union plan, and the
+   option paths' arms there (`FLEET_ARM_ROWS`: 2 and 3 mixed64 and
+   bf16, 7 bf16, 8 mixed, 6 bf16, 4 on the correction rows), with
    CUDA-event and device times, bounds and library calls, and kernel 5's
    rows against `index_select` in ten alternating pairs by device time.
 
@@ -465,9 +485,11 @@ COARSE_F64_PATHS = ["implicit_two_level", "explicit_fused_two_level",
                     "implicit_two_level_nan_burst",
                     "implicit_two_level_nan_camera"]
 F64_PATHS += COARSE_F64_PATHS
+# They run on the locality scene (`LOCALITY_PATHS`), not on venice: its
+# grid gives the coarse space structure, and venice's 7-8 s of host
+# union-find planning a path bought no more coverage.
 COARSE_VENICE_PATHS = ["implicit_two_level", "implicit_multilevel",
                        "implicit_two_level_smoothed"]
-VENICE_PATHS += COARSE_VENICE_PATHS
 # The multi-device solve: every shard on the one card (`device=[DEVICE] *
 # world`), the 1-D edge-sharded mesh at world 2 and the 2 x 2 camera x
 # edge mesh (`mesh_2d`, cam_blocks 2), whose S.p product rings the point
@@ -526,6 +548,10 @@ PLAIN_REPEAT_PATHS = ("implicit_neumann", "explicit_fused")
 # final costs (phase 6's f32 rule).
 LOCALITY = dict(VENICE, num_points=200_000, locality="grid")
 LOCALITY_PATHS = ["implicit"] + COARSE_VENICE_PATHS
+# LM iterations of every locality path (cut from 8 for the script's time
+# limit): JACOBI's and the coarse paths' trial costs agree within 1e-5 at
+# every iteration, so the 1e-3 gate between them holds at any depth.
+LOCALITY_LM = 4
 LOCALITY_COST_RTOL = 1e-3
 # The f64 grid scene of the coarse paths.
 TRAFALGAR_GRID = dict(TRAFALGAR, locality="grid")
@@ -645,7 +671,21 @@ def make_scene(cfg: dict, dtype):
     return s
 
 
-def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
+# LM iterations of a venice path other than IMPLICIT and its bitwise twin
+# `implicit_guarded` (cut from 8 to bring the script under its time
+# limit): IMPLICIT's cost at its third iteration is within 1e-6 of its
+# eighth, so every final-cost gate against the IMPLICIT run holds, and a
+# NaN burst's two rollbacks leave one step to accept.
+VENICE_LM = 3
+VENICE_FULL_LM = ("implicit", "implicit_guarded")
+# LM iterations of phase 5's f64 paths (cut from 8 for the same limit):
+# enough for every fault window (the crush's rollback at iteration 3, a
+# persistent burst's FATAL after 4) and short of the cost floor.
+F64_LM = 4
+
+
+def solve_option(dtype, path: str = "implicit", tol_relative: bool = False,
+                 lm: int = 8):
     """The solve options of a path: an absolute PCG tolerance of 1e-10
     (every solve runs to its iteration cap or stagnation), or with
     `tol_relative` 1e-6 of the RHS energy (floored at 1e-3 on the bf16
@@ -687,7 +727,7 @@ def solve_option(dtype, path: str = "implicit", tol_relative: bool = False):
         robust_delta=1.0, mixed_precision_pcg=rung == "mixed",
         use_schur=extra.get("use_schur", True),
         robust_option=RobustOption(guards=extra.get("guards", False)),
-        algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15,
+        algo_option=AlgoOption(max_iter=lm, epsilon1=1e-12, epsilon2=1e-15,
                                initial_region=region),
         solver_option=SolverOption(
             max_iter=30, refuse_ratio=1e30, fused_kernels=fused,
@@ -1966,7 +2006,7 @@ def f64_phase(scene, grid) -> dict:
         coarse = path in COARSE_F64_PATHS or VARIANTS.get(
             path, (path, {}))[1].get("precond") in ("TWO_LEVEL",
                                                      "MULTILEVEL")
-        opt = solve_option(np.float64, path)
+        opt = solve_option(np.float64, path, lm=F64_LM)
         arrays, kw = solve_inputs(grid if coarse else scene, path)
         args = arrays + (opt,)
         devs = devices_of(path)
@@ -2072,9 +2112,8 @@ def f64_phase(scene, grid) -> dict:
                                      "from the implicit run's")
             outcome += ", bitwise the implicit run"
         if path == "implicit_coobs":
-            natural = flat_solve(*arrays, solve_option(np.float64,
-                                                       "implicit"),
-                                 device=DEVICE)
+            natural = flat_solve(*arrays, solve_option(
+                np.float64, "implicit", lm=F64_LM), device=DEVICE)
             gap = abs(float(res_k.cost) - float(natural.cost)) / float(
                 natural.cost)
             outcome += (f", final cost {gap:.3e} relative to NATURAL on the "
@@ -2324,17 +2363,24 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
     launch counts, the per-arm counts, the result and the wall time."""
     from megba_tpu_torch import flat_solve
 
-    opt = solve_option(np.float32, path, tol_relative)
+    lm = (VENICE_LM if label == "venice" and path not in VENICE_FULL_LM
+          else LOCALITY_LM if label != "venice" else 8)
+    opt = solve_option(np.float32, path, tol_relative, lm)
     arrays, kw = solve_inputs(scene, path, venice=True)
     args = arrays + (opt,)
+    # A mesh path's one solve runs under the profiler (its busy share);
+    # with --profile every path runs once more under it.
+    mesh = path in MESH_BASE
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t = time.perf_counter()
-    with watch_builds() as builds, count_shard_launches() as shards:
-        res = flat_solve(*args, verbose=True, device=devices_of(path), **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    with profiled(mesh and not profile) as prof:
+        t = time.perf_counter()
+        with watch_builds() as builds, count_shard_launches() as shards:
+            res = flat_solve(*args, verbose=True, device=devices_of(path),
+                             **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
     counts = launch_counts()
     arms = arm_launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2359,7 +2405,6 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
            "the implicit run's")
     extra = VARIANTS.get(path, (path, {}))[1]
     coarse = extra.get("precond") in ("TWO_LEVEL", "MULTILEVEL")
-    mesh = path in MESH_BASE
     limit = (AUTODIFF_COST_RTOL if "jacobian_mode" in extra
              else COOBS_COST_RTOL if "edge_order" in extra
              else LOCALITY_COST_RTOL if coarse and label != "venice"
@@ -2399,34 +2444,50 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
     log(f"{label} f32 {path}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM "
         f"iterations ({res.accepted} accepted), {res.pcg_iterations} PCG "
         f"iterations, flat_solve {wall:.3f} s = {wall / res.iterations:.3f} "
-        f"s per LM iteration (planning and transfer included), peak "
+        f"s per LM iteration (planning and transfer included"
+        f"{', under the profiler' if mesh and not profile else ''}), peak "
         f"memory {peak / 2**30:.3f} GiB{gap}; {outcome}")
     log(f"{label} {path} launches: {arms} (as the code implies)")
     if mesh:
         log(f"{label} {path} launches per shard: {shards}")
-    if profile or mesh:
+    if profile:
         profile_solve(args, path, kw, label)
+    elif mesh:
+        profile_report(prof, wall, path, label)
     return counts, arms, res, wall
 
 
-def profile_solve(args, path: str, kw: dict, label: str) -> float:
-    """One more solve under torch.profiler: device time by kernel and the
-    device's busy share of the wall time, which it returns.  The device
-    activity alone is traced, and its events are summed straight from the
-    trace (`device_time_by_name`): `key_averages()` took ~10 s a
-    venice-scale solve on an H100 (PR 13), for the same device time."""
+def profiled(enabled: bool = True):
+    """torch.profiler over the device activity alone when `enabled` (a
+    null context otherwise)."""
     from torch.profiler import ProfilerActivity, profile
 
+    return (profile(activities=[ProfilerActivity.CUDA]) if enabled
+            else contextlib.nullcontext())
+
+
+def profile_solve(args, path: str, kw: dict, label: str) -> float:
+    """One more solve under torch.profiler: its device time by kernel and
+    busy share (`profile_report`), which it returns."""
     from megba_tpu_torch import flat_solve
 
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t = time.perf_counter()
         flat_solve(*args, device=devices_of(path), **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    return profile_report(prof, wall, path, label)
+
+
+def profile_report(prof, wall: float, path: str, label: str) -> float:
+    """A profiled solve's device time by kernel (table in chiprun_out/)
+    and the device's busy share of its wall time, which it returns.  The
+    device activity alone is traced, and its events are summed straight
+    from the trace (`device_time_by_name`): `key_averages()` took ~10 s a
+    venice-scale solve on an H100, for the same device time."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     dev_us, by_name = device_time_by_name(prof)
     table = "\n".join(
         [f"{'device us':>14}  {'share':>6}  kernel"]
@@ -2935,7 +2996,7 @@ def family_venice_solve(factor: str, scene, path: str = DEFAULT_PATH
     """One venice-scale f32 solve of a family with the venice phase's
     options, AUTODIFF and a path's kernels: wall, LM (accepts) / PCG,
     peak memory (above what the card held before the solve), device busy
-    share (one more solve under torch.profiler, on the paths of
+    share (the solve run under torch.profiler, on the paths of
     `FAMILY_VENICE_PROFILED`), launches per kernel, shape and arm as the
     code implies, final cost finite and below the initial.  Returns the
     launches per shape."""
@@ -2944,16 +3005,20 @@ def family_venice_solve(factor: str, scene, path: str = DEFAULT_PATH
 
     spec = get_factor(factor)
     opt = family_option(np.float32, path)
+    opt = dataclasses.replace(opt, algo_option=dataclasses.replace(
+        opt.algo_option, max_iter=VENICE_LM))
     args = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
             scene.pt_idx, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the earlier families' rows
     reset_launch_counts()
-    t = time.perf_counter()
-    res = flat_solve(*args, device=DEVICE, factor=factor)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    profile = path in FAMILY_VENICE_PROFILED
+    with profiled(profile) as prof:
+        t = time.perf_counter()
+        res = flat_solve(*args, device=DEVICE, factor=factor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated() - held
     what = f"venice f32 {factor} {path}"
     launches = check_family_launches(what, path, res, (), spec)
@@ -2970,9 +3035,9 @@ def family_venice_solve(factor: str, scene, path: str = DEFAULT_PATH
         f"transfer included), peak memory {peak / 2**30:.3f} GiB; "
         f"launches {launches['shapes']} (as the code implies)")
     busy = ""
-    if path in FAMILY_VENICE_PROFILED:
-        busy = ", device busy " + format(profile_solve(
-            args, path, dict(factor=factor), f"venice_{factor}"), ".1%")
+    if profile:
+        busy = ", under the profiler, device busy " + format(profile_report(
+            prof, wall, path, f"venice_{factor}"), ".1%")
     log(f"{what} summary: wall {wall:.3f} s, LM {res.iterations} "
         f"({res.accepted}) / PCG {res.pcg_iterations}, peak "
         f"{peak / 2**30:.3f} GiB{busy}")
@@ -3494,11 +3559,11 @@ def pgo_full_solve(family: str, g, dtype, keep=None) -> dict:
     """One full-size solve: wall, LM / accept / PCG counts, peak memory,
     launches as the code implies, the maximum translation drift from the
     ground truth before and after (gated: a finite final cost below the
-    initial, a smaller drift), then the same solve under torch.profiler
-    for the device's busy share.  Returns the launches per shape; `keep`
-    (a dict) receives the result and the wall."""
-    from torch.profiler import ProfilerActivity, profile
-
+    initial, a smaller drift) and the device's busy share, the solve run
+    under torch.profiler.  With `keep` (a dict, which receives the result
+    and the wall: phase 11's straight solve) the solve runs without the
+    profiler, and once more under it for the busy share.  Returns the
+    launches per shape."""
     from megba_tpu_torch import AlgoOption, ProblemOption
     from megba_tpu_torch.models.pgo import solve_pgo
 
@@ -3511,12 +3576,14 @@ def pgo_full_solve(family: str, g, dtype, keep=None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t = time.perf_counter()
-    res = solve_pgo(*args, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    with profiled(keep is None) as prof:
+        t = time.perf_counter()
+        res = solve_pgo(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     shapes = pgo_launches(what, res, 1, d)
+    pwall, where = wall, " under torch.profiler"
     if keep is not None:
         keep.update(res=res, wall=wall)
 
@@ -3530,20 +3597,22 @@ def pgo_full_solve(family: str, g, dtype, keep=None) -> dict:
     if not (np.isfinite(c1) and c1 < c0 and d1 < d0):
         raise AssertionError(f"{what}: cost {c0} -> {c1}, drift {d0} -> "
                              f"{d1}")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        solve_pgo(*args, **kw)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t
+    if keep is not None:
+        with profiled() as prof:
+            t = time.perf_counter()
+            solve_pgo(*args, **kw)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t
+        where = f" ({pwall:.3f} s under torch.profiler, a second run)"
     dev_us, by_name = device_time_by_name(prof)
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
     log(f"{what}: cost {c0:.8e} -> {c1:.8e}, {res.iterations} LM iterations "
         f"({res.accepted} accepted), {res.pcg_iterations} PCG, status "
-        f"{res.status}, solve_pgo {wall:.3f} s = "
+        f"{res.status}, solve_pgo {wall:.3f} s{where} = "
         f"{wall / max(res.iterations, 1) * 1e3:.1f} ms per LM iteration "
         f"(planning and transfer included), peak memory "
         f"{peak / 2**30:.3f} GiB; max translation drift {d0:.6f} -> "
-        f"{d1:.6f}; under torch.profiler {pwall:.3f} s, device busy "
+        f"{d1:.6f}; device busy "
         f"{dev_us / 1e6:.3f} s ({dev_us / 1e6 / pwall:.1%}); launches "
         f"{shapes} (as the code implies); top device time: " + ", ".join(
             f"{name[:48]} {us / 1e3:.1f} ms" for name, us in top))
@@ -3562,6 +3631,17 @@ def device_time_by_name(prof):
             by_name[e.name()] = by_name.get(e.name(), 0.0) + \
                 e.duration_ns() / 1e3
     return sum(by_name.values()), by_name
+
+
+def device_time_total(prof) -> float:
+    """`device_time_by_name`'s total alone, in device microseconds: no
+    per-name sums, each event's type compared as an enum (a fleet
+    bucket's trace holds ~10^5 events)."""
+    from torch.autograd import DeviceType
+
+    cuda = DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e3
 
 
 def pgo_kernel_cases(family: str, g) -> dict:
@@ -3990,7 +4070,7 @@ def triage_full_width(trafalgar_cfg: dict) -> None:
     reset_launch_counts()
     mem0 = torch.cuda.memory_allocated()
     timer = PhaseTimer()
-    opt = solve_option(np.float32, "implicit")
+    opt = solve_option(np.float32, "implicit", lm=VENICE_LM)
     try:
         flat_solve(*arrays, opt, device=DEVICE, timer=timer,
                    triage=TriagePolicy())
@@ -4083,9 +4163,19 @@ FLEET_SIZES = (128, 1024)
 # under chaos and the telemetry.
 FLEET_SMALL = 64
 FLEET_LM_CAP = 4
+# The bf16 rung's cap: its PCG stops at 1e-3 of the RHS energy, so each
+# LM iteration moves a kernel run's final cost from the plain run's by
+# ~1e-4 (one of 64 problems 1.8e-3 apart after 4 iterations on the H100;
+# under a one-ulp change of the observations 2.9e-4 after 2, 8.5e-4
+# after 4: scripts/torch_fleet_rung_sensitivity.py), where phase 6's
+# final-cost rule is 1e-3.
+FLEET_BF16_LM_CAP = 2
 # Problems of one bucket each solved as a fleet of one, bitwise against
 # its lane in the batch.
-FLEET_BITWISE = 8
+FLEET_BITWISE = 2
+# The f32 re-runs of the EXPLICIT and fused paths take the first
+# problems only (their f64 runs take the whole fleet).
+FLEET_F32_RERUN = 64
 FLEET_REPORTS = ROOT / "chiprun_out" / "fleet_reports.jsonl"
 FLEET_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
                  "fused_block_diag_apply")
@@ -4106,6 +4196,45 @@ FLEET_DIRECTION_KERNELS = {
 FLEET_ROW_PATH = {"seg_reduce": "explicit", "seg_expand": "explicit",
                   "fused_coupling_apply_implicit": "fused_implicit",
                   "fused_coupling_apply": "fused_explicit"}
+# The option paths beside the coupling paths: name -> (ComputeKind name,
+# fused_kernels, dtype, ProblemOption fields, SolverOption fields, enums
+# by name).  Together they launch every precision arm of kernels 2, 3, 6,
+# 7 and 8 the lane-batched LM runs, and kernel 4 on SCHUR_DIAG's
+# correction rows.
+FLEET_OPTION_PATHS = {
+    "implicit_mixed64": ("IMPLICIT", False, np.float64,
+                         dict(mixed_precision_pcg=True), {}),
+    "fused_explicit_mixed": ("EXPLICIT", True, np.float32,
+                             dict(mixed_precision_pcg=True), {}),
+    "fused_implicit_bf16": ("IMPLICIT", True, np.float32, {},
+                            dict(bf16=True)),
+    "implicit_bf16": ("IMPLICIT", False, np.float32, {}, dict(bf16=True)),
+    "explicit_schur_diag": ("EXPLICIT", False, np.float64, {},
+                            dict(preconditioner="SCHUR_DIAG")),
+    "implicit_neumann": ("IMPLICIT", False, np.float64, {},
+                         dict(precond="NEUMANN", neumann_order=2)),
+    "implicit_plain": ("IMPLICIT", False, np.float64,
+                       dict(use_schur=False), {}),
+}
+# Union rows of the option paths' arms: row -> (path, the key of its
+# launches in that path's full-size run).  Kernel 4's SCHUR_DIAG row
+# counts the launches made on the correction rows alone.
+FLEET_ARM_ROWS = {
+    "coupling_expand[mixed64] fleet": ("implicit_mixed64",
+                                       "coupling_expand[mixed64]"),
+    "coupling_reduce[mixed64] fleet": ("implicit_mixed64",
+                                       "coupling_reduce[mixed64]"),
+    "coupling_expand[bf16] fleet": ("implicit_bf16", "coupling_expand[bf16]"),
+    "coupling_reduce[bf16] fleet": ("implicit_bf16", "coupling_reduce[bf16]"),
+    "fused_coupling_apply_implicit[bf16] fleet": (
+        "fused_implicit_bf16", "fused_coupling_apply_implicit[bf16]"),
+    "fused_coupling_apply[mixed] fleet": ("fused_explicit_mixed",
+                                          "fused_coupling_apply[mixed]"),
+    "fused_block_diag_apply[bf16] fleet": ("fused_implicit_bf16",
+                                           "fused_block_diag_apply[bf16]"),
+    "seg_reduce[f64] fleet schur_diag": ("explicit_schur_diag",
+                                         "seg_reduce schur_diag"),
+}
 FLEET_TRACE = ROOT / "chiprun_out" / "fleet_trace.json"
 FLEET_METRICS = ROOT / "chiprun_out" / "fleet_metrics.prom"
 FLEET_FLIGHT = ROOT / "chiprun_out" / "fleet_flight.jsonl"
@@ -4127,14 +4256,42 @@ def fleet_problems(n: int, dtype):
     return probs
 
 
-def fleet_option(dtype, path: str = "implicit", **kw):
-    """`ProblemOption()` at `dtype` on one of `FLEET_PATHS` (its other
-    fields the defaults; `kw` more fields)."""
-    from megba_tpu_torch import ComputeKind, ProblemOption, SolverOption
+def fleet_path(path: str):
+    """(ComputeKind name, fused_kernels, dtype or None, ProblemOption
+    fields, SolverOption fields) of a coupling or option path."""
+    if path in FLEET_PATHS:
+        return (*FLEET_PATHS[path], None, {}, {})
+    return FLEET_OPTION_PATHS[path]
 
-    kind, fk = FLEET_PATHS[path]
+
+def fleet_coupling_path(path: str) -> str:
+    """The coupling path (`FLEET_PATHS`) a path's products run on."""
+    kind, fk = fleet_path(path)[:2]
+    return next(k for k, v in FLEET_PATHS.items() if v == (kind, fk))
+
+
+def fleet_rung(path: str):
+    """A path's precision rung: "mixed", "bf16" or None."""
+    _, _, _, top, so = fleet_path(path)
+    return ("bf16" if so.get("bf16") else
+            "mixed" if top.get("mixed_precision_pcg") else None)
+
+
+def fleet_option(dtype, path: str = "implicit", solver=None, **kw):
+    """`ProblemOption()` at `dtype` on one of `FLEET_PATHS` or
+    `FLEET_OPTION_PATHS` (its other fields the defaults; `solver` more
+    SolverOption fields, `kw` more ProblemOption fields)."""
+    from megba_tpu_torch import (ComputeKind, PrecondKind,
+                                 PreconditionerKind, ProblemOption,
+                                 SolverOption)
+
+    kind, fk, _, top, so = fleet_path(path)
+    enums = {"precond": PrecondKind, "preconditioner": PreconditionerKind}
+    so = {k: enums[k][v] if k in enums else v for k, v in so.items()}
+    so.update(solver or {})
     return ProblemOption(dtype=dtype, compute_kind=ComputeKind[kind],
-                         solver_option=SolverOption(fused_kernels=fk), **kw)
+                         solver_option=SolverOption(fused_kernels=fk, **so),
+                         **top, **kw)
 
 
 def fleet_expected_launches(results, path: str = "implicit") -> dict:
@@ -4142,30 +4299,65 @@ def fleet_expected_launches(results, path: str = "implicit") -> dict:
     bucket on `path`, from its lanes' traces alone: the batch runs LM
     iteration k while any lane is live (k < its iterations), its PCG n_k
     iterations (the most of the live lanes'), and relinearises after k
-    when a live lane accepted or recovered.  A PCG of n iterations (cold
-    start) runs n + 1 S.p products (two coupling directions and one
-    fused_block_diag_apply each) and n + 1 M^-1 applies (kernel 6); the
-    reduced right-hand side and the back-substitution one direction each:
-    2n + 4 directions, each one launch of every kernel of
-    `FLEET_DIRECTION_KERNELS[path]` (IMPLICIT unfused: coupling_expand
-    and coupling_reduce; EXPLICIT unfused: seg_expand and seg_reduce;
-    fused: one fused kernel).  The gain ratio adds 2 coupling_expand, a
-    linearisation 2 jtj_grad_reduce."""
+    when a live lane accepted or recovered.  The Chronopoulos-Gear PCG
+    of n iterations (cold start) runs n + 1 S.p products (two coupling
+    directions and one fused_block_diag_apply each) and n + 1 M^-1
+    applies (kernel 6); the reduced right-hand side and the
+    back-substitution one direction each: 2n + 4 directions, each one
+    launch of every kernel of `FLEET_DIRECTION_KERNELS` of the path's
+    coupling path (IMPLICIT unfused: coupling_expand and coupling_reduce;
+    EXPLICIT unfused: seg_expand and seg_reduce; fused: one fused
+    kernel).  NEUMANN of order m makes each M^-1 apply m S.p products and
+    m + 1 base applies; the bf16 rung's textbook body runs n S.p
+    products and n + 1 M^-1 applies (kernel 6's bf16 arm with fused
+    kernels, no kernel without); the plain solve n + 1 products of two
+    directions and one kernel 6 each, and n + 1 M^-1 applies, with no
+    right-hand side or back-substitution.  A rung's equilibration
+    gathers its two scales (2 seg_expand) a PCG solve, SCHUR_DIAG sums
+    its correction rows in 9 seg_reduce.  The gain ratio adds 2
+    coupling_expand, a linearisation 2 jtj_grad_reduce.  Keys "name[arm]"
+    count a rung's arm launches, "seg_reduce schur_diag" the correction
+    rows' kernel 4."""
+    _, fused, dtype, top, so = fleet_path(path)
+    rung = fleet_rung(path)
+    plain = top.get("use_schur") is False
+    order = so.get("neumann_order", 0) if so.get("precond") == "NEUMANN" else 0
     k_max = max(r.iterations for r in results)
     lin = 1
-    directions = k6 = 0
+    directions = k6 = k6_bf16 = 0
     for k in range(k_max):
         live = [r for r in results if r.iterations > k]
         n = max(int(r.trace.pcg_iters[k]) for r in live)
-        directions += 2 * n + 4
-        k6 += 2 * n + 2
+        if plain:
+            directions += 2 * (n + 1)
+            k6 += 2 * n + 2
+        elif rung == "bf16":
+            directions += 2 * n + 2
+            applies = n + 1 if fused else 0
+            k6_bf16 += applies
+            k6 += n + applies
+        else:
+            products = (n + 1) * (1 + order)
+            directions += 2 * products + 2
+            k6 += products + (n + 1) * (1 + order)
         if any(bool(r.trace.accept[k]) or bool(r.trace.recovery[k])
                for r in live):
             lin += 1
     out = {"jtj_grad_reduce": 2 * lin, "coupling_expand": 2 * k_max,
            "fused_block_diag_apply": k6}
-    for name in FLEET_DIRECTION_KERNELS[path]:
+    direction_kernels = FLEET_DIRECTION_KERNELS[fleet_coupling_path(path)]
+    for name in direction_kernels:
         out[name] = out.get(name, 0) + directions
+    if rung is not None:
+        out["seg_expand"] = out.get("seg_expand", 0) + 2 * k_max
+        arm = "mixed64" if rung == "mixed" and dtype == np.float64 else rung
+        for name in direction_kernels:
+            out[f"{name}[{arm}]"] = directions
+        if k6_bf16:
+            out["fused_block_diag_apply[bf16]"] = k6_bf16
+    if so.get("preconditioner") == "SCHUR_DIAG":
+        out["seg_reduce"] = out.get("seg_reduce", 0) + 9 * k_max
+        out["seg_reduce schur_diag"] = 9 * k_max
     return out
 
 
@@ -4173,19 +4365,30 @@ def fleet_expected_launches(results, path: str = "implicit") -> dict:
 def record_buckets(profile: bool = False):
     """Record every lane-batched solve run inside (each bucket of a
     `solve_many` or a queue dispatch): its wall (synchronised), its
-    launches per kernel, its `LaneSolve`, and with `profile` its device
-    busy share under torch.profiler (device activity only).  Yields the
-    list of records."""
+    launches per kernel and per arm, the kernel 4 launches SCHUR_DIAG's
+    correction rows made (`lanes._schur_diag_rows` wrapped), its
+    `LaneSolve`, and with `profile` its device busy share under
+    torch.profiler (device activity only).  Yields the list of
+    records."""
     from megba_tpu_torch.algo import lanes
 
-    inner = lanes.lane_lm_solve
+    inner, inner_rows = lanes.lane_lm_solve, lanes._schur_diag_rows
     records = []
+    correction = [0]
+
+    def rows(*args, **kw):
+        before = launch_counts()["seg_reduce"]
+        out = inner_rows(*args, **kw)
+        correction[0] += launch_counts()["seg_reduce"] - before
+        return out
 
     def recorded(*args, **kw):
         from torch.profiler import ProfilerActivity, profile as prof_ctx
 
         torch.cuda.synchronize()
+        t_in = time.perf_counter()
         reset_launch_counts()
+        correction[0] = 0
         ctx = (prof_ctx(activities=[ProfilerActivity.CUDA]) if profile
                else contextlib.nullcontext())
         with ctx as prof:
@@ -4195,17 +4398,21 @@ def record_buckets(profile: bool = False):
             wall = time.perf_counter() - t
         busy = None
         if profile:
-            busy = device_time_by_name(prof)[0] / 1e6 / wall
+            busy = device_time_total(prof) / 1e6 / wall
         records.append(dict(solve=out, wall=wall, busy=busy,
+                            overhead=time.perf_counter() - t_in - wall,
                             launches={k: v for k, v in launch_counts().items()
-                                      if v}))
+                                      if v},
+                            arms={k: v for k, v in arm_launch_counts().items()
+                                  if v},
+                            correction=correction[0]))
         return out
 
-    lanes.lane_lm_solve = recorded
+    lanes.lane_lm_solve, lanes._schur_diag_rows = recorded, rows
     try:
         yield records
     finally:
-        lanes.lane_lm_solve = inner
+        lanes.lane_lm_solve, lanes._schur_diag_rows = inner, inner_rows
 
 
 def fleet_solve(probs, opt, profile: bool = False, **kw):
@@ -4236,18 +4443,24 @@ def check_bucket_launches(what: str, res, records,
     total = {}
     for rec, ((bucket, lanes), lane_res) in zip(records, by_bucket.items()):
         want = fleet_expected_launches(lane_res, path)
+        # The kernels' launches, and the arms and correction rows the
+        # path's traces speak for.
+        seen = dict(rec["launches"])
+        seen.update({k: rec["arms"].get(k, 0) for k in want if "[" in k})
+        if "seg_reduce schur_diag" in want:
+            seen["seg_reduce schur_diag"] = rec["correction"]
         solve = rec["solve"]
         own = dict(lm=solve.lm_iterations, pcg=solve.pcg_iterations,
                    lin=solve.linearizations)
-        if (rec["launches"] != want
+        if (seen != want
                 or own["lm"] != max(r.iterations for r in lane_res)
                 or 2 * own["lin"] != want["jtj_grad_reduce"]):
             raise AssertionError(
-                f"{what} {bucket}: launches {rec['launches']}, the lanes' "
+                f"{what} {bucket}: launches {seen}, the lanes' "
                 f"traces imply {want}; the batch's own counts {own}")
         rec.update(bucket=bucket, lanes=lanes, real=len(lane_res),
-                   lm=own["lm"], pcg=sum(own["pcg"]))
-        for k, v in rec["launches"].items():
+                   lm=own["lm"], pcg=sum(own["pcg"]), seen=seen)
+        for k, v in seen.items():
             total[k] = total.get(k, 0) + v
     return total
 
@@ -4263,14 +4476,17 @@ def fleet_gate(what: str, res) -> None:
                                  f"status {r.status_name}")
 
 
-def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True):
+def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True,
+               once: bool = False):
     """12.1: the full-size fleet `probs` through `solve_many` under
-    ProblemOption() at `dtype` on `path` (`FLEET_PATHS`): per bucket its
-    shape, lanes and real problems, LM and PCG counts, wall, launches
-    (checked exact) and, with `profile`, from one more run under
-    torch.profiler (bitwise the first), the device's busy share; the
-    fleet's wall, problems a second, peak memory, lane and edge fill.
-    Returns (results, launches summed over the buckets, records, wall)."""
+    ProblemOption() at `dtype` on `path` (`FLEET_PATHS` or
+    `FLEET_OPTION_PATHS`): per bucket its shape, lanes and real problems,
+    LM and PCG counts, wall, launches (checked exact) and, with
+    `profile`, from one more run under torch.profiler (bitwise the
+    first), the device's busy share; with `once` the one run is the
+    profiled one (its walls under the profiler); the fleet's wall,
+    problems a second, peak memory, lane and edge fill.  Returns
+    (results, launches summed over the buckets, records, wall)."""
     from megba_tpu_torch.serving import FleetStats
 
     opt = fleet_option(dtype, path)
@@ -4278,13 +4494,24 @@ def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     stats = FleetStats()
-    res, wall, records = fleet_solve(probs, opt, stats=stats)
+    res, wall, records = fleet_solve(probs, opt, profile=profile and once,
+                                     stats=stats)
     peak = torch.cuda.max_memory_allocated()
     what = f"fleet {path} {np.dtype(dtype).name}"
     launches = check_bucket_launches(what, res, records, path)
     fleet_gate(what, res)
     busy = []
-    if profile:
+    if profile and once:
+        busy = [rec["busy"] for rec in records]
+        # The profiler's start, stop and event reading around each bucket
+        # are not the fleet's work.
+        overhead = sum(rec["overhead"] for rec in records)
+        log(f"fleet {path} {np.dtype(dtype).name}: wall {wall:.3f} s under "
+            f"the profiler, {wall - overhead:.3f} s without its start, stop "
+            f"and event reading ({overhead:.3f} s)")
+        wall -= overhead
+        what += " (under the profiler)"
+    elif profile:
         res_p, _, rec_p = fleet_solve(probs, opt, profile=True)
         busy = [rec["busy"] for rec in rec_p]
         for a, b in zip(res, res_p):
@@ -4297,7 +4524,7 @@ def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True):
         log(f"{what} bucket {rec['bucket']}: {rec['lanes']} lanes, "
             f"{rec['real']} problems, {rec['lm']} LM iterations, "
             f"{rec['pcg']} PCG iterations (batch), wall {rec['wall']:.3f} s"
-            f"{share}; launches {rec['launches']} (as the lanes' traces "
+            f"{share}; launches {rec['seen']} (as the lanes' traces "
             "imply)")
     d = stats.as_dict()
     lane_fill = d["problems"] / d["lane_slots"]
@@ -4374,17 +4601,73 @@ def fleet_reports(n: int) -> None:
 def fleet_kernels_vs_plain(probs, path: str = "implicit") -> None:
     """12.3: the first problems under ProblemOption()'s PCG on `path`
     with the LM cap, through the kernels and through the plain versions
-    on the card: trial costs at rtol 1e-9, equal counts, accepts and
-    status; then problems of one bucket each solved as a fleet of one,
-    bitwise equal to its lane in the batch."""
+    on the card, and then problems of one bucket each solved as a fleet
+    of one, bitwise equal to its lane in the batch.  At f64 (`probs` of
+    the path's dtype): trial costs at rtol 1e-9, equal counts, accepts,
+    status and `precond_fallback` traces.  A rung's path starts from
+    trust region 1: from 1e3 a one-ulp change of the observations moves
+    the fleet's trial costs by up to 37 % at f32 (the first) and more
+    after 4 LM iterations (scripts/torch_fleet_rung_sensitivity.py), at
+    f64 by ~1e-7 (`solve_option` says why).  An f32 rung path
+    runs phase 6's rules: its PCG phase 6's (at most 30 iterations, no
+    refusal, stopped at 1e-6 of the RHS energy, floored at 1e-3 on the
+    bf16 rung; ProblemOption()'s refuse ratio of 1 makes an f32 PCG's
+    exit turn on rounding), the bf16 rung under `FLEET_BF16_LM_CAP`,
+    the first trial cost within
+    `FIRST_COST_RTOL` and the final cost within `FINAL_COST_RTOL`, both
+    finite and below the initial."""
     from megba_tpu_torch import AlgoOption
 
+    dtype = fleet_path(path)[2] or np.float64
+    rung = fleet_rung(path)
     small = probs[:FLEET_SMALL]
-    opt = fleet_option(np.float64, path,
-                       algo_option=AlgoOption(max_iter=FLEET_LM_CAP))
+    algo = dict(max_iter=FLEET_BF16_LM_CAP if rung == "bf16"
+                else FLEET_LM_CAP)
+    if rung is not None:
+        algo["initial_region"] = 1.0
+    solver = (dict(tol=1e-6, tol_relative=True, max_iter=30,
+                   refuse_ratio=1e30) if dtype == np.float32 else None)
+    opt = fleet_option(dtype, path, solver=solver,
+                       algo_option=AlgoOption(**algo))
     kern, _, _ = fleet_solve(small, opt)
     with plain_path():
         plain, _, _ = fleet_solve(small, opt)
+    if dtype == np.float32:
+        fleet_f32_vs_plain(path, rung, kern, plain)
+    else:
+        fleet_f64_vs_plain(path, kern, plain)
+    fleet_lanes_alone(path, opt, small, kern)
+
+
+def fleet_f32_vs_plain(path: str, rung: str, kern, plain) -> None:
+    """Phase 6's rules on each problem of an f32 rung path."""
+    worst = [0.0, 0.0]
+    for a, b in zip(kern, plain):
+        c0 = float(a.initial_cost)
+        first = abs(float(a.trace.cost[0]) - float(b.trace.cost[0])) / abs(
+            float(b.trace.cost[0]))
+        final = abs(float(a.cost) - float(b.cost)) / abs(float(b.cost))
+        for c in (float(a.cost), float(b.cost)):
+            if not (np.isfinite(c) and c < c0):
+                raise AssertionError(f"fleet {path} kernels vs plain "
+                                     f"{a.name}: cost {c0} -> {c}")
+        if not (first <= FIRST_COST_RTOL[rung] and final <= FINAL_COST_RTOL):
+            raise AssertionError(
+                f"fleet {path} kernels vs plain {a.name}: first trial cost "
+                f"gap {first:.3e} (limit {FIRST_COST_RTOL[rung]:g}), final "
+                f"{final:.3e} (limit {FINAL_COST_RTOL:g})")
+        worst = [max(worst[0], first), max(worst[1], final)]
+    log(f"fleet {path} kernels vs plain f32, {len(kern)} problems, LM cap "
+        f"{max(a.iterations for a in kern)}: first trial costs within {worst[0]:.3e} (limit "
+        f"{FIRST_COST_RTOL[rung]:g}), final costs within {worst[1]:.3e} "
+        f"(limit {FINAL_COST_RTOL:g}), all finite and below the initial; "
+        f"PCG {sum(a.pcg_iterations for a in kern)} against the plain "
+        f"versions' {sum(b.pcg_iterations for b in plain)}")
+
+
+def fleet_f64_vs_plain(path: str, kern, plain) -> None:
+    """Trial costs at rtol 1e-9, equal counts, accepts, status and
+    `precond_fallback` traces on each problem of an f64 path."""
     worst = 0.0
     for a, b in zip(kern, plain):
         if (a.iterations, a.accepted, a.pcg_iterations, a.status) != (
@@ -4392,8 +4675,9 @@ def fleet_kernels_vs_plain(probs, path: str = "implicit") -> None:
             raise AssertionError(f"fleet {path} kernels vs plain {a.name}: "
                                  "counts differ")
         k = a.iterations
-        if not (torch.equal(a.trace.accept[:k], b.trace.accept[:k])
-                and torch.equal(a.trace.pcg_iters[:k], b.trace.pcg_iters[:k])):
+        if not all(torch.equal(getattr(a.trace, f)[:k],
+                               getattr(b.trace, f)[:k])
+                   for f in ("accept", "pcg_iters", "precond_fallback")):
             raise AssertionError(f"fleet {path} kernels vs plain {a.name}: "
                                  "traces differ")
         ca, cb = a.trace.cost[:k].numpy(), b.trace.cost[:k].numpy()
@@ -4402,9 +4686,14 @@ def fleet_kernels_vs_plain(probs, path: str = "implicit") -> None:
             raise AssertionError(f"fleet {path} kernels vs plain {a.name}: "
                                  f"trial costs {gap:.3e} apart")
         worst = max(worst, gap)
-    log(f"fleet {path} kernels vs plain f64, {len(small)} problems, LM cap "
+    log(f"fleet {path} kernels vs plain f64, {len(kern)} problems, LM cap "
         f"{FLEET_LM_CAP}: trial costs within {worst:.3e}, equal counts, "
-        "accepts and status")
+        "accepts, status and precond_fallback traces")
+
+
+def fleet_lanes_alone(path: str, opt, small, kern) -> None:
+    """Problems of the most populated bucket each solved as a fleet of
+    one, bitwise equal to its lane in the batch."""
     buckets = {}
     for p, r in zip(small, kern):
         buckets.setdefault(str(r.shape), []).append((p, r))
@@ -4418,7 +4707,8 @@ def fleet_kernels_vs_plain(probs, path: str = "implicit") -> None:
                 for f in ("cameras", "points", "cost")) or not all(
                 bitwise_equal(getattr(alone.trace, f), getattr(r.trace, f))
                 for f in ("cost", "grad_inf_norm", "trust_region", "rho",
-                          "accept", "pcg_iters", "pcg_r0_ratio")):
+                          "accept", "pcg_iters", "pcg_r0_ratio",
+                          "precond_fallback")):
             raise AssertionError(f"fleet {path} lane independence {p.name}: "
                                  f"alone differs from its lane {r.lane} of "
                                  f"{r.lanes}")
@@ -4734,8 +5024,8 @@ def fleet_kernel_cases(probs) -> dict:
     # Kernels 7 and 8 (both directions) through `coupling_shape_cases`,
     # its rows of 6 and of 4-5 at other widths skipped.
     skip = {f"fused_block_diag_apply(9){x}" for x in ("", "[f64]")}
-    coupling = coupling_shape_cases(9, 3, 2, fused.with_fused_plans(plans),
-                                    "fleet", skip)
+    fplans = fused.with_fused_plans(plans)
+    coupling = coupling_shape_cases(9, 3, 2, fplans, "fleet", skip)
     for name in ("fused_coupling_apply(9,3)",
                  "fused_coupling_apply_implicit(9,3,2)"):
         for suffix in ("", "[f64]"):
@@ -4766,6 +5056,110 @@ def fleet_kernel_cases(probs) -> dict:
                 table.index_select(1, seg)))
         cases[f"seg_reduce{suffix} fleet"] = reduce_sides
         cases[f"seg_expand{suffix} fleet"] = expand_sides
+    cases.update(fleet_arm_cases(fplans, gen))
+    return cases
+
+
+def fleet_arm_cases(plans, gen) -> dict:
+    """12.6's rows of the option paths (`FLEET_ARM_ROWS`) at the same
+    union plan: kernels 2 and 3 in their mixed64 arm (bfloat16 J rows
+    beside f64 tables) and bf16 arm on the camera side (2, 9) and the
+    point side (2, 3); kernel 7 in its bf16 arm and 8 in its mixed arm,
+    both directions; kernel 6's bf16 arm over the union's cameras; kernel
+    4 on SCHUR_DIAG's correction rows (nine f64 rows over the camera
+    plan, one of the nine launches a PCG solve).  Seeded random rows, the
+    bytes read once and written once at each operand's own width; the
+    library yardsticks as phase 3's rows of the same arms: cuSPARSE CSR
+    products (bf16 values and vector for the bf16 and mixed arms, the
+    bf16 rows' values in f64 for mixed64), `torch.einsum` in bfloat16
+    for 6, `torch.segment_reduce` for 4."""
+    from megba_tpu_torch.core.fm import coupling_rows
+
+    bf, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    n = plans.cam.n_slots
+    nc, npt = plans.cam.num_segments, plans.pt.num_segments
+    i32, i64 = 4, 8
+
+    def randn(*shape, dtype=f32, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=DEVICE,
+                                   dtype=dtype)
+
+    Jc, Jp = randn(18, n, scale=0.1).to(bf), randn(6, n, scale=0.1).to(bf)
+    sides = (("fleet_cam", plans.cam, Jc, 9, nc),
+             ("fleet_pt", plans.pt, Jp, 3, npt))
+    mixed, bf16 = dict(bf16_operands=False), dict(bf16_operands=True)
+    cases = {}
+    for arm, vdt, kw in (("mixed64", f64, mixed), ("bf16", f32, bf16)):
+        ve = 8 if vdt == f64 else 4
+        tol = (F32_REL_TO_ABS_SUM if arm == "mixed64"
+               else BF16_LIBRARY_REL_TO_ABS_SUM)
+        spmv = _spmv if arm == "mixed64" else _bf16_spmv
+        lt = f64 if arm == "mixed64" else bf
+        expand, reduce = [], []
+        for side, plan, J, d, ns in sides:
+            x, u = randn(d, ns, dtype=vdt), randn(2, n, dtype=vdt)
+            expand.append(_case(
+                side, (x, J, plan, d),
+                2 * d * n * 2 + (d * ns + 2 * n) * ve + n * i32, n * 2 * 2 * d,
+                lambda J=J, x=x, plan=plan, d=d, ns=ns, spmv=spmv, lt=lt:
+                spmv(_csr_expand, J.to(lt), plan.seg, d, ns, vec=x,
+                     shape=(2, n)), kw, tol))
+            reduce.append(_case(
+                side, (J, u, plan, d),
+                2 * d * n * 2 + (2 * n + d * ns) * ve + (ns + 1) * i64,
+                n * 2 * 2 * d,
+                lambda J=J, u=u, plan=plan, d=d, ns=ns, spmv=spmv, lt=lt:
+                spmv(_csr_reduce, J.to(lt), plan.seg, d, ns, vec=u,
+                     shape=(d, ns)), kw, tol))
+        cases[f"coupling_expand[{arm}] fleet"] = expand
+        cases[f"coupling_reduce[{arm}] fleet"] = reduce
+    to_pt, to_cam = plans.fused_to_pt, plans.fused_to_cam
+    x_cam, x_pt = randn(9, nc), randn(3, npt)
+
+    def directions(rows_tp, rows_tc, row_bytes, flops, w_tp, w_tc, kw,
+                   tails=((), ())):
+        """cam -> pt over the point-order rows, pt -> cam over the
+        camera-order rows, as `coupling_shape_cases`' directions; the
+        library a bf16 CSR product of W."""
+        tol = BF16_LIBRARY_REL_TO_ABS_SUM
+        return [
+            _case("cam_to_pt", (*rows_tp, x_cam, to_pt, *tails[0]),
+                  row_bytes * n + (9 * nc + 3 * npt) * 4 + n * i32
+                  + (npt + 1) * i64, n * flops,
+                  lambda: _bf16_spmv(_csr_coupling, w_tp, to_pt, 9, True,
+                                     vec=x_cam, shape=(3, npt)), kw, tol),
+            _case("pt_to_cam", (*rows_tc, x_pt, to_cam, *tails[1]),
+                  row_bytes * n + (3 * npt + 9 * nc) * 4 + n * i32
+                  + (nc + 1) * i64, n * flops,
+                  lambda: _bf16_spmv(_csr_coupling, w_tc, to_cam, 3, False,
+                                     vec=x_pt, shape=(9, nc)), kw, tol),
+        ]
+
+    Jp_cam = plans.to_cam(Jp).contiguous()
+    W = coupling_rows(Jc.to(f32), Jp_cam.to(f32), 2).contiguous()
+    cases["fused_coupling_apply_implicit[bf16] fleet"] = directions(
+        (plans.to_pt(Jc).contiguous(), Jp), (Jp_cam, Jc), 24 * 2, 2 * 24,
+        plans.to_pt(W).contiguous().to(bf), W.to(bf), bf16)
+    Wb = randn(27, n, scale=0.1).to(bf)
+    Wb_tp = plans.to_pt(Wb).contiguous()
+    cases["fused_coupling_apply[mixed] fleet"] = directions(
+        (Wb_tp,), (Wb,), 27 * 2, 2 * 27, Wb_tp, Wb, mixed,
+        ((True,), (False,)))
+    Hrows = randn(81, nc)
+    Minv = Hrows.T.reshape(nc, 9, 9)
+    cases["fused_block_diag_apply[bf16] fleet"] = [_case(
+        "fleet_cam", (Hrows.to(bf), x_cam), 81 * nc * 2 + 18 * nc * 4,
+        2 * 81 * nc, lambda: lambda: torch.einsum(
+            "nij,jn->in", Minv.to(bf), x_cam.to(bf)), bf16,
+        BF16_LIBRARY_REL_TO_ABS_SUM)]
+    plan = plans.cam
+    corr = randn(9, n, dtype=f64)
+    lengths = (plan.seg_ptr[1:] - plan.seg_ptr[:-1]).expand(
+        9, nc).contiguous()
+    cases["seg_reduce[f64] fleet schur_diag"] = [_case(
+        "fleet_cam", (corr, plan), (9 * n + 9 * nc) * 8 + (nc + 1) * i64,
+        9 * n, lambda: lambda: torch.segment_reduce(
+            corr, "sum", lengths=lengths, axis=1, unsafe=True))]
     return cases
 
 
@@ -4819,16 +5213,33 @@ def fleet_phase() -> dict:
     t0 = time.perf_counter()
     probs64 = fleet_problems(FLEET_N, np.float64)
     probs32 = fleet_problems(FLEET_N, np.float32)
+    probs = {64: probs64, 32: probs32}
     launches = {}
     ref64, launches[64, "implicit"], ref_records, ref_wall = fleet_full(
         probs64, np.float64)
     steps = [time.perf_counter()]
-    launches[32, "implicit"] = fleet_full(probs32, np.float32)[1]
+    ref32, launches[32, "implicit"], _, ref32_wall = fleet_full(
+        probs32, np.float32)
     steps.append(time.perf_counter())
     for path in list(FLEET_PATHS)[1:]:
         launches[64, path] = fleet_full(probs64, np.float64, path)[1]
-        launches[32, path] = fleet_full(probs32, np.float32, path,
-                                        profile=False)[1]
+        launches[32, path] = fleet_full(probs32[:FLEET_F32_RERUN],
+                                        np.float32, path, profile=False)[1]
+    steps.append(time.perf_counter())
+    refs = {64: (ref64, ref_wall), 32: (ref32, ref32_wall)}
+    for path, (_, _, dtype, _, _) in FLEET_OPTION_PATHS.items():
+        bits = np.dtype(dtype).itemsize * 8
+        res, launches[bits, path], _, wall = fleet_full(
+            probs[bits], dtype, path, once=True)
+        ref, ref_w = refs[bits]
+        log(f"fleet {path} {np.dtype(dtype).name} against IMPLICIT's at "
+            f"{np.dtype(dtype).name}: LM iterations "
+            f"{sum(r.iterations for r in res)} against "
+            f"{sum(r.iterations for r in ref)}, PCG "
+            f"{sum(r.pcg_iterations for r in res)} against "
+            f"{sum(r.pcg_iterations for r in ref)}, wall {wall:.3f} s "
+            f"(under the profiler, its own work taken out) against "
+            f"{ref_w:.3f} s")
     steps.append(time.perf_counter())
     fleet_armed(probs64, ref64, ref_records, ref_wall)
     steps.append(time.perf_counter())
@@ -4836,6 +5247,8 @@ def fleet_phase() -> dict:
     steps.append(time.perf_counter())
     for path in FLEET_PATHS:
         fleet_kernels_vs_plain(probs64, path)
+    for path, (_, _, dtype, _, _) in FLEET_OPTION_PATHS.items():
+        fleet_kernels_vs_plain(probs[np.dtype(dtype).itemsize * 8], path)
     steps.append(time.perf_counter())
     fleet_queue_chaos(probs64)
     steps.append(time.perf_counter())
@@ -4845,16 +5258,42 @@ def fleet_phase() -> dict:
     for suffix in ("", "[f64]"):
         expand_turns(rows, cases, f"seg_expand{suffix} fleet")
     for name, row in rows.items():
+        if name in FLEET_ARM_ROWS:
+            path, key = FLEET_ARM_ROWS[name]
+            bits = np.dtype(FLEET_OPTION_PATHS[path][2]).itemsize * 8
+            row["launches"] = launches[bits, path].get(key)
+            continue
         path = FLEET_ROW_PATH.get(base_name(name), "implicit")
         arm = 64 if "[f64]" in name else 32
         row["launches"] = launches[arm, path].get(base_name(name))
     steps.append(time.perf_counter())
     log(f"fleet phase: {steps[-1] - t0:.1f} s (full fleet f64, f32, the "
-        "EXPLICIT and fused paths f64 and f32, armed, serial vs batched, "
-        "kernels vs plain on four paths, queue, kernel rows: "
+        "EXPLICIT and fused paths f64 and f32, the option paths, armed, "
+        "serial vs batched, kernels vs plain on eleven paths, queue, kernel "
+        "rows: "
         + ", ".join(f"{b - a:.1f}" for a, b in zip([t0] + steps, steps))
         + " s)")
     return rows
+
+
+class PhaseClock:
+    """Wall seconds of the script's phases, each from the end of the one
+    before (the first from the end of the build, `build_s`)."""
+
+    def __init__(self, build_s: float) -> None:
+        self.laps = [("build", build_s)]
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps.append((name, now - self.t))
+        self.t = now
+        log(f"phase {name}: {self.laps[-1][1]:.1f} s")
+
+    def summary(self) -> str:
+        return ("phase times: " + ", ".join(f"{n} {s:.1f} s"
+                                            for n, s in self.laps)
+                + f"; {sum(s for _, s in self.laps):.1f} s in all")
 
 
 def main() -> int:
@@ -4889,15 +5328,20 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(smi)
 
+    clock = PhaseClock(time.perf_counter() - t)
     venice = make_scene(VENICE, np.float32)
     rows = kernel_phase(venice)
+    clock.lap("kernels (venice scene included)")
     engine_phase(venice)
+    clock.lap("engines")
     trafalgar64 = make_scene(TRAFALGAR, np.float64)
     f64_counts = f64_phase(trafalgar64,
                            make_scene(TRAFALGAR_GRID, np.float64))
     for row, arm_path in F64_ARM_PATHS.items():
         rows[row]["launches"] = f64_counts[arm_path].get(row, 0)
+    clock.lap("f64")
     precision_phase(make_scene(TRAFALGAR, np.float32))
+    clock.lap("f32 precision")
     ref = None
     for path in VENICE_PATHS:
         _, _, rung, kernels_of_path = PATHS[path]
@@ -4911,12 +5355,19 @@ def main() -> int:
         for row, arm_path in ARM_PATHS.items():
             if arm_path == path:
                 rows[row]["launches"] = arms.get(row, 0)
+    clock.lap("venice")
     locality_phase(make_scene(LOCALITY, np.float32), opts.profile)
+    clock.lap("locality")
     rows.update(factor_phase(venice, trafalgar64))
+    clock.lap("factor")
     pgo_kept = {}
     rows.update(pgo_phase(pgo_kept))
+    clock.lap("pgo")
     durable_phase(venice, trafalgar64, straight, pgo_kept)
+    clock.lap("durable")
     rows.update(fleet_phase())
+    clock.lap("fleet")
+    log(clock.summary())
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernel rows never launched on their "

@@ -25,6 +25,15 @@ contraction and kernel 4 (`seg_reduce`); with `fused_kernels`, kernel 7
 (`linear_system.builder`, EXPLICIT's stored W rows included) and the
 kernel wrappers are the solo solve's too.
 
+The precision rungs (`mixed_precision_pcg`, `bf16`) equilibrate the
+row-form blocks elementwise (`lane_equilibrate`) and run the coupling
+kernels in their mixed, mixed64 or bf16 arm on bfloat16 rows; under
+`bf16` M^-1 is a bfloat16 copy (kernel 6's bf16 arm with
+`fused_kernels`) and the PCG is the textbook body (`_lane_pcg_classic`).
+SCHUR_DIAG sums its correction rows per camera by kernel 4; NEUMANN
+applies Horner's series over the lane S.p product; `use_schur=False`
+runs CG over the (camera, point) pair (`lane_plain_pcg`).
+
 Per-lane control, as JAX's vmapped `while_loop`: every scalar of the LM
 and of the PCG (costs, trust region, v, rho, the forcing term, the PCG's
 alpha, rho and flags, the guards' counters) is an [L] tensor, each lane
@@ -56,19 +65,26 @@ the lane count.  What keeps it:
   are its own shifted by its offset: a bucket's edge count is a multiple
   of the tile (`core.fm.EDGE_QUANTUM` is), which `lane_lm_solve` asserts
   on every path that launches them (EXPLICIT, `fused_kernels`);
-- no batched library call (matmul, Cholesky, triangular solve) whose
-  algorithm may change with the batch size: the camera blocks' M^-1 is
-  an unrolled Cholesky inverse over feature-major rows (`block_inv_rows`)
-  and their products are kernel 6;
+- no batched library call (matmul, Cholesky, triangular solve, an
+  einsum over the union's blocks) whose algorithm may change with the
+  batch size: every camera-block inverse (JACOBI, SCHUR_DIAG and its
+  fallback, the plain solve's) is an unrolled Cholesky inverse over
+  feature-major rows (`block_inv_rows`) and their products are kernel 6
+  (or, on the unfused bf16 rung, the elementwise
+  `block_rows_apply_bf16`);
 - elementwise operations compute each element alone (on the CPU,
   float32 `atan2` rounds by position in the vectorised loop; no BAL
   path calls it).
 
-The option surface: Schur PCG with JACOBI on HPP, IMPLICIT or EXPLICIT,
-with or without `fused_kernels`, every Jacobian mode, HUBER and CAUCHY,
+The option surface is every option `validate_options` accepts for a
+single device, as the JAX package's vmapped bucket program takes them:
+Schur PCG with JACOBI or NEUMANN on HPP or SCHUR_DIAG, IMPLICIT or
+EXPLICIT, with or without `fused_kernels`, the mixed and bf16 rungs,
+the plain full-system solver, every Jacobian mode, HUBER and CAUCHY,
 guards, forcing with warm starts, `tol_relative`, edge masks, fixed
-vertices and fault plans, at float32 and float64.  `check_lane_option`
-refuses the rest.
+vertices and fault plans, at float32 and float64.  TWO_LEVEL and
+MULTILEVEL on the Schur solver raise the JAX package's `ValueError`
+(`check_lane_option`): its vmapped solve has no camera-cluster plan.
 """
 
 from __future__ import annotations
@@ -104,51 +120,63 @@ from megba_tpu_torch.ops.residuals import residual_only
 from megba_tpu_torch.ops.robust import rho_and_weight, robustify
 from megba_tpu_torch.parallel.mesh import one_shard
 from megba_tpu_torch.robustness.faults import FaultPlan, _CRUSH
-from megba_tpu_torch.solver.pcg import make_coupling_matvecs
+from megba_tpu_torch.solver.pcg import (
+    _BF16_TOL_FLOOR,
+    _safe_div,
+    _scale_rows,
+    make_coupling_matvecs,
+)
+from megba_tpu_torch.solver.precond import (
+    FALLBACK_BLOCK_RADIX,
+    _schur_diag_rows,
+)
 
 _TINY = 1e-30
 _TINY_RHO = 1e-30
 
 
 def check_lane_option(option: ProblemOption) -> None:
-    """Refuse, naming the option, what the lane-batched solve does not
-    run yet (the JAX package's bucket program runs them through its XLA
-    path): the precision rungs, SCHUR_DIAG, NEUMANN, TWO_LEVEL, MULTILEVEL
-    and the plain full-system solver."""
+    """Raise what the JAX package's bucket program raises: its `lm_solve`
+    refuses TWO_LEVEL and MULTILEVEL on the Schur solver, since the
+    vmapped solve passes no camera-cluster plan.  Every other option
+    `validate_options` accepts runs in the batch."""
     so = option.solver_option
-    refused = [
-        ("use_schur", option.use_schur, not option.use_schur),
-        ("mixed_precision_pcg", option.mixed_precision_pcg,
-         option.mixed_precision_pcg),
-        ("solver_option.bf16", so.bf16, so.bf16),
-        ("solver_option.preconditioner", so.preconditioner,
-         so.preconditioner != PreconditionerKind.HPP),
-        ("solver_option.precond", so.precond,
-         so.precond != PrecondKind.JACOBI),
-    ]
-    for name, value, bad in refused:
-        if bad:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to the lane-batched fleet "
-                "solve yet (megba_tpu_torch/algo/lanes.py): the batch runs "
-                "Schur PCG with JACOBI on HPP, IMPLICIT or EXPLICIT, with or "
-                "without fused_kernels; solve such a problem alone with "
-                "flat_solve")
+    if option.use_schur and so.precond in (PrecondKind.TWO_LEVEL,
+                                           PrecondKind.MULTILEVEL):
+        raise ValueError(
+            f"SolverOption.precond={so.precond.name} needs a "
+            "camera-cluster plan operand: solve through flat_solve (which "
+            "plans + caches it) or pass cluster_plan="
+            "ops.segtiles.device_cluster_plan(...) / "
+            "device_multilevel_plan(...)")
+
+
+def uses_seg_reduce(option: ProblemOption) -> bool:
+    """Whether the batch launches kernel 4: EXPLICIT's unfused coupling
+    products, or SCHUR_DIAG's correction rows."""
+    return ((option.compute_kind == ComputeKind.EXPLICIT
+             and not option.solver_option.fused_kernels)
+            or (option.use_schur and option.solver_option.preconditioner
+                == PreconditionerKind.SCHUR_DIAG))
 
 
 def prepare_kernels(cd: int, pd: int, od: int, device,
                     option: ProblemOption) -> None:
     """Build (or load) the kernel libraries a bucket of block widths
     (cd, pd) and residual rows od launches on `device` under `option`:
-    kernels 1-3 at (od, cd) and (od, pd) (kernels 4-5, EXPLICIT unfused,
-    live in the same library at every width of csrc/fused_shapes.cuh),
-    kernel 6 at cd, and with `fused_kernels` kernel 7 (IMPLICIT) or 8
-    (EXPLICIT) in both directions.  Nothing to do on the CPU."""
+    kernels 1-3 at (od, cd) and (od, pd) (kernel 5 lives in the same
+    library at every width of csrc/fused_shapes.cuh), kernel 4's library
+    when the batch launches it (`uses_seg_reduce`), kernel 6 at cd, and
+    with `fused_kernels` kernel 7 (IMPLICIT) or 8 (EXPLICIT) in both
+    directions.  A library holds every precision arm of its kernels.
+    Nothing to do on the CPU."""
     if torch.device(device).type != "cuda":
         return
     for d in (cd, pd):
         segtiles.check_block("jtj_grad_reduce", (od, d))
         segtiles._lib((od, d))
+    if uses_seg_reduce(option):
+        segtiles._sum_lib()
     fused._shape_lib("fused_block_diag_apply", cd, fused.SUPPORTED_BLOCK_DIAG,
                      (cd, 0, 0), (cd,))
     if not option.solver_option.fused_kernels:
@@ -213,8 +241,12 @@ class Lanes:
         """Per-lane sum of each lane's own entries (`lane_sum`)."""
         return lane_sum(self.rows(x))
 
-    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self.sum(a * b)
+    def dots(self, pairs) -> List[torch.Tensor]:
+        """Per-lane dot of each (a, b) pair: the products' rows folded in
+        one `lane_sum`, each row on its own (so each dot's bits are those
+        of `sum(a * b)`)."""
+        rows = lane_sum(torch.cat([self.rows(a * b) for a, b in pairs]))
+        return list(rows.split(self.n_lanes))
 
     def abs_max(self, x: torch.Tensor) -> torch.Tensor:
         return self.rows(x).abs().amax(1)
@@ -288,59 +320,96 @@ def block_inv_rows(H: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass
-class LanePCG:
-    """One lane-batched Schur solve: the union's update and [L] counts."""
+class LaneSpace:
+    """The PCG's vectors over the lanes: one union tensor (the Schur
+    solve's cameras) or a (camera, point) pair (the plain full-system
+    solve), one `Lanes` geometry a leaf.  Every operation takes [L]
+    scalars and works leafwise; a pair's dot sums per leaf, camera
+    first, as the JAX package's tree dots do."""
 
-    dx_cam: torch.Tensor
-    dx_pt: torch.Tensor
-    iterations: torch.Tensor  # [L] int32
-    rho: torch.Tensor  # [L]
-    r0_ratio: torch.Tensor  # [L]
-    breakdowns: torch.Tensor  # [L] int32
-    broken: torch.Tensor  # [L] bool
-    batch_iterations: int  # iterations the batch loop ran
+    def __init__(self, *leaves: Lanes) -> None:
+        self.leaves = leaves
+        self.n_lanes = leaves[0].n_lanes
+
+    def _map(self, fn, *trees):
+        if len(self.leaves) == 1:
+            return fn(self.leaves[0], *trees)
+        return tuple(fn(lanes, *parts)
+                     for lanes, *parts in zip(self.leaves, *trees))
+
+    def dot(self, a, b) -> torch.Tensor:
+        return self.dots([(a, b)])[0]
+
+    def dots(self, pairs) -> List[torch.Tensor]:
+        """The dot of each (a, b) pair, each leaf's in one fold."""
+        if len(self.leaves) == 1:
+            return self.leaves[0].dots(pairs)
+        out = None
+        for i, lanes in enumerate(self.leaves):
+            d = lanes.dots([(a[i], b[i]) for a, b in pairs])
+            out = d if out is None else [o + di for o, di in zip(out, d)]
+        return out
+
+    def axpy(self, alpha: torch.Tensor, x, y):
+        """y + alpha x, alpha [L]."""
+        return self._map(lambda lanes, xi, yi: yi + lanes.expand(alpha) * xi,
+                         x, y)
+
+    def sub(self, b, w):
+        """b - w, as b + (-1) w."""
+        return self._map(lambda lanes, bi, wi: bi + (-1.0) * wi, b, w)
+
+    def where(self, pred: torch.Tensor, a, b):
+        """Per-lane select, `pred` [L]."""
+        return self._map(lambda lanes, ai, bi: torch.where(
+            lanes.expand(pred), ai, bi), a, b)
+
+    def zeros_like(self, b):
+        return self._map(lambda lanes, bi: torch.zeros_like(bi), b)
 
 
-def _lane_pcg_core(matvec, precond, b, cams: Lanes, live, max_iter, tol,
+def _lane_pcg_core(matvec, precond, b, sp: LaneSpace, live, max_iter, tol,
                    refuse_ratio, tol_relative, x0=None, guard=False,
-                   max_restarts=0):
-    """The Chronopoulos-Gear PCG of `solver.pcg._pcg_core`, lane by lane:
-    each lane exits on its own threshold (`tol` a float or [L]),
-    `max_iter`, refuse ratio or (guarded) breakdown budget, and a lane
-    that exited keeps its x, r, p, s and scalars.  Lanes not `live` run
-    no iteration.  Returns (x, iterations [L], rho, r0_ratio, restarts,
-    broken, batch iterations)."""
-    E = cams.expand
-    dev = b.device
-    n_lanes = cams.n_lanes
+                   max_restarts=0, classic=False):
+    """The PCG of `solver.pcg._pcg_core`, lane by lane, over `sp`'s
+    vectors: each lane exits on its own threshold (`tol` a float or
+    [L]), `max_iter`, refuse ratio or (guarded) breakdown budget, and a
+    lane that exited keeps its x, r, p, s and scalars.  Lanes not `live`
+    run no iteration.  The Chronopoulos-Gear body, or with `classic` the
+    textbook body with its stagnation exit (`_lane_pcg_classic`).
+    Returns (x, iterations [L], rho, r0_ratio, restarts, broken, batch
+    iterations)."""
+    dev = live.device
+    n_lanes = sp.n_lanes
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = sp.zeros_like(b)
         r = b
         u0 = precond(r)
-        rho = cams.dot(r, u0)
+        rho = sp.dot(r, u0)
         rhs_energy = rho
         r0_ratio = torch.ones_like(rho)
     else:
-        r = b + (-1.0) * matvec(x0)
+        r = sp.sub(b, matvec(x0))
         u0 = precond(r)
-        rho = cams.dot(r, u0)
         ub = precond(b)
-        rhs_energy = cams.dot(b, ub)
+        rho, rhs_energy = sp.dots([(r, u0), (b, ub)])
         r0_ratio = rho.abs() / torch.clamp(rhs_energy.abs(), min=_TINY_RHO)
         use_ws = rho.abs() <= rhs_energy.abs()
-        W = E(use_ws)
-        x = torch.where(W, x0, torch.zeros_like(b))
-        r = torch.where(W, r, b)
-        u0 = torch.where(W, u0, ub)
+        x = sp.where(use_ws, x0, sp.zeros_like(b))
+        r = sp.where(use_ws, r, b)
+        u0 = sp.where(use_ws, u0, ub)
         rho = torch.where(use_ws, rho, rhs_energy)
     if tol_relative:
         threshold = torch.clamp(tol * rhs_energy.abs(), min=_TINY_RHO)
     else:
         threshold = torch.as_tensor(tol, dtype=rho.dtype,
                                     device=dev).expand(n_lanes)
+    if classic:
+        return _lane_pcg_classic(matvec, precond, b, sp, live, max_iter,
+                                 threshold, refuse_ratio, x, r, u0, rho,
+                                 rhs_energy, r0_ratio, guard, max_restarts)
     w0 = matvec(u0)
-    delta0 = cams.dot(u0, w0)
+    delta0 = sp.dot(u0, w0)
     alpha = rho / torch.where(delta0 == 0, torch.ones_like(delta0), delta0)
     p, s = u0, w0
     rho_min = rho.abs()
@@ -356,18 +425,16 @@ def _lane_pcg_core(matvec, precond, b, cams: Lanes, live, max_iter, tol,
         active = live & (rho.abs() >= threshold) & ~refused & ~broken
         if not bool(active.any()):
             break
-        A = E(active)
         if not guard:
-            x_n = x + E(alpha) * p
-            r_n = r + E(-alpha) * s
+            x_n = sp.axpy(alpha, p, x)
+            r_n = sp.axpy(-alpha, s, r)
             u = precond(r_n)
             w = matvec(u)
-            rho_new = cams.dot(r_n, u)
-            delta = cams.dot(u, w)
+            rho_new, delta = sp.dots([(r_n, u), (u, w)])
             beta = rho_new / rho
             alpha_n = rho_new / (delta - beta * rho_new / alpha)
-            p_n = u + E(beta) * p
-            s_n = w + E(beta) * s
+            p_n = sp.axpy(beta, p, u)
+            s_n = sp.axpy(beta, s, w)
             refused_n = rho_new.abs() > refuse_ratio * rho_min
             improved = rho_new.abs() < rho_min
             rho_next = rho_new
@@ -377,14 +444,12 @@ def _lane_pcg_core(matvec, precond, b, cams: Lanes, live, max_iter, tol,
             # matvec a phase.
             advancing, refresh, reprime = phase == 0, phase == 1, phase == 2
             step = torch.where(advancing, alpha, torch.zeros_like(alpha))
-            x_n = x + E(step) * p
-            r_n = r + E(-step) * s
+            x_n = sp.axpy(step, p, x)
+            r_n = sp.axpy(-step, s, r)
             u = precond(r_n)
-            R = E(refresh)
-            w = matvec(torch.where(R, x_n, u))
-            r_n = torch.where(R, b + (-1.0) * w, r_n)
-            rho_new = cams.dot(r_n, u)
-            delta = cams.dot(u, w)
+            w = matvec(sp.where(refresh, x_n, u))
+            r_n = sp.where(refresh, sp.sub(b, w), r_n)
+            rho_new, delta = sp.dots([(r_n, u), (u, w)])
             beta = rho_new / rho
             alpha_cg = rho_new / (delta - beta * rho_new / alpha)
             alpha_fresh = rho_new / torch.where(delta == 0,
@@ -407,59 +472,314 @@ def _lane_pcg_core(matvec, precond, b, cams: Lanes, live, max_iter, tol,
             alpha_n = torch.where(ok_rep, alpha_fresh,
                                   torch.where(ok_adv, alpha_cg, alpha))
             rho_next = torch.where(enter | refresh, keepalive, rho_new)
-            P, Q = E(ok_rep), E(ok_adv)
-            p_n = torch.where(P, u, torch.where(Q, u + E(beta) * p, p))
-            s_n = torch.where(P, w, torch.where(Q, w + E(beta) * s, s))
+            p_n = sp.where(ok_rep, u, sp.where(ok_adv, sp.axpy(beta, p, u), p))
+            s_n = sp.where(ok_rep, w, sp.where(ok_adv, sp.axpy(beta, s, w), s))
             refused_n = ok_adv & (rho_new.abs() > refuse_ratio * rho_min)
             improved = ok_adv & (rho_new.abs() < rho_min)
         rho_min_n = torch.where(improved, rho_new.abs(), rho_min)
-        x_best = torch.where(A & E(improved), x_n, x_best)
-        x = torch.where(A, x_n, x)
-        r = torch.where(A, r_n, r)
-        p = torch.where(A, p_n, p)
-        s = torch.where(A, s_n, s)
+        x_best = sp.where(active & improved, x_n, x_best)
+        x = sp.where(active, x_n, x)
+        r = sp.where(active, r_n, r)
+        p = sp.where(active, p_n, p)
+        s = sp.where(active, s_n, s)
         alpha = torch.where(active, alpha_n, alpha)
         rho = torch.where(active, rho_next, rho)
         rho_min = torch.where(active, rho_min_n, rho_min)
         refused = torch.where(active, refused_n, refused)
         iters = iters + active.to(torch.int32)
         k += 1
-    x = torch.where(E(refused | broken), x_best, x)
+    x = sp.where(refused | broken, x_best, x)
     return x, iters, rho, r0_ratio, restarts, broken, k
+
+
+def _lane_pcg_classic(matvec, precond, b, sp: LaneSpace, live, max_iter,
+                      threshold, refuse_ratio, x, r, u0, rho, rhs_energy,
+                      r0_ratio, guard, max_restarts):
+    """The textbook body of `solver.pcg._pcg_core_classic`, lane by lane
+    (the bf16 rung's): s = A p fresh each step, alpha = rho / <p, s>; a
+    finite sign flip of rho or delta is a stall that restores the lane's
+    best iterate and stops it.  Under `guard` only a non-finite scalar is
+    a breakdown; its restart is one iteration whose matvec computes A x
+    for r = b - A x, p = M^-1 r."""
+    dev = rho.device
+    n_lanes = sp.n_lanes
+    p = u0
+    rho_min = rho.abs()
+    x_best = x
+    refused = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+    broken = torch.zeros_like(refused)
+    iters = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+    restarts = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+    phase = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+    keepalive = torch.maximum(rhs_energy.abs(), threshold) * 2.0 + 1.0
+    k = 0
+    while k < max_iter:
+        active = live & (rho.abs() >= threshold) & ~refused & ~broken
+        if not bool(active.any()):
+            break
+        if not guard:
+            s = matvec(p)
+            delta = sp.dot(p, s)
+            alpha = _safe_div(rho, delta)
+            x_n = sp.axpy(alpha, p, x)
+            r_n = sp.axpy(-alpha, s, r)
+            u = precond(r_n)
+            rho_new = sp.dot(r_n, u)
+            beta = _safe_div(rho_new, rho)
+            p_n = sp.axpy(beta, p, u)
+            stall = (rho_new < 0) | (delta < 0)
+            refused_n = stall | (rho_new.abs() > refuse_ratio * rho_min)
+            improved = ~stall & (rho_new.abs() < rho_min)
+            rho_next = rho_new
+        else:
+            advancing, refresh = phase == 0, phase == 1
+            # The one matvec: A p normally, A x during the refresh.
+            w = matvec(sp.where(refresh, x, p))
+            delta = sp.dot(p, w)
+            alpha = _safe_div(rho, delta)
+            step = torch.where(advancing, alpha, torch.zeros_like(alpha))
+            x_new = sp.axpy(step, p, x)
+            r_new = sp.where(refresh, sp.sub(b, w), sp.axpy(-step, w, r))
+            u = precond(r_new)
+            rho_new = sp.dot(r_new, u)
+            finite = torch.isfinite(rho_new) & torch.isfinite(delta)
+            stall = advancing & finite & ((rho_new < 0) | (delta < 0))
+            breakdown = advancing & ~finite
+            enter = breakdown & (restarts < max_restarts)
+            broken = torch.where(
+                active, broken | (breakdown & (restarts >= max_restarts)),
+                broken)
+            restarts = torch.where(active, restarts + enter.to(torch.int32),
+                                   restarts)
+            phase = torch.where(active, torch.where(
+                enter, torch.ones_like(phase), torch.zeros_like(phase)),
+                phase)
+            ok_adv = advancing & ~breakdown & ~stall
+            x_n = sp.where(ok_adv, x_new, x)
+            r_n = sp.where(ok_adv | refresh, r_new, r)
+            beta = _safe_div(rho_new, rho)
+            p_n = sp.where(refresh, u, sp.where(ok_adv, sp.axpy(beta, p, u),
+                                                p))
+            rho_next = torch.where(enter, keepalive, rho_new)
+            refused_n = stall | (ok_adv
+                                 & (rho_new.abs() > refuse_ratio * rho_min))
+            improved = ok_adv & (rho_new.abs() < rho_min)
+        rho_min_n = torch.where(improved, rho_new.abs(), rho_min)
+        x_best = sp.where(active & improved, x_n, x_best)
+        x = sp.where(active, x_n, x)
+        r = sp.where(active, r_n, r)
+        p = sp.where(active, p_n, p)
+        rho = torch.where(active, rho_next, rho)
+        rho_min = torch.where(active, rho_min_n, rho_min)
+        refused = torch.where(active, refused_n, refused)
+        iters = iters + active.to(torch.int32)
+        k += 1
+    x = sp.where(refused | broken, x_best, x)
+    return x, iters, rho, r0_ratio, restarts, broken, k
+
+
+@dataclasses.dataclass
+class LanePCG:
+    """One lane-batched solve: the union's update and [L] counts."""
+
+    dx_cam: torch.Tensor
+    dx_pt: torch.Tensor
+    iterations: torch.Tensor  # [L] int32
+    rho: torch.Tensor  # [L]
+    r0_ratio: torch.Tensor  # [L]
+    breakdowns: torch.Tensor  # [L] int32
+    broken: torch.Tensor  # [L] bool
+    batch_iterations: int  # iterations the batch loop ran
+    # [L] int32: the SCHUR_DIAG blocks that fell back to the Hpp inverse
+    # (`solver.precond.encode_precond_fallback`; 0 on HPP).
+    precond_fallback: Optional[torch.Tensor] = None
+
+
+def lane_equilibrate(Hpp_rows, Hll_d, g_cam, g_pt, Jc, Jp, W, plans,
+                     compute_kind: ComputeKind):
+    """The precision rungs' Jacobi equilibration (`solver.pcg._equilibrate`)
+    on row-form blocks: d = diag(damped H)^-1/2 per camera and per point,
+    both block diagonals scaled symmetrically, g by d, the coupling rows
+    (Jc / Jp, or W) scaled per edge and cast to bfloat16
+    (`solver.pcg._scale_rows`, kernel 5 gathering the scales).  All of it
+    elementwise.  Returns the scaled pieces and the scales d_cam [cd, Nc],
+    d_pt [pd, Np]."""
+    cd, pd = g_cam.shape[0], g_pt.shape[0]
+    dc = torch.rsqrt(torch.stack([Hpp_rows[i * (cd + 1)] for i in range(cd)]))
+    Hpp_rows = (Hpp_rows * dc.repeat_interleave(cd, 0)) * dc.repeat(cd, 1)
+    d_pt = torch.rsqrt(torch.stack([Hll_d[i * (pd + 1)] for i in range(pd)]))
+    Hll_d = Hll_d * torch.stack([d_pt[i] * d_pt[j] for i in range(pd)
+                                 for j in range(pd)])
+    Jc, Jp, W = _scale_rows(Jc, Jp, W, plans, dc, d_pt, compute_kind)
+    return Hpp_rows, Hll_d, g_cam * dc, g_pt * d_pt, Jc, Jp, W, dc, d_pt
+
+
+def block_rows_apply_bf16(M_bf16: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """The unfused bf16 rung's M^-1 apply (`solver.precond.
+    cam_block_matvec_bf16`) on bfloat16 row-form blocks [d*d, N]: x
+    rounded to bfloat16, each product exact in float32 (two bfloat16
+    values), the sums in float32 in column order, per block alone.
+    Returns float32 [d, N]."""
+    d, n = x.shape
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    prod = M_bf16.to(torch.float32).view(d, d, n) * xb[None]
+    out = prod[:, 0]
+    for j in range(1, d):
+        out = out + prod[:, j]
+    return out
+
+
+def lane_preconditioner(kind: PrecondKind, block_kind: PreconditionerKind,
+                        Hpp_rows, Hll_inv, W, Jc, Jp, plans,
+                        compute_kind: ComputeKind, cams: Lanes, s_matvec,
+                        neumann_order: int = 2, bf16: bool = False,
+                        fused_kernels: bool = False):
+    """The reduced system's M^-1 (`solver.precond.make_schur_preconditioner`
+    for JACOBI and NEUMANN on HPP or SCHUR_DIAG), lane-safe: both block
+    inverses by `block_inv_rows`; SCHUR_DIAG's correction rows
+    sum_e W_e Hll^-1 W_e^T summed per camera by kernel 4 over the union's
+    camera plan, nine launches of nine rows (`_schur_diag_rows`), and a
+    camera block whose Schur inverse is not finite falls back to its Hpp
+    inverse.  The base apply is kernel 6, on a bfloat16 copy under `bf16`
+    (its bf16 arm with `fused_kernels`, `block_rows_apply_bf16` without);
+    NEUMANN is Horner's series over `s_matvec`, `neumann_order` S
+    products and base applies more an apply.  Returns (apply, the [L]
+    int32 fallback counts)."""
+    Minv = block_inv_rows(Hpp_rows)
+    n_bad = torch.zeros((cams.n_lanes,), dtype=torch.int32,
+                        device=Hpp_rows.device)
+    if block_kind == PreconditionerKind.SCHUR_DIAG:
+        cd = int(round(Hpp_rows.shape[0] ** 0.5))
+        pd = int(round(Hll_inv.shape[0] ** 0.5))
+        corr = _schur_diag_rows(Hll_inv, W, Jc, Jp, plans, compute_kind, cd,
+                                pd, Hpp_rows.dtype)
+        minv_sd = block_inv_rows(Hpp_rows - corr)
+        bad = ~torch.isfinite(minv_sd).all(0)
+        Minv = torch.where(bad[None, :], Minv, minv_sd)
+        n_bad = torch.clamp(cams.rows(bad).to(torch.int32).sum(1),
+                            max=FALLBACK_BLOCK_RADIX - 1).to(torch.int32)
+    if bf16:
+        M_bf16 = Minv.to(torch.bfloat16)
+        if fused_kernels:
+            def base_apply(r: torch.Tensor) -> torch.Tensor:
+                return fused.fused_block_diag_apply(M_bf16, r,
+                                                    bf16_operands=True)
+        else:
+            def base_apply(r: torch.Tensor) -> torch.Tensor:
+                return block_rows_apply_bf16(M_bf16, r)
+    else:
+        def base_apply(r: torch.Tensor) -> torch.Tensor:
+            return fused.fused_block_diag_apply(Minv, r)
+    if kind == PrecondKind.JACOBI:
+        return base_apply, n_bad
+
+    def neumann_apply(r: torch.Tensor) -> torch.Tensor:
+        z = base_apply(r)
+        for _ in range(int(neumann_order)):
+            z = z + base_apply(r - s_matvec(z))
+        return z
+
+    return neumann_apply, n_bad
 
 
 def lane_schur_pcg(system, Jc, Jp, plans, region, cams: Lanes, pts: Lanes,
                    live, max_iter, tol, refuse_ratio, tol_relative, x0=None,
                    guard=False, max_restarts=0,
                    compute_kind: ComputeKind = ComputeKind.IMPLICIT,
-                   fused_kernels: bool = False) -> LanePCG:
-    """The damped Schur solve of every live lane (`schur_pcg_solve` with
-    JACOBI on HPP), `region` [L]: S p = Hpp_d p - Hpl Hll_d^-1 Hlp p with
-    the coupling products of `make_coupling_matvecs` under
-    `compute_kind` and `fused_kernels` (EXPLICIT reads `system.W`; fused
-    needs the fused plans on `plans`) and the camera blocks' products by
-    kernel 6."""
+                   fused_kernels: bool = False, mixed_precision: bool = False,
+                   bf16: bool = False,
+                   precond: PrecondKind = PrecondKind.JACOBI,
+                   preconditioner: PreconditionerKind = PreconditionerKind.HPP,
+                   neumann_order: int = 2) -> LanePCG:
+    """The damped Schur solve of every live lane (`schur_pcg_solve`),
+    `region` [L]: S p = Hpp_d p - Hpl Hll_d^-1 Hlp p with the coupling
+    products of `make_coupling_matvecs` under `compute_kind` and
+    `fused_kernels` (EXPLICIT reads `system.W`; fused needs the fused
+    plans on `plans`) and the camera blocks' products by kernel 6.  The
+    precision rungs (`mixed_precision`, `bf16`) equilibrate first
+    (`lane_equilibrate`), run the coupling kernels in their mixed or bf16
+    arm on the bfloat16 rows, bring `x0` into the scaled variables and
+    unscale the solution; `bf16` runs the textbook body with a relative
+    `tol` floored at `_BF16_TOL_FLOOR`.  `precond` / `preconditioner`
+    pick M^-1 (`lane_preconditioner`)."""
     Hpp_rows = damp_rows(fused.block_diag_rows(system.Hpp),
                          cams.expand(region))
-    Hll_inv = block_inv_fm(damp_rows(system.Hll, pts.expand(region)))
-    Minv_rows = block_inv_rows(Hpp_rows)
-    hpl, hlp = make_coupling_matvecs(
-        Jc, Jp, plans.shards[0], compute_kind,
-        None if system.W is None else system.W[0], fused_kernels)
+    Hll_d = damp_rows(system.Hll, pts.expand(region))
+    g_cam, g_pt = system.g_cam, system.g_pt
+    W = None if system.W is None else system.W[0]
+    dual = plans.shards[0]
+    equil = mixed_precision or bf16
+    if equil:
+        (Hpp_rows, Hll_d, g_cam, g_pt, Jc, Jp, W, d_cam,
+         d_pt) = lane_equilibrate(Hpp_rows, Hll_d, g_cam, g_pt, Jc, Jp, W,
+                                  dual, compute_kind)
+    Hll_inv = block_inv_fm(Hll_d)
+    hpl, hlp = make_coupling_matvecs(Jc, Jp, dual, compute_kind, W,
+                                     fused_kernels, bf16)
 
     def s_matvec(p: torch.Tensor) -> torch.Tensor:
         t = block_matvec_fm(Hll_inv, hlp(p))
         return fused.fused_block_diag_apply(Hpp_rows, p) - hpl(t)
 
-    def precond(r: torch.Tensor) -> torch.Tensor:
-        return fused.fused_block_diag_apply(Minv_rows, r)
-
-    v = system.g_cam - hpl(block_matvec_fm(Hll_inv, system.g_pt))
+    precond_apply, fallback = lane_preconditioner(
+        precond, preconditioner, Hpp_rows, Hll_inv, W, Jc, Jp, dual,
+        compute_kind, cams, s_matvec, neumann_order, bf16, fused_kernels)
+    v = g_cam - hpl(block_matvec_fm(Hll_inv, g_pt))
+    if x0 is not None and equil:
+        x0 = x0 / d_cam
+    if bf16 and tol_relative:
+        tol = (torch.clamp(tol, min=_BF16_TOL_FLOOR)
+               if isinstance(tol, torch.Tensor) else max(tol, _BF16_TOL_FLOOR))
     x, iters, rho, r0_ratio, restarts, broken, k = _lane_pcg_core(
-        s_matvec, precond, v, cams, live, max_iter, tol, refuse_ratio,
-        tol_relative, x0=x0, guard=guard, max_restarts=max_restarts)
-    dx_pt = block_matvec_fm(Hll_inv, system.g_pt - hlp(x))
+        s_matvec, precond_apply, v, LaneSpace(cams), live, max_iter, tol,
+        refuse_ratio, tol_relative, x0=x0, guard=guard,
+        max_restarts=max_restarts, classic=bf16)
+    dx_pt = block_matvec_fm(Hll_inv, g_pt - hlp(x))
+    if equil:
+        x = x * d_cam
+        dx_pt = dx_pt * d_pt
     return LanePCG(dx_cam=x, dx_pt=dx_pt, iterations=iters, rho=rho,
+                   r0_ratio=r0_ratio, breakdowns=restarts, broken=broken,
+                   batch_iterations=k, precond_fallback=fallback)
+
+
+def lane_plain_pcg(system, Jc, Jp, plans, region, cams: Lanes, pts: Lanes,
+                   live, max_iter, tol, refuse_ratio, tol_relative, x0=None,
+                   guard=False, max_restarts=0,
+                   compute_kind: ComputeKind = ComputeKind.IMPLICIT
+                   ) -> LanePCG:
+    """The damped full-system solve of every live lane (`plain_pcg_solve`,
+    `use_schur=False`): CG over the (camera, point) pair (`LaneSpace` of
+    both), H x = (Hpp_d xc + Hpl xp, Hlp xc + Hll_d xp) with the coupling
+    products of `make_coupling_matvecs` and the camera blocks' product by
+    kernel 6; M^-1 the inverted damped block diagonal, the camera blocks
+    by `block_inv_rows` applied by kernel 6, the point blocks by
+    `block_inv_fm` / `block_matvec_fm`.  `x0` a (dx_cam, dx_pt) pair."""
+    Hpp_rows = damp_rows(fused.block_diag_rows(system.Hpp),
+                         cams.expand(region))
+    Hll_d = damp_rows(system.Hll, pts.expand(region))
+    Minv_c = block_inv_rows(Hpp_rows)
+    Minv_p = block_inv_fm(Hll_d)
+    hpl, hlp = make_coupling_matvecs(
+        Jc, Jp, plans.shards[0], compute_kind,
+        None if system.W is None else system.W[0])
+
+    def h_matvec(x):
+        xc, xp = x
+        return (fused.fused_block_diag_apply(Hpp_rows, xc) + hpl(xp),
+                hlp(xc) + block_matvec_fm(Hll_d, xp))
+
+    def precond(r):
+        rc, rp = r
+        return (fused.fused_block_diag_apply(Minv_c, rc),
+                block_matvec_fm(Minv_p, rp))
+
+    (xc, xp), iters, rho, r0_ratio, restarts, broken, k = _lane_pcg_core(
+        h_matvec, precond, (system.g_cam, system.g_pt), LaneSpace(cams, pts),
+        live, max_iter, tol, refuse_ratio, tol_relative, x0=x0, guard=guard,
+        max_restarts=max_restarts)
+    return LanePCG(dx_cam=xc, dx_pt=xp, iterations=iters, rho=rho,
                    r0_ratio=r0_ratio, breakdowns=restarts, broken=broken,
                    batch_iterations=k)
 
@@ -546,16 +866,16 @@ def lane_lm_solve(
                          "camera-sorted (serving.shape_class.pad_to_class)")
     compute_kind = option.compute_kind
     fused_kernels = solver_opt.fused_kernels
-    if fused_kernels or compute_kind == ComputeKind.EXPLICIT:
+    if fused_kernels or uses_seg_reduce(option):
         # A slot tile (kernel 4, the fused kernels) sums the segments that
         # start in it: tiles that never straddle two lanes keep each
         # lane's tables its own.  The ladder's edge buckets are multiples
         # of EDGE_QUANTUM.
         if n_edge % segtiles.SLOT_TILE:
             raise ValueError(
-                f"lane_lm_solve: EXPLICIT and fused_kernels need a bucket "
-                f"edge count that is a multiple of {segtiles.SLOT_TILE} "
-                f"(the slot tile), got {n_edge}")
+                f"lane_lm_solve: EXPLICIT, SCHUR_DIAG and fused_kernels need "
+                f"a bucket edge count that is a multiple of "
+                f"{segtiles.SLOT_TILE} (the slot tile), got {n_edge}")
     if fused_kernels:
         dual = fused.with_fused_plans(dual)
     plans = one_shard(dual)
@@ -653,7 +973,24 @@ def lane_lm_solve(
     third = full(1.0 / 3.0)
     eta_min, eta_max = full(solver_opt.eta_min), full(solver_opt.tol)
     eta = initial_forcing_eta(eta_min, eta_max) if forcing else eta_max
-    dx0 = torch.zeros_like(cameras_u) if warm_start else None
+    use_schur = option.use_schur
+    step_space = LaneSpace(cams) if use_schur else LaneSpace(cams, pts)
+    dx0 = None
+    if warm_start:
+        dx0 = torch.zeros_like(cameras_u)
+        if not use_schur:  # the plain solver warm-starts the pair
+            dx0 = (dx0, torch.zeros_like(points_u))
+    pcg_kw = dict(compute_kind=compute_kind, guard=guards,
+                  max_restarts=robust_opt.pcg_max_restarts if guards else 0)
+    if use_schur:
+        pcg_solve = lane_schur_pcg
+        pcg_kw.update(fused_kernels=fused_kernels,
+                      mixed_precision=option.mixed_precision_pcg,
+                      bf16=solver_opt.bf16, precond=solver_opt.precond,
+                      preconditioner=solver_opt.preconditioner,
+                      neumann_order=solver_opt.neumann_order)
+    else:
+        pcg_solve = lane_plain_pcg
     zeros_i = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
     stop = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
     fatal = torch.zeros_like(stop)
@@ -666,13 +1003,11 @@ def lane_lm_solve(
     k = 0
     while k < algo_opt.max_iter:
         live = ~stop
-        pcg = lane_schur_pcg(
+        pcg = pcg_solve(
             system, Jc, Jp, plans, region, cams, pts, live,
             solver_opt.max_iter, eta * eta if forcing else solver_opt.tol,
             solver_opt.refuse_ratio, forcing or solver_opt.tol_relative,
-            x0=dx0, guard=guards,
-            max_restarts=robust_opt.pcg_max_restarts if guards else 0,
-            compute_kind=compute_kind, fused_kernels=fused_kernels)
+            x0=dx0, **pcg_kw)
         batch_pcg.append(pcg.batch_iterations)
         dx_cam, dx_pt = pcg.dx_cam, pcg.dx_pt
         dx_norm = torch.sqrt(cams.sum(dx_cam * dx_cam)
@@ -705,8 +1040,9 @@ def lane_lm_solve(
             eta = torch.where(live, eta_n, eta)
         if warm_start:
             # A reject starts the next PCG cold (the solo loop's rule).
-            dx0 = torch.where(cams.expand(live), _where(
-                accept, dx_cam, torch.zeros_like(dx_cam), cams), dx0)
+            dx = dx_cam if use_schur else (dx_cam, dx_pt)
+            dx0 = step_space.where(live, step_space.where(
+                accept, dx, step_space.zeros_like(dx)), dx0)
 
         relin = accept | recover
         if bool(relin.any()):
@@ -750,7 +1086,9 @@ def lane_lm_solve(
         rows.append(torch.stack([
             cost_new, g_inf, region, rho, accept.to(tdtype),
             pcg.iterations.to(tdtype), eta_k, pcg.r0_ratio.to(tdtype),
-            recover.to(tdtype), pcg.breakdowns.to(tdtype)]))
+            recover.to(tdtype), pcg.breakdowns.to(tdtype),
+            (zeros_i if pcg.precond_fallback is None
+             else pcg.precond_fallback).to(tdtype)]))
         live_rows.append(live)
         region = torch.where(live, torch.where(accept, region_acc,
                                                region_rej), region)
@@ -768,7 +1106,8 @@ def lane_lm_solve(
     return LaneSolve(
         results=_lane_results(
             cameras_u, points_u, cost, cost0, region, v, stop, fatal,
-            accepted, iters, pcg_total, recoveries, dx0, rows, cams, pts,
+            accepted, iters, pcg_total, recoveries,
+            dx0 if use_schur or dx0 is None else dx0[0], rows, cams, pts,
             algo_opt.max_iter, tdtype, warm_start),
         cameras=cameras_u, points=points_u, lm_iterations=k, pcg_iterations=batch_pcg, linearizations=n_lin)
 
@@ -785,7 +1124,7 @@ def _lane_results(cameras_u, points_u, cost, cost0, region, v, stop, fatal,
                         iters.to(tdtype), pcg_total.to(tdtype),
                         recoveries.to(tdtype)]).cpu()
     trace_rows = (torch.stack(rows).cpu() if rows
-                  else torch.zeros((0, 10, n_lanes), dtype=tdtype))
+                  else torch.zeros((0, 11, n_lanes), dtype=tdtype))
     out = []
     for lane in range(n_lanes):
         c_sl = slice(lane * cams.n, (lane + 1) * cams.n)
@@ -804,6 +1143,7 @@ def _lane_results(cameras_u, points_u, cost, cost0, region, v, stop, fatal,
         trace.pcg_r0_ratio[:it] = t[:, 7]
         trace.recovery[:it] = t[:, 8] != 0
         trace.pcg_breakdown[:it] = t[:, 9].to(torch.int32)
+        trace.precond_fallback[:it] = t[:, 10].to(torch.int32)
         stopped, fatal_l = bool(st), bool(fa)
         out.append(LMResult(
             cameras=cameras_u[:, c_sl], points=points_u[:, p_sl],

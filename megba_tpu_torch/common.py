@@ -13,9 +13,9 @@ wins over it.
 `validate_options` raises the JAX package's `ValueError`s for the
 option combinations it refuses; every option value the JAX package
 accepts is implemented here (the last, `metrics`, arms the metrics plane
-of observability/).  Calls that run a subset of the options (the
-lane-batched fleet solve, `algo/lanes.check_lane_option`) refuse the
-rest themselves, with a `NotImplementedError` naming the option.
+of observability/).  The lane-batched fleet solve runs them all too, and
+raises for TWO_LEVEL / MULTILEVEL the `ValueError` the JAX package's
+vmapped bucket program raises (`algo/lanes.check_lane_option`).
 """
 
 from __future__ import annotations

@@ -129,8 +129,10 @@ def _strip_telemetry(option: ProblemOption
 
 
 def _check_option(option: ProblemOption) -> None:
-    from megba_tpu_torch.algo.lanes import check_lane_option
-
+    """The JAX package's serving checks: `validate_options` and one
+    device.  What its bucket program raises (`algo.lanes.
+    check_lane_option`) comes from the bucket program here too, so a
+    `FleetQueue` constructs and its futures carry the error."""
     validate_options(option)
     if option.world_size != 1:
         raise ValueError(
@@ -138,7 +140,6 @@ def _check_option(option: ProblemOption) -> None:
             "program; world_size must be 1 (got "
             f"{option.world_size}) — shard the FLEET across hosts, not "
             "one problem across devices")
-    check_lane_option(option)
 
 
 def _where(p: FleetProblem, index: int) -> str:

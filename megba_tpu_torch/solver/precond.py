@@ -195,22 +195,27 @@ def _schur_diag_rows(Hll_inv, W, Jc, Jp, plans: DualPlans,
     rows_of = coupling_row_provider(W, Jc, Jp, od, compute_kind, dtype,
                                     plans=plans)
     n = plans.cam.n_slots
-    w = rows_of(0, n)  # [cd*pd, n]
+    w = rows_of(0, n).view(cd, pd, n)
     # The point of each camera slot, and its Hll^-1 rows there.
     pt_of_slot = plans.pt.seg.long().index_select(0, plans.cam.inv)
-    hinv = Hll_inv.index_select(1, pt_of_slot)  # [pd*pd, n]
-    # t[a, q] = sum_p w[a, p] hinv[p, q]
-    t = [sum(w[a * pd + p] * hinv[p * pd + q] for p in range(pd))
-         for a in range(cd) for q in range(pd)]
-    del hinv
-    # corr[a, b] = sum_q t[a, q] w[b, q]; camera row a's nine rows are
-    # formed and summed per camera together, so only nine of the 81 edge
-    # rows exist at a time.
-    return torch.cat([
-        segtiles.seg_reduce(torch.stack([
-            sum(t[a * pd + q] * w[b * pd + q] for q in range(pd))
-            for b in range(cd)]), plans.cam)
-        for a in range(cd)])
+    hinv = Hll_inv.index_select(1, pt_of_slot).view(pd, pd, n)
+
+    def fold(terms: torch.Tensor) -> torch.Tensor:
+        """Sum over the second axis in index order."""
+        out = terms[:, 0]
+        for k in range(1, terms.shape[1]):
+            out = out + terms[:, k]
+        return out
+
+    # Camera row a: t[q] = sum_p w[a, p] hinv[p, q], then corr[a, b] =
+    # sum_q t[q] w[b, q], the nine rows formed and summed per camera
+    # together, so only nine of the 81 edge rows exist at a time.
+    rows = []
+    for a in range(cd):
+        t = fold((w[a][:, None, :] * hinv).transpose(0, 1))  # [pd(q), n]
+        rows.append(segtiles.seg_reduce(fold(t[None] * w).contiguous(),
+                                        plans.cam))
+    return torch.cat(rows)
 
 
 def _schur_diag_precond(

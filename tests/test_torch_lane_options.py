@@ -9,7 +9,8 @@ metrics plane on the solve entry points, against the JAX package.
   the port's fused kernels are held to JAX's unfused solve;
 - each path's lanes bitwise alone and batched, at another lane count;
 - the compile pool gives each path a program of its own;
-- the refusal messages of what the batch still refuses;
+- the options the batch once refused: each is accepted now, and
+  TWO_LEVEL / MULTILEVEL raise the JAX package's ValueError;
 - `solve_many` and `flat_solve` with `metrics=True` feed the same
   `megba_solve_*` / `megba_fleet_*` series values as JAX's, and give
   results bitwise equal to the unarmed run (the whole plane armed too).
@@ -232,20 +233,34 @@ def test_each_path_gets_its_own_program():
         solver_option=SolverOption(precond=PrecondKind.MULTILEVEL))),
 ])
 def test_still_refused_options_name_themselves(case, kw):
+    """The options the batch refused before it ran them: each batched one
+    passes the gate, solves and queues; TWO_LEVEL / MULTILEVEL raise the
+    JAX package's ValueError word for word (its `lm_solve`'s, which its
+    vmapped bucket program reaches without a cluster plan) from the gate
+    and `solve_many`, and from a future of a queue that constructs."""
     opt = dataclasses.replace(_opt("explicit"), **kw)
-    field = case.split(".")[-1]
-    value = getattr(opt.solver_option if "." in case else opt, field)
-    want = (f"{case}={value!r} is not ported to the lane-batched fleet "
-            "solve yet (megba_tpu_torch/algo/lanes.py): the batch runs "
-            "Schur PCG with JACOBI on HPP, IMPLICIT or EXPLICIT, with or "
-            "without fused_kernels; solve such a problem alone with "
-            "flat_solve")
+    precond = opt.solver_option.precond
+    if precond not in (PrecondKind.TWO_LEVEL, PrecondKind.MULTILEVEL):
+        check_lane_option(opt)
+        res = ts.solve_many(_fleet()[:1], opt)[0]
+        assert np.isfinite(float(res.cost)) and res.cost <= res.initial_cost
+        ts.FleetQueue(opt).close()
+        return
+    want = (f"SolverOption.precond={precond.name} needs a camera-cluster "
+            "plan operand: solve through flat_solve (which plans + caches "
+            "it) or pass cluster_plan=ops.segtiles.device_cluster_plan(...) "
+            "/ device_multilevel_plan(...)")
     for call in (lambda: check_lane_option(opt),
-                 lambda: ts.solve_many(_fleet()[:1], opt),
-                 lambda: ts.FleetQueue(opt)):
-        with pytest.raises(NotImplementedError) as got:
+                 lambda: ts.solve_many(_fleet()[:1], opt)):
+        with pytest.raises(ValueError) as got:
             call()
         assert str(got.value) == want
+    with ts.FleetQueue(opt) as q:
+        fut = q.submit(_fleet()[0])
+        q.flush()
+        with pytest.raises(ValueError) as got:
+            fut.result(timeout=60)
+    assert str(got.value) == want
 
 
 @pytest.mark.parametrize("path", list(PATHS))

@@ -11,9 +11,10 @@ against the JAX package's.
   starts;
 - faulted batches: the poisoned lane RECOVERED under guards as in JAX,
   its batch-mates bitwise equal to the closed-window control;
-- the refused options raise NotImplementedError, `world_size=2` JAX's
-  ValueError; the compile pool's manifests round-trip and name the
-  fields that drift;
+- every option the JAX package's fleet runs is accepted, TWO_LEVEL /
+  MULTILEVEL raise JAX's ValueError from `solve_many` and from a queue
+  future, `world_size=2` JAX's ValueError; the compile pool's manifests
+  round-trip and name the fields that drift;
 - no module of the serving slice imports jax.
 
 The JAX references compile one vmapped program per bucket (several
@@ -394,26 +395,33 @@ REFUSED = {
 }
 
 
-# Batched since EXPLICIT and the fused kernels run in the lane-batched
-# LM (tests/test_torch_lane_options.py holds them against JAX): their
-# cases now check the option is accepted.
-BATCHED = {"compute_kind", "fused_kernels"}
+# Every option the JAX package's fleet runs is batched
+# (tests/test_torch_lane_options.py, test_torch_lane_rungs.py and
+# test_torch_lane_precond.py hold them against JAX): their cases check
+# the option is accepted.  TWO_LEVEL / MULTILEVEL raise what JAX's
+# bucket program raises, a ValueError: from solve_many, and from the
+# future of a queue that constructs.
+BATCHED = set(REFUSED) - {"precond-TWO_LEVEL", "precond-MULTILEVEL"}
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refused_options_raise_not_implemented(case):
     opt = dataclasses.replace(OPT64, **REFUSED[case])
     p = _bal_fleet()[0]
-    name = case.split("-")[0]
     if case in BATCHED:
         res = ts.solve_many([p], opt)[0]
         assert np.isfinite(float(res.cost))
         ts.FleetQueue(opt).close()
         return
-    with pytest.raises(NotImplementedError, match=name):
+    kind = case.split("-")[1]
+    want = f"SolverOption.precond={kind} needs a camera-cluster plan operand"
+    with pytest.raises(ValueError, match=want):
         ts.solve_many([p], opt)
-    with pytest.raises(NotImplementedError, match=name):
-        ts.FleetQueue(opt)
+    with ts.FleetQueue(opt) as q:
+        fut = q.submit(p)
+        q.flush()
+        with pytest.raises(ValueError, match=want):
+            fut.result(timeout=60)
 
 
 def test_world_size_raises_jax_value_error():

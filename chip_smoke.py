@@ -191,8 +191,9 @@ exception ends the run with a non-zero exit code:
    and status, final cost within 1e-9, `pgo_expected_launches` summed
    over the chunks); pre-flight triage on a venice-sized scene with
    orphan, behind-camera and disconnected degeneracies (`TRIAGE_KNOBS`):
-   `triage_problem`'s host seconds and findings, REJECT raising
-   `ProblemRejected` with no launch and no device allocation, a REPAIR
+   REJECT raising `ProblemRejected` with no launch and no device
+   allocation (its triage phase's host seconds, its report's findings), a
+   REPAIR
    solve with the venice options under `VENICE_LM` (no recovery, no
    fallback, a finite cost below the initial), and a trafalgar-sized f64
    REPAIR solve
@@ -205,11 +206,13 @@ exception ends the run with a non-zero exit code:
    `FLEET_F32_RERUN` problems, f32, then on the option paths
    (`FLEET_OPTION_PATHS`: IMPLICIT mixed at f64, fused EXPLICIT mixed,
    fused IMPLICIT bf16 and IMPLICIT bf16 at f32, EXPLICIT SCHUR_DIAG,
-   IMPLICIT NEUMANN and the plain solver at f64) once each, under
-   torch.profiler, their LM / PCG totals and walls beside IMPLICIT's at
-   their dtype: per bucket its shape, lanes and problems, LM and PCG
-   counts, wall, device busy share (torch.profiler over one more run on
-   the coupling paths' f64 runs and IMPLICIT's f32 run) and launches of
+   IMPLICIT NEUMANN and the plain solver at f64) once each on the first
+   `FLEET_OPTION_N` problems, under torch.profiler, their LM / PCG totals
+   and walls beside IMPLICIT's at their dtype: per bucket its shape,
+   lanes and problems, LM and PCG counts, wall, device busy share of the
+   buckets of `FLEET_PROFILED_LANES` lanes and more (torch.profiler over
+   one more run on the coupling paths' f64 runs and IMPLICIT's f32 run)
+   and launches of
    every kernel of the path (1-3 and 6; EXPLICIT 4-5 for 3; fused 7 or
    8; a rung's arms and its 2 kernel-5 gathers a solve; SCHUR_DIAG's 9
    kernel-4 launches a solve), exactly what the lanes' traces imply
@@ -220,10 +223,11 @@ exception ends the run with a non-zero exit code:
    bitwise the unarmed run with equal launches, its series counting
    every problem and dispatch, its Chrome trace (one `solve_bucket` span
    a dispatch) and Prometheus text written under chiprun_out/.  The first
-   64 problems one by one through `flat_solve` and as one `solve_many`
-   (problems a second each, the latter with telemetry: 64 reports in
-   chiprun_out/fleet_reports.jsonl read back by the port's summarize,
-   --aggregate and --fleet); on each of the eleven paths the 64 under
+   `FLEET_SERIAL` problems one by one through `flat_solve` and as one
+   `solve_many` (problems a second each, the latter with telemetry: one
+   report a problem in chiprun_out/fleet_reports.jsonl read back by the
+   port's summarize, --aggregate and --fleet); on each of the eleven
+   paths the first 64 under
    `ProblemOption()`'s PCG with an LM cap of 4 through the kernels and
    through the plain versions (f64: trial costs at rtol 1e-9, equal
    counts, accepts, status and `precond_fallback` traces; the f32 rungs
@@ -242,7 +246,30 @@ exception ends the run with a non-zero exit code:
    option paths' arms there (`FLEET_ARM_ROWS`: 2 and 3 mixed64 and
    bf16, 7 bf16, 8 mixed, 6 bf16, 4 on the correction rows), with
    CUDA-event and device times, bounds and library calls, and kernel 5's
-   rows against `index_select` in ten alternating pairs by device time.
+   rows against `index_select` in ten alternating pairs by device time;
+13. federation (`serving/federation.py`, `worker.py`, `artifacts.py`,
+   `transport.py`): the parent exports artifacts (each bucket's built
+   kernel libraries) and a manifest from its own pool for the buckets of
+   phase 12's fleet at f64 under `ProblemOption()`; a `FleetRouter` of
+   two pipe workers whose package is a fresh copy of megba_tpu_torch/ (no
+   build/ beside it) on their PYTHONPATH warms from them (each hello:
+   mode "artifact", no build compiled, no nvcc at warm-up or in the first
+   solve; the warm seconds beside phase 1's build seconds); all 1,024
+   problems through `submit_many` / `flush`, bitwise phase 12's IMPLICIT
+   f64 results (cameras, points, cost, status, counts), every problem
+   counted to a worker, the workers' kernel launches (1-3 and 6) read
+   back, and again past the workers' first solves; 256 problems again
+   with one worker SIGKILLed at its second solve request after its first
+   reply: its problems reroute to the survivor (`worker_lost` 1,
+   `rerouted` >= 1, no future pending), bitwise; then two TCP workers
+   dialing a `ChaosTcpProxy` in front of a router under a seeded
+   `NetFaultPlan` (`FED_CHAOS`: a drop and a truncate at the first two
+   handshakes, more at random) on the first 64 problems under fused
+   EXPLICIT f64 (kernel 8 in the workers), bitwise phase 12's fused
+   EXPLICIT f64 results, each problem solved once (resends served by the
+   dedup cache), and again through a clean plan with no connection lost
+   or resent. The workers share the one card, so the walls are no scaling
+   number.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -4043,28 +4070,21 @@ def chunked_pgo(kept: dict) -> None:
 
 def triage_full_width(trafalgar_cfg: dict) -> None:
     """11.5: pre-flight triage on a venice-sized scene with degeneracies
-    (`TRIAGE_KNOBS`): the host seconds and findings of `triage_problem`;
-    REJECT raises ProblemRejected with no launch and no device
-    allocation; REPAIR solves with the venice f32 options, with no
+    (`TRIAGE_KNOBS`): REJECT raises ProblemRejected with no launch and no
+    device allocation, after the timer's triage phase alone (the host
+    seconds of triage; the findings from the exception's report); REPAIR
+    solves with the venice f32 options, with no
     recovery and no preconditioner fallback, to a finite cost below the
     initial; then a trafalgar-sized f64 REPAIR solve, kernels against
     plain versions under the f64 gates."""
     from megba_tpu_torch import (ProblemRejected, TriageAction, TriagePolicy,
                                  flat_solve, status_name)
-    from megba_tpu_torch.robustness.triage import triage_problem
     from megba_tpu_torch.utils.timing import PhaseTimer
 
     repair = TriagePolicy(on_degenerate=TriageAction.REPAIR)
     scene = make_scene(dict(VENICE, **TRIAGE_KNOBS), np.float32)
     arrays = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
               scene.pt_idx)
-    t = time.perf_counter()
-    outcome = triage_problem(*arrays, repair)
-    host = time.perf_counter() - t
-    log(f"durable triage: triage_problem {host:.3f} s on the host for "
-        f"{scene.obs.shape[0]} edges; findings {outcome.report.counts()}, "
-        f"{outcome.report.n_components} components; repair "
-        f"{outcome.repair.counters()}")
 
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -4085,8 +4105,11 @@ def triage_full_width(trafalgar_cfg: dict) -> None:
                              f"device memory {mem0} -> {mem1} bytes, "
                              f"phases {list(timer.totals)}")
     log(f"durable triage REJECT: ProblemRejected ({str(rejected)[:160]}) "
-        f"after the triage phase alone ({timer.totals['triage']:.3f} s), "
-        f"no launch, device memory unchanged at {mem0} bytes")
+        f"after the triage phase alone ({timer.totals['triage']:.3f} s on "
+        f"the host for {scene.obs.shape[0]} edges), no launch, device "
+        f"memory unchanged at {mem0} bytes; findings "
+        f"{rejected.report.counts()}, {rejected.report.n_components} "
+        "components")
 
     timer = PhaseTimer()
     reset_launch_counts()
@@ -4158,9 +4181,8 @@ def durable_phase(venice, trafalgar64, straight, pgo_kept) -> None:
 # `make_fleet` at seed 0.
 FLEET_N = 1024
 FLEET_SIZES = (128, 1024)
-# The first FLEET_SMALL problems: batched against serial, kernels against
-# plain (LM-capped at FLEET_LM_CAP, before the cost floor), the queue
-# under chaos and the telemetry.
+# The first FLEET_SMALL problems: kernels against plain (LM-capped at
+# FLEET_LM_CAP, before the cost floor) and the queue under chaos.
 FLEET_SMALL = 64
 FLEET_LM_CAP = 4
 # The bf16 rung's cap: its PCG stops at 1e-3 of the RHS energy, so each
@@ -4177,6 +4199,16 @@ FLEET_BITWISE = 2
 # problems only (their f64 runs take the whole fleet).
 FLEET_F32_RERUN = 64
 FLEET_REPORTS = ROOT / "chiprun_out" / "fleet_reports.jsonl"
+# torch.profiler traces only buckets of this many lanes and more (the
+# fleet's three 512-lane buckets, where most of its work is): each
+# profiled bucket costs seconds of the profiler's start, stop and event
+# reading, and the small ones are launch-bound anyway.
+FLEET_PROFILED_LANES = 512
+# The option paths (`FLEET_OPTION_PATHS`) run on the first problems of
+# the fleet (the coupling paths on all of them).
+FLEET_OPTION_N = 256
+# Problems solved one by one against their batch (12.2).
+FLEET_SERIAL = 32
 FLEET_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
                  "fused_block_diag_apply")
 # The lane-batched LM's coupling paths: name -> (ComputeKind name,
@@ -4368,8 +4400,9 @@ def record_buckets(profile: bool = False):
     launches per kernel and per arm, the kernel 4 launches SCHUR_DIAG's
     correction rows made (`lanes._schur_diag_rows` wrapped), its
     `LaneSolve`, and with `profile` its device busy share under
-    torch.profiler (device activity only).  Yields the list of
-    records."""
+    torch.profiler (device activity only) where the bucket has
+    `FLEET_PROFILED_LANES` lanes or more (None elsewhere).  Yields the
+    list of records."""
     from megba_tpu_torch.algo import lanes
 
     inner, inner_rows = lanes.lane_lm_solve, lanes._schur_diag_rows
@@ -4389,7 +4422,8 @@ def record_buckets(profile: bool = False):
         t_in = time.perf_counter()
         reset_launch_counts()
         correction[0] = 0
-        ctx = (prof_ctx(activities=[ProfilerActivity.CUDA]) if profile
+        traced = profile and args[2].shape[0] >= FLEET_PROFILED_LANES
+        ctx = (prof_ctx(activities=[ProfilerActivity.CUDA]) if traced
                else contextlib.nullcontext())
         with ctx as prof:
             t = time.perf_counter()
@@ -4397,7 +4431,7 @@ def record_buckets(profile: bool = False):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         busy = None
-        if profile:
+        if traced:
             busy = device_time_total(prof) / 1e6 / wall
         records.append(dict(solve=out, wall=wall, busy=busy,
                             overhead=time.perf_counter() - t_in - wall,
@@ -4483,8 +4517,9 @@ def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True,
     `FLEET_OPTION_PATHS`): per bucket its shape, lanes and real problems,
     LM and PCG counts, wall, launches (checked exact) and, with
     `profile`, from one more run under torch.profiler (bitwise the
-    first), the device's busy share; with `once` the one run is the
-    profiled one (its walls under the profiler); the fleet's wall,
+    first), the device's busy share of its buckets of
+    `FLEET_PROFILED_LANES` lanes and more; with `once` the one run is
+    the profiled one (its walls under the profiler); the fleet's wall,
     problems a second, peak memory, lane and edge fill.  Returns
     (results, launches summed over the buckets, records, wall)."""
     from megba_tpu_torch.serving import FleetStats
@@ -4501,7 +4536,8 @@ def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True,
     launches = check_bucket_launches(what, res, records, path)
     fleet_gate(what, res)
     busy = []
-    if profile and once:
+    if profile and once and any(rec["busy"] is not None
+                                for rec in records):
         busy = [rec["busy"] for rec in records]
         # The profiler's start, stop and event reading around each bucket
         # are not the fleet's work.
@@ -4520,7 +4556,8 @@ def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True,
                 raise AssertionError(f"{what}: the profiled run differs "
                                      f"from the first in {a.name}")
     for i, rec in enumerate(records):
-        share = "" if not busy else f", device busy {busy[i]:.1%}"
+        share = ("" if not busy or busy[i] is None
+                 else f", device busy {busy[i]:.1%}")
         log(f"{what} bucket {rec['bucket']}: {rec['lanes']} lanes, "
             f"{rec['real']} problems, {rec['lm']} LM iterations, "
             f"{rec['pcg']} PCG iterations (batch), wall {rec['wall']:.3f} s"
@@ -4548,7 +4585,7 @@ def fleet_serial(probs) -> None:
     telemetry, the reports of 12.5)."""
     from megba_tpu_torch import ProblemOption, flat_solve
 
-    small = probs[:FLEET_SMALL]
+    small = probs[:FLEET_SERIAL]
     opt = ProblemOption()
     flat_solve(*fleet_arrays(small[0]), opt, device=DEVICE)  # warm
     torch.cuda.synchronize()
@@ -4561,7 +4598,7 @@ def fleet_serial(probs) -> None:
     FLEET_REPORTS.unlink(missing_ok=True)
     tele = dataclasses.replace(opt, telemetry=str(FLEET_REPORTS))
     res, t_batch, _ = fleet_solve(small, tele)
-    fleet_gate("fleet batched 64", res)
+    fleet_gate(f"fleet batched {len(small)}", res)
     gaps = [abs(float(a.cost) - float(b.cost)) / abs(float(a.cost))
             for a, b in zip(serial, res)]
     log(f"fleet serial vs batched, {len(small)} problems under "
@@ -5205,11 +5242,13 @@ def expand_turns(rows: dict, cases: dict, name: str) -> None:
         f"faster in {won} of {EXPAND_TURN_PAIRS} pairs")
 
 
-def fleet_phase() -> dict:
+def fleet_phase(keep: dict) -> dict:
     """Phase 12: the fleet service (serving/, algo/lanes.py) on the card.
     Returns the kernel rows at the largest bucket's union, each with its
     launches from the full-size fleet run of its path (`FLEET_ROW_PATH`;
-    IMPLICIT's for kernels 1-3 and 6) and arm."""
+    IMPLICIT's for kernels 1-3 and 6) and arm; `keep` gets the f64
+    problems, their IMPLICIT results and wall, and their results on the
+    other coupling paths (phase 13's controls)."""
     t0 = time.perf_counter()
     probs64 = fleet_problems(FLEET_N, np.float64)
     probs32 = fleet_problems(FLEET_N, np.float32)
@@ -5217,12 +5256,15 @@ def fleet_phase() -> dict:
     launches = {}
     ref64, launches[64, "implicit"], ref_records, ref_wall = fleet_full(
         probs64, np.float64)
+    keep.update(probs=probs64, results=ref64, wall=ref_wall)
     steps = [time.perf_counter()]
     ref32, launches[32, "implicit"], _, ref32_wall = fleet_full(
         probs32, np.float32)
     steps.append(time.perf_counter())
     for path in list(FLEET_PATHS)[1:]:
-        launches[64, path] = fleet_full(probs64, np.float64, path)[1]
+        res64, launches[64, path] = fleet_full(probs64, np.float64,
+                                               path)[:2]
+        keep[path] = res64
         launches[32, path] = fleet_full(probs32[:FLEET_F32_RERUN],
                                         np.float32, path, profile=False)[1]
     steps.append(time.perf_counter())
@@ -5230,16 +5272,16 @@ def fleet_phase() -> dict:
     for path, (_, _, dtype, _, _) in FLEET_OPTION_PATHS.items():
         bits = np.dtype(dtype).itemsize * 8
         res, launches[bits, path], _, wall = fleet_full(
-            probs[bits], dtype, path, once=True)
-        ref, ref_w = refs[bits]
+            probs[bits][:FLEET_OPTION_N], dtype, path, once=True)
+        ref = refs[bits][0][:FLEET_OPTION_N]
         log(f"fleet {path} {np.dtype(dtype).name} against IMPLICIT's at "
-            f"{np.dtype(dtype).name}: LM iterations "
-            f"{sum(r.iterations for r in res)} against "
-            f"{sum(r.iterations for r in ref)}, PCG "
+            f"{np.dtype(dtype).name} on the first {FLEET_OPTION_N} "
+            f"problems: LM iterations {sum(r.iterations for r in res)} "
+            f"against {sum(r.iterations for r in ref)}, PCG "
             f"{sum(r.pcg_iterations for r in res)} against "
             f"{sum(r.pcg_iterations for r in ref)}, wall {wall:.3f} s "
-            f"(under the profiler, its own work taken out) against "
-            f"{ref_w:.3f} s")
+            "(its profiled buckets' profiler start, stop and event "
+            "reading taken out)")
     steps.append(time.perf_counter())
     fleet_armed(probs64, ref64, ref_records, ref_wall)
     steps.append(time.perf_counter())
@@ -5274,6 +5316,322 @@ def fleet_phase() -> dict:
         + ", ".join(f"{b - a:.1f}" for a, b in zip([t0] + steps, steps))
         + " s)")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the federation tier
+# ---------------------------------------------------------------------------
+
+FED_WORKERS = 2
+# Router batches of up to a whole bucket (the fleet's largest holds 512
+# problems): the dispatched (bucket, lanes) keys are the manifest's.
+FED_MAX_BATCH = 512
+FED_KILL = 256  # problems of the host-loss run
+FED_TCP = 64  # problems of the TCP runs (fused EXPLICIT f64)
+FED_TCP_MAX_BATCH = 16
+# Seeded faults per forwarded chunk: this seed drops the first chunk of
+# connection 0 and truncates that of connection 1 (each the register
+# frame of a worker: one drop and one truncate whatever the timing), and
+# draws more at random from there on.
+FED_CHAOS = dict(seed=21577, drop_rate=0.005, truncate_rate=0.005)
+
+
+def fed_bitwise(what: str, results, control) -> None:
+    """Each federated result bitwise its control's: cameras, points,
+    cost, status and counts."""
+    if len(results) != len(control):
+        raise AssertionError(f"{what}: {len(results)} results for "
+                             f"{len(control)} problems")
+    for r, c in zip(results, control):
+        same = (r.name == c.name
+                and r.cameras.tobytes() == c.cameras.tobytes()
+                and r.points.tobytes() == c.points.tobytes()
+                and np.asarray(r.cost).tobytes()
+                == np.asarray(c.cost).tobytes()
+                and (int(r.status), r.iterations, r.accepted,
+                     r.pcg_iterations)
+                == (int(c.status), c.iterations, c.accepted,
+                    c.pcg_iterations))
+        if not same:
+            raise AssertionError(f"{what}: {r.name} is not bitwise its "
+                                 f"control ({c.name}): cost {r.cost} "
+                                 f"against {c.cost}")
+
+
+def fed_worker_stats(router) -> dict:
+    """Each live worker's stats reply (problems solved, phases, kernel
+    launches of its process), pulled over the RPC."""
+    return {wid: w.request({"op": "stats"}, timeout_s=120.0)
+            for wid, w in router.workers.items() if w.alive}
+
+
+def fed_launches(stats: dict) -> dict:
+    out = {}
+    for reply in stats.values():
+        for k, v in reply["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def fed_check_launches(what: str, launches: dict, names) -> None:
+    missing = [n for n in names if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"{what}: the workers never launched "
+                             f"{missing} (launches {launches})")
+
+
+def federation_phase(kept: dict, build_s: float, smi: str) -> None:
+    """Phase 13: the federation tier on the card (module docstring)."""
+    import shutil
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    from megba_tpu_torch.ops import kernels
+    from megba_tpu_torch.ops.residuals import make_residual_jacobian_fn
+    from megba_tpu_torch.robustness.netfaults import (ChaosTcpProxy,
+                                                      NetFaultPlan)
+    from megba_tpu_torch.serving import (ArtifactStore, BucketLadder,
+                                         CompilePool, FleetRouter,
+                                         FleetStats)
+    from megba_tpu_torch.serving.batcher import _group_by_bucket
+
+    t0 = time.perf_counter()
+    probs, control, control_wall = (kept["probs"], kept["results"],
+                                    kept["wall"])
+    opt = fleet_option(np.float64)
+    tmp = Path(tempfile.mkdtemp(prefix="megba_fed_"))
+    try:
+        # 13.1: export from the parent's pool; workers of a fresh copy.
+        ladder = BucketLadder()
+        entries = [{"shape": sc.to_dict(),
+                    "lanes": ladder.bucket_lanes(len(items)),
+                    "cd": dims[0], "pd": dims[1], "od": dims[2],
+                    "factor": factor}
+                   for (sc, dims, factor), items in _group_by_bucket(
+                       probs, opt, ladder).items()]
+        engine = make_residual_jacobian_fn(mode=opt.jacobian_mode)
+        store = ArtifactStore(str(tmp / "store"))
+        pool = CompilePool(stats=FleetStats(), artifacts=store)
+        t = time.perf_counter()
+        pool.warm(engine, opt, entries, device=DEVICE)
+        written = pool.export_artifacts(engine, opt, device=DEVICE)
+        manifest = tmp / "manifest.json"
+        pool.save_manifest(str(manifest), option=opt)
+        size = sum(p.stat().st_size for p in Path(store.root).iterdir())
+        log(f"federation: exported {written} artifacts ({size / 2**20:.1f} "
+            f"MiB, {len(entries)} buckets) and the manifest in "
+            f"{time.perf_counter() - t:.2f} s")
+        if written != len(entries):
+            raise AssertionError(f"federation: {written} artifacts for "
+                                 f"{len(entries)} buckets")
+        copy = tmp / "pkg"
+        shutil.copytree(ROOT / "megba_tpu_torch", copy / "megba_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        if (copy / "build").exists():
+            raise AssertionError("federation: the copy has a build/")
+        t = time.perf_counter()
+        router = FleetRouter(opt, n_workers=FED_WORKERS,
+                             max_batch=FED_MAX_BATCH, artifacts=store.root,
+                             manifest=str(manifest), strict_manifest=True,
+                             worker_env={"PYTHONPATH": str(copy)})
+        up_s = time.perf_counter() - t
+        try:
+            cold = router.stats.as_dict()["cold_start"]
+            for wid, cs in sorted(cold.items()):
+                if not (cs["mode"] == "artifact"
+                        and cs["artifact_compiles"] == 0
+                        and cs["artifact_loads"] == len(entries)
+                        and cs["nvcc_builds"] == 0
+                        and cs["package"].startswith(str(copy))):
+                    raise AssertionError(f"federation: worker {wid} did not "
+                                         f"start cold from artifacts: {cs}")
+                log(f"federation: worker {wid} cold start from artifacts "
+                    f"{cs['warm_s']:.3f} s ({cs['artifact_loads']} loaded / "
+                    f"{cs['artifact_compiles']} compiled, "
+                    f"{cs['nvcc_builds']} nvcc builds; package "
+                    f"{cs['package']}) against the parent's build "
+                    f"{build_s:.1f} s; {smi}")
+            log(f"federation: {FED_WORKERS} pipe workers up in {up_s:.1f} s "
+                "(interpreter, torch, CUDA context, artifact warm-up)")
+
+            # 13.2: the whole fleet through the router, bitwise phase 12.
+            t = time.perf_counter()
+            futs = router.submit_many(probs)
+            router.flush()
+            wall = time.perf_counter() - t
+            results = [f.result(timeout=0) for f in futs]
+            fed_bitwise("federation fleet", results, control)
+            d = router.stats.as_dict()
+            if sum(d["problems_by_worker"].values()) != len(probs):
+                raise AssertionError(f"federation: problems by worker "
+                                     f"{d['problems_by_worker']}")
+            for wid, fs in d["first_solve"].items():
+                if fs["traces"] != 0:
+                    raise AssertionError(f"federation: worker {wid}'s first "
+                                         f"solve ran nvcc: {fs}")
+            launches = fed_launches(fed_worker_stats(router))
+            fed_check_launches("federation fleet", launches, FLEET_KERNELS)
+            log(f"federation fleet: {len(probs)} problems bitwise phase 12's "
+                f"IMPLICIT f64 results, wall {wall:.3f} s "
+                f"({len(probs) / wall:.1f} problems/s) against solve_many's "
+                f"{control_wall:.3f} s ({len(probs) / control_wall:.1f} "
+                f"problems/s; {wall / control_wall:.2f}x; the workers' first "
+                f"solves included), {d['steals']} steals "
+                f"({d['stolen_problems']} problems), by worker "
+                f"{d['problems_by_worker']}, first solves {d['first_solve']};"
+                f" workers' launches {launches}; {smi}")
+            # Again, each worker past its first solve (its first use of
+            # the kernels and of PyTorch's allocator in that process).
+            t = time.perf_counter()
+            futs = router.submit_many(probs)
+            router.flush()
+            warm_wall = time.perf_counter() - t
+            fed_bitwise("federation fleet again",
+                        [f.result(timeout=0) for f in futs], control)
+            d2 = router.stats.as_dict()
+            log(f"federation fleet again: bitwise, wall {warm_wall:.3f} s "
+                f"({len(probs) / warm_wall:.1f} problems/s; "
+                f"{warm_wall / control_wall:.2f}x solve_many's), "
+                f"{d2['steals'] - d['steals']} steals, by worker "
+                f"{d2['problems_by_worker']}; {smi}")
+
+            # 13.3: host loss: SIGKILL a worker at its second request.
+            kill_probs, kill_control = probs[:FED_KILL], control[:FED_KILL]
+            before = router.stats.as_dict()
+            state = {"replied": set(), "victim": None}
+            lock = threading.Lock()
+            for w in list(router.workers.values()):
+                inner = w.request
+
+                def request(msg, timeout_s=None, w=w, inner=inner):
+                    solve = msg.get("op") == "solve"
+                    with lock:
+                        kill = (solve and state["victim"] is None
+                                and w.worker_id in state["replied"])
+                        if kill:
+                            state["victim"] = w.worker_id
+                    if kill:
+                        w.proc.send_signal(signal.SIGKILL)
+                        w.proc.wait(timeout=60)
+                    reply = inner(msg, timeout_s)
+                    if solve:
+                        with lock:
+                            state["replied"].add(w.worker_id)
+                    return reply
+
+                w.request = request
+            t = time.perf_counter()
+            futs = router.submit_many(kill_probs)
+            router.flush()
+            wall = time.perf_counter() - t
+            pending = [f for f in futs if not f.done()]
+            if pending:
+                raise AssertionError(f"federation: {len(pending)} futures "
+                                     "pending after flush")
+            fed_bitwise("federation host loss",
+                        [f.result(timeout=0) for f in futs], kill_control)
+            d = router.stats.as_dict()
+            rerouted = d["reroutes"] - before["reroutes"]
+            if not (state["victim"] is not None and d["workers_lost"] == 1
+                    and rerouted >= 1):
+                raise AssertionError(
+                    f"federation: host loss victim {state['victim']}, "
+                    f"workers lost {d['workers_lost']}, rerouted "
+                    f"{rerouted}")
+            log(f"federation host loss: {FED_KILL} problems, worker "
+                f"{state['victim']} SIGKILLed after its first reply: "
+                f"{d['workers_lost']} lost, {rerouted} problems rerouted, "
+                f"bitwise, no future pending; wall {wall:.3f} s; by worker "
+                f"{d['problems_by_worker']}; {smi}")
+        finally:
+            router.close()
+
+        # 13.4: TCP workers behind the chaos proxy, fused EXPLICIT f64;
+        # the control is phase 12's fused EXPLICIT run of the fleet.
+        tcp_probs = probs[:FED_TCP]
+        topt = fleet_option(np.float64, "fused_explicit")
+        tcontrol = kept["fused_explicit"][:FED_TCP]
+        probe = socket.socket()
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+        probe.close()
+        with ChaosTcpProxy(f"127.0.0.1:{port}",
+                           NetFaultPlan(**FED_CHAOS)) as proxy:
+            t = time.perf_counter()
+            router = FleetRouter(topt, n_workers=FED_WORKERS,
+                                 max_batch=FED_TCP_MAX_BATCH,
+                                 transport="tcp", bind=f"127.0.0.1:{port}",
+                                 advertise=proxy.address,
+                                 token="chip-smoke")
+            up_s = time.perf_counter() - t
+            try:
+                counts = router.timer.counts
+                solved = 0
+                for run in ("seeded faults", "clean"):
+                    if run == "clean":
+                        # New connections take the clean plan: sever the
+                        # live ones and wait for both workers to re-dial.
+                        epochs = {w.worker_id: w._epoch
+                                  for w in router.workers.values()}
+                        proxy.plan = NetFaultPlan()
+                        proxy.partition()
+                        proxy.heal()
+                        deadline = time.perf_counter() + 60
+                        while any(w._epoch <= epochs[w.worker_id]
+                                  for w in router.workers.values()):
+                            if time.perf_counter() > deadline:
+                                raise AssertionError(
+                                    "federation: TCP workers did not "
+                                    "re-register after the partition")
+                            time.sleep(0.05)
+                    ev0 = {k: counts.get(f"transport_{k}", 0) for k in
+                           ("conn_lost", "resend", "reconnect")}
+                    t = time.perf_counter()
+                    futs = router.submit_many(tcp_probs)
+                    router.flush()
+                    wall = time.perf_counter() - t
+                    fed_bitwise(f"federation tcp {run}",
+                                [f.result(timeout=0) for f in futs],
+                                tcontrol)
+                    stats = fed_worker_stats(router)
+                    n = sum(r["stats"]["problems"] for r in stats.values())
+                    dedup = sum(r["phases"].get("transport_dedup_hit",
+                                                {}).get("calls", 0)
+                                for r in stats.values())
+                    ev = {k: counts.get(f"transport_{k}", 0) - v
+                          for k, v in ev0.items()}
+                    if n - solved != len(tcp_probs):
+                        raise AssertionError(
+                            f"federation tcp {run}: {n - solved} problems "
+                            f"solved for {len(tcp_probs)}")
+                    solved = n
+                    launches = fed_launches(stats)
+                    fed_check_launches(f"federation tcp {run}", launches,
+                                       ("jtj_grad_reduce",
+                                        "fused_coupling_apply",
+                                        "fused_block_diag_apply"))
+                    events = proxy.event_counts()
+                    if run == "clean" and (ev["conn_lost"] or ev["resend"]):
+                        raise AssertionError(
+                            f"federation tcp clean: connections lost or "
+                            f"resent {ev}")
+                    if run != "clean" and not (events.get("drop")
+                                               and events.get("truncate")):
+                        raise AssertionError(
+                            f"federation tcp: proxy events {events}")
+                    log(f"federation tcp {run}: {len(tcp_probs)} problems "
+                        f"fused EXPLICIT f64 bitwise phase 12's, each "
+                        f"solved once; wall {wall:.3f} s; "
+                        f"proxy events so far {events}; router {ev}; dedup "
+                        f"hits so far {dedup}; workers up in {up_s:.1f} s; "
+                        f"workers' launches {launches}; {smi}")
+            finally:
+                router.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"federation phase: {time.perf_counter() - t0:.1f} s; {smi}")
 
 
 class PhaseClock:
@@ -5365,8 +5723,11 @@ def main() -> int:
     clock.lap("pgo")
     durable_phase(venice, trafalgar64, straight, pgo_kept)
     clock.lap("durable")
-    rows.update(fleet_phase())
+    fleet_kept = {}
+    rows.update(fleet_phase(fleet_kept))
     clock.lap("fleet")
+    federation_phase(fleet_kept, clock.laps[0][1], smi)
+    clock.lap("federation")
     log(clock.summary())
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:

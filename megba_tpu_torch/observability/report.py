@@ -14,8 +14,11 @@ service's counters).  `python -m megba_tpu_torch.observability.summarize`
 renders them.  With telemetry off this module is never imported.
 
 `trace_id` / `span_id` are the active span's context when `MEGBA_TRACE`
-is armed (observability/spans.py), else None.  The port has no
-federation worker yet: `worker` is always None.
+is armed (observability/spans.py), else None; `worker` is the
+federation worker's id (`MEGBA_FEDERATION_WORKER`, set by
+serving/worker.py) or None outside a worker.  A federation router's
+lifetime line carries the `federation` block
+(`serving.federation.append_federation_report`).
 """
 
 from __future__ import annotations
@@ -84,8 +87,8 @@ def backend_topology(device=None) -> Dict[str, Any]:
 @dataclasses.dataclass
 class SolveReport:
     """One solve's telemetry record; `to_json` / `from_json` round-trip.
-    The fields are the JAX package's: `program_audit`, `elastic`,
-    `federation` and `tiles` stay None here."""
+    The fields are the JAX package's: `program_audit`, `elastic` and
+    `tiles` stay None here."""
 
     problem: Dict[str, Any]
     config: Dict[str, Any]
@@ -188,6 +191,7 @@ def build_report(option, result, phases: Dict[str, Any],
         health=health,
         trace_id=None if span_ctx is None else span_ctx["trace_id"],
         span_id=None if span_ctx is None else span_ctx["span_id"],
+        worker=os.environ.get("MEGBA_FEDERATION_WORKER") or None,
         created_unix=time.time(),
     )
 

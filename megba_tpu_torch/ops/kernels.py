@@ -27,6 +27,15 @@ named here once: `ARMS` maps (row dtype, vector dtype, bf16_operands)
 to the arm code the C entry points take, and `check_arm` validates a
 call's operands against it.
 
+`nvcc_builds()` counts the builds this process has started: what a
+cold replica pays before its first solve (the federation worker reports
+it where the JAX package reports retraces).  A replica warmed from an
+artifact store (serving/artifacts.py) pays none: `install_library`
+puts a library's bytes under its digest name in `BUILD_DIR` (temporary
+file, then `os.replace`, since two processes may install one library at
+once), and `recording_libraries` names the libraries a piece of code
+loads, for an exporter to store.
+
 Nothing here runs at import time: this module is imported on machines
 without `nvcc` or a card, where only the plain PyTorch versions run.
 A failed build raises; nothing falls back.
@@ -34,14 +43,16 @@ A failed build raises; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -57,6 +68,8 @@ _LIBS: Dict[Tuple[str, tuple], ctypes.CDLL] = {}
 # Compiler output (registers, shared memory, spills per kernel) of each
 # build, kept for chip_smoke.py to print.
 BUILD_LOGS: Dict[str, str] = {}
+_NVCC_BUILDS = 0  # guarded by _LOCK: nvcc processes this process started
+_RECORDERS: List[list] = []  # guarded by _LOCK: recording_libraries lists
 
 
 def listed_shapes(header: str, macro: str) -> Tuple[Tuple[int, ...], ...]:
@@ -83,7 +96,20 @@ def _define_flags(defines: tuple) -> list:
     return [f"-D{k}={v}" for k, v in defines]
 
 
-def _lib_path(name: str, defines: tuple = ()) -> Path:
+def sources_digest() -> str:
+    """A digest of every kernel source and shared header (csrc/*.cu,
+    csrc/*.cuh): two processes whose digests differ may build different
+    kernels."""
+    h = hashlib.blake2b(digest_size=8)
+    for path in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Where the library of csrc/<name>.cu with `defines` ((name, value)
+    pairs, sorted) lives: its digest name in `BUILD_DIR`."""
+    defines = tuple(defines)
     h = hashlib.blake2b(digest_size=8)
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
@@ -95,7 +121,7 @@ def _lib_path(name: str, defines: tuple = ()) -> Path:
 def _start_build(name: str, defines: tuple = ()):
     """Start nvcc for one source; returns (process, tmp_path, lib_path) or
     None when the library is already built."""
-    lib = _lib_path(name, defines)
+    lib = library_path(name, defines)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -104,6 +130,8 @@ def _start_build(name: str, defines: tuple = ()):
            str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    global _NVCC_BUILDS
+    _NVCC_BUILDS += 1
     return proc, tmp, lib
 
 
@@ -128,6 +156,45 @@ def build_all(names: Iterable[str]) -> None:
                 _finish_build(n, s)
 
 
+def nvcc_builds() -> int:
+    """How many nvcc builds this process has started."""
+    with _LOCK:
+        return _NVCC_BUILDS
+
+
+def install_library(name: str, defines: tuple, data: bytes) -> Path:
+    """Put a built library's bytes under its digest name in `BUILD_DIR`
+    (a temporary file of this process, then `os.replace`: a concurrent
+    installer or loader sees the whole file or none)."""
+    lib = library_path(name, tuple(defines))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=lib.name + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            fh.write(data)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@contextlib.contextmanager
+def recording_libraries():
+    """Yield a list that collects the (name, defines) key of every
+    library `load_library` hands out inside the block (built, loaded or
+    already loaded), in first-use order."""
+    seen: list = []
+    with _LOCK:
+        _RECORDERS.append(seen)
+    try:
+        yield seen
+    finally:
+        with _LOCK:
+            _RECORDERS.remove(seen)
+
+
 def load_library(name: str, signatures: dict,
                  defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
     """Build (once) and load csrc/<name>.cu, with the preprocessor
@@ -135,13 +202,16 @@ def load_library(name: str, signatures: dict,
     function to (restype, [argtypes])."""
     key = (name, tuple(sorted((defines or {}).items())))
     with _LOCK:
+        for seen in _RECORDERS:
+            if key not in seen:
+                seen.append(key)
         lib = _LIBS.get(key)
         if lib is not None:
             return lib
         started = _start_build(*key)
         if started is not None:
             _finish_build(name, started)
-        lib = ctypes.CDLL(str(_lib_path(*key)))
+        lib = ctypes.CDLL(str(library_path(*key)))
         for fn, (restype, argtypes) in signatures.items():
             f = getattr(lib, fn)
             f.restype = restype

@@ -10,8 +10,14 @@
 - Pre-flight triage (triage.py): host-side structural and geometric
   checks of a problem before any device work, with a REJECT / REPAIR /
   WARN policy (`flat_solve(..., triage=TriagePolicy(...))`).
+- Network fault injection (netfaults.py): `ChaosTcpProxy`, a seeded
+  in-process TCP proxy (drop, delay, truncate, reorder, partition) for
+  the federation transport.
+- Liveness (elastic.py): `HeartbeatBoard` and `RankState`, the heartbeat
+  files the federation's pipe workers beat.
 """
 
+from megba_tpu_torch.robustness.elastic import HeartbeatBoard, RankState
 from megba_tpu_torch.robustness.faults import (
     DispatchChaos,
     FaultPlan,
@@ -27,6 +33,7 @@ from megba_tpu_torch.robustness.harness import (
     run_to_completion,
     run_until_snapshot_then_kill,
 )
+from megba_tpu_torch.robustness.netfaults import ChaosTcpProxy, NetFaultPlan
 from megba_tpu_torch.robustness.triage import (
     CheckKind,
     Finding,
@@ -44,13 +51,17 @@ from megba_tpu_torch.robustness.triage import (
 )
 
 __all__ = [
+    "ChaosTcpProxy",
     "CheckKind",
     "DispatchChaos",
     "FaultPlan",
     "Finding",
     "HealthReport",
+    "HeartbeatBoard",
     "InjectedDispatchError",
+    "NetFaultPlan",
     "ProblemRejected",
+    "RankState",
     "TriageAction",
     "TriageOutcome",
     "TriagePolicy",

@@ -388,6 +388,11 @@ def _solve_bucket_inner(items, shape, option, engine, pool, stats, timer,
                 "attempts": attempts,
                 "stats": stats.as_dict(),
             }
+            # A federation worker (serving/worker.py) tags its reports, so
+            # a merged multi-worker stream stays attributable.
+            fed_worker = os.environ.get("MEGBA_FEDERATION_WORKER")
+            if fed_worker:
+                fleet["worker"] = fed_worker
             append_report(
                 build_report(report_option, res,
                              _phase_delta(phases_before, timer.as_dict()),

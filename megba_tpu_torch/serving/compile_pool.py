@@ -21,13 +21,18 @@ widths (`algo.lanes.prepare_kernels`: kernels 1-3 at (od, cd) and
   `lanes`, `cd`, `pd`, `od`, `factor`, `faulted`, `option_config`), and
   `ManifestMismatch` names the option fields that drifted.
 
-Serialized artifacts (`CompilePool(artifacts=...)`) are not ported: the
-JAX package's `serving/artifacts.py` stores XLA executables, and the
-port's counterpart comes with the federation slice.
+- `CompilePool(artifacts=...)` takes an `ArtifactStore` (serving/
+  artifacts.py) or its root path: `warm`, `warm_from_manifest` and a
+  `program` miss try the store before building (a load installs the
+  bucket's built kernel libraries, so the build runs no nvcc), and
+  `export_artifacts` fills it.  `FleetStats.artifact_loads` /
+  `artifact_compiles` and the timer's `artifact_load` / `warm_compile`
+  phases split a cold start as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -35,6 +40,7 @@ import threading
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from megba_tpu_torch.serving.artifacts import ArtifactKey, ArtifactStore
 from megba_tpu_torch.serving.shape_class import ShapeClass
 from megba_tpu_torch.utils.memo import normalized_lru_cache
 
@@ -102,6 +108,7 @@ def option_fingerprint(option) -> str:
 # this process (shared by every pool instance, as the JAX package's AOT
 # store is).
 _BUILT: Dict[Tuple, Any] = {}
+_FROM_ARTIFACT: set = set()  # keys of _BUILT that an artifact installed
 _LOCK = threading.Lock()
 
 
@@ -168,16 +175,55 @@ class CompilePool:
     """
 
     def __init__(self, stats=None, artifacts=None, timer=None) -> None:
-        if artifacts is not None:
-            raise NotImplementedError(
-                "CompilePool(artifacts=...) is not ported to megba_tpu_torch "
-                "yet: serialized bucket artifacts (serving/artifacts.py) "
-                "come with the federation slice of the port")
         self._stats = stats
         self._seen: Dict[Tuple, Dict[str, Any]] = {}
         self._lock = threading.Lock()
-        self.artifacts = None
+        # An ArtifactStore (or its root path) of built kernel libraries:
+        # warm() / program() try it before building; export_artifacts
+        # fills it.
+        if isinstance(artifacts, (str, os.PathLike)):
+            artifacts = ArtifactStore(str(artifacts))
+        self.artifacts: Optional[ArtifactStore] = artifacts
+        # utils.timing.PhaseTimer: artifact loads and builds land as the
+        # `artifact_load` / `warm_compile` phases.
         self._timer = timer
+
+    def _phase(self, name: str):
+        return (self._timer.phase(name) if self._timer is not None
+                else contextlib.nullcontext())
+
+    @staticmethod
+    def _artifact_key(option, shape: ShapeClass, lanes: int, cd: int,
+                      pd: int, od: int, faulted: bool,
+                      device) -> ArtifactKey:
+        from megba_tpu_torch.common import resolve_device
+
+        return ArtifactKey(
+            option_fingerprint=option_fingerprint(option), shape=str(shape),
+            lanes=int(lanes), cd=int(cd), pd=int(pd), od=int(od),
+            faulted=bool(faulted),
+            device=resolve_device(device, option).type)
+
+    def _try_artifact(self, key: Tuple, program, cd: int, pd: int, od: int,
+                      device) -> bool:
+        """Install the store's libraries of bucket `key` and prepare its
+        program from them (no nvcc); False when the store has no usable
+        artifact."""
+        if self.artifacts is None:
+            return False
+        option, shape, lanes, faulted = key[1], key[2], key[3], key[7]
+        akey = self._artifact_key(option, shape, lanes, cd, pd, od, faulted,
+                                  device)
+        with self._phase("artifact_load"):
+            if self.artifacts.load(akey) is None:
+                return False
+            program.prepare(cd, pd, od, device)
+        with _LOCK:
+            _BUILT.setdefault(key, program)
+            _FROM_ARTIFACT.add(key)
+        if self._stats is not None:
+            self._stats.record_artifact(True)
+        return True
 
     @staticmethod
     def _entry_engine(entry: Dict[str, Any], engine, option):
@@ -203,11 +249,16 @@ class CompilePool:
         self._note(key, shape, lanes, cd, pd, od, faulted, factor)
         with _LOCK:
             built = _BUILT.get(key)
+        program = batched_solve_program(engine, option, faulted)
+        if built is None and self._try_artifact(key, program, cd, pd, od,
+                                                device):
+            # A bucket this pool never warmed may be in the store: loading
+            # it builds nothing, so the request counts as a pool hit.
+            built = program
         if self._stats is not None:
             self._stats.record_pool(built is not None)
         if built is not None:
             return built
-        program = batched_solve_program(engine, option, faulted)
         program.prepare(cd, pd, od, device)
 
         def run(*args, **kwargs):
@@ -226,7 +277,10 @@ class CompilePool:
         """Build the given buckets (manifest-entry dicts: {"shape": {...},
         "lanes": n, "cd", "pd", "od", ["factor"], ["faulted"]}) for
         `device` (None: the option's); returns how many were built.
-        Buckets already built are skipped."""
+        Buckets already built are skipped.  With a store attached each
+        bucket first tries its artifact; a miss (or a stale or corrupt
+        artifact, which warns) builds, and the built libraries are saved
+        back so the store heals itself."""
         option = _sans_telemetry(option)
         built = 0
         for e in entries:
@@ -244,17 +298,78 @@ class CompilePool:
                 if key in _BUILT:
                     continue
             program = batched_solve_program(entry_engine, option, faulted)
-            timing = (self._timer.phase("warm_compile")
-                      if self._timer is not None else None)
-            if timing is None:
+            if self._try_artifact(key, program, cd, pd, od, device):
+                built += 1
+                continue
+            from megba_tpu_torch.ops import kernels
+
+            with self._phase("warm_compile"), \
+                    kernels.recording_libraries() as libs:
                 program.prepare(cd, pd, od, device)
-            else:
-                with timing:
-                    program.prepare(cd, pd, od, device)
             with _LOCK:
                 _BUILT.setdefault(key, program)
+            if self.artifacts is not None:
+                # The artifact counters describe the store's cold-start
+                # split: a store-less warm records none.
+                if self._stats is not None:
+                    self._stats.record_artifact(False)
+                try:
+                    self.artifacts.save(
+                        self._artifact_key(option, shape, lanes, cd, pd, od,
+                                           faulted, device), libs)
+                except Exception as exc:  # a read-only or full store
+                    from megba_tpu_torch.serving.artifacts import (
+                        ArtifactWarning,
+                    )
+
+                    warnings.warn(
+                        f"could not refresh artifact for {shape} "
+                        f"(lanes={lanes}): {exc!r}; the bucket is built "
+                        "in-process, the store keeps its stale entry",
+                        ArtifactWarning, stacklevel=2)
             built += 1
         return built
+
+    def export_artifacts(self, engine, option, compile_missing: bool = True,
+                         device=None) -> int:
+        """Store the built libraries of every bucket this pool has seen
+        for `option` on `device` (None: the option's); returns how many
+        artifacts were written.  Buckets the store installed are skipped
+        (it holds them already); a bucket not built in this process is
+        built here first unless `compile_missing` is False.  The
+        exporting service pairs this with `save_manifest`: the manifest
+        names the working set, the artifacts make warming it free of
+        nvcc."""
+        if self.artifacts is None:
+            raise ValueError("CompilePool has no ArtifactStore attached")
+        from megba_tpu_torch.ops import kernels
+
+        option = _sans_telemetry(option)
+        written = 0
+        for e in self.entries():
+            shape = ShapeClass.from_dict(e["shape"])
+            lanes = int(e["lanes"])
+            cd, pd, od = (int(e.get("cd", 9)), int(e.get("pd", 3)),
+                          int(e.get("od", 2)))
+            faulted = bool(e.get("faulted", False))
+            entry_engine = self._entry_engine(e, engine, option)
+            key = pool_key(entry_engine, option, shape, lanes, cd, pd, od,
+                           faulted)
+            with _LOCK:
+                from_artifact = key in _FROM_ARTIFACT
+                built = key in _BUILT
+            if from_artifact or not (built or compile_missing):
+                continue
+            program = batched_solve_program(entry_engine, option, faulted)
+            with kernels.recording_libraries() as libs:
+                program.prepare(cd, pd, od, device)
+            with _LOCK:
+                _BUILT.setdefault(key, program)
+            self.artifacts.save(
+                self._artifact_key(option, shape, lanes, cd, pd, od,
+                                   faulted, device), libs)
+            written += 1
+        return written
 
     # -- manifests -------------------------------------------------------
     def _note(self, key: Tuple, shape: ShapeClass, lanes: int, cd: int,
@@ -338,3 +453,4 @@ def reset_process_cache() -> None:
     state), for tests and benchmarks."""
     with _LOCK:
         _BUILT.clear()
+        _FROM_ARTIFACT.clear()

@@ -7,7 +7,7 @@ from the root of a checkout: builds the kernels (all sources together),
 prints the card's name and power limit, runs `chip_smoke.fleet_phase()`
 and prints its kernel rows as one JSON line.  A quick check of the
 serving layer, the lane-batched LM on its four coupling paths and the
-observability plane on the card without the script's other eleven
+observability plane on the card without the script's other twelve
 phases.
 """
 
@@ -41,7 +41,7 @@ def main() -> int:
     cs.log(f"build {time.perf_counter() - t:.1f} s")
     cs.log(cs.nvidia_smi_line())
     t = time.perf_counter()
-    rows = cs.fleet_phase()
+    rows = cs.fleet_phase({})
     cs.log(f"fleet phase alone {time.perf_counter() - t:.1f} s")
     cs.log(json.dumps({"kernels": list(rows.values())}))
     return 0

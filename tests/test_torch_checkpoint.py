@@ -20,6 +20,11 @@ from megba_tpu.utils import checkpoint as jck
 
 from megba_tpu_torch.utils import checkpoint as tck
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 
 def _state(seed=0):
     rng = np.random.default_rng(seed)

@@ -33,6 +33,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 import megba_tpu.common as jc
 from megba_tpu.algo.checkpointed import (
@@ -49,6 +50,11 @@ from megba_tpu_torch.utils.checkpoint import load_state
 
 from test_torch_guards import _options, compare_robust
 from test_torch_solve import _compare
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 EVERY = 4
 _COST = re.compile(r"^iter \d+: cost (\S+) ")

@@ -28,6 +28,11 @@ from megba_tpu.ops import segtiles as jseg
 import megba_tpu_torch as mt
 from megba_tpu_torch.ops import segtiles as tseg
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 _SCENES = {
     "expander": dict(num_cameras=20, num_points=150, obs_per_point=4,
                      seed=5),

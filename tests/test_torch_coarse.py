@@ -42,6 +42,11 @@ from megba_tpu_torch.solver import precond as tprecond
 
 from test_torch_plain_pcg import _carry
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 CD, PD = 9, 3
 TWO, MULTI = mt.PrecondKind.TWO_LEVEL, mt.PrecondKind.MULTILEVEL
 HPP = mt.PreconditionerKind.HPP

@@ -35,6 +35,11 @@ from megba_tpu_torch.solver.precond import decode_precond_fallback_levels
 
 from test_torch_guards import _jax_solve, _options, compare_robust
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 TWO, MULTI = mt.PrecondKind.TWO_LEVEL, mt.PrecondKind.MULTILEVEL
 _ML = dict(precond=MULTI, coarsen_factor=2.0, max_levels=4)
 _SMOOTH = dict(precond=TWO, smooth_omega=2 / 3)

@@ -18,6 +18,7 @@ CPU only.
 
 import numpy as np
 import pytest
+import torch
 
 import megba_tpu.common as jc
 from megba_tpu.ops import segtiles as jseg
@@ -29,6 +30,11 @@ from megba_tpu_torch.ops import segtiles as tseg
 
 from test_torch_guards import _jax_solve, _options, _scene
 from test_torch_guards import compare_robust
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 COOBS = dict(edge_order=mt.EdgeOrder.COOBS)
 

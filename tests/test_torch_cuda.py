@@ -18,6 +18,11 @@ import torch
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 
 def _segment_ids(seed, num_segments):
     """Ids with an empty segment, a one-edge segment and a long one,

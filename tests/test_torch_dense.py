@@ -27,6 +27,11 @@ from megba_tpu_torch.solver import dense as tdense
 
 from tests.test_solver import build_test_system
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 FLOOR = 1e-5  # solver/precond._COARSE_EIG_FLOOR
 
 

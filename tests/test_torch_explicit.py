@@ -43,6 +43,11 @@ from megba_tpu_torch.ops.residuals import (
     bal_residual_jacobian_analytical_fm as teng)
 from megba_tpu_torch.solver import pcg as tpcg
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 # The tolerances of tests/test_torch_segtiles.py: f32 a few ulps of the
 # segment's magnitude (another summation order), f64 reordering only.
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

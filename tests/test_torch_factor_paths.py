@@ -46,6 +46,11 @@ from test_torch_explicit import _jax_slots, _plans, _port_slots, _segment_ids
 from test_torch_factors import LM_CAP, _scene
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 FAMILIES = ["planar", "rig", "pinhole_radial", "pose_prior"]
 # path -> (ProblemOption fields, SolverOption fields, the port's
 # fused_kernels); both packages take the same fields otherwise.

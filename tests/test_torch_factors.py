@@ -67,6 +67,11 @@ from megba_tpu_torch.ops.residuals import make_residual_jacobian_fn
 
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 SCHUR = ["bal", "planar", "rig", "pinhole_radial", "pose_prior"]
 # LM iterations of the solve parities: the small scenes reach their cost
 # floor at the fourth, where an accept decision is rounding.

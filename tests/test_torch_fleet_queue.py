@@ -66,6 +66,11 @@ from megba_tpu_torch.serving import (
     solve_many,
 )
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 OPT64 = ProblemOption(dtype=np.float64, device=Device.CPU,
                       algo_option=AlgoOption(max_iter=6),
                       solver_option=SolverOption(max_iter=12, tol=1e-10))

@@ -42,6 +42,11 @@ from megba_tpu_torch.solver import pcg as tpcg
 from test_torch_fused_implicit import _spd_operator
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 INEXACT = dict(max_iter=100, tol=1e-1, refuse_ratio=1e30, forcing=True,
                warm_start=True)
 

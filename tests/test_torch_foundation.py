@@ -30,6 +30,11 @@ from megba_tpu_torch.io.bal import load_bal, loads_bal, save_bal
 from megba_tpu_torch.io.synthetic import make_synthetic_bal
 from megba_tpu_torch.ops.accum import comp_dot, comp_sum
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -27,6 +27,11 @@ from megba_tpu.ops import fused as jfused
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 
 def _graph(ne=500, ni=30, no=80, seed=1):
     """The JAX fused-kernel tests' graph: random in/out ids, ~10 % of

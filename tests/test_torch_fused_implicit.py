@@ -38,6 +38,11 @@ from megba_tpu_torch.solver import pcg as tpcg
 from test_torch_fused import _graph, _port_direction
 from test_torch_schur import _systems
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 IMPLICIT = mt.ComputeKind.IMPLICIT
 
 

@@ -23,6 +23,7 @@ import io
 import jax
 import numpy as np
 import pytest
+import torch
 
 import megba_tpu.common as jc
 from megba_tpu.factors.sim3 import make_synthetic_sim3_graph
@@ -34,6 +35,11 @@ from megba_tpu_torch.convert import g2o_graph_to_torch
 from megba_tpu_torch.io import g2o as tg2o
 
 from test_torch_pgo import _compare, _lines
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 _DIAG21 = " ".join("1" if i in (0, 6, 11, 15, 18, 20) else "0"
                    for i in range(21))

@@ -45,6 +45,11 @@ from megba_tpu_torch.solver import precond as tprecond
 
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 ROBUST_FIELDS = ("recovery", "pcg_breakdown", "precond_fallback")
 
 

@@ -18,6 +18,11 @@ from megba_tpu.ops.jet import seed_jets as j_seed_jets
 
 from megba_tpu_torch import Jet, seed_jets
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 N, n = 3, 40
 
 # name -> (jet op, the same function on tensors); x and y are the two

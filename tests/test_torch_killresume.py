@@ -13,6 +13,7 @@ import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from megba_tpu_torch.robustness.harness import (
     python_worker,
@@ -20,6 +21,11 @@ from megba_tpu_torch.robustness.harness import (
     run_until_snapshot_then_kill,
 )
 from megba_tpu_torch.utils.checkpoint import load_state
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 WORKER = str(Path(__file__).resolve().parents[1] / "scripts"
              / "torch_killresume_worker.py")

@@ -26,6 +26,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 import megba_tpu.serving as js
 from megba_tpu.common import (
@@ -54,6 +55,11 @@ from megba_tpu_torch.common import (
 )
 from megba_tpu_torch.observability import flight, metrics, spans
 from megba_tpu_torch.observability.trace import TRACE_FIELDS
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 LM_CAP = 4
 PATHS = {

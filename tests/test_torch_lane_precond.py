@@ -23,6 +23,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import megba_tpu.serving as js
 from megba_tpu.common import RobustOption as JRobustOption
@@ -39,6 +40,11 @@ from test_torch_lane_rungs import (
     jax_option,
     port_option,
 )
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 # name -> (compute kind, fused_kernels, ProblemOption fields, SolverOption
 # fields, AlgoOption fields), as test_torch_lane_rungs' cases.

@@ -31,6 +31,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 import megba_tpu.serving as js
 import megba_tpu.serving.compile_pool as j_pool
@@ -54,6 +55,11 @@ from megba_tpu_torch.common import (
     SolverOption,
 )
 from test_torch_lane_options import LM_CAP, _bits, _fleet, _to_jax
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 # name -> (compute kind, fused_kernels, ProblemOption fields, SolverOption
 # fields, AlgoOption fields); enums by name.

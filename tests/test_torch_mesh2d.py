@@ -57,6 +57,11 @@ from megba_tpu_torch.solver import pcg as tpcg
 
 from test_torch_guards import _args, _jax_solve, _options, compare_robust
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 TILE_FIELDS = ("perm", "mask", "cam_idx", "pt_idx", "cam_local",
                "bucket_slot", "bucket_ptl", "bucket_mask")
 TILE_SCALARS = ("num_cameras", "num_points", "edge_shards", "cam_blocks",

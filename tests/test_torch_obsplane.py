@@ -25,6 +25,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from megba_tpu.observability import flight as j_flight
 from megba_tpu.observability import metrics as j_metrics
@@ -36,6 +37,11 @@ from megba_tpu_torch import observability as obs
 from megba_tpu_torch.common import AlgoOption, Device, ProblemOption
 from megba_tpu_torch.observability import flight, metrics, spans
 from megba_tpu_torch.serving.stats import FleetStats
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNOBS = ("MEGBA_METRICS", "MEGBA_TRACE", "MEGBA_FLIGHT")

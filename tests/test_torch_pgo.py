@@ -25,6 +25,7 @@ import re
 import jax
 import numpy as np
 import pytest
+import torch
 
 import megba_tpu.common as jc
 from megba_tpu.factors.sim3 import (
@@ -36,6 +37,11 @@ from megba_tpu.ops.robust import RobustKind as JRobustKind
 import megba_tpu_torch as mt
 from megba_tpu_torch.factors.sim3 import make_synthetic_sim3_graph
 from megba_tpu_torch.models import pgo as tpgo
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 _ELAPSED = re.compile(r"elapsed [0-9.]+ ms")
 _COST = re.compile(r"cost (\S+) ")

@@ -37,6 +37,11 @@ from test_torch_guards import _args, _jax_solve, _options, _scene
 from test_torch_guards import compare_robust
 from test_torch_schur import _systems
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 
 def _carry(jsys, jJc, jJp, ci, pi):
     """The same numbers in the port's layout: cam-slot edge order, Jp in

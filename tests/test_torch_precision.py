@@ -49,6 +49,11 @@ from test_torch_fused import _graph, _port_direction
 from test_torch_fused_implicit import implicit_case
 from test_torch_schur import _systems, one
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 BF16 = torch.bfloat16
 F32_REL_TO_ABS_SUM = 1e-5
 ARMS = {"mixed": False, "bf16": True}  # arm -> bf16_operands

@@ -38,6 +38,11 @@ from test_torch_guards import _args, _jax_solve, _options, _scene
 from test_torch_guards import compare_robust
 from test_torch_plain_pcg import _carried
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 IMPLICIT, EXPLICIT = mt.ComputeKind.IMPLICIT, mt.ComputeKind.EXPLICIT
 
 

@@ -33,6 +33,11 @@ from megba_tpu_torch.ops import geo as tgeo
 
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 # One scene for every solve; the options stop before the cost floor.
 SCENE = dict(num_cameras=5, num_points=30, obs_per_point=3, seed=4,
              param_noise=4e-2, pixel_noise=0.2)

@@ -47,6 +47,11 @@ from megba_tpu_torch.observability.trace import (
 )
 from megba_tpu_torch.utils.meminfo import device_memory_stats
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 OPT = ProblemOption(device=Device.CPU, algo_option=AlgoOption(max_iter=3))
 JOPT = JProblemOption(algo_option=JAlgoOption(max_iter=3))
 

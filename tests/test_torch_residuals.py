@@ -23,6 +23,11 @@ from megba_tpu_torch.ops.residuals import (
     bal_residual_jacobian_analytical_fm,
 )
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 
 def _edges(seed, small_angle=False):
     s = make_synthetic_bal(num_cameras=7, num_points=60, obs_per_point=3,

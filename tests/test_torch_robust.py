@@ -29,6 +29,11 @@ import megba_tpu_torch as mt
 
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 KINDS = ["NONE", "HUBER", "CAUCHY"]
 
 

@@ -30,6 +30,11 @@ from megba_tpu_torch.ops.residuals import (
 from megba_tpu_torch.solver import pcg as tpcg
 from megba_tpu_torch.solver import precond as tprecond
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 
 def _scene(seed, fixed):
     """A scene with one unobserved camera and point appended (empty

@@ -38,6 +38,11 @@ from hypothesis import strategies as st
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 KBLOCK = 256  # csrc/segreduce.cuh kBlock
 WARPS = KBLOCK // 32
 WINDOWS = 8  # csrc/segsum.cu kSegWindows: tiles a block walks

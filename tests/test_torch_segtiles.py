@@ -32,6 +32,11 @@ from megba_tpu.ops import segtiles as jseg
 
 from megba_tpu_torch.ops import segtiles as tseg
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 # f32: the interpret-mode kernels sum each segment in another order than
 # index_add_, so outputs agree to a few ulps of the segment's magnitude.
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

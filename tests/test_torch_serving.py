@@ -68,6 +68,11 @@ from megba_tpu_torch.serving.compile_pool import (
     reset_process_cache,
 )
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 LM_CAP = 4  # the small scenes reach their cost floor later
 OPT64 = ProblemOption(dtype=np.float64, device=Device.CPU,
                       algo_option=AlgoOption(max_iter=LM_CAP))
@@ -504,8 +509,14 @@ def test_manifest_mismatch_names_fields(tmp_path):
     # Telemetry is not drift.
     pool.warm_from_manifest(path, engine, dataclasses.replace(
         OPT64, telemetry="t.jsonl"), strict=True)
-    with pytest.raises(NotImplementedError, match="artifacts"):
-        CompilePool(artifacts=str(tmp_path))
+    # An artifact store is taken, by path too (serving/artifacts.py), and
+    # the strict warm from the matching manifest builds from it.
+    from megba_tpu_torch.serving import ArtifactStore
+
+    stored = CompilePool(artifacts=str(tmp_path / "store"))
+    assert isinstance(stored.artifacts, ArtifactStore)
+    assert stored.artifacts.root == str(tmp_path / "store")
+    stored.warm_from_manifest(path, engine, OPT64, strict=True)
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps({"schema": "x"}))
     with pytest.raises(ValueError, match="not a fleet warmup manifest"):

@@ -43,6 +43,11 @@ from megba_tpu_torch.ops import segtiles as tseg
 
 from test_torch_guards import _args, _jax_solve, _options, compare_robust
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 TWO, MULTI = mt.PrecondKind.TWO_LEVEL, mt.PrecondKind.MULTILEVEL
 
 

@@ -50,6 +50,11 @@ from megba_tpu_torch.parallel import mesh as tmesh
 from test_torch_guards import (_args, _jax_solve, _nan_plan, _options,
                                _scene, compare_robust)
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 
 # ---------------------------------------------------------------- collectives
 

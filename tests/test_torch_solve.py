@@ -26,6 +26,11 @@ from megba_tpu.solve import solve_bal as j_solve_bal
 import megba_tpu_torch as mt
 from megba_tpu_torch.convert import result_to_numpy, to_torch
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

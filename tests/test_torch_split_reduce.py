@@ -28,6 +28,11 @@ from megba_tpu_torch.io.synthetic import heavy_tailed_graph, long_camera_idx
 from megba_tpu_torch.ops import fused as tfused
 from megba_tpu_torch.ops import segtiles as tseg
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 C = tseg.SPLIT_CHUNK
 A = tseg.SPLIT_ABOVE
 

@@ -37,6 +37,11 @@ from megba_tpu_torch.utils.timing import PhaseTimer
 from test_torch_guards import _options
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 REPAIR = dict(on_degenerate="REPAIR")
 
 

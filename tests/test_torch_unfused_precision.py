@@ -68,6 +68,11 @@ from test_torch_segtiles import (_inputs, _jax_slots, _plans, _port_slots,
                                  _segment_ids)
 from test_torch_solve import _compare
 
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
+
 BF16 = torch.bfloat16
 F32_REL_TO_ABS_SUM = 1e-5
 F64_TOL = dict(rtol=1e-12, atol=1e-12)

@@ -23,6 +23,12 @@ from megba_tpu.solve import flat_solve as j_flat_solve
 from megba_tpu.utils.curves import parse_verbose_curve
 
 import megba_tpu_torch as mt
+import torch
+
+# One intra-op thread: the suite runs several test processes a core,
+# and the port's small operations lose more to thread hand-offs
+# than they gain.
+torch.set_num_threads(1)
 
 _ELAPSED = re.compile(r"elapsed [0-9.]+ ms")
 _COST_LOG10 = re.compile(r"cost (\S+) log10 (\S+) ")

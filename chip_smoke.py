@@ -211,7 +211,8 @@ exception ends the run with a non-zero exit code:
    and walls beside IMPLICIT's at their dtype: per bucket its shape,
    lanes and problems, LM and PCG counts, wall, device busy share of the
    buckets of `FLEET_PROFILED_LANES` lanes and more (torch.profiler over
-   one more run on the coupling paths' f64 runs and IMPLICIT's f32 run)
+   one more run of IMPLICIT's f64 and f32 runs; the other coupling paths'
+   one f64 run is the profiled one, its profiler overhead taken out)
    and launches of
    every kernel of the path (1-3 and 6; EXPLICIT 4-5 for 3; fused 7 or
    8; a rung's arms and its 2 kernel-5 gathers a solve; SCHUR_DIAG's 9
@@ -269,7 +270,30 @@ exception ends the run with a non-zero exit code:
    EXPLICIT f64 results, each problem solved once (resends served by the
    dedup cache), and again through a clean plan with no connection lost
    or resent. The workers share the one card, so the walls are no scaling
-   number.
+   number;
+14. host tools: the native host library (megba_tpu_torch/native/, g++)
+   must build or load, and its seconds are logged; the venice scene is
+   written once with `io.bal.save_bal` and parsed natively and by the
+   NumPy tokenizer (both times logged, all five arrays equal); the six
+   BAL CLIs of megba_tpu_torch/examples/ run on that file with
+   `HOST_CLI_ARGS` through `main(argv)` on the card, each final cost
+   bitwise an in-process `flat_solve` of the parsed arrays (the native
+   parser's, which must equal the NumPy tokenizer's) with the CLI's
+   options, and launches exactly what phase 7's IMPLICIT or EXPLICIT
+   path implies (`expected_launches`), and `HOST_CLI_SUBPROCESS` once
+   more as a real subprocess, bitwise (the NumPy parse, on a thread,
+   and the subprocess overlap the in-process CLIs);
+   planar_demo.py at its defaults the same way; the host plan cache
+   (ops/segtiles.cached_*): venice IMPLICIT f32 on a cleared cache and
+   again warm (`plan_cache_hit`, bitwise: trace, cameras, points; the
+   "plan" seconds of both and the cache's bytes on the card), locality
+   TWO_LEVEL the same way (`cluster_plan_cache_hit`, both
+   `coarse_plan_seconds`), and phase 11's chunked venice re-lowering per
+   chunk beside the parent's 4.659 s; one trafalgar-sized solve under
+   `utils.timing.trace_profile`, whose trace must name kernels 1-3 and
+   the PhaseTimer ranges.  Every phase's lap line counts the plan-cache
+   hits and misses inside it: a phase with hits re-solved a graph it had
+   planned, and its walls hold those lookups in place of planning.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -3899,10 +3923,11 @@ def trial_gate(what: str, a, b) -> float:
     return gap
 
 
-def chunked_venice(venice, straight) -> None:
+def chunked_venice(venice, straight) -> list:
     """11.1: venice f32 IMPLICIT through `solve_checkpointed` in chunks of
     `CHUNK_BA`, against phase 7's straight IMPLICIT run (`straight`: its
-    launch counts, result and wall).  Each chunk starts with one
+    launch counts, result and wall).  Returns each chunk's re-lowering
+    (`relowering_of`) for phase 14.  Each chunk starts with one
     linearisation at the carried parameters (algo/lm.py's pre-loop
     `linearize`), so kernel 1 launches twice more a chunk boundary and
     kernels 2-3 as often as straight; the launches must also be
@@ -3946,6 +3971,7 @@ def chunked_venice(venice, straight) -> None:
         f"{boundary['jtj_grad_reduce']} of kernel 1 (one linearisation a "
         f"chunk boundary)")
     log("durable venice chunks: " + chunk_words(chunks, saves))
+    return relowering_of(chunks)
 
 
 def chunked_f64(scene) -> None:
@@ -3986,32 +4012,53 @@ def chunked_f64(scene) -> None:
 
 def killresume_on_card() -> None:
     """11.3: the kill-resume worker on cuda:0 (trafalgar-sized f64, 8 LM
-    in chunks of 2): one uninterrupted run, then a run SIGKILLed once its
-    first snapshot lands and resumed; the results bitwise equal."""
+    in chunks of 2): one uninterrupted run and, beside it, a run
+    SIGKILLed once its first snapshot lands and resumed; the results
+    bitwise equal."""
     import tempfile
 
     from megba_tpu_torch.robustness.harness import (
         python_worker, run_to_completion, run_until_snapshot_then_kill)
     from megba_tpu_torch.utils.checkpoint import load_state
 
+    import threading
+
     args = KILL_ARGS
     with tempfile.TemporaryDirectory() as tmp:
         ck_a, out_a = f"{tmp}/a.npz", f"{tmp}/a_result.npz"
         ck_b, out_b = f"{tmp}/b.npz", f"{tmp}/b_result.npz"
-        t = time.perf_counter()
-        run_to_completion(python_worker(str(KILL_WORKER), ck_a, out_a,
-                                        *args), timeout=300)
-        t_ref = time.perf_counter() - t
-        argv = python_worker(str(KILL_WORKER), ck_b, out_b, *args)
-        t = time.perf_counter()
-        rc = run_until_snapshot_then_kill(argv, ck_b, timeout=300)
-        t_kill = time.perf_counter() - t
-        at = int(load_state(ck_b)["iteration"])
-        if rc == 0 or Path(out_b).exists():
-            raise AssertionError("durable kill: the worker was not killed")
-        t = time.perf_counter()
-        run_to_completion(argv, timeout=300)
-        t_resume = time.perf_counter() - t
+        ref = {}
+
+        def reference() -> None:
+            # The uninterrupted run, beside the killed one and its resume
+            # (a process each on the one card).
+            t0 = time.perf_counter()
+            try:
+                run_to_completion(python_worker(str(KILL_WORKER), ck_a,
+                                                out_a, *args), timeout=300)
+            except Exception as e:  # re-raised below
+                ref["error"] = e
+            ref["seconds"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=reference)
+        thread.start()
+        try:
+            argv = python_worker(str(KILL_WORKER), ck_b, out_b, *args)
+            t = time.perf_counter()
+            rc = run_until_snapshot_then_kill(argv, ck_b, timeout=300)
+            t_kill = time.perf_counter() - t
+            at = int(load_state(ck_b)["iteration"])
+            if rc == 0 or Path(out_b).exists():
+                raise AssertionError("durable kill: the worker was not "
+                                     "killed")
+            t = time.perf_counter()
+            run_to_completion(argv, timeout=300)
+            t_resume = time.perf_counter() - t
+        finally:
+            thread.join()
+        if "error" in ref:
+            raise ref["error"]
+        t_ref = ref["seconds"]
         with np.load(out_a) as za, np.load(out_b) as zb:
             a = {k: za[k] for k in za.files}
             b = {k: zb[k] for k in zb.files}
@@ -4020,7 +4067,8 @@ def killresume_on_card() -> None:
     if set(a) != set(b) or differ:
         raise AssertionError(f"durable kill: killed + resumed differs from "
                              f"the uninterrupted run in {differ}")
-    log(f"durable kill-resume on cuda:0: reference run {t_ref:.1f} s, "
+    log(f"durable kill-resume on cuda:0: reference run {t_ref:.1f} s "
+        f"(beside the killed run and its resume), "
         f"SIGKILL (rc {rc}) {t_kill:.1f} s after start with the snapshot "
         f"at iteration {at}, resume {t_resume:.1f} s; {int(a['iterations'])} "
         f"LM ({int(a['accepted'])} accepted), cost {float(a['cost']):.10e}; "
@@ -4151,12 +4199,13 @@ def triage_full_width(trafalgar_cfg: dict) -> None:
         f"costs kernels vs plain {gap:.3e}, the same counts and status")
 
 
-def durable_phase(venice, trafalgar64, straight, pgo_kept) -> None:
+def durable_phase(venice, trafalgar64, straight, pgo_kept) -> list:
     """Phase 11: the chunked drivers, the kill-resume and pre-flight
-    triage on the card."""
+    triage on the card.  Returns the chunked venice run's re-lowering
+    per chunk."""
     t0 = time.perf_counter()
     steps = [t0]
-    chunked_venice(venice, straight)
+    chunked = chunked_venice(venice, straight)
     steps.append(time.perf_counter())
     chunked_f64(trafalgar64)
     steps.append(time.perf_counter())
@@ -4170,6 +4219,7 @@ def durable_phase(venice, trafalgar64, straight, pgo_kept) -> None:
         "gates, kill-resume, chunked pose graph, triage: "
         + ", ".join(f"{b - a:.1f}" for a, b in zip(steps, steps[1:]))
         + " s)")
+    return chunked
 
 
 # ---------------------------------------------------------------------------
@@ -5262,8 +5312,10 @@ def fleet_phase(keep: dict) -> dict:
         probs32, np.float32)
     steps.append(time.perf_counter())
     for path in list(FLEET_PATHS)[1:]:
+        # The one f64 run of each other coupling path is its profiled one
+        # (a depth cut: PERF.md section 4).
         res64, launches[64, path] = fleet_full(probs64, np.float64,
-                                               path)[:2]
+                                               path, once=True)[:2]
         keep[path] = res64
         launches[32, path] = fleet_full(probs32[:FLEET_F32_RERUN],
                                         np.float32, path, profile=False)[1]
@@ -5634,19 +5686,444 @@ def federation_phase(kept: dict, build_s: float, smi: str) -> None:
     log(f"federation phase: {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the host tools
+# ---------------------------------------------------------------------------
+
+# The BAL CLIs (megba_tpu_torch/examples/): their dtype, Jacobian mode,
+# compute kind (examples/README.md's table) and the phase-7 path whose
+# launches they must make; one of them also runs as a real subprocess.
+HOST_CLIS = {
+    "BAL_Double": (np.float64, "AUTODIFF", "EXPLICIT", "explicit"),
+    "BAL_Float": (np.float32, "AUTODIFF", "EXPLICIT", "explicit"),
+    "BAL_Double_analytical": (np.float64, "ANALYTICAL", "EXPLICIT",
+                              "explicit"),
+    "BAL_Float_analytical": (np.float32, "ANALYTICAL", "EXPLICIT",
+                             "explicit"),
+    "BAL_Double_implicit": (np.float64, "AUTODIFF", "IMPLICIT", "implicit"),
+    "BAL_Double_analytical_implicit": (np.float64, "ANALYTICAL", "IMPLICIT",
+                                       "implicit"),
+}
+HOST_CLI_SUBPROCESS = "BAL_Double_implicit"
+HOST_CLI_ARGS = ("--max_iter", "3")
+PLANAR_ARGS = ()  # planar_demo.py at its defaults
+# The chunked venice run's re-lowering before the plan cache (PERF.md
+# section 5: phase 11 on an NVIDIA H100 80GB HBM3 at 700.00 W).
+RELOWERING_BEFORE_S = 4.659
+# Kernels 1-3 by the names of their CUDA kernels in a profiler trace:
+# the reductions' row functors (csrc/segtiles.cu) and kernel 2's kernel.
+TRACE_KERNELS = {"jtj_grad_reduce": "JtjRows",
+                 "coupling_expand": "expand_matvec",
+                 "coupling_reduce": "JtuRows"}
+_FINAL_COST = "final cost: "
+
+
+def plan_cache_words(before: dict) -> str:
+    """The plan cache's hits, misses and evictions since `before`
+    (`segtiles.plan_cache_counts()`), for the log."""
+    from megba_tpu_torch.ops import segtiles
+
+    now = segtiles.plan_cache_counts()
+    return ", ".join(f"{now[k] - before[k]} {k}" for k in now)
+
+
+def relowering_of(chunks) -> list:
+    """Each chunk's re-lowering seconds (the timer's "lowering", "sort",
+    "plan" and "coarse_plan") and whether its plans were a cache hit."""
+    out = []
+    for c in chunks:
+        tot = c["timer"].totals
+        out.append((sum(tot.get(k, 0.0) for k in
+                        ("lowering", "sort", "plan", "coarse_plan")),
+                    tot.get("lowering", 0.0), tot.get("plan", 0.0),
+                    bool(c["timer"].counts.get("plan_cache_hit"))))
+    return out
+
+
+class NumpyParse:
+    """The NumPy tokenizer's parse of a BAL file (`np.fromfile`, which
+    releases the interpreter lock, then `io.bal._assemble`) on a thread of
+    its own, so that it overlaps the CLIs' runs; `join()` returns (the
+    float64 BALFile, its seconds)."""
+
+    def __init__(self, path: Path) -> None:
+        import threading
+
+        self.out = {}
+        self.thread = threading.Thread(target=self._run, args=(path,))
+        self.thread.start()
+
+    def _run(self, path: Path) -> None:
+        from megba_tpu_torch.io import bal as tbal
+
+        try:
+            t = time.perf_counter()
+            with open(path, "rb") as f:
+                tokens = np.fromfile(f, sep=" ")
+            self.out["bal"] = tbal._assemble(tokens, np.float64,
+                                             where=str(path))
+            self.out["seconds"] = time.perf_counter() - t
+        except Exception as e:  # re-raised by join()
+            self.out["error"] = e
+
+    def join(self) -> tuple:
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["bal"], self.out["seconds"]
+
+
+def host_native(venice, tmp: Path) -> tuple:
+    """14.1: the native library (built or loaded: required) and the venice
+    scene written once with `save_bal` and parsed natively; the NumPy
+    tokenizer's parse of the same file is started on a thread
+    (`NumpyParse`).  Returns (path, the native float64 BALFile, its
+    seconds, the NumpyParse)."""
+    from megba_tpu_torch import native
+    from megba_tpu_torch.io import bal as tbal
+
+    t = time.perf_counter()
+    if not native.available():
+        raise AssertionError("native: the host library did not build or "
+                             f"load ({native.BUILD_INFO})")
+    info = native.BUILD_INFO
+    how = (f"built by g++ in {info['seconds']:.3f} s" if info["built"]
+           else "loaded (built earlier in this checkout)")
+    log(f"native: {info['path']} {how}, ready "
+        f"{time.perf_counter() - t:.3f} s after the first call")
+    path = tmp / "venice.txt"
+    bal = tbal.BALFile(cameras=venice.cameras0, points=venice.points0,
+                       obs=venice.obs, cam_idx=venice.cam_idx,
+                       pt_idx=venice.pt_idx)
+    t = time.perf_counter()
+    tbal.save_bal(path, bal)
+    log(f"native: venice written by save_bal, {path.stat().st_size} bytes "
+        f"in {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    nat = native.parse_bal_native(str(path))
+    nat_s = time.perf_counter() - t
+    if not np.array_equal(nat.obs, venice.obs.astype(np.float64)):
+        raise AssertionError("native: the file does not hold the scene")
+    return path, nat, nat_s, NumpyParse(path)
+
+
+def check_numpy_parse(nat, nat_s: float, parse: NumpyParse) -> None:
+    """14.1, its end: the NumPy tokenizer's five arrays equal the native
+    parser's (so every CLI's reference solve, which ran on the native
+    arrays, ran on the NumPy-parsed ones)."""
+    ref, np_s = parse.join()
+    for f in ("cameras", "points", "obs", "cam_idx", "pt_idx"):
+        a, b = getattr(nat, f), getattr(ref, f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"native: the parsed {f} differ from the "
+                                 "NumPy tokenizer's")
+    log(f"native: venice parsed natively in {nat_s:.3f} s, by the NumPy "
+        f"tokenizer in {np_s:.3f} s ({np_s / nat_s:.1f}x; on a thread, "
+        "beside the rest of the phase), all five arrays equal")
+
+
+def host_cli_reference(name: str, ref, argv) -> tuple:
+    """The in-process `flat_solve` a CLI must match: the parsed arrays in
+    the CLI's dtype, its options and engine, on the card; (result, launch
+    counts, wall)."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.common import ComputeKind, JacobianMode
+    from megba_tpu_torch.examples.common import (build_arg_parser,
+                                                 example_option)
+    from megba_tpu_torch.ops.residuals import make_residual_jacobian_fn
+
+    dtype, jm, ck, _ = HOST_CLIS[name]
+    opt = example_option(dtype, JacobianMode[jm], ComputeKind[ck],
+                         build_arg_parser().parse_args(argv))
+    arrays = [a.astype(dtype) if a.dtype.kind == "f" else a
+              for a in (ref.cameras, ref.points, ref.obs, ref.cam_idx,
+                        ref.pt_idx)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    res = flat_solve(*arrays, opt, device=DEVICE,
+                     residual_jac_fn=make_residual_jacobian_fn(
+                         mode=JacobianMode[jm]))
+    torch.cuda.synchronize()
+    return res, launch_counts(), time.perf_counter() - t
+
+
+def run_cli(module: str, argv) -> tuple:
+    """`main(argv)` of a CLI of megba_tpu_torch/examples in-process, its
+    output kept from the log: (final cost, launch counts, wall, the
+    output's last lines)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"megba_tpu_torch.examples.{module}")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cost = mod.main(argv=list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    tail = [ln for ln in out.getvalue().splitlines()
+            if ln.startswith(("Finished", "planar BA"))]
+    return cost, launch_counts(), wall, tail
+
+
+def same_cost(what: str, cost: float, res) -> None:
+    """A CLI's final cost bitwise its in-process solve's, finite and
+    below the initial."""
+    if np.float64(cost).tobytes() != np.float64(float(res.cost)).tobytes():
+        raise AssertionError(f"{what}: final cost {cost!r} is not bitwise "
+                             f"the in-process solve's {float(res.cost)!r}")
+    if not (np.isfinite(cost) and cost < float(res.initial_cost)):
+        raise AssertionError(f"{what}: final cost {cost} not below the "
+                             f"initial {float(res.initial_cost)}")
+
+
+def host_clis(path: Path, ref) -> None:
+    """14.2: the six BAL CLIs on the venice file and planar_demo.py at its
+    defaults, each bitwise its in-process `flat_solve` with launches as
+    the phase-7 path implies; `HOST_CLI_SUBPROCESS` again as a real
+    subprocess, started first so that its start-up overlaps the
+    in-process runs (the card is shared meanwhile: walls, not results,
+    feel it)."""
+    import os
+
+    argv = ("--path", str(path)) + HOST_CLI_ARGS
+    t_sub = time.perf_counter()
+    sub = subprocess.Popen(
+        [sys.executable,
+         str(ROOT / "megba_tpu_torch" / "examples"
+             / f"{HOST_CLI_SUBPROCESS}.py"), *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        costs = {}
+        for name, (_, _, _, path_kind) in HOST_CLIS.items():
+            cost, counts, wall, tail = run_cli(name, argv)
+            res, ref_counts, ref_wall = host_cli_reference(name, ref, argv)
+            want = expected_launches(path_kind, res)
+            if counts != ref_counts or counts != want:
+                raise AssertionError(
+                    f"CLI {name}: launches {counts}; the in-process "
+                    f"solve's {ref_counts}, the code implies {want}")
+            missing = [k for k in PATHS[path_kind][3] if not counts[k]]
+            if missing:
+                raise AssertionError(f"CLI {name}: never launched "
+                                     f"{missing}")
+            same_cost(f"CLI {name}", cost, res)
+            costs[name] = cost
+            log(f"CLI {name}: {tail[-1] if tail else ''}; wall {wall:.3f} "
+                f"s (load_bal included; the in-process flat_solve "
+                f"{ref_wall:.3f} s), final cost bitwise the in-process "
+                f"solve's; launches "
+                f"{ {k: v for k, v in counts.items() if v} } as "
+                f"PATHS['{path_kind}'] implies")
+        host_planar()
+        out, err = sub.communicate(timeout=600)
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.wait()
+    sub_wall = time.perf_counter() - t_sub
+    if sub.returncode != 0:
+        raise AssertionError(f"CLI {HOST_CLI_SUBPROCESS} subprocess: rc "
+                             f"{sub.returncode}\n{err[-3000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith(_FINAL_COST)]
+    done = [ln for ln in out.splitlines() if ln.startswith("Finished")]
+    want = costs[HOST_CLI_SUBPROCESS]
+    if len(lines) != 1 or float(lines[0][len(_FINAL_COST):]) != want:
+        raise AssertionError(f"CLI {HOST_CLI_SUBPROCESS} subprocess: "
+                             f"{lines} against {want!r}")
+    log(f"CLI {HOST_CLI_SUBPROCESS} as a subprocess (OMP_NUM_THREADS=1, "
+        f"beside the in-process runs): {sub_wall:.3f} s from its start to "
+        f"its exit (interpreter, torch, CUDA context, kernel libraries "
+        f"loaded from build/, the engine's first use, parse and solve); "
+        f"{done[-1] if done else ''}; final cost bitwise the in-process "
+        "run's")
+
+
+def host_planar() -> None:
+    """planar_demo.py at its defaults (`PLANAR_ARGS`), bitwise its
+    in-process `flat_solve`, launches as the IMPLICIT path implies."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.common import JacobianMode
+    from megba_tpu_torch.examples.planar_demo import planar_option
+    from megba_tpu_torch.models import planar
+    from megba_tpu_torch.ops.residuals import make_residual_jacobian_fn
+
+    cost, counts, wall, tail = run_cli("planar_demo", PLANAR_ARGS)
+    s = planar.make_synthetic_planar(num_cameras=12, num_points=200,
+                                     obs_per_point=5, noise=0.2,
+                                     param_noise=3e-2, seed=0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+                     planar_option(20), device=DEVICE,
+                     residual_jac_fn=make_residual_jacobian_fn(
+                         residual_fn=planar.residual,
+                         mode=JacobianMode.AUTODIFF))
+    torch.cuda.synchronize()
+    ref_counts = launch_counts()
+    want = expected_launches("implicit", res, dims=(4, 2))
+    if counts != ref_counts or counts != want:
+        raise AssertionError(f"planar_demo: launches {counts}; the "
+                             f"in-process solve's {ref_counts}, the code "
+                             f"implies {want}")
+    same_cost("planar_demo", cost, res)
+    log(f"CLI planar_demo (defaults): {tail[-1] if tail else ''}; wall "
+        f"{wall:.3f} s, final cost bitwise the in-process solve's; launches "
+        f"{ {k: v for k, v in counts.items() if v} } as PATHS['implicit'] "
+        "implies (kernels 1-3 at (1, 4) and (1, 2))")
+
+
+def cold_warm(what: str, arrays, opt, kw: dict, event: str) -> None:
+    """One solve on a cleared plan cache and one more on the warm cache:
+    the second counts `event` and is bitwise the first (trace, cameras,
+    points); the "plan" and "coarse_plan" seconds of both are logged."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.ops import segtiles
+    from megba_tpu_torch.utils.timing import PhaseTimer
+
+    segtiles.clear_plan_cache()
+    runs = []
+    for _ in range(2):
+        timer = PhaseTimer()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = flat_solve(*arrays, opt, device=DEVICE, timer=timer, **kw)
+        torch.cuda.synchronize()
+        runs.append((res, timer, time.perf_counter() - t))
+    (a, ta, wa), (b, tb, wb) = runs
+    if ta.counts.get(event) or tb.counts.get(event) != 1:
+        raise AssertionError(f"{what}: {event} cold {ta.counts.get(event)}, "
+                             f"warm {tb.counts.get(event)}")
+    k = a.iterations
+    same = (torch.equal(a.trace.cost[:k], b.trace.cost[:k])
+            and torch.equal(a.cameras, b.cameras)
+            and torch.equal(a.points, b.points)
+            and (a.iterations, a.accepted, a.pcg_iterations)
+            == (b.iterations, b.accepted, b.pcg_iterations))
+    if not same:
+        raise AssertionError(f"{what}: the warm run is not bitwise the cold "
+                             "one")
+    coarse = ""
+    if a.coarse_plan_seconds is not None:
+        coarse = (f"; coarse_plan_seconds {a.coarse_plan_seconds:.4f} s "
+                  f"(miss) against {b.coarse_plan_seconds:.4f} s (hit)")
+    log(f"plan cache {what}: plan phase {ta.totals['plan']:.4f} s cold, "
+        f"{tb.totals['plan']:.4f} s warm; coarse_plan phase "
+        f"{ta.totals.get('coarse_plan', 0.0):.4f} / "
+        f"{tb.totals.get('coarse_plan', 0.0):.4f} s{coarse}; flat_solve "
+        f"{wa:.3f} s cold, {wb:.3f} s warm; warm {event} 1, bitwise the "
+        f"cold run (trace, cameras, points); the cache holds "
+        f"{len(segtiles._PLAN_CACHE)} entries, "
+        f"{segtiles.plan_cache_device_bytes() / 2**20:.1f} MiB on the card")
+
+
+def host_trace_profile(scene) -> None:
+    """14.4: one trafalgar-sized solve under `utils.timing.trace_profile`
+    into a temporary directory: its trace names kernels 1-3 and the
+    PhaseTimer ranges."""
+    import tempfile
+
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.utils.timing import PhaseTimer, trace_profile
+
+    opt = solve_option(np.float32, "implicit", lm=VENICE_LM)
+    arrays, kw = solve_inputs(scene, "implicit")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        with trace_profile(tmp):
+            flat_solve(*arrays, opt, device=DEVICE, timer=PhaseTimer(),
+                       **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        files = list(Path(tmp).glob("trace-*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace_profile: {files}")
+        size = files[0].stat().st_size
+        names = {e.get("name", "") for e in json.loads(
+            files[0].read_text())["traceEvents"]}
+    found = {k: sum(v in n for n in names) for k, v in TRACE_KERNELS.items()}
+    phases = sorted(n for n in names if n.startswith("megba.phase."))
+    if not all(found.values()) or "megba.phase.dispatch" not in phases:
+        raise AssertionError(f"trace_profile: kernels {found}, phase "
+                             f"ranges {phases}")
+    log(f"trace_profile: a trafalgar-sized f32 solve, {wall:.3f} s with the "
+        f"trace written ({size} bytes); kernel names {found}, PhaseTimer "
+        f"ranges {phases}")
+
+
+def host_tools_phase(venice, locality, trafalgar, chunked, smi: str) -> None:
+    """Phase 14: the host tools on the card (module docstring).  The NumPy
+    tokenizer's parse runs on a thread from the file's write to the
+    phase's end, beside the CLIs, the plan-cache runs and the profiled
+    solve."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    steps = [t0]
+    with tempfile.TemporaryDirectory() as tmp:
+        path, nat, nat_s, parse = host_native(venice, Path(tmp))
+        steps.append(time.perf_counter())
+        try:
+            host_clis(path, nat)
+            steps.append(time.perf_counter())
+            arrays, kw = solve_inputs(venice, "implicit", venice=True)
+            cold_warm("venice implicit f32", arrays,
+                      solve_option(np.float32, "implicit", lm=VENICE_LM),
+                      kw, "plan_cache_hit")
+            arrays, kw = solve_inputs(locality, "implicit_two_level",
+                                      venice=True)
+            cold_warm("locality two_level f32", arrays,
+                      solve_option(np.float32, "implicit_two_level",
+                                   lm=LOCALITY_LM), kw,
+                      "cluster_plan_cache_hit")
+            steps.append(time.perf_counter())
+            host_trace_profile(trafalgar)
+            steps.append(time.perf_counter())
+        finally:
+            parse.thread.join()
+        check_numpy_parse(nat, nat_s, parse)
+        steps.append(time.perf_counter())
+    parts = ", ".join(
+        f"chunk {i} {tot:.3f} s (lowering {low:.3f}, plan {plan:.3f}; "
+        f"{'hit' if hit else 'miss'})"
+        for i, (tot, low, plan, hit) in enumerate(chunked))
+    log(f"plan cache: phase 11's chunked venice re-lowering "
+        f"{sum(c[0] for c in chunked):.3f} s in all ({parts}) against "
+        f"{RELOWERING_BEFORE_S} s before the cache (PERF.md section 5)")
+    log(f"host tools phase: {steps[-1] - t0:.1f} s (native and file, CLIs, "
+        "plan cache, trace_profile, the rest of the NumPy parse: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(steps, steps[1:]))
+        + f" s; the NumPy parse, on a thread, and the subprocess CLI "
+        f"overlap the rest); {smi}")
+
+
 class PhaseClock:
     """Wall seconds of the script's phases, each from the end of the one
     before (the first from the end of the build, `build_s`)."""
 
     def __init__(self, build_s: float) -> None:
+        from megba_tpu_torch.ops import segtiles
+
         self.laps = [("build", build_s)]
         self.t = time.perf_counter()
+        self.cache = segtiles.plan_cache_counts()
 
     def lap(self, name: str) -> None:
+        """Log the phase's wall and the plan-cache lookups inside it: a
+        phase with hits re-solved a graph it had planned, and its walls
+        hold those hits' lookups in place of planning."""
+        from megba_tpu_torch.ops import segtiles
+
         now = time.perf_counter()
         self.laps.append((name, now - self.t))
         self.t = now
-        log(f"phase {name}: {self.laps[-1][1]:.1f} s")
+        log(f"phase {name}: {self.laps[-1][1]:.1f} s (plan cache: "
+            f"{plan_cache_words(self.cache)})")
+        self.cache = segtiles.plan_cache_counts()
 
     def summary(self) -> str:
         return ("phase times: " + ", ".join(f"{n} {s:.1f} s"
@@ -5698,7 +6175,8 @@ def main() -> int:
     for row, arm_path in F64_ARM_PATHS.items():
         rows[row]["launches"] = f64_counts[arm_path].get(row, 0)
     clock.lap("f64")
-    precision_phase(make_scene(TRAFALGAR, np.float32))
+    trafalgar32 = make_scene(TRAFALGAR, np.float32)
+    precision_phase(trafalgar32)
     clock.lap("f32 precision")
     ref = None
     for path in VENICE_PATHS:
@@ -5714,20 +6192,23 @@ def main() -> int:
             if arm_path == path:
                 rows[row]["launches"] = arms.get(row, 0)
     clock.lap("venice")
-    locality_phase(make_scene(LOCALITY, np.float32), opts.profile)
+    locality = make_scene(LOCALITY, np.float32)
+    locality_phase(locality, opts.profile)
     clock.lap("locality")
     rows.update(factor_phase(venice, trafalgar64))
     clock.lap("factor")
     pgo_kept = {}
     rows.update(pgo_phase(pgo_kept))
     clock.lap("pgo")
-    durable_phase(venice, trafalgar64, straight, pgo_kept)
+    chunked = durable_phase(venice, trafalgar64, straight, pgo_kept)
     clock.lap("durable")
     fleet_kept = {}
     rows.update(fleet_phase(fleet_kept))
     clock.lap("fleet")
     federation_phase(fleet_kept, clock.laps[0][1], smi)
     clock.lap("federation")
+    host_tools_phase(venice, locality, trafalgar32, chunked, smi)
+    clock.lap("host tools")
     log(clock.summary())
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:

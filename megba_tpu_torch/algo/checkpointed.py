@@ -13,10 +13,13 @@ and the other way round.
 One chunk loop (`_run_chunked`) serves both model families:
 `solve_checkpointed` (BA, each chunk one `solve.flat_solve`) and
 `solve_pgo_checkpointed` (pose graphs, each chunk one
-`models.pgo.solve_pgo`).  Each chunk lowers its problem afresh (the
-plans are rebuilt on the host) and starts with a linearisation at the
-carried parameters; the only device sync the driver adds is one
-device-to-host copy a chunk of the parameters and the resume scalars.
+`models.pgo.solve_pgo`).  Each chunk lowers its problem afresh and
+starts with a linearisation at the carried parameters; a BA chunk after
+the first takes its plans from the host plan cache
+(ops/segtiles.cached_*, as the JAX package's chunks do), so only the
+arrays' conversions and moves are repeated.  The only device sync the
+driver adds is one device-to-host copy a chunk of the parameters and
+the resume scalars.
 
 The JAX drivers' `elastic` monitor (multi-host liveness and collective
 watchdogs) is not ported: `elastic=` raises NotImplementedError.

@@ -148,8 +148,10 @@ class LMResult:
     # out like `cameras` (the resume hook `initial_dx`); None otherwise.
     dx_cam: Optional[torch.Tensor] = None
     # flat_solve under TWO_LEVEL / MULTILEVEL: seconds spent planning the
-    # camera clusters on the host and moving the plan to the device; None
-    # otherwise.
+    # camera clusters on the host and moving the plan to the device, or,
+    # when the plan came from the host plan cache (a
+    # `cluster_plan_cache_hit`), the seconds of the lookup (the stream's
+    # sort and digests); None otherwise.
     coarse_plan_seconds: Optional[float] = None
 
 

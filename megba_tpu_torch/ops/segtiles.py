@@ -69,11 +69,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import hashlib
+import os
 from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from megba_tpu_torch.native import sort_edges_by_camera
 from megba_tpu_torch.ops import kernels as _kernels
 
 if TYPE_CHECKING:
@@ -148,12 +151,15 @@ class HostPlan:
 
 
 def build_seg_plan(idx: np.ndarray, num_segments: int) -> HostPlan:
-    """Plan the segment-sorted order of edges with segment ids `idx`."""
+    """Plan the segment-sorted order of edges with segment ids `idx`: the
+    stable counting sort of `native.sort_edges_by_camera` (equal to
+    `np.argsort(kind="stable")`)."""
     idx = np.asarray(idx).astype(np.int64, copy=False)
     if idx.size and (idx.min() < 0 or idx.max() >= num_segments):
         raise ValueError(
             f"segment ids out of range [0, {num_segments})")
-    order = np.argsort(idx, kind="stable")
+    order = (sort_edges_by_camera(idx, num_segments) if idx.size
+             else np.zeros(0, np.int64))
     seg = idx[order]
     counts = np.bincount(seg, minlength=num_segments)
     seg_ptr = np.zeros(num_segments + 1, np.int64)
@@ -838,7 +844,8 @@ def make_sharded_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
     pt_idx = np.asarray(pt_idx)
     n = int(cam_idx.shape[0])
     ws = len(devices)
-    order = np.argsort(cam_idx, kind="stable")
+    order = (sort_edges_by_camera(cam_idx, num_cameras) if n
+             else np.zeros(0, np.int64))
     bounds = [(k * n) // ws for k in range(ws + 1)]
     perms, plans = [], []
     for k in range(ws):
@@ -1170,6 +1177,341 @@ def device_camera_tile_plan(plan: CameraTilePlan,
     return DeviceCameraTilePlan(edge_shards=E, cam_blocks=C, tile_cams=Tc,
                                 shard_points=Sp, rings=tuple(rings),
                                 in_plans=tuple(in_plans))
+
+
+# ---------------------------------------------------------------------------
+# Host plan cache (JAX segtiles.py:990-1100, 1399, 1561, 1874)
+# ---------------------------------------------------------------------------
+#
+# Planning is host work (sorts and bincounts over the edge axis, the
+# coarse spaces' union-find) plus the moves of the index tables to the
+# devices, and depends only on the problem GRAPH and the mesh, not on
+# parameters or observations.  Repeated solves of one problem (chunked
+# drivers, reruns, parameter sweeps) reuse one plan, keyed by a content
+# fingerprint of the index arrays: a strong digest (blake2b), not
+# Python's hash(), since a collision would silently solve the wrong
+# graph.  The JAX key's `use_kernels` gives way to the devices the plan's
+# tensors live on: a plan built for the CPU, or for another shard list,
+# never serves another solve.  A plan holds integer tensors only (the
+# kernels' float scratch, `SplitTable.workspace`, is made per dtype at
+# first use), so no float dtype enters the key.
+#
+# A cached plan is read-only: every host array in it is made
+# non-writeable when it is stored, and its device tensors are read by
+# the kernels and never written (a split table's counters return to zero
+# at the end of every launch).  `with_fused_plans` returns new plans, so
+# a fused solve's plans are kept beside the unfused ones in the same
+# entry (built on the first fused use) and never change them.  Solves
+# that share a cached plan share its split tables' counters and
+# scratch, which is safe while their launches run on one stream per
+# device (the current stream, as every launch of the port's is).
+
+_PLAN_CACHE: dict = {}
+_PLAN_CACHE_DEFAULT_MAX = 8  # LRU bound: plans pin host and device tables
+# Monotone eviction counter: a fleet of mixed shape classes churning a
+# too-small cache shows up here (flat_solve surfaces the delta as a
+# `plan_cache_evict` PhaseTimer event next to `plan_cache_hit`).
+_PLAN_CACHE_EVICTIONS = 0
+# Monotone lookup counters (hits, misses) of this process, which a
+# driver reads around a stretch of solves (`plan_cache_counts`).
+_PLAN_CACHE_LOOKUPS = [0, 0]
+
+
+def plan_cache_capacity() -> int:
+    """LRU capacity of the host plan cache.
+
+    `MEGBA_PLAN_CACHE=<n>` overrides the default of
+    `_PLAN_CACHE_DEFAULT_MAX` (8): a fleet serving many shape classes
+    evicts pathologically at 8, while a single-problem pipeline gains
+    nothing from more.  Read at insertion time so tests (and long-lived
+    services) can retune without reimporting; `<n> >= 1`.
+    """
+    env = os.environ.get("MEGBA_PLAN_CACHE")
+    if env is None:
+        return _PLAN_CACHE_DEFAULT_MAX
+    try:
+        cap = int(env)
+    except ValueError as e:
+        raise ValueError(
+            f"MEGBA_PLAN_CACHE must be an integer >= 1, got {env!r}") from e
+    if cap < 1:
+        raise ValueError(
+            f"MEGBA_PLAN_CACHE must be an integer >= 1, got {env!r}")
+    return cap
+
+
+def plan_cache_evictions() -> int:
+    """Total plan-cache evictions this process (monotone counter)."""
+    return _PLAN_CACHE_EVICTIONS
+
+
+def plan_cache_counts() -> dict:
+    """This process's plan-cache lookups so far: {"hits", "misses",
+    "evictions"} (monotone counters)."""
+    return {"hits": _PLAN_CACHE_LOOKUPS[0], "misses": _PLAN_CACHE_LOOKUPS[1],
+            "evictions": _PLAN_CACHE_EVICTIONS}
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached plan (the eviction counter is not reset)."""
+    _PLAN_CACHE.clear()
+
+
+def _array_digest(a: np.ndarray) -> bytes:
+    a = np.ascontiguousarray(a)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(a.dtype).encode())
+    h.update(str(a.shape).encode())
+    h.update(a.tobytes())
+    return h.digest()
+
+
+def _devices_key(devices) -> tuple:
+    return tuple(str(torch.device(d)) for d in devices)
+
+
+def _members(obj):
+    """The direct members of a plan node: tuple and list items, dict
+    values, dataclass fields."""
+    if isinstance(obj, (tuple, list)):
+        return obj
+    if isinstance(obj, dict):
+        return obj.values()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    return ()
+
+
+def _freeze(obj) -> None:
+    """Make every host array of a plan read-only."""
+    if isinstance(obj, np.ndarray):
+        obj.flags.writeable = False
+        return
+    for m in _members(obj):
+        _freeze(m)
+
+
+def _device_storages(obj, out: dict) -> dict:
+    """The device (non-CPU) tensors of a plan, by storage: data_ptr ->
+    bytes."""
+    if isinstance(obj, torch.Tensor):
+        if obj.device.type != "cpu":
+            st = obj.untyped_storage()
+            out[st.data_ptr()] = st.nbytes()
+        return out
+    for m in _members(obj):
+        _device_storages(m, out)
+    return out
+
+
+def plan_cache_device_bytes() -> int:
+    """Bytes of device memory the cached plans hold, each storage counted
+    once (the kernels' scratch included)."""
+    found: dict = {}
+    for entry in _PLAN_CACHE.values():
+        _device_storages(entry, found)
+    return sum(found.values())
+
+
+def _plan_cache_get(key):
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        # Refresh LRU position (dicts preserve insertion order).
+        _PLAN_CACHE.pop(key)
+        _PLAN_CACHE[key] = hit
+    return hit
+
+
+def _plan_cache_put(key, value):
+    global _PLAN_CACHE_EVICTIONS
+    cap = plan_cache_capacity()
+    while len(_PLAN_CACHE) >= cap:
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+        _PLAN_CACHE_EVICTIONS += 1
+    _PLAN_CACHE[key] = value
+
+
+def _cached(key, build, fuse=None, fused: bool = False):
+    """(value, hit) of the entry `key`, built by `build()` on a miss; with
+    `fused`, the entry's fused variant `fuse(value)`, built on its first
+    use and kept in the same entry."""
+    entry = _plan_cache_get(key)
+    hit = entry is not None
+    _PLAN_CACHE_LOOKUPS[0 if hit else 1] += 1
+    if not hit:
+        value = build()
+        _freeze(value)
+        entry = {False: value}
+        _plan_cache_put(key, entry)
+    if fused and True not in entry:
+        entry[True] = fuse(entry[False])
+    return entry[bool(fused)], hit
+
+
+def _resolved(devices) -> tuple:
+    if devices is None:
+        from megba_tpu_torch.common import resolve_device
+
+        return (resolve_device(None),)
+    if isinstance(devices, (str, torch.device)):
+        return (torch.device(devices),)
+    return tuple(torch.device(d) for d in devices)
+
+
+def _fuse_all(plans) -> tuple:
+    from megba_tpu_torch.ops.fused import with_fused_plans
+
+    return tuple(with_fused_plans(p) for p in plans)
+
+
+def cached_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                      num_cameras: int, num_points: int, device=None):
+    """`make_dual_plans` behind the host plan cache: ((cam host plan,
+    DualPlans), cache_hit), the plans on `device` (None: the card)."""
+    (dev,) = _resolved(device)
+    key = ("single", _array_digest(cam_idx), _array_digest(pt_idx),
+           int(num_cameras), int(num_points), _devices_key((dev,)))
+    return _cached(key, lambda: make_dual_plans(
+        cam_idx, pt_idx, num_cameras, num_points, dev))
+
+
+def cached_sharded_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                              num_cameras: int, num_points: int,
+                              devices=None, fused: bool = False):
+    """`make_sharded_dual_plans` behind the host plan cache: ((perms,
+    per-shard DualPlans), cache_hit) over `devices` (one a shard; None:
+    one shard on the card).  The one-device solve is the mesh of one
+    shard, so it plans here too.  With `fused` each shard's plans carry
+    both fused directions (`ops/fused.with_fused_plans`)."""
+    devs = _resolved(devices)
+    key = ("sharded", _array_digest(cam_idx), _array_digest(pt_idx),
+           int(num_cameras), int(num_points), len(devs), _devices_key(devs))
+    return _cached(
+        key, lambda: make_sharded_dual_plans(cam_idx, pt_idx, num_cameras,
+                                             num_points, devs),
+        lambda v: (v[0], _fuse_all(v[1])), fused)
+
+
+def _block_plans(tplan: "CameraTilePlan", cam_idx, pt_idx, devs):
+    """The 2-D mesh's device blocks (`tile_plan_shards`) and each block's
+    dual plans on its device; each block is camera-sorted, so its
+    camera-slot order is its own."""
+    nc, npt = tplan.num_cameras, tplan.num_points
+    perms = tile_plan_shards(tplan)
+    plans = []
+    for p, d in zip(perms, devs):
+        plan_c, dp = make_dual_plans(cam_idx[p], pt_idx[p], nc, npt, d)
+        if not np.array_equal(plan_c.perm, np.arange(p.shape[0])):
+            raise AssertionError("a 2-D device block is not camera-sorted")
+        plans.append(dp)
+    return perms, tuple(plans)
+
+
+def cached_camera_tile_plan(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                            num_cameras: int, num_points: int,
+                            edge_shards: int, cam_blocks: int,
+                            quantum: int = 0, devices=None,
+                            fused: bool = False):
+    """`build_camera_tile_plan` + `device_camera_tile_plan` behind the
+    host plan cache, keyed by the index arrays, EVERY geometry knob and
+    the devices (edge_shards * cam_blocks of them, in device-block
+    order).  Returns ((CameraTilePlan, DeviceCameraTilePlan, perms, block
+    DualPlans), cache_hit): the port's 2-D lowering also plans each
+    device block's dual plans (`perms[d]`, the caller's edges of block
+    d), which ride in the same entry, fused with `fused`."""
+    devs = _resolved(devices)
+    key = ("mesh2d", _array_digest(np.asarray(cam_idx)),
+           _array_digest(np.asarray(pt_idx)), int(num_cameras),
+           int(num_points), int(edge_shards), int(cam_blocks), int(quantum),
+           _devices_key(devs))
+
+    def build():
+        tplan = build_camera_tile_plan(cam_idx, pt_idx, num_cameras,
+                                       num_points, edge_shards, cam_blocks,
+                                       quantum=quantum)
+        perms, plans = _block_plans(tplan, np.asarray(cam_idx),
+                                    np.asarray(pt_idx), devs)
+        return tplan, device_camera_tile_plan(tplan, devs), perms, plans
+
+    return _cached(key, build,
+                   lambda v: (v[0], v[1], v[2], _fuse_all(v[3])), fused)
+
+
+def _coarse_key(kind: str, cam_idx, pt_idx, mask, num_cameras, num_points,
+                devs, shards, knobs: tuple) -> tuple:
+    return ((kind, _array_digest(np.asarray(cam_idx)),
+             _array_digest(np.asarray(pt_idx)),
+             None if mask is None else _array_digest(np.asarray(mask) > 0),
+             int(num_cameras), int(num_points), _devices_key(devs),
+             None if shards is None
+             else tuple(_array_digest(np.asarray(s, np.int64))
+                        for s in shards)) + knobs)
+
+
+def _shards(shards, cam_idx) -> list:
+    if shards is None:
+        return [np.arange(np.asarray(cam_idx).shape[0], dtype=np.int64)]
+    return list(shards)
+
+
+def cached_cluster_plan(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                        num_cameras: int, num_points: int, target: int = 0,
+                        mask: Optional[np.ndarray] = None,
+                        smooth_omega: float = 0.0, devices=None,
+                        shards=None):
+    """`build_cluster_plan` + `device_sharded_coarse_plan` behind the host
+    plan cache: ((ClusterPlan, ShardedClusterPlan), cache_hit).
+
+    Keyed by a blake2b fingerprint of the index arrays (the stream the
+    plan is built over), the mask, EVERY aggregation parameter (target,
+    the smoothing omega), the devices and the shards (`shards[k]`: the
+    positions in that stream of shard k's edges, as
+    `device_sharded_coarse_plan` takes them; None: one shard of every
+    edge on the first device).  The JAX key's `world_size` is the number
+    of shards here.  `smooth_omega` does not change the plan's content
+    (smoothing is a device-side build step over the planned indices), but
+    it is part of the key by contract: a SolverOption knob flip must
+    never serve a stale plan from the LRU."""
+    devs = _resolved(devices)
+    parts = _shards(shards, cam_idx)
+    key = _coarse_key("cluster", cam_idx, pt_idx, mask, num_cameras,
+                      num_points, devs, shards,
+                      (int(target), float(smooth_omega)))
+
+    def build():
+        plan = build_cluster_plan(cam_idx, pt_idx, num_cameras, num_points,
+                                  target, mask)
+        return plan, device_sharded_coarse_plan(plan, parts, devs)
+
+    return _cached(key, build)
+
+
+def cached_multilevel_plan(cam_idx: np.ndarray, pt_idx: np.ndarray,
+                           num_cameras: int, num_points: int,
+                           target: int = 0,
+                           mask: Optional[np.ndarray] = None,
+                           coarsen_factor: float = 4.0, max_levels: int = 3,
+                           smooth_omega: float = 0.0, devices=None,
+                           shards=None):
+    """`build_multilevel_plan` + `device_sharded_coarse_plan` behind the
+    host plan cache: ((MultiLevelPlan, DeviceMultiLevelPlan), cache_hit).
+    The key is `cached_cluster_plan`'s with every further aggregation
+    knob (coarsen_factor, max_levels): flipping any SolverOption
+    preconditioner knob never serves a stale hierarchy."""
+    devs = _resolved(devices)
+    parts = _shards(shards, cam_idx)
+    key = _coarse_key("multilevel", cam_idx, pt_idx, mask, num_cameras,
+                      num_points, devs, shards,
+                      (int(target), float(coarsen_factor), int(max_levels),
+                       float(smooth_omega)))
+
+    def build():
+        plan = build_multilevel_plan(
+            cam_idx, pt_idx, num_cameras, num_points, target, mask,
+            coarsen_factor=coarsen_factor, max_levels=max_levels)
+        return plan, device_sharded_coarse_plan(plan, parts, devs)
+
+    return _cached(key, build)
 
 
 # ---------------------------------------------------------------------------

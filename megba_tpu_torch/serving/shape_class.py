@@ -31,6 +31,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from megba_tpu_torch.core.fm import EDGE_QUANTUM
+from megba_tpu_torch.native import sort_edges_by_camera
 
 
 def _round_up_pow2_multiple(n: int, floor: int) -> int:
@@ -159,8 +160,8 @@ def pad_to_class(cameras: np.ndarray, points: np.ndarray, obs: np.ndarray,
                  pt_fixed: Optional[np.ndarray] = None) -> PaddedProblem:
     """Lower one problem's host arrays onto its shape class.
 
-    The dtype cast, the stable camera sort (the port's `np.argsort`,
-    the same permutation as the JAX package's counting sort), the edge
+    The dtype cast, the stable camera sort (the counting sort of
+    `native.sort_edges_by_camera`, as in the JAX package), the edge
     padding, then the bucket's camera/point zero-padding with fixed-mask
     flags on the pad region.  Padded edges repeat the last REAL edge's vertex
     indices (pad_edges), which point at real vertices, so the masked
@@ -197,7 +198,7 @@ def pad_to_class(cameras: np.ndarray, points: np.ndarray, obs: np.ndarray,
 
     perm = None
     if not is_cam_sorted(cam_idx):
-        perm = np.argsort(cam_idx, kind="stable").astype(np.int64)
+        perm = sort_edges_by_camera(cam_idx, n_cam)
         cam_idx, pt_idx, obs = cam_idx[perm], pt_idx[perm], obs[perm]
         if em is not None:
             em = em[perm]

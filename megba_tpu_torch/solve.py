@@ -7,7 +7,11 @@ camera sort is the canonical edge order), with `fused_kernels` derives
 from them the input index of each fused direction once
 (ops/fused.with_fused_plans), moves feature-major tensors to the devices
 once, runs the LM loop, and returns the solved cameras and points
-edge-major ([N, d]) again.
+edge-major ([N, d]) again.  The plans, and the coarse spaces of TWO_LEVEL
+and MULTILEVEL, come from the host plan cache (ops/segtiles.cached_*: a
+content-keyed LRU of `MEGBA_PLAN_CACHE` entries, 8 by default), so a
+repeated solve of one graph on the same devices (a chunked driver's
+chunks, a rerun) plans once.
 
 The solve runs over a mesh of `ProblemOption.world_size` N shards
 (parallel/mesh.py; one device is the mesh of one shard): the 1-D
@@ -46,17 +50,14 @@ from megba_tpu_torch.common import (
     validate_options,
 )
 from megba_tpu_torch.io.bal import BALFile, load_bal
-from megba_tpu_torch.ops.fused import with_fused_plans
+from megba_tpu_torch.native import sort_edges_by_camera
 from megba_tpu_torch.ops.segtiles import (
-    build_camera_tile_plan,
-    build_cluster_plan,
-    build_multilevel_plan,
+    cached_camera_tile_plan,
+    cached_cluster_plan,
+    cached_multilevel_plan,
+    cached_sharded_dual_plans,
     coobservation_edge_order,
-    device_camera_tile_plan,
-    device_sharded_coarse_plan,
-    make_dual_plans,
-    make_sharded_dual_plans,
-    tile_plan_shards,
+    plan_cache_evictions,
 )
 from megba_tpu_torch.parallel.mesh import (
     distributed_lm_solve,
@@ -137,7 +138,8 @@ def flat_solve(
     caller's order into the stable camera sort.  Under
     `SolverOption.precond` TWO_LEVEL or MULTILEVEL the camera clusters are
     planned on the host over the final edge stream; the result's
-    `coarse_plan_seconds` says how long that took.
+    `coarse_plan_seconds` says how long that took (on a cache hit, how
+    long the lookup took).
 
     With `option.world_size` N > 1, `device` is a sequence of N devices
     (or None: the first N visible cards; fewer raise), and the solve
@@ -154,7 +156,10 @@ def flat_solve(
     arrays' checks and conversions and their moves to the devices),
     "sort" (COOBS), "plan" (the segment and fused plans), "coarse_plan"
     (the camera clusters of TWO_LEVEL and MULTILEVEL) and "dispatch"
-    (the LM loop).  `triage` (robustness.triage.TriagePolicy)
+    (the LM loop), and the plan cache's events of the JAX package's
+    names: `plan_cache_hit` and `plan_cache_evict` (the entries the
+    lookup evicted) in "plan", `cluster_plan_cache_hit` in
+    "coarse_plan".  `triage` (robustness.triage.TriagePolicy)
     arms the pre-flight health checks (JAX solve.py:266-292): the
     problem is checked on the host in a "triage" phase before any
     lowering or tensor allocation.  Under REJECT a degenerate problem
@@ -431,25 +436,33 @@ def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
     every mesh then solves with the world-1 coarse space (the JAX package
     plans the 2-D mesh's over its 2-D stream instead).  The plan is split
     over the mesh's devices `devs` (`perms`: each shard's edges in the
-    caller's order, ops/segtiles.shard_cluster_plan)."""
+    caller's order, ops/segtiles.shard_cluster_plan).  It comes from the
+    host plan cache (`cached_cluster_plan` / `cached_multilevel_plan`,
+    keyed by that stream, the mask, the knobs and the shards), and a hit
+    counts a `cluster_plan_cache_hit` event: the seconds returned are
+    then the lookup's (the sort and the digests), not a planning's."""
     so = option.solver_option
     if not option.use_schur or so.precond not in (PrecondKind.TWO_LEVEL,
                                                   PrecondKind.MULTILEVEL):
         return None, None
     with timer.phase("coarse_plan"):
         t = time.perf_counter()
-        canon = np.argsort(cam_idx, kind="stable")
+        canon = sort_edges_by_camera(cam_idx, num_cameras)
         at = np.empty_like(canon)
         at[canon] = np.arange(canon.shape[0])
         ci, pi, m = cam_idx[canon], pt_idx[canon], mask[canon]
+        kw = dict(mask=m, smooth_omega=so.smooth_omega, devices=devs,
+                  shards=[at[p] for p in perms])
         if so.precond == PrecondKind.TWO_LEVEL:
-            plan = build_cluster_plan(ci, pi, num_cameras, num_points,
-                                      so.coarse_clusters, mask=m)
+            (_, plan), hit = cached_cluster_plan(
+                ci, pi, num_cameras, num_points, so.coarse_clusters, **kw)
         else:
-            plan = build_multilevel_plan(
-                ci, pi, num_cameras, num_points, so.coarse_clusters, mask=m,
-                coarsen_factor=so.coarsen_factor, max_levels=so.max_levels)
-        plan = device_sharded_coarse_plan(plan, [at[p] for p in perms], devs)
+            (_, plan), hit = cached_multilevel_plan(
+                ci, pi, num_cameras, num_points, so.coarse_clusters,
+                coarsen_factor=so.coarsen_factor, max_levels=so.max_levels,
+                **kw)
+        if hit:
+            timer.count_event("cluster_plan_cache_hit")
         return plan, time.perf_counter() - t
 
 
@@ -467,33 +480,32 @@ def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
     devs = mesh.devices
     dev0 = devs[0]
     nc, npt = cameras.shape[0], points.shape[0]
+    fused = bool(option.use_schur and so.fused_kernels)
     with timer.phase("plan"):
+        # Both lowerings come from the host plan cache (keyed by the
+        # graph and the mesh's devices); a hit and the evictions this
+        # lookup caused are timer events, as in the JAX package.
+        evict0 = plan_cache_evictions()
         tile_plan = None
         if mesh.is_2d:
-            # The camera-tile plan's device blocks, real edges only; each
-            # block is camera-sorted, so its camera-slot order is its own.
-            # Quantum 1: the JAX package pads each column to a multiple of
-            # E * EDGE_QUANTUM for static shapes, which on a small problem
-            # leaves whole edge shards empty; the CSR plans need no padding,
-            # so each edge shard takes an even piece of its column.
-            tplan = build_camera_tile_plan(cam_idx, pt_idx, nc, npt,
-                                           mesh.edge_shards, mesh.cam_blocks,
-                                           quantum=1)
-            perms = tile_plan_shards(tplan)
-            shard_plans = []
-            for p, d in zip(perms, devs):
-                plan_c, dp = make_dual_plans(cam_idx[p], pt_idx[p], nc, npt, d)
-                if not np.array_equal(plan_c.perm, np.arange(p.shape[0])):
-                    raise AssertionError("a 2-D device block is not "
-                                         "camera-sorted")
-                shard_plans.append(dp)
-            shard_plans = tuple(shard_plans)
-            tile_plan = device_camera_tile_plan(tplan, devs)
+            # The camera-tile plan's device blocks, real edges only, and
+            # each block's dual plans.  Quantum 1: the JAX package pads
+            # each column to a multiple of E * EDGE_QUANTUM for static
+            # shapes, which on a small problem leaves whole edge shards
+            # empty; the CSR plans need no padding, so each edge shard
+            # takes an even piece of its column.
+            (_, tile_plan, perms, shard_plans), hit = (
+                cached_camera_tile_plan(
+                    cam_idx, pt_idx, nc, npt, mesh.edge_shards,
+                    mesh.cam_blocks, quantum=1, devices=devs, fused=fused))
         else:
-            perms, shard_plans = make_sharded_dual_plans(cam_idx, pt_idx, nc,
-                                                         npt, devs)
-        if option.use_schur and so.fused_kernels:
-            shard_plans = tuple(with_fused_plans(p) for p in shard_plans)
+            (perms, shard_plans), hit = cached_sharded_dual_plans(
+                cam_idx, pt_idx, nc, npt, devs, fused=fused)
+        if hit:
+            timer.count_event("plan_cache_hit")
+        evicted = plan_cache_evictions() - evict0
+        if evicted:
+            timer.count_event("plan_cache_evict", evicted)
         bounds = tuple(int(b) for b in np.cumsum([0] + [p.shape[0]
                                                         for p in perms]))
         stream = np.concatenate(perms)

@@ -1,16 +1,19 @@
-"""Timing hooks: the clock helpers and the phase timer.
+"""Timing hooks: the clock helpers, the phase timer and the profiler.
 
-Counterpart of `megba_tpu/utils/timing.py` (without `trace_profile`,
-which wraps jax.profiler).  `PhaseTimer` collects named phase timings;
-a phase syncs the card only on the outputs registered with its handle,
-so an unsynced phase measures the host's enqueue.  Each phase is also a
-`torch.profiler.record_function` range, so the phase breakdown and a
-profiler timeline line up.
+Counterpart of `megba_tpu/utils/timing.py`.  `PhaseTimer` collects named
+phase timings; a phase syncs the card only on the outputs registered
+with its handle, so an unsynced phase measures the host's enqueue.  Each
+phase is also a `torch.profiler.record_function` range
+(`megba.phase.<name>`), so the phase breakdown and a profiler timeline
+line up.  `trace_profile(logdir)` is the JAX package's profiler context:
+a `torch.profiler.profile` that writes a Chrome trace into `logdir`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -129,3 +132,29 @@ class PhaseTimer:
         lines.append(
             f"total: {total * 1e3:.1f} ms over {len(self.totals)} phases")
         return "\n".join(lines)
+
+
+_TRACE_SEQ = itertools.count()
+
+
+@contextlib.contextmanager
+def trace_profile(logdir: Optional[str]):
+    """torch.profiler trace context; no-op (yields None) when `logdir` is
+    None.  Profiles the host and, when a card is present, its CUDA
+    activity (the kernels' launches by their symbol names), and writes
+    one Chrome trace, `trace-<pid>-<n>.json`, into `logdir` (created if
+    missing) when the block ends; yields the profiler, whose
+    `key_averages()` the caller may read.  The PhaseTimer phases of the
+    block show as `megba.phase.<name>` ranges."""
+    if logdir is None:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir,
+                        f"trace-{os.getpid()}-{next(_TRACE_SEQ)}.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(path)

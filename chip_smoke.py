@@ -228,7 +228,7 @@ exception ends the run with a non-zero exit code:
    `solve_many` (problems a second each, the latter with telemetry: one
    report a problem in chiprun_out/fleet_reports.jsonl read back by the
    port's summarize, --aggregate and --fleet); on each of the eleven
-   paths the first 64 under
+   paths the first `FLEET_VS_PLAIN` under
    `ProblemOption()`'s PCG with an LM cap of 4 through the kernels and
    through the plain versions (f64: trial costs at rtol 1e-9, equal
    counts, accepts, status and `precond_fallback` traces; the f32 rungs
@@ -293,7 +293,29 @@ exception ends the run with a non-zero exit code:
    `utils.timing.trace_profile`, whose trace must name kernels 1-3 and
    the PhaseTimer ranges.  Every phase's lap line counts the plan-cache
    hits and misses inside it: a phase with hits re-solved a graph it had
-   planned, and its walls hold those lookups in place of planning.
+   planned, and its walls hold those lookups in place of planning;
+15. multi-process (parallel/multihost.py, robustness/elastic.py): a
+   rendezvous process (`python -P -m megba_tpu_torch.parallel.multihost
+   --serve 0 2`, port 0) and two rank processes of this script
+   (`--rank`, `python -P`), each on cuda:0 in one gloo process group:
+   15.1 venice f32 IMPLICIT at world 2 (phase 7's `w2_implicit` options
+   and LM count), bitwise phase 7's one-process world-2 run (trace,
+   cameras, points), each rank's launches per kernel its shard's plus
+   the replicated work (`ShardLaunches`: phase 7's shard-0 tally), no
+   nvcc build in a rank (they load the libraries phase 1 built); the
+   wall, each rank's peak memory, the bytes gathered and the host ms in
+   the gathers per LM iteration, and the backend are logged; 15.2 phase
+   10's 4,096-pose f64 world-2 graph across the two ranks, bitwise its
+   one-process world-2 run (poses, costs, counts, status); 15.3 the
+   elastic kill-resume (`ELASTIC_*`): trafalgar-sized f64 at world 2 in
+   chunks of `CHUNK_BA` under an `ElasticMonitor`, rank 1 SIGKILLed at
+   rank 0's first snapshot; rank 0 must raise a typed `WorkerLost`
+   within `dead_after_s` plus a few polls (the time to detection is
+   logged), resume at world 1 (`resume_elastic`) and exit 0, within rtol
+   1e-6 of the parent's uninterrupted world-2 run in final cost and
+   parameters with equal status, its telemetry's elastic block counting
+   1 worker lost, 1 reshard and 1 resume.  A failed rank, or one alive
+   past `MP_RANK_TIMEOUT_S`, fails the run.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -2064,7 +2086,7 @@ def f64_phase(scene, grid) -> dict:
         reset_launch_counts()
         t = time.perf_counter()
         with watch_builds() as builds, count_shard_launches() as shards:
-            res_k = flat_solve(*args, device=devs, **kw)
+            res_k = flat_solve(None, *args, device=devs, **kw)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t
         counts = launch_counts()
@@ -2080,11 +2102,11 @@ def f64_phase(scene, grid) -> dict:
                                  f"implies {want}")
         with plain_path():
             t = time.perf_counter()
-            res_p = flat_solve(*args, device=devs, **kw)
+            res_p = flat_solve(None, *args, device=devs, **kw)
             torch.cuda.synchronize()
             t_p = time.perf_counter() - t
             if path in PLAIN_REPEAT_PATHS:
-                res_p2 = flat_solve(*args, device=devs, **kw)
+                res_p2 = flat_solve(None, *args, device=devs, **kw)
                 differ = [f.name for f in dataclasses.fields(res_p.trace)
                           if not bitwise_equal(getattr(res_p.trace, f.name),
                                                getattr(res_p2.trace,
@@ -2137,7 +2159,7 @@ def f64_phase(scene, grid) -> dict:
             outcome += (f", {rel1:.3e} from the world-1 {MESH_BASE[path]} "
                         f"run, counts equal; launches per shard {shards}")
         if coarse:
-            res_r = flat_solve(*args, device=devs, **kw)
+            res_r = flat_solve(None, *args, device=devs, **kw)
             same = [f.name for f in dataclasses.fields(tk)
                     if not bitwise_equal(getattr(tk, f.name),
                                          getattr(res_r.trace, f.name))]
@@ -2163,7 +2185,7 @@ def f64_phase(scene, grid) -> dict:
                                      "from the implicit run's")
             outcome += ", bitwise the implicit run"
         if path == "implicit_coobs":
-            natural = flat_solve(*arrays, solve_option(
+            natural = flat_solve(None, *arrays, solve_option(
                 np.float64, "implicit", lm=F64_LM), device=DEVICE)
             gap = abs(float(res_k.cost) - float(natural.cost)) / float(
                 natural.cost)
@@ -2206,7 +2228,7 @@ def precision_phase(scene) -> None:
                 scene.pt_idx, solve_option(np.float32, path,
                                            tol_relative=True))
         reset_launch_counts()
-        res_k = flat_solve(*args, device=DEVICE)
+        res_k = flat_solve(None, *args, device=DEVICE)
         torch.cuda.synchronize()
         counts = launch_counts()
         skipped = [k for k in kernels if counts[k] == 0]
@@ -2214,7 +2236,7 @@ def precision_phase(scene) -> None:
             raise AssertionError(
                 f"f32 {path}: the kernel path skipped {skipped}: {counts}")
         with plain_path():
-            res_p = flat_solve(*args, device=DEVICE)
+            res_p = flat_solve(None, *args, device=DEVICE)
             torch.cuda.synchronize()
         first_k, first_p = float(res_k.trace.cost[0]), float(
             res_p.trace.cost[0])
@@ -2428,7 +2450,8 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
     with profiled(mesh and not profile) as prof:
         t = time.perf_counter()
         with watch_builds() as builds, count_shard_launches() as shards:
-            res = flat_solve(*args, verbose=True, device=devices_of(path),
+            res = flat_solve(None,
+                             *args, verbose=True, device=devices_of(path),
                              **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -2501,6 +2524,8 @@ def venice_phase(scene, path: str, profile: bool, ref=None,
     log(f"{label} {path} launches: {arms} (as the code implies)")
     if mesh:
         log(f"{label} {path} launches per shard: {shards}")
+    if label == "venice" and path == "w2_implicit":
+        MP_KEPT["venice"] = (res, shards)  # phase 15.1's reference
     if profile:
         profile_solve(args, path, kw, label)
     elif mesh:
@@ -2525,7 +2550,7 @@ def profile_solve(args, path: str, kw: dict, label: str) -> float:
     torch.cuda.synchronize()
     with profiled() as prof:
         t = time.perf_counter()
-        flat_solve(*args, device=devices_of(path), **kw)
+        flat_solve(None, *args, device=devices_of(path), **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     return profile_report(prof, wall, path, label)
@@ -2934,14 +2959,14 @@ def family_f64_solve(factor: str, scene, path: str, world1=None) -> dict:
     reset_launch_counts()
     t = time.perf_counter()
     with watch_builds() as builds, count_shard_launches() as shards:
-        kern = flat_solve(*args, device=devs, factor=factor)
+        kern = flat_solve(None, *args, device=devs, factor=factor)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t
     what = f"f64 {factor} {path}"
     launches = check_family_launches(what, path, kern, builds, spec)
     t = time.perf_counter()
     with plain_path():
-        plain = flat_solve(*args, device=devs, factor=factor)
+        plain = flat_solve(None, *args, device=devs, factor=factor)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t
     k = kern.iterations
@@ -3000,7 +3025,7 @@ def family_f32_solves(factor: str, scene) -> dict:
     arrays = (scene.cameras0, scene.points0, scene.obs, scene.cam_idx,
               scene.pt_idx)
     out = {}
-    f32_ref = flat_solve(*arrays, family_option(
+    f32_ref = flat_solve(None, *arrays, family_option(
         np.float32, "implicit_fused", tol_relative=True,
         region=FAMILY_F32_REGION), device=DEVICE, factor=factor)
     for path in FAMILY_F32_RUNG_PATHS + FAMILY_F32_LAUNCH_PATHS:
@@ -3010,7 +3035,7 @@ def family_f32_solves(factor: str, scene) -> dict:
             region=FAMILY_F32_REGION if rung else 0.0),)
         what = f"f32 {factor} {path}"
         reset_launch_counts()
-        res_k = flat_solve(*args, device=DEVICE, factor=factor)
+        res_k = flat_solve(None, *args, device=DEVICE, factor=factor)
         torch.cuda.synchronize()
         out[path] = check_family_launches(what, path, res_k, (), spec)
         c0, c_k = float(res_k.initial_cost), float(res_k.cost)
@@ -3019,7 +3044,7 @@ def family_f32_solves(factor: str, scene) -> dict:
         words = ""
         if rung is not None:
             with plain_path():
-                res_p = flat_solve(*args, device=DEVICE, factor=factor)
+                res_p = flat_solve(None, *args, device=DEVICE, factor=factor)
                 torch.cuda.synchronize()
             c_p = float(res_p.cost)
             first_k, first_p = (float(res_k.trace.cost[0]),
@@ -3067,7 +3092,7 @@ def family_venice_solve(factor: str, scene, path: str = DEFAULT_PATH
     profile = path in FAMILY_VENICE_PROFILED
     with profiled(profile) as prof:
         t = time.perf_counter()
-        res = flat_solve(*args, device=DEVICE, factor=factor)
+        res = flat_solve(None, *args, device=DEVICE, factor=factor)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated() - held
@@ -3169,7 +3194,7 @@ def facade_phase(scene) -> dict:
 
     pb, cams, pts = build(BaseEdge, scene.cameras0, scene.obs)
     res = pb.solve()
-    direct = flat_solve(scene.cameras0, scene.points0, scene.obs,
+    direct = flat_solve(None, scene.cameras0, scene.points0, scene.obs,
                         scene.cam_idx, scene.pt_idx, opt, device=DEVICE)
     torch.cuda.synchronize()
     same = (np.array_equal(np.stack([v.estimation for v in cams]),
@@ -3544,6 +3569,8 @@ def pgo_f64_paths(graphs: dict) -> dict:
                 kern.initial_cost):
             raise AssertionError(f"pgo f64 {path}: the cost did not fall")
         kernel_runs[path] = (kern, kt)
+        if path == "se3_w2":  # phase 15.2's reference
+            MP_KEPT.update(pgo=kern, pgo_graph=graphs["se3"])
         for k, v in shapes.items():
             launches[k] = launches.get(k, 0) + v
         log(f"pgo f64 {path}: cost {float(kern.initial_cost):.10e} -> "
@@ -3880,7 +3907,7 @@ def chunked_solve(arrays, opt, kw, module, name: str, every: int):
     from megba_tpu_torch import solve_checkpointed, solve_pgo_checkpointed
 
     driver = (solve_pgo_checkpointed if name == "solve_pgo"
-              else solve_checkpointed)
+              else functools.partial(solve_checkpointed, None))
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -4140,7 +4167,7 @@ def triage_full_width(trafalgar_cfg: dict) -> None:
     timer = PhaseTimer()
     opt = solve_option(np.float32, "implicit", lm=VENICE_LM)
     try:
-        flat_solve(*arrays, opt, device=DEVICE, timer=timer,
+        flat_solve(None, *arrays, opt, device=DEVICE, timer=timer,
                    triage=TriagePolicy())
     except ProblemRejected as exc:
         rejected = exc
@@ -4162,7 +4189,7 @@ def triage_full_width(trafalgar_cfg: dict) -> None:
     timer = PhaseTimer()
     reset_launch_counts()
     t = time.perf_counter()
-    res = flat_solve(*arrays, opt, device=DEVICE, timer=timer,
+    res = flat_solve(None, *arrays, opt, device=DEVICE, timer=timer,
                      triage=repair)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -4187,9 +4214,9 @@ def triage_full_width(trafalgar_cfg: dict) -> None:
     arrays = (small.cameras0, small.points0, small.obs, small.cam_idx,
               small.pt_idx)
     opt = solve_option(np.float64, DEFAULT_PATH)
-    kern = flat_solve(*arrays, opt, device=DEVICE, triage=repair)
+    kern = flat_solve(None, *arrays, opt, device=DEVICE, triage=repair)
     with plain_path():
-        plain = flat_solve(*arrays, opt, device=DEVICE, triage=repair)
+        plain = flat_solve(None, *arrays, opt, device=DEVICE, triage=repair)
     gap = trial_gate("durable triage REPAIR f64 kernels vs plain", kern,
                      plain)
     log(f"durable triage REPAIR f64: cost {float(kern.initial_cost):.10e} -> "
@@ -4231,9 +4258,11 @@ def durable_phase(venice, trafalgar64, straight, pgo_kept) -> list:
 # `make_fleet` at seed 0.
 FLEET_N = 1024
 FLEET_SIZES = (128, 1024)
-# The first FLEET_SMALL problems: kernels against plain (LM-capped at
-# FLEET_LM_CAP, before the cost floor) and the queue under chaos.
+# The first FLEET_SMALL problems: the queue under chaos; the first
+# FLEET_VS_PLAIN: kernels against plain (LM-capped at FLEET_LM_CAP,
+# before the cost floor; cut from 64 to 32 in PR 21 for phase 15's time).
 FLEET_SMALL = 64
+FLEET_VS_PLAIN = 32
 FLEET_LM_CAP = 4
 # The bf16 rung's cap: its PCG stops at 1e-3 of the RHS energy, so each
 # LM iteration moves a kernel run's final cost from the plain run's by
@@ -4255,10 +4284,10 @@ FLEET_REPORTS = ROOT / "chiprun_out" / "fleet_reports.jsonl"
 # reading, and the small ones are launch-bound anyway.
 FLEET_PROFILED_LANES = 512
 # The option paths (`FLEET_OPTION_PATHS`) run on the first problems of
-# the fleet (the coupling paths on all of them).
-FLEET_OPTION_N = 256
-# Problems solved one by one against their batch (12.2).
-FLEET_SERIAL = 32
+# the fleet (the coupling paths on all of them; 256 until PR 21).
+FLEET_OPTION_N = 128
+# Problems solved one by one against their batch (12.2; 32 until PR 21).
+FLEET_SERIAL = 16
 FLEET_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
                  "fused_block_diag_apply")
 # The lane-batched LM's coupling paths: name -> (ComputeKind name,
@@ -4637,10 +4666,10 @@ def fleet_serial(probs) -> None:
 
     small = probs[:FLEET_SERIAL]
     opt = ProblemOption()
-    flat_solve(*fleet_arrays(small[0]), opt, device=DEVICE)  # warm
+    flat_solve(None, *fleet_arrays(small[0]), opt, device=DEVICE)  # warm
     torch.cuda.synchronize()
     t = time.perf_counter()
-    serial = [flat_solve(*fleet_arrays(p), opt, device=DEVICE)
+    serial = [flat_solve(None, *fleet_arrays(p), opt, device=DEVICE)
               for p in small]
     torch.cuda.synchronize()
     t_serial = time.perf_counter() - t
@@ -4707,7 +4736,7 @@ def fleet_kernels_vs_plain(probs, path: str = "implicit") -> None:
 
     dtype = fleet_path(path)[2] or np.float64
     rung = fleet_rung(path)
-    small = probs[:FLEET_SMALL]
+    small = probs[:FLEET_VS_PLAIN]
     algo = dict(max_iter=FLEET_BF16_LM_CAP if rung == "bf16"
                 else FLEET_LM_CAP)
     if rung is not None:
@@ -5841,9 +5870,8 @@ def host_cli_reference(name: str, ref, argv) -> tuple:
     torch.cuda.synchronize()
     reset_launch_counts()
     t = time.perf_counter()
-    res = flat_solve(*arrays, opt, device=DEVICE,
-                     residual_jac_fn=make_residual_jacobian_fn(
-                         mode=JacobianMode[jm]))
+    res = flat_solve(make_residual_jacobian_fn(mode=JacobianMode[jm]),
+                     *arrays, opt, device=DEVICE)
     torch.cuda.synchronize()
     return res, launch_counts(), time.perf_counter() - t
 
@@ -5958,11 +5986,10 @@ def host_planar() -> None:
                                      param_noise=3e-2, seed=0)
     torch.cuda.synchronize()
     reset_launch_counts()
-    res = flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
-                     planar_option(20), device=DEVICE,
-                     residual_jac_fn=make_residual_jacobian_fn(
-                         residual_fn=planar.residual,
-                         mode=JacobianMode.AUTODIFF))
+    engine = make_residual_jacobian_fn(residual_fn=planar.residual,
+                                       mode=JacobianMode.AUTODIFF)
+    res = flat_solve(engine, s.cameras0, s.points0, s.obs, s.cam_idx,
+                     s.pt_idx, planar_option(20), device=DEVICE)
     torch.cuda.synchronize()
     ref_counts = launch_counts()
     want = expected_launches("implicit", res, dims=(4, 2))
@@ -5991,7 +6018,7 @@ def cold_warm(what: str, arrays, opt, kw: dict, event: str) -> None:
         timer = PhaseTimer()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = flat_solve(*arrays, opt, device=DEVICE, timer=timer, **kw)
+        res = flat_solve(None, *arrays, opt, device=DEVICE, timer=timer, **kw)
         torch.cuda.synchronize()
         runs.append((res, timer, time.perf_counter() - t))
     (a, ta, wa), (b, tb, wb) = runs
@@ -6035,7 +6062,7 @@ def host_trace_profile(scene) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
         with trace_profile(tmp):
-            flat_solve(*arrays, opt, device=DEVICE, timer=PhaseTimer(),
+            flat_solve(None, *arrays, opt, device=DEVICE, timer=PhaseTimer(),
                        **kw)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -6101,6 +6128,422 @@ def host_tools_phase(venice, locality, trafalgar, chunked, smi: str) -> None:
         f"overlap the rest); {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the multi-process runtime
+# ---------------------------------------------------------------------------
+
+# Where the ranks read their problems and write their results (build/ is
+# git-ignored; the directory is emptied first).
+MP_DIR = ROOT / "build" / "chip_smoke_mp"
+MP_WORLD = 2
+MP_RANK_TIMEOUT_S = 240
+# Phase 7's one-process world-2 venice run and phase 10's world-2 graph,
+# kept for 15.1 and 15.2 (venice_phase and pgo_f64_paths fill it).
+MP_KEPT: dict = {}
+ELASTIC_LM = F64_LM
+ELASTIC = dict(interval_s=0.1, straggler_after_s=0.6, dead_after_s=1.5,
+               watchdog_s=60.0, compile_grace_s=120.0, poll_s=0.05)
+
+
+def mp_env() -> dict:
+    """The environment of phase 15's processes: this checkout's package
+    first on the path (`python -P` leaves the script's directory out)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def mp_rank_device() -> str:
+    """The one device each rank solves on: the card's first (every rank
+    shares it), or the CPU on a dry run."""
+    return "cpu" if DEVICE.type == "cpu" else "cuda:0"
+
+
+def mp_rendezvous():
+    """Start the rendezvous process on a free port; (process, port)."""
+    import selectors
+
+    proc = subprocess.Popen(
+        [sys.executable, "-P", "-m", "megba_tpu_torch.parallel.multihost",
+         "--serve", "0", str(MP_WORLD)], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True, env=mp_env())
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    if not sel.select(timeout=60):
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("phase 15: the rendezvous printed no port")
+    line = proc.stdout.readline()
+    if "rendezvous serving" not in line:
+        proc.kill()
+        raise AssertionError(f"phase 15: rendezvous said {line!r}")
+    return proc, line.split()[-1]
+
+
+def mp_rank_main(argv) -> int:
+    """One rank of phase 15 (`python -P chip_smoke.py --rank R --port P
+    --task solve|elastic`): joins the gloo group through the rendezvous
+    and runs its task; results to `MP_DIR`."""
+    sys.path.insert(0, str(ROOT))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--port", required=True)
+    ap.add_argument("--task", choices=("solve", "elastic"), required=True)
+    ap.add_argument("--device", required=True)
+    a = ap.parse_args(argv)
+    global DEVICE
+    DEVICE = torch.device(a.device)
+    if a.task == "solve":
+        mp_rank_solve(a.rank, a.port, a.device)
+    else:
+        mp_rank_elastic(a.rank, a.port, a.device)
+    log(f"rank {a.rank} OK")
+    return 0
+
+
+def mp_rank_solve(rank: int, port: str, device: str) -> None:
+    """15.1 and 15.2 in one rank: the venice world-2 solve, then the
+    world-2 pose graph, each with this rank's figures."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.models.pgo import solve_pgo
+    from megba_tpu_torch.ops import kernels
+    from megba_tpu_torch.parallel import collectives
+    from megba_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+        shutdown_multihost,
+    )
+
+    t_start = time.perf_counter()
+    info = initialize_multihost(f"localhost:{port}", MP_WORLD, rank,
+                                elastic=True)
+    with np.load(MP_DIR / "venice.npz") as z:
+        arrays = tuple(z[k] for k in ("cameras", "points", "obs", "cam_idx",
+                                      "pt_idx"))
+    opt = solve_option(np.float32, "w2_implicit", lm=VENICE_LM)
+    out = {}
+    for task in ("ba", "pgo"):
+        if task == "pgo":
+            with np.load(MP_DIR / "graph.npz") as z:
+                g = {k: z[k] for k in z.files}
+            args, kw, pgo_opt, _ = pgo_path_inputs(
+                "se3_w2", {"se3": types.SimpleNamespace(**g)})
+        reset_launch_counts()
+        collectives.reset_gather_stats()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with count_shard_launches() as shards:
+            if task == "ba":
+                res = flat_solve(None, *arrays, opt, device=device)
+            else:
+                res = solve_pgo(*args, pgo_opt, device=device, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated() if device != "cpu"
+                else 0)
+        gathers = collectives.gather_stats()
+        rec = dict(wall=wall, peak=peak, cost=res.cost.cpu().numpy(),
+                   initial_cost=res.initial_cost.cpu().numpy(),
+                   counts=np.asarray([res.iterations, res.accepted,
+                                      res.pcg_iterations, res.status]),
+                   gathers=gathers["gathers"], gather_bytes=gathers["bytes"],
+                   gather_s=gathers["seconds"],
+                   shards=json.dumps(shards), launches=json.dumps(
+                       {k: v for k, v in launch_counts().items() if v}))
+        if task == "ba":
+            k = res.iterations
+            rec.update(cameras=res.cameras.cpu().numpy(),
+                       points=res.points.cpu().numpy(),
+                       **{f"trace_{f}": getattr(res.trace, f)[:k].numpy()
+                          for f in ("cost", "accept", "pcg_iters", "rho",
+                                    "trust_region")})
+        else:
+            rec.update(poses=res.poses.cpu().numpy())
+        out.update({f"{task}_{n}": v for n, v in rec.items()})
+    shutdown_multihost()
+    np.savez(MP_DIR / f"rank{rank}.npz", backend=info["backend"],
+             nvcc_builds=kernels.nvcc_builds(),
+             seconds=time.perf_counter() - t_start, **out)
+
+
+def mp_elastic_config(rank: int, hb_dir: str):
+    from megba_tpu_torch.robustness.elastic import ElasticConfig
+
+    return ElasticConfig(heartbeat_dir=hb_dir, rank=rank, world=MP_WORLD,
+                         **ELASTIC)
+
+
+def mp_elastic_option():
+    return solve_option(np.float64, "w2_implicit", lm=ELASTIC_LM)
+
+
+def mp_rank_elastic(rank: int, port: str, device: str) -> None:
+    """15.3 in one rank: the chunked world-2 solve under an elastic
+    monitor; on a lost peer, the shrink-world resume at world 1."""
+    from megba_tpu_torch import solve_checkpointed
+    from megba_tpu_torch.parallel.multihost import initialize_multihost
+    from megba_tpu_torch.robustness.elastic import (
+        CollectiveTimeout,
+        ElasticMonitor,
+        WorkerLost,
+        resume_elastic,
+    )
+
+    initialize_multihost(f"localhost:{port}", MP_WORLD, rank, elastic=True)
+    with np.load(MP_DIR / "trafalgar.npz") as z:
+        arrays = tuple(z[k] for k in ("cameras", "points", "obs", "cam_idx",
+                                      "pt_idx"))
+    opt = dataclasses.replace(
+        mp_elastic_option(),
+        telemetry=str(MP_DIR / "elastic.jsonl") if rank == 0 else None)
+    ckpt = str(MP_DIR / f"elastic{rank}.npz")
+    cfg = mp_elastic_config(rank, str(MP_DIR / "hb"))
+    detect = dict(kind="none", latency=float("nan"), at=float("nan"))
+    with ElasticMonitor(cfg) as monitor:
+        try:
+            res = solve_checkpointed(None, *arrays, opt, ckpt, CHUNK_BA,
+                                     elastic=monitor, device=device)
+        except (WorkerLost, CollectiveTimeout) as exc:
+            detect = dict(
+                kind=type(exc).__name__, at=time.monotonic(),
+                latency=getattr(exc, "detected_after_s",
+                                getattr(exc, "elapsed_s", float("nan"))))
+            log(f"rank {rank} detected {detect['kind']} after "
+                f"{detect['latency']:.3f} s of silence")
+            res = resume_elastic(None, *arrays, opt, ckpt, world_size=1,
+                                 monitor=monitor, checkpoint_every=CHUNK_BA,
+                                 device=device)
+    np.savez(MP_DIR / f"elastic_result{rank}.npz",
+             cameras=res.cameras.cpu().numpy(),
+             points=res.points.cpu().numpy(), cost=res.cost.cpu().numpy(),
+             iterations=res.iterations, status=res.status,
+             detect_kind=detect["kind"], latency=detect["latency"],
+             detect_at=detect["at"])
+
+
+def mp_solve_ranks(smi: str) -> None:
+    """15.1 and 15.2: both ranks, gated against phases 7 and 10."""
+    rdv, port = mp_rendezvous()
+    procs = []
+    outs = {}
+    t = time.perf_counter()
+    try:
+        for r in range(MP_WORLD):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-P", str(ROOT / "chip_smoke.py"), "--rank",
+                 str(r), "--port", port, "--task", "solve", "--device",
+                 mp_rank_device()], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, env=mp_env()))
+        for r, p in enumerate(procs):
+            outs[r], _ = p.communicate(timeout=MP_RANK_TIMEOUT_S)
+    finally:
+        for p in procs + [rdv]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t
+    for r, p in enumerate(procs):
+        if p.returncode != 0 or f"rank {r} OK" not in outs[r]:
+            raise AssertionError(f"phase 15: rank {r} failed (rc "
+                                 f"{p.returncode}):\n{outs[r][-4000:]}")
+    recs = {r: dict(np.load(MP_DIR / f"rank{r}.npz"))
+            for r in range(MP_WORLD)}
+    one, one_shards = MP_KEPT["venice"]
+    k = one.iterations
+    want = {"cameras": one.cameras, "points": one.points,
+            **{f"trace_{f}": getattr(one.trace, f)[:k] for f in (
+                "cost", "accept", "pcg_iters", "rho", "trust_region")}}
+    counts = np.asarray([one.iterations, one.accepted, one.pcg_iterations,
+                         one.status])
+    g_kern = MP_KEPT["pgo"]
+    for r, rec in recs.items():
+        if int(rec["nvcc_builds"]) != 0:
+            raise AssertionError(f"phase 15: rank {r} ran nvcc")
+        for name, ref in want.items():
+            got = torch.from_numpy(rec[f"ba_{name}"])
+            if not bitwise_equal(got, ref.cpu()):
+                raise AssertionError(f"15.1 rank {r}: {name} is not bitwise "
+                                     "phase 7's one-process world-2 run")
+        if not (np.array_equal(rec["ba_counts"], counts) and bitwise_equal(
+                torch.from_numpy(rec["ba_cost"]), one.cost.cpu())):
+            raise AssertionError(f"15.1 rank {r}: counts or cost differ")
+        shards = json.loads(str(rec["ba_shards"]))
+        want_shards = {n: {str(r): per[0]} for n, per in one_shards.items()}
+        if shards != want_shards:
+            raise AssertionError(
+                f"15.1 rank {r}: launches {shards}, phase 7's shard-0 tally "
+                f"implies {want_shards}")
+        if not (bitwise_equal(torch.from_numpy(rec["pgo_poses"]),
+                              g_kern.poses.cpu())
+                and bitwise_equal(torch.from_numpy(rec["pgo_cost"]),
+                                  g_kern.cost.cpu())
+                and list(rec["pgo_counts"]) == [
+                    g_kern.iterations, g_kern.accepted,
+                    g_kern.pcg_iterations, g_kern.status]):
+            raise AssertionError(f"15.2 rank {r}: not bitwise phase 10's "
+                                 "one-process world-2 graph")
+    for r, rec in recs.items():
+        for task, what in (("ba", "venice f32 IMPLICIT world 2"),
+                           ("pgo", "4,096-pose SE(3) f64 world 2")):
+            iters = int(rec[f"{task}_counts"][0])
+            call = "flat_solve" if task == "ba" else "solve_pgo"
+            log(f"multi-process {what}, rank {r} of {MP_WORLD} on "
+                f"{mp_rank_device()} ({rec['backend']}): {call} "
+                f"{float(rec[f'{task}_wall']):.3f} s, {iters} LM iterations, "
+                f"peak memory {int(rec[f'{task}_peak']) / 2**30:.3f} GiB; "
+                f"{int(rec[f'{task}_gathers'])} gathers, "
+                f"{int(rec[f'{task}_gather_bytes']) / 2**20:.3f} MiB "
+                f"received, {1e3 * float(rec[f'{task}_gather_s']):.1f} ms "
+                "of host time in them = "
+                f"{int(rec[f'{task}_gather_bytes']) / 2**20 / iters:.3f} MiB "
+                f"and {1e3 * float(rec[f'{task}_gather_s']) / iters:.1f} ms "
+                f"per LM iteration; launches {rec[f'{task}_launches']}")
+        log(f"multi-process rank {r}: {float(rec['seconds']):.1f} s from "
+            "its start to its results (rendezvous, problem load, both "
+            "solves), no nvcc build")
+    log(f"multi-process 15.1 / 15.2: both ranks bitwise the one-process "
+        f"world-2 runs (venice trace, cameras, points; the graph's poses, "
+        f"costs, counts, status); each rank's launches phase 7's shard-0 "
+        f"tally (its shard plus the replicated work); {wall:.1f} s from the "
+        f"ranks' start to their exit; {smi}")
+
+
+def mp_elastic(trafalgar64, smi: str) -> None:
+    """15.3: the elastic kill-resume across two ranks, gated against the
+    parent's uninterrupted world-2 run."""
+    from megba_tpu_torch import solve_checkpointed
+    from megba_tpu_torch.robustness.harness import (
+        run_world_until_snapshot_then_kill,
+    )
+    from megba_tpu_torch.utils.checkpoint import load_state
+
+    arrays = (trafalgar64.cameras0, trafalgar64.points0, trafalgar64.obs,
+              trafalgar64.cam_idx, trafalgar64.pt_idx)
+    np.savez(MP_DIR / "trafalgar.npz", **dict(zip(
+        ("cameras", "points", "obs", "cam_idx", "pt_idx"), arrays)))
+    t = time.perf_counter()
+    clean = solve_checkpointed(None, *arrays, mp_elastic_option(),
+                               str(MP_DIR / "clean.npz"), CHUNK_BA,
+                               device=[DEVICE] * MP_WORLD)
+    t_clean = time.perf_counter() - t
+
+    def ranks(line):
+        port = line.split()[-1]
+        return [[sys.executable, "-P", str(ROOT / "chip_smoke.py"), "--rank",
+                 str(r), "--port", port, "--task", "elastic", "--device",
+                 mp_rank_device()] for r in range(MP_WORLD)]
+
+    t = time.perf_counter()
+    outcome = run_world_until_snapshot_then_kill(
+        [], str(MP_DIR / "elastic0.npz"), kill_rank=1,
+        rendezvous_argv=[sys.executable, "-P", "-m",
+                         "megba_tpu_torch.parallel.multihost", "--serve",
+                         "0", str(MP_WORLD)],
+        timeout=MP_RANK_TIMEOUT_S, survivor_timeout=MP_RANK_TIMEOUT_S,
+        env=mp_env(), worker_argvs_after_rendezvous=ranks)
+    wall = time.perf_counter() - t
+    if outcome.returncodes[1] >= 0 or outcome.returncodes[0] != 0:
+        raise AssertionError(f"15.3: return codes {outcome.returncodes}:\n"
+                             f"{outcome.outputs[0][-4000:]}")
+    res = dict(np.load(MP_DIR / "elastic_result0.npz"))
+    cfg = mp_elastic_config(0, str(MP_DIR / "hb"))
+    limit = cfg.dead_after_s + 10 * cfg.poll_s
+    latency = float(res["latency"])
+    from_kill = float(res["detect_at"]) - outcome.kill_monotonic
+    if str(res["detect_kind"]) != "WorkerLost" or not (
+            cfg.dead_after_s <= latency <= limit and from_kill <= limit):
+        raise AssertionError(
+            f"15.3: detected {res['detect_kind']} after {latency:.3f} s of "
+            f"silence, {from_kill:.3f} s after the kill (limit {limit} s)")
+    final = load_state(str(MP_DIR / "elastic0.npz"))
+    if int(final["world_size"]) != 1 or int(final["iteration"]) != int(
+            res["iterations"]):
+        raise AssertionError("15.3: the snapshot chain did not end at "
+                             "world 1")
+    if (int(res["iterations"]), int(res["status"])) != (
+            clean.iterations, clean.status):
+        raise AssertionError("15.3: iterations or status differ from the "
+                             "uninterrupted world-2 run")
+    gaps = {}
+    for name, got, ref, atol in (
+            ("cost", res["cost"], clean.cost, 0.0),
+            ("cameras", res["cameras"], clean.cameras, 1e-9),
+            ("points", res["points"], clean.points, 1e-9)):
+        ref = ref.cpu().numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=atol,
+                                   err_msg=f"15.3 {name}")
+        gaps[name] = float(np.max(np.abs(got - ref) / np.maximum(
+            np.abs(ref), 1e-300)))
+    block = json.loads((MP_DIR / "elastic.jsonl").read_text().splitlines()[
+        -1])["elastic"]
+    if (block["workers_lost"], block["reshards"], block["resumes"]) != (
+            1, 1, 1):
+        raise AssertionError(f"15.3: elastic block {block}")
+    log(f"multi-process 15.3 elastic kill-resume (trafalgar-sized f64, "
+        f"{ELASTIC_LM} LM in chunks of {CHUNK_BA}): rank 1 SIGKILLed at rank "
+        f"0's first world-2 snapshot; rank 0 raised WorkerLost after "
+        f"{latency:.3f} s of silence, {from_kill:.3f} s after the kill "
+        f"(dead_after_s {cfg.dead_after_s}, poll {cfg.poll_s} s), resumed "
+        f"at world 1 and exited 0; {int(res['iterations'])} LM, status "
+        f"{int(res['status'])}, relative gaps to the uninterrupted world-2 "
+        f"run {gaps} (rtol 1e-6); elastic block {block['workers_lost']} "
+        f"lost / {block['reshards']} reshard / {block['resumes']} resume; "
+        f"{wall:.1f} s from the rendezvous' start to rank 0's exit, the "
+        f"uninterrupted run {t_clean:.1f} s; {smi}")
+
+
+def mp_gloo_device_probe() -> str:
+    """Whether gloo takes the card's tensors in an all_gather, probed in
+    a process group of one (this process): the port stages the gathered
+    parts through host memory either way (parallel/collectives.py), so
+    the answer is recorded, not used."""
+    import torch.distributed as dist
+
+    if DEVICE.type != "cuda":
+        return "gloo on the card: not probed (no card)"
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        x = torch.arange(4.0, device=DEVICE)
+        out = [torch.empty_like(x)]
+        dist.all_gather(out, x)
+        torch.cuda.synchronize()
+        how = "works" if torch.equal(out[0], x) else "returned wrong values"
+        return f"gloo on the card: all_gather of a CUDA tensor {how}"
+    except Exception as exc:  # recorded: the port does not use this path
+        return (f"gloo on the card: all_gather of a CUDA tensor raised "
+                f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}")
+    finally:
+        dist.destroy_process_group()
+
+
+def multiprocess_phase(venice, trafalgar64, smi: str) -> None:
+    """Phase 15 (the module docstring): 15.1 and 15.2 in one pair of
+    ranks, then 15.3 in another."""
+    import shutil
+
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    MP_DIR.mkdir(parents=True)
+    np.savez(MP_DIR / "venice.npz", cameras=venice.cameras0,
+             points=venice.points0, obs=venice.obs, cam_idx=venice.cam_idx,
+             pt_idx=venice.pt_idx)
+    g = MP_KEPT["pgo_graph"]
+    np.savez(MP_DIR / "graph.npz", poses0=g.poses0, edge_i=g.edge_i,
+             edge_j=g.edge_j, meas=g.meas)
+    if DEVICE.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"multi-process: {mp_gloo_device_probe()}; the port stages each "
+        "gathered part through host memory")
+    mp_solve_ranks(smi)
+    mp_elastic(trafalgar64, smi)
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+
+
+
 class PhaseClock:
     """Wall seconds of the script's phases, each from the end of the one
     before (the first from the end of the build, `build_s`)."""
@@ -6132,6 +6575,8 @@ class PhaseClock:
 
 
 def main() -> int:
+    if "--rank" in sys.argv[1:]:  # a rank process of phase 15
+        return mp_rank_main(sys.argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
     opts = ap.parse_args()
@@ -6209,6 +6654,8 @@ def main() -> int:
     clock.lap("federation")
     host_tools_phase(venice, locality, trafalgar32, chunked, smi)
     clock.lap("host tools")
+    multiprocess_phase(venice, trafalgar64, smi)
+    clock.lap("multi-process")
     log(clock.summary())
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:

@@ -38,7 +38,12 @@ megba_tpu_torch.observability.summarize path` renders them).
 `solve_many(problems)` solves a fleet of independent problems
 (`FleetProblem`), one lane-batched LM per shape bucket, and `FleetQueue`
 serves them asynchronously with deadlines, escalation, admission control
-and circuit breakers (`serving/`).
+and circuit breakers (`serving/`).  Several processes solve one problem
+together after `parallel.multihost.initialize_multihost` joins them in a
+gloo process group: `flat_solve` / `solve_pgo` at `world_size` N then
+shard over every process's devices, bitwise the one-process world-N
+solve, and `solve_checkpointed(..., elastic=...)` with
+`robustness.elastic.resume_elastic` survives losing a process.
 """
 
 from megba_tpu_torch.common import (
@@ -59,6 +64,7 @@ from megba_tpu_torch.common import (
     SolveStatus,
     status_name,
 )
+from megba_tpu_torch.core.types import BALData, BAState
 from megba_tpu_torch.factors import (
     FactorError,
     FactorSpec,
@@ -80,6 +86,7 @@ from megba_tpu_torch.ops.robust import rho_and_weight, robustify
 from megba_tpu_torch.problem import (
     BaseEdge,
     BaseProblem,
+    BaseVertex,
     BetweenEdge,
     CameraVertex,
     PointVertex,

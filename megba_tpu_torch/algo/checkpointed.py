@@ -21,8 +21,12 @@ arrays' conversions and moves are repeated.  The only device sync the
 driver adds is one device-to-host copy a chunk of the parameters and
 the resume scalars.
 
-The JAX drivers' `elastic` monitor (multi-host liveness and collective
-watchdogs) is not ported: `elastic=` raises NotImplementedError.
+`elastic=` (robustness/elastic.ElasticConfig or ElasticMonitor) bounds
+every chunk dispatch of a multi-process solve: peers are checked for
+liveness at each chunk boundary and the chunk runs under the monitor's
+watchdog, so a dead or hung peer surfaces as a typed `WorkerLost` /
+`CollectiveTimeout` instead of a block; the last snapshot is then the
+recovery line of `robustness.elastic.resume_elastic`.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -103,7 +107,8 @@ def _chunk_state(result, params: List[torch.Tensor], dx=None):
 def _run_chunked(solve_chunk: Callable, params, dump_params: Callable,
                  load_params: Callable, topo: np.ndarray, total: int,
                  checkpoint_path: str, checkpoint_every: int,
-                 world_size: int = 1, process_index: int = 0):
+                 world_size: int = 1, process_index: int = 0,
+                 elastic=None):
     """The shared chunk loop: resume, solve in chunks, snapshot, aggregate.
 
     `solve_chunk(params, max_iter, region, v, dx, done) -> (result,
@@ -120,11 +125,31 @@ def _run_chunked(solve_chunk: Callable, params, dump_params: Callable,
     the snapshot format stores; `load_params(st)` inverts it.
 
     `world_size` / `process_index` are stamped into every snapshot's
-    schema-v3 world header; a resume at another world size warns.
+    schema-v3 world header; a resume at another world size warns and is
+    recorded as a reshard on `elastic`.
+
+    `elastic` (robustness.elastic.ElasticMonitor, started) bounds every
+    chunk dispatch: peers are checked at each chunk boundary and the
+    chunk runs under `ElasticMonitor.guard`, so a dead or hung peer
+    surfaces as a typed `WorkerLost` / `CollectiveTimeout` within the
+    budget.  The chunk whose dispatch died is never snapshotted: the
+    previous chunk's snapshot is the recovery line.  A chunk's result
+    is on the host once `solve_chunk` returns (its state is copied
+    there), so its whole execution lies inside the guard.
     """
     if checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
+
+    def dispatch(label, *chunk_args):
+        if elastic is None:
+            return solve_chunk(*chunk_args)
+        elastic.check_peers(label=label)
+        # grace_key = the chunk's iteration count: the first dispatch of
+        # each kind (a short final chunk, the 0-iteration evaluate) gets
+        # the first-dispatch grace.
+        return elastic.guard(label, solve_chunk, *chunk_args,
+                             grace_key=("chunk", chunk_args[1]))
     done = 0
     region = v = dx = None
     accepted_total = pcg_total = recoveries_total = 0
@@ -141,6 +166,12 @@ def _run_chunked(solve_chunk: Callable, params, dump_params: Callable,
     # summarised by an order-sensitive hash of the index arrays.
     if os.path.exists(checkpoint_path):
         st = load_state(checkpoint_path, expect_world_size=world_size)
+        saved_ws = st.get("world_size")
+        if (elastic is not None and saved_ws is not None
+                and int(saved_ws) != int(world_size)):
+            # A shrink-world resume through the driver directly (without
+            # resume_elastic's own bookkeeping) is still a reshard.
+            elastic.record_reshard(int(saved_ws), int(world_size))
         saved_topo = st.get("extra_topology")
         if saved_topo is None or not np.array_equal(
                 np.asarray(saved_topo), topo):
@@ -181,8 +212,8 @@ def _run_chunked(solve_chunk: Callable, params, dump_params: Callable,
     result = None
     while not already_stopped and done < total:
         chunk = min(checkpoint_every, total - done)
-        result, params, state = solve_chunk(params, chunk, region, v, dx,
-                                            done)
+        result, params, state = dispatch(f"chunk@iter{done}", params,
+                                         chunk, region, v, dx, done)
         region, v = state["region"], state["v"]
         if state["dx"] is not None:
             dx = state["dx"]
@@ -229,7 +260,8 @@ def _run_chunked(solve_chunk: Callable, params, dump_params: Callable,
             break  # converged (possibly exactly on the chunk boundary)
 
     if result is None:  # resumed at/past total (or converged): evaluate
-        result, params, state = solve_chunk(params, 0, region, v, dx, done)
+        result, params, state = dispatch(f"evaluate@iter{done}", params,
+                                         0, region, v, dx, done)
         if first_cost is None:
             first_cost = state["initial_cost"]
         if already_stopped:
@@ -256,13 +288,13 @@ def _run_chunked(solve_chunk: Callable, params, dump_params: Callable,
     return _replace(result, **fields)
 
 
-def _refuse_elastic(elastic) -> None:
-    if elastic is not None:
-        raise NotImplementedError(
-            f"elastic={elastic!r} is not ported to megba_tpu_torch yet: "
-            "the elastic monitor (peer liveness and collective watchdogs "
-            "of a multi-host world) belongs to the multi-host path; the "
-            "port's checkpointed drivers run on one host")
+def _process_index() -> int:
+    """This process's rank in the process group (0 without one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
 
 
 def _chunk_option(option: ProblemOption, max_iter: int) -> ProblemOption:
@@ -272,6 +304,7 @@ def _chunk_option(option: ProblemOption, max_iter: int) -> ProblemOption:
 
 
 def solve_checkpointed(
+    residual_jac_fn: Optional[Callable],
     cameras: np.ndarray,
     points: np.ndarray,
     obs: np.ndarray,
@@ -286,20 +319,29 @@ def solve_checkpointed(
 ) -> LMResult:
     """Run the BA LM solve, snapshotting every `checkpoint_every` iters.
 
-    The arguments are `solve.flat_solve`'s, in its order; if
-    `checkpoint_path` exists the solve resumes from it (after checking
-    that it was written for this problem's graph).  Extra keywords flow
-    to `flat_solve` (sqrt_info, edge_mask, cam_fixed, pt_fixed, device,
-    residual_jac_fn, factor, triage, timer...); a `fault_plan`'s window
-    is in whole-solve iterations and is re-offset each chunk.  The
-    result is the last chunk's, with the whole solve's initial cost,
-    counts, status, recoveries and stitched trace.  `elastic` (the JAX
-    package's multi-host monitor) raises NotImplementedError.
+    The arguments are the JAX package's, in its order (its
+    checkpointed.py:284): `solve.flat_solve`'s engine (or None), arrays
+    and option, then the snapshot path; if `checkpoint_path` exists the
+    solve resumes from it (after checking that it was written for this
+    problem's graph).  Extra keywords flow to `flat_solve` (sqrt_info,
+    edge_mask, cam_fixed, pt_fixed, device, factor, triage, timer...); a
+    `fault_plan`'s window is in whole-solve iterations and is re-offset
+    each chunk.  The result is the last chunk's, with the whole solve's
+    initial cost, counts, status, recoveries and stitched trace.
+
+    `elastic` (robustness.elastic.ElasticConfig or ElasticMonitor) arms
+    the elastic contract of a multi-process solve: this rank beats, every
+    chunk dispatch is bounded by the monitor, and a dead or hung peer
+    raises a typed `WorkerLost` / `CollectiveTimeout` at the chunk
+    boundary; the latest snapshot is then the recovery line of
+    `robustness.elastic.resume_elastic`.  With telemetry on, each chunk's
+    SolveReport carries the monitor's counters (`SolveReport.elastic`).
     """
+    from megba_tpu_torch.robustness.elastic import ElasticMonitor
     from megba_tpu_torch.robustness.faults import with_offset
     from megba_tpu_torch.solve import flat_solve
 
-    _refuse_elastic(elastic)
+    monitor, owned = ElasticMonitor.ensure(elastic)
     fault_plan = solve_kwargs.pop("fault_plan", None)
 
     def solve_chunk(params, max_iter, region, v, dx, done):
@@ -307,8 +349,13 @@ def solve_checkpointed(
         kwargs = dict(solve_kwargs)
         if fault_plan is not None:
             kwargs["fault_plan"] = with_offset(fault_plan, done)
+        if monitor is not None:
+            # The chunk's report carries a snapshot of the elastic ledger
+            # (the aggregator keeps the last one per monitor).
+            kwargs["elastic_report"] = monitor.report_block()
         result = flat_solve(
-            cams, pts, obs, cam_idx, pt_idx, _chunk_option(option, max_iter),
+            residual_jac_fn, cams, pts, obs, cam_idx, pt_idx,
+            _chunk_option(option, max_iter),
             verbose=verbose, initial_region=region, initial_v=v,
             initial_dx=dx, **kwargs)
         host, state = _chunk_state(result, [result.cameras, result.points],
@@ -317,19 +364,24 @@ def solve_checkpointed(
 
     cam_dtype = np.asarray(cameras).dtype
     pt_dtype = np.asarray(points).dtype
-    return _run_chunked(
-        solve_chunk,
-        params=(cameras, points),
-        dump_params=lambda p: (p[0], p[1]),
-        load_params=lambda st: (np.asarray(st["cameras"], cam_dtype),
-                                np.asarray(st["points"], pt_dtype)),
-        topo=_topology_fingerprint(cameras, points, cam_idx, pt_idx),
-        total=option.algo_option.max_iter,
-        checkpoint_path=checkpoint_path,
-        checkpoint_every=checkpoint_every,
-        world_size=option.world_size,
-        process_index=0,
-    )
+    try:
+        return _run_chunked(
+            solve_chunk,
+            params=(cameras, points),
+            dump_params=lambda p: (p[0], p[1]),
+            load_params=lambda st: (np.asarray(st["cameras"], cam_dtype),
+                                    np.asarray(st["points"], pt_dtype)),
+            topo=_topology_fingerprint(cameras, points, cam_idx, pt_idx),
+            total=option.algo_option.max_iter,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every,
+            world_size=option.world_size,
+            process_index=_process_index(),
+            elastic=monitor,
+        )
+    finally:
+        if owned:
+            monitor.stop()
 
 
 def solve_pgo_checkpointed(
@@ -351,11 +403,14 @@ def solve_pgo_checkpointed(
     transparent resume after a topology-fingerprint check.  Extra
     keywords flow to `solve_pgo` (sqrt_info, fixed, factor, device...).
     The pose table takes the snapshot's "cameras" slot; "points" holds
-    an empty placeholder.  `elastic` raises NotImplementedError.
+    an empty placeholder.  `elastic` bounds the chunk dispatches as in
+    `solve_checkpointed` (the pose-graph family writes no SolveReport,
+    so there is no per-chunk elastic block).
     """
     from megba_tpu_torch.models.pgo import solve_pgo
+    from megba_tpu_torch.robustness.elastic import ElasticMonitor
 
-    _refuse_elastic(elastic)
+    monitor, owned = ElasticMonitor.ensure(elastic)
 
     def solve_chunk(params, max_iter, region, v, dx, done):
         # The pose-graph loop has no cross-chunk warm-start operand.
@@ -368,15 +423,21 @@ def solve_pgo_checkpointed(
         return result, poses, state
 
     poses = np.asarray(poses0)
-    return _run_chunked(
-        solve_chunk,
-        params=poses,
-        dump_params=lambda p: (p, np.zeros((0, 1))),
-        load_params=lambda st: np.asarray(st["cameras"]),
-        topo=_topology_fingerprint(poses, np.zeros((0, 1)), edge_i, edge_j),
-        total=option.algo_option.max_iter,
-        checkpoint_path=checkpoint_path,
-        checkpoint_every=checkpoint_every,
-        world_size=option.world_size,
-        process_index=0,
-    )
+    try:
+        return _run_chunked(
+            solve_chunk,
+            params=poses,
+            dump_params=lambda p: (p, np.zeros((0, 1))),
+            load_params=lambda st: np.asarray(st["cameras"]),
+            topo=_topology_fingerprint(poses, np.zeros((0, 1)), edge_i,
+                                       edge_j),
+            total=option.algo_option.max_iter,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every,
+            world_size=option.world_size,
+            process_index=_process_index(),
+            elastic=monitor,
+        )
+    finally:
+        if owned:
+            monitor.stop()

@@ -270,8 +270,8 @@ def lm_solve(
         system = build_schur_system(r, Jc, Jp, plans, num_cameras,
                                     num_points, cam_fixed, pt_fixed,
                                     option.compute_kind)
-        if faults[0] is not None:
-            system = poison_system(system, faults[0], k)
+        if faults[plans.mesh.home] is not None:
+            system = poison_system(system, faults[plans.mesh.home], k)
         return r, Jc, Jp, system, cost, wcost
 
     def edge_trial_cost(sh, cams, pts, k):

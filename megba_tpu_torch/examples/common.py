@@ -104,9 +104,8 @@ def run_example(dtype, jacobian_mode, compute_kind, argv=None) -> float:
         f"world_size={args.world_size}")
 
     t0 = time.perf_counter()
-    result = flat_solve(cameras, points, obs, cam_idx, pt_idx, option,
-                        verbose=True, device=example_device(args),
-                        residual_jac_fn=f)
+    result = flat_solve(f, cameras, points, obs, cam_idx, pt_idx, option,
+                        verbose=True, device=example_device(args))
     cost = float(result.cost)
     elapsed = time.perf_counter() - t0
     print(

@@ -52,10 +52,9 @@ def main(num_cameras=12, num_points=200, obs_per_point=5,
         seed=0)
     f = make_residual_jacobian_fn(residual_fn=planar.residual,
                                   mode=JacobianMode.AUTODIFF)
-    res = flat_solve(
+    res = flat_solve(f,
         s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
-        planar_option(args.max_iter), verbose=True, device=args.device,
-        residual_jac_fn=f)
+        planar_option(args.max_iter), verbose=True, device=args.device)
     print(
         f"planar BA: cost {float(res.initial_cost):.4e} -> "
         f"{float(res.cost):.6e} in {int(res.iterations)} iterations")

@@ -112,10 +112,11 @@ def build_schur_system(
     rows W (from the same weighted, masked rows, Jp brought to cam-slot
     order first).
     """
-    od = r[0].shape[0]
-    cd = Jc[0].shape[0] // od
-    pd = Jp[0].shape[0] // od
-    dtype, device = r[0].dtype, r[0].device
+    home = plans.mesh.home  # shard 0, or this process's first
+    od = r[home].shape[0]
+    cd = Jc[home].shape[0] // od
+    pd = Jp[home].shape[0] // od
+    dtype, device = r[home].dtype, r[home].device
 
     parts = for_shards(build_schur_partials, r, Jc, Jp, plans.shards)
     hpp_rows, g_cam, Hll, g_pt = (psum([p[i] for p in parts], device)

@@ -84,7 +84,13 @@ from megba_tpu_torch.ops.residuals import (
 )
 from megba_tpu_torch.ops.robust import rho_and_weight, robustify
 from megba_tpu_torch.parallel.collectives import for_shards, psum
-from megba_tpu_torch.parallel.mesh import make_mesh, resolve_devices
+from megba_tpu_torch.parallel.mesh import (
+    make_mesh,
+    make_process_mesh,
+    multiprocess_active,
+    resolve_devices,
+)
+from megba_tpu_torch.parallel.multihost import dispatch_on_mesh
 
 POSE_DIM = 6
 _TINY = 1e-30
@@ -137,11 +143,15 @@ class _Shard:
 def _shard_edges(edge_i, edge_j, meas, sqrt_info, emask, fixed, devices,
                  n_poses, tdtype):
     """Plan each shard's two sides (the i-sorted stream cut into
-    len(devices) pieces) and move its edge arrays there, in slot order."""
+    len(devices) pieces) and move its edge arrays there, in slot order;
+    a shard of another process (device None) is None."""
     perms, plans = segtiles.make_sharded_dual_plans(
         edge_i, edge_j, n_poses, n_poses, devices)
     shards = []
     for perm, pl, dev in zip(perms, plans, devices):
+        if dev is None:
+            shards.append(None)
+            continue
         def rows(a):
             a = a[perm].reshape(perm.shape[0], -1)
             return torch.from_numpy(np.ascontiguousarray(a.T)).to(dev, tdtype)
@@ -254,7 +264,10 @@ def solve_pgo(
 
     `option.world_size` N > 1 shards the edge axis over N shards;
     `device` is then a sequence of N devices (which may repeat one) or
-    None (the first N visible cards).  With one shard `device` is one
+    None (the first N visible cards); across the processes of a process
+    group (parallel/multihost.initialize_multihost) each process passes
+    its own device(s) and the whole graph, and every process gets the
+    one-process world-N result, bitwise.  With one shard `device` is one
     device, or None for `option.device` (the card by default).
     `option.robust_kind` / `robust_delta` enable IRLS robust losses
     (Huber / Cauchy); `result.cost` is then Sum rho.
@@ -292,14 +305,20 @@ def solve_pgo(
     tdtype = DTYPE_TO_TORCH[dtype]
     n_poses = int(poses0.shape[0])
     world = int(option.world_size)
-    if world > 1:
-        devices = resolve_devices(world, device, default=option.device.value)
+    if world > 1 and multiprocess_active():
+        # Across the process group: this process's shards on `device`
+        # (parallel/multihost.py).
+        mesh = make_process_mesh(world, device, default=option.device.value)
     else:
-        if isinstance(device, (list, tuple)):
-            device = resolve_devices(1, device)[0]
-        devices = (resolve_device(device, option),)
-    mesh = make_mesh(world, devices)
-    dev0 = mesh.devices[0]
+        if world > 1:
+            devices = resolve_devices(world, device,
+                                      default=option.device.value)
+        else:
+            if isinstance(device, (list, tuple)):
+                device = resolve_devices(1, device)[0]
+            devices = (resolve_device(device, option),)
+        mesh = make_mesh(world, devices)
+    dev0 = mesh.home_device
 
     # Host-side prep: pad the edge axis to a multiple of world_size with
     # masked-out edges (core/types.pad_edges, the JAX package's padding
@@ -336,7 +355,9 @@ def solve_pgo(
     region0 = (option.algo_option.initial_region if initial_region is None
                else initial_region)
     v0 = 2.0 if initial_v is None else initial_v
-    out = _run(poses, fixed_t, shards, option, spec, region0, v0, verbose)
+    out = dispatch_on_mesh(
+        lambda: _run(poses, fixed_t, shards, option, spec, region0, v0,
+                     verbose), mesh)
     result = PGOResult(poses=out.pop("poses").T.contiguous(), **out)
     if verbose:
         print(f"PGO: cost {float(result.initial_cost):.6e} -> "

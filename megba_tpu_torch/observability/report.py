@@ -64,7 +64,8 @@ def backend_topology(device=None) -> Dict[str, Any]:
     """The platform and devices of this run, under the JAX package's
     keys: backend "gpu" with the card's name when `device` (default: the
     current CUDA device when there is one) is a CUDA device, else "cpu";
-    one process."""
+    the process index and count of the process group, when one is up
+    (parallel/multihost.py)."""
     dev = torch.device(device) if device is not None else (
         torch.device("cuda", torch.cuda.current_device())
         if torch.cuda.is_available() else torch.device("cpu"))
@@ -74,21 +75,24 @@ def backend_topology(device=None) -> Dict[str, Any]:
         backend = "gpu"
     else:
         count, kinds, backend = 1, ["cpu"], "cpu"
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
     return {
         "backend": backend,
         "device_count": count,
         "local_device_count": count,
         "device_kinds": kinds,
-        "process_index": 0,
-        "process_count": 1,
+        "process_index": dist.get_rank() if up else 0,
+        "process_count": dist.get_world_size() if up else 1,
     }
 
 
 @dataclasses.dataclass
 class SolveReport:
     """One solve's telemetry record; `to_json` / `from_json` round-trip.
-    The fields are the JAX package's: `program_audit`, `elastic` and
-    `tiles` stay None here."""
+    The fields are the JAX package's; `program_audit` (its HLO auditor's)
+    stays None here."""
 
     problem: Dict[str, Any]
     config: Dict[str, Any]
@@ -153,9 +157,12 @@ def build_report(option, result, phases: Dict[str, Any],
                  problem: Dict[str, Any],
                  fleet: Optional[Dict[str, Any]] = None,
                  health: Optional[Dict[str, Any]] = None,
-                 device=None) -> SolveReport:
+                 device=None, elastic: Optional[Dict[str, Any]] = None,
+                 tiles: Optional[Dict[str, Any]] = None) -> SolveReport:
     """Assemble a SolveReport from a finished solve (`result` an
-    `LMResult`); reads its scalars and trace to the host."""
+    `LMResult`); reads its scalars and trace to the host.  `elastic` is
+    an elastic monitor's ledger (robustness/elastic.ElasticMonitor.
+    report_block), `tiles` the plans' block (solve._tiles_block)."""
     from megba_tpu_torch import observability as _obs
     from megba_tpu_torch.observability.trace import trace_to_dict
     from megba_tpu_torch.utils.meminfo import device_memory_stats
@@ -188,7 +195,9 @@ def build_report(option, result, phases: Dict[str, Any],
         trace=None if trace is None else trace_to_dict(trace, iterations),
         memory=device_memory_stats(device),
         fleet=fleet,
+        elastic=elastic,
         health=health,
+        tiles=tiles,
         trace_id=None if span_ctx is None else span_ctx["trace_id"],
         span_id=None if span_ctx is None else span_ctx["span_id"],
         worker=os.environ.get("MEGBA_FEDERATION_WORKER") or None,

@@ -103,6 +103,40 @@ def angle_axis_to_rotation_matrix(angle_axis: torch.Tensor) -> torch.Tensor:
     return torch.where(safe, R, R_small)
 
 
+def quaternion_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
+    """[4, ...] unit quaternion (w, x, y, z) -> [3, 3, ...] rotation
+    matrix (JAX geo.py:121)."""
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)]),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)]),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)]),
+    ])
+
+
+def drotated_dangle_axis(angle_axis: torch.Tensor,
+                         pt: torch.Tensor) -> torch.Tensor:
+    """Closed-form d(R(w) pt)/dw, [3, 3, ...] (JAX geo.py:212).
+
+    Gallego & Yezzi (2015):
+      d(R x)/dw = -R [x]_x (w w^T + (R^T - I) [w]_x) / theta^2,
+    with the theta -> 0 limit -[x]_x.
+    """
+    theta2 = (angle_axis * angle_axis).sum(0)
+    safe = theta2 > _SMALL_ANGLE
+    theta2_safe = torch.where(safe, theta2, torch.ones_like(theta2))
+    R = angle_axis_to_rotation_matrix(angle_axis)
+    W = skew(angle_axis)
+    X = skew(pt)
+    outer = angle_axis[:, None] * angle_axis[None, :]
+    full = -mm(mm(R, X), outer + mm(R.transpose(0, 1) - _eye3(theta2), W)
+               ) / theta2_safe
+    return torch.where(safe, full, -X)
+
+
 def rotation2d_to_matrix(theta: torch.Tensor) -> torch.Tensor:
     """[...] angle -> [2, 2, ...] rotation matrix."""
     c = torch.cos(theta)

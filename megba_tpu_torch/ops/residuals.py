@@ -233,6 +233,16 @@ class ResidualJacobianFn:
         return self.jacobian(cam, pt, obs)
 
 
+def bal_residual_jacobian_analytical(
+    camera: torch.Tensor, point: torch.Tensor, obs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One edge of the analytical BAL engine (JAX residuals.py:212):
+    (camera [9], point [3], obs [2]) -> (r [2], Jc [2, 9], Jp [2, 3])."""
+    r, Jc, Jp = bal_residual_jacobian_analytical_fm(
+        camera[:, None], point[:, None], obs[:, None])
+    return r[:, 0], Jc[:, 0].reshape(2, 9), Jp[:, 0].reshape(2, 3)
+
+
 def residual_only(engine: Callable[..., Rows]) -> Callable[..., torch.Tensor]:
     """The value-only residual of an engine: its own when it carries one,
     else the engine's r (a plain callable pays for its Jacobian too)."""

@@ -838,7 +838,8 @@ def make_sharded_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
     shard's plans cover all global segments.  Returns (perms, plans):
     shard k's edge arrays are `arr[perms[k]]`, in its camera-slot order,
     and `plans[k]` lives on devices[k].  No padding: the CSR plans need
-    none.
+    none.  A shard of another process (device None, a mesh across
+    processes) gets its host order alone and None for its plans.
     """
     cam_idx = np.asarray(cam_idx)
     pt_idx = np.asarray(pt_idx)
@@ -850,8 +851,11 @@ def make_sharded_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
     perms, plans = [], []
     for k in range(ws):
         sel = order[bounds[k]:bounds[k + 1]]
-        plan_c, dp = make_dual_plans(cam_idx[sel], pt_idx[sel], num_cameras,
-                                     num_points, devices[k])
+        if devices[k] is None:
+            plan_c, dp = build_seg_plan(cam_idx[sel], num_cameras), None
+        else:
+            plan_c, dp = make_dual_plans(cam_idx[sel], pt_idx[sel],
+                                         num_cameras, num_points, devices[k])
         perms.append(sel[plan_c.perm].astype(np.int64))
         plans.append(dp)
     return perms, tuple(plans)
@@ -862,30 +866,36 @@ class ShardedClusterPlan:
     """A device coarse-space plan split over the edge shards: `shards[k]`
     (a `DeviceClusterPlan` on shard k's device) holds the incidence plan
     and the pairs of shard k's edges, with shard-local edge ids; the
-    cluster and incidence tables are replicated, read from shard 0."""
+    cluster and incidence tables are replicated, read from the first
+    shard this process holds (another process's shard is None)."""
 
-    shards: Tuple[DeviceClusterPlan, ...]
+    shards: Tuple[Optional[DeviceClusterPlan], ...]
+
+    @property
+    def _home(self) -> DeviceClusterPlan:
+        return next(s for s in self.shards if s is not None)
 
     @property
     def num_clusters(self) -> int:
-        return self.shards[0].num_clusters
+        return self._home.num_clusters
 
     @property
     def n_pc(self) -> int:
-        return self.shards[0].n_pc
+        return self._home.n_pc
 
     @property
     def cluster(self) -> torch.Tensor:
-        return self.shards[0].cluster
+        return self._home.cluster
 
     @property
     def pc_pt(self) -> torch.Tensor:
-        return self.shards[0].pc_pt
+        return self._home.pc_pt
 
     @property
     def ec_chunks(self) -> tuple:
-        """Every shard's pair chunks, shard by shard."""
-        return tuple(c for s in self.shards for c in s.ec_chunks)
+        """Every local shard's pair chunks, shard by shard."""
+        return tuple(c for s in self.shards if s is not None
+                     for c in s.ec_chunks)
 
 
 def shard_cluster_plan(plan: ClusterPlan,
@@ -927,15 +937,17 @@ def device_sharded_coarse_plan(plan, shards, devices):
     `coarse_plan_partition_specs`): a `ShardedClusterPlan`, or a
     `DeviceMultiLevelPlan` whose level 1 is one (the coarser levels'
     assignments are every shard's, JAX `multilevel_partition_specs`); the
-    replicated tables live on devices[0]."""
+    replicated tables live on the first device (across processes: this
+    process's first; another process's shard, device None, gets None)."""
     if isinstance(plan, MultiLevelPlan):
         base = device_sharded_coarse_plan(plan.base, shards, devices)
+        home = next(d for d in devices if d is not None)
         return DeviceMultiLevelPlan(
             base=base, level_sizes=plan.level_sizes,
-            assign=tuple(torch.from_numpy(a.astype(np.int64)).to(devices[0])
+            assign=tuple(torch.from_numpy(a.astype(np.int64)).to(home)
                          for a in plan.assign))
     return ShardedClusterPlan(shards=tuple(
-        device_cluster_plan(p, d)
+        None if d is None else device_cluster_plan(p, d)
         for p, d in zip(shard_cluster_plan(plan, shards), devices)))
 
 
@@ -1267,7 +1279,8 @@ def _array_digest(a: np.ndarray) -> bytes:
 
 
 def _devices_key(devices) -> tuple:
-    return tuple(str(torch.device(d)) for d in devices)
+    return tuple("remote" if d is None else str(torch.device(d))
+                 for d in devices)
 
 
 def _members(obj):
@@ -1355,13 +1368,13 @@ def _resolved(devices) -> tuple:
         return (resolve_device(None),)
     if isinstance(devices, (str, torch.device)):
         return (torch.device(devices),)
-    return tuple(torch.device(d) for d in devices)
+    return tuple(None if d is None else torch.device(d) for d in devices)
 
 
 def _fuse_all(plans) -> tuple:
     from megba_tpu_torch.ops.fused import with_fused_plans
 
-    return tuple(with_fused_plans(p) for p in plans)
+    return tuple(None if p is None else with_fused_plans(p) for p in plans)
 
 
 def cached_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,

@@ -31,14 +31,23 @@ summed point shard, its Hll^-1 product and its camera reduction are held
 on device (0, c), the first of the column, where the JAX package's
 subgroup psums leave a copy on every device of the subgroup.
 
-Multi-host runs (the JAX package's `parallel/multihost.py`) are not
-ported, nor is an NCCL route between cards: the collectives move
-tensors with `.to(device)`.
+A mesh may span OS processes (`make_process_mesh`, once
+parallel/multihost.initialize_multihost has joined them): shards in
+process rank order, as `jax.devices()` orders a multi-host mesh, each
+process holding its own shards' devices and None for the others'
+(`Mesh.processes` names each shard's owner).  Every process runs the
+same host prep on the full problem, lowers only its own shards, and
+keeps the replicated state on its first local device (`home_device`);
+the sums gather the other processes' parts (parallel/collectives.py).
+The 2-D mesh does not span processes.  Between cards of one process
+there is no NCCL route: the collectives move tensors with `.to(device)`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -57,15 +66,43 @@ DeviceSpec = Union[None, str, torch.device, Sequence]
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """N devices, one per shard, in device-block order: on the 2-D mesh
-    shard e * cam_blocks + c is device (e, c).  A device may repeat."""
+    shard e * cam_blocks + c is device (e, c).  A device may repeat.
 
-    devices: Tuple[torch.device, ...]
+    Across processes, `processes[k]` is the rank that owns shard k,
+    `process` is this process's rank, and `devices[k]` is None for a
+    shard of another process; one process leaves `processes` empty."""
+
+    devices: Tuple[Optional[torch.device], ...]
     shape: Tuple[int, ...]  # (E,) or (E, C)
     axis_names: Tuple[str, ...]
+    processes: Tuple[int, ...] = ()
+    process: int = 0
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return len(set(self.processes)) > 1
+
+    @property
+    def local_shards(self) -> Tuple[int, ...]:
+        """The shards this process owns, in shard order."""
+        if not self.processes:
+            return tuple(range(self.size))
+        return tuple(k for k, q in enumerate(self.processes)
+                     if q == self.process)
+
+    @property
+    def home(self) -> int:
+        """The shard whose device holds the replicated state: the first,
+        or this process's first across processes."""
+        return self.local_shards[0]
+
+    @property
+    def home_device(self) -> torch.device:
+        return self.devices[self.home]
 
     @property
     def is_2d(self) -> bool:
@@ -158,6 +195,88 @@ def nearest_cam_blocks(world_size: int, cam_blocks: int) -> int:
     return best
 
 
+_LOCAL_ONLY = [0]
+_LOCAL_ONLY_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def local_devices_only():
+    """Build meshes from this process's devices alone while open (JAX
+    mesh.py:196): the shrink-world resume (robustness/elastic.
+    resume_elastic) re-lowers on the survivor's devices, never a lost
+    peer's.  Re-entrant, and process-wide: a solve dispatched on another
+    thread inside the scope sees it too."""
+    with _LOCAL_ONLY_LOCK:
+        _LOCAL_ONLY[0] += 1
+    try:
+        yield
+    finally:
+        with _LOCAL_ONLY_LOCK:
+            _LOCAL_ONLY[0] -= 1
+
+
+def local_only_active() -> bool:
+    return _LOCAL_ONLY[0] > 0
+
+
+def multiprocess_active() -> bool:
+    """Whether a mesh of more than one shard spans processes here: a
+    process group of more than one rank is up (parallel/multihost) and
+    no `local_devices_only` scope is open."""
+    if local_only_active():
+        return False
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _local_devices(devices: DeviceSpec, default: str) -> Tuple[torch.device,
+                                                                ...]:
+    """This process's devices of a mesh across processes: one device
+    (one shard), a sequence (one shard each), or None: this process's
+    visible cards (`default="cpu"`: one CPU shard)."""
+    if devices is None:
+        if default == "cpu":
+            return (torch.device("cpu"),)
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            raise RuntimeError(
+                "megba_tpu_torch: no CUDA device is available in this "
+                "process; pass device='cpu' to run its shard on the CPU")
+        return tuple(torch.device("cuda", i) for i in range(n))
+    if isinstance(devices, (str, torch.device)):
+        devices = (devices,)
+    return resolve_devices(len(devices), devices)
+
+
+def make_process_mesh(world_size: int, devices: DeviceSpec = None,
+                      default: str = "cuda") -> Mesh:
+    """The 1-D mesh of `world_size` shards across the processes of the
+    process group: each process gives its own devices (`devices`, one
+    shard each; see `_local_devices`), the processes' shard counts are
+    gathered (one small all_gather, every process calls this), and the
+    shards follow in process rank order.  The counts must add up to
+    `world_size`."""
+    import torch.distributed as dist
+
+    local = _local_devices(devices, default)
+    nproc, rank = dist.get_world_size(), dist.get_rank()
+    counts = [torch.zeros(1, dtype=torch.int64) for _ in range(nproc)]
+    dist.all_gather(counts, torch.tensor([len(local)], dtype=torch.int64))
+    counts = [int(c) for c in counts]
+    if sum(counts) != int(world_size):
+        raise ValueError(
+            f"world_size {world_size} over {nproc} processes that hold "
+            f"{counts} devices ({sum(counts)} in all): each process passes "
+            "its own devices, one shard each")
+    owners = tuple(q for q, c in enumerate(counts) for _ in range(c))
+    it = iter(local)
+    devs = tuple(next(it) if q == rank else None for q in owners)
+    return Mesh(devices=devs, shape=(len(devs),), axis_names=(EDGE_AXIS,),
+                processes=owners, process=rank)
+
+
 def resolve_devices(world_size: int, devices: DeviceSpec = None,
                     default: str = "cuda") -> Tuple[torch.device, ...]:
     """The devices of a `world_size` mesh.  With none given: the first
@@ -240,13 +359,15 @@ def distributed_lm_solve(cameras: torch.Tensor, points: torch.Tensor, obs,
     """Run the LM solve over the mesh's shards (JAX mesh.py:294).
 
     `cameras` / `points` (feature-major) live on the first shard's
-    device; `obs`, `cam_idx`, `pt_idx`, `mask`, `sqrt_info` and
+    device (across processes: this process's first, `mesh.home_device`,
+    with None for another process's shard in every per-shard tuple);
+    `obs`, `cam_idx`, `pt_idx`, `mask`, `sqrt_info` and
     `fault_plan` are per-shard tuples in each shard's camera-slot order on
     its device, and `plans` the shards' dual plans
     (ops/segtiles.make_sharded_dual_plans; one device: its one plan).
     A 2-D mesh needs the device tile plan
     (ops/segtiles.device_camera_tile_plan).  Returns the LMResult on the
-    first device.
+    home device.
     """
     from megba_tpu_torch.algo.lm import lm_solve
 
@@ -261,7 +382,9 @@ def distributed_lm_solve(cameras: torch.Tensor, points: torch.Tensor, obs,
             "ops.segtiles.device_camera_tile_plan(...)")
     sharded = ShardedPlans(
         mesh=mesh, shards=plans, tile_plan=tile_plan if mesh.is_2d else None)
-    return lm_solve(
+    from megba_tpu_torch.parallel.multihost import dispatch_on_mesh
+
+    return dispatch_on_mesh(lambda: lm_solve(
         cameras, points, tuple(obs), tuple(cam_idx), tuple(pt_idx),
         tuple(mask), option, sharded,
         sqrt_info=None if sqrt_info is None else tuple(sqrt_info),
@@ -269,4 +392,4 @@ def distributed_lm_solve(cameras: torch.Tensor, points: torch.Tensor, obs,
         residual_jac_fn=residual_jac_fn, initial_region=initial_region,
         initial_v=initial_v, initial_dx=initial_dx,
         fault_plan=None if fault_plan is None else tuple(fault_plan),
-        cluster_plan=cluster_plan)
+        cluster_plan=cluster_plan), mesh)

@@ -348,13 +348,12 @@ class BaseProblem:
 
         from megba_tpu_torch.solve import flat_solve
 
-        result = flat_solve(
+        result = flat_solve(residual_jac_fn,
             cameras, points, obs, cam_idx, pt_idx, opt,
             sqrt_info=sqrt_info,
             cam_fixed=cam_fixed if cam_fixed.any() else None,
             pt_fixed=pt_fixed if pt_fixed.any() else None,
-            verbose=verbose, device=self.device,
-            residual_jac_fn=residual_jac_fn)
+            verbose=verbose, device=self.device)
 
         # Write back (reference base_problem.cpp:249-272).
         cams_out = result.cameras.detach().cpu().numpy().astype(np.float64)

@@ -13,11 +13,26 @@
 - Network fault injection (netfaults.py): `ChaosTcpProxy`, a seeded
   in-process TCP proxy (drop, delay, truncate, reorder, partition) for
   the federation transport.
-- Liveness (elastic.py): `HeartbeatBoard` and `RankState`, the heartbeat
-  files the federation's pipe workers beat.
+- Elastic multi-process solves (elastic.py): `HeartbeatBoard` and
+  `RankState` (the heartbeat files, which the federation's pipe workers
+  beat too), `ElasticMonitor` / `ElasticConfig` (a rank's liveness and
+  bounded dispatches; `WorkerLost`, `CollectiveTimeout`) and
+  `resume_elastic` (tear down the process group, re-lower the same
+  problem on this process's devices and continue from the latest
+  snapshot).
 """
 
-from megba_tpu_torch.robustness.elastic import HeartbeatBoard, RankState
+from megba_tpu_torch.robustness.elastic import (
+    CollectiveTimeout,
+    CollectiveWatchdog,
+    ElasticConfig,
+    ElasticError,
+    ElasticMonitor,
+    HeartbeatBoard,
+    RankState,
+    WorkerLost,
+    resume_elastic,
+)
 from megba_tpu_torch.robustness.faults import (
     DispatchChaos,
     FaultPlan,
@@ -29,9 +44,11 @@ from megba_tpu_torch.robustness.faults import (
     with_offset,
 )
 from megba_tpu_torch.robustness.harness import (
+    WorldKillOutcome,
     python_worker,
     run_to_completion,
     run_until_snapshot_then_kill,
+    run_world_until_snapshot_then_kill,
 )
 from megba_tpu_torch.robustness.netfaults import ChaosTcpProxy, NetFaultPlan
 from megba_tpu_torch.robustness.triage import (
@@ -53,7 +70,12 @@ from megba_tpu_torch.robustness.triage import (
 __all__ = [
     "ChaosTcpProxy",
     "CheckKind",
+    "CollectiveTimeout",
+    "CollectiveWatchdog",
     "DispatchChaos",
+    "ElasticConfig",
+    "ElasticError",
+    "ElasticMonitor",
     "FaultPlan",
     "Finding",
     "HealthReport",
@@ -66,6 +88,8 @@ __all__ = [
     "TriageOutcome",
     "TriagePolicy",
     "TriageRepair",
+    "WorkerLost",
+    "WorldKillOutcome",
     "check_problem",
     "connected_components",
     "huber_weight",
@@ -74,8 +98,10 @@ __all__ = [
     "make_point_indefinite_burst",
     "plan_repair",
     "python_worker",
+    "resume_elastic",
     "run_to_completion",
     "run_until_snapshot_then_kill",
+    "run_world_until_snapshot_then_kill",
     "stack_fault_plans",
     "triage_problem",
     "with_offset",

@@ -151,11 +151,13 @@ def fault_partition(plan: FaultPlan, bounds: Sequence[int],
     `fault_partition_specs`, faults.py:215): shard k's plan carries the
     poison of edges [bounds[k], bounds[k+1]) of the concatenated shard
     streams on devices[k]; the point mask, window and offset are
-    replicated (the first shard's plan crushes the summed system)."""
+    replicated (the home shard's plan crushes the summed system).  A
+    shard of another process (device None) gets None."""
+    home = next(d for d in devices if d is not None)
     return tuple(
-        dataclasses.replace(
+        None if d is None else dataclasses.replace(
             plan, edge_nan=plan.edge_nan[bounds[k]:bounds[k + 1]].to(d),
-            point_crush=plan.point_crush.to(devices[0]))
+            point_crush=plan.point_crush.to(home))
         for k, d in enumerate(devices))
 
 

@@ -60,12 +60,16 @@ from megba_tpu_torch.ops.segtiles import (
     plan_cache_evictions,
 )
 from megba_tpu_torch.parallel.mesh import (
+    EDGE_AXIS,
     distributed_lm_solve,
     factor_mesh_2d,
     make_mesh,
     make_mesh_2d,
+    make_process_mesh,
+    multiprocess_active,
     resolve_devices,
 )
+from megba_tpu_torch.parallel.multihost import globalize_for_mesh
 from megba_tpu_torch.robustness.faults import (
     FaultPlan,
     fault_partition,
@@ -82,6 +86,7 @@ def _host(a) -> np.ndarray:
 
 
 def flat_solve(
+    residual_jac_fn: Optional[Callable],
     cameras: np.ndarray,
     points: np.ndarray,
     obs: np.ndarray,
@@ -93,17 +98,26 @@ def flat_solve(
     cam_fixed: Optional[np.ndarray] = None,
     pt_fixed: Optional[np.ndarray] = None,
     verbose: bool = False,
-    device: Union[None, str, torch.device, Sequence] = None,
-    residual_jac_fn: Optional[Callable] = None,
+    *,
     initial_region: Optional[float] = None,
     initial_v: Optional[float] = None,
     initial_dx: Optional[np.ndarray] = None,
     fault_plan: Optional[FaultPlan] = None,
-    factor=None,
     timer: Optional[PhaseTimer] = None,
+    elastic_report: Optional[dict] = None,
     triage=None,
+    factor=None,
+    device: Union[None, str, torch.device, Sequence] = None,
 ) -> LMResult:
     """Lower flat arrays and run the solve.
+
+    The arguments are the JAX package's, in its order
+    (megba_tpu/solve.py:100): the engine (or None) first, then the
+    arrays and the option, positional through `verbose`.  The rest are
+    keyword-only: the JAX package's `use_tiled`, `jit_cache` and
+    `lower_only` sit among them there and have no counterpart here (the
+    port has one lowering and no compiled program), and `device` is the
+    port's own.
 
     Arrays are edge-major numpy: cameras [Nc, cd], points [Np, pd],
     obs [nE, od], cam_idx/pt_idx [nE], sqrt_info [nE, rd, rd], at the
@@ -149,7 +163,13 @@ def flat_solve(
     the JAX package, `fused_kernels` needs the 2-D mesh there, and COOBS
     orders only the 1-D streams (the 2-D plan orders its columns
     co-observation first itself).  The result lives on the first
-    device.
+    device.  Once parallel/multihost.initialize_multihost has joined
+    several processes, the 1-D mesh of world N spans them: every process
+    calls `flat_solve` with the whole problem and its own `device` (one
+    device, or a sequence, one shard each; the shard counts must add up
+    to N), lowers only its own shards, and gets the same result, bitwise
+    the one-process world-N solve's, on its first device.  A 2-D mesh
+    across processes raises NotImplementedError.
 
     `timer` (utils.timing.PhaseTimer, a fresh one if None) records the
     host phases of the JAX package's names: "triage", "lowering" (the
@@ -178,6 +198,10 @@ def flat_solve(
     the guards' recoveries as a `fault_recovery` event.  The knob is
     stripped off the option before the solve.  With telemetry off
     nothing of the report is imported and nothing more is synced.
+    `elastic_report` (an elastic monitor's ledger,
+    robustness.elastic.ElasticMonitor.report_block(); the chunked driver
+    passes it under `elastic=`) becomes the report's `elastic` block, and
+    the report's `tiles` block describes this solve's plans.
     `option.metrics` or `MEGBA_METRICS` arms the metrics plane: the solve
     feeds the `megba_solve_*` series of the process registry
     (observability.metrics_registry); `MEGBA_TRACE` records the phases
@@ -227,7 +251,17 @@ def flat_solve(
             "the 1-D multi-device lowerings keep the segtiles/XLA "
             "paths — pass fused_kernels=False, or mesh_2d=True for a "
             "fused distributed solve")
-    if ws > 1:
+    if ws > 1 and multiprocess_active():
+        # One mesh across the process group: this process's shards on
+        # `device`, the others' in rank order (parallel/multihost.py).
+        if mesh2d:
+            raise NotImplementedError(
+                "a 2-D mesh (SolverOption.mesh_2d) across processes is not "
+                "implemented: its ring ppermute would need point-to-point "
+                "sends between processes; solve the 1-D mesh across "
+                "processes, or the 2-D mesh in one process")
+        mesh = make_process_mesh(ws, device, default=option.device.value)
+    elif ws > 1:
         devices = resolve_devices(ws, device, default=option.device.value)
         mesh = (make_mesh_2d(*factor_mesh_2d(ws, so.cam_blocks), devices)
                 if mesh2d else make_mesh(ws, devices))
@@ -274,10 +308,11 @@ def flat_solve(
             if fault_edge is not None:
                 fault_edge = fault_edge[operm]
 
-    result = _mesh_solve(
+    result, tiles = _mesh_solve(
         mesh, cameras, points, obs, cam_idx, pt_idx, mask, option,
         sqrt_info, cam_fixed, pt_fixed, verbose, residual_jac_fn,
-        initial_region, initial_v, initial_dx, fault_plan, fault_edge, timer)
+        initial_region, initial_v, initial_dx, fault_plan, fault_edge, timer,
+        bool(telemetry))
     registry = _obs.metrics_registry(report_option.metrics)
     if registry is not None:
         _observe_solve(registry, result)
@@ -289,7 +324,7 @@ def flat_solve(
         if mesh.is_2d:
             problem["mesh"] = f"{mesh.edge_shards}x{mesh.cam_blocks}"
         _emit_report(telemetry, report_option, result, timer, problem,
-                     health, mesh.devices[0])
+                     health, mesh.home_device, elastic_report, tiles)
     return result
 
 
@@ -317,7 +352,8 @@ def _observe_solve(registry, result: LMResult) -> None:
 
 
 def _emit_report(telemetry: str, option: ProblemOption, result: LMResult,
-                 timer: PhaseTimer, problem: dict, health, device) -> None:
+                 timer: PhaseTimer, problem: dict, health, device,
+                 elastic=None, tiles=None) -> None:
     """Append the solve's SolveReport to `telemetry` (JAX
     solve.py:737-809): an "execute" phase syncs the result, the trace's
     preconditioner fallbacks and the guards' recoveries become timer
@@ -342,7 +378,8 @@ def _emit_report(telemetry: str, option: ProblemOption, result: LMResult,
     if result.recoveries:
         timer.count_event("fault_recovery", int(result.recoveries))
     append_report(build_report(option, result, timer.as_dict(), problem,
-                               health=health, device=device), telemetry)
+                               health=health, device=device, elastic=elastic,
+                               tiles=tiles), telemetry)
 
 
 def _factor_route(factor, option: ProblemOption, cameras, points, obs):
@@ -466,19 +503,50 @@ def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
         return plan, time.perf_counter() - t
 
 
+def _tiles_block(mesh, cam_idx, pt_idx, mask, stream, shard_plans,
+                 fused: bool) -> dict:
+    """`SolveReport.tiles` of the port's plans (JAX solve.py:540-556):
+    the slot occupancy of the edge stream, its streaming reuse
+    (`edge_stream_reuse` over one-vertex tiles: the port's kernels gather
+    one vertex row an edge) and, with fused kernels, each direction's
+    slot tiles summed over this process's shards (`fused_plan_summary`'s
+    keys)."""
+    from megba_tpu_torch.ops.fused import SLOT_TILE
+    from megba_tpu_torch.ops.segtiles import edge_stream_reuse
+
+    n = int(stream.shape[0])
+    info = {"plan": "mesh_2d" if mesh.is_2d else "csr_1d",
+            "occupancy": round(float((mask > 0).sum()) / max(1, n), 4),
+            **edge_stream_reuse(cam_idx[stream], pt_idx[stream], 1, 1,
+                                mask=mask[stream])}
+    if fused:
+        for key in ("fused_to_pt", "fused_to_cam"):
+            plans = [getattr(p, key) for p in shard_plans if p is not None]
+            tiles = sum(int(f.tile_ptr.shape[0]) - 1 for f in plans)
+            edges = sum(int(f.out.seg.shape[0]) for f in plans)
+            info[key] = {"tiles": tiles, "tile": SLOT_TILE,
+                         "occupancy": round(edges / max(1, tiles * SLOT_TILE),
+                                            4),
+                         "edges": edges, "slots": tiles * SLOT_TILE}
+    return info
+
+
 def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
                 option, sqrt_info, cam_fixed, pt_fixed, verbose,
                 residual_jac_fn, initial_region, initial_v, initial_dx,
-                fault_plan, fault_edge, timer) -> LMResult:
+                fault_plan, fault_edge, timer, want_tiles=False):
     """The lowering of a solve over a mesh (JAX solve.py:408-500): the
     shards' edge streams and their plans (the "plan" phase of `timer`),
     the sharded coarse plan and fault plan and the arrays' moves to the
-    devices ("lowering"), then `distributed_lm_solve` ("dispatch")."""
+    devices ("lowering"), then `distributed_lm_solve` ("dispatch").
+    Across processes only this process's shards are lowered, and the
+    replicated state goes to its home device.  Returns (result, the
+    `SolveReport.tiles` block or None)."""
     so = option.solver_option
     dtype = np.dtype(option.dtype)
     tdtype = DTYPE_TO_TORCH[dtype]
     devs = mesh.devices
-    dev0 = devs[0]
+    dev0 = mesh.home_device
     nc, npt = cameras.shape[0], points.shape[0]
     fused = bool(option.use_schur and so.fused_kernels)
     with timer.phase("plan"):
@@ -513,10 +581,11 @@ def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
                                               nc, npt, devs, perms, timer)
 
     def per_shard(a: np.ndarray):
-        """[nE, ...] caller order -> each shard's [F, n_k] rows."""
+        """[nE, ...] caller order -> each shard's [F, n_k] rows (None for
+        another process's shard)."""
         a = a.reshape(a.shape[0], -1)
-        return tuple(torch.from_numpy(np.ascontiguousarray(a[p].T)).to(d)
-                     for p, d in zip(perms, devs))
+        return globalize_for_mesh(
+            mesh, lambda k: np.ascontiguousarray(a[perms[k]].T), EDGE_AXIS)
 
     with timer.phase("lowering"):
         si = None
@@ -529,11 +598,14 @@ def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
                 bounds, devs)
         operands = (
             _vertex_rows(cameras, dev0), _vertex_rows(points, dev0),
-            per_shard(obs), tuple(p.cam.seg.long() for p in shard_plans),
-            tuple(torch.from_numpy(pt_idx[p].astype(np.int64)).to(d)
-                  for p, d in zip(perms, devs)),
-            tuple(torch.from_numpy(mask[p]).to(d, tdtype)
-                  for p, d in zip(perms, devs)))
+            per_shard(obs),
+            tuple(None if p is None else p.cam.seg.long()
+                  for p in shard_plans),
+            globalize_for_mesh(
+                mesh, lambda k: pt_idx[perms[k]].astype(np.int64), EDGE_AXIS),
+            globalize_for_mesh(
+                mesh, lambda k: mask[perms[k]].astype(dtype, copy=False),
+                EDGE_AXIS))
         flags = dict(cam_fixed=_flags(cam_fixed, nc, dev0),
                      pt_fixed=_flags(pt_fixed, npt, dev0),
                      initial_dx=_warm_dx(initial_dx, option, cameras, dev0))
@@ -544,7 +616,9 @@ def _mesh_solve(mesh, cameras, points, obs, cam_idx, pt_idx, mask,
             initial_region=initial_region, initial_v=initial_v,
             fault_plan=faults, cluster_plan=cluster_plan,
             tile_plan=tile_plan, **flags)
-    return _edge_major(result, plan_seconds)
+    tiles = (_tiles_block(mesh, cam_idx, pt_idx, mask, stream, shard_plans,
+                          fused) if want_tiles else None)
+    return _edge_major(result, plan_seconds), tiles
 
 
 def solve_bal(
@@ -571,7 +645,7 @@ def solve_bal(
             bal.cam_idx, bal.pt_idx, bal.num_cameras, bal.num_points)
         _obs.emit_problem_stats(bal.num_cameras, bal.num_points,
                                 bal.num_observations, max_cd, max_pd, nnz)
-    result = flat_solve(bal.cameras, bal.points, bal.obs, bal.cam_idx,
+    result = flat_solve(None, bal.cameras, bal.points, bal.obs, bal.cam_idx,
                         bal.pt_idx, option, verbose=verbose, device=device)
     solved = BALFile(
         cameras=result.cameras.detach().cpu().numpy().astype(np.float64),

@@ -423,7 +423,7 @@ def build_two_level_coarse(
     dtype = Hpp_d.dtype
     num_cameras = Hpp_d.shape[0]
     C = cluster_plan.num_clusters
-    od = 0 if Jc is None else Jc[0].shape[0] // cd
+    od = 0 if Jc is None else Jc[plans.mesh.home].shape[0] // cd
 
     def rows_of(w_, jc, jp, pl):
         return coupling_row_provider(w_, jc, jp, od, compute_kind, dtype,

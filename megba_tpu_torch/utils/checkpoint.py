@@ -156,7 +156,8 @@ def load_state(path: str,
             warnings.warn(
                 f"checkpoint {path!r} was written at world_size "
                 f"{saved_ws} but this solve runs at world_size "
-                f"{int(expect_world_size)}; resuming anyway (parameters "
-                "are replicated and world-agnostic, the edge partition "
-                "is re-derived)", stacklevel=2)
+                f"{int(expect_world_size)}; resuming anyway (elastic "
+                "shrink/grow resume — parameters are replicated and "
+                "world-agnostic, the edge partition is re-derived)",
+                stacklevel=2)
     return state

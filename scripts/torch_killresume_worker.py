@@ -59,7 +59,7 @@ def main() -> None:
         algo_option=AlgoOption(max_iter=8, epsilon1=1e-12, epsilon2=1e-15),
         solver_option=SolverOption(max_iter=60, tol=1e-12,
                                    refuse_ratio=1e30))
-    res = solve_checkpointed(
+    res = solve_checkpointed(None,
         s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, option,
         checkpoint_path=a.checkpoint, checkpoint_every=2, device=a.device)
     payload = {

@@ -81,7 +81,8 @@ def solve(s, opt, devices):
     for d in range(torch.cuda.device_count()):
         torch.cuda.synchronize(d)
     t = time.perf_counter()
-    res = mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+    res = mt.flat_solve(None,
+                        s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
                         opt, device=devices)
     for d in range(torch.cuda.device_count()):
         torch.cuda.synchronize(d)

@@ -61,7 +61,8 @@ def option(kind: str, mixed: bool, region: float) -> mt.ProblemOption:
 
 
 def trial_costs(scene, obs, opt) -> np.ndarray:
-    res = mt.flat_solve(scene.cameras0, scene.points0, obs, scene.cam_idx,
+    res = mt.flat_solve(None,
+                        scene.cameras0, scene.points0, obs, scene.cam_idx,
                         scene.pt_idx, opt, device="cpu")
     return res.trace.cost[:res.iterations].numpy()
 

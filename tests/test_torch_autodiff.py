@@ -178,10 +178,9 @@ def test_custom_residual_flat_solve_matches_jax():
     jres = j_flat_solve(j_engine(j_division_residual,
                                  jc.JacobianMode.AUTODIFF_FORWARD),
                         *args, jopt)
-    tres = mt.flat_solve(*args, topt, device="cpu",
-                         residual_jac_fn=mt.make_residual_jacobian_fn(
-                             t_division_residual,
-                             mt.JacobianMode.AUTODIFF_FORWARD))
+    engine = mt.make_residual_jacobian_fn(t_division_residual,
+                                          mt.JacobianMode.AUTODIFF_FORWARD)
+    tres = mt.flat_solve(engine, *args, topt, device="cpu")
     _compare(jres, tres, cost_rtol=1e-9)
 
 
@@ -245,7 +244,8 @@ def _jax_solve(kind, mode):
 def test_autodiff_flat_solve_matches_jax(kind, fused):
     s = _scene()
     _, topt = _options(kind, "AUTODIFF", fused=fused)
-    tres = mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+    tres = mt.flat_solve(None,
+                         s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
                          topt, device="cpu")
     jres = _jax_solve(kind, "AUTODIFF")
     assert int(jres.iterations) > 1
@@ -256,7 +256,8 @@ def test_autodiff_flat_solve_matches_jax(kind, fused):
 def test_autodiff_forward_flat_solve_matches_jax(kind):
     s = _scene()
     _, topt = _options(kind, "AUTODIFF_FORWARD", fused=kind == "EXPLICIT")
-    tres = mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+    tres = mt.flat_solve(None,
+                         s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
                          topt, device="cpu")
     _compare(_jax_solve(kind, "AUTODIFF_FORWARD"), tres, cost_rtol=1e-9)
 

@@ -14,8 +14,9 @@ options of tests/test_torch_guards.py (8 LM iterations, 30 PCG at tol
   resumed by JAX to its full run;
 - the whole-run aggregates, and a finished snapshot resumed without new
   iterations;
-- a foreign snapshot refused, `checkpoint_every` validated, `elastic=`
-  refused;
+- a foreign snapshot refused, `checkpoint_every` validated, an
+  `elastic=` that is neither an ElasticConfig nor an ElasticMonitor
+  refused with JAX's TypeError;
 - a NaN burst whose window spans the chunk boundary, under guards,
   against JAX (trial costs NaN at the same iterations, the recovery
   trace, recoveries and status);
@@ -81,7 +82,7 @@ def _jax_run(seed, path, guards=False, max_iter=8, fault=None):
 
 def _port_run(seed, path, guards=False, max_iter=8, **kw):
     _, topt = _options(guards, max_iter=max_iter)
-    return mt.solve_checkpointed(
+    return mt.solve_checkpointed(None,
         *_args(_scene(seed)), topt, checkpoint_path=str(path),
         checkpoint_every=EVERY, device="cpu", **kw)
 
@@ -106,7 +107,7 @@ def test_chunked_matches_jax_and_straight(seed, tmp):
     # The chunk boundary relinearises at the carried parameters: the
     # chunked trajectory is the straight one.
     _, topt = _options(False)
-    straight = result_to_numpy(mt.flat_solve(*_args(_scene(seed)), topt,
+    straight = result_to_numpy(mt.flat_solve(None, *_args(_scene(seed)), topt,
                                              device="cpu"))
     t = result_to_numpy(tres)
     for key in ("iterations", "accepted", "pcg_iterations", "status"):
@@ -147,7 +148,7 @@ def test_aggregates_and_finished_snapshot(tmp_path):
     first = _port_run(seed, path, max_iter=EVERY)
     full = _port_run(seed, path)
     _, topt = _options(False)
-    straight = mt.flat_solve(*_args(_scene(seed)), topt, device="cpu")
+    straight = mt.flat_solve(None, *_args(_scene(seed)), topt, device="cpu")
     assert (full.iterations, full.accepted, full.pcg_iterations) == (
         straight.iterations, straight.accepted, straight.pcg_iterations)
     # The initial cost is the first chunk's, not the resume point's.
@@ -184,14 +185,14 @@ def test_checkpoint_every_and_elastic_validated(tmp_path):
     _, topt = _options(False)
     args = _args(_scene(0))
     with pytest.raises(ValueError, match="checkpoint_every"):
-        mt.solve_checkpointed(*args, topt,
+        mt.solve_checkpointed(None, *args, topt,
                               checkpoint_path=str(tmp_path / "x.npz"),
                               checkpoint_every=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="elastic"):
-        mt.solve_checkpointed(*args, topt,
+    with pytest.raises(TypeError, match="ElasticConfig or ElasticMonitor"):
+        mt.solve_checkpointed(None, *args, topt,
                               checkpoint_path=str(tmp_path / "x.npz"),
                               elastic=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="elastic"):
+    with pytest.raises(TypeError, match="ElasticConfig or ElasticMonitor"):
         mt.solve_pgo_checkpointed(np.zeros((2, 6)), [0], [1],
                                   np.zeros((1, 6)), topt,
                                   checkpoint_path=str(tmp_path / "y.npz"),

@@ -90,7 +90,7 @@ def test_flat_solve_coarse_matches_jax(name, fused):
     kind, solver, extras = _CASES[name]
     args, kw = _inputs(extras)
     _, topt = _options(False, kind, fused, **solver)
-    tres = mt.flat_solve(*args, topt, device="cpu", **kw)
+    tres = mt.flat_solve(None, *args, topt, device="cpu", **kw)
     t = compare_robust(_jax_result(name), tres)
     assert float(tres.cost) < float(tres.initial_cost)
     assert not t["trace"]["precond_fallback"].any()
@@ -121,7 +121,7 @@ def test_guarded_nan_burst_matches_jax(fused):
     s = _scene()
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
     _, topt = _options(True, "IMPLICIT", fused, precond=TWO)
-    tres = mt.flat_solve(*args, topt, device="cpu",
+    tres = mt.flat_solve(None, *args, topt, device="cpu",
                          fault_plan=fault_plan_to_torch(_burst(s, [2, 9], 1)))
     t = compare_robust(_jax_nan_burst(), tres)
     assert t["trace"]["recovery"][0]
@@ -148,13 +148,13 @@ def test_nan_camera_sets_the_coarse_bits_as_jax(kind):
         plan = _burst(s, [], 0)
         jopt, topt = _options(True, "IMPLICIT", False, precond=TWO)
         jres = _jax_solve(args, jopt, fault_plan=plan)
-        tres = mt.flat_solve(*args, topt, device="cpu",
+        tres = mt.flat_solve(None, *args, topt, device="cpu",
                              fault_plan=fault_plan_to_torch(plan))
         status = mt.SolveStatus.FATAL_NONFINITE
     else:
         jopt, topt = _options(False, "IMPLICIT", False, **_ML_SD)
         jres = _jax_solve(args, jopt)
-        tres = mt.flat_solve(*args, topt, device="cpu")
+        tres = mt.flat_solve(None, *args, topt, device="cpu")
         status = mt.SolveStatus.STALLED
     t = compare_robust(jres, tres)
     levels = {tuple(decode_precond_fallback_levels(int(c)))
@@ -173,7 +173,7 @@ def test_mixed_f64_multilevel_smoothed_fused_matches_jax():
     jopt, _ = _options(False, "IMPLICIT", False, rung="mixed", **solver)
     _, topt = _options(False, "IMPLICIT", True, rung="mixed", **solver)
     t = compare_robust(_jax_solve(args, jopt),
-                       mt.flat_solve(*args, topt, device="cpu"))
+                       mt.flat_solve(None, *args, topt, device="cpu"))
     assert not t["trace"]["precond_fallback"].any()
 
 
@@ -192,7 +192,7 @@ def test_bf16_coarse_flat_solve_runs(kind):
     _, b16 = _options(False, kind, kind == "IMPLICIT", dtype=np.float32,
                       rung="bf16", max_iter=6, precond=TWO, tol=1e-6,
                       tol_relative=True)
-    res = mt.flat_solve(*args, b16, device="cpu")
+    res = mt.flat_solve(None, *args, b16, device="cpu")
     assert res.cameras.dtype == torch.float32
     assert np.isfinite(float(res.cost))
     assert float(res.cost) < 0.9 * float(res.initial_cost)
@@ -213,7 +213,7 @@ def test_multilevel_reaches_jacobi_optimum_with_fewer_pcg_iters():
             solver_option=mt.SolverOption(max_iter=200, tol=1e-10,
                                           tol_relative=True,
                                           refuse_ratio=1e30, **skw))
-        return mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx,
+        return mt.flat_solve(None, s.cameras0, s.points0, s.obs, s.cam_idx,
                              s.pt_idx, option, device="cpu")
 
     jac = solve()

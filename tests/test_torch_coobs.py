@@ -66,10 +66,10 @@ def test_coobs_flat_solve_matches_jax(kind, fused):
     args = _shuffled()
     jopt, topt = _options(False, kind, fused, **COOBS)
     jres = _jax_solve(args, jopt)
-    tres = mt.flat_solve(*args, topt, device="cpu")
+    tres = mt.flat_solve(None, *args, topt, device="cpu")
     compare_robust(jres, tres)
     _, natural = _options(False, kind, fused)
-    nres = mt.flat_solve(*args, natural, device="cpu")
+    nres = mt.flat_solve(None, *args, natural, device="cpu")
     np.testing.assert_allclose(float(tres.cost), float(nres.cost),
                                rtol=1e-6)
     # A different slot order: the sums differ in their last bits.
@@ -87,14 +87,14 @@ def test_coobs_carries_sqrt_info_mask_and_fault_plan():
     plan = jfaults.make_nan_burst(n, [3, 40], start=0, stop=1)
     jopt, topt = _options(True, **COOBS)
     jres = _jax_solve(args, jopt, fault_plan=plan, **extra)
-    tres = mt.flat_solve(*args, topt, device="cpu",
+    tres = mt.flat_solve(None, *args, topt, device="cpu",
                          fault_plan=fault_plan_to_torch(plan), **extra)
     t = compare_robust(jres, tres)
     assert tres.status == mt.SolveStatus.RECOVERED
     assert t["trace"]["recovery"][0]
     # The same solve in NATURAL order reaches the same cost.
     _, natural = _options(True)
-    nres = mt.flat_solve(*args, natural, device="cpu",
+    nres = mt.flat_solve(None, *args, natural, device="cpu",
                          fault_plan=fault_plan_to_torch(plan), **extra)
     np.testing.assert_allclose(float(tres.cost), float(nres.cost),
                                rtol=1e-6)

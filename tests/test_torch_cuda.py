@@ -102,12 +102,12 @@ def test_f64_solve_kernels_match_plain_on_small_scene(monkeypatch):
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
     names = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce")
     before = {n: getattr(tseg, n).launches for n in names}
-    kern = flat_solve(*args, device="cuda")
-    again = flat_solve(*args, device="cuda")
+    kern = flat_solve(None, *args, device="cuda")
+    again = flat_solve(None, *args, device="cuda")
     assert all(getattr(tseg, n).launches > before[n] for n in names)
     for n in names:
         monkeypatch.setattr(tseg, n, getattr(tseg, n + "_plain"))
-    plain = flat_solve(*args, device="cuda")
+    plain = flat_solve(None, *args, device="cuda")
     k = kern.iterations
     assert k > 0
     assert (k, kern.accepted, kern.pcg_iterations) == (
@@ -208,13 +208,13 @@ def test_f64_explicit_solve_kernels_match_plain_on_small_scene(
                  (tfused, "fused_block_diag_apply")] if fused else
                 [(tseg, "seg_expand"), (tseg, "seg_reduce")])
     before = [getattr(m, n).launches for m, n in kernels]
-    kern = flat_solve(*args, device="cuda")
-    again = flat_solve(*args, device="cuda")
+    kern = flat_solve(None, *args, device="cuda")
+    again = flat_solve(None, *args, device="cuda")
     after = [getattr(m, n).launches for m, n in kernels]
     assert all(a > b for a, b in zip(after, before)), (kernels, after)
     for m, n in kernels:
         monkeypatch.setattr(m, n, getattr(m, n + "_plain"))
-    plain = flat_solve(*args, device="cuda")
+    plain = flat_solve(None, *args, device="cuda")
     k = kern.iterations
     assert k > 0
     assert (k, kern.accepted, kern.pcg_iterations) == (
@@ -353,13 +353,13 @@ def test_f64_implicit_fused_solve_kernels_match_plain_on_small_scene(
                (tfused, "fused_coupling_apply_implicit"),
                (tfused, "fused_block_diag_apply")]
     before = [getattr(m, n).launches for m, n in kernels]
-    kern = flat_solve(*args, device="cuda")
-    again = flat_solve(*args, device="cuda")
+    kern = flat_solve(None, *args, device="cuda")
+    again = flat_solve(None, *args, device="cuda")
     after = [getattr(m, n).launches for m, n in kernels]
     assert all(a > b for a, b in zip(after, before)), (kernels, after)
     for m, n in kernels:
         monkeypatch.setattr(m, n, getattr(m, n + "_plain"))
-    plain = flat_solve(*args, device="cuda")
+    plain = flat_solve(None, *args, device="cuda")
     k = kern.iterations
     assert k > 0
     assert (k, kern.accepted, kern.pcg_iterations) == (
@@ -390,12 +390,12 @@ def test_f32_precision_solve_kernels_match_plain_on_small_scene(
     s = _small_scene(np.float32)
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
             _small_option(np.float32, kind, rung))
-    kern = flat_solve(*args, device="cuda")
+    kern = flat_solve(None, *args, device="cuda")
     for m in (tseg, tfused):
         for k in m.KERNELS:
             monkeypatch.setattr(m, k.__name__,
                                 getattr(m, k.__name__ + "_plain"))
-    plain = flat_solve(*args, device="cuda")
+    plain = flat_solve(None, *args, device="cuda")
     for res in (kern, plain):
         assert np.isfinite(float(res.cost))
         assert float(res.cost) < float(res.initial_cost)
@@ -495,8 +495,8 @@ def test_f64_mixed_solve_kernels_match_plain_on_small_scene(
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
             _small_option(np.float64, kind, "mixed", fused))
     before = _arm_counts()
-    kern = flat_solve(*args, device="cuda")
-    again = flat_solve(*args, device="cuda")
+    kern = flat_solve(None, *args, device="cuda")
+    again = flat_solve(None, *args, device="cuda")
     after = _arm_counts()
     for arm in _MIXED64_ARMS[kind, fused]:
         assert after.get(arm, 0) > before.get(arm, 0), (arm, after)
@@ -504,7 +504,7 @@ def test_f64_mixed_solve_kernels_match_plain_on_small_scene(
         for k in m.KERNELS:
             monkeypatch.setattr(m, k.__name__,
                                 getattr(m, k.__name__ + "_plain"))
-    plain = flat_solve(*args, device="cuda")
+    plain = flat_solve(None, *args, device="cuda")
     k = kern.iterations
     assert k > 0
     assert (k, kern.accepted, kern.pcg_iterations) == (
@@ -534,7 +534,7 @@ def test_f32_unfused_precision_solve_kernels_match_plain_on_small_scene(
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
             _small_option(np.float32, kind, rung, fused=False))
     before = _arm_counts()
-    kern = flat_solve(*args, device="cuda")
+    kern = flat_solve(None, *args, device="cuda")
     if kind == "IMPLICIT":
         for name in ("coupling_expand", "coupling_reduce"):
             arm = f"{name}[{rung}]"
@@ -543,7 +543,7 @@ def test_f32_unfused_precision_solve_kernels_match_plain_on_small_scene(
         for k in m.KERNELS:
             monkeypatch.setattr(m, k.__name__,
                                 getattr(m, k.__name__ + "_plain"))
-    plain = flat_solve(*args, device="cuda")
+    plain = flat_solve(None, *args, device="cuda")
     for res in (kern, plain):
         assert np.isfinite(float(res.cost))
         assert float(res.cost) < float(res.initial_cost)
@@ -722,15 +722,15 @@ def test_f64_variant_solve_kernels_match_plain_on_small_scene(
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
             _variant_option(path))
     before = {**tseg.launch_counts(), **tfused.launch_counts()}
-    kern = flat_solve(*args, device="cuda")
-    again = flat_solve(*args, device="cuda")
+    kern = flat_solve(None, *args, device="cuda")
+    again = flat_solve(None, *args, device="cuda")
     after = {**tseg.launch_counts(), **tfused.launch_counts()}
     assert after["jtj_grad_reduce"] > before["jtj_grad_reduce"]
     for m in (tseg, tfused):
         for k in m.KERNELS:
             monkeypatch.setattr(m, k.__name__,
                                 getattr(m, k.__name__ + "_plain"))
-    plain = flat_solve(*args, device="cuda")
+    plain = flat_solve(None, *args, device="cuda")
     k = kern.iterations
     assert k > 0
     assert (k, kern.accepted, kern.pcg_iterations) == (
@@ -830,13 +830,13 @@ def test_f64_fault_and_solver_paths_kernels_match_plain_on_small_scene(
 
     s = _small_scene(np.float64)
     args, kw = _fault_inputs(path, s)
-    kern = flat_solve(*args, device="cuda", **kw)
-    again = flat_solve(*args, device="cuda", **kw)
+    kern = flat_solve(None, *args, device="cuda", **kw)
+    again = flat_solve(None, *args, device="cuda", **kw)
     for m in (tseg, tfused):
         for k in m.KERNELS:
             monkeypatch.setattr(m, k.__name__,
                                 getattr(m, k.__name__ + "_plain"))
-    plain = flat_solve(*args, device="cuda", **kw)
+    plain = flat_solve(None, *args, device="cuda", **kw)
     k = kern.iterations
     assert k > 0
     assert (k, kern.accepted, kern.pcg_iterations, kern.status,
@@ -949,14 +949,14 @@ def test_f64_coarse_paths_kernels_match_plain_and_are_deterministic(
         cams[2, 4] = np.nan
     args = (cams, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
     before = tseg.seg_reduce.launches
-    kern = flat_solve(*args, device="cuda", **kw)
-    again = flat_solve(*args, device="cuda", **kw)
+    kern = flat_solve(None, *args, device="cuda", **kw)
+    again = flat_solve(None, *args, device="cuda", **kw)
     assert tseg.seg_reduce.launches > before
     for m in (tseg, tfused):
         for k in m.KERNELS:
             monkeypatch.setattr(m, k.__name__,
                                 getattr(m, k.__name__ + "_plain"))
-    plain = flat_solve(*args, device="cuda", **kw)
+    plain = flat_solve(None, *args, device="cuda", **kw)
     k = kern.iterations
     assert (k, kern.accepted, kern.pcg_iterations, kern.status,
             kern.recoveries) == (plain.iterations, plain.accepted,
@@ -1013,8 +1013,8 @@ def test_f64_plain_reference_is_deterministic_on_the_card(monkeypatch,
     s = _small_scene(np.float64)
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
     _to_plain(monkeypatch)
-    one = flat_solve(*args, device="cuda")
-    two = flat_solve(*args, device="cuda")
+    one = flat_solve(None, *args, device="cuda")
+    two = flat_solve(None, *args, device="cuda")
     for f in dataclasses.fields(one.trace):
         assert _bitwise_equal(getattr(one.trace, f.name),
                               getattr(two.trace, f.name)), f.name
@@ -1116,14 +1116,14 @@ def test_f64_multi_device_paths_kernels_match_plain(monkeypatch, path):
     ring = (tfused.fused_ring_step_apply_implicit if kind == "IMPLICIT"
             else tfused.fused_ring_step_apply)
     with ShardLaunches([ring]) as tally:
-        kern = flat_solve(*args, opt, device=devs, **kw)
+        kern = flat_solve(None, *args, opt, device=devs, **kw)
     if fused:
         assert ring.launches > 0
         assert sorted(tally.counts[ring.__name__]) == list(range(world))
-    again = flat_solve(*args, opt, device=devs, **kw)
-    one = flat_solve(*args, one_opt, device="cuda", **kw)
+    again = flat_solve(None, *args, opt, device=devs, **kw)
+    one = flat_solve(None, *args, one_opt, device="cuda", **kw)
     _to_plain(monkeypatch)
-    plain = flat_solve(*args, opt, device=devs, **kw)
+    plain = flat_solve(None, *args, opt, device=devs, **kw)
     k = kern.iterations
     tally = (k, kern.accepted, kern.pcg_iterations, kern.status,
              kern.recoveries)
@@ -1431,14 +1431,14 @@ def test_f64_family_solve_kernels_match_plain(monkeypatch, factor):
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
     od = spec.residual_dim
     tseg.reset_launch_counts()
-    kern = flat_solve(*args, device="cuda", factor=factor)
+    kern = flat_solve(None, *args, device="cuda", factor=factor)
     for name in ("jtj_grad_reduce", "coupling_expand", "coupling_reduce"):
         shapes = getattr(tseg, name).shape_launches
         assert shapes.get((od, spec.cam_dim)) and shapes.get(
             (od, spec.pt_dim)), (name, shapes)
-    again = flat_solve(*args, device="cuda", factor=factor)
+    again = flat_solve(None, *args, device="cuda", factor=factor)
     _to_plain(monkeypatch)
-    plain = flat_solve(*args, device="cuda", factor=factor)
+    plain = flat_solve(None, *args, device="cuda", factor=factor)
     k = kern.iterations
     assert k > 1
     assert (k, kern.accepted, kern.pcg_iterations, kern.status) == (
@@ -1516,7 +1516,7 @@ def test_f64_family_paths_kernels_match_plain(monkeypatch, factor, path):
             _family_option(path))
     for m in (tseg, tfused):
         m.reset_launch_counts()
-    kern = flat_solve(*args, device="cuda", factor=factor)
+    kern = flat_solve(None, *args, device="cuda", factor=factor)
     shapes = {**tfused.shape_launch_counts(), **tseg.shape_launch_counts()}
     kind, fused, _ = _FAMILY_PATHS[path]
     want = ({f"fused_coupling_apply_implicit({cd},{pd},{od})",
@@ -1531,9 +1531,9 @@ def test_f64_family_paths_kernels_match_plain(monkeypatch, factor, path):
     assert want <= set(shapes), (want, shapes)
     fused_rows = {k for k in shapes if k.startswith("fused_")}
     assert fused_rows <= want, (fused_rows, want)
-    again = flat_solve(*args, device="cuda", factor=factor)
+    again = flat_solve(None, *args, device="cuda", factor=factor)
     _to_plain(monkeypatch)
-    plain = flat_solve(*args, device="cuda", factor=factor)
+    plain = flat_solve(None, *args, device="cuda", factor=factor)
     k = kern.iterations
     assert k > 1
     assert (k, kern.accepted, kern.pcg_iterations, kern.status) == (
@@ -1563,9 +1563,9 @@ def test_f32_family_rungs_kernels_match_plain(monkeypatch, factor, rung):
     opt = _family_option("mixed_fused" if rung == "mixed" else
                          "implicit_fused", np.float32, bf16=rung == "bf16")
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, opt)
-    kern = flat_solve(*args, device="cuda", factor=factor)
+    kern = flat_solve(None, *args, device="cuda", factor=factor)
     _to_plain(monkeypatch)
-    plain = flat_solve(*args, device="cuda", factor=factor)
+    plain = flat_solve(None, *args, device="cuda", factor=factor)
     first = abs(float(kern.trace.cost[0]) - float(plain.trace.cost[0]))
     assert first <= {"mixed": 1e-4, "bf16": 2e-2}[rung] * abs(
         float(plain.trace.cost[0]))

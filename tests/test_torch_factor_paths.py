@@ -103,7 +103,8 @@ def _jax_solve(name, path):
 def test_family_path_matches_jax(name, path):
     s = _scene(name)
     opt = _option(mt, name, path, fused=PATHS[path][2])
-    tres = mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+    tres = mt.flat_solve(None,
+                         s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
                          opt, device="cpu", factor=name)
     jres = _jax_solve(name, _JAX_PATH.get(path, path))
     assert int(jres.iterations) >= 2

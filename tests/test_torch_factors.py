@@ -432,7 +432,8 @@ def _jax_solve(name):
 def test_flat_solve_factor_matches_jax(name):
     s = _scene(name)
     _, topt = _options()
-    tres = mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+    tres = mt.flat_solve(None,
+                         s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
                          topt, device="cpu", factor=name)
     jres = _jax_solve(name)
     assert int(jres.iterations) >= (2 if name == "pose_prior" else LM_CAP)
@@ -454,10 +455,10 @@ def test_flat_solve_factor_typed_errors_before_any_device_work():
     # No device is needed to refuse: the default device (the card) is
     # never reached.
     with pytest.raises(tf.UnknownFactorError):
-        mt.flat_solve(*args, factor="nope")
+        mt.flat_solve(None, *args, factor="nope")
     with pytest.raises(tf.FactorError, match="pose-graph family"):
-        mt.flat_solve(*args, factor="se3_between")
-    assert (_message(tf.FactorError, mt.flat_solve, *args, factor="bal")
+        mt.flat_solve(None, *args, factor="se3_between")
+    assert (_message(tf.FactorError, mt.flat_solve, None, *args, factor="bal")
             == _message(jf.FactorError, j_flat_solve, *jargs, factor="bal"))
     # The robust refusal of a robust_ok=False family, in the JAX words.
     p = _scene("pose_prior")
@@ -465,7 +466,7 @@ def test_flat_solve_factor_typed_errors_before_any_device_work():
     j_huber = dataclasses.replace(_options()[0],
                                   robust_kind=JRobustKind.HUBER)
     pa = (p.cameras0, p.points0, p.obs, p.cam_idx, p.pt_idx)
-    assert (_message(tf.FactorError, mt.flat_solve, *pa, t_huber,
+    assert (_message(tf.FactorError, mt.flat_solve, None, *pa, t_huber,
                      factor="pose_prior")
             == _message(jf.FactorError, j_flat_solve, None, *pa, j_huber,
                         factor="pose_prior"))
@@ -502,8 +503,8 @@ def test_refuse_ratio_defaults_resolve_as_in_jax():
     try:
         s = _scene("bal")
         a = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
-        got = mt.flat_solve(*a, opt, device="cpu", factor="_bal_refuse")
-        want = mt.flat_solve(*a, dataclasses.replace(
+        got = mt.flat_solve(None, *a, opt, device="cpu", factor="_bal_refuse")
+        want = mt.flat_solve(None, *a, dataclasses.replace(
             opt, solver_option=dataclasses.replace(
                 opt.solver_option, refuse_ratio=1e30)), device="cpu")
         assert torch.equal(got.trace.cost, want.trace.cost)

@@ -196,7 +196,7 @@ def _compare_forcing(jres, tres):
 def test_forcing_warm_start_flat_solve_matches_jax(kind, fused):
     s = _scene()
     _, topt = _options(kind, fused=fused)
-    tres = mt.flat_solve(*_args(s), topt, device="cpu")
+    tres = mt.flat_solve(None, *_args(s), topt, device="cpu")
     jres = _jax_inexact(kind)
     _compare_forcing(jres, tres)
     k = tres.iterations
@@ -210,20 +210,20 @@ def test_forcing_warm_start_flat_solve_matches_jax(kind, fused):
     # Fewer PCG iterations than the fixed tight tolerance.
     _, tight = _options(kind, fused=fused, forcing=False, warm_start=False,
                         tol=1e-12, tol_relative=True)
-    assert tres.pcg_iterations < mt.flat_solve(
+    assert tres.pcg_iterations < mt.flat_solve(None,
         *_args(s), tight, device="cpu").pcg_iterations
 
 
 def test_no_warm_start_returns_no_step():
     s = _scene()
     _, topt = _options(max_iter=2, warm_start=False)
-    res = mt.flat_solve(*_args(s), topt, device="cpu",
+    res = mt.flat_solve(None, *_args(s), topt, device="cpu",
                         initial_dx=np.ones((8, 9)))
     assert res.dx_cam is None
     assert (res.trace.pcg_r0_ratio[:res.iterations] == 1.0).all()
     _, warm = _options(max_iter=2)
     with pytest.raises(ValueError, match="initial_dx has shape"):
-        mt.flat_solve(*_args(s), warm, device="cpu",
+        mt.flat_solve(None, *_args(s), warm, device="cpu",
                       initial_dx=np.ones((9, 8)))
 
 
@@ -242,7 +242,7 @@ def test_warm_start_bitwise_disabled_on_reject():
             solver_option=mt.SolverOption(max_iter=40, tol=1e-10,
                                           refuse_ratio=1e30,
                                           warm_start=warm))
-        return mt.flat_solve(*_args(s), opt, device="cpu")
+        return mt.flat_solve(None, *_args(s), opt, device="cpu")
 
     probe = run(False, 3)
     accept = probe.trace.accept[:probe.iterations].numpy()
@@ -265,12 +265,13 @@ def test_split_solve_matches_jax_split():
     j2, t2 = _options(max_iter=5)
     args = _args(s)
     ja = _jax_solve(args, j1)
-    ta = mt.flat_solve(*args, t1, device="cpu")
+    ta = mt.flat_solve(None, *args, t1, device="cpu")
     _compare_forcing(ja, ta)
     jb = _jax_solve((np.asarray(ja.cameras), np.asarray(ja.points))
                     + args[2:], j2, initial_region=float(ja.region),
                     initial_v=float(ja.v), initial_dx=np.asarray(ja.dx_cam))
-    tb = mt.flat_solve(ta.cameras.numpy(), ta.points.numpy(), *args[2:], t2,
+    tb = mt.flat_solve(None,
+                       ta.cameras.numpy(), ta.points.numpy(), *args[2:], t2,
                        device="cpu", initial_region=float(ta.region),
                        initial_v=float(ta.v), initial_dx=ta.dx_cam.numpy())
     _compare_forcing(jb, tb)
@@ -293,7 +294,7 @@ def test_forcing_warm_start_on_precision_rungs(rung, monkeypatch):
     core = tpcg._pcg_core
     monkeypatch.setattr(tpcg, "_pcg_core", lambda *a, **k: tols.append(
         a[4]) or core(*a, **k))
-    tres = mt.flat_solve(*_args(s), topt, device="cpu")
+    tres = mt.flat_solve(None, *_args(s), topt, device="cpu")
     assert all(isinstance(t, torch.Tensor) for t in tols)
     if rung == "bf16":
         assert min(float(t) for t in tols) >= tpcg._BF16_TOL_FLOOR
@@ -308,6 +309,6 @@ def test_forcing_warm_start_on_precision_rungs(rung, monkeypatch):
         np.testing.assert_allclose(c, cj, rtol=1e-4)
     else:
         _, f32 = _options(max_iter=6, dtype=np.float32)
-        c32 = float(mt.flat_solve(*_args(s), f32, device="cpu").cost)
+        c32 = float(mt.flat_solve(None, *_args(s), f32, device="cpu").cost)
         assert abs(c - cj) / cj <= 2e-2, (c, cj)
         assert abs(c - c32) / c32 <= 2e-2, (c, c32)

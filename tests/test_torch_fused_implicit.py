@@ -283,7 +283,7 @@ def test_implicit_fused_flat_solve_matches_jax_f64(case):
     jres = j_flat_solve(make_residual_jacobian_fn(
         mode=jc.JacobianMode.ANALYTICAL), *args, jopt, use_tiled=False,
         **extra)
-    tres = mt.flat_solve(*args, topt, device="cpu", **extra)
+    tres = mt.flat_solve(None, *args, topt, device="cpu", **extra)
     t = result_to_numpy(tres)
     k = int(jres.iterations)
     assert k > 1
@@ -309,7 +309,7 @@ def test_implicit_fused_flat_solve_matches_jax_tiled_f32():
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
     jres = j_flat_solve(make_residual_jacobian_fn(
         mode=jc.JacobianMode.ANALYTICAL), *args, jopt, use_tiled=True)
-    tres = mt.flat_solve(*args, topt, device="cpu")
+    tres = mt.flat_solve(None, *args, topt, device="cpu")
     assert tres.cameras.dtype == torch.float32
     k = int(jres.iterations)
     assert tres.iterations == k

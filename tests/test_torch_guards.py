@@ -153,7 +153,7 @@ def test_nan_camera_solve_matches_jax(guards):
         algo_option=mt.AlgoOption(max_iter=4),
         robust_option=mt.RobustOption(guards=guards))
     jres = _jax_solve(args, jopt)
-    tres = mt.flat_solve(*args, topt, device="cpu")
+    tres = mt.flat_solve(None, *args, topt, device="cpu")
     assert np.isnan(float(jres.cost)) and np.isnan(float(tres.cost))
     assert tres.iterations == int(jres.iterations) == 4
     assert tres.status == int(jres.status) == (
@@ -176,7 +176,7 @@ _FREE_CASES = [("IMPLICIT", False, np.float64, None),
 def test_clean_run_bitwise_unchanged_with_guards(kind, fused, dtype, rung):
     s = _scene(dtype)
     solver = dict(tol=1e-6, tol_relative=True) if rung == "bf16" else {}
-    runs = [mt.flat_solve(*_args(s), _options(
+    runs = [mt.flat_solve(None, *_args(s), _options(
         g, kind, fused, dtype, rung, max_iter=6, **solver)[1], device="cpu")
         for g in (False, True)]
     off, on = runs
@@ -213,7 +213,7 @@ def _plans(s):
 def _port_faulted(name, guards, **kw):
     s = _scene()
     _, topt = _options(guards)
-    return mt.flat_solve(*_args(s), topt, device="cpu",
+    return mt.flat_solve(None, *_args(s), topt, device="cpu",
                          fault_plan=fault_plan_to_torch(_plans(s)[name]),
                          **kw)
 
@@ -265,8 +265,8 @@ def test_indefinite_fault_triggers_pcg_breakdown_as_jax():
 def test_closed_window_is_the_clean_solve():
     s = _scene()
     _, topt = _options(True)
-    clean = mt.flat_solve(*_args(s), topt, device="cpu")
-    closed = mt.flat_solve(
+    clean = mt.flat_solve(None, *_args(s), topt, device="cpu")
+    closed = mt.flat_solve(None,
         *_args(s), topt, device="cpu", fault_plan=tfaults.close_fault_window(
             fault_plan_to_torch(_plans(s)["nan"])))
     assert torch.equal(clean.trace.cost, closed.trace.cost)
@@ -344,7 +344,7 @@ def test_pcg_core_guard_keeps_one_product_and_one_apply_per_iteration():
 def test_status_consistent_with_stop_flag():
     s = _scene()
     for guards in (False, True):
-        res = mt.flat_solve(*_args(s), _options(guards)[1], device="cpu")
+        res = mt.flat_solve(None, *_args(s), _options(guards)[1], device="cpu")
         want = (mt.SolveStatus.CONVERGED if res.stopped
                 else (mt.SolveStatus.MAX_ITER if res.accepted > 0
                       else mt.SolveStatus.STALLED))
@@ -369,7 +369,7 @@ def test_fault_plan_size_mismatch_rejected():
     s = _scene()
     plan = mt.make_nan_burst(3, [0], start=0, stop=1)
     with pytest.raises(ValueError, match="edge_nan"):
-        mt.flat_solve(*_args(s), _options(False)[1], device="cpu",
+        mt.flat_solve(None, *_args(s), _options(False)[1], device="cpu",
                       fault_plan=plan)
 
 

@@ -299,10 +299,11 @@ def test_flat_solve_metrics_match_jax():
     j_metrics.reset_default_registry()
     opt = ProblemOption(jacobian_mode=JacobianMode.ANALYTICAL,
                         device=Device.CPU, algo_option=AlgoOption(**algo))
-    plain = mt.flat_solve(*args, opt)
+    plain = mt.flat_solve(None, *args, opt)
     metrics.reset_default_registry()
     try:
-        armed = mt.flat_solve(*args, dataclasses.replace(opt, metrics=True))
+        armed = mt.flat_solve(None,
+                              *args, dataclasses.replace(opt, metrics=True))
         got = metrics.default_registry().snapshot()["metrics"]
     finally:
         metrics.reset_default_registry()

@@ -368,7 +368,7 @@ def _port(kind, world, fused=False, dtype=np.float64, rung=None, **solver):
     _, topt = _options(False, kind=kind, fused=fused, dtype=dtype,
                        rung=rung, **solver)
     topt = dataclasses.replace(topt, world_size=world)
-    return mt.flat_solve(*_args(_scene(dtype)), topt,
+    return mt.flat_solve(None, *_args(_scene(dtype)), topt,
                          device=["cpu"] * world)
 
 

@@ -100,7 +100,7 @@ def test_plane_off_imports_no_lazy_module(tmp_path):
         "opt = ProblemOption(device=Device.CPU, algo_option=AlgoOption("
         "max_iter=1))\n"
         "s = mt.make_synthetic_bal(num_cameras=3, num_points=12, seed=0)\n"
-        "mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,"
+        "mt.flat_solve(None, s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,"
         " opt)\n"
         "mt.solve_many([mt.FleetProblem.from_synthetic(s)], opt)\n"
         "mods = ('report', 'summarize', 'metrics', 'spans', 'flight')\n"
@@ -386,7 +386,7 @@ def test_solve_phases_and_buckets_become_spans(armed):
     `solve_many` records one `solve_bucket` span per bucket with its
     phases nested under it."""
     s = mt.make_synthetic_bal(num_cameras=3, num_points=16, seed=0)
-    mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, OPT)
+    mt.flat_solve(None, s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, OPT)
     rec = obs.span_recorder()
     names = [x["name"] for x in rec.drain()]
     assert {"phase.lowering", "phase.plan", "phase.dispatch"} <= set(names)
@@ -408,7 +408,7 @@ def test_solve_report_carries_span_ids(armed, tmp_path):
     s = mt.make_synthetic_bal(num_cameras=3, num_points=16, seed=0)
     rec = obs.span_recorder()
     with rec.span("request") as span:
-        mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+        mt.flat_solve(None, s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
                       dataclasses.replace(OPT, telemetry=str(sink)))
     rep = SolveReport.from_json(sink.read_text().splitlines()[-1])
     assert (rep.trace_id, rep.span_id) == (span["trace_id"],

@@ -118,7 +118,7 @@ def test_plain_flat_solve_matches_jax(kind, variant):
               if variant == "forcing_warm" else {})
     jopt, topt = _options(False, kind, use_schur=False, **solver)
     jres = _jax_solve(_args(s), jopt)
-    tres = mt.flat_solve(*_args(s), topt, device="cpu")
+    tres = mt.flat_solve(None, *_args(s), topt, device="cpu")
     t = compare_robust(jres, tres)
     assert float(tres.cost) < float(tres.initial_cost)
     if variant == "forcing_warm":
@@ -147,8 +147,8 @@ def test_plain_lm_converges_and_matches_schur():
                                           tol_relative=True,
                                           refuse_ratio=1e30))
 
-    schur = mt.flat_solve(*_args(s), opt(True), device="cpu")
-    plain = mt.flat_solve(*_args(s), opt(False), device="cpu")
+    schur = mt.flat_solve(None, *_args(s), opt(True), device="cpu")
+    plain = mt.flat_solve(None, *_args(s), opt(False), device="cpu")
     np.testing.assert_allclose(float(plain.cost), float(schur.cost),
                                rtol=1e-6)
     assert plain.accepted > 0

@@ -72,7 +72,8 @@ def _option(dtype=np.float64, **skw):
 
 def _solve(s, opt, device="cpu", **kw):
     timer = PhaseTimer()
-    res = mt.flat_solve(*_arrays(s), opt, device=device, timer=timer, **kw)
+    res = mt.flat_solve(None,
+                        *_arrays(s), opt, device=device, timer=timer, **kw)
     return res, {k: timer.counts.get(k, 0) for k in EVENTS}
 
 
@@ -241,7 +242,7 @@ def test_checkpointed_chunks_hit(tmp_path):
     opt = dataclasses.replace(_option(), algo_option=mt.AlgoOption(
         max_iter=6, epsilon1=1e-12, epsilon2=1e-15))
     timer = PhaseTimer()
-    res = mt.solve_checkpointed(
+    res = mt.solve_checkpointed(None,
         *_arrays(s), opt, checkpoint_path=str(tmp_path / "snap.npz"),
         checkpoint_every=2, device="cpu", timer=timer)
     chunks = timer.counts["dispatch"]

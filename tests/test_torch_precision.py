@@ -258,7 +258,7 @@ def _precision_option(kind, rung=None):
 def test_precision_flat_solve_in_band_and_live(kind, rung, monkeypatch):
     s = mt.make_synthetic_bal(**_SCENE)
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
-    ref = mt.flat_solve(*args, _precision_option(kind), device="cpu")
+    ref = mt.flat_solve(None, *args, _precision_option(kind), device="cpu")
 
     seen = []  # (kernel, row dtypes, bf16_operands) of every fused call
     for name in ("fused_coupling_apply_implicit", "fused_coupling_apply",
@@ -276,7 +276,8 @@ def test_precision_flat_solve_in_band_and_live(kind, rung, monkeypatch):
     monkeypatch.setattr(tseg, "seg_expand",
                         lambda *a: expands.append(a) or real_expand(*a))
 
-    res = mt.flat_solve(*args, _precision_option(kind, rung), device="cpu")
+    res = mt.flat_solve(None,
+                        *args, _precision_option(kind, rung), device="cpu")
     c0, c, c32 = float(res.initial_cost), float(res.cost), float(ref.cost)
     assert np.isfinite(c) and c < c0
     assert abs(c - c32) / c32 <= 2e-2, (c, c32)
@@ -362,4 +363,4 @@ def test_precision_refusal_fires_before_planning():
     opt = _opt(metrics=True, solver_option=dict(
         bf16=True, bf16_collectives=True))
     with pytest.raises(ValueError, match="float64"):
-        mt.flat_solve(None, None, None, None, None, opt, device="cpu")
+        mt.flat_solve(None, None, None, None, None, None, opt, device="cpu")

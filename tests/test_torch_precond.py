@@ -155,7 +155,7 @@ def test_flat_solve_with_preconditioner_matches_jax(name, kind, fused):
     s = _scene()
     jopt, topt = _options(False, kind, fused, **_PRECONDS[name])
     jres = _jax_solve(_args(s), jopt)
-    tres = mt.flat_solve(*_args(s), topt, device="cpu")
+    tres = mt.flat_solve(None, *_args(s), topt, device="cpu")
     t = compare_robust(jres, tres)
     assert float(tres.cost) < float(tres.initial_cost)
     assert not t["trace"]["precond_fallback"].any()
@@ -167,7 +167,7 @@ def test_precond_fallback_trace_under_crush_matches_jax():
         120, list(range(8)), start=2, stop=3, n_edges=s.obs.shape[0])
     jopt, topt = _options(True, **_PRECONDS["schur_diag"])
     jres = _jax_solve(_args(s), jopt, fault_plan=plan)
-    tres = mt.flat_solve(*_args(s), topt, device="cpu",
+    tres = mt.flat_solve(None, *_args(s), topt, device="cpu",
                          fault_plan=fault_plan_to_torch(plan))
     t = compare_robust(jres, tres)
     assert t["trace"]["precond_fallback"].sum() >= 1

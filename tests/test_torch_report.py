@@ -75,7 +75,7 @@ def reports(tmp_path_factory):
     """One flat_solve report from each package on the same scene."""
     tmp = tmp_path_factory.mktemp("telemetry")
     t_path, j_path = str(tmp / "port.jsonl"), str(tmp / "jax.jsonl")
-    mt.flat_solve(*_scene(), dataclasses.replace(OPT, telemetry=t_path))
+    mt.flat_solve(None, *_scene(), dataclasses.replace(OPT, telemetry=t_path))
     j_flat_solve(j_engine(), *_scene(),
                  dataclasses.replace(JOPT, telemetry=j_path))
     return t_path, j_path
@@ -103,7 +103,13 @@ def test_flat_solve_report_has_jax_keys(reports):
     assert len(t_lines) == 1
     t, j = json.loads(t_lines[0]), json.loads(open(j_path).read())
     assert t["schema"] == j["schema"] == SCHEMA
-    assert _keys(t) - {"phases." + p for p in t["phases"]} - {
+    # The port fills `tiles` from its plans, with the keys of JAX's tiled
+    # lowering (solve.py:540-556); JAX's untiled lowering here leaves it
+    # None.
+    tiles = {"tiles." + k for k in ("plan", "occupancy", "edges",
+                                    "switches", "reuse_factor")}
+    assert {k for k in _keys(t) if k.startswith("tiles.")} == tiles
+    assert _keys(t) - tiles - {"phases." + p for p in t["phases"]} - {
         "phases." + p + "." + k for p in t["phases"]
         for k in ("total_s", "calls")} == _keys(j) - {
         "phases." + p for p in j["phases"]} - {
@@ -157,8 +163,8 @@ def test_each_summarize_renders_the_other(reports):
 def test_telemetry_knob_wins_over_environment(tmp_path, monkeypatch):
     env_path, knob_path = tmp_path / "env.jsonl", tmp_path / "knob.jsonl"
     monkeypatch.setenv("MEGBA_TELEMETRY", str(env_path))
-    mt.flat_solve(*_scene(), OPT)
-    mt.flat_solve(*_scene(), dataclasses.replace(OPT,
+    mt.flat_solve(None, *_scene(), OPT)
+    mt.flat_solve(None, *_scene(), dataclasses.replace(OPT,
                                                  telemetry=str(knob_path)))
     assert len(env_path.read_text().splitlines()) == 1
     assert len(knob_path.read_text().splitlines()) == 1
@@ -212,7 +218,7 @@ def test_telemetry_off_imports_no_report_module():
         "from megba_tpu_torch.common import AlgoOption, Device, "
         "ProblemOption\n"
         "s = mt.make_synthetic_bal(num_cameras=3, num_points=12, seed=0)\n"
-        "mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,"
+        "mt.flat_solve(None, s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,"
         " ProblemOption(device=Device.CPU, algo_option=AlgoOption("
         "max_iter=1)))\n"
         "fl = [mt.FleetProblem.from_synthetic(s)]\n"

@@ -121,13 +121,13 @@ def _jax_solve(kind, loss):
 @pytest.mark.parametrize("loss", ["HUBER", "CAUCHY"])
 def test_robust_flat_solve_matches_jax(loss, kind, fused):
     _, topt = _options(kind, loss, fused)
-    tres = mt.flat_solve(*_outlier_scene(), topt, device="cpu")
+    tres = mt.flat_solve(None, *_outlier_scene(), topt, device="cpu")
     jres = _jax_solve(kind, loss)
     assert int(jres.iterations) > 1 and int(jres.accepted) > 1
     _compare(jres, tres, cost_rtol=1e-9)
     # The cost is Sum rho: below the squared cost of the same residuals.
     plain = dataclasses.replace(topt, robust_kind=mt.RobustKind.NONE,
                                 algo_option=mt.AlgoOption(max_iter=1))
-    c_plain = float(mt.flat_solve(*_outlier_scene(), plain,
+    c_plain = float(mt.flat_solve(None, *_outlier_scene(), plain,
                                   device="cpu").initial_cost)
     assert float(tres.initial_cost) < c_plain

@@ -189,7 +189,7 @@ def _jax_result(name):
 def _port(name, ws, **mesh):
     kind, solver, extras = _CASES[name]
     _, topt = _options(False, kind=kind, **dict(solver, **mesh))
-    return mt.flat_solve(*_args(_scene()), dataclasses.replace(
+    return mt.flat_solve(None, *_args(_scene()), dataclasses.replace(
         topt, world_size=ws), device=["cpu"] * ws, **_extras(extras))
 
 

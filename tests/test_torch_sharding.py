@@ -134,7 +134,7 @@ def test_make_mesh_raises_past_the_visible_devices():
     s = _scene()
     _, topt = _options(False)
     with pytest.raises(RuntimeError, match="needs 2 CUDA devices"):
-        mt.flat_solve(*_args(s), dataclasses.replace(topt, world_size=2))
+        mt.flat_solve(None, *_args(s), dataclasses.replace(topt, world_size=2))
 
 
 @pytest.mark.parametrize("ws,cb", [(1, 0), (4, 0), (6, 0), (8, 0), (9, 0),
@@ -204,7 +204,7 @@ def test_still_refused_and_fused_1d_refused_as_jax():
     with pytest.raises(ValueError) as want:
         j_flat_solve(j_engine(), *_args(s), jopt)
     with pytest.raises(ValueError) as got:
-        mt.flat_solve(*_args(s), dataclasses.replace(topt, world_size=2),
+        mt.flat_solve(None, *_args(s), dataclasses.replace(topt, world_size=2),
                       device=["cpu"] * 2)
     assert str(got.value) == str(want.value)
 
@@ -258,7 +258,8 @@ def _port(ws, kind, masked=False, guards=False, fault=False, **solver):
     kw = _masked_extras(s) if masked else {}
     if fault:
         kw["fault_plan"] = fault_plan_to_torch(_nan_plan(s.obs.shape[0]))
-    return mt.flat_solve(*_args(s), dataclasses.replace(topt, world_size=ws),
+    return mt.flat_solve(None,
+                         *_args(s), dataclasses.replace(topt, world_size=ws),
                          device=["cpu"] * ws, **kw)
 
 
@@ -306,7 +307,7 @@ def test_bf16_collectives_world2_within_band(kind):
     def port(ws, rung, **solver):
         _, topt = _options(False, kind=kind, dtype=np.float32, rung=rung,
                            **solver)
-        return mt.flat_solve(*_args(s), dataclasses.replace(
+        return mt.flat_solve(None, *_args(s), dataclasses.replace(
             topt, world_size=ws), device=["cpu"] * ws)
 
     tres = port(2, "bf16", bf16_collectives=True)
@@ -340,7 +341,7 @@ def test_one_device_is_the_mesh_of_one_shard(monkeypatch):
     monkeypatch.setattr(lm, "lm_solve", spy)
     s = _scene()
     _, topt = _options(False)
-    mt.flat_solve(*_args(s), topt, device="cpu")
+    mt.flat_solve(None, *_args(s), topt, device="cpu")
     (plans, obs), = seen
     assert isinstance(plans, tmesh.ShardedPlans) and plans.mesh.size == 1
     assert plans.devices == (torch.device("cpu"),) and len(obs) == 1
@@ -356,7 +357,8 @@ def test_other_paths_world2_match_world1(case):
     s = _scene()
     use_schur = kw.pop("use_schur", True)
     _, topt = _options(False, use_schur=use_schur, **kw)
-    one = mt.flat_solve(*_args(s), topt, device="cpu")
-    two = mt.flat_solve(*_args(s), dataclasses.replace(topt, world_size=2),
+    one = mt.flat_solve(None, *_args(s), topt, device="cpu")
+    two = mt.flat_solve(None,
+                        *_args(s), dataclasses.replace(topt, world_size=2),
                         device=["cpu"] * 2)
     _same_run(two, one)

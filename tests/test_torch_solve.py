@@ -87,7 +87,7 @@ def test_flat_solve_matches_jax_f64(case):
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
     jres = j_flat_solve(make_residual_jacobian_fn(
         mode=jc.JacobianMode.ANALYTICAL), *args, jopt, **extra)
-    tres = mt.flat_solve(*args, topt, device="cpu", **extra)
+    tres = mt.flat_solve(None, *args, topt, device="cpu", **extra)
     t = _compare(jres, tres, cost_rtol=1e-9)
     assert t["cameras"].shape == (8, 9) and t["points"].shape == (120, 3)
     if case != "plain":
@@ -103,7 +103,7 @@ def test_flat_solve_matches_jax_tiled_f32():
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
     jres = j_flat_solve(make_residual_jacobian_fn(
         mode=jc.JacobianMode.ANALYTICAL), *args, jopt, use_tiled=True)
-    tres = mt.flat_solve(*args, topt, device="cpu")
+    tres = mt.flat_solve(None, *args, topt, device="cpu")
     assert tres.cameras.dtype == torch.float32
     k = int(jres.iterations)
     # Near the optimum the trial costs differ by f32 rounding, where an
@@ -153,12 +153,12 @@ def test_entry_points_raise_without_card(monkeypatch):
     _, topt = _options(np.float64, max_iter=2)
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx, topt)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        mt.flat_solve(*args)
+        mt.flat_solve(None, *args)
     bal = mt.BALFile(cameras=s.cameras0, points=s.points0, obs=s.obs,
                      cam_idx=s.cam_idx, pt_idx=s.pt_idx)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mt.solve_bal(bal, topt)
-    assert mt.flat_solve(*args, device="cpu").iterations >= 1
+    assert mt.flat_solve(None, *args, device="cpu").iterations >= 1
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):

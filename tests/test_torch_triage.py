@@ -300,7 +300,7 @@ def test_flat_solve_repair_matches_jax():
         j_engine(mode=jc.JacobianMode.ANALYTICAL), *_arrays(s), jopt,
         use_tiled=False, timer=jtimer,
         triage=_policy(jtri, REPAIR))
-    tres = mt.flat_solve(*_arrays(s), topt, device="cpu", timer=ttimer,
+    tres = mt.flat_solve(None, *_arrays(s), topt, device="cpu", timer=ttimer,
                          triage=_policy(ttri, REPAIR))
     _compare(jres, tres, cost_rtol=1e-9)
     events = {k: v["calls"] for k, v in ttimer.as_dict().items()
@@ -318,13 +318,13 @@ def test_flat_solve_reject_before_lowering():
     _, topt = _options(False)
     timer = PhaseTimer()
     with pytest.raises(mt.ProblemRejected) as info:
-        mt.flat_solve(*_arrays(s), topt, device="cpu", timer=timer,
+        mt.flat_solve(None, *_arrays(s), topt, device="cpu", timer=timer,
                       triage=mt.TriagePolicy())
     assert info.value.report.degenerate
     assert list(timer.totals) == ["triage"]
     # A clean problem passes a REJECT policy untouched.
     timer.reset()
-    mt.flat_solve(*_arrays(_clean()), topt, device="cpu", timer=timer,
+    mt.flat_solve(None, *_arrays(_clean()), topt, device="cpu", timer=timer,
                   triage=mt.TriagePolicy())
     assert {"triage", "lowering", "plan", "dispatch"} <= set(timer.totals)
 
@@ -332,8 +332,8 @@ def test_flat_solve_reject_before_lowering():
 def test_flat_solve_warn_is_the_untriaged_solve():
     s = _degenerate()
     _, topt = _options(False)
-    plain = mt.flat_solve(*_arrays(s), topt, device="cpu")
-    warned = mt.flat_solve(*_arrays(s), topt, device="cpu",
+    plain = mt.flat_solve(None, *_arrays(s), topt, device="cpu")
+    warned = mt.flat_solve(None, *_arrays(s), topt, device="cpu",
                            triage=mt.TriagePolicy(
                                on_degenerate=mt.TriageAction.WARN))
     assert torch.equal(plain.cameras, warned.cameras)

@@ -456,12 +456,12 @@ def test_mixed_f64_flat_solve_matches_jax(kind, fused):
     args = (s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx)
     jopt, topt = _options(np.float64, kind, "mixed", fused, region=1.0)
     jres = _jax_solve(args, jopt, use_tiled=False)
-    tres = mt.flat_solve(*args, topt, device="cpu")
+    tres = mt.flat_solve(None, *args, topt, device="cpu")
     assert tres.cameras.dtype == torch.float64 and int(jres.iterations) > 1
     _compare(jres, tres, cost_rtol=1e-9)
     # The rung changed the arithmetic: the float64 solve lands elsewhere.
     _, f64 = _options(np.float64, kind, None, fused, region=1.0)
-    assert float(tres.cost) != float(mt.flat_solve(*args, f64,
+    assert float(tres.cost) != float(mt.flat_solve(None, *args, f64,
                                                    device="cpu").cost)
 
 
@@ -501,9 +501,9 @@ def test_unfused_precision_flat_solve_matches_jax(kind, rung, monkeypatch):
     # rows); bf16 its XLA lowering (flat_solve forces it).
     jres = _jax_solve(args, jopt, use_tiled=rung == "mixed")
     _, f32 = _options(np.float32, kind, None, max_iter=6)
-    ref32 = mt.flat_solve(*args, f32, device="cpu")
+    ref32 = mt.flat_solve(None, *args, f32, device="cpu")
     seen = _spy_kernels(monkeypatch)
-    tres = mt.flat_solve(*args, topt, device="cpu")
+    tres = mt.flat_solve(None, *args, topt, device="cpu")
     k = int(jres.iterations)
     c, cj, c32 = float(tres.cost), float(jres.cost), float(ref32.cost)
     assert np.isfinite(c) and c < float(tres.initial_cost)

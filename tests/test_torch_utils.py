@@ -116,7 +116,8 @@ def test_trace_profile(tmp_path):
     _, topt = _options(2)
     logdir = tmp_path / "trace"
     with trace_profile(str(logdir)) as prof:
-        mt.flat_solve(*_arrays(s), topt, device="cpu", timer=PhaseTimer())
+        mt.flat_solve(None,
+                      *_arrays(s), topt, device="cpu", timer=PhaseTimer())
     files = list(logdir.glob("trace-*.json"))
     assert len(files) == 1
     trace = json.loads(files[0].read_text())
@@ -134,7 +135,7 @@ def test_parse_verbose_curve_matches_jax():
         lambda: j_flat_solve(f, *_arrays(s), jopt, use_tiled=False,
                              verbose=True))
     tres, tcurve = tcurves.run_with_curve(
-        lambda: mt.flat_solve(*_arrays(s), topt, device="cpu",
+        lambda: mt.flat_solve(None, *_arrays(s), topt, device="cpu",
                               verbose=True))
     assert len(tcurve) == len(jcurve) == int(jres.iterations) > 0
     for a, b in zip(tcurve, jcurve):
@@ -142,7 +143,7 @@ def test_parse_verbose_curve_matches_jax():
             b["iter"], b["accept"], b["pcg_iters"])
         np.testing.assert_allclose(a["cost"], b["cost"], rtol=1e-9)
     # The same text parses alike in both parsers.
-    text = _printed(mt.flat_solve, *_arrays(s), topt, device="cpu",
+    text = _printed(mt.flat_solve, None, *_arrays(s), topt, device="cpu",
                     verbose=True)
     assert tcurves.parse_verbose_curve(text) == \
         jcurves.parse_verbose_curve(text)
@@ -158,7 +159,8 @@ def test_dtype_parity_payload_keys():
         opt = mt.ProblemOption(
             dtype=dtype, jacobian_mode=mt.JacobianMode.ANALYTICAL,
             algo_option=mt.AlgoOption(max_iter=3))
-        return mt.flat_solve(*_arrays(s), opt, device="cpu", verbose=True)
+        return mt.flat_solve(None,
+                             *_arrays(s), opt, device="cpu", verbose=True)
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

@@ -53,7 +53,7 @@ def test_verbose_lines_match_jax(capsys):
     jax.block_until_ready(jres.cost)
     jax.effects_barrier()
     want = _lines(capsys.readouterr().out)
-    mt.flat_solve(*args, mt.ProblemOption(
+    mt.flat_solve(None, *args, mt.ProblemOption(
         jacobian_mode=mt.JacobianMode.ANALYTICAL,
         algo_option=mt.AlgoOption(**kw)), device="cpu", verbose=True)
     got = _lines(capsys.readouterr().out)
@@ -123,7 +123,7 @@ def test_iteration_zero_elapsed_is_zero(capsys):
                               obs_per_point=3, seed=2, param_noise=1e-2)
     algo = mt.AlgoOption(max_iter=2, epsilon1=1e-12, epsilon2=1e-15)
     capsys.readouterr()
-    mt.flat_solve(s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
+    mt.flat_solve(None, s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
                   mt.ProblemOption(algo_option=algo), device="cpu",
                   verbose=True)
     ba = [ln for ln in capsys.readouterr().out.splitlines()
@@ -150,7 +150,7 @@ def test_no_coarse_plan_line_on_two_level(capsys):
 
     timer = PhaseTimer()
     capsys.readouterr()
-    res = mt.flat_solve(
+    res = mt.flat_solve(None,
         s.cameras0, s.points0, s.obs, s.cam_idx, s.pt_idx,
         mt.ProblemOption(algo_option=mt.AlgoOption(max_iter=1),
                          solver_option=mt.SolverOption(

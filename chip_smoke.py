@@ -314,8 +314,28 @@ exception ends the run with a non-zero exit code:
    logged), resume at world 1 (`resume_elastic`) and exit 0, within rtol
    1e-6 of the parent's uninterrupted world-2 run in final cost and
    parameters with equal status, its telemetry's elastic block counting
-   1 worker lost, 1 reshard and 1 resume.  A failed rank, or one alive
-   past `MP_RANK_TIMEOUT_S`, fails the run.
+   1 worker lost, 1 reshard and 1 resume; in the ranks of 15.1 / 15.2,
+   15.4 venice f32 IMPLICIT on the 2 x 2 mesh across the two ranks (two
+   shards on cuda:0 a rank, phase 7's `2x2_implicit` options, `VENICE_LM`)
+   and 15.5 the trafalgar-sized f64 scene on 1 x 2 (world 2, cam_blocks 2:
+   one shard a rank, so every ring hop crosses), fused IMPLICIT and
+   EXPLICIT, each bitwise its one-process 2-D run in the parent (trace,
+   cameras, points, cost, counts), each rank's launches per shard the
+   parent's tally of its shards with the replicated work on its first,
+   kernels 7 and 8 in their ring-step form in both ranks of 15.5; each
+   rank's wall, peak memory, gathers and ring hops (count, bytes, host
+   ms) per LM iteration are logged.  A failed rank, or one alive past
+   `MP_RANK_TIMEOUT_S`, fails the run;
+16. audit (megba_tpu_torch/analysis/): the census of the canonical specs
+   (`program_audit`) on the card, each spec's per-LM and per-PCG counts
+   of host reads, collectives by kind and kernel calls by arm equal to
+   the committed `audit_budget.json` (the CPU census), with the host
+   synchronisations `torch.cuda.set_sync_debug_mode` reports beside
+   them; the strict-dtype lane's BA and PGO solves on the card; and the
+   rebuild sentinel (`analysis/retrace.py`), open from the end of phase
+   1 to here: no kernel library is built after phase 1 but the three
+   that phase 9's pan-tilt edge builds at first use by design
+   (`FIRST_USE_LIBRARIES`), each once.
 
 The last two lines of standard output are the `kernels` JSON object and
 `{"ok": true, "device": {...}}`.  `--profile` adds a torch.profiler
@@ -3139,6 +3159,12 @@ def pose_camera_edge():
     return PoseCameraEdge
 
 
+# The libraries `pan_tilt_edge` builds at first use (kernels 1-3 at
+# (2, 5); 7 at (5, 3, 2); 6 at 5), by their digest names' stems: the only
+# builds after phase 1 (the rebuild sentinel, phase 16).
+FIRST_USE_LIBRARIES = ("libfused_5_0_0", "libfused_5_2_3", "libsegtiles_5_2")
+
+
 def pan_tilt_edge():
     """A user's edge of a shape outside every list: a 5-parameter camera
     [angle-axis, tx, ty] with tz, the focal and the distortion as edge
@@ -4260,9 +4286,10 @@ FLEET_N = 1024
 FLEET_SIZES = (128, 1024)
 # The first FLEET_SMALL problems: the queue under chaos; the first
 # FLEET_VS_PLAIN: kernels against plain (LM-capped at FLEET_LM_CAP,
-# before the cost floor; cut from 64 to 32 in PR 21 for phase 15's time).
+# before the cost floor; cut from 64 to 32, then to 16, for the script's
+# time limit).
 FLEET_SMALL = 64
-FLEET_VS_PLAIN = 32
+FLEET_VS_PLAIN = 16
 FLEET_LM_CAP = 4
 # The bf16 rung's cap: its PCG stops at 1e-3 of the RHS energy, so each
 # LM iteration moves a kernel run's final cost from the plain run's by
@@ -4275,8 +4302,9 @@ FLEET_BF16_LM_CAP = 2
 # its lane in the batch.
 FLEET_BITWISE = 2
 # The f32 re-runs of the EXPLICIT and fused paths take the first
-# problems only (their f64 runs take the whole fleet).
-FLEET_F32_RERUN = 64
+# problems only (their f64 runs take the whole fleet; cut from 64 for the
+# script's time limit).
+FLEET_F32_RERUN = 32
 FLEET_REPORTS = ROOT / "chiprun_out" / "fleet_reports.jsonl"
 # torch.profiler traces only buckets of this many lanes and more (the
 # fleet's three 512-lane buckets, where most of its work is): each
@@ -4284,8 +4312,11 @@ FLEET_REPORTS = ROOT / "chiprun_out" / "fleet_reports.jsonl"
 # reading, and the small ones are launch-bound anyway.
 FLEET_PROFILED_LANES = 512
 # The option paths (`FLEET_OPTION_PATHS`) run on the first problems of
-# the fleet (the coupling paths on all of them; 256 until PR 21).
+# the fleet (the coupling paths on all of them), at most FLEET_OPTION_LM
+# LM iterations (both cuts, from 256 problems and ProblemOption()'s cap,
+# for the script's time limit).
 FLEET_OPTION_N = 128
+FLEET_OPTION_LM = 4
 # Problems solved one by one against their batch (12.2; 32 until PR 21).
 FLEET_SERIAL = 16
 FLEET_KERNELS = ("jtj_grad_reduce", "coupling_expand", "coupling_reduce",
@@ -4601,9 +4632,13 @@ def fleet_full(probs, dtype, path: str = "implicit", profile: bool = True,
     the profiled one (its walls under the profiler); the fleet's wall,
     problems a second, peak memory, lane and edge fill.  Returns
     (results, launches summed over the buckets, records, wall)."""
+    from megba_tpu_torch import AlgoOption
     from megba_tpu_torch.serving import FleetStats
 
     opt = fleet_option(dtype, path)
+    if path in FLEET_OPTION_PATHS:
+        opt = dataclasses.replace(opt, algo_option=AlgoOption(
+            max_iter=FLEET_OPTION_LM))
     fleet_solve(probs[:1], opt)  # first use of the path's code
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5355,9 +5390,11 @@ def fleet_phase(keep: dict) -> dict:
         res, launches[bits, path], _, wall = fleet_full(
             probs[bits][:FLEET_OPTION_N], dtype, path, once=True)
         ref = refs[bits][0][:FLEET_OPTION_N]
-        log(f"fleet {path} {np.dtype(dtype).name} against IMPLICIT's at "
-            f"{np.dtype(dtype).name} on the first {FLEET_OPTION_N} "
-            f"problems: LM iterations {sum(r.iterations for r in res)} "
+        log(f"fleet {path} {np.dtype(dtype).name} at most "
+            f"{FLEET_OPTION_LM} LM a problem against IMPLICIT's at "
+            f"{np.dtype(dtype).name} under ProblemOption()'s LM cap on the "
+            f"first {FLEET_OPTION_N} problems (different depths): LM "
+            f"iterations {sum(r.iterations for r in res)} "
             f"against {sum(r.iterations for r in ref)}, PCG "
             f"{sum(r.pcg_iterations for r in res)} against "
             f"{sum(r.pcg_iterations for r in ref)}, wall {wall:.3f} s "
@@ -5734,7 +5771,7 @@ HOST_CLIS = {
                                        "implicit"),
 }
 HOST_CLI_SUBPROCESS = "BAL_Double_implicit"
-HOST_CLI_ARGS = ("--max_iter", "3")
+HOST_CLI_ARGS = ("--max_iter", "2")  # cut from 3 for the time limit
 PLANAR_ARGS = ()  # planar_demo.py at its defaults
 # The chunked venice run's re-lowering before the plan cache (PERF.md
 # section 5: phase 11 on an NVIDIA H100 80GB HBM3 at 700.00 W).
@@ -6203,9 +6240,34 @@ def mp_rank_main(argv) -> int:
     return 0
 
 
+def mp_2d_option(task: str):
+    """The options of 15.4 (`m2x2`: phase 7's `2x2_implicit`, venice f32,
+    `VENICE_LM`) and 15.5 (`m1x2_implicit` / `m1x2_explicit`: the
+    trafalgar-sized f64 scene's fused paths on world 2, `cam_blocks` 2,
+    which factor_mesh_2d makes 1 x 2, `F64_LM`)."""
+    if task == "m2x2":
+        return solve_option(np.float32, "2x2_implicit", lm=VENICE_LM)
+    base = solve_option(np.float64, "2x2_" + task[5:] + "_fused", lm=F64_LM)
+    return dataclasses.replace(base, world_size=2, solver_option=(
+        dataclasses.replace(base.solver_option, cam_blocks=2)))
+
+
+# 15.4 and 15.5: task -> (problem file, this rank's devices).
+MP_2D_TASKS = {"m2x2": ("venice", 2), "m1x2_implicit": ("trafalgar", 1),
+               "m1x2_explicit": ("trafalgar", 1)}
+
+
+def mp_rank_device_list(n: int):
+    """A rank's devices of a 2-D task: `n` shards on its one device."""
+    dev = mp_rank_device()
+    return dev if n == 1 else [dev] * n
+
+
 def mp_rank_solve(rank: int, port: str, device: str) -> None:
-    """15.1 and 15.2 in one rank: the venice world-2 solve, then the
-    world-2 pose graph, each with this rank's figures."""
+    """15.1, 15.2, 15.4 and 15.5 in one rank: the venice world-2 solve,
+    the world-2 pose graph, the venice 2 x 2 solve (two shards a rank)
+    and the trafalgar-sized 1 x 2 solves (one shard a rank), each with
+    this rank's figures."""
     from megba_tpu_torch import flat_solve
     from megba_tpu_torch.models.pgo import solve_pgo
     from megba_tpu_torch.ops import kernels
@@ -6218,12 +6280,14 @@ def mp_rank_solve(rank: int, port: str, device: str) -> None:
     t_start = time.perf_counter()
     info = initialize_multihost(f"localhost:{port}", MP_WORLD, rank,
                                 elastic=True)
-    with np.load(MP_DIR / "venice.npz") as z:
-        arrays = tuple(z[k] for k in ("cameras", "points", "obs", "cam_idx",
-                                      "pt_idx"))
+    problems = {}
+    for name in ("venice", "trafalgar"):
+        with np.load(MP_DIR / f"{name}.npz") as z:
+            problems[name] = tuple(z[k] for k in (
+                "cameras", "points", "obs", "cam_idx", "pt_idx"))
     opt = solve_option(np.float32, "w2_implicit", lm=VENICE_LM)
     out = {}
-    for task in ("ba", "pgo"):
+    for task in ("ba", "pgo", *MP_2D_TASKS):
         if task == "pgo":
             with np.load(MP_DIR / "graph.npz") as z:
                 g = {k: z[k] for k in z.files}
@@ -6237,9 +6301,14 @@ def mp_rank_solve(rank: int, port: str, device: str) -> None:
         t = time.perf_counter()
         with count_shard_launches() as shards:
             if task == "ba":
-                res = flat_solve(None, *arrays, opt, device=device)
-            else:
+                res = flat_solve(None, *problems["venice"], opt,
+                                 device=device)
+            elif task == "pgo":
                 res = solve_pgo(*args, pgo_opt, device=device, **kw)
+            else:
+                scene, n = MP_2D_TASKS[task]
+                res = flat_solve(None, *problems[scene], mp_2d_option(task),
+                                 device=mp_rank_device_list(n))
         if device != "cpu":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -6251,18 +6320,20 @@ def mp_rank_solve(rank: int, port: str, device: str) -> None:
                    counts=np.asarray([res.iterations, res.accepted,
                                       res.pcg_iterations, res.status]),
                    gathers=gathers["gathers"], gather_bytes=gathers["bytes"],
-                   gather_s=gathers["seconds"],
+                   gather_s=gathers["seconds"], hops=gathers["hops"],
+                   hop_bytes=gathers["hop_bytes"],
+                   hop_s=gathers["hop_seconds"],
                    shards=json.dumps(shards), launches=json.dumps(
                        {k: v for k, v in launch_counts().items() if v}))
-        if task == "ba":
+        if task == "pgo":
+            rec.update(poses=res.poses.cpu().numpy())
+        else:
             k = res.iterations
             rec.update(cameras=res.cameras.cpu().numpy(),
                        points=res.points.cpu().numpy(),
                        **{f"trace_{f}": getattr(res.trace, f)[:k].numpy()
                           for f in ("cost", "accept", "pcg_iters", "rho",
                                     "trust_region")})
-        else:
-            rec.update(poses=res.poses.cpu().numpy())
         out.update({f"{task}_{n}": v for n, v in rec.items()})
     shutdown_multihost()
     np.savez(MP_DIR / f"rank{rank}.npz", backend=info["backend"],
@@ -6323,6 +6394,86 @@ def mp_rank_elastic(rank: int, port: str, device: str) -> None:
              iterations=res.iterations, status=res.status,
              detect_kind=detect["kind"], latency=detect["latency"],
              detect_at=detect["at"])
+
+
+def mp_2d_references(venice, trafalgar64) -> None:
+    """The one-process runs 15.4 and 15.5 are held to: each 2-D task on
+    the one card in this process (`[DEVICE] * world`), with its launches
+    per shard and its replicated launches (MP_KEPT[task])."""
+    from megba_tpu_torch import flat_solve
+    from megba_tpu_torch.parallel.collectives import ShardLaunches
+
+    scenes = {"venice": venice, "trafalgar": trafalgar64}
+    for task, (scene, _) in MP_2D_TASKS.items():
+        s = scenes[scene]
+        opt = mp_2d_option(task)
+        with ShardLaunches([k for m in kernel_modules()
+                            for k in m.KERNELS]) as tally:
+            res = flat_solve(None, s.cameras0, s.points0, s.obs, s.cam_idx,
+                             s.pt_idx, opt,
+                             device=[DEVICE] * opt.world_size)
+        shards = {n: dict(sorted(per.items()))
+                  for n, per in tally.counts.items() if per}
+        MP_KEPT[task] = (res, shards, dict(tally.replicated))
+
+
+def mp_2d_want_shards(task: str, rank: int, nproc_shards: int) -> dict:
+    """A rank's launches per shard that the one-process run implies: its
+    shards' own launches, the replicated ones on its first shard (in the
+    one-process run they sit on shard 0)."""
+    _, shards, replicated = MP_KEPT[task]
+    local = range(rank * nproc_shards, (rank + 1) * nproc_shards)
+    out = {}
+    for name, per in shards.items():
+        got = {}
+        for k in local:
+            n = per.get(k, 0) - (replicated.get(name, 0) if k == 0 else 0)
+            if k == local[0]:
+                n += replicated.get(name, 0)
+            if n:
+                got[str(k)] = n
+        if got:
+            out[name] = got
+    return out
+
+
+def mp_check_2d(recs: dict) -> None:
+    """15.4 and 15.5: every rank bitwise the one-process run (trace,
+    cameras, points, cost, counts), its launches per shard what that run
+    implies, and kernels 7 and 8 in their ring-step form on 15.5."""
+    for task, (scene, n) in MP_2D_TASKS.items():
+        one = MP_KEPT[task][0]
+        k = one.iterations
+        want = {"cameras": one.cameras, "points": one.points,
+                "cost": one.cost,
+                **{f"trace_{f}": getattr(one.trace, f)[:k] for f in (
+                    "cost", "accept", "pcg_iters", "rho", "trust_region")}}
+        counts = np.asarray([one.iterations, one.accepted,
+                             one.pcg_iterations, one.status])
+        label = "15.4" if task == "m2x2" else "15.5"
+        for r, rec in recs.items():
+            for name, ref in want.items():
+                got = torch.from_numpy(np.asarray(rec[f"{task}_{name}"]))
+                if not bitwise_equal(got, ref.cpu()):
+                    raise AssertionError(
+                        f"{label} {task} rank {r}: {name} is not bitwise the "
+                        "one-process 2-D run")
+            if not np.array_equal(rec[f"{task}_counts"], counts):
+                raise AssertionError(f"{label} {task} rank {r}: counts "
+                                     f"{rec[f'{task}_counts']} != {counts}")
+            shards = json.loads(str(rec[f"{task}_shards"]))
+            want_shards = mp_2d_want_shards(task, r, n)
+            if shards != want_shards:
+                raise AssertionError(
+                    f"{label} {task} rank {r}: launches per shard {shards}, "
+                    f"the one-process run implies {want_shards}")
+            if task != "m2x2" and DEVICE.type == "cuda":
+                ring = ("fused_ring_step_apply_implicit"
+                        if task.endswith("implicit")
+                        else "fused_ring_step_apply")
+                if not json.loads(str(rec[f"{task}_launches"])).get(ring):
+                    raise AssertionError(f"15.5 {task} rank {r}: {ring} "
+                                         "never launched")
 
 
 def mp_solve_ranks(smi: str) -> None:
@@ -6386,11 +6537,18 @@ def mp_solve_ranks(smi: str) -> None:
                     g_kern.pcg_iterations, g_kern.status]):
             raise AssertionError(f"15.2 rank {r}: not bitwise phase 10's "
                                  "one-process world-2 graph")
+    mp_check_2d(recs)
     for r, rec in recs.items():
-        for task, what in (("ba", "venice f32 IMPLICIT world 2"),
-                           ("pgo", "4,096-pose SE(3) f64 world 2")):
+        for task, what in (
+                ("ba", "venice f32 IMPLICIT world 2"),
+                ("pgo", "4,096-pose SE(3) f64 world 2"),
+                ("m2x2", "venice f32 IMPLICIT 2 x 2 (rows across the ranks)"),
+                ("m1x2_implicit", "trafalgar-sized f64 fused IMPLICIT 1 x 2 "
+                 "(every ring hop across the ranks)"),
+                ("m1x2_explicit", "trafalgar-sized f64 fused EXPLICIT 1 x 2 "
+                 "(every ring hop across the ranks)")):
             iters = int(rec[f"{task}_counts"][0])
-            call = "flat_solve" if task == "ba" else "solve_pgo"
+            call = "solve_pgo" if task == "pgo" else "flat_solve"
             log(f"multi-process {what}, rank {r} of {MP_WORLD} on "
                 f"{mp_rank_device()} ({rec['backend']}): {call} "
                 f"{float(rec[f'{task}_wall']):.3f} s, {iters} LM iterations, "
@@ -6401,15 +6559,27 @@ def mp_solve_ranks(smi: str) -> None:
                 "of host time in them = "
                 f"{int(rec[f'{task}_gather_bytes']) / 2**20 / iters:.3f} MiB "
                 f"and {1e3 * float(rec[f'{task}_gather_s']) / iters:.1f} ms "
-                f"per LM iteration; launches {rec[f'{task}_launches']}")
+                f"per LM iteration; {int(rec[f'{task}_hops'])} ring hops "
+                f"across the ranks (sent and received), "
+                f"{int(rec[f'{task}_hop_bytes']) / 2**20:.3f} MiB received, "
+                f"{1e3 * float(rec[f'{task}_hop_s']):.1f} ms of host time = "
+                f"{int(rec[f'{task}_hops']) / iters:.1f} hops, "
+                f"{int(rec[f'{task}_hop_bytes']) / 2**20 / iters:.3f} MiB "
+                f"and {1e3 * float(rec[f'{task}_hop_s']) / iters:.1f} ms per "
+                f"LM iteration; launches {rec[f'{task}_launches']}; {smi}")
         log(f"multi-process rank {r}: {float(rec['seconds']):.1f} s from "
             "its start to its results (rendezvous, problem load, both "
             "solves), no nvcc build")
     log(f"multi-process 15.1 / 15.2: both ranks bitwise the one-process "
         f"world-2 runs (venice trace, cameras, points; the graph's poses, "
         f"costs, counts, status); each rank's launches phase 7's shard-0 "
-        f"tally (its shard plus the replicated work); {wall:.1f} s from the "
-        f"ranks' start to their exit; {smi}")
+        f"tally (its shard plus the replicated work); 15.4 / 15.5: both "
+        f"ranks bitwise the one-process 2 x 2 venice and 1 x 2 "
+        f"trafalgar-sized runs (trace, cameras, points, cost, counts), each "
+        f"rank's launches per shard the one-process tally of its shards "
+        f"(the replicated work on its first), kernels 7 and 8 in their "
+        f"ring-step form in both ranks; {wall:.1f} s from the ranks' start "
+        f"to their exit; {smi}")
 
 
 def mp_elastic(trafalgar64, smi: str) -> None:
@@ -6536,12 +6706,60 @@ def multiprocess_phase(venice, trafalgar64, smi: str) -> None:
              edge_j=g.edge_j, meas=g.meas)
     if DEVICE.type == "cuda":
         torch.cuda.empty_cache()
+    np.savez(MP_DIR / "trafalgar.npz", cameras=trafalgar64.cameras0,
+             points=trafalgar64.points0, obs=trafalgar64.obs,
+             cam_idx=trafalgar64.cam_idx, pt_idx=trafalgar64.pt_idx)
     log(f"multi-process: {mp_gloo_device_probe()}; the port stages each "
-        "gathered part through host memory")
+        "gathered part and each ring hop through host memory")
+    t = time.perf_counter()
+    mp_2d_references(venice, trafalgar64)
+    log(f"multi-process: the one-process 2-D references of 15.4 / 15.5 in "
+        f"{time.perf_counter() - t:.1f} s")
     mp_solve_ranks(smi)
     mp_elastic(trafalgar64, smi)
     shutil.rmtree(MP_DIR, ignore_errors=True)
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the analysis lanes on the card
+# ---------------------------------------------------------------------------
+
+
+def audit_phase(smi: str) -> None:
+    """Phase 16: the census of the canonical specs on the card
+    (analysis/program_audit.py), each spec's per-iteration counts equal
+    to the committed budget the CPU census gives, with the host
+    synchronisations `torch.cuda.set_sync_debug_mode` reports; then the
+    strict-dtype lane's BA and PGO solves on the card
+    (analysis/strict_dtype.py), where the kernels' wrappers run."""
+    from megba_tpu_torch.analysis import program_audit, strict_dtype
+
+    t = time.perf_counter()
+    records = program_audit.audit_all(device=str(DEVICE))
+    t_census = time.perf_counter() - t
+    bad = program_audit.check_against(records, program_audit.load_budget())
+    for name, rec in records.items():
+        syncs = rec.get("syncs", {"per_lm": "not measured",
+                                  "per_pcg": "not measured"})
+        log(f"audit {name} on {DEVICE}: {rec['lm_iterations']} LM / "
+            f"{rec['pcg_iterations']} PCG iterations; per LM iteration "
+            f"{rec['per_lm']}, per PCG iteration {rec['per_pcg']}; host "
+            f"synchronisations (set_sync_debug_mode) per LM iteration "
+            f"{syncs['per_lm']}, per PCG iteration {syncs['per_pcg']}"
+            + (f" (the LM iterations' raised at {rec['lm_sync_sites']})"
+               if "lm_sync_sites" in rec else ""))
+    if bad:
+        raise AssertionError("phase 16: the card's census differs from the "
+                             "committed budget:\n" + "\n".join(bad))
+    t = time.perf_counter()
+    info = strict_dtype.run_lane(str(DEVICE))
+    log(f"audit: {len(records)} specs equal the CPU census and "
+        f"audit_budget.json ({t_census:.1f} s); strict-dtype lane on "
+        f"{DEVICE}: BA f32 and f64 and PGO f32 solves, {info['ops']} ops "
+        f"checked, no float mix outside the declared arms and no NaN "
+        f"(the solves inject no fault) ({time.perf_counter() - t:.1f} s); "
+        f"{smi}")
 
 
 class PhaseClock:
@@ -6608,6 +6826,11 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(smi)
 
+    from megba_tpu_torch.analysis import retrace
+
+    # No kernel library may be built after phase 1 (checked at the end).
+    rebuilds = retrace.sentinel(max_compiles=0, sites=["kernel_build"])
+    rebuilds.__enter__()
     clock = PhaseClock(time.perf_counter() - t)
     venice = make_scene(VENICE, np.float32)
     rows = kernel_phase(venice)
@@ -6656,6 +6879,23 @@ def main() -> int:
     clock.lap("host tools")
     multiprocess_phase(venice, trafalgar64, smi)
     clock.lap("multi-process")
+    audit_phase(smi)
+    clock.lap("audit")
+    # Phase 9's pan-tilt edge builds its shapes at first use by design
+    # (none when an earlier run left them in the build directory): those
+    # libraries, each at most once, and no other after phase 1.
+    rebuilds.allow(extra_compiles=len(FIRST_USE_LIBRARIES))
+    rebuilds.check()
+    built = tuple(sorted(sig.split("-")[0] for _, _, sig
+                         in rebuilds.new_compiles()))
+    if not set(built) <= set(FIRST_USE_LIBRARIES):
+        raise AssertionError(f"retrace sentinel: libraries built after "
+                             f"phase 1 {built}, expected only phase 9's "
+                             f"first-use shapes {FIRST_USE_LIBRARIES}")
+    log(f"retrace sentinel: after phase 1 no kernel library was built but "
+        f"phase 9's first-use shapes {list(built)}, each once "
+        f"({retrace.site_totals(['kernel_build']).get('kernel_build', 0)} "
+        f"nvcc builds in all)")
     log(clock.summary())
     missing = [r["name"] for r in rows.values() if not r["launches"]]
     if missing:

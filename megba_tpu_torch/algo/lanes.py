@@ -101,6 +101,7 @@ from megba_tpu_torch.algo.lm import (
     eisenstat_walker_eta,
     initial_forcing_eta,
 )
+from megba_tpu_torch.analysis import census
 from megba_tpu_torch.common import (
     DTYPE_TO_TORCH,
     ComputeKind,
@@ -425,6 +426,7 @@ def _lane_pcg_core(matvec, precond, b, sp: LaneSpace, live, max_iter, tol,
         active = live & (rho.abs() >= threshold) & ~refused & ~broken
         if not bool(active.any()):
             break
+        census.mark("pcg")
         if not guard:
             x_n = sp.axpy(alpha, p, x)
             r_n = sp.axpy(-alpha, s, r)
@@ -489,6 +491,7 @@ def _lane_pcg_core(matvec, precond, b, sp: LaneSpace, live, max_iter, tol,
         iters = iters + active.to(torch.int32)
         k += 1
     x = sp.where(refused | broken, x_best, x)
+    census.mark("pcg_done")
     return x, iters, rho, r0_ratio, restarts, broken, k
 
 
@@ -517,6 +520,7 @@ def _lane_pcg_classic(matvec, precond, b, sp: LaneSpace, live, max_iter,
         active = live & (rho.abs() >= threshold) & ~refused & ~broken
         if not bool(active.any()):
             break
+        census.mark("pcg")
         if not guard:
             s = matvec(p)
             delta = sp.dot(p, s)
@@ -575,6 +579,7 @@ def _lane_pcg_classic(matvec, precond, b, sp: LaneSpace, live, max_iter,
         iters = iters + active.to(torch.int32)
         k += 1
     x = sp.where(refused | broken, x_best, x)
+    census.mark("pcg_done")
     return x, iters, rho, r0_ratio, restarts, broken, k
 
 
@@ -1002,6 +1007,7 @@ def lane_lm_solve(
     n_lin = 1
     k = 0
     while k < algo_opt.max_iter:
+        census.mark("lm")
         live = ~stop
         pcg = pcg_solve(
             system, Jc, Jp, plans, region, cams, pts, live,
@@ -1103,6 +1109,7 @@ def lane_lm_solve(
         if not bool((~stop).any()):
             break
 
+    census.mark("lm_done")
     return LaneSolve(
         results=_lane_results(
             cameras_u, points_u, cost, cost0, region, v, stop, fatal,

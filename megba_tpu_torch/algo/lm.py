@@ -47,6 +47,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from megba_tpu_torch.analysis import census
 from megba_tpu_torch.common import (
     PrecondKind,
     PreconditionerKind,
@@ -340,6 +341,7 @@ def lm_solve(
     stop = fatal = False
     token = next_verbose_token() if verbose else None
     while k < algo_opt.max_iter and not stop:
+        census.mark("lm")
         pcg = pcg_solve(
             system, Jc, Jp, plans, region,
             tol=eta * eta if forcing else solver_opt.tol,
@@ -455,6 +457,7 @@ def lm_solve(
                                    int(pcg.iterations))
         k += 1
 
+    census.mark("lm_done")
     status = derive_status(stopped=stop, accepted=accepted,
                            recoveries=recoveries, fatal=fatal)
     if warm_start and not use_schur:

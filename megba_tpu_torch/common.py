@@ -196,8 +196,10 @@ class ProblemOption:
     use_schur: bool = True
     device: Device = Device.CUDA
     world_size: int = 1
-    N: int = -1
-    n_item: int = -1
+    # Shapes key every plan cache independently, so keying these would
+    # only fragment the caches — key-exempt (analysis/identity.py).
+    N: int = -1  # megba: key-exempt(N)
+    n_item: int = -1  # megba: key-exempt(n_item)
     dtype: np.dtype = np.float64
     algo_kind: AlgoKind = AlgoKind.LM
     linear_system_kind: LinearSystemKind = LinearSystemKind.SCHUR

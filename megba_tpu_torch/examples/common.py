@@ -17,7 +17,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -78,6 +77,7 @@ def run_example(dtype, jacobian_mode, compute_kind, argv=None) -> float:
     from megba_tpu_torch.io.synthetic import make_synthetic_bal
     from megba_tpu_torch.ops.residuals import make_residual_jacobian_fn
     from megba_tpu_torch.solve import flat_solve
+    from megba_tpu_torch.utils.timing import monotonic_s
 
     args = build_arg_parser().parse_args(argv)
 
@@ -103,11 +103,11 @@ def run_example(dtype, jacobian_mode, compute_kind, argv=None) -> float:
         f"jacobian={jacobian_mode.name} compute={compute_kind.name} "
         f"world_size={args.world_size}")
 
-    t0 = time.perf_counter()
+    t0 = monotonic_s()
     result = flat_solve(f, cameras, points, obs, cam_idx, pt_idx, option,
                         verbose=True, device=example_device(args))
     cost = float(result.cost)
-    elapsed = time.perf_counter() - t0
+    elapsed = monotonic_s() - t0
     print(
         f"Finished: cost {float(result.initial_cost):.6e} -> {cost:.6e} "
         f"(log10 {np.log10(max(cost, 1e-300)):.3f}), "

@@ -60,6 +60,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from megba_tpu_torch.analysis import census
 from megba_tpu_torch.common import (
     DTYPE_TO_TORCH,
     JacobianMode,
@@ -451,6 +452,7 @@ def _run(poses, fixed, shards, option, spec, region0, v0, verbose) -> dict:
     stop = False
     token = next_verbose_token() if verbose else None
     while k < algo_opt.max_iter and not stop:
+        census.mark("lm")
         dx, pcg_iters = step_system(g, h_rows, Ji, Jj, region,
                                     eta * eta if forcing else solver_opt.tol,
                                     dx0)
@@ -502,6 +504,7 @@ def _run(poses, fixed, shards, option, spec, region0, v0, verbose) -> dict:
             emit_verbose_iteration(token, k, float(cost_new), accept,
                                    int(pcg_iters))
         k += 1
+    census.mark("lm_done")
     return dict(
         poses=poses, cost=cost, initial_cost=cost0, iterations=k,
         accepted=accepted, pcg_iterations=pcg_total, region=region, v=v,

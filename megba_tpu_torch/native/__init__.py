@@ -24,13 +24,13 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
 from megba_tpu_torch.core.types import is_cam_sorted
+from megba_tpu_torch.utils.timing import monotonic_s
 
 _DIR = Path(__file__).resolve().parent
 SOURCES = ("bal_parser.cpp", "index_builder.cpp")
@@ -84,9 +84,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         so = library_path()
         BUILD_INFO.update(path=str(so), built=False, seconds=0.0)
         if not so.exists():
-            t = time.perf_counter()
+            t = monotonic_s()
             ok = _build(so)
-            BUILD_INFO.update(built=ok, seconds=time.perf_counter() - t)
+            BUILD_INFO.update(built=ok, seconds=monotonic_s() - t)
             if not ok:
                 _build_failed = True
                 return None

@@ -39,9 +39,9 @@ class FlightRecorder:
         self.process_name = process_name or (
             os.environ.get("MEGBA_FEDERATION_WORKER") or "router")
         self._lock = threading.Lock()
-        self._ring = collections.deque(maxlen=capacity)
-        self._seq = 0
-        self._dropped = 0
+        self._ring = collections.deque(maxlen=capacity)  # megba: guarded-by(_lock)
+        self._seq = 0  # megba: guarded-by(_lock)
+        self._dropped = 0  # megba: guarded-by(_lock)
 
     def record(self, kind: str, **fields) -> None:
         with self._lock:

@@ -93,7 +93,7 @@ class _Metric:
         # One registry-wide lock shared by every family: series updates
         # and whole-registry snapshots serialize against each other.
         self._lock = registry._lock
-        self._series: Dict[str, object] = {}
+        self._series: Dict[str, object] = {}  # megba: guarded-by(_lock)
 
     def _series_dict(self):
         raise NotImplementedError
@@ -173,7 +173,7 @@ class MetricsRegistry:
 
     def __init__(self):
         self._lock = threading.RLock()
-        self._metrics: Dict[str, _Metric] = {}
+        self._metrics: Dict[str, _Metric] = {}  # megba: guarded-by(_lock)
 
     def _get_or_create(self, cls, name, help, **kwargs):
         with self._lock:

@@ -56,7 +56,7 @@ class SpanRecorder:
 
     def __init__(self, process_name: Optional[str] = None):
         self._lock = threading.Lock()
-        self._spans: List[Dict] = []
+        self._spans: List[Dict] = []  # megba: guarded-by(_lock)
         self._ctx = _Ctx()  # threading.local: per-thread, needs no lock
         self.pid = os.getpid()
         self.process_name = process_name or (

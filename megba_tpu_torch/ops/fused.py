@@ -76,6 +76,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from megba_tpu_torch.analysis import census
 from megba_tpu_torch.ops import kernels as _kernels
 from megba_tpu_torch.ops import segtiles
 from megba_tpu_torch.ops.segtiles import (SLOT_TILE, DualPlans, SegPlan,
@@ -319,6 +320,7 @@ def _coupling_apply(counter, name: str, W: torch.Tensor,
     arm_code, arm = _kernels.check_arm(name, table, bf16_operands, W=W)
     dev = table.device
     _check_plan(name, fplan, n, dev)
+    census.kernel_call(counter.__name__, arm)
     if dev.type == "cpu":
         return fused_coupling_apply_plain(W, table, fplan, w_in_major,
                                           bf16_operands)
@@ -368,6 +370,7 @@ def _implicit_apply(counter, name: str, Jin: torch.Tensor,
                                        Jout=Jout)
     dev = table.device
     _check_plan(name, fplan, n, dev)
+    census.kernel_call(counter.__name__, arm)
     if dev.type == "cpu":
         return fused_coupling_apply_implicit_plain(Jin, Jout, table, fplan,
                                                    bf16_operands)
@@ -468,6 +471,7 @@ def fused_block_diag_apply(Hrows: torch.Tensor, x: torch.Tensor,
                                        bf16_operands, _BLOCK_DIAG_ARMS,
                                        Hrows=Hrows)
     dev = x.device
+    census.kernel_call("fused_block_diag_apply", arm)
     if dev.type == "cpu":
         return fused_block_diag_apply_plain(Hrows, x, bf16_operands)
     lib = _shape_lib("fused_block_diag_apply", d, SUPPORTED_BLOCK_DIAG,

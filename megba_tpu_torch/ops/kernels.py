@@ -56,6 +56,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from megba_tpu_torch.analysis.retrace import note_build
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "megba_tpu_torch"
@@ -153,6 +155,7 @@ def build_all(names: Iterable[str]) -> None:
         started = {n: _start_build(n) for n in names}
         for n, s in started.items():
             if s is not None:
+                note_build("kernel_build", s[2].name)
                 _finish_build(n, s)
 
 
@@ -209,9 +212,12 @@ def load_library(name: str, signatures: dict,
         if lib is not None:
             return lib
         started = _start_build(*key)
+        path = library_path(*key)
         if started is not None:
+            note_build("kernel_build", path.name)
             _finish_build(name, started)
-        lib = ctypes.CDLL(str(library_path(*key)))
+        note_build("kernel_load", path.name)
+        lib = ctypes.CDLL(str(path))
         for fn, (restype, argtypes) in signatures.items():
             f = getattr(lib, fn)
             f.restype = restype

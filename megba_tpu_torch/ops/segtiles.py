@@ -76,6 +76,8 @@ from typing import TYPE_CHECKING, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from megba_tpu_torch.analysis import census
+from megba_tpu_torch.analysis.retrace import note_build
 from megba_tpu_torch.native import sort_edges_by_camera
 from megba_tpu_torch.ops import kernels as _kernels
 
@@ -1160,7 +1162,8 @@ def device_camera_tile_plan(plan: CameraTilePlan,
     """Move the ring-step buckets of a tile plan to the mesh's devices
     (device-block order).  Over each bucket's real entries the output
     camera must not decrease (each block's stream is camera-major): that
-    is what makes its CSR plan valid, and it is checked here."""
+    is what makes its CSR plan valid, and it is checked here.  A device
+    of another process (None) gets None for its buckets."""
     from megba_tpu_torch.ops.fused import ring_step_plan
 
     E, C = plan.edge_shards, plan.cam_blocks
@@ -1169,6 +1172,10 @@ def device_camera_tile_plan(plan: CameraTilePlan,
     rings, in_plans = [], []
     for d in range(E * C):
         dev = devices[d]
+        if dev is None:
+            rings.append(None)
+            in_plans.append(None)
+            continue
         cl = plan.cam_local[d * chunk:(d + 1) * chunk]
         r_d, i_d = [], []
         for s in range(C):
@@ -1352,6 +1359,7 @@ def _cached(key, build, fuse=None, fused: bool = False):
     hit = entry is not None
     _PLAN_CACHE_LOOKUPS[0 if hit else 1] += 1
     if not hit:
+        note_build(f"plan:{key[0]}", _key_digest(key))
         value = build()
         _freeze(value)
         entry = {False: value}
@@ -1359,6 +1367,12 @@ def _cached(key, build, fuse=None, fused: bool = False):
     if fused and True not in entry:
         entry[True] = fuse(entry[False])
     return entry[bool(fused)], hit
+
+
+def _key_digest(key) -> str:
+    """A short stable digest of a plan-cache key (the rebuild sentinel's
+    signature, analysis/retrace.py)."""
+    return hashlib.blake2b(repr(key).encode(), digest_size=8).hexdigest()
 
 
 def _resolved(devices) -> tuple:
@@ -1408,12 +1422,16 @@ def cached_sharded_dual_plans(cam_idx: np.ndarray, pt_idx: np.ndarray,
 def _block_plans(tplan: "CameraTilePlan", cam_idx, pt_idx, devs):
     """The 2-D mesh's device blocks (`tile_plan_shards`) and each block's
     dual plans on its device; each block is camera-sorted, so its
-    camera-slot order is its own."""
+    camera-slot order is its own.  A block of another process (device
+    None, a mesh across processes) gets None for its plans."""
     nc, npt = tplan.num_cameras, tplan.num_points
     perms = tile_plan_shards(tplan)
     plans = []
     for p, d in zip(perms, devs):
-        plan_c, dp = make_dual_plans(cam_idx[p], pt_idx[p], nc, npt, d)
+        if d is None:
+            plan_c, dp = build_seg_plan(cam_idx[p], nc), None
+        else:
+            plan_c, dp = make_dual_plans(cam_idx[p], pt_idx[p], nc, npt, d)
         if not np.array_equal(plan_c.perm, np.arange(p.shape[0])):
             raise AssertionError("a 2-D device block is not camera-sorted")
         plans.append(dp)
@@ -1830,6 +1848,7 @@ def jtj_grad_reduce(J: torch.Tensor, r: torch.Tensor,
     if dev.type == "cuda":
         check_block("jtj_grad_reduce", (od, d))
     check_plan("jtj_grad_reduce", plan, dev)
+    census.kernel_call("jtj_grad_reduce", _kernels.dtype_arm(J.dtype))
     if dev.type == "cpu":
         return jtj_grad_reduce_plain(J, r, plan)
     out = torch.empty((d * d + d, plan.num_segments), dtype=J.dtype,
@@ -1869,6 +1888,7 @@ def coupling_expand(table: torch.Tensor, J: torch.Tensor, plan: ExpandPlan,
     arm_code, arm = _check_coupling("coupling_expand", (od, d), plan,
                                     table, bf16_operands, J, expand=True)
     dev = table.device
+    census.kernel_call("coupling_expand", arm)
     if dev.type == "cpu":
         return coupling_expand_plain(table, J, plan, d, bf16_operands)
     u = torch.empty((od, n), dtype=table.dtype, device=dev)
@@ -1900,6 +1920,7 @@ def coupling_reduce(J: torch.Tensor, u: torch.Tensor, plan: SegPlan,
     arm_code, arm = _check_coupling("coupling_reduce", (od, d), plan, u,
                                     bf16_operands, J)
     dev = u.device
+    census.kernel_call("coupling_reduce", arm)
     if dev.type == "cpu":
         return coupling_reduce_plain(J, u, plan, d, bf16_operands)
     out = torch.empty((d, plan.num_segments), dtype=u.dtype, device=dev)
@@ -1923,6 +1944,7 @@ def seg_reduce(data: torch.Tensor, plan: SegPlan) -> torch.Tensor:
         raise ValueError(f"seg_reduce: data {tuple(data.shape)} and "
                          f"{plan.n_slots} plan slots disagree")
     dev = _check("seg_reduce", F, plan, data=data)
+    census.kernel_call("seg_reduce", _kernels.dtype_arm(data.dtype))
     if dev.type == "cpu":
         return seg_reduce_plain(data, plan)
     out = torch.empty((F, plan.num_segments), dtype=data.dtype, device=dev)
@@ -1949,6 +1971,7 @@ def seg_expand(table: torch.Tensor, plan: ExpandPlan) -> torch.Tensor:
                          f"{plan.num_segments} plan segments disagree")
     dev = _check("seg_expand", F, plan, expand=True,
                  table=table)
+    census.kernel_call("seg_expand", _kernels.dtype_arm(table.dtype))
     if dev.type == "cpu":
         return seg_expand_plain(table, plan)
     n = plan.n_slots

@@ -24,7 +24,11 @@ the same shards computes, so every rank holds the same replicated
 state and takes the same decisions.  `dist.all_reduce` is never used:
 its summation order depends on its algorithm.  Every summed part has
 the same shape, known on every process, so the gathers carry raw bytes
-and no pickles.  `ppermute` (the 2-D ring) does not cross processes.
+and no pickles.  A sum within subgroups (`psum_groups`, the grouped
+`psum_scatter`) completes the whole mesh's list with one gather, so a
+process receives parts it does not sum: correct, and counted in
+`gather_stats`.  `ppermute` (the 2-D ring) crosses processes with
+point-to-point sends of a shard's bytes (`isend` / `irecv`).
 
 bf16 payloads (`payload_cast`, SolverOption.bf16_collectives): an
 operand cast to bfloat16 is summed in float32 in shard order, and the
@@ -36,19 +40,22 @@ context is open it credits each shard with the kernel launches its call
 made (read from the wrappers' own `launches` counts, so the kernel layer
 knows nothing of shards).
 
-`ppermute` is one hop between two shards; the 2-D S.p product passes the
-point shards around the ring of camera columns with it
+`ppermute` makes one step of hops between shards; the 2-D S.p product
+passes the point shards around the ring of camera columns with it
 (solver/pcg.make_matvec_2d).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from megba_tpu_torch.analysis.census import collective_scope
+from megba_tpu_torch.utils.timing import monotonic_s
 
 
 class _Remote:
@@ -84,13 +91,6 @@ class ProcessLayout:
         if not self.local:
             raise ValueError(f"process {rank} owns no shard of the mesh")
         self.home = self.local[0]
-        # Shard k's position among its owner's shards (its slot in the
-        # owner's gather payload), and each process's shard count.
-        self.slot = [0] * len(self.owners)
-        self.counts = [0] * self.nproc
-        for k, q in enumerate(self.owners):
-            self.slot[k] = self.counts[q]
-            self.counts[q] += 1
 
 
 _tls = threading.local()
@@ -121,60 +121,110 @@ def mesh_scope(mesh):
         _tls.layout = prev
 
 
-# Cross-process gathers: count, bytes received from other processes and
-# host seconds, for a rank's per-iteration figures (chip_smoke.py).
-_GATHERS = {"gathers": 0, "bytes": 0, "seconds": 0.0}
+# Cross-process traffic: the gathers (count, bytes received from other
+# processes, host seconds) and the ring's hops between processes (the
+# same three), for a rank's per-iteration figures (chip_smoke.py).
+_GATHERS = {"gathers": 0, "bytes": 0, "seconds": 0.0,
+            "hops": 0, "hop_bytes": 0, "hop_seconds": 0.0}
 
 
 def gather_stats() -> Dict[str, float]:
-    """The cross-process gathers made since the last reset."""
+    """The cross-process gathers and hops made since the last reset."""
     return dict(_GATHERS)
 
 
 def reset_gather_stats() -> None:
-    _GATHERS.update(gathers=0, bytes=0, seconds=0.0)
+    _GATHERS.update(gathers=0, bytes=0, seconds=0.0, hops=0, hop_bytes=0,
+                    hop_seconds=0.0)
 
 
-def _complete(parts: Sequence) -> list:
+def _meta(parts: Sequence, like) -> Tuple[torch.device, torch.dtype,
+                                          torch.Size]:
+    """(device, dtype, shape) of the first part this process holds, or of
+    `like` = (shape, dtype) (device: the CPU) when it holds none."""
+    for p in parts:
+        if p is not REMOTE and p is not None:
+            return p.device, p.dtype, p.shape
+    if like is None:
+        raise ValueError(
+            "this process holds no part of the group: pass like=(shape, "
+            "dtype) so its buffers can be sized")
+    return torch.device("cpu"), like[1], torch.Size(like[0])
+
+
+def _to_bytes(p: torch.Tensor) -> torch.Tensor:
+    """A part's raw bytes on the host (gloo moves host memory; the copy
+    also orders the exchange after the part's device work)."""
+    return p.detach().contiguous().reshape(-1).cpu().view(torch.uint8)
+
+
+def _complete(parts: Sequence, shards: Optional[Sequence[int]] = None,
+              like=None) -> list:
     """`parts` with every `REMOTE` part replaced by its owner's tensor,
-    through one all_gather of the processes' local parts as raw bytes;
-    the remote parts land on the device of this process's first part.
-    A list with no remote part is returned as it is."""
+    through one all_gather of the processes' parts as raw bytes.
+
+    `parts[j]` is shard `shards[j]`'s; `shards` defaults to the whole
+    mesh, and then a list that holds no remote part (one already
+    completed, as a sum's inner calls pass it) is returned as it is.
+    Every process calls the gather with the same `shards`, including a
+    process that owns none of them, which sends an empty payload and
+    sizes its buffers from `like` = (shape, dtype).  The remote parts
+    land on the device of this process's first part of the list (the
+    CPU if it has none)."""
     layout = process_layout()
-    if layout is None or not any(p is REMOTE for p in parts):
+    if layout is None:
         return list(parts)
+    if shards is None:
+        if not any(p is REMOTE for p in parts):
+            return list(parts)
+        shards = range(len(layout.owners))
+    shards = [int(k) for k in shards]
+    if len(shards) != len(parts):
+        raise ValueError(f"{len(parts)} parts for {len(shards)} shards")
     import torch.distributed as dist
 
-    if len(parts) != len(layout.owners):
-        raise ValueError(f"{len(parts)} parts for a mesh of "
-                         f"{len(layout.owners)} shards")
-    t0 = time.perf_counter()
-    local = [parts[k] for k in layout.local]
-    first = local[0]
-    dev, dtype, shape = first.device, first.dtype, first.shape
-    nbytes = first.numel() * first.element_size()
-    width = max(layout.counts) * nbytes
-    # Host staging: gloo moves host memory; the copy also orders the
-    # gather after the parts' device work.
+    t0 = monotonic_s()
+    dev, dtype, shape = _meta(parts, like)
+    nbytes = shape.numel() * torch.empty((), dtype=dtype).element_size()
+    owners = [layout.owners[k] for k in shards]
+    counts = [owners.count(q) for q in range(layout.nproc)]
+    width = max(counts) * nbytes
     send = torch.zeros(width, dtype=torch.uint8)
-    for j, p in enumerate(local):
+    j = 0
+    for p, q in zip(parts, owners):
+        if q != layout.rank:
+            continue
         if p.shape != shape or p.dtype != dtype:
             raise ValueError("psum parts differ in shape or dtype")
-        send[j * nbytes:(j + 1) * nbytes] = (
-            p.detach().contiguous().reshape(-1).cpu().view(torch.uint8))
+        send[j * nbytes:(j + 1) * nbytes] = _to_bytes(p)
+        j += 1
     recv = [torch.empty(width, dtype=torch.uint8)
             for _ in range(layout.nproc)]
     dist.all_gather(recv, send)
     out = list(parts)
-    for k, q in enumerate(layout.owners):
+    slot = [0] * layout.nproc
+    for i, q in enumerate(owners):
+        at = slot[q] * nbytes
+        slot[q] += 1
         if q != layout.rank:
-            at = layout.slot[k] * nbytes
-            out[k] = recv[q][at:at + nbytes].view(dtype).reshape(
+            out[i] = recv[q][at:at + nbytes].view(dtype).reshape(
                 shape).to(dev)
     _GATHERS["gathers"] += 1
     _GATHERS["bytes"] += width * (layout.nproc - 1)
-    _GATHERS["seconds"] += time.perf_counter() - t0
+    _GATHERS["seconds"] += monotonic_s() - t0
     return out
+
+
+def _collective(kind: str):
+    """Count each outermost call of a public collective in the census
+    (analysis/program_audit.py) as `kind`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            with collective_scope(kind):
+                return fn(*args, **kwargs)
+        return counted
+    return wrap
 
 
 def payload_cast(enabled: bool, compute_dtype: torch.dtype = torch.float32
@@ -198,6 +248,7 @@ def _identity(x):
     return x
 
 
+@_collective("psum")
 def psum(parts: Sequence[torch.Tensor],
          device: Optional[torch.device] = None) -> torch.Tensor:
     """The sum of the shards' tensors on `device` (default: the first
@@ -217,43 +268,115 @@ def psum(parts: Sequence[torch.Tensor],
     return out.to(torch.bfloat16) if bf16 else out
 
 
+def _remote_device(d) -> bool:
+    """Whether an output device names another process's shard (None on
+    a mesh across processes): its output is `REMOTE`, not computed."""
+    return d is None and process_layout() is not None
+
+
+@_collective("psum_groups")
 def psum_groups(parts: Sequence[torch.Tensor],
                 groups: Sequence[Sequence[int]],
                 devices: Sequence[torch.device]) -> List[torch.Tensor]:
     """`psum` within each group of shard indices: out[g] sums
-    parts[i] for i in groups[g], in that order, on devices[g]."""
+    parts[i] for i in groups[g], in that order, on devices[g].  `parts`
+    is the whole mesh's list (one gather across processes completes it
+    for every group); a group whose device is another process's
+    (None) gives `REMOTE`."""
     parts = _complete(parts)
-    return [psum([parts[i] for i in g], d) for g, d in zip(groups, devices)]
+    return [REMOTE if _remote_device(d) else psum([parts[i] for i in g], d)
+            for g, d in zip(groups, devices)]
 
 
+@_collective("psum_scatter")
 def psum_scatter(parts: Sequence[torch.Tensor], num_chunks: int, dim: int,
-                 devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """out[c] = the sum over the shards of chunk c of their tensors (equal
-    contiguous chunks along `dim`), on devices[c] (`tiled=True`)."""
+                 devices: Sequence[torch.device],
+                 groups: Optional[Sequence[Sequence[int]]] = None
+                 ) -> List[torch.Tensor]:
+    """A reduce-scatter within each group of shard indices (`tiled=True`):
+    out[g[c]] sums chunk c (equal contiguous chunks along `dim`) of the
+    tensors of the shards of g, on devices[g[c]], for c < `num_chunks`.
+    `groups` defaults to the whole mesh as one group, so out[c] sums
+    chunk c over every shard; the 2-D mesh's camera-axis scatter passes
+    its rows, each of `num_chunks` shards, and then `parts`, `devices`
+    and the result are the whole mesh's lists.  One gather across
+    processes completes `parts` for every group; an output on another
+    process's shard (device None) is `REMOTE`."""
     parts = _complete(parts)
     size = parts[0].shape[dim] // num_chunks
-    return [psum([p.narrow(dim, c * size, size) for p in parts], devices[c])
-            for c in range(num_chunks)]
+    out = [REMOTE] * len(devices)
+    for g in ([range(len(parts))] if groups is None else groups):
+        for c in range(num_chunks):
+            k = g[c]
+            if not _remote_device(devices[k]):
+                out[k] = psum([parts[i].narrow(dim, c * size, size)
+                               for i in g], devices[k])
+    return out
 
 
+@_collective("all_gather")
 def all_gather(parts: Sequence[torch.Tensor], dim: int,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, shards: Optional[Sequence[int]] = None,
+               like=None) -> torch.Tensor:
     """The shards' tensors concatenated along `dim` in shard order, on
     `device` (`tiled=True`).  Every part has one shape, as under
-    `jax.lax.all_gather`."""
-    parts = _complete(parts)
+    `jax.lax.all_gather`.  `shards` names the shard of each part when
+    `parts` is a subgroup's (across processes, `like` = (shape, dtype)
+    sizes the buffers of a process that holds none of them)."""
+    parts = _complete(parts, shards, like)
     return torch.cat([p.to(device) for p in parts], dim=dim)
 
 
-def ppermute(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """One hop between two shards: `x` sent to the shard on `device`.
-    Within one process only: a hop between processes would be a
-    point-to-point send, which the port does not make."""
-    if process_layout() is not None:
-        raise NotImplementedError(
-            "ppermute between processes is not implemented (the 2-D "
-            "mesh's ring); a mesh across processes runs the 1-D lowering")
-    return x.to(device)
+@_collective("ppermute")
+def ppermute(parts: Sequence, perm: Sequence[Tuple[int, int]],
+             devices: Sequence[torch.device], like=None) -> list:
+    """Hops between shards (`jax.lax.ppermute`): out[dst] = parts[src] on
+    devices[dst] for each (src, dst) of `perm`, None where no hop lands.
+
+    `parts` and the result are the whole mesh's lists.  A hop inside one
+    process is `.to(device)`.  Across processes every process walks
+    `perm` in the same order: the owner of `src` sends the part's raw
+    bytes (staged through host memory, as `_complete` stages them) and
+    the owner of `dst` receives them into a buffer sized from the part's
+    known shape and dtype (a local part's, or `like` = (shape, dtype));
+    all of one call's sends and receives are posted together and then
+    waited on, so a ring whose every hop crosses cannot deadlock.  A hop
+    that lands on another process's shard gives `REMOTE`."""
+    layout = process_layout()
+    out: list = [None] * len(devices)
+    if layout is None:
+        for s, t in perm:
+            out[t] = parts[s].to(devices[t])
+        return out
+    import torch.distributed as dist
+
+    t0 = monotonic_s()
+    _, dtype, shape = _meta(parts, like)
+    nbytes = shape.numel() * torch.empty((), dtype=dtype).element_size()
+    works, recvs, keep = [], [], []
+    for j, (s, t) in enumerate(perm):
+        src, dst = layout.owners[s], layout.owners[t]
+        if src == layout.rank and dst == layout.rank:
+            out[t] = parts[s].to(devices[t])
+        elif src == layout.rank:
+            buf = _to_bytes(parts[s])
+            keep.append(buf)
+            works.append(dist.isend(buf, dst, tag=j))
+        elif dst == layout.rank:
+            buf = torch.empty(nbytes, dtype=torch.uint8)
+            works.append(dist.irecv(buf, src, tag=j))
+            recvs.append((t, buf))
+        else:
+            out[t] = REMOTE
+    for w in works:
+        w.wait()
+    for t, buf in recvs:
+        out[t] = buf.view(dtype).reshape(shape).to(devices[t])
+    if works:
+        _GATHERS["hops"] += len(works)
+        _GATHERS["hop_bytes"] += nbytes * len(recvs)
+        _GATHERS["hop_seconds"] += monotonic_s() - t0
+    return out
 
 
 def per_shard(x, n: int):
@@ -267,14 +390,16 @@ class ShardLaunches:
     `counts[name][k]` is the number of launches of wrapper `name` made by
     shard k's calls of `for_shards`; the launches made outside any
     `for_shards` (the replicated work, on the first shard's device, or
-    this process's first on a mesh across processes) are that shard's.
-    Only the outermost `for_shards` credits a shard."""
+    this process's first on a mesh across processes) are that shard's,
+    and `replicated` holds them apart once the context has closed.  Only
+    the outermost `for_shards` credits a shard."""
 
     def __init__(self, kernels: Sequence):
         self.kernels = tuple(kernels)
         self.home = 0
         self.counts: Dict[str, Dict[int, int]] = {
             k.__name__: {} for k in self.kernels}
+        self.replicated: Dict[str, int] = {}
 
     def _totals(self) -> List[int]:
         return [k.launches for k in self.kernels]
@@ -294,8 +419,11 @@ class ShardLaunches:
         _OPEN.remove(self)
         credited = [sum(self.counts[k.__name__].values())
                     for k in self.kernels]
-        self.credit(self.home,
-                    [s + c for s, c in zip(self._start, credited)])
+        before = [s + c for s, c in zip(self._start, credited)]
+        # The replicated work's launches, credited to the home shard.
+        self.replicated = {k.__name__: a - b for k, b, a in zip(
+            self.kernels, before, self._totals()) if a > b}
+        self.credit(self.home, before)
 
 
 _OPEN: List[ShardLaunches] = []

@@ -39,8 +39,11 @@ process holding its own shards' devices and None for the others'
 same host prep on the full problem, lowers only its own shards, and
 keeps the replicated state on its first local device (`home_device`);
 the sums gather the other processes' parts (parallel/collectives.py).
-The 2-D mesh does not span processes.  Between cards of one process
-there is no NCCL route: the collectives move tensors with `.to(device)`.
+The 2-D mesh spans processes too: the column-wide work of column c
+runs in the process that owns device (0, c), and the ring's hops
+between processes are point-to-point sends.  Between cards of one
+process there is no NCCL route: the collectives move tensors with
+`.to(device)`.
 """
 
 from __future__ import annotations
@@ -251,13 +254,18 @@ def _local_devices(devices: DeviceSpec, default: str) -> Tuple[torch.device,
 
 
 def make_process_mesh(world_size: int, devices: DeviceSpec = None,
-                      default: str = "cuda") -> Mesh:
-    """The 1-D mesh of `world_size` shards across the processes of the
+                      default: str = "cuda", mesh_2d: bool = False,
+                      cam_blocks: int = 0) -> Mesh:
+    """The mesh of `world_size` shards across the processes of the
     process group: each process gives its own devices (`devices`, one
     shard each; see `_local_devices`), the processes' shard counts are
     gathered (one small all_gather, every process calls this), and the
     shards follow in process rank order.  The counts must add up to
-    `world_size`."""
+    `world_size`.  With `mesh_2d` the mesh is the (E, C) camera x edge
+    mesh of `factor_mesh_2d(world_size, cam_blocks)`, device (e, c)
+    shard e * C + c as in `make_mesh_2d`; a process's shards may span
+    rows and columns (JAX's `make_mesh_2d` takes `jax.devices()`, which
+    spans the processes in the same order)."""
     import torch.distributed as dist
 
     local = _local_devices(devices, default)
@@ -273,7 +281,12 @@ def make_process_mesh(world_size: int, devices: DeviceSpec = None,
     owners = tuple(q for q, c in enumerate(counts) for _ in range(c))
     it = iter(local)
     devs = tuple(next(it) if q == rank else None for q in owners)
-    return Mesh(devices=devs, shape=(len(devs),), axis_names=(EDGE_AXIS,),
+    if mesh_2d:
+        shape = factor_mesh_2d(len(devs), cam_blocks)
+        axes = (EDGE_AXIS, CAM_AXIS)
+    else:
+        shape, axes = (len(devs),), (EDGE_AXIS,)
+    return Mesh(devices=devs, shape=shape, axis_names=axes,
                 processes=owners, process=rank)
 
 

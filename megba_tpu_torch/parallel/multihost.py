@@ -4,7 +4,8 @@ Counterpart of `megba_tpu/parallel/multihost.py`, with its names.  MegBA
 itself ran one process (a single-process `ncclCommInitAll`).  Here
 several OS processes join one gloo process group through
 `initialize_multihost`; a solve of `world_size` N > 1 then builds its
-1-D mesh across them (parallel/mesh.make_process_mesh: each process
+1-D mesh, or with `SolverOption.mesh_2d` its 2-D mesh, across them
+(parallel/mesh.make_process_mesh: each process
 gives its own devices, shards in rank order), every process runs the
 same host prep on the full problem, lowers only its own shards, and
 holds the replicated state on its first local device.  The sums

@@ -100,12 +100,12 @@ class ChaosTcpProxy:
         self.upstream = parse_address(upstream)
         self.plan = plan or NetFaultPlan()
         self._lock = threading.Lock()
-        self._partitioned = False  # guarded by _lock
-        self._closing = False  # guarded by _lock
-        self._conns: List[socket.socket] = []  # guarded by _lock
-        self.events: List[Tuple[Any, ...]] = []  # guarded by _lock
-        self._nconn = 0  # guarded by _lock; connection index
-        self._pumps: List[threading.Thread] = []  # guarded by _lock
+        self._partitioned = False  # megba: guarded-by(_lock)
+        self._closing = False  # megba: guarded-by(_lock)
+        self._conns: List[socket.socket] = []  # megba: guarded-by(_lock)
+        self.events: List[Tuple[Any, ...]] = []  # megba: guarded-by(_lock)
+        self._nconn = 0  # megba: guarded-by(_lock); connection index
+        self._pumps: List[threading.Thread] = []  # megba: guarded-by(_lock)
         lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         lsock.bind(("127.0.0.1", 0))

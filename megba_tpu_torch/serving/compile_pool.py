@@ -176,7 +176,7 @@ class CompilePool:
 
     def __init__(self, stats=None, artifacts=None, timer=None) -> None:
         self._stats = stats
-        self._seen: Dict[Tuple, Dict[str, Any]] = {}
+        self._seen: Dict[Tuple, Dict[str, Any]] = {}  # megba: guarded-by(_lock)
         self._lock = threading.Lock()
         # An ArtifactStore (or its root path) of built kernel libraries:
         # warm() / program() try it before building; export_artifacts

@@ -260,20 +260,20 @@ class FederationStats:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.router = uuid.uuid4().hex[:12]
-        self.problems = 0  # guarded by _lock; resolved via router
-        self.problems_by_worker: Dict[str, int] = {}  # guarded by _lock
-        self.steals = 0  # guarded by _lock; one per pulled batch
-        self.stolen_problems = 0  # guarded by _lock
-        self.reroutes = 0  # guarded by _lock; requeued off a loss
-        self.reroute_failures = 0  # guarded by _lock; max_reroutes hit
-        self.escalations = 0  # guarded by _lock; ladder consults past max_reroutes
-        self.cold_dispatches = 0  # guarded by _lock; dispatches with no warm program on target
-        self.workers_lost = 0  # guarded by _lock
-        self.sheds = 0  # guarded by _lock; shed before dispatch
-        self.deadline_misses = 0  # guarded by _lock; delivered late
-        self.cold_start: Dict[str, Dict[str, Any]] = {}  # guarded by _lock; worker -> hello
-        self.first_solve: Dict[str, Dict[str, Any]] = {}  # guarded by _lock
-        self.lost_workers: List[str] = []  # guarded by _lock
+        self.problems = 0  # megba: guarded-by(_lock); resolved via router
+        self.problems_by_worker: Dict[str, int] = {}  # megba: guarded-by(_lock)
+        self.steals = 0  # megba: guarded-by(_lock); one per pulled batch
+        self.stolen_problems = 0  # megba: guarded-by(_lock)
+        self.reroutes = 0  # megba: guarded-by(_lock); requeued off a loss
+        self.reroute_failures = 0  # megba: guarded-by(_lock); max_reroutes hit
+        self.escalations = 0  # megba: guarded-by(_lock); ladder consults past max_reroutes
+        self.cold_dispatches = 0  # megba: guarded-by(_lock); dispatches with no warm program on target
+        self.workers_lost = 0  # megba: guarded-by(_lock)
+        self.sheds = 0  # megba: guarded-by(_lock); shed before dispatch
+        self.deadline_misses = 0  # megba: guarded-by(_lock); delivered late
+        self.cold_start: Dict[str, Dict[str, Any]] = {}  # megba: guarded-by(_lock); worker -> hello
+        self.first_solve: Dict[str, Dict[str, Any]] = {}  # megba: guarded-by(_lock)
+        self.lost_workers: List[str] = []  # megba: guarded-by(_lock)
 
     def record_batch(self, worker_id: str, n: int, stolen: bool) -> None:
         with self._lock:
@@ -414,14 +414,14 @@ class WorkerHandle:
         # concurrent writers would interleave frames) and hands out
         # reply tickets; never held across a read.
         self._req_lock = threading.Lock()
-        self._next_send = 0  # guarded by _req_lock
-        self._seq = 0  # guarded by _req_lock; request sequence ids
+        self._next_send = 0  # megba: guarded-by(_req_lock)
+        self._seq = 0  # megba: guarded-by(_req_lock); request sequence ids
         # Orders reply reads: replies arrive in send order (the worker
         # serve loop is single-threaded FIFO), so ticket n reads the
         # n-th reply — exclusivity without holding anything during the
         # blocking recv.
         self._turn = threading.Condition()
-        self._next_recv = 0  # guarded by _turn
+        self._next_recv = 0  # megba: guarded-by(_turn)
 
     def _record_death(self, reason: str) -> None:
         if self._death is None:
@@ -547,7 +547,7 @@ class TcpWorkerHandle(WorkerHandle):
         # Transport generation: bumped by adopt(); readers stranded on
         # a dead connection wait here for the replacement.
         self._tlock = threading.Condition()
-        self._epoch = 0  # guarded by _tlock
+        self._epoch = 0  # megba: guarded-by(_tlock)
 
     def _emit(self, event: str, **fields: Any) -> None:
         if self._on_event is not None:
@@ -838,26 +838,26 @@ class FleetRouter:
         self._slices: Dict[str, Any] = {}  # wid -> cpu affinity slice
 
         self._lock = threading.Condition()
-        self._nsubmitted = 0  # guarded by _lock
-        self._cold_warned: set = set()  # guarded by _lock; warned (bucket, lanes, rung)
-        self._hello: Dict[str, Dict[str, Any]] = {}  # guarded by _lock; tcp registration rendezvous
-        self._closing_accept = False  # guarded by _lock
-        self._redial: Dict[str, threading.Event] = {}  # guarded by _lock; dial addr -> wake event
-        self._wid_addr: Dict[str, str] = {}  # guarded by _lock; wid -> dialed addr
-        self._pending: Dict[Tuple, List[_Routed]] = {}  # guarded by _lock
-        self._npending = 0  # guarded by _lock
-        self._closed = False  # guarded by _lock
+        self._nsubmitted = 0  # megba: guarded-by(_lock)
+        self._cold_warned: set = set()  # megba: guarded-by(_lock); warned (bucket, lanes, rung)
+        self._hello: Dict[str, Dict[str, Any]] = {}  # megba: guarded-by(_lock); tcp registration rendezvous
+        self._closing_accept = False  # megba: guarded-by(_lock)
+        self._redial: Dict[str, threading.Event] = {}  # megba: guarded-by(_lock); dial addr -> wake event
+        self._wid_addr: Dict[str, str] = {}  # megba: guarded-by(_lock); wid -> dialed addr
+        self._pending: Dict[Tuple, List[_Routed]] = {}  # megba: guarded-by(_lock)
+        self._npending = 0  # megba: guarded-by(_lock)
+        self._closed = False  # megba: guarded-by(_lock)
         self.pinned = False  # did worker CPU pinning actually apply?
         self._own_hb_dir: Optional[str] = None
         # Deadline-carrying items currently pending: the shed scan is
         # O(pending) under the router lock on every serve-thread wakeup,
         # so it only runs while this is nonzero (deadline-free fleets —
         # the common case — pay nothing).
-        self._ndeadline = 0  # guarded by _lock
-        self._inflight = 0  # guarded by _lock
-        self._closing = False  # guarded by _lock
-        self._table = RoutingTable()  # guarded by _lock
-        self._views: Dict[str, WorkerView] = {}  # guarded by _lock
+        self._ndeadline = 0  # megba: guarded-by(_lock)
+        self._inflight = 0  # megba: guarded-by(_lock)
+        self._closing = False  # megba: guarded-by(_lock)
+        self._table = RoutingTable()  # megba: guarded-by(_lock)
+        self._views: Dict[str, WorkerView] = {}  # megba: guarded-by(_lock)
         # Serializes HeartbeatBoard.observe across serve threads: the
         # board's observation maps are thread-confined state, and every
         # worker's liveness closure may poll concurrently.

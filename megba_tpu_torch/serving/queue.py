@@ -153,14 +153,14 @@ class FleetQueue:
         self._pending: Dict[
             Tuple[ShapeClass, Tuple[int, int, int], str, int],
             List[_Pending]] = {}
-        self._inflight = 0  # taken, unresolved
-        self._npending = 0  # O(1) pending gauge
-        self._seq = 0
-        self._closing = False
+        self._inflight = 0  # megba: guarded-by(_lock); taken, unresolved
+        self._npending = 0  # megba: guarded-by(_lock); O(1) pending gauge
+        self._seq = 0  # megba: guarded-by(_lock)
+        self._closing = False  # megba: guarded-by(_lock)
         # Active flush() count, not a bool: concurrent flushes must not
         # clobber each other's drain mode (the first to finish would
         # otherwise strand the second behind backoff/breaker waits).
-        self._force = 0
+        self._force = 0  # megba: guarded-by(_lock)
         self._thread = threading.Thread(
             target=self._run, name="megba-fleet-dispatch", daemon=True)
         self._thread.start()

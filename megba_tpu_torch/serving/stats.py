@@ -33,37 +33,37 @@ class FleetStats:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self.problems = 0  # real problems solved (padding lanes excluded)
-        self.batches = 0  # batched dispatches
-        self.solve_seconds = 0.0  # wall clock inside batched dispatches
-        self.lane_slots = 0  # lanes dispatched, padding lanes included
-        self.edge_slots = 0  # lane-edge slots dispatched (lanes * bucket)
-        self.edges_real = 0  # raw (unpadded) edges across real problems
-        self.pool_hits = 0  # dispatches served by an already-built program
-        self.pool_misses = 0  # dispatches that had to build/compile
+        self.problems = 0  # megba: guarded-by(_lock); real problems solved (padding lanes excluded)
+        self.batches = 0  # megba: guarded-by(_lock); batched dispatches
+        self.solve_seconds = 0.0  # megba: guarded-by(_lock); wall clock inside batched dispatches
+        self.lane_slots = 0  # megba: guarded-by(_lock); lanes dispatched, padding lanes included
+        self.edge_slots = 0  # megba: guarded-by(_lock); lane-edge slots dispatched (lanes * bucket)
+        self.edges_real = 0  # megba: guarded-by(_lock); raw (unpadded) edges across real problems
+        self.pool_hits = 0  # megba: guarded-by(_lock); dispatches served by an already-built program
+        self.pool_misses = 0  # megba: guarded-by(_lock); dispatches that had to build/compile
         # -- artifact store (serving/artifacts.py): the cold-start split —
-        self.artifact_loads = 0  # buckets warmed from serialized executables
-        self.artifact_compiles = 0  # buckets that paid a real compile
-        self.per_bucket: Dict[str, Dict[str, int]] = {}
+        self.artifact_loads = 0  # megba: guarded-by(_lock); buckets warmed from serialized executables
+        self.artifact_compiles = 0  # megba: guarded-by(_lock); buckets that paid a real compile
+        self.per_bucket: Dict[str, Dict[str, int]] = {}  # megba: guarded-by(_lock)
         # -- resilience counters (serving/resilience.py mechanisms) ------
-        self.sheds = 0  # problems shed before dispatch (deadline expired)
-        self.deadline_misses = 0  # results delivered AFTER their deadline
-        self.retries = 0  # escalation re-enqueues (ladder rungs climbed)
-        self.retries_by_rung: Dict[int, int] = {}  # target rung -> count
-        self.rejected = 0  # submits refused by admission control
-        self.breaker_trips = 0  # bucket breakers opened
-        self.breaker_probes = 0  # half-open probe batches admitted
-        self.breaker_recoveries = 0  # probes that closed the breaker
-        self.breaker_fast_fails = 0  # submits failed fast on a tripped bucket
-        self.queue_depth_peak = 0  # max pending problems ever observed
+        self.sheds = 0  # megba: guarded-by(_lock); problems shed before dispatch (deadline expired)
+        self.deadline_misses = 0  # megba: guarded-by(_lock); results delivered AFTER their deadline
+        self.retries = 0  # megba: guarded-by(_lock); escalation re-enqueues (ladder rungs climbed)
+        self.retries_by_rung: Dict[int, int] = {}  # megba: guarded-by(_lock); target rung -> count
+        self.rejected = 0  # megba: guarded-by(_lock); submits refused by admission control
+        self.breaker_trips = 0  # megba: guarded-by(_lock); bucket breakers opened
+        self.breaker_probes = 0  # megba: guarded-by(_lock); half-open probe batches admitted
+        self.breaker_recoveries = 0  # megba: guarded-by(_lock); probes that closed the breaker
+        self.breaker_fast_fails = 0  # megba: guarded-by(_lock); submits failed fast on a tripped bucket
+        self.queue_depth_peak = 0  # megba: guarded-by(_lock); max pending problems ever observed
         # -- pre-flight triage counters (robustness/triage.py) -----------
-        self.triage_rejected = 0  # problems refused with ZERO dispatch
-        self.triage_repaired = 0  # problems auto-repaired before enqueue
-        self.triage_warned = 0  # degenerate problems passed through flagged
-        self.triage_points_fixed = 0  # point blocks frozen by repairs
-        self.triage_edges_masked = 0  # edges soft-deleted by repairs
-        self.triage_cams_anchored = 0  # gauge anchors added by repairs
-        self.triage_edges_downweighted = 0  # robust-downweighted outliers
+        self.triage_rejected = 0  # megba: guarded-by(_lock); problems refused with ZERO dispatch
+        self.triage_repaired = 0  # megba: guarded-by(_lock); problems auto-repaired before enqueue
+        self.triage_warned = 0  # megba: guarded-by(_lock); degenerate problems passed through flagged
+        self.triage_points_fixed = 0  # megba: guarded-by(_lock); point blocks frozen by repairs
+        self.triage_edges_masked = 0  # megba: guarded-by(_lock); edges soft-deleted by repairs
+        self.triage_cams_anchored = 0  # megba: guarded-by(_lock); gauge anchors added by repairs
+        self.triage_edges_downweighted = 0  # megba: guarded-by(_lock); robust-downweighted outliers
 
     # -- recording -------------------------------------------------------
     def record_batch(self, bucket: str, lanes: int, n_real: int,

@@ -510,8 +510,8 @@ class DedupCache:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = int(capacity)
         self._lock = threading.Lock()
-        self._cache: "OrderedDict[int, Any]" = OrderedDict()  # guarded by _lock
-        self.hits = 0  # guarded by _lock; resends served from cache
+        self._cache: "OrderedDict[int, Any]" = OrderedDict()  # megba: guarded-by(_lock)
+        self.hits = 0  # megba: guarded-by(_lock); resends served from cache
 
     def get(self, seq: int) -> Optional[Any]:
         with self._lock:

@@ -31,7 +31,6 @@ raise.
 from __future__ import annotations
 
 import os
-import time
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -75,7 +74,7 @@ from megba_tpu_torch.robustness.faults import (
     fault_partition,
     lower_edge_vector,
 )
-from megba_tpu_torch.utils.timing import PhaseTimer
+from megba_tpu_torch.utils.timing import PhaseTimer, monotonic_s
 
 
 def _host(a) -> np.ndarray:
@@ -168,8 +167,9 @@ def flat_solve(
     calls `flat_solve` with the whole problem and its own `device` (one
     device, or a sequence, one shard each; the shard counts must add up
     to N), lowers only its own shards, and gets the same result, bitwise
-    the one-process world-N solve's, on its first device.  A 2-D mesh
-    across processes raises NotImplementedError.
+    the one-process world-N solve's, on its first device.  The 2-D mesh
+    spans the processes the same way (device (e, c) is shard e * C + c,
+    shards in rank order), bitwise the one-process 2-D solve.
 
     `timer` (utils.timing.PhaseTimer, a fresh one if None) records the
     host phases of the JAX package's names: "triage", "lowering" (the
@@ -254,13 +254,8 @@ def flat_solve(
     if ws > 1 and multiprocess_active():
         # One mesh across the process group: this process's shards on
         # `device`, the others' in rank order (parallel/multihost.py).
-        if mesh2d:
-            raise NotImplementedError(
-                "a 2-D mesh (SolverOption.mesh_2d) across processes is not "
-                "implemented: its ring ppermute would need point-to-point "
-                "sends between processes; solve the 1-D mesh across "
-                "processes, or the 2-D mesh in one process")
-        mesh = make_process_mesh(ws, device, default=option.device.value)
+        mesh = make_process_mesh(ws, device, default=option.device.value,
+                                 mesh_2d=mesh2d, cam_blocks=so.cam_blocks)
     elif ws > 1:
         devices = resolve_devices(ws, device, default=option.device.value)
         mesh = (make_mesh_2d(*factor_mesh_2d(ws, so.cam_blocks), devices)
@@ -483,7 +478,7 @@ def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
                                                   PrecondKind.MULTILEVEL):
         return None, None
     with timer.phase("coarse_plan"):
-        t = time.perf_counter()
+        t = monotonic_s()
         canon = sort_edges_by_camera(cam_idx, num_cameras)
         at = np.empty_like(canon)
         at[canon] = np.arange(canon.shape[0])
@@ -500,7 +495,7 @@ def _coarse_plan(option: ProblemOption, cam_idx: np.ndarray,
                 **kw)
         if hit:
             timer.count_event("cluster_plan_cache_hit")
-        return plan, time.perf_counter() - t
+        return plan, monotonic_s() - t
 
 
 def _tiles_block(mesh, cam_idx, pt_idx, mask, stream, shard_plans,

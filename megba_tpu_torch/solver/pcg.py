@@ -61,6 +61,7 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from megba_tpu_torch.analysis import census
 from megba_tpu_torch.common import ComputeKind, PrecondKind, PreconditionerKind
 from megba_tpu_torch.core.fm import block_inv_fm, block_matvec_fm, damp_rows_fm
 from megba_tpu_torch.linear_system.builder import SchurSystem, damp_blocks
@@ -68,6 +69,7 @@ from megba_tpu_torch.ops.accum import comp_dot
 from megba_tpu_torch.ops import fused, segtiles
 from megba_tpu_torch.ops.segtiles import DualPlans
 from megba_tpu_torch.parallel.collectives import (
+    REMOTE,
     all_gather,
     for_shards,
     payload_cast,
@@ -412,6 +414,7 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
     k = 0
     if not guard:
         while k < max_iter and bool((rho.abs() >= threshold) & ~refused):
+            census.mark("pcg")
             x = _axpy(alpha, p, x)
             r = _axpy(-alpha, s, r)
             u = precond(r)
@@ -428,6 +431,7 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
             x_best = _select(improved, x, x_best)
             rho = rho_new
             k += 1
+        census.mark("pcg_done")
         return _select(refused, x_best, x), k, rho, r0_ratio, 0, False
 
     # Guarded body (JAX pcg.py:801-874): phase 0 advances, 1 refreshes
@@ -443,6 +447,7 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
                 torch.full((), 2, dtype=torch.int32, device=dev))
     while k < max_iter and bool((rho.abs() >= threshold) & ~refused
                                 & ~broken):
+        census.mark("pcg")
         advancing = phase == 0
         refresh = phase == 1
         reprime = phase == 2
@@ -480,6 +485,7 @@ def _pcg_core(matvec, precond, b, max_iter, tol, refuse_ratio, tol_relative,
         x_best = _select(improved, x, x_best)
         rho = rho_next
         k += 1
+    census.mark("pcg_done")
     return (_select(~refused & ~broken, x, x_best), k, rho, r0_ratio,
             restarts, broken)
 
@@ -505,6 +511,7 @@ def _pcg_core_classic(matvec, precond, b, max_iter, threshold, refuse_ratio,
     k = 0
     if not guard:
         while k < max_iter and bool((rho.abs() >= threshold) & ~refused):
+            census.mark("pcg")
             s = matvec(p)
             delta = _tdot(p, s)
             alpha = _safe_div(rho, delta)
@@ -521,6 +528,7 @@ def _pcg_core_classic(matvec, precond, b, max_iter, threshold, refuse_ratio,
             x_best = _select(improved, x, x_best)
             rho = rho_new
             k += 1
+        census.mark("pcg_done")
         return _select(refused, x_best, x), k, rho, r0_ratio, 0, False
 
     dev = rho.device
@@ -531,6 +539,7 @@ def _pcg_core_classic(matvec, precond, b, max_iter, threshold, refuse_ratio,
     one = torch.ones((), dtype=torch.int32, device=dev)
     while k < max_iter and bool((rho.abs() >= threshold) & ~refused
                                 & ~broken):
+        census.mark("pcg")
         advancing = phase == 0
         refresh = phase == 1
         # The one matvec: A p normally, A x during the refresh.
@@ -562,6 +571,7 @@ def _pcg_core_classic(matvec, precond, b, max_iter, threshold, refuse_ratio,
         x_best = _select(improved, x, x_best)
         rho = rho_next
         k += 1
+    census.mark("pcg_done")
     return (_select(~refused & ~broken, x, x_best), k, rho, r0_ratio,
             restarts, broken)
 
@@ -627,7 +637,11 @@ def make_matvec_2d(Jc, Jp, W, plans: ShardedPlans, Hpp_d: torch.Tensor,
     pcg.py:423-635), in five stages; device (e, c) is shard e*C + c, and
     the column-wide work of camera column c (its summed point shard, the
     Hll^-1 product and the camera reduction) runs on device (0, c), where
-    the JAX package's subgroup psums leave a copy on every device:
+    the JAX package's subgroup psums leave a copy on every device.  On a
+    mesh across processes that work runs in the process that owns
+    (0, c), the hops between processes are point-to-point sends
+    (collectives.ppermute) and the sums complete as the 1-D sums do, so
+    the result is bitwise the one-process product:
 
       1. camera gather and product: each device's own hlp over its edges
          (every edge of device (e, c) has a camera in tile c), partial
@@ -667,14 +681,18 @@ def make_matvec_2d(Jc, Jp, W, plans: ShardedPlans, Hpp_d: torch.Tensor,
     pd = int(round(Hll_inv.shape[0] ** 0.5))
     dtype = Hpp_d.dtype
     down, up = payload_cast(bf16_collectives, dtype)
+    wire = torch.bfloat16 if bf16_collectives else dtype
     vec, acc = _edge_precision(bf16_ops)
+    # Device (0, c) is shard c; None when another process owns it.
     col_dev = [devs[c] for c in range(C)]
     edge_groups = plans.mesh.axis_groups(EDGE_AXIS)
     cam_groups = plans.mesh.axis_groups(CAM_AXIS)
     Hpp_pad = F.pad(Hpp_d, (0, 0, 0, 0, 0, C * Tc - Nc))
     Hll_pad = F.pad(Hll_inv, (0, C * Sp - Np))
-    Hpp_t = [Hpp_pad[c * Tc:(c + 1) * Tc].to(col_dev[c]) for c in range(C)]
-    Hll_t = [Hll_pad[:, c * Sp:(c + 1) * Sp].contiguous().to(col_dev[c])
+    Hpp_t = [None if col_dev[c] is None else
+             Hpp_pad[c * Tc:(c + 1) * Tc].to(col_dev[c]) for c in range(C)]
+    Hll_t = [None if col_dev[c] is None else
+             Hll_pad[:, c * Sp:(c + 1) * Sp].contiguous().to(col_dev[c])
              for c in range(C)]
     n = len(plans.shards)
     if pairs is None:
@@ -712,16 +730,23 @@ def make_matvec_2d(Jc, Jp, W, plans: ShardedPlans, Hpp_d: torch.Tensor,
         u = segtiles.coupling_expand(cur, rr[0], in_plan, pd, bf16_ops)
         return segtiles.coupling_reduce(rr[1], u, ring.out, cd, bf16_ops)
 
+    # The ring's hops: device d first takes point shard c = d mod C from
+    # device (0, c) (shard c), then at every step from (e, c + 1).
+    take = [(d % C, d) for d in range(n)]
+    hop = [(d - d % C + (d + 1) % C, d) for d in range(n)]
+    held_like = ((pd, Sp), wire)
+
     def ring(curs: list) -> list:
         """Stage 4: every device's [cd, Tc] tile, summed over the steps
-        in step order; `held[d]` is the point shard device d holds."""
-        held = [ppermute(curs[d % C], devs[d]) for d in range(n)]
-        tiles = [torch.zeros((cd, Tc), dtype=dtype, device=devs[d])
+        in step order; `held[d]` is the point shard device d holds.
+        Another process's device is `REMOTE` throughout."""
+        held = ppermute(list(curs) + [None] * (n - C), take, devs, held_like)
+        tiles = [REMOTE if devs[d] is None else
+                 torch.zeros((cd, Tc), dtype=dtype, device=devs[d])
                  for d in range(n)]
         for j in range(C):
             if j:
-                held = [ppermute(held[d - d % C + (d + 1) % C], devs[d])
-                        for d in range(n)]
+                held = ppermute(held, hop, devs, held_like)
 
             def step(d: int):
                 s = (d % C + j) % C
@@ -730,9 +755,9 @@ def make_matvec_2d(Jc, Jp, W, plans: ShardedPlans, Hpp_d: torch.Tensor,
                 return ring_step(d, s, up(held[d])).to(dtype)
 
             for d, t in enumerate(for_shards(step, range(n))):
-                if t is not None:
+                if t is not None and t is not REMOTE:
                     tiles[d] = tiles[d] + t
-        return [down(t) for t in tiles]
+        return [t if t is REMOTE else down(t) for t in tiles]
 
     def s_matvec(p: torch.Tensor) -> torch.Tensor:
         # (1) per device: partial point sums of its edges.
@@ -741,11 +766,12 @@ def make_matvec_2d(Jc, Jp, W, plans: ShardedPlans, Hpp_d: torch.Tensor,
             hlp_parts, devs)
         # (2) scatter over the camera axis (shard (e, c) takes point
         # shard c of its row's partials), then sum over the edge axis.
-        scattered = [x for g in cam_groups for x in psum_scatter(
-            [t_part[i] for i in g], C, 1, [devs[i] for i in g])]
-        t_sh = [up(x) for x in psum_groups(scattered, edge_groups, col_dev)]
-        # (3) Hll^-1 on each owned shard.
-        curs = [down(block_matvec_fm(Hll_t[c], t_sh[c])) for c in range(C)]
+        scattered = psum_scatter(t_part, C, 1, devs, groups=cam_groups)
+        t_sh = [x if x is REMOTE else up(x)
+                for x in psum_groups(scattered, edge_groups, col_dev)]
+        # (3) Hll^-1 on each owned shard, by the process that owns (0, c).
+        curs = [REMOTE if col_dev[c] is None else
+                down(block_matvec_fm(Hll_t[c], t_sh[c])) for c in range(C)]
         # (4) the ring, per device.
         tiles = ring(curs)
         # (5) sum over the edge shards, Hpp p - Hpl t, gather the tiles.
@@ -753,9 +779,14 @@ def make_matvec_2d(Jc, Jp, W, plans: ShardedPlans, Hpp_d: torch.Tensor,
         hpl_t = psum_groups(tiles, edge_groups, col_dev)
         y_t = []
         for c in range(C):
+            if col_dev[c] is None:
+                y_t.append(REMOTE)
+                continue
             p_t = p_pad[:, c * Tc:(c + 1) * Tc].to(col_dev[c])
             y_t.append(down(cam_block_matvec(Hpp_t[c], p_t) - up(hpl_t[c])))
-        return up(all_gather(y_t, 1, p.device))[:, :Nc].contiguous()
+        y = all_gather(y_t, 1, p.device, shards=range(C),
+                       like=((cd, Tc), wire))
+        return up(y)[:, :Nc].contiguous()
 
     return s_matvec
 

@@ -7,10 +7,10 @@ from the root of a checkout: builds the kernels (all sources together),
 prints the card's name and power limit, runs phase 7's one-process venice
 solves that phase 15.1 is held to (IMPLICIT, then `w2_implicit` with its
 per-shard launch tally) and phase 10's world-2 4,096-pose SE(3) f64
-graph (15.2's reference), then `chip_smoke.multiprocess_phase`: the two
-ranks of 15.1 / 15.2 and the elastic kill-resume of 15.3.  A quick
-check of the multi-process path on the card without the script's other
-fourteen phases.
+graph (15.2's reference), then `chip_smoke.multiprocess_phase`: the
+one-process 2-D references of 15.4 / 15.5, the two ranks of 15.1, 15.2,
+15.4 and 15.5, and the elastic kill-resume of 15.3.  A quick check of
+the multi-process path on the card without the script's other phases.
 """
 
 import sys

@@ -302,13 +302,14 @@ def test_matvec_2d_ring_of_three_columns_matches_jax(E, fused, monkeypatch):
     (e, c), C - 1 times a product; the sum is JAX's."""
     jin, tin = _matvec_case("IMPLICIT", np.float64, E=E, C=3)
     want = _jax_matvec(jin, "IMPLICIT", fused=fused)
-    hops = []  # (sent, received): a copy, as a transfer makes one
+    hops = []  # (sent, received) per hop: a copy, as a transfer makes one
     real = tpcg.ppermute
 
-    def spy(x, device):
-        got = real(x, device).clone()
-        hops.append((x, got))
-        return got
+    def spy(parts, perm, devices, like=None):
+        out = [None if o is None else o.clone()
+               for o in real(parts, perm, devices, like)]
+        hops.extend((parts[src], out[dst]) for src, dst in perm)
+        return out
 
     monkeypatch.setattr(tpcg, "ppermute", spy)
     mv = tpcg.make_matvec_2d(

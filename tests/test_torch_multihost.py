@@ -12,10 +12,15 @@
   held to JAX's single-process world 2 at rtol 1e-9 with equal counts
   (JAX's own two-process lane needs gloo in jaxlib, which this one
   lacks); a world-2 `solve_checkpointed` whose snapshots load in JAX's
-  `load_state` with their world header.  One pair of rank processes
-  serves every case (a module fixture); each runs on one intra-op
-  thread, and is killed if it outlives its time limit.
-- A 2-D mesh across processes raises NotImplementedError.
+  `load_state` with their world header; the 2-D mesh across the two
+  processes: `psum_groups`, the grouped `psum_scatter`, a subgroup
+  `all_gather` and `ppermute` bitwise one process, 2 x 2 (two shards a
+  process: only the take from row 0 crosses) and 1 x 2 (one shard a
+  process: every ring hop crosses) `flat_solve`s in every S.p arm
+  bitwise the one-process 2-D solves, and a 2-D `resume_elastic` onto
+  the smaller mesh JAX picks.  One pair of rank processes serves every
+  case (a module fixture); each runs on one intra-op thread, and is
+  killed if it outlives its time limit.
 - JAX's argument order: `flat_solve(None, cameras, ...)` and
   `solve_checkpointed(None, cameras, ...)` run, bitwise the all-keyword
   spelling, and match JAX's results at float64.
@@ -28,6 +33,7 @@
 CPU only.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -41,6 +47,8 @@ if __name__ == "__main__":
     sys.path.insert(0, _REPO)
 
 import megba_tpu_torch as mt  # noqa: E402
+from megba_tpu_torch.parallel import collectives as col  # noqa: E402
+from megba_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 
 # One intra-op thread (tests and rank processes alike): the suite runs
 # several test processes a core.
@@ -108,10 +116,74 @@ def solve_record(res, prefix):
     return out
 
 
+# The 2-D layouts across the two processes: (name, world, cam_blocks,
+# this process's devices).  2 x 2: rank r holds row e = r; 1 x 2: rank r
+# holds column c = r.
+LAYOUTS_2D = (("2x2", 4, 2, ["cpu", "cpu"]), ("1x2", 2, 2, "cpu"))
+# The S.p arms of the 2-D solve: (name, kind, fused, bf16 collectives).
+ARMS_2D = (("implicit", "IMPLICIT", False, False),
+           ("explicit", "EXPLICIT", False, False),
+           ("fused_implicit", "IMPLICIT", True, False),
+           ("fused_explicit", "EXPLICIT", True, False),
+           ("bf16_wire", "IMPLICIT", False, True))
+
+
+def option_2d(world, cam_blocks, kind, fused, wire, max_iter=4):
+    """A 2-D mesh option; the bf16 wire needs the bf16 rung (f32)."""
+    opt = option(world, max_iter)
+    so = dataclasses.replace(
+        opt.solver_option, mesh_2d=True, cam_blocks=cam_blocks,
+        fused_kernels=fused, bf16=wire, bf16_collectives=wire)
+    return dataclasses.replace(
+        opt, compute_kind=getattr(mt.ComputeKind, kind), solver_option=so,
+        dtype=np.float32 if wire else np.float64)
+
+
+def group_parts(n=4):
+    rng = np.random.default_rng(12)
+    return [torch.from_numpy(rng.standard_normal((2, 6))) for _ in
+            range(n)]
+
+
+# Subgroup collectives on the 2 x 2 mesh of shards e * 2 + c.
+ROWS = [[0, 1], [2, 3]]
+COLS = [[0, 2], [1, 3]]
+# Down and up the columns: every hop crosses the processes.
+RING = [(2, 0), (3, 1), (0, 2), (1, 3)]
+RING_1X2 = [(1, 0), (0, 1)]
+
+
+def subgroup_collectives(parts, devs, like):
+    """The subgroup collectives of the 2-D S.p, on per-shard `parts`
+    (REMOTE for another process's) and shard devices `devs` (None for
+    another process's): {name: host array of this process's view}."""
+    out = {}
+    g = col.psum_groups(parts, COLS, [devs[0], devs[1]])
+    out["psum_groups"] = [x for x in g]
+    out["psum_scatter"] = col.psum_scatter(parts, 2, 1, devs, groups=ROWS)
+    out["all_gather_row1"] = col.all_gather(
+        [parts[2], parts[3]], 1, torch.device("cpu"), shards=[2, 3],
+        like=like)
+    out["ppermute"] = col.ppermute(parts, RING, devs, like)
+    return out
+
+
+def _dot(d):
+    """{name: [tensors or REMOTE]} -> flat {name_k: array} of the
+    tensors held here."""
+    rec = {}
+    for name, v in d.items():
+        if isinstance(v, torch.Tensor):
+            rec[name] = v.float().numpy()
+            continue
+        for k, x in enumerate(v):
+            if isinstance(x, torch.Tensor):
+                rec[f"{name}_{k}"] = x.float().numpy()
+    return rec
+
+
 def _rank(rank: int, port: str, outdir: str) -> None:
     """One rank of the two-process world (this file run as a script)."""
-    from megba_tpu_torch.parallel import collectives as col
-    from megba_tpu_torch.parallel import mesh as tmesh
     from megba_tpu_torch.parallel import multihost as mh
 
     addr = f"localhost:{port}"
@@ -143,7 +215,37 @@ def _rank(rank: int, port: str, outdir: str) -> None:
             col.psum_scatter(local, 2, 1, [cpu, cpu]), 1).numpy()
     rec["gathers"] = np.asarray(col.gather_stats()["gathers"])
 
+    # Subgroup collectives and hops on the 2 x 2 mesh across processes
+    # (shards 2r and 2r + 1 here), then the 1 x 2 ring.
+    mesh4 = tmesh.make_process_mesh(4, ["cpu", "cpu"], "cpu", mesh_2d=True,
+                                    cam_blocks=2)
+    gp = group_parts()
+    like = ((2, 6), torch.float64)
+    col.reset_gather_stats()
+    with col.mesh_scope(mesh4):
+        local = col.for_shards(lambda k: gp[k], range(4))
+        for k, v in _dot(subgroup_collectives(local, mesh4.devices,
+                                              like)).items():
+            rec[f"sub_{k}"] = v
+    rec["sub_gathers"] = np.asarray(col.gather_stats()["gathers"])
+    rec["sub_hops"] = np.asarray(col.gather_stats()["hops"])
+    mesh2 = tmesh.make_process_mesh(2, "cpu", "cpu", mesh_2d=True,
+                                    cam_blocks=2)
+    rec["mesh2_shape"] = np.asarray(mesh2.shape)
+    with col.mesh_scope(mesh2):
+        local = col.for_shards(lambda k: gp[k], range(2))
+        out = col.ppermute(local, RING_1X2, mesh2.devices, like)
+        rec[f"hop_{rank}"] = out[rank].numpy()
+
     s = scene()
+    for lname, world, cb, devs in LAYOUTS_2D:
+        for aname, kind, fused, wire in ARMS_2D:
+            col.reset_gather_stats()
+            res = mt.flat_solve(None, *arrays(s), option_2d(
+                world, cb, kind, fused, wire), device=devs)
+            rec.update(solve_record(res, f"m{lname}_{aname}"))
+            st = col.gather_stats()
+            rec[f"m{lname}_{aname}_hop_bytes"] = np.asarray(st["hop_bytes"])
     rec.update(solve_record(mt.flat_solve(None, *arrays(s), option(),
                                           device="cpu"), "ba"))
     g = pose_graph()
@@ -154,7 +256,20 @@ def _rank(rank: int, port: str, outdir: str) -> None:
                           checkpoint_path=os.path.join(outdir,
                                                        f"ck{rank}.npz"),
                           checkpoint_every=2, device="cpu")
-    mh.shutdown_multihost()
+    # A 2-D world of 4 across the processes, then a cooperative
+    # shrink-world resume of each process on its own two shards.
+    opt2d = option_2d(4, 2, "IMPLICIT", False, False, max_iter=2)
+    ck2d = os.path.join(outdir, f"ck2d{rank}.npz")
+    mt.solve_checkpointed(None, *arrays(s), opt2d, checkpoint_path=ck2d,
+                          checkpoint_every=2, device=["cpu", "cpu"])
+    from megba_tpu_torch.robustness.elastic import resume_elastic
+
+    tele = os.path.join(outdir, f"resume2d{rank}.jsonl")
+    res = resume_elastic(None, *arrays(s), dataclasses.replace(
+        option_2d(4, 2, "IMPLICIT", False, False, max_iter=4),
+        telemetry=tele), ck2d, world_size=2, cooperative=True,
+        checkpoint_every=2, device=["cpu", "cpu"])
+    rec.update(solve_record(res, "resume2d"))
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **rec)
     print(f"rank {rank} OK", flush=True)
 
@@ -164,13 +279,10 @@ if __name__ == "__main__":
     raise SystemExit(0)
 
 
-import dataclasses  # noqa: E402
 import functools  # noqa: E402
+import json  # noqa: E402
 
 import pytest  # noqa: E402
-
-from megba_tpu_torch.parallel import collectives as col  # noqa: E402
-from megba_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 
 RANK_TIMEOUT_S = 120
 
@@ -320,22 +432,87 @@ def test_world2_snapshots_load_in_jax(world):
     np.testing.assert_array_equal(a["cameras"], b["cameras"])
 
 
-def test_2d_mesh_across_processes_raises(monkeypatch):
-    monkeypatch.setattr(tmesh, "multiprocess_active", lambda: True)
-    import megba_tpu_torch.solve as tsolve
+def test_2d_subgroup_collectives_bitwise_one_process(world):
+    rec, _ = world
+    gp = group_parts()
+    cpu = torch.device("cpu")
+    want = _dot(subgroup_collectives(gp, [cpu] * 4, None))
+    for r in range(WORLD):
+        got = {k[4:]: v for k, v in rec[r].items() if k.startswith("sub_")
+               and k not in ("sub_gathers", "sub_hops")}
+        # This process's outputs: its own shards' (2r, 2r + 1), the
+        # column sums it owns (rank 0: both (0, c)) and the gather.
+        mine = {f"psum_scatter_{2 * r}", f"psum_scatter_{2 * r + 1}",
+                f"ppermute_{2 * r}", f"ppermute_{2 * r + 1}",
+                "all_gather_row1"}
+        if r == 0:
+            mine |= {"psum_groups_0", "psum_groups_1"}
+        assert set(got) == mine, sorted(got)
+        for k in mine:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        # One gather for each of the three collectives, for every
+        # process (the one with no part of row 1 too); two hops sent and
+        # two received.
+        assert int(rec[r]["sub_gathers"]) == 3
+        assert int(rec[r]["sub_hops"]) == 4
 
-    monkeypatch.setattr(tsolve, "multiprocess_active", lambda: True)
-    opt = dataclasses.replace(option(), solver_option=dataclasses.replace(
-        option().solver_option, mesh_2d=True))
-    with pytest.raises(NotImplementedError, match="2-D mesh"):
-        mt.flat_solve(None, *arrays(scene()), opt, device="cpu")
-    layout = col.ProcessLayout([0, 1], 0)
-    with pytest.raises(NotImplementedError, match="between processes"):
-        with col.mesh_scope(tmesh.Mesh(
-                devices=(torch.device("cpu"), None), shape=(2,),
-                axis_names=(tmesh.EDGE_AXIS,), processes=(0, 1))):
-            col.ppermute(torch.zeros(2), torch.device("cpu"))
-    assert layout.home == 0 and layout.counts == [1, 1]
+
+def test_ppermute_across_processes(world):
+    rec, _ = world
+    gp = group_parts()
+    for r in range(WORLD):
+        np.testing.assert_array_equal(rec[r]["mesh2_shape"], [1, 2])
+        # Ring (1 -> 0, 0 -> 1): each process receives the other's part.
+        np.testing.assert_array_equal(rec[r][f"hop_{r}"],
+                                      gp[1 - r].numpy())
+    layout = col.ProcessLayout([0, 0, 1, 1], 1)
+    assert layout.local == (2, 3) and layout.home == 2 and layout.nproc == 2
+
+
+@pytest.mark.parametrize("arm", [a[0] for a in ARMS_2D])
+@pytest.mark.parametrize("layout", [lay[0] for lay in LAYOUTS_2D])
+def test_2d_flat_solve_across_processes_bitwise_one_process(world, layout,
+                                                           arm):
+    rec, _ = world
+    _, w, cb, _ = next(x for x in LAYOUTS_2D if x[0] == layout)
+    _, kind, fused, wire = next(x for x in ARMS_2D if x[0] == arm)
+    one = mt.flat_solve(None, *arrays(scene()), option_2d(
+        w, cb, kind, fused, wire), device=["cpu"] * w)
+    prefix = f"m{layout}_{arm}"
+    ref = solve_record(one, prefix)
+    for r in range(WORLD):
+        _bitwise(rec[r], prefix, ref)
+    hop_bytes = [int(rec[r][f"{prefix}_hop_bytes"]) for r in range(WORLD)]
+    if layout == "1x2":
+        # Every ring hop crosses: each process receives point shards.
+        assert min(hop_bytes) > 0, hop_bytes
+    else:
+        # Only the take from row 0 crosses, into rank 1.
+        assert hop_bytes[0] == 0 and hop_bytes[1] > 0, hop_bytes
+
+
+def test_2d_resume_elastic_across_processes_takes_jax_mesh(world):
+    from megba_tpu.parallel.mesh import factor_mesh_2d as j_factor
+    from megba_tpu.parallel.mesh import nearest_cam_blocks as j_nearest
+
+    rec, outdir = world
+    # JAX's smaller mesh for a 2 x 2 world resumed at world 2.
+    e, c = j_factor(2, j_nearest(2, 2))
+    ref = mt.flat_solve(None, *arrays(scene()), option_2d(
+        4, 2, "IMPLICIT", False, False), device=["cpu"] * 4)
+    for r in range(WORLD):
+        res = rec[r]
+        np.testing.assert_allclose(res["resume2d_cost"],
+                                   ref.cost.numpy(), rtol=1e-6)
+        np.testing.assert_allclose(res["resume2d_cameras"],
+                                   ref.cameras.numpy(), rtol=1e-6,
+                                   atol=1e-9)
+        assert int(res["resume2d_status"]) == int(ref.status)
+        with open(os.path.join(outdir, f"resume2d{r}.jsonl")) as f:
+            lines = [json.loads(x) for x in f if x.strip()]
+        meshes = {x["problem"].get("mesh") for x in lines
+                  if x.get("problem")}
+        assert meshes == {f"{e}x{c}"}, meshes
 
 
 # ------------------------------------------------ JAX's argument order
